@@ -1,0 +1,32 @@
+"""SevenNet on PyTorch and CUDA: the port of the JAX package ``sevennet_tpu``
+to one NVIDIA H100, slice by slice. It imports ``torch``, numpy and scipy,
+never JAX or the JAX package.
+
+Ported so far: single-point serving of energy, forces and stress through the
+dense vec-mode fused convolution, whose forward and backward are
+hand-written CUDA kernels (``csrc/``)::
+
+    from sevennet_tpu_torch import SevenNetCalculator, build_model_spec
+    calc = SevenNetCalculator(spec, params)          # runs on cuda
+    calc = SevenNetCalculator(spec, params, device="cpu")
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "SevenNetCalculator": ("sevennet_tpu_torch.calculator", "SevenNetCalculator"),
+    "build_model_spec": ("sevennet_tpu_torch.model.build", "build_model_spec"),
+    "model_compute": ("sevennet_tpu_torch.model.model", "model_compute"),
+    "params_from_numpy": ("sevennet_tpu_torch.io.convert", "params_from_numpy"),
+}
+
+__all__ = list(_LAZY) + ["__version__"]
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod), attr)
+    raise AttributeError(f"module 'sevennet_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,168 @@
+"""Model forward (energy) and its derivatives on the dense vec-mode path
+(PyTorch port of ``sevennet_tpu/model/model.py:342-564``).
+
+Forces and stress are gradients of the energy with respect to the edge
+vectors, as the reference's ``ForceStressOutputFromEdge``
+(``sevenn/nn/force_output.py:139-230``). The edges form the dense ``(N, K)``
+receiver-major slot grid with a mirror index; the convolution is the fused
+vec-mode conv (:mod:`sevennet_tpu_torch.ops.fused_conv`), whose backward
+runs the hand-written kernel on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..data.graph import GraphBatch
+from ..device import resolve_device
+from ..ops.fused_conv import EdgeEmbedSpec, fused_conv_apply_vec
+from ..ops.gate import gate_apply
+from ..ops.linear import linear_apply
+from ..ops.mlp import scalar_mlp_apply
+from ..ops.tensor_product import fctp_apply
+from .build import ModelSpec
+
+__all__ = ["model_energy", "model_compute", "params_to"]
+
+
+def edge_embed_spec(spec: ModelSpec, layer) -> EdgeEmbedSpec:
+    kind, arg = spec.cutoff_fn
+    return EdgeEmbedSpec(
+        n_basis=layer.radial_mlp.dims[0],
+        cutoff=float(spec.cutoff),
+        cutoff_kind=str(kind),
+        cutoff_arg=float(arg),
+        lmax=int(spec.lmax_edge),
+    )
+
+
+def params_to(params, device: torch.device):
+    """The parameter dictionary with every tensor on ``device``."""
+    if isinstance(params, torch.Tensor):
+        return params.to(device)
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to(v, device) for v in params)
+    return params
+
+
+def _check_supported(spec: ModelSpec):
+    if spec.num_modalities > 1:
+        raise NotImplementedError("multi-fidelity models are not ported yet")
+    if not spec.normalize_sph:
+        raise NotImplementedError("the vec-mode conv needs normalized spherical harmonics")
+
+
+def model_energy(
+    spec: ModelSpec,
+    params: Dict[str, Any],
+    graph: GraphBatch,
+    edge_vec3: torch.Tensor,
+    plain: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Per-atom and per-graph energies from explicit ``(3, N*K)`` edge
+    vectors. ``plain=True`` runs the convolution's plain PyTorch version."""
+    _check_supported(spec)
+    dtype = edge_vec3.dtype
+    K = graph.dense_k
+    n_atoms = graph.n_atoms_cap
+    # padded slots get a sentinel vector past the cutoff: the clamped
+    # envelope zeroes their messages and gradients
+    sentinel = torch.tensor([2.0 * spec.cutoff, 0.0, 0.0], dtype=dtype, device=edge_vec3.device)
+    ev3 = torch.where(graph.edge_mask[None, :], edge_vec3, sentinel[:, None])
+    coef = params["edge_embedding"]["bessel_coeffs"]
+    src_nk = graph.edge_src.view(n_atoms, K)
+    mir_nk = graph.edge_mir.view(n_atoms, K)
+
+    onehot = F.one_hot(graph.species, spec.num_species).to(dtype)
+    x = linear_apply(spec.embed_linear, params["onehot_to_feature_x"], onehot)
+    for layer in spec.layers:
+        t = layer.t
+        if layer.sc_type == "nequip":
+            sc = fctp_apply(layer.sc_fctp, params[f"{t}_self_connection_intro"], x, onehot)
+        elif layer.sc_type == "linear":
+            sc = linear_apply(layer.sc_linear, params[f"{t}_self_connection_intro"], x)
+        else:
+            sc = None
+        x = linear_apply(layer.si1, params[f"{t}_self_interaction_1"], x)
+        conv_p = params[f"{t}_convolution"]
+        x = fused_conv_apply_vec(
+            layer.conv, layer.radial_mlp, conv_p["weight_nn"], coef,
+            edge_embed_spec(spec, layer), x, ev3, src_nk, mir_nk, plain=plain,
+        )
+        x = x / conv_p["denominator"][0]
+        x = linear_apply(layer.si2, params[f"{t}_self_interaction_2"], x)
+        if sc is not None:
+            x = x + sc
+        x = gate_apply(layer.gate, x)
+
+    if spec.readout_as_fcn:
+        e_scaled = scalar_mlp_apply(spec.readout_fcn, params["readout_FCN"], x)
+    else:
+        h = linear_apply(spec.readout1, params["reduce_input_to_hidden"], x)
+        e_scaled = linear_apply(spec.readout2, params["reduce_hidden_to_energy"], h)
+    e_scaled = e_scaled[:, 0]
+
+    rs = params["rescale_atomic_energy"]
+    if spec.rescale_mode == "species":
+        shift, scale = rs["shift"][graph.species], rs["scale"][graph.species]
+    elif spec.rescale_mode == "scalar":
+        shift, scale = rs["shift"][0], rs["scale"][0]
+    else:
+        raise NotImplementedError(f"rescale mode {spec.rescale_mode} is not ported yet")
+    e_atom = (e_scaled * scale + shift) * graph.atom_mask.to(dtype)
+    e_graph = torch.zeros(graph.n_graphs_cap, dtype=dtype, device=e_atom.device)
+    e_graph = e_graph.index_add(0, graph.batch, e_atom) * graph.graph_mask.to(dtype)
+    return {"atomic_energy": e_atom, "energy": e_graph}
+
+
+def model_compute(
+    spec: ModelSpec,
+    params: Dict[str, Any],
+    graph: GraphBatch,
+    compute_stress: bool = True,
+    device: Optional[str] = None,
+    plain: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Energy, forces, stress and atomic virial of a dense-layout graph.
+
+    Forces: ``F_i = sum_{e: dst=i} f_e - sum_{e: src=i} f_e`` with
+    ``f_e = dE/d(edge_vec_e)``; the sender-side sums go through the mirror
+    index. Per-atom virial at the sender, stress ``virial / V`` in the
+    reference Voigt order (xx, yy, zz, xy, yz, zx). Runs on ``cuda`` unless
+    ``device="cpu"``; ``plain=True`` uses the conv's plain version."""
+    dev = resolve_device(device)
+    if graph.device != dev:
+        graph = graph.to(dev)
+    params = params_to(params, dev)
+    if graph.dense_k <= 0 or graph.edge_mir is None:
+        raise ValueError("model_compute needs a dense graph with a mirror index")
+    n, K = graph.n_atoms_cap, graph.dense_k
+    ev3 = graph.edge_vectors().T.contiguous().detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = model_energy(spec, params, graph, ev3, plain=plain)
+        (fij3,) = torch.autograd.grad(out["energy"].sum(), ev3)
+    out = {k: v.detach() for k, v in out.items()}
+    ev3 = ev3.detach()
+    mir = graph.edge_mir
+    pf3 = fij3.reshape(3, n, K).sum(2)
+    nf3 = fij3[:, mir].reshape(3, n, K).sum(2)
+    am = graph.atom_mask.to(fij3.dtype)
+    out["forces"] = ((pf3 - nf3) * am[None, :]).T
+
+    if compute_stress:
+        r0, r1, r2 = ev3[0], ev3[1], ev3[2]
+        f0, f1, f2 = fij3[0], fij3[1], fij3[2]
+        v6 = torch.stack([r0 * f0, r1 * f1, r2 * f2, r0 * f1, r1 * f2, r2 * f0])
+        # per-atom virial at the SENDER: the src-side sum via the mirror rows
+        atomic_virial = (-v6[:, mir].reshape(6, n, K).sum(2)).T
+        virial_graph = torch.zeros(
+            graph.n_graphs_cap, 6, dtype=fij3.dtype, device=fij3.device
+        ).index_add(0, graph.batch, atomic_virial)
+        out["atomic_virial"] = atomic_virial
+        out["stress"] = virial_graph / graph.volume[:, None]
+    return out

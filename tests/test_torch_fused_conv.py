@@ -1,0 +1,259 @@
+"""The port's vec-mode fused conv against the JAX package's
+(``sevennet_tpu/ops/fused_conv.py:fused_conv_apply_vec``, Pallas kernels in
+interpret mode on the CPU, as tests/test_fused_conv.py runs them).
+
+On the CPU the port's wrappers run the kernels' plain PyTorch versions; the
+CUDA kernels walk precomputed term tables, which a numpy walk here holds
+against the plain version. The kernels themselves are checked on the card
+(tests/test_torch_kernels.py, and chip_smoke.py).
+
+Tiny shapes: ``8x0e+8x1e+8x2e``, N = 24, K = 16 (slots past each atom's
+neighbour count padded with the sentinel vector), MLP (8, 16, 16, numel).
+Tolerance atol 1e-5: fp32 on both sides, sums in another order.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sevennet_tpu.irreps import Irreps as JIrreps
+from sevennet_tpu.irreps import infer_irreps_out as j_infer
+from sevennet_tpu.ops import fused_conv as jfc
+from sevennet_tpu.ops.mlp import ScalarMLPSpec as JMLPSpec
+from sevennet_tpu.ops.tensor_product import ConvTPSpec as JConvTPSpec
+from sevennet_tpu_torch.data.graph import densify_edges
+from sevennet_tpu_torch.data.neighborlist import neighbor_list_numpy
+from sevennet_tpu_torch.irreps import Irreps, infer_irreps_out
+from sevennet_tpu_torch.ops import fused_conv as fc
+from sevennet_tpu_torch.ops.mlp import ScalarMLPSpec
+from sevennet_tpu_torch.ops.tensor_product import ConvTPSpec
+
+torch.set_num_threads(1)
+X_IR, F_IR = "8x0e+8x1e+8x2e", "1x0e+1x1e+1x2e"
+N, K, CUT = 24, 16, 3.0
+
+
+def _specs(kind):
+    arg = 2.5 if kind == "XPLOR" else 6.0
+    jconv = JConvTPSpec(JIrreps(X_IR), JIrreps(F_IR), j_infer(JIrreps(X_IR), JIrreps(F_IR), 2, "full"))
+    conv = ConvTPSpec(Irreps(X_IR), Irreps(F_IR), infer_irreps_out(Irreps(X_IR), Irreps(F_IR), 2, "full"))
+    dims = (8, 16, 16, conv.weight_numel)
+    return (
+        (jconv, JMLPSpec(dims), jfc.EdgeEmbedSpec(8, CUT, kind, arg, 2)),
+        (conv, ScalarMLPSpec(dims), fc.EdgeEmbedSpec(8, CUT, kind, arg, 2)),
+    )
+
+
+def _problem(seed=0):
+    """Random atoms in an open box; a symmetric neighbour list in the dense
+    (N, K) layout, sentinel vectors on padded slots; weights and the
+    cotangent from the same seed."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, 7.0, (N, 3))
+    dst, src, shift = neighbor_list_numpy(pos, CUT)
+    order = np.argsort(dst, kind="stable")
+    src_d, _, shift_d, mask_d = densify_edges(
+        src[order].astype(np.int32), dst[order].astype(np.int32),
+        shift[order], np.ones(len(dst), bool), N, K,
+    )
+    assert 0 < mask_d.sum() < N * K, "want real and padded slots"
+    vec = pos[src_d] - pos[np.repeat(np.arange(N), K)]
+    vec[~mask_d] = (2 * CUT, 0.0, 0.0)
+    src_nk = src_d.reshape(N, K)
+    mir = fc.mirror_map_numpy(src_nk, shift_d.reshape(N, K, 3), mask_d.reshape(N, K))
+    return dict(
+        src=src_nk, shift=shift_d.reshape(N, K, 3), mask=mask_d.reshape(N, K), mir=mir,
+        vec=np.ascontiguousarray(vec.T, np.float32),
+        x=(rng.normal(size=(N, 72)) * 0.5).astype(np.float32),
+        coef=np.linspace(1.0, 8.0, 8).astype(np.float32),
+        rng=rng,
+    )
+
+
+def _weights(rng, dims):
+    return [rng.normal(size=(a, b)).astype(np.float32) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def test_instr_tables_and_mirror_map_match_jax():
+    (jconv, _, _), (conv, _, _) = _specs("XPLOR")
+    ji, jw, jd, jn = jfc._instr_tables(jconv)
+    ti, tw, td, tn = fc._instr_tables(conv)
+    assert ji == ti and (jd, jn) == (td, tn)
+    np.testing.assert_array_equal(jw, tw)
+    p = _problem()
+    mir = p["mir"]
+    np.testing.assert_array_equal(mir, jfc.mirror_map_numpy(p["src"], p["shift"], p["mask"]))
+    np.testing.assert_array_equal(
+        mir, np.asarray(jfc.mirror_map(jnp.asarray(p["src"]), jnp.asarray(p["shift"]),
+                                       jnp.asarray(p["mask"]))))
+    # padded slots point at themselves; real ones at an edge pointing back
+    flat = np.arange(N * K).reshape(N, K)
+    assert (mir[~p["mask"]] == flat[~p["mask"]]).all()
+    i_idx = np.repeat(np.arange(N), K).reshape(N, K)
+    assert (p["src"].reshape(-1)[mir[p["mask"]]] == i_idx[p["mask"]]).all()
+
+
+@pytest.mark.parametrize("kind", ["XPLOR", "poly_cut"])
+def test_fused_conv_matches_jax_vec(kind):
+    """Forward, and dx / dvec through the autograd Function (plain forward,
+    plain backward, mirror gather) against JAX's custom_vjp op."""
+    (jconv, jmlp, jemb), (conv, mlp, emb) = _specs(kind)
+    p = _problem()
+    ws = _weights(p["rng"], mlp.dims)
+    ybar = (p["rng"].normal(size=(N, conv.irreps_mid.dim)) * 0.1).astype(np.float32)
+
+    def jax_conv(x, vec):
+        return jfc.fused_conv_apply_vec(
+            jconv, jmlp, {"w": [jnp.asarray(w) for w in ws]}, jnp.asarray(p["coef"])[:, None],
+            jemb, x, vec, jnp.asarray(p["src"]), jnp.asarray(p["mir"]),
+            block_atoms=8, param_grads=False,
+        )
+
+    out_j, pull = jax.vjp(jax_conv, jnp.asarray(p["x"]), jnp.asarray(p["vec"]))
+    dx_j, dvec_j = pull(jnp.asarray(ybar))
+
+    x = torch.tensor(p["x"], requires_grad=True)
+    vec = torch.tensor(p["vec"], requires_grad=True)
+    out = fc.fused_conv_apply_vec(
+        conv, mlp, {"w": [torch.tensor(w) for w in ws]}, torch.tensor(p["coef"]), emb,
+        x, vec, torch.tensor(p["src"]).long(), torch.tensor(p["mir"]).long(),
+    )
+    dx, dvec = torch.autograd.grad(out, (x, vec), torch.tensor(ybar))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), atol=1e-5)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_j), atol=1e-5)
+    np.testing.assert_allclose(dvec.numpy(), np.asarray(dvec_j), atol=1e-5)
+    # padded slots: exactly zero edge-vector cotangents
+    assert (dvec.numpy()[:, ~p["mask"].reshape(-1)] == 0).all()
+
+
+def _walk_tables(op, x, src, vec, coef, ws, ybar):
+    """The CUDA kernels' algorithm in float64 numpy, reading the same
+    tables (``op.itab``/``op.ftab`` at the offsets of ``op.dims``): per
+    edge inside the cutoff, embedding and spherical-harmonic terms, the MLP,
+    then every output and cotangent column summed over its own CSR row."""
+    d = op.dims(*src.shape)
+    it, ftab = op.itab.astype(np.int64), op.ftab.astype(np.float64)
+
+    def csr(p, t, n):
+        ptr = it[p : p + n + 1]
+        return ptr, it[t : t + 4 * ptr[-1]].reshape(-1, 4)
+
+    f_ptr, f_t = csr(d.f_ptr, d.f_terms, d.dim_mid)
+    x_ptr, x_t = csr(d.dx_ptr, d.dx_terms, d.dim_x)
+    w_ptr, w_t = csr(d.dw_ptr, d.dw_terms, d.numel)
+    r_ptr, r_t = csr(d.dt_ptr, d.dt_terms, d.R)
+    sh_t = it[d.sh_terms : d.sh_terms + 4 * d.n_sh].reshape(-1, 4)
+    sh_c = ftab[d.sh_coef : d.sh_coef + d.n_sh]
+    sd_t = it[d.shd_terms : d.shd_terms + 4 * d.n_shd].reshape(-1, 4)
+    sd_comp = it[d.shd_terms + 4 * d.n_shd : d.shd_terms + 5 * d.n_shd]
+    sd_c = ftab[d.shd_coef : d.shd_coef + d.n_shd]
+    w3j = ftab[d.w3j : d.w3j + d.R * d.dim_f].reshape(d.R, d.dim_f)
+    W1, W2, W3 = [np.asarray(w, np.float64) for w in ws]
+    n, k = src.shape
+    out = np.zeros((n, d.dim_mid))
+    dxg = np.zeros((n * k, d.dim_x))
+    dvec = np.zeros((3, n * k))
+    es = op.embed
+    sig = lambda z: 1.0 / (1.0 + np.exp(-z))  # noqa: E731
+    for f in range(n * k):
+        i = f // k
+        v = vec[:, f].astype(np.float64)
+        r = max(np.sqrt(v @ v), 1e-12)
+        if not r < es.cutoff:
+            continue
+        rinv, u = 1.0 / r, v / r
+        if es.cutoff_kind == "XPLOR":
+            on, c = es.cutoff_arg, es.cutoff
+            a, b = c * c - r * r, c * c + 2 * r * r - 3 * on * on
+            inv = 1.0 / (c * c - on * on) ** 3
+            env = 1.0 if r < on else a * a * b * inv
+            denv = 0.0 if r < on else (-4 * r * a * b + 4 * r * a * a) * inv
+        else:
+            pp, xr = es.cutoff_arg, r / es.cutoff
+            xp = xr**pp
+            c0, c1, c2 = (pp + 1) * (pp + 2) / 2, pp * (pp + 2), pp * (pp + 1) / 2
+            env = 1 - c0 * xp + c1 * xp * xr - c2 * xp * xr * xr
+            denv = (-c0 * pp * xp / xr + c1 * (pp + 1) * xp - c2 * (pp + 2) * xp * xr) / es.cutoff
+        mono = lambda t: u[0] ** t[1] * u[1] ** t[2] * u[2] ** t[3]  # noqa: E731
+        sh = np.zeros(d.dim_f)
+        for t, c in zip(sh_t, sh_c):
+            sh[t[0]] += c * mono(t)
+        emb = np.sin(coef * r) * (2.0 / es.cutoff) * rinv * env
+        tmp = w3j @ sh
+        z1 = emb @ W1 / np.sqrt(d.n_basis)
+        h1 = z1 * sig(z1) * d.act_cst
+        z2 = h1 @ W2 / np.sqrt(d.h1)
+        h2 = z2 * sig(z2) * d.act_cst
+        w = h2 @ W3 / np.sqrt(d.h2)
+        xs = x[src[i, f % k]].astype(np.float64)
+        yb = ybar[i].astype(np.float64)
+        for c in range(d.dim_mid):
+            for t in f_t[f_ptr[c] : f_ptr[c + 1]]:
+                out[i, c] += xs[t[0]] * w[t[1]] * tmp[t[2]]
+        for xc in range(d.dim_x):
+            for t in x_t[x_ptr[xc] : x_ptr[xc + 1]]:
+                dxg[f, xc] += yb[t[0]] * w[t[1]] * tmp[t[2]]
+        dtmp = np.zeros(d.R)
+        for rr in range(d.R):
+            for t in r_t[r_ptr[rr] : r_ptr[rr + 1]]:
+                dtmp[rr] += xs[t[1]] * w[t[2]] * yb[t[0]]
+        dw = np.zeros(d.numel)
+        for j in range(d.numel):
+            for t in w_t[w_ptr[j] : w_ptr[j + 1]]:
+                dw[j] += xs[t[1]] * yb[t[0]] * tmp[t[2]]
+        dsilu = lambda z: sig(z) * (1 + z * (1 - sig(z))) * d.act_cst  # noqa: E731
+        dz2 = (W3 @ dw) / np.sqrt(d.h2) * dsilu(z2)
+        dz1 = (W2 @ dz2) / np.sqrt(d.h1) * dsilu(z1)
+        demb = (W1 @ dz1) / np.sqrt(d.n_basis)
+        dsh = w3j.T @ dtmp
+        dr = np.sum(demb * (2.0 / es.cutoff) * (
+            coef * np.cos(coef * r) * rinv * env
+            + np.sin(coef * r) * (denv * rinv - env * rinv * rinv)))
+        du = np.zeros(3)
+        for t, comp, c in zip(sd_t, sd_comp, sd_c):
+            du[comp] += c * dsh[t[0]] * mono(t)
+        dvec[:, f] = (du - u * (u @ du)) * rinv + u * dr
+    return out, dxg, dvec
+
+
+@pytest.mark.parametrize("kind", ["XPLOR", "poly_cut"])
+def test_kernel_tables_reproduce_plain(kind):
+    """The term tables the CUDA kernels read (uvu products sorted by output
+    column, x column, weight column and Wigner row; spherical harmonics and
+    their derivatives as monomial terms) give the plain versions' results."""
+    _, (conv, mlp, emb) = _specs(kind)
+    op = fc.conv_op(conv, mlp, emb)
+    p = _problem(seed=1)
+    ws = _weights(p["rng"], mlp.dims)
+    ybar = (p["rng"].normal(size=(N, op.dim_mid)) * 0.1).astype(np.float32)
+    out, dxg, dvec = _walk_tables(op, p["x"], p["src"], p["vec"], p["coef"], ws, ybar)
+    args = (op, torch.tensor(p["x"]), torch.tensor(p["src"]), torch.tensor(p["vec"]),
+            torch.tensor(p["coef"]), [torch.tensor(w) for w in ws])
+    out_p = fc.fused_conv_fwd_plain(*args)
+    dxg_p, dvec_p = fc.fused_conv_bwd_plain(*args, torch.tensor(ybar))
+    np.testing.assert_allclose(out, out_p.numpy(), atol=1e-5)
+    np.testing.assert_allclose(dxg, dxg_p.numpy(), atol=1e-5)
+    np.testing.assert_allclose(dvec, dvec_p.numpy(), atol=1e-5)
+
+
+def test_wrappers_check_their_inputs():
+    _, (conv, mlp, emb) = _specs("XPLOR")
+    op = fc.conv_op(conv, mlp, emb)
+    p = _problem()
+    ws = [torch.tensor(w) for w in _weights(p["rng"], mlp.dims)]
+    x, vec, coef = torch.tensor(p["x"]), torch.tensor(p["vec"]), torch.tensor(p["coef"])
+    src = torch.tensor(p["src"])
+    launches = fc.fused_conv_fwd.launches
+    out = fc.fused_conv_fwd(op, x, src, vec, coef, ws)
+    assert out.shape == (N, op.dim_mid)
+    assert fc.fused_conv_fwd.launches == launches  # the CPU runs the plain version
+    with pytest.raises(ValueError, match="src"):
+        fc.fused_conv_fwd(op, x, src.long(), vec, coef, ws)
+    with pytest.raises(ValueError, match="vec"):
+        fc.fused_conv_fwd(op, x, src, vec.T, coef, ws)
+    with pytest.raises(ValueError, match="ybar"):
+        fc.fused_conv_bwd(op, x, src, vec, coef, ws, torch.zeros(N, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fused_conv_fwd(op, x.T.contiguous().T, src, vec, coef, ws)
