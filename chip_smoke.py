@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port (``sevennet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S]      # everything below, one card
+    python3 chip_smoke.py [--seed S]
 
 1. Builds the CUDA kernels from ``sevennet_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and prints each one's ptxas report.
 2. Holds each kernel against its plain PyTorch version on the card at the
    SevenNet-0 shapes of layer 0, layers 1-3 and layer 4, on a water box of
    ~3,000 atoms (K from its neighbour list); times both with CUDA events.
+   Kernels: B1 (forward), B2 (backward), B2' (backward with the radial-MLP
+   weight and Bessel-coefficient gradients: records pass and reduction).
 3. Serves single points through the calculator at full SevenNet-0 width
    (random weights from a seed) for water boxes of 192, 3,000 and 9,999
    atoms: 5 forward and 5 backward kernel launches per request; against the
    plain path (192 and 3,000 atoms) forces within 1e-3 eV/A and 1e-4 of the
    largest force, energy within 1e-5 relative, stress within 1e-6 eV/A^3;
    ms per request.
-4. Prints a ``kernels`` JSON line, the card's name and power limit, and as
+4. Trains SevenNet-0 (full width and depth) on 16 water boxes of 192 atoms
+   labelled by a teacher of the same architecture: the first 3 steps of the
+   kernel path against the plain path at the same weights (loss within 1e-5
+   relative, every gradient leaf within 1e-4 of its largest entry), 5 B1 +
+   10 B2' launches per step, then 2 epochs through ``train_run`` (lc.csv,
+   checkpoint reload); step time, structures/s, peak memory.
+5. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -28,6 +36,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 FP32_PEAK = 67e12     # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
@@ -43,6 +52,14 @@ STRESS_TOL = 1e-6     # eV/A^3
 SIZES = (192, 3000, 9999)
 REPS = 5              # timed requests per size
 PLAIN_MAX_ATOMS = 3000  # the plain path's autograd graph grows past ~30 GB above this
+# training phase: full SevenNet-0 on water boxes labelled by a teacher
+TRAIN_BOXES = 16       # structures of 192 atoms (64 molecules)
+TRAIN_BATCH = 4
+TRAIN_EPOCHS = 2
+TRAIN_LR = 1e-3
+TRAIN_CMP_STEPS = 3    # steps held against the plain path
+LOSS_REL_TOL = 1e-5    # kernel vs plain train step, loss
+GRAD_REL_TOL = 1e-4    # kernel vs plain train step, per leaf of max |g_plain|
 
 
 def log(msg):
@@ -75,26 +92,28 @@ def water_box(n_molecules: int, density_g_cm3: float = 1.0, seed: int = 0):
     return pos, np.asarray(Z), np.eye(3) * box
 
 
+SEVENNET0 = {  # bench.py:87-147
+    "lmax": 2,
+    "irreps_manual": ["128x0e"] + ["128x0e+64x1e+32x2e"] * 4 + ["128x0e"],
+    "cutoff_function": {"cutoff_function_name": "XPLOR", "cutoff_on": 4.5},
+    "self_connection_type": "linear",
+    "cutoff": 5.0,
+    "channel": 128,
+    "is_parity": False,
+    "num_convolution_layer": 5,
+    "weight_nn_hidden_neurons": [64, 64],
+    "radial_basis": {"radial_basis_name": "bessel", "bessel_basis_num": 8},
+    "conv_denominator": 35.0,
+    "chemical_species": ["H", "O"],
+}
+
+
 def sevennet0_spec():
     """SevenNet-0 (bench.py:87-147): 5 layers, 128x0e+64x1e+32x2e, lmax 2,
     XPLOR cutoff 5.0 A (on at 4.5), radial MLP [8, 64, 64, numel]."""
     from sevennet_tpu_torch.model.build import build_model_spec
 
-    mid = "128x0e+64x1e+32x2e"
-    return build_model_spec({
-        "lmax": 2,
-        "irreps_manual": ["128x0e", mid, mid, mid, mid, "128x0e"],
-        "cutoff_function": {"cutoff_function_name": "XPLOR", "cutoff_on": 4.5},
-        "self_connection_type": "linear",
-        "cutoff": 5.0,
-        "channel": 128,
-        "is_parity": False,
-        "num_convolution_layer": 5,
-        "weight_nn_hidden_neurons": [64, 64],
-        "radial_basis": {"radial_basis_name": "bessel", "bessel_basis_num": 8},
-        "conv_denominator": 35.0,
-        "chemical_species": ["H", "O"],
-    })
+    return build_model_spec(SEVENNET0)
 
 
 def gpu_line() -> str:
@@ -138,11 +157,15 @@ def cuda_median(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def work(op, N: int, K: int, n_edges: int, bwd: bool):
+def work(op, N: int, K: int, n_edges: int, kind: str):
     """(flops, bytes) the kernel's function needs on these inputs: the fp32
     multiplies and adds of the edges inside the cutoff (activations, envelope
     and spherical harmonics left out), each input read once, each output
-    written once.
+    written once. ``kind``: ``fwd`` (B1), ``bwd`` (B2, and B3: B2 writing
+    into a slot), ``bwd_pg`` (B2'), ``reduce`` (B2''s second pass alone),
+    ``fwd_embsh`` (B4's forward and B6: the forward on a precomputed
+    embedding and spherical harmonics) or ``bwd_embsh`` (B4's backward and
+    B5: ``dxg``, ``demb`` and ``dsh`` in place of ``dvec``).
 
     A sum of n products counts 2n - 1 operations. Per edge: the MLP's three
     products, ``tmp = w3j_pack @ sh`` over the nonzeros of ``w3j_pack``, and
@@ -155,20 +178,36 @@ def work(op, N: int, K: int, n_edges: int, bwd: bool):
     (ybar w)[p, u] x[m, u]`` (one product per term each), ``ybar * w`` per
     output column, ``dxg = sum w a`` and ``dw = sum x a`` per gathered x entry
     of each instruction, ``dsh = w3j_packᵀ dtmp`` and the MLP's backward. It
-    writes no output of the forward."""
+    writes no output of the forward.
+
+    B2' adds the parameter gradients, sums over all E edges:
+    ``dW_l = sum_e h_l ⊗ g_l / sqrt(d_l)`` (2E operations per entry) and
+    ``dcoef[n] = sum_e demb * (2/rc) cos(c_n r) env`` (4E - 1 per basis
+    function), and writes them. Its per-edge records are an intermediate of
+    the kernel's design, not of the function, and are not counted. The
+    reduction alone reads the records of the E edges (and a validity byte
+    per slot) and does the same sums."""
 
     def mv(n_in, n_out):
         return n_out * (2 * n_in - 1)
 
     d = op.mlp_spec.dims
+    n_dw = sum(a * b for a, b in zip(d[:-1], d[1:]))
+    pg_flops = n_dw * 2 * n_edges + d[0] * (4 * n_edges - 1)
+    pg_bytes = 4 * (n_dw + d[0])
+    if kind == "reduce":
+        record = sum(d[:-1]) + sum(d[1:]) + d[0]  # emb h1 h2 | dz1 dz2 dw | dcoef terms
+        return pg_flops, 4 * n_edges * record + N * K + pg_bytes
     mlp = sum(mv(a, b) for a, b in zip(d[:-1], d[1:]))
     nnz = int((op.w3j_pack != 0).sum())
     tmp = 2 * nnz - op.R
     conv = op.conv
     x_entries = sum(conv.irreps_x[i].dim for i, _, _, _ in conv.instructions)
-    ins = 4 * (N * op.dim_x + N * K + 3 * N * K + d[0]
-               + sum(a * b for a, b in zip(d[:-1], d[1:])))
-    if not bwd:
+    # per edge slot: the edge vector, or in emb/sh mode (B4, B5, B6) the
+    # precomputed embedding and spherical harmonics
+    edge_in = op.embed.n_basis + op.embed.dim_f if kind.endswith("_embsh") else 3
+    ins = 4 * (N * op.dim_x + N * K + edge_in * N * K + d[0] + n_dw)
+    if kind in ("fwd", "fwd_embsh"):
         # s: 2 n_terms - dim_mid per edge; w * s summed over each row's edges
         flops = (n_edges * (mlp + tmp + 2 * op.n_terms + op.dim_mid) - N * op.dim_mid)
         return flops, ins + 4 * N * op.dim_mid
@@ -176,12 +215,61 @@ def work(op, N: int, K: int, n_edges: int, bwd: bool):
     uvu = (4 * op.n_terms - x_entries - op.R + op.dim_mid
            + (2 * x_entries - op.dim_x) + (2 * x_entries - op.numel))
     flops = n_edges * (mlp + tmp + uvu + (2 * nnz - op.embed.dim_f) + mlp_bwd)
-    return flops, ins + 4 * (N * op.dim_mid + N * K * op.dim_x + 3 * N * K)
+    nbytes = ins + 4 * (N * op.dim_mid + N * K * op.dim_x + edge_in * N * K)
+    if kind == "bwd_pg":
+        return flops + pg_flops, nbytes + pg_bytes
+    return flops, nbytes
+
+
+def bound_ms(flops: float, nbytes: float):
+    """(ms, bound_by): the larger of fp32 operations over the peak rate and
+    bytes over the memory rate."""
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_close(tag: str, name: str, got, want, tol: float = REL_TOL):
+    """max |got - want| within ``tol`` of max |want|, all finite; returns
+    the max abs error. Raises SystemExit otherwise."""
+    import torch
+
+    ok = bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    rel = err / max(scale, 1e-30)
+    status = "ok" if ok and rel <= tol else "FAIL"
+    log(f"  {tag} {name}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
+        f"rel={rel:.3e} (tol {tol:g}) {status}")
+    if status != "ok":
+        raise SystemExit(f"{name} disagrees with its plain version at {tag}")
+    return err
+
+
+KERNELS = ("fwd", "bwd", "bwd_pg", "reduce")
+# per 3,000-atom pass: layer 0 once, layers 1-3 three times, layer 4 once
+SHAPES = (("layer0", 0, 1), ("layers1-3", 1, 3), ("layer4", 4, 1))
+
+
+def pg_float64_check(tag, op, args, ybar, outs_k, outs_p):
+    """When B2''s parameter gradients miss the limit: both sides against a
+    float64 plain version on the card, printed, to tell the kernel's error
+    from the fp32 plain version's."""
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    op_, x, src, vec, coef, ws = args
+    ref = fc.fused_conv_bwd_plain(op_, x.double(), src, vec.double(), coef.double(),
+                                  [w.double() for w in ws], ybar.double(), param_grads=True)
+    for i, name in enumerate(("dW1", "dW2", "dW3")):
+        r = ref[2][i]
+        for side, o in (("kernel", outs_k), ("plain fp32", outs_p)):
+            err = float((o[2][i].double() - r).abs().max()) / float(r.abs().max())
+            log(f"  {tag} {name} {side} vs float64: rel {err:.3e}")
 
 
 def kernel_phase(spec, params, dev, atoms):
     """Each kernel against its plain version at the three SevenNet-0 layer
-    shapes. Returns per-kernel records."""
+    shapes. Returns per-kernel records (times summed over one 3,000-atom
+    pass) and the shapes."""
     import numpy as np
     import torch
 
@@ -199,57 +287,92 @@ def kernel_phase(spec, params, dev, atoms):
     coef = calc.params["edge_embedding"]["bessel_coeffs"]
     log(f"kernel shapes: N={N} K={K} real edges={n_edges}")
     gen = torch.Generator(device="cpu").manual_seed(1)
-    per_shape = {}
-    for tag, t in (("layer0", 0), ("layers1-3", 1), ("layer4", 4)):
+    per_shape, ops = {}, {}
+    for tag, t, _ in SHAPES:
         layer = spec.layers[t]
-        op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+        op = ops[tag] = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
         ws = calc.params[f"{t}_convolution"]["weight_nn"]["w"]
         x = torch.randn(N, op.dim_x, generator=gen).to(dev)
         ybar = torch.randn(N, op.dim_mid, generator=gen).to(dev)
         args = (op, x, src, vec, coef, ws)
-        out_k = fc.fused_conv_fwd(*args)
-        out_p = fc.fused_conv_fwd_plain(*args)
+        errs = {}
+        errs["fwd"] = check_close(tag, "fwd", fc.fused_conv_fwd(*args), fc.fused_conv_fwd_plain(*args))
         dxg_k, dvec_k = fc.fused_conv_bwd(*args, ybar)
         dxg_p, dvec_p = fc.fused_conv_bwd_plain(*args, ybar)
+        errs["bwd"] = max(check_close(tag, "dxg", dxg_k, dxg_p),
+                          check_close(tag, "dvec", dvec_k, dvec_p))
+        del dxg_k, dvec_k
+        # B2': both passes through the wrapper, against the plain twin
+        outs_k = fc.fused_conv_bwd(*args, ybar, param_grads=True)
+        outs_p = fc.fused_conv_bwd_plain(*args, ybar, param_grads=True)
         torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in (("fwd", out_k, out_p), ("dxg", dxg_k, dxg_p), ("dvec", dvec_k, dvec_p)):
-            ok = bool(torch.isfinite(a).all())
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            rel = err / max(scale, 1e-30)
-            errs[name] = (err, rel)
-            status = "ok" if ok and rel <= REL_TOL else "FAIL"
-            log(f"  {tag} {name}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
-                f"rel={rel:.3e} (tol {REL_TOL:g}) {status}")
-            if status != "ok":
-                raise SystemExit(f"kernel {name} disagrees with its plain version at {tag}")
+        pairs = [("pg dxg", outs_k[0], outs_p[0]), ("pg dvec", outs_k[1], outs_p[1])]
+        pairs += [(f"dW{i + 1}", a, b) for i, (a, b) in enumerate(zip(outs_k[2], outs_p[2]))]
+        pairs += [("dcoef", outs_k[3], outs_p[3])]
+        try:
+            errs["bwd_pg"] = max(check_close(tag, n, a, b) for n, a, b in pairs)
+        except SystemExit:
+            pg_float64_check(tag, op, args, ybar, outs_k, outs_p)
+            raise
+        # the reduction alone, on the records of the first pass
+        _, _, work_, valid = fc.fused_conv_bwd_pg_records(*args, ybar)
+        red_k = fc.param_grad_reduce(op, work_, valid, N, K)
+        red_p = fc.param_grad_reduce_plain(op, work_, valid)
+        errs["reduce"] = max(check_close(tag, f"reduce {n}", a, b) for n, a, b in zip(
+            ("dW1", "dW2", "dW3", "dcoef"), [*red_k[0], red_k[1]], [*red_p[0], red_p[1]]))
+        del outs_k, outs_p, red_k, red_p, dxg_p, dvec_p
         reps = 10
-        t_fk = cuda_time(lambda: fc.fused_conv_fwd(*args), reps)
-        t_fp = cuda_time(lambda: fc.fused_conv_fwd_plain(*args), 3)
-        t_bk = cuda_time(lambda: fc.fused_conv_bwd(*args, ybar), reps)
-        t_bp = cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar), 3)
-        fw, bw = work(op, N, K, n_edges, False), work(op, N, K, n_edges, True)
-        per_shape[tag] = dict(t=t, fwd=(t_fk, t_fp, fw, errs["fwd"][0]),
-                              bwd=(t_bk, t_bp, bw, max(errs["dxg"][0], errs["dvec"][0])))
-        for kname, (tk, tp, (fl, by), _) in (("fwd", per_shape[tag]["fwd"]),
-                                             ("bwd", per_shape[tag]["bwd"])):
-            bound = max(fl / FP32_PEAK, by / HBM_BYTES_S) * 1e3
-            log(f"  {tag} {kname}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound {bound:.4f} ms "
+        times = {
+            "fwd": (cuda_time(lambda: fc.fused_conv_fwd(*args), reps),
+                    cuda_time(lambda: fc.fused_conv_fwd_plain(*args), 3)),
+            "bwd": (cuda_time(lambda: fc.fused_conv_bwd(*args, ybar), reps),
+                    cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar), 3)),
+            "bwd_pg": (cuda_time(lambda: fc.fused_conv_bwd(*args, ybar, param_grads=True), reps),
+                       cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar, param_grads=True), 3)),
+            "reduce": (cuda_time(lambda: fc.param_grad_reduce(op, work_, valid, N, K), reps),
+                       cuda_time(lambda: fc.param_grad_reduce_plain(op, work_, valid), 3)),
+        }
+        per_shape[tag] = {}
+        for k in KERNELS:
+            tk, tp = times[k]
+            fl, by = work(op, N, K, n_edges, k)
+            per_shape[tag][k] = (tk, tp, (fl, by), errs[k])
+            bnd, _ = bound_ms(fl, by)
+            log(f"  {tag} {k}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound {bnd:.4f} ms "
                 f"({fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB), {fl / tk / 1e9:.2f} TFLOP/s")
-        del out_k, out_p, dxg_k, dvec_k, dxg_p, dvec_p
+        del work_, valid
         torch.cuda.empty_cache()
-    # per request: layer 0 once, layers 1-3 three times, layer 4 once
-    counts = {"layer0": 1, "layers1-3": 3, "layer4": 1}
+    # the kernels still to port, at the same shapes: bounds only
+    for label, kind in (("B3 (B2 into a ring slot)", "bwd"), ("B4 fwd, B6", "fwd_embsh"),
+                        ("B4 bwd, B5", "bwd_embsh")):
+        fl = sum(n * work(ops[tag], N, K, n_edges, kind)[0] for tag, _, n in SHAPES)
+        by = sum(n * work(ops[tag], N, K, n_edges, kind)[1] for tag, _, n in SHAPES)
+        bnd, bound_by = bound_ms(fl, by)
+        log(f"  {label}: bound {bnd:.4f} ms per pass ({bound_by}; {fl / 1e9:.2f} GFLOP, "
+            f"{by / 1e6:.1f} MB), computed, not measured")
     records = {}
-    for kname in ("fwd", "bwd"):
-        ms = sum(counts[s] * per_shape[s][kname][0] for s in counts)
-        plain_ms = sum(counts[s] * per_shape[s][kname][1] for s in counts)
-        flops = sum(counts[s] * per_shape[s][kname][2][0] for s in counts)
-        nbytes = sum(counts[s] * per_shape[s][kname][2][1] for s in counts)
-        err = max(per_shape[s][kname][3] for s in counts)
-        records[kname] = dict(ms=ms, plain_ms=plain_ms, flops=flops, bytes=nbytes, err=err)
+    for k in KERNELS:
+        rows = [(per_shape[tag][k], n) for tag, _, n in SHAPES]
+        records[k] = dict(ms=sum(n * r[0] for r, n in rows), plain_ms=sum(n * r[1] for r, n in rows),
+                          flops=sum(n * r[2][0] for r, n in rows),
+                          bytes=sum(n * r[2][1] for r, n in rows), err=max(r[3] for r, _ in rows))
     return records, np.asarray([N, K, n_edges])
+
+
+def counters():
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    return {"fwd": fc.fused_conv_fwd, "bwd": fc.fused_conv_bwd,
+            "bwd_pg": fc.fused_conv_bwd_pg_records, "reduce": fc.param_grad_reduce}
+
+
+def reset_launches():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in counters().items()}
 
 
 def request_phase(spec, params, dev):
@@ -266,8 +389,7 @@ def request_phase(spec, params, dev):
     calc = SevenNetCalculator(spec, params, device=str(dev))
     plain = SevenNetCalculator(spec, params, device=str(dev), plain=True)
     boxes = {n: water_box(n // 3) for n in SIZES}
-    fc.fused_conv_fwd.launches = 0
-    fc.fused_conv_bwd.launches = 0
+    reset_launches()
     for n in SIZES:
         pos, Z, cell = boxes[n]
         at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
@@ -328,7 +450,239 @@ def request_phase(spec, params, dev):
             f"host graph median {statistics.median(graph_walls):.1f} ms (wall), "
             f"model median {model_ms:.2f} ms (CUDA events, {REPS} runs), "
             f"model peak mem {peak:.2f} GiB")
-    return fc.fused_conv_fwd.launches, fc.fused_conv_bwd.launches
+    counts = read_launches()
+    if counts["bwd_pg"] or counts["reduce"]:
+        raise SystemExit(f"serving launched B2' ({counts}): it needs no parameter gradients")
+    return counts
+
+
+def training_set(spec, params_teacher, dev, seed: int, path: str):
+    """TRAIN_BOXES water boxes of 192 atoms, jittered from ``seed``, labelled
+    (energy, forces, stress) by a teacher of the same architecture through
+    the port's calculator; written as extxyz to ``path``."""
+    import numpy as np
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.data.extxyz import write_extxyz
+
+    teacher = SevenNetCalculator(spec, params_teacher, device=str(dev))
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(TRAIN_BOXES):
+        pos, Z, cell = water_box(64, seed=seed * 1000 + i)
+        pos = pos + rng.normal(scale=0.05, size=pos.shape)
+        r = teacher.calculate(AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True))
+        # ASE Voigt (xx,yy,zz,yz,xz,xy) -> the label: -stress, (xx,yy,zz,xy,yz,zx)
+        label = -np.asarray(r["stress"])[[0, 1, 2, 5, 3, 4]]
+        frames.append(AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True,
+                                energy=r["energy"], forces=r["forces"], stress=label))
+    write_extxyz(path, frames)
+    return frames
+
+
+def step_breakdown(spec, trainer, batch):
+    """Parts of a train step at the batch's shapes, ms, CUDA events: the
+    energy and forces with the graph kept (``model_compute(...,
+    create_graph=True)``, median of 5), and per step the kernels (5 B1 and
+    2 x 5 B2' launches) and the conv's plain second-order rule (5 calls),
+    each layer on the batch's edge vectors with random x, cotangent and
+    second-order cotangents (mean of 5)."""
+    import torch
+
+    from sevennet_tpu_torch.model.model import edge_embed_spec, model_compute
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    N, K = batch.n_atoms_cap, batch.dense_k
+    sentinel = torch.tensor([2.0 * spec.cutoff, 0.0, 0.0], device=batch.device)
+    vec = torch.where(batch.edge_mask[None], batch.edge_vectors().T, sentinel[:, None]).contiguous()
+    src = batch.edge_src.view(N, K).to(torch.int32).contiguous()
+    coef = trainer.params["edge_embedding"]["bessel_coeffs"].detach()
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    out = {"fwd_forces": cuda_median(lambda: model_compute(
+        spec, trainer.params, batch, device=batch.device, create_graph=True), REPS),
+        "b1": 0.0, "b2pg": 0.0, "second_order": 0.0}
+    for layer in spec.layers:
+        op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+        ws = [w.detach() for w in trainer.params[f"{layer.t}_convolution"]["weight_nn"]["w"]]
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen).to(batch.device)
+
+        x, ybar = rnd(N, op.dim_x), rnd(N, op.dim_mid)
+        cots = (rnd(N * K, op.dim_x), rnd(3, N * K))
+        out["b1"] += cuda_time(lambda: fc.fused_conv_fwd(op, x, src, vec, coef, ws), 5)
+        out["b2pg"] += 2 * cuda_time(lambda: fc.fused_conv_bwd(
+            op, x, src, vec, coef, ws, ybar, param_grads=True), 5)
+        out["second_order"] += cuda_time(lambda: fc.fused_conv_bwd_vjp_plain(
+            op, x, src, vec, coef, ws, ybar, cots), 5)
+    return out
+
+
+def training_phase(dev, seed: int, card: str):
+    """SevenNet-0 training on the card: the kernel path against the plain
+    path for TRAIN_CMP_STEPS steps, step timing, then ``train_run`` (the
+    main path). Returns the launches of the ``train_run`` run."""
+    import csv
+    import os
+
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.data.dataset import GraphDataset
+    from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
+    from sevennet_tpu_torch.io.native_checkpoint import load_checkpoint
+    from sevennet_tpu_torch.logger import Logger
+    from sevennet_tpu_torch.model.build import build_model_spec
+    from sevennet_tpu_torch.scripts.train import dense_capacity, resolve_statistics, train_run
+    from sevennet_tpu_torch.train import LossConfig, Trainer, TrainerConfig
+    from sevennet_tpu_torch.train.trainer import tree_map
+
+    spec0 = sevennet0_spec()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        path = os.path.join(tmp, "water.extxyz")
+        teacher = params_from_numpy(spec0, random_params(spec0, seed + 1))
+        training_set(spec0, teacher, dev, seed, path)
+        model_cfg = dict(SEVENNET0, shift="per_atom_energy_mean", scale="force_rms",
+                         conv_denominator="avg_num_neigh")
+        train_cfg = {"epoch": TRAIN_EPOCHS, "optimizer": "adam", "optim_param": {"lr": TRAIN_LR},
+                     "force_loss_weight": 0.1, "stress_loss_weight": 1e-6, "per_epoch": 1,
+                     "random_seed": seed}
+        data_cfg = {"batch_size": TRAIN_BATCH, "load_trainset_path": [path], "ratio": 0.25}
+
+        # train_run's set-up, to hold its first steps against the plain path:
+        # split, statistics, spec, weights from the seed, K, batch order
+        trainset, validset = GraphDataset.from_files(path, SEVENNET0["cutoff"]).split(0.25)
+        cfg = dict(model_cfg)
+        resolve_statistics(cfg, data_cfg, trainset, Logger(None, screen=False))
+        spec = build_model_spec(cfg)
+        params = params_from_numpy(spec, random_params(spec, seed))
+        trainset.build(spec.z_to_type)
+        validset.build(spec.z_to_type)
+        K = dense_capacity(max(trainset.max_neighbors(), validset.max_neighbors()))
+        batches = [b.to(dev) for b in
+                   trainset.batches(TRAIN_BATCH, shuffle=True, seed=1, dense_k=K)]
+        tcfg = TrainerConfig(loss=LossConfig(force_weight=0.1, stress_weight=1e-6),
+                             optimizer="adam", lr=TRAIN_LR)
+        kern = Trainer(spec, params, tcfg, device=str(dev))
+        plain = Trainer(spec, params, tcfg, device=str(dev), plain=True)
+        kern.set_epoch(0)
+        n_layers = len(spec.layers)
+        want = {"fwd": n_layers, "bwd": 0, "bwd_pg": 2 * n_layers, "reduce": 2 * n_layers}
+        log(f"training: {len(trainset)} train / {len(validset)} valid structures of "
+            f"{len(trainset.atoms_list[0])} atoms, batch {TRAIN_BATCH}, K={K}, "
+            f"batch capacity {batches[0].n_atoms_cap} atoms, "
+            f"{int(batches[0].edge_mask.sum())} edges")
+        # each step: the plain path's loss and gradients at the kernel path's
+        # current weights, then the kernel path's step (same weights, same batch)
+        for step in range(TRAIN_CMP_STEPS):
+            b = batches[step % len(batches)]
+            torch.cuda.reset_peak_memory_stats()
+            total_p, _, _ = plain._loss_and_metrics(kern.params, b)
+            g_plain = torch.autograd.grad(total_p, kern.trainable)
+            loss_p = total_p.item()
+            del total_p
+            peak_plain = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            losses, _ = kern.train_step(b)
+            counts = read_launches()
+            peak_kern = torch.cuda.max_memory_allocated() / 2**30
+            loss_k = losses["total"].item()
+            rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
+            worst = 0.0
+            for p, gp in zip(kern.trainable, g_plain):
+                err = float((p.grad - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+                worst = max(worst, err)
+                if not (bool(torch.isfinite(p.grad).all()) and err <= GRAD_REL_TOL):
+                    raise SystemExit(f"train step {step + 1}: gradient leaf {tuple(p.shape)} "
+                                     f"differs from the plain path by {err:.3e} of its max")
+            log(f"  step {step + 1}: loss kernel {loss_k:.8e} plain {loss_p:.8e} rel {rel:.3e} "
+                f"(tol {LOSS_REL_TOL:g}); worst gradient leaf {worst:.3e} of its max "
+                f"(tol {GRAD_REL_TOL:g}); launches {counts}; peak GiB kernel {peak_kern:.2f} "
+                f"plain {peak_plain:.2f} | {card}")
+            if not (np.isfinite(loss_k) and rel <= LOSS_REL_TOL):
+                raise SystemExit(f"train step {step + 1}: loss {loss_k} vs plain {loss_p}")
+            if counts != want:
+                raise SystemExit(f"train step {step + 1}: launches {counts}, expected {want}")
+            del g_plain
+        reset_launches()
+        kern.eval_step(batches[0])
+        log(f"  eval step launches: {read_launches()}")
+
+        # step timing on one batch, CUDA events
+        b = batches[0]
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_median(lambda: kern.train_step(b), REPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        plain_ms = cuda_median(lambda: plain.train_step(b), 2)
+        parts = step_breakdown(spec, kern, b)
+        n_struct = int(b.graph_mask.sum())
+        kern_ms = parts["b1"] + parts["b2pg"]
+        log(f"  train step: median {step_ms:.2f} ms ({REPS} runs, CUDA events), "
+            f"{n_struct / step_ms * 1e3:.1f} structures/s, peak {peak:.2f} GiB; plain path "
+            f"{plain_ms:.2f} ms (median of 2) | {card}")
+        log(f"  step parts: energy + forces with the graph kept {parts['fwd_forces']:.2f} ms, "
+            f"the rest (loss backward, optimizer) {step_ms - parts['fwd_forces']:.2f} ms; "
+            f"kernels per step B1 {parts['b1']:.3f} ms + B2' {parts['b2pg']:.3f} ms = "
+            f"{100 * kern_ms / step_ms:.1f} % of the step; the conv's plain second-order rule "
+            f"{parts['second_order']:.2f} ms = "
+            f"{100 * parts['second_order'] / step_ms:.1f} % | {card}")
+        del kern, plain, batches
+        torch.cuda.empty_cache()
+
+        # the main path: train_run, counts from 0
+        wd = os.path.join(tmp, "run")
+        reset_launches()
+        trainer = train_run(dict(model_cfg), dict(train_cfg), dict(data_cfg), working_dir=wd,
+                            device=str(dev))
+        counts = read_launches()
+        n_train = TRAIN_EPOCHS * -(-len(trainset) // TRAIN_BATCH)
+        n_eval = TRAIN_EPOCHS * -(-len(validset) // TRAIN_BATCH)
+        want = {"fwd": n_layers * (n_train + n_eval), "bwd": n_layers * n_eval,
+                "bwd_pg": 2 * n_layers * n_train, "reduce": 2 * n_layers * n_train}
+        log(f"train_run: {n_train} train steps, {n_eval} eval steps, launches {counts}")
+        if counts != want:
+            raise SystemExit(f"train_run launches {counts}, expected {want}")
+        with open(os.path.join(wd, "lc.csv")) as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != TRAIN_EPOCHS:
+            raise SystemExit(f"lc.csv has {len(rows)} rows, expected {TRAIN_EPOCHS}")
+        for r in rows:
+            vals = {k: float(v) for k, v in r.items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise SystemExit(f"non-finite losses in lc.csv: {r}")
+            log(f"  epoch {int(vals['epoch'])}: train loss {vals['train_loss_total']:.6e} "
+                f"(E {vals['train_loss_energy']:.4e}, F {vals['train_loss_force']:.4e}, "
+                f"S {vals['train_loss_stress']:.4e}), "
+                f"valid loss {vals['valid_loss_total']:.6e} | {card}")
+        spec_l, params_l, meta = load_checkpoint(os.path.join(wd, "checkpoint_last"))
+        pos, Z, cell = water_box(64, seed=seed * 1000 + 999)
+        at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
+        e_loaded = SevenNetCalculator(spec_l, params_l, device=str(dev)).calculate(at)["energy"]
+        e_trained = SevenNetCalculator(trainer.spec, tree_map(lambda p: p.detach(), trainer.params),
+                                       device=str(dev)).calculate(at)["energy"]
+        log(f"  checkpoint_last (epoch {meta['epoch']}) reloads: E {e_loaded:.8f} vs trained "
+            f"{e_trained:.8f} eV")
+        # not bit for bit: the per-graph energy sum (index_add_ on CUDA) adds in
+        # no fixed order
+        if spec_l != trainer.spec or abs(e_loaded - e_trained) > 1e-6 * abs(e_trained):
+            raise SystemExit("the reloaded checkpoint gives other energies")
+        return counts
+
+
+KERNEL_NAMES = {
+    "fwd": ("fused_conv_fwd", "sevennet_tpu_torch/csrc/fused_conv_fwd.cu",
+            "sevennet_tpu/ops/fused_conv.py:678"),
+    "bwd": ("fused_conv_bwd", "sevennet_tpu_torch/csrc/fused_conv_bwd.cu",
+            "sevennet_tpu/ops/fused_conv.py:1222"),
+    "bwd_pg": ("fused_conv_bwd_pg", "sevennet_tpu_torch/csrc/fused_conv_bwd.cu",
+               "sevennet_tpu/ops/fused_conv.py:1222"),
+    "reduce": ("param_grad_reduce", "sevennet_tpu_torch/csrc/fused_conv_bwd.cu",
+               "sevennet_tpu/ops/fused_conv.py:1064"),
+}
 
 
 def main() -> int:
@@ -359,36 +713,46 @@ def main() -> int:
     libs = kernels.build()
     log(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for name, so in libs.items():
-        rep = [ln.strip() for ln in open(str(so) + ".log") if "registers" in ln or "spill" in ln]
-        for ln in rep:
-            log(f"  {name}: {ln}")
+        for ln in open(str(so) + ".log"):
+            if "Compiling entry function" in ln:
+                log(f"  {name}: {ln.split('entry function')[1].split(' for ')[0].strip()}")
+            elif "registers" in ln or "spill" in ln:
+                log(f"  {name}:   {ln.strip()}")
 
     spec = sevennet0_spec()
     params = params_from_numpy(spec, random_params(spec, args.seed))
+    t0 = time.perf_counter()
     pos, Z, cell = water_box(1000)
     atoms = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
     records, (N, K, n_edges) = kernel_phase(spec, params, dev, atoms)
-    launches = dict(zip(("fwd", "bwd"), request_phase(spec, params, dev)))
-    names = {
-        "fwd": ("fused_conv_fwd", "sevennet_tpu_torch/csrc/fused_conv_fwd.cu",
-                "sevennet_tpu/ops/fused_conv.py:678"),
-        "bwd": ("fused_conv_bwd", "sevennet_tpu_torch/csrc/fused_conv_bwd.cu",
-                "sevennet_tpu/ops/fused_conv.py:1222"),
-    }
+    log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served = request_phase(spec, params, dev)
+    log(f"request phase (main path: serving): launches {served}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (served["fwd"] and served["bwd"]):
+        raise SystemExit("serving did not launch B1 and B2")
+    t0 = time.perf_counter()
+    trained = training_phase(dev, args.seed, card)
+    log(f"training phase (main path: training): launches {trained}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (trained["fwd"] and trained["bwd_pg"] and trained["reduce"]):
+        raise SystemExit("training did not launch B1 and B2'")
+    launches = {k: served[k] + trained[k] for k in KERNELS}
+
     kernels_line = []
-    for k in ("fwd", "bwd"):
+    for k in KERNELS:
         r = records[k]
-        t_ops, t_bytes = r["flops"] / FP32_PEAK * 1e3, r["bytes"] / HBM_BYTES_S * 1e3
-        name, source, replaces = names[k]
+        bnd, by = bound_ms(r["flops"], r["bytes"])
+        name, source, replaces = KERNEL_NAMES[k]
         kernels_line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
+            "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
         })
-    log(f"kernel times are per request of {N} atoms (K={K}, {n_edges} edges): "
-        "layer 0 + 3 x layers 1-3 + layer 4")
+    log(f"kernel times are per pass of {N} atoms (K={K}, {n_edges} edges): "
+        "layer 0 + 3 x layers 1-3 + layer 4; fused_conv_bwd_pg includes its "
+        "param_grad_reduce; launches: serving + training runs")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,15 @@
 to one NVIDIA H100, slice by slice. It imports ``torch``, numpy and scipy,
 never JAX or the JAX package.
 
-Ported so far: single-point serving of energy, forces and stress through the
-dense vec-mode fused convolution, whose forward and backward are
-hand-written CUDA kernels (``csrc/``)::
+Ported so far: single-point serving of energy, forces and stress, and
+training, through the dense vec-mode fused convolution, whose forward and
+backward (with and without the parameter gradients) are hand-written CUDA
+kernels (``csrc/``)::
 
-    from sevennet_tpu_torch import SevenNetCalculator, build_model_spec
+    from sevennet_tpu_torch import SevenNetCalculator, build_model_spec, train_run
     calc = SevenNetCalculator(spec, params)          # runs on cuda
     calc = SevenNetCalculator(spec, params, device="cpu")
+    trainer = train_run(model_cfg, train_cfg, data_cfg, working_dir="wd")
 """
 
 __version__ = "0.1.0"
@@ -18,6 +20,8 @@ _LAZY = {
     "build_model_spec": ("sevennet_tpu_torch.model.build", "build_model_spec"),
     "model_compute": ("sevennet_tpu_torch.model.model", "model_compute"),
     "params_from_numpy": ("sevennet_tpu_torch.io.convert", "params_from_numpy"),
+    "Trainer": ("sevennet_tpu_torch.train.trainer", "Trainer"),
+    "train_run": ("sevennet_tpu_torch.scripts.train", "train_run"),
 }
 
 __all__ = list(_LAZY) + ["__version__"]

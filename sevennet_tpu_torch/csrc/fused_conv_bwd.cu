@@ -1,15 +1,20 @@
-// Backward fused conv, vec mode, without parameter gradients: from the
-// receiver cotangent ybar (N, dim_mid) it emits the per-edge x-cotangents
-// dxg (N*K, dim_x) and the edge-vector cotangents dvec (3, N*K). The caller
-// turns dxg into dx with the mirror gather (sevennet_tpu_torch/ops/
-// fused_conv.py, as sevennet_tpu/ops/fused_conv.py:1584-1590 does in XLA).
+// Backward fused conv, vec mode. From the receiver cotangent ybar
+// (N, dim_mid) it emits the per-edge x-cotangents dxg (N*K, dim_x) and the
+// edge-vector cotangents dvec (3, N*K). The caller turns dxg into dx with
+// the mirror gather (sevennet_tpu_torch/ops/fused_conv.py, as
+// sevennet_tpu/ops/fused_conv.py:1584-1590 does in XLA).
 //
 // Replaces: the Pallas TPU kernel sevennet_tpu/ops/fused_conv.py:
-// make_fused_conv_bwd2 with `embed` set, param_grads=False, out_slots=1
-// (pallas_call at :1222). Like that kernel it recomputes the radial MLP
-// (keeping pre-activations) instead of storing per-edge residuals, and it
-// uses the factored products of its docstring (:906-920): the weight
-// cotangent reuses the x/tmp products, dtmp reuses x*w. The embedding and
+// make_fused_conv_bwd2 with `embed` set, out_slots=1 (pallas_call at :1222):
+//   - fused_conv_bwd_launch: param_grads=False (B2, serving and MD);
+//   - fused_conv_bwd_pg_launch + param_grad_reduce_launch: param_grads=True
+//     (B2', training), which also gives the radial-MLP weight gradients
+//     dW_l = sum_edges h_l (x) g_l / sqrt(d_l) and dcoef (:1060-1098).
+//
+// Like the TPU kernel it recomputes the radial MLP (keeping
+// pre-activations) instead of storing per-edge residuals, and it uses the
+// factored products of its docstring (:906-920): the weight cotangent
+// reuses the x/tmp products, dtmp reuses x*w. The embedding and
 // spherical-harmonic cotangents are chained to dvec inside the kernel
 // (_emb_sh_bwd_rows, :272-318), including the projection
 // (du - u (u.du)) / r + u dr.
@@ -22,15 +27,61 @@
 // for dh2. Every per-edge cotangent is owned by one thread (CSR tables by
 // x column, weight column and Wigner row), so there are no atomics.
 // Slots past the cutoff get exact zeros without any arithmetic.
+//
+// The parameter gradients are sums over every edge of the system. The TPU
+// kernel adds each grid step's dW into its output (:1064-1072), which works
+// because its grid runs in order; here CTAs run in no order, and dW3 alone
+// (64 x 960 fp32 for SevenNet-0) does not fit beside the tiles in shared
+// memory. So B2' is two passes, both deterministic:
+//   1. the CTA of atom i writes, for each of its edges inside the cutoff, a
+//      record of the factors the products need (emb, h1, h2 and their
+//      cotangents dz1, dz2, dw, plus the per-edge dcoef terms) into a
+//      workspace row at the edge's flat slot, and a validity byte for every
+//      slot of row i;
+//   2. param_grad_reduce_launch forms dW_l = H_l^T G_l over the workspace:
+//      64 x 64 output tiles per CTA over a fixed chunk of rows (invalid rows
+//      read as zeros), each chunk's tile to a partial buffer, then one pass
+//      that sums the partials in chunk order. It is bound by fp32
+//      operations (2 d_in d_out per edge and layer); the workspace is read
+//      once per 64-column tile of G.
 #include "fused_conv_common.cuh"
 
+// Per-edge record of the parameter-gradient workspace (B2'): row stride and
+// the column of each field, in this order (ctypes mirror: _WsLayout in
+// sevennet_tpu_torch/ops/fused_conv.py). Kept out of ConvDims: a larger
+// ConvDims grows the kernels' stack frame and slowed B1 and B2 by 5-9 %.
+struct WsLayout {
+  int stride, emb, h1, h2, dz1, dz2, dw, dc;
+};
+
+// Writes the workspace record of each edge of the tile: emb, h1, h2, dz1,
+// dz2 and dw, in the column order of WsLayout (emb .. dw). The per-edge
+// dcoef terms (columns dc ..) are written by the chain step.
+__device__ inline void write_records(const WsLayout& L, const Tile& t, int ne,
+                                     float* __restrict__ work) {
+  const int W = L.dc;
+  for (int idx = threadIdx.x; idx < ne * W; idx += NT) {
+    const int e = idx / W, c = idx - e * W;
+    float v;
+    if (c < L.h1) v = t.embT[(c - L.emb) * TE + e];
+    else if (c < L.h2) v = t.h1T[(c - L.h1) * TE + e];
+    else if (c < L.dz1) v = t.h2T[(c - L.h2) * TE + e];
+    else if (c < L.dz2) v = t.dz1T[(c - L.dz1) * TE + e];
+    else if (c < L.dw) v = t.dz2T[(c - L.dz2) * TE + e];
+    else v = t.ws[e * t.SW + (c - L.dw)];
+    work[(size_t)t.flats[e] * L.stride + c] = v;
+  }
+}
+
+template <bool PG>
 __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
     ConvDims d, const float* __restrict__ x, const int* __restrict__ src,
     const float* __restrict__ vec, const float* __restrict__ coef,
     const float* __restrict__ W1, const float* __restrict__ W2,
     const float* __restrict__ W3, const float* __restrict__ ybar,
     const int* __restrict__ itab, const float* __restrict__ ftab,
-    float* __restrict__ dxg, float* __restrict__ dvec) {
+    float* __restrict__ dxg, float* __restrict__ dvec, WsLayout L,
+    float* __restrict__ work, unsigned char* __restrict__ wvalid) {
   extern __shared__ float4 smem_raw[];
   Tile t;
   carve(d, true, (char*)smem_raw, &t);
@@ -41,6 +92,9 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
   const int NB = d.n_basis, DF = d.dim_f;
   list_slots(d, t, i, vec);
   const int nv = *t.count;
+  if (PG) {
+    for (int k = tid; k < d.K; k += NT) wvalid[(size_t)i * d.K + k] = t.valid[k];
+  }
 
   // exact zeros for the slots outside the cutoff
   for (int idx = tid; idx < d.K * d.dim_x; idx += NT) {
@@ -169,18 +223,22 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
       t.demb[e * NB + n] = s * inv_nb;
     }
     __syncthreads();
+    if (PG) write_records(L, t, ne, work);
     // chain demb and dsh to the edge vector: one thread per edge
     if (tid < ne) {
       const int e = tid;
       const float* g = t.geo + e * 8;
       const float r = g[0], rinv = g[1], u0 = g[2], u1 = g[3], u2 = g[4], env = g[5], denv = g[6];
       const float pref = (float)(2.0 / (double)d.cutoff);
+      float* dc = PG ? work + (size_t)t.flats[e] * L.stride + L.dc : nullptr;
       float dr = 0.0f;
       for (int n = 0; n < NB; ++n) {
         const float c = coef[n];
         const float sr = sinf(c * r), cr = cosf(c * r);
         const float dembdr = pref * (c * cr * (rinv * env) + sr * (denv * rinv - env * rinv * rinv));
         dr += t.demb[e * NB + n] * dembdr;
+        // d emb_n / d c_n = pref * cos(c_n r) * env (_emb_sh_bwd_rows, :316-317)
+        if (PG) dc[n] = t.demb[e * NB + n] * (pref * cr * env);
       }
       float px[LMAXP], py[LMAXP], pz[LMAXP];
       px[0] = py[0] = pz[0] = 1.0f;
@@ -207,18 +265,156 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
   }
 }
 
-static int smem_limit[MAX_DEVICES];
+// ---------------------------------------------------------------------------
+// second pass of B2': C = scale * A^T B over the valid workspace rows
+// ---------------------------------------------------------------------------
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+#define RT 64  // output tile: RT rows of A's columns x RT columns of B's
+#define RK 16  // workspace rows per step
+
+struct ReduceArgs {
+  const float* work;
+  const unsigned char* valid;
+  int rows, stride, chunk;
+  int a_off, da;  // A = work[:, a_off : a_off + da]; a_off < 0: a column of ones
+  int b_off, db;  // B = work[:, b_off : b_off + db]
+  float* partial; // (n_chunks, da, db)
+};
+
+// One 64 x 64 tile of A^T B over rows [z * chunk, (z + 1) * chunk): 256
+// threads, 4 x 4 outputs each, in registers; rows step RK at a time through
+// shared memory, loaded along the workspace columns (coalesced).
+__global__ void __launch_bounds__(256) pg_partial_kernel(ReduceArgs p) {
+  __shared__ __align__(16) float As[RK][RT];
+  __shared__ __align__(16) float Bs[RK][RT];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int b0 = blockIdx.x * RT, a0 = blockIdx.y * RT;
+  const int r_begin = blockIdx.z * p.chunk;
+  const int r_end = min(p.rows, r_begin + p.chunk);
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.0f;
+  for (int r0 = r_begin; r0 < r_end; r0 += RK) {
+    for (int idx = threadIdx.x; idx < RK * RT; idx += 256) {
+      const int k = idx / RT, c = idx - k * RT;
+      const int r = r0 + k;
+      const bool ok = r < r_end && p.valid[r];
+      const float* row = p.work + (size_t)r * p.stride;
+      float a = 0.0f, b = 0.0f;
+      if (ok && a0 + c < p.da) a = p.a_off < 0 ? 1.0f : row[p.a_off + a0 + c];
+      if (ok && b0 + c < p.db) b = row[p.b_off + b0 + c];
+      As[k][c] = a;
+      Bs[k][c] = b;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < RK; ++k) {
+      const float4 av = *(const float4*)&As[k][ty * 4];
+      const float4 bv = *(const float4*)&Bs[k][tx * 4];
+      const float a[4] = {av.x, av.y, av.z, av.w};
+      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] += a[u] * b[v];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int a = a0 + ty * 4 + u;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int b = b0 + tx * 4 + v;
+      if (a < p.da && b < p.db)
+        p.partial[((size_t)blockIdx.z * p.da + a) * p.db + b] = acc[u][v];
+    }
+  }
+}
+
+// out[o] = scale * sum over chunks, in chunk order, of partial[chunk, o]
+__global__ void pg_final_kernel(const float* __restrict__ partial, int n_chunks, int n,
+                                float scale, float* __restrict__ out) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n) return;
+  float s = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) s += partial[(size_t)c * n + o];
+  out[o] = s * scale;
+}
+
+static int smem_limit[MAX_DEVICES];
+static int smem_limit_pg[MAX_DEVICES];
+
+template <bool PG>
+static int launch_bwd(const ConvDims& d, int* limits, const float* x, const int* src,
+                      const float* vec, const float* coef, const float* W1, const float* W2,
+                      const float* W3, const float* ybar, const int* itab, const float* ftab,
+                      float* dxg, float* dvec, const WsLayout& L, float* work,
+                      unsigned char* wvalid, void* stream) {
+  const size_t smem = carve(d, true, nullptr, nullptr);
+  cudaError_t err = raise_smem_limit((const void*)fused_conv_bwd_kernel<PG>, smem, limits);
+  if (err != cudaSuccess) return (int)err;
+  if (d.N > 0)
+    fused_conv_bwd_kernel<PG><<<d.N, NT, smem, (cudaStream_t)stream>>>(
+        d, x, src, vec, coef, W1, W2, W3, ybar, itab, ftab, dxg, dvec, L, work, wvalid);
+  return (int)cudaGetLastError();
+}
+
+// B2. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_conv_bwd_launch(ConvDims d, const float* x, const int* src, const float* vec,
                                      const float* coef, const float* W1, const float* W2,
                                      const float* W3, const float* ybar, const int* itab,
                                      const float* ftab, float* dxg, float* dvec, void* stream) {
-  const size_t smem = carve(d, true, nullptr, nullptr);
-  cudaError_t err = raise_smem_limit((const void*)fused_conv_bwd_kernel, smem, smem_limit);
-  if (err != cudaSuccess) return (int)err;
-  if (d.N > 0)
-    fused_conv_bwd_kernel<<<d.N, NT, smem, (cudaStream_t)stream>>>(d, x, src, vec, coef, W1, W2,
-                                                                   W3, ybar, itab, ftab, dxg, dvec);
+  return launch_bwd<false>(d, smem_limit, x, src, vec, coef, W1, W2, W3, ybar, itab, ftab, dxg,
+                           dvec, WsLayout{}, nullptr, nullptr, stream);
+}
+
+// B2', first pass: B2 plus the workspace records (N*K rows of L.stride
+// floats) and the validity byte of every slot (N*K).
+extern "C" int fused_conv_bwd_pg_launch(ConvDims d, WsLayout L, const float* x, const int* src,
+                                        const float* vec, const float* coef, const float* W1,
+                                        const float* W2, const float* W3, const float* ybar,
+                                        const int* itab, const float* ftab, float* dxg,
+                                        float* dvec, float* work, unsigned char* wvalid,
+                                        void* stream) {
+  return launch_bwd<true>(d, smem_limit_pg, x, src, vec, coef, W1, W2, W3, ybar, itab, ftab, dxg,
+                          dvec, L, work, wvalid, stream);
+}
+
+// B2', second pass: dW1 (n_basis, h1), dW2 (h1, h2), dW3 (h2, numel) and
+// dcoef (n_basis) from the workspace; partial holds
+// ceil(N*K / chunk) * (n_basis*h1 + h1*h2 + h2*numel + n_basis) floats.
+extern "C" int param_grad_reduce_launch(ConvDims d, WsLayout L, const float* work,
+                                        const unsigned char* wvalid,
+                                        int chunk, float* partial, float* dW1, float* dW2,
+                                        float* dW3, float* dcoef, void* stream) {
+  const int rows = d.N * d.K;
+  const int n_chunks = (rows + chunk - 1) / chunk;
+  struct Product {
+    int a_off, da, b_off, db;
+    double fan_in;
+    float* out;
+  } prods[4] = {
+      {L.emb, d.n_basis, L.dz1, d.h1, (double)d.n_basis, dW1},
+      {L.h1, d.h1, L.dz2, d.h2, (double)d.h1, dW2},
+      {L.h2, d.h2, L.dw, d.numel, (double)d.h2, dW3},
+      {-1, 1, L.dc, d.n_basis, 1.0, dcoef},
+  };
+  cudaStream_t s = (cudaStream_t)stream;
+  size_t off = 0;
+  for (const Product& q : prods) {
+    const int n = q.da * q.db;
+    if (n_chunks > 0) {
+      ReduceArgs a = {work, wvalid, rows, L.stride, chunk, q.a_off, q.da, q.b_off, q.db,
+                      partial + off};
+      dim3 grid((q.db + RT - 1) / RT, (q.da + RT - 1) / RT, n_chunks);
+      pg_partial_kernel<<<grid, 256, 0, s>>>(a);
+    }
+    pg_final_kernel<<<(n + 255) / 256, 256, 0, s>>>(partial + off, n_chunks, n,
+                                                    (float)(1.0 / sqrt(q.fan_in)), q.out);
+    off += (size_t)n_chunks * n;
+  }
   return (int)cudaGetLastError();
 }

@@ -10,17 +10,24 @@ Conventions (matching the reference semantics):
   (flat row ``i*K + k`` belongs to receiver ``i``); padded slots point at
   their own row (``src = dst = owner``) and are masked. ``edge_mir`` holds
   each slot's mirror edge (:func:`sevennet_tpu_torch.ops.fused_conv.mirror_map_numpy`).
+- Batches (:func:`batch_graphs`) pad atoms and graphs to fixed capacities;
+  padding atoms belong to the last graph slot, which is a padding graph.
+- Labels use NaN for "unlabeled", like the reference loss masking
+  (``sevenn/train/loss.py:49-60``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["GraphBatch", "graph_from_arrays", "densify_edges", "dense_graph_from_arrays"]
+__all__ = [
+    "GraphBatch", "graph_from_arrays", "densify_edges", "dense_graph_from_arrays",
+    "batch_graphs", "pad_graph",
+]
 
 
 @dataclass
@@ -43,6 +50,12 @@ class GraphBatch:
     # dense layout only: flat mirror-edge index of every slot
     edge_mir: Optional[torch.Tensor] = None  # (E,) int64
     dense_k: int = 0  # K of the (N, K) slot grid; 0 = flat edge list
+    # labels (NaN = unlabeled)
+    energy: Optional[torch.Tensor] = None  # (G,) eV
+    forces: Optional[torch.Tensor] = None  # (N, 3) eV/A
+    stress: Optional[torch.Tensor] = None  # (G, 6) eV/A^3, -stress (xx,yy,zz,xy,yz,zx)
+    # per-structure loss weights (reference loss.py:115-120)
+    data_weight: Optional[torch.Tensor] = None  # (G, 3): energy/force/stress
 
     @property
     def n_atoms_cap(self) -> int:
@@ -83,8 +96,14 @@ def graph_from_arrays(
     cell: Optional[np.ndarray] = None,
     device="cpu",
     dtype=np.float32,
+    energy: Optional[float] = None,
+    forces: Optional[np.ndarray] = None,
+    stress: Optional[np.ndarray] = None,
+    data_weight=None,
 ) -> GraphBatch:
-    """Single graph with a flat, receiver-sorted edge list."""
+    """Single graph with a flat, receiver-sorted edge list. Labels are kept
+    where given (``stress`` as the 6-vector label, ``data_weight`` as the
+    energy/force/stress triple)."""
     n = len(positions)
     e = len(edge_src)
     order = np.argsort(np.asarray(edge_dst), kind="stable")
@@ -107,6 +126,10 @@ def graph_from_arrays(
         volume=t([max(volume, 1e-3)], dtype),
         num_atoms=t([n], np.int64),
         graph_mask=torch.ones(1, dtype=torch.bool, device=device),
+        energy=None if energy is None else t([energy], dtype),
+        forces=None if forces is None else t(forces, dtype).reshape(n, 3),
+        stress=None if stress is None else t(stress, dtype).reshape(1, 6),
+        data_weight=None if data_weight is None else t([list(data_weight)], dtype),
     )
 
 
@@ -183,3 +206,108 @@ def dense_graph_from_arrays(
         dense_k=k,
     )
     return dense.to(device)
+
+
+def _pad_to(arr: np.ndarray, n: int, fill=0):
+    pad = n - arr.shape[0]
+    if pad < 0:
+        raise ValueError(f"capacity {n} < size {arr.shape[0]}")
+    if pad == 0:
+        return np.asarray(arr)
+    pad_block = np.full((pad,) + arr.shape[1:], fill, dtype=arr.dtype)
+    return np.concatenate([np.asarray(arr), pad_block], axis=0)
+
+
+def _numpy(t: Optional[torch.Tensor]):
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def batch_graphs(
+    graphs: Sequence[GraphBatch],
+    n_atoms_cap: Optional[int] = None,
+    n_graphs_cap: Optional[int] = None,
+    dense_k: int = 0,
+    device="cpu",
+    dtype=np.float32,
+) -> GraphBatch:
+    """Concatenates single flat graphs (:func:`graph_from_arrays`) into one
+    padded batch in the dense ``(N, K)`` slot layout with its mirror index
+    (the port of ``sevennet_tpu/data/graph.py:batch_graphs`` with
+    ``dense_k`` set and ``with_mirror``). ``dense_k <= 0`` takes the batch's
+    largest neighbour count. Padding atoms sit at position 0 with species 0
+    in the last graph slot; padding graphs have volume 1, one atom, NaN
+    energy and stress labels and unit data weights."""
+    from ..ops.fused_conv import mirror_map_numpy
+
+    gs = [{k: _numpy(getattr(g, k)) for k in (
+        "positions", "species", "edge_src", "edge_dst", "edge_shift", "cell", "volume",
+        "energy", "forces", "stress", "data_weight")} for g in graphs]
+    n_tot = sum(g["positions"].shape[0] for g in gs)
+    g_tot = len(gs)
+    n_cap = n_atoms_cap or n_tot
+    g_cap = n_graphs_cap or g_tot
+    if n_cap < n_tot or g_cap < g_tot:
+        raise ValueError(f"capacities ({n_cap} atoms, {g_cap} graphs) below the batch's "
+                         f"({n_tot}, {g_tot})")
+
+    pos, spec, bat, f, esrc, edst, eshift = [], [], [], [], [], [], []
+    cells, vols, natoms, energies, stresses, weights = [], [], [], [], [], []
+    a_off = 0
+    for gi, g in enumerate(gs):
+        n = g["positions"].shape[0]
+        pos.append(g["positions"])
+        spec.append(g["species"])
+        bat.append(np.full((n,), gi, np.int64))
+        f.append(g["forces"] if g["forces"] is not None else np.full((n, 3), np.nan, dtype))
+        esrc.append(g["edge_src"] + a_off)
+        edst.append(g["edge_dst"] + a_off)
+        eshift.append(g["edge_shift"])
+        cells.append(g["cell"][0])
+        vols.append(g["volume"][0])
+        natoms.append(n)
+        energies.append(g["energy"][0] if g["energy"] is not None else np.nan)
+        stresses.append(g["stress"][0] if g["stress"] is not None else np.full(6, np.nan))
+        weights.append(g["data_weight"][0] if g["data_weight"] is not None else [1.0] * 3)
+        a_off += n
+
+    e_src = np.concatenate(esrc).astype(np.int64)
+    e_dst = np.concatenate(edst).astype(np.int64)
+    if dense_k <= 0:
+        dense_k = max(int(np.bincount(e_dst, minlength=n_cap).max(initial=0)), 1)
+    src_d, dst_d, shift_d, mask_d = densify_edges(
+        e_src, e_dst, np.concatenate(eshift).astype(dtype), np.ones(len(e_src), bool),
+        n_cap, dense_k, dtype,
+    )
+    mir = mirror_map_numpy(
+        src_d.reshape(n_cap, dense_k), shift_d.reshape(n_cap, dense_k, 3),
+        mask_d.reshape(n_cap, dense_k),
+    ).reshape(-1)
+
+    def t(a, d):
+        return torch.as_tensor(np.asarray(a, d), device=device)
+
+    return GraphBatch(
+        positions=t(_pad_to(np.concatenate(pos).astype(dtype), n_cap), dtype),
+        species=t(_pad_to(np.concatenate(spec).astype(np.int64), n_cap), np.int64),
+        atom_mask=t(_pad_to(np.ones(n_tot, bool), n_cap, fill=False), bool),
+        batch=t(_pad_to(np.concatenate(bat), n_cap, fill=g_cap - 1), np.int64),
+        edge_src=t(src_d, np.int64),
+        edge_dst=t(dst_d, np.int64),
+        edge_shift=t(shift_d, dtype),
+        edge_mask=t(mask_d, bool),
+        cell=t(_pad_to(np.stack(cells).astype(dtype), g_cap), dtype),
+        volume=t(_pad_to(np.asarray(vols, dtype), g_cap, fill=1.0), dtype),
+        num_atoms=t(_pad_to(np.asarray(natoms, np.int64), g_cap, fill=1), np.int64),
+        graph_mask=t(_pad_to(np.ones(g_tot, bool), g_cap, fill=False), bool),
+        edge_mir=t(mir, np.int64),
+        dense_k=dense_k,
+        energy=t(_pad_to(np.asarray(energies, dtype), g_cap, fill=np.nan), dtype),
+        forces=t(_pad_to(np.concatenate(f).astype(dtype), n_cap), dtype),
+        stress=t(_pad_to(np.stack(stresses).astype(dtype), g_cap, fill=np.nan), dtype),
+        data_weight=t(_pad_to(np.asarray(weights, dtype), g_cap, fill=1.0), dtype),
+    )
+
+
+def pad_graph(g: GraphBatch, n_atoms_cap: int, dense_k: int = 0, device="cpu") -> GraphBatch:
+    """One flat graph as a dense batch of ``n_atoms_cap`` atoms."""
+    return batch_graphs([g], n_atoms_cap=n_atoms_cap, dense_k=dense_k, device=device)

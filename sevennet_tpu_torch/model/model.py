@@ -127,6 +127,7 @@ def model_compute(
     compute_stress: bool = True,
     device: Optional[str] = None,
     plain: bool = False,
+    create_graph: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Energy, forces, stress and atomic virial of a dense-layout graph.
 
@@ -134,7 +135,13 @@ def model_compute(
     ``f_e = dE/d(edge_vec_e)``; the sender-side sums go through the mirror
     index. Per-atom virial at the sender, stress ``virial / V`` in the
     reference Voigt order (xx, yy, zz, xy, yz, zx). Runs on ``cuda`` unless
-    ``device="cpu"``; ``plain=True`` uses the conv's plain version."""
+    ``device="cpu"``; ``plain=True`` uses the conv's plain version.
+
+    ``create_graph=True`` (training) keeps the autograd graph: every output
+    is a differentiable function of the parameters, forces and stress
+    through the conv's differentiable backward (the second derivative a
+    force or stress loss needs, which the JAX package gets by composing
+    ``jax.grad``). Otherwise the outputs are detached."""
     dev = resolve_device(device)
     if graph.device != dev:
         graph = graph.to(dev)
@@ -145,8 +152,9 @@ def model_compute(
     ev3 = graph.edge_vectors().T.contiguous().detach().requires_grad_(True)
     with torch.enable_grad():
         out = model_energy(spec, params, graph, ev3, plain=plain)
-        (fij3,) = torch.autograd.grad(out["energy"].sum(), ev3)
-    out = {k: v.detach() for k, v in out.items()}
+        (fij3,) = torch.autograd.grad(out["energy"].sum(), ev3, create_graph=create_graph)
+    if not create_graph:
+        out = {k: v.detach() for k, v in out.items()}
     ev3 = ev3.detach()
     mir = graph.edge_mir
     pf3 = fij3.reshape(3, n, K).sum(2)

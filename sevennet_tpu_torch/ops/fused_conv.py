@@ -3,16 +3,20 @@ embedding, radial MLP, uvu tensor product and the sum over each receiver's
 neighbour slots, forward and backward (PyTorch port of the vec-mode path of
 ``sevennet_tpu/ops/fused_conv.py``).
 
-Two hand-written CUDA kernels carry it on the card (``csrc/``):
+Hand-written CUDA kernels carry it on the card (``csrc/``):
 
-- ``fused_conv_fwd``: replaces the Pallas kernel ``make_fused_conv_fwd``
-  with ``embed`` set;
-- ``fused_conv_bwd``: replaces ``make_fused_conv_bwd2`` with ``embed`` set,
-  ``param_grads=False``.
+- ``fused_conv_fwd`` (B1): replaces the Pallas kernel
+  ``make_fused_conv_fwd`` with ``embed`` set;
+- ``fused_conv_bwd`` (B2): replaces ``make_fused_conv_bwd2`` with ``embed``
+  set, ``param_grads=False``;
+- ``fused_conv_bwd_pg`` and ``param_grad_reduce`` (B2′): the same with
+  ``param_grads=True``, in two passes (per-edge records, then a reduction
+  over all edges in a fixed order); :func:`fused_conv_bwd` with
+  ``param_grads=True`` runs both.
 
 Each has a plain PyTorch twin with the same contract
-(:func:`fused_conv_fwd_plain`, :func:`fused_conv_bwd_plain`). The wrappers
-:func:`fused_conv_fwd` / :func:`fused_conv_bwd` take the plain version only
+(:func:`fused_conv_fwd_plain`, :func:`fused_conv_bwd_plain`,
+:func:`param_grad_reduce_plain`). The wrappers take the plain version only
 for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
 Each wrapper counts its launches in ``.launches``.
 
@@ -27,12 +31,14 @@ package leaves it to XLA (``sevennet_tpu/ops/fused_conv.py:1584-1590``).
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..so3.spherical import monomials, sh_coefficients, sh_deriv_tables, spherical_harmonics
 from ..so3.wigner import real_wigner_3j
@@ -52,6 +58,11 @@ __all__ = [
     "fused_conv_bwd_plain",
     "fused_conv_fwd",
     "fused_conv_bwd",
+    "fused_conv_bwd_pg_records",
+    "param_grad_reduce_plain",
+    "param_grad_reduce",
+    "fused_conv_bwd_vjp_plain",
+    "FusedConvBwd",
     "FusedConvVec",
     "fused_conv_apply_vec",
 ]
@@ -169,6 +180,15 @@ class _ConvDims(ctypes.Structure):
     ]
 
 
+_WS_FIELDS = ("stride", "emb", "h1", "h2", "dz1", "dz2", "dw", "dc")
+
+
+class _WsLayout(ctypes.Structure):
+    """ctypes mirror of ``struct WsLayout`` (csrc/fused_conv_bwd.cu)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in _WS_FIELDS]
+
+
 def _csr(keys: np.ndarray, n_rows: int, cols: np.ndarray):
     """Rows of ``cols`` grouped by ``keys`` (stable): (row_ptr, int4 terms)."""
     order = np.argsort(keys, kind="stable")
@@ -177,6 +197,23 @@ def _csr(keys: np.ndarray, n_rows: int, cols: np.ndarray):
     terms = np.zeros((len(keys), 4), np.int64)
     terms[:, : cols.shape[1]] = cols[order]
     return ptr, terms
+
+
+def _workspace_layout(dims) -> Dict[str, int]:
+    """Columns of the per-edge record that kernel B2′ writes for the
+    parameter gradients (``csrc/fused_conv_bwd.cu``): the MLP's input and
+    hidden activations ``emb, h1, h2``, their cotangents ``dz1, dz2, dw``
+    and the per-edge ``dcoef`` terms, in this order; the row ``stride`` is
+    rounded up to 4 floats. Zeros for an MLP the kernels do not take."""
+    if len(dims) != 4:
+        return dict.fromkeys(_WS_FIELDS, 0)
+    nb, h1, h2, numel = dims
+    out, col = {}, 0
+    for name, width in zip(_WS_FIELDS[1:], (nb, h1, h2, h1, h2, numel, nb)):
+        out[name] = col
+        col += width
+    out["stride"] = -(-col // 4) * 4
+    return out
 
 
 class FusedConvOp:
@@ -259,6 +296,7 @@ class FusedConvOp:
         self.ftab = np.concatenate(floats).astype(np.float32)
         self._offs = dict(offs, n_sh=len(sh_c), n_shd=len(shd_c), w3j=0,
                           sh_coef=w3j_pack.size, shd_coef=w3j_pack.size + len(sh_c))
+        self.ws_layout = _workspace_layout(mlp_spec.dims)
         self._device_tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def device_tables(self, device: torch.device):
@@ -318,18 +356,66 @@ def fused_conv_fwd_plain(op: FusedConvOp, x, src, vec, coef, ws):
     return _fwd_plain_from_xg(op, x[src.reshape(-1).long()], vec, coef, ws, N, K)
 
 
-def fused_conv_bwd_plain(op: FusedConvOp, x, src, vec, coef, ws, ybar):
-    """Plain twin of the backward kernel: the pullback of
+def fused_conv_bwd_plain(op: FusedConvOp, x, src, vec, coef, ws, ybar, param_grads=False):
+    """Plain twin of the backward kernels: the pullback of
     :func:`fused_conv_fwd_plain` at ``ybar (N, dim_mid)``, returning the
-    per-edge x-cotangents ``dxg (N*K, dim_x)`` and ``dvec (3, N*K)``."""
+    per-edge x-cotangents ``dxg (N*K, dim_x)`` and ``dvec (3, N*K)`` (B2);
+    with ``param_grads`` also the MLP-weight gradients ``dws`` and
+    ``dcoef (n_basis,)`` (B2′): ``(dxg, dvec, dws, dcoef)``."""
     N, K = src.shape
     with torch.enable_grad():
         xg = x[src.reshape(-1).long()].detach().requires_grad_(True)
         v = vec.detach().requires_grad_(True)
-        ws = [w.detach() for w in ws]
-        out = _fwd_plain_from_xg(op, xg, v, coef.detach(), ws, N, K)
-        dxg, dvec = torch.autograd.grad(out, (xg, v), ybar)
-    return dxg, dvec
+        c = coef.detach().requires_grad_(param_grads)
+        wl = [w.detach().requires_grad_(param_grads) for w in ws]
+        out = _fwd_plain_from_xg(op, xg, v, c, wl, N, K)
+        inputs = (xg, v, c, *wl) if param_grads else (xg, v)
+        grads = torch.autograd.grad(out, inputs, ybar)
+    if not param_grads:
+        return grads
+    dxg, dvec, dcoef, *dws = grads
+    return dxg, dvec, dws, dcoef
+
+
+def param_grad_reduce_plain(op: FusedConvOp, work, valid):
+    """Plain twin of the reduction kernel of B2′: from the per-edge records
+    ``work (N*K, stride)`` (rows with ``valid == 0`` are ignored, whatever
+    they hold) the sums over edges ``dW_l = h_lᵀ g_l / sqrt(d_l)`` and
+    ``dcoef``: ``(dws, dcoef)``."""
+    cols = op.ws_layout
+    rows = torch.where(valid.bool()[:, None], work, torch.zeros((), dtype=work.dtype,
+                                                                device=work.device))
+    nb, h1, h2, numel = op.mlp_spec.dims
+
+    def take(name, width):
+        return rows[:, cols[name] : cols[name] + width]
+
+    dws = [
+        (take(h, a).T @ take(g, b)) / math.sqrt(a)
+        for h, a, g, b in (("emb", nb, "dz1", h1), ("h1", h1, "dz2", h2), ("h2", h2, "dw", numel))
+    ]
+    return dws, take("dc", nb).sum(0)
+
+
+def fused_conv_bwd_vjp_plain(op: FusedConvOp, x, src, vec, coef, ws, ybar, cots):
+    """The conv's second-order rule, plain PyTorch on any device: the VJP of
+    the pullback ``(dxg, dvec[, dcoef, *dws]) = bwd(x, vec, coef, ybar, ws)``
+    at the cotangents ``cots`` (one per output), with respect to
+    ``(x, vec, coef, ybar, *ws)``; ``None`` where an input gets nothing.
+    An output whose cotangent is ``None`` is not formed: a force loss sends
+    none to the parameter gradients of the force pass."""
+    N, K = src.shape
+    prims = (x, vec, coef, ybar, *ws)
+    if all(c is None for c in cots):
+        return (None,) * len(prims)
+    with torch.enable_grad():
+        prims = [t.detach().requires_grad_(True) for t in prims]
+        xd, vd, cd, yd, *wd = prims
+        xg = xd[src.reshape(-1).long()]
+        out = _fwd_plain_from_xg(op, xg, vd, cd, wd, N, K)
+        wrt, cots = zip(*[(t, c) for t, c in zip((xg, vd, cd, *wd), cots) if c is not None])
+        pullback = torch.autograd.grad(out, wrt, yd, create_graph=True)
+        return torch.autograd.grad(pullback, prims, cots, allow_unused=True)
 
 
 # ---------------------------------------------------------------------------
@@ -367,15 +453,22 @@ def _check(op: FusedConvOp, x, src, vec, coef, ws, ybar=None):
 
 
 _P = ctypes.c_void_p
+# workspace rows per CTA of the reduction kernel's first pass
+REDUCE_CHUNK = 1024
 
 
 def _library(name: str, argc: int):
+    """Entry ``{name}_launch`` of library ``name``, taking a ``ConvDims``
+    and ``argc`` pointers."""
+    return _entry(name, f"{name}_launch", [_ConvDims] + [_P] * argc)
+
+
+def _entry(name: str, fn_name: str, argtypes):
     from .kernels import library
 
-    lib = library(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(library(name), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [_ConvDims] + [_P] * argc
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -410,13 +503,19 @@ def fused_conv_fwd(op: FusedConvOp, x, src, vec, coef, ws):
 fused_conv_fwd.launches = 0
 
 
-def fused_conv_bwd(op: FusedConvOp, x, src, vec, coef, ws, ybar):
-    """Backward conv without parameter gradients: ``(dxg, dvec)``. CPU
-    tensors: the plain version. CUDA tensors: the ``fused_conv_bwd`` kernel
-    (``csrc/fused_conv_bwd.cu``)."""
+def fused_conv_bwd(op: FusedConvOp, x, src, vec, coef, ws, ybar, param_grads=False):
+    """Backward conv: ``(dxg, dvec)`` (B2), and with ``param_grads``
+    ``(dxg, dvec, [dW1, dW2, dW3], dcoef)`` (B2′). CPU tensors: the plain
+    version. CUDA tensors: the ``fused_conv_bwd`` kernel
+    (``csrc/fused_conv_bwd.cu``); with ``param_grads``, its records pass
+    :func:`fused_conv_bwd_pg_records` and then :func:`param_grad_reduce`."""
     _check(op, x, src, vec, coef, ws, ybar)
     if x.device.type == "cpu":
-        return fused_conv_bwd_plain(op, x, src, vec, coef, ws, ybar)
+        return fused_conv_bwd_plain(op, x, src, vec, coef, ws, ybar, param_grads=param_grads)
+    if param_grads:
+        dxg, dvec, work, valid = fused_conv_bwd_pg_records(op, x, src, vec, coef, ws, ybar)
+        dws, dcoef = param_grad_reduce(op, work, valid, *src.shape)
+        return dxg, dvec, dws, dcoef
     N, K = src.shape
     dxg = torch.empty((N * K, op.dim_x), dtype=torch.float32, device=x.device)
     dvec = torch.empty((3, N * K), dtype=torch.float32, device=x.device)
@@ -434,6 +533,74 @@ def fused_conv_bwd(op: FusedConvOp, x, src, vec, coef, ws, ybar):
 fused_conv_bwd.launches = 0
 
 
+def fused_conv_bwd_pg_records(op: FusedConvOp, x, src, vec, coef, ws, ybar):
+    """First pass of B2′ on the card, the ``fused_conv_bwd_pg`` kernel:
+    ``(dxg, dvec, work, valid)``, with ``work (N*K, stride)`` the
+    per-edge records (:func:`_workspace_layout`) and ``valid (N*K,)`` the
+    slots inside the cutoff."""
+    _check(op, x, src, vec, coef, ws, ybar)
+    if x.device.type != "cuda":
+        raise ValueError(f"the records of B2′ are made on the card, not on {x.device}")
+    N, K = src.shape
+    dev = x.device
+    dxg = torch.empty((N * K, op.dim_x), dtype=torch.float32, device=dev)
+    dvec = torch.empty((3, N * K), dtype=torch.float32, device=dev)
+    work = torch.empty((N * K, op.ws_layout["stride"]), dtype=torch.float32, device=dev)
+    valid = torch.empty(N * K, dtype=torch.uint8, device=dev)
+    itab, ftab = op.device_tables(dev)
+    fn = _entry("fused_conv_bwd", "fused_conv_bwd_pg_launch", [_ConvDims, _WsLayout] + [_P] * 15)
+    rc = fn(op.dims(N, K), _WsLayout(**op.ws_layout), _ptr(x), _ptr(src), _ptr(vec), _ptr(coef),
+            *[_ptr(w) for w in ws], _ptr(ybar), _ptr(itab), _ptr(ftab),
+            _ptr(dxg), _ptr(dvec), _ptr(work), _ptr(valid),
+            _P(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(rc, "fused_conv_bwd_pg")
+    fused_conv_bwd_pg_records.launches += 1
+    return dxg, dvec, work, valid
+
+
+fused_conv_bwd_pg_records.launches = 0
+
+
+def param_grad_reduce(op: FusedConvOp, work, valid, N: int, K: int):
+    """Second pass of B2′: ``(dws, dcoef)`` summed over the valid rows of
+    the workspace. CPU tensors: the plain version. CUDA tensors: the
+    ``param_grad_reduce`` kernels (``csrc/fused_conv_bwd.cu``), whose sums
+    run in a fixed order (chunks of ``REDUCE_CHUNK`` rows, then the chunks
+    in turn): the result does not depend on the launch."""
+    shapes = (("work", work, (N * K, op.ws_layout["stride"]), torch.float32),
+              ("valid", valid, (N * K,), torch.uint8))
+    for name, t, shape, dtype in shapes:
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if valid.device != work.device:
+        raise ValueError(f"valid is on {valid.device}, work on {work.device}")
+    if work.device.type == "cpu":
+        return param_grad_reduce_plain(op, work, valid)
+    if work.device.type != "cuda":
+        raise ValueError(f"unsupported device {work.device}")
+    dev = work.device
+    nb, h1, h2, numel = op.mlp_spec.dims
+    n_chunks = -(-N * K // REDUCE_CHUNK)
+    partial = torch.empty(n_chunks * (nb * h1 + h1 * h2 + h2 * numel + nb),
+                          dtype=torch.float32, device=dev)
+    dws = [torch.empty((a, b), dtype=torch.float32, device=dev)
+           for a, b in ((nb, h1), (h1, h2), (h2, numel))]
+    dcoef = torch.empty(nb, dtype=torch.float32, device=dev)
+    fn = _entry("fused_conv_bwd", "param_grad_reduce_launch",
+                [_ConvDims, _WsLayout, _P, _P, ctypes.c_int] + [_P] * 6)
+    rc = fn(op.dims(N, K), _WsLayout(**op.ws_layout), _ptr(work), _ptr(valid), REDUCE_CHUNK,
+            _ptr(partial),
+            *[_ptr(w) for w in dws], _ptr(dcoef),
+            _P(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(rc, "param_grad_reduce")
+    param_grad_reduce.launches += 1
+    return dws, dcoef
+
+
+param_grad_reduce.launches = 0
+
+
 def mirror_gather(dxg: torch.Tensor, mir: torch.Tensor) -> torch.Tensor:
     """``dx[n] = sum_k dxg[mir[n, k]]``: the edges sending from atom n are
     exactly the mirrors of row n's edges, so the scatter of the x-cotangents
@@ -442,10 +609,46 @@ def mirror_gather(dxg: torch.Tensor, mir: torch.Tensor) -> torch.Tensor:
     return dxg[mir.reshape(-1)].view(N, K, -1).sum(1)
 
 
+class FusedConvBwd(torch.autograd.Function):
+    """The conv's backward as an op of its own, so that the backward is
+    itself differentiable: the grad-of-grad a force or stress loss needs in
+    training (the port of ``_make_bwd_op``,
+    ``sevennet_tpu/ops/fused_conv.py:1250-1298``).
+
+    Forward: B2′ (``(dxg, dvec, dcoef, *dws)``) when ``param_grads``, else
+    B2 (``(dxg, dvec)``). Backward: :func:`fused_conv_bwd_vjp_plain`, the
+    VJP of the plain pullback with respect to ``(x, vec, coef, ybar, *ws)``
+    by ``torch.autograd.grad``.
+    That second-order rule is plain PyTorch on purpose, not a fallback: the
+    JAX package differentiates its Pallas backward the same way, through
+    ``jax.vjp`` of an XLA reference (``:1263-1296``), not through a kernel.
+    Its own backward is not differentiable again."""
+
+    @staticmethod
+    def forward(ctx, op, param_grads, x, src, vec, coef, ybar, *ws):
+        ctx.op = op
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, src, vec, coef, ybar, *ws)
+        if not param_grads:
+            return fused_conv_bwd(op, x, src, vec, coef, ws, ybar)
+        dxg, dvec, dws, dcoef = fused_conv_bwd(op, x, src, vec, coef, ws, ybar, param_grads=True)
+        return (dxg, dvec, dcoef, *dws)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cots):
+        x, src, vec, coef, ybar, *ws = ctx.saved_tensors
+        gx, gvec, gcoef, gybar, *gws = fused_conv_bwd_vjp_plain(
+            ctx.op, x, src, vec, coef, ws, ybar, cots)
+        return (None, None, gx, None, gvec, gcoef, gybar, *gws)
+
+
 class FusedConvVec(torch.autograd.Function):
-    """Vec-mode fused conv with the mirror-gather backward. Differentiable in
-    ``x`` and ``vec``; the MLP weights and Bessel coefficients get no
-    gradient (``param_grads=False``, the serving path)."""
+    """Vec-mode fused conv with the mirror-gather backward. Forward: B1.
+    Backward: :class:`FusedConvBwd`, which runs B2′ when the Bessel
+    coefficients or an MLP weight need a gradient (training) and B2
+    otherwise (serving, MD); its history is kept, so forces and stress
+    computed with ``create_graph=True`` can be differentiated again."""
 
     @staticmethod
     def forward(ctx, op, x, vec, coef, src, mir, *ws):
@@ -456,8 +659,11 @@ class FusedConvVec(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ybar):
         x, vec, coef, src, mir, *ws = ctx.saved_tensors
-        dxg, dvec = fused_conv_bwd(ctx.op, x, src, vec, coef, ws, ybar.contiguous())
-        return (None, mirror_gather(dxg, mir), dvec, None, None, None) + (None,) * len(ws)
+        need = ctx.needs_input_grad   # (op, x, vec, coef, src, mir, *ws)
+        param_grads = bool(need[3] or any(need[6:]))
+        outs = FusedConvBwd.apply(ctx.op, param_grads, x, src, vec, coef, ybar.contiguous(), *ws)
+        dcoef, dws = (outs[2], outs[3:]) if param_grads else (None, (None,) * len(ws))
+        return (None, mirror_gather(outs[0], mir), outs[1], dcoef, None, None, *dws)
 
 
 def fused_conv_apply_vec(

@@ -132,7 +132,11 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
     """The CUDA kernels' algorithm in float64 numpy, reading the same
     tables (``op.itab``/``op.ftab`` at the offsets of ``op.dims``): per
     edge inside the cutoff, embedding and spherical-harmonic terms, the MLP,
-    then every output and cotangent column summed over its own CSR row."""
+    then every output and cotangent column summed over its own CSR row.
+    Also what B2′ adds: the per-edge record of the parameter gradients at
+    the columns of ``op.ws_layout`` (rows outside the cutoff stay NaN and
+    invalid), and the sums over edges ``dW_l = h_l ⊗ g_l / sqrt(d_l)`` and
+    ``dcoef``."""
     d = op.dims(*src.shape)
     it, ftab = op.itab.astype(np.int64), op.ftab.astype(np.float64)
 
@@ -155,6 +159,11 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
     out = np.zeros((n, d.dim_mid))
     dxg = np.zeros((n * k, d.dim_x))
     dvec = np.zeros((3, n * k))
+    L = op.ws_layout
+    work = np.full((n * k, L["stride"]), np.nan, np.float32)
+    valid = np.zeros(n * k, np.uint8)
+    dws = [np.zeros(w.shape) for w in (W1, W2, W3)]
+    dcoef = np.zeros(d.n_basis)
     es = op.embed
     sig = lambda z: 1.0 / (1.0 + np.exp(-z))  # noqa: E731
     for f in range(n * k):
@@ -215,7 +224,15 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
         for t, comp, c in zip(sd_t, sd_comp, sd_c):
             du[comp] += c * dsh[t[0]] * mono(t)
         dvec[:, f] = (du - u * (u @ du)) * rinv + u * dr
-    return out, dxg, dvec
+        dc = demb * (2.0 / es.cutoff) * np.cos(coef * r) * env
+        for dW, h, g, fan_in in ((dws[0], emb, dz1, d.n_basis), (dws[1], h1, dz2, d.h1),
+                                 (dws[2], h2, dw, d.h2)):
+            dW += np.outer(h, g) / np.sqrt(fan_in)
+        dcoef += dc
+        work[f, L["emb"] : L["dc"] + d.n_basis] = np.concatenate(
+            [emb, h1, h2, dz1, dz2, dw, dc])
+        valid[f] = 1
+    return out, dxg, dvec, dws, dcoef, work, valid
 
 
 @pytest.mark.parametrize("kind", ["XPLOR", "poly_cut"])
@@ -228,14 +245,23 @@ def test_kernel_tables_reproduce_plain(kind):
     p = _problem(seed=1)
     ws = _weights(p["rng"], mlp.dims)
     ybar = (p["rng"].normal(size=(N, op.dim_mid)) * 0.1).astype(np.float32)
-    out, dxg, dvec = _walk_tables(op, p["x"], p["src"], p["vec"], p["coef"], ws, ybar)
+    out, dxg, dvec, dws, dcoef, work, valid = _walk_tables(
+        op, p["x"], p["src"], p["vec"], p["coef"], ws, ybar)
     args = (op, torch.tensor(p["x"]), torch.tensor(p["src"]), torch.tensor(p["vec"]),
             torch.tensor(p["coef"]), [torch.tensor(w) for w in ws])
     out_p = fc.fused_conv_fwd_plain(*args)
-    dxg_p, dvec_p = fc.fused_conv_bwd_plain(*args, torch.tensor(ybar))
+    dxg_p, dvec_p, dws_p, dcoef_p = fc.fused_conv_bwd_plain(*args, torch.tensor(ybar),
+                                                            param_grads=True)
     np.testing.assert_allclose(out, out_p.numpy(), atol=1e-5)
     np.testing.assert_allclose(dxg, dxg_p.numpy(), atol=1e-5)
     np.testing.assert_allclose(dvec, dvec_p.numpy(), atol=1e-5)
+    # B2′: the parameter gradients from the walk's sums and from its records
+    # through the reduction's CPU path (NaN rows outside the cutoff ignored)
+    dws_r, dcoef_r = fc.param_grad_reduce(op, torch.tensor(work), torch.tensor(valid), N, K)
+    for want, got, got_r in zip(dws + [dcoef], dws_p + [dcoef_p], dws_r + [dcoef_r]):
+        tol = 1e-5 * np.abs(want).max()
+        np.testing.assert_allclose(want, got.numpy(), rtol=0, atol=tol)
+        np.testing.assert_allclose(want, got_r.numpy(), rtol=0, atol=tol)
 
 
 def test_wrappers_check_their_inputs():
@@ -257,3 +283,91 @@ def test_wrappers_check_their_inputs():
         fc.fused_conv_bwd(op, x, src, vec, coef, ws, torch.zeros(N, 3))
     with pytest.raises(ValueError, match="contiguous"):
         fc.fused_conv_fwd(op, x.T.contiguous().T, src, vec, coef, ws)
+
+
+def _jax_conv(jconv, jmlp, jemb, p, param_grads):
+    def f(ws, coef, x, vec):
+        return jfc.fused_conv_apply_vec(
+            jconv, jmlp, {"w": list(ws)}, coef[:, None], jemb, x, vec,
+            jnp.asarray(p["src"]), jnp.asarray(p["mir"]),
+            block_atoms=8, param_grads=param_grads,
+        )
+    return f
+
+
+@pytest.mark.parametrize("kind", ["XPLOR", "poly_cut"])
+def test_bwd_param_grads_match_jax(kind):
+    """B2′'s plain twin (``param_grads=True``) and the conv's first-order
+    gradients through the autograd Function against ``jax.vjp`` over the
+    JAX conv with ``param_grads=True`` (its Pallas backward in interpret
+    mode): dx, dvec, the MLP weights and the Bessel coefficients."""
+    (jconv, jmlp, jemb), (conv, mlp, emb) = _specs(kind)
+    p = _problem(seed=2)
+    ws = _weights(p["rng"], mlp.dims)
+    ybar = (p["rng"].normal(size=(N, conv.irreps_mid.dim)) * 0.1).astype(np.float32)
+    jargs = (tuple(jnp.asarray(w) for w in ws), jnp.asarray(p["coef"]),
+             jnp.asarray(p["x"]), jnp.asarray(p["vec"]))
+    _, pull = jax.vjp(_jax_conv(jconv, jmlp, jemb, p, True), *jargs)
+    jdws, jdcoef, jdx, jdvec = pull(jnp.asarray(ybar))
+
+    op = fc.conv_op(conv, mlp, emb)
+    tw = [torch.tensor(w, requires_grad=True) for w in ws]
+    coef = torch.tensor(p["coef"], requires_grad=True)
+    x = torch.tensor(p["x"], requires_grad=True)
+    vec = torch.tensor(p["vec"], requires_grad=True)
+    src, mir = torch.tensor(p["src"]), torch.tensor(p["mir"]).long()
+    dxg, dvec_t, dws_t, dcoef_t = fc.fused_conv_bwd_plain(
+        op, x.detach(), src, vec.detach(), coef.detach(), [w.detach() for w in tw],
+        torch.tensor(ybar), param_grads=True)
+    out = fc.fused_conv_apply_vec(conv, mlp, {"w": tw}, coef, emb, x, vec, src.long(), mir)
+    g = torch.autograd.grad(out, (x, vec, coef, *tw), torch.tensor(ybar))
+    pairs = [("dx", fc.mirror_gather(dxg, mir), g[0], jdx), ("dvec", dvec_t, g[1], jdvec),
+             ("dcoef", dcoef_t, g[2], jdcoef)]
+    pairs += [(f"dW{i + 1}", a, b, c) for i, (a, b, c) in enumerate(zip(dws_t, g[3:], jdws))]
+    for name, twin, through_fn, ref in pairs:
+        ref = np.asarray(ref)
+        tol = 1e-5 * np.abs(ref).max()
+        np.testing.assert_allclose(twin.numpy(), ref, rtol=0, atol=tol, err_msg=name)
+        np.testing.assert_allclose(through_fn.numpy(), ref, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["XPLOR", "poly_cut"])
+def test_force_loss_grad_of_grad_matches_jax(kind):
+    """The gradient of a force-like loss ``sum (dE/dvec)^2`` with respect to
+    the MLP weights, the Bessel coefficients and x, through
+    ``fused_conv_apply_vec`` on the CPU (the kernels' path: FusedConvVec,
+    whose backward is the differentiable FusedConvBwd), against JAX's
+    grad-of-grad through ``_make_bwd_op``. E is nonlinear in the conv's
+    output, so the cotangent ybar depends on the parameters too."""
+    (jconv, jmlp, jemb), (conv, mlp, emb) = _specs(kind)
+    p = _problem(seed=3)
+    ws = _weights(p["rng"], mlp.dims)
+    R = (p["rng"].normal(size=(N, conv.irreps_mid.dim)) * 0.1).astype(np.float32)
+    jconv_f = _jax_conv(jconv, jmlp, jemb, p, True)
+
+    def jloss(ws_, coef, x, vec):
+        def energy(v):
+            out = jconv_f(ws_, coef, x, v)
+            return jnp.sum(out * R) + 0.1 * jnp.sum(out * out)
+        return jnp.sum(jax.grad(energy)(vec) ** 2)
+
+    jargs = (tuple(jnp.asarray(w) for w in ws), jnp.asarray(p["coef"]),
+             jnp.asarray(p["x"]), jnp.asarray(p["vec"]))
+    jdws, jdcoef, jdx = jax.grad(jloss, argnums=(0, 1, 2))(*jargs)
+
+    tw = [torch.tensor(w, requires_grad=True) for w in ws]
+    coef = torch.tensor(p["coef"], requires_grad=True)
+    x = torch.tensor(p["x"], requires_grad=True)
+    vec = torch.tensor(p["vec"], requires_grad=True)
+    out = fc.fused_conv_apply_vec(conv, mlp, {"w": tw}, coef, emb, x, vec,
+                                  torch.tensor(p["src"]).long(), torch.tensor(p["mir"]).long())
+    energy = (out * torch.tensor(R)).sum() + 0.1 * (out * out).sum()
+    (dvec,) = torch.autograd.grad(energy, vec, create_graph=True)
+    assert dvec.requires_grad
+    got = torch.autograd.grad((dvec ** 2).sum(), (*tw, coef, x))
+    for name, a, b in [(f"W{i + 1}", g, jg) for i, (g, jg) in enumerate(zip(got[:3], jdws))] + [
+            ("coef", got[3], jdcoef), ("x", got[4], jdx)]:
+        ref = np.asarray(b)
+        assert np.abs(ref).max() > 0, name
+        np.testing.assert_allclose(a.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max(),
+                                   err_msg=name)

@@ -85,3 +85,101 @@ def test_calculator_kernels_match_plain(cuda):
     assert abs(res["energy"] - ref["energy"]) <= 1e-5 * abs(ref["energy"])
     np.testing.assert_allclose(res["forces"], ref["forces"], atol=1e-4, rtol=0)
     np.testing.assert_allclose(res["stress"], ref["stress"], atol=1e-6, rtol=0)
+
+
+def _small_problem(cuda, kind, arg, seed=0):
+    x_ir, f_ir = Irreps("8x0e+8x1e+8x2e"), Irreps("1x0e+1x1e+1x2e")
+    conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+    mlp = ScalarMLPSpec((8, 16, 16, conv.weight_numel))
+    embed = fc.EdgeEmbedSpec(8, 3.0, kind, arg, 2)
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, 7.0, (40, 3))
+    dst, src, shift = neighbor_list_numpy(pos, 3.0)
+    g = dense_graph_from_arrays(pos, np.zeros(40), src, dst, shift, device=cuda)
+    N, K = g.n_atoms_cap, g.dense_k
+    vec = torch.where(g.edge_mask[None], g.edge_vectors().T,
+                      torch.tensor([[6.0], [0.0], [0.0]], device=cuda)).contiguous()
+    ws = [torch.tensor(rng.normal(size=(a, b)), dtype=torch.float32, device=cuda)
+          for a, b in zip(mlp.dims[:-1], mlp.dims[1:])]
+    x = torch.tensor(rng.normal(size=(N, conv.irreps_x.dim)), dtype=torch.float32, device=cuda)
+    return dict(conv=conv, mlp=mlp, embed=embed, g=g, N=N, K=K, vec=vec, ws=ws, x=x,
+                coef=torch.linspace(1.0, 8.0, 8, device=cuda), rng=rng)
+
+
+@pytest.mark.parametrize("kind,arg", [("XPLOR", 2.5), ("poly_cut", 6.0)])
+def test_bwd_pg_kernel_matches_plain(cuda, kind, arg):
+    """B2′ (first pass and reduction) against its plain twin: dxg, dvec,
+    the MLP-weight gradients and dcoef, 1e-5 of the largest plain value."""
+    p = _small_problem(cuda, kind, arg)
+    op = fc.conv_op(p["conv"], p["mlp"], p["embed"])
+    N, K = p["N"], p["K"]
+    args = (op, p["x"], p["g"].edge_src.view(N, K).to(torch.int32), p["vec"], p["coef"], p["ws"])
+    ybar = torch.tensor(p["rng"].normal(size=(N, op.dim_mid)), dtype=torch.float32, device=cuda)
+    n0, r0 = fc.fused_conv_bwd_pg_records.launches, fc.param_grad_reduce.launches
+    dxg, dvec, dws, dcoef = fc.fused_conv_bwd(*args, ybar, param_grads=True)
+    torch.cuda.synchronize()
+    assert (fc.fused_conv_bwd_pg_records.launches, fc.param_grad_reduce.launches) == (n0 + 1, r0 + 1)
+    dxg_p, dvec_p, dws_p, dcoef_p = fc.fused_conv_bwd_plain(*args, ybar, param_grads=True)
+    for got, want in zip([dxg, dvec, *dws, dcoef], [dxg_p, dvec_p, *dws_p, dcoef_p]):
+        scale = float(want.abs().max())
+        assert scale > 0
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-5 * scale)
+    pad = ~p["g"].edge_mask
+    assert (dxg[pad] == 0).all() and (dvec[:, pad] == 0).all()
+
+
+def test_force_loss_grad_kernels_match_plain(cuda):
+    """Grad of a force-like loss through the kernels' Function (B1, B2′,
+    plain second-order rule) against the plain path, on the card."""
+    p = _small_problem(cuda, "XPLOR", 2.5, seed=1)
+    N, K = p["N"], p["K"]
+    R = torch.tensor(p["rng"].normal(size=(N, p["conv"].irreps_mid.dim)), dtype=torch.float32,
+                     device=cuda) * 0.1
+    src, mir = p["g"].edge_src.view(N, K), p["g"].edge_mir.view(N, K)
+    grads = {}
+    for plain in (False, True):
+        ws = [w.clone().requires_grad_(True) for w in p["ws"]]
+        coef = p["coef"].clone().requires_grad_(True)
+        vec = p["vec"].clone().requires_grad_(True)
+        out = fc.fused_conv_apply_vec(p["conv"], p["mlp"], {"w": ws}, coef, p["embed"], p["x"],
+                                      vec, src, mir, plain=plain)
+        energy = (out * R).sum() + 0.1 * (out * out).sum()
+        (dvec,) = torch.autograd.grad(energy, vec, create_graph=True)
+        grads[plain] = torch.autograd.grad((dvec ** 2).sum() + energy, (*ws, coef))
+    for got, want in zip(grads[False], grads[True]):
+        scale = float(want.abs().max())
+        assert scale > 0
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-4 * scale)
+
+
+def test_train_step_kernels_match_plain(cuda):
+    """One train step through the kernels (B1, B2′ twice per layer: forces
+    with create_graph, then the loss's backward) against the plain path's
+    loss and gradients at the same weights."""
+    from sevennet_tpu_torch.data.dataset import atoms_to_graph
+    from sevennet_tpu_torch.data.graph import batch_graphs
+    from sevennet_tpu_torch.train import Trainer
+
+    spec = build_model_spec({"channel": 8, "lmax": 2, "num_convolution_layer": 3,
+                             "cutoff": 4.0, "chemical_species": ["Hf", "O"]})
+    params = params_from_numpy(spec, random_params(spec, 5))
+    rng = np.random.default_rng(2)
+    graphs = []
+    for _ in range(2):
+        at = AtomsLite(positions=rng.uniform(0, 6.0, (16, 3)), numbers=[72] * 6 + [8] * 10,
+                       cell=np.eye(3) * 6.0, pbc=True, energy=-50.0,
+                       forces=rng.normal(size=(16, 3)), stress=rng.normal(size=6) * 1e-2)
+        graphs.append(atoms_to_graph(at, 4.0, spec.z_to_type))
+    b = batch_graphs(graphs, n_atoms_cap=40, n_graphs_cap=3, device=cuda)
+    kern = Trainer(spec, params)
+    plain = Trainer(spec, params, plain=True)
+    total_p, _, _ = plain._loss_and_metrics(kern.params, b)
+    g_plain = torch.autograd.grad(total_p, kern.trainable)
+    n0 = {f: f.launches for f in (fc.fused_conv_fwd, fc.fused_conv_bwd, fc.fused_conv_bwd_pg_records)}
+    losses, _ = kern.train_step(b)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in n0.items()] == [3, 0, 6]
+    assert abs(losses["total"].item() - total_p.item()) <= 1e-5 * abs(total_p.item())
+    for p, gp in zip(kern.trainable, g_plain):
+        np.testing.assert_allclose(p.grad.cpu(), gp.cpu(), rtol=0,
+                                   atol=1e-4 * float(gp.abs().max()))
