@@ -9,19 +9,28 @@
    SevenNet-0 shapes of layer 0, layers 1-3 and layer 4, on a water box of
    ~3,000 atoms (K from its neighbour list); times both with CUDA events.
    Kernels: B1 (forward), B2 (backward), B2' (backward with the radial-MLP
-   weight and Bessel-coefficient gradients: records pass and reduction).
+   weight and Bessel-coefficient gradients: records pass and reduction),
+   and in emb/sh mode, on the embedding and unnormalized spherical
+   harmonics a legacy model feeds them: B4 (forward), B4 bwd, B4' (both
+   passes) and B6 (``dense_conv_pallas`` on B4's kernel). Cross-check of
+   the modes: B4 on the normalized emb/sh of the same edges matches B1, and
+   B4 bwd's demb/dsh chained to the edge vectors by autograd match B2.
+   Then B6's own path: ``dense_conv_pallas`` over the five layers.
 3. Serves single points through the calculator at full SevenNet-0 width
    (random weights from a seed) for water boxes of 192, 3,000 and 9,999
    atoms: 5 forward and 5 backward kernel launches per request; against the
    plain path (192 and 3,000 atoms) forces within 1e-3 eV/A and 1e-4 of the
    largest force, energy within 1e-5 relative, stress within 1e-6 eV/A^3;
-   ms per request.
+   ms per request. Then the same with ``_normalize_sph: False`` (the
+   legacy config every pre-0.10 checkpoint loads as): 5 B4 + 5 B4 bwd
+   launches per request and none of B1/B2.
 4. Trains SevenNet-0 (full width and depth) on 16 water boxes of 192 atoms
    labelled by a teacher of the same architecture: the first 3 steps of the
    kernel path against the plain path at the same weights (loss within 1e-5
    relative, every gradient leaf within 1e-4 of its largest entry), 5 B1 +
-   10 B2' launches per step, then 2 epochs through ``train_run`` (lc.csv,
-   checkpoint reload); step time, structures/s, peak memory.
+   10 B2' launches per step, the same for the legacy config (5 B4 + 10 B4'
+   per step), then 2 epochs through ``train_run`` (lc.csv, checkpoint
+   reload); step time, structures/s, peak memory.
 5. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -32,6 +41,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -164,8 +174,10 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
     written once. ``kind``: ``fwd`` (B1), ``bwd`` (B2, and B3: B2 writing
     into a slot), ``bwd_pg`` (B2'), ``reduce`` (B2''s second pass alone),
     ``fwd_embsh`` (B4's forward and B6: the forward on a precomputed
-    embedding and spherical harmonics) or ``bwd_embsh`` (B4's backward and
-    B5: ``dxg``, ``demb`` and ``dsh`` in place of ``dvec``).
+    embedding and spherical harmonics), ``bwd_embsh`` (B4's backward and
+    B5: ``dxg``, ``demb`` and ``dsh`` in place of ``dvec``) or
+    ``bwd_embsh_pg`` (B4': no ``dcoef``). The emb/sh backward needs every
+    slot, padding included: a zero emb row still has a nonzero ``demb``.
 
     A sum of n products counts 2n - 1 operations. Per edge: the MLP's three
     products, ``tmp = w3j_pack @ sh`` over the nonzeros of ``w3j_pack``, and
@@ -192,9 +204,11 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
         return n_out * (2 * n_in - 1)
 
     d = op.mlp_spec.dims
+    embsh = "_embsh" in kind
     n_dw = sum(a * b for a, b in zip(d[:-1], d[1:]))
-    pg_flops = n_dw * 2 * n_edges + d[0] * (4 * n_edges - 1)
-    pg_bytes = 4 * (n_dw + d[0])
+    n_dc = 0 if embsh else d[0]
+    pg_flops = n_dw * 2 * n_edges + n_dc * (4 * n_edges - 1)
+    pg_bytes = 4 * (n_dw + n_dc)
     if kind == "reduce":
         record = sum(d[:-1]) + sum(d[1:]) + d[0]  # emb h1 h2 | dz1 dz2 dw | dcoef terms
         return pg_flops, 4 * n_edges * record + N * K + pg_bytes
@@ -205,7 +219,7 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
     x_entries = sum(conv.irreps_x[i].dim for i, _, _, _ in conv.instructions)
     # per edge slot: the edge vector, or in emb/sh mode (B4, B5, B6) the
     # precomputed embedding and spherical harmonics
-    edge_in = op.embed.n_basis + op.embed.dim_f if kind.endswith("_embsh") else 3
+    edge_in = op.n_basis + op.dim_f if embsh else 3
     ins = 4 * (N * op.dim_x + N * K + edge_in * N * K + d[0] + n_dw)
     if kind in ("fwd", "fwd_embsh"):
         # s: 2 n_terms - dim_mid per edge; w * s summed over each row's edges
@@ -214,9 +228,10 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
     mlp_bwd = sum(mv(b, a) for a, b in zip(d[:-1], d[1:]))
     uvu = (4 * op.n_terms - x_entries - op.R + op.dim_mid
            + (2 * x_entries - op.dim_x) + (2 * x_entries - op.numel))
-    flops = n_edges * (mlp + tmp + uvu + (2 * nnz - op.embed.dim_f) + mlp_bwd)
+    n_bwd = N * K if embsh else n_edges
+    flops = n_bwd * (mlp + tmp + uvu + (2 * nnz - op.dim_f) + mlp_bwd)
     nbytes = ins + 4 * (N * op.dim_mid + N * K * op.dim_x + edge_in * N * K)
-    if kind == "bwd_pg":
+    if kind in ("bwd_pg", "bwd_embsh_pg"):
         return flops + pg_flops, nbytes + pg_bytes
     return flops, nbytes
 
@@ -245,7 +260,7 @@ def check_close(tag: str, name: str, got, want, tol: float = REL_TOL):
     return err
 
 
-KERNELS = ("fwd", "bwd", "bwd_pg", "reduce")
+KERNELS = ("fwd", "bwd", "bwd_pg", "reduce", "fwd_embsh", "bwd_embsh", "bwd_embsh_pg", "b6")
 # per 3,000-atom pass: layer 0 once, layers 1-3 three times, layer 4 once
 SHAPES = (("layer0", 0, 1), ("layers1-3", 1, 3), ("layer4", 4, 1))
 
@@ -268,14 +283,17 @@ def pg_float64_check(tag, op, args, ybar, outs_k, outs_p):
 
 def kernel_phase(spec, params, dev, atoms):
     """Each kernel against its plain version at the three SevenNet-0 layer
-    shapes. Returns per-kernel records (times summed over one 3,000-atom
-    pass) and the shapes."""
+    shapes, in vec mode on the box's edge vectors and in emb/sh mode on the
+    embedding and unnormalized spherical harmonics a legacy model computes
+    from them; and the two modes against each other. Returns per-kernel
+    records (times summed over one 3,000-atom pass) and the shapes."""
     import numpy as np
     import torch
 
     from sevennet_tpu_torch.calculator import SevenNetCalculator
-    from sevennet_tpu_torch.model.model import edge_embed_spec
+    from sevennet_tpu_torch.model.model import edge_emb_sh, edge_embed_spec
     from sevennet_tpu_torch.ops import fused_conv as fc
+    from sevennet_tpu_torch.ops.pallas_conv import dense_conv_pallas
 
     calc = SevenNetCalculator(spec, params, device=str(dev))
     g = calc.graph(atoms)
@@ -285,23 +303,29 @@ def kernel_phase(spec, params, dev, atoms):
     src = g.edge_src.view(N, K).to(torch.int32).contiguous()
     n_edges = int(g.edge_mask.sum())
     coef = calc.params["edge_embedding"]["bessel_coeffs"]
+    # what the legacy model (unnormalized spherical harmonics) feeds the conv
+    emb_l, sh_l = (t.contiguous() for t in edge_emb_sh(
+        dataclasses.replace(spec, normalize_sph=False), coef, vec, g.edge_mask))
     log(f"kernel shapes: N={N} K={K} real edges={n_edges}")
     gen = torch.Generator(device="cpu").manual_seed(1)
     per_shape, ops = {}, {}
     for tag, t, _ in SHAPES:
         layer = spec.layers[t]
         op = ops[tag] = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+        op_e = fc.conv_op(layer.conv, layer.radial_mlp)
         ws = calc.params[f"{t}_convolution"]["weight_nn"]["w"]
         x = torch.randn(N, op.dim_x, generator=gen).to(dev)
         ybar = torch.randn(N, op.dim_mid, generator=gen).to(dev)
         args = (op, x, src, vec, coef, ws)
+        eargs = (op_e, x, src, emb_l, sh_l, ws)
         errs = {}
-        errs["fwd"] = check_close(tag, "fwd", fc.fused_conv_fwd(*args), fc.fused_conv_fwd_plain(*args))
+        out_b1 = fc.fused_conv_fwd(*args)
+        errs["fwd"] = check_close(tag, "fwd", out_b1, fc.fused_conv_fwd_plain(*args))
         dxg_k, dvec_k = fc.fused_conv_bwd(*args, ybar)
         dxg_p, dvec_p = fc.fused_conv_bwd_plain(*args, ybar)
         errs["bwd"] = max(check_close(tag, "dxg", dxg_k, dxg_p),
                           check_close(tag, "dvec", dvec_k, dvec_p))
-        del dxg_k, dvec_k
+        del dxg_p, dvec_p
         # B2': both passes through the wrapper, against the plain twin
         outs_k = fc.fused_conv_bwd(*args, ybar, param_grads=True)
         outs_p = fc.fused_conv_bwd_plain(*args, ybar, param_grads=True)
@@ -320,7 +344,39 @@ def kernel_phase(spec, params, dev, atoms):
         red_p = fc.param_grad_reduce_plain(op, work_, valid)
         errs["reduce"] = max(check_close(tag, f"reduce {n}", a, b) for n, a, b in zip(
             ("dW1", "dW2", "dW3", "dcoef"), [*red_k[0], red_k[1]], [*red_p[0], red_p[1]]))
-        del outs_k, outs_p, red_k, red_p, dxg_p, dvec_p
+        del outs_k, outs_p, red_k, red_p
+
+        # emb/sh mode against vec mode on the same edges: B4 on the normalized
+        # emb/sh of the edge vectors matches B1; B4 bwd's demb and dsh, chained
+        # to the edge vectors by autograd, match B2's dvec
+        emb_n, sh_n = fc.edge_embedding_plain(op, vec, coef)
+        nargs = (op_e, x, src, emb_n.contiguous(), sh_n.contiguous(), ws)
+        check_close(tag, "B4 fwd (normalized emb/sh) vs B1", fc.fused_conv_fwd_embsh(*nargs),
+                    out_b1)
+        dxg_n, demb_n, dsh_n = fc.fused_conv_bwd_embsh(*nargs, ybar)
+        v = vec.clone().requires_grad_(True)
+        (dvec_chain,) = torch.autograd.grad(fc.edge_embedding_plain(op, v, coef), v,
+                                            (demb_n, dsh_n))
+        check_close(tag, "B4 bwd dxg vs B2", dxg_n, dxg_k)
+        check_close(tag, "B4 bwd demb, dsh chained to dvec vs B2", dvec_chain, dvec_k)
+        del dxg_k, dvec_k, dxg_n, demb_n, dsh_n, dvec_chain, emb_n, sh_n
+
+        # emb/sh mode on the legacy model's inputs: B4, B4 bwd, B4' and B6
+        out_p = fc.fused_conv_fwd_embsh_plain(*eargs)
+        errs["fwd_embsh"] = check_close(tag, "B4 fwd", fc.fused_conv_fwd_embsh(*eargs), out_p)
+        errs["b6"] = check_close(tag, "B6 dense_conv_pallas", dense_conv_pallas(
+            layer.conv, layer.radial_mlp, x, emb_l.view(N, K, -1), sh_l.view(N, K, -1), src, ws),
+            out_p)
+        got = fc.fused_conv_bwd_embsh(*eargs, ybar)
+        want = fc.fused_conv_bwd_embsh_plain(*eargs, ybar, param_grads=True)
+        errs["bwd_embsh"] = max(check_close(tag, f"B4 bwd {n}", a, b)
+                                for n, a, b in zip(("dxg", "demb", "dsh"), got, want))
+        got = fc.fused_conv_bwd_embsh(*eargs, ybar, param_grads=True)
+        pairs = [(f"B4' {n}", a, b) for n, a, b in zip(("dxg", "demb", "dsh"), got, want)]
+        pairs += [(f"B4' dW{i + 1}", a, b) for i, (a, b) in enumerate(zip(got[3], want[3]))]
+        errs["bwd_embsh_pg"] = max(check_close(tag, n, a, b) for n, a, b in pairs)
+        del got, want, out_p
+
         reps = 10
         times = {
             "fwd": (cuda_time(lambda: fc.fused_conv_fwd(*args), reps),
@@ -331,25 +387,35 @@ def kernel_phase(spec, params, dev, atoms):
                        cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar, param_grads=True), 3)),
             "reduce": (cuda_time(lambda: fc.param_grad_reduce(op, work_, valid, N, K), reps),
                        cuda_time(lambda: fc.param_grad_reduce_plain(op, work_, valid), 3)),
+            "fwd_embsh": (cuda_time(lambda: fc.fused_conv_fwd_embsh(*eargs), reps),
+                          cuda_time(lambda: fc.fused_conv_fwd_embsh_plain(*eargs), 3)),
+            "bwd_embsh": (cuda_time(lambda: fc.fused_conv_bwd_embsh(*eargs, ybar), reps),
+                          cuda_time(lambda: fc.fused_conv_bwd_embsh_plain(*eargs, ybar), 3)),
+            "bwd_embsh_pg": (
+                cuda_time(lambda: fc.fused_conv_bwd_embsh(*eargs, ybar, param_grads=True), reps),
+                cuda_time(lambda: fc.fused_conv_bwd_embsh_plain(*eargs, ybar, param_grads=True),
+                          3)),
+            "b6": (cuda_time(lambda: dense_conv_pallas(
+                layer.conv, layer.radial_mlp, x, emb_l.view(N, K, -1), sh_l.view(N, K, -1), src,
+                ws), reps), cuda_time(lambda: fc.fused_conv_fwd_embsh_plain(*eargs), 3)),
         }
         per_shape[tag] = {}
         for k in KERNELS:
             tk, tp = times[k]
-            fl, by = work(op, N, K, n_edges, k)
+            fl, by = work(op_e if "embsh" in k or k == "b6" else op, N, K, n_edges,
+                          "fwd_embsh" if k == "b6" else k)
             per_shape[tag][k] = (tk, tp, (fl, by), errs[k])
             bnd, _ = bound_ms(fl, by)
             log(f"  {tag} {k}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound {bnd:.4f} ms "
                 f"({fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB), {fl / tk / 1e9:.2f} TFLOP/s")
         del work_, valid
         torch.cuda.empty_cache()
-    # the kernels still to port, at the same shapes: bounds only
-    for label, kind in (("B3 (B2 into a ring slot)", "bwd"), ("B4 fwd, B6", "fwd_embsh"),
-                        ("B4 bwd, B5", "bwd_embsh")):
-        fl = sum(n * work(ops[tag], N, K, n_edges, kind)[0] for tag, _, n in SHAPES)
-        by = sum(n * work(ops[tag], N, K, n_edges, kind)[1] for tag, _, n in SHAPES)
-        bnd, bound_by = bound_ms(fl, by)
-        log(f"  {label}: bound {bnd:.4f} ms per pass ({bound_by}; {fl / 1e9:.2f} GFLOP, "
-            f"{by / 1e6:.1f} MB), computed, not measured")
+    # the kernel still to port, at the same shapes: its bound only
+    fl = sum(n * work(ops[tag], N, K, n_edges, "bwd")[0] for tag, _, n in SHAPES)
+    by = sum(n * work(ops[tag], N, K, n_edges, "bwd")[1] for tag, _, n in SHAPES)
+    bnd, bound_by = bound_ms(fl, by)
+    log(f"  B3 (B2 into a ring slot): bound {bnd:.4f} ms per pass ({bound_by}; "
+        f"{fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB), computed, not measured")
     records = {}
     for k in KERNELS:
         rows = [(per_shape[tag][k], n) for tag, _, n in SHAPES]
@@ -359,11 +425,50 @@ def kernel_phase(spec, params, dev, atoms):
     return records, np.asarray([N, K, n_edges])
 
 
+def b6_path(spec, params, dev, atoms):
+    """B6's own path: ``dense_conv_pallas`` (the counterpart of the JAX
+    package's, whose one caller runs a forward conv) over the five
+    SevenNet-0 layers of the box, on the legacy model's emb/sh and random
+    features, counts from 0. Returns the launches."""
+    import torch
+
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.model.model import edge_emb_sh
+    from sevennet_tpu_torch.ops.pallas_conv import dense_conv_pallas
+
+    calc = SevenNetCalculator(spec, params, device=str(dev))
+    g = calc.graph(atoms)
+    N, K = g.n_atoms_cap, g.dense_k
+    sentinel = torch.tensor([2.0 * spec.cutoff, 0.0, 0.0], device=dev)
+    vec = torch.where(g.edge_mask[None], g.edge_vectors().T, sentinel[:, None])
+    emb, sh = edge_emb_sh(spec, calc.params["edge_embedding"]["bessel_coeffs"], vec, g.edge_mask)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    src = g.edge_src.view(N, K)
+    reset_launches()
+    for layer in spec.layers:
+        ws = calc.params[f"{layer.t}_convolution"]["weight_nn"]["w"]
+        x = torch.randn(N, layer.conv.irreps_x.dim, generator=gen).to(dev)
+        out = dense_conv_pallas(layer.conv, layer.radial_mlp, x, emb.view(N, K, -1),
+                                sh.view(N, K, -1), src, ws)
+        if out.shape != (N, layer.conv.irreps_mid.dim) or not bool(torch.isfinite(out).all()):
+            raise SystemExit(f"B6 path, layer {layer.t}: {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    counts = read_launches()
+    want = dict.fromkeys(counts, 0)
+    want["b6"] = len(spec.layers)
+    if counts != want:
+        raise SystemExit(f"B6 path launches {counts}, expected {want}")
+    return counts
+
+
 def counters():
     from sevennet_tpu_torch.ops import fused_conv as fc
+    from sevennet_tpu_torch.ops.pallas_conv import dense_conv_pallas
 
     return {"fwd": fc.fused_conv_fwd, "bwd": fc.fused_conv_bwd,
-            "bwd_pg": fc.fused_conv_bwd_pg_records, "reduce": fc.param_grad_reduce}
+            "bwd_pg": fc.fused_conv_bwd_pg_records, "reduce": fc.param_grad_reduce,
+            "fwd_embsh": fc.fused_conv_fwd_embsh, "bwd_embsh": fc.fused_conv_bwd_embsh,
+            "bwd_embsh_pg": fc.fused_conv_bwd_embsh_pg_records, "b6": dense_conv_pallas}
 
 
 def reset_launches():
@@ -375,16 +480,16 @@ def read_launches():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def request_phase(spec, params, dev):
-    """Calculator requests at full width; returns the launches of each
-    kernel over the whole phase."""
+def request_phase(spec, params, dev, label: str, fwd: str, bwd: str, graph_times: bool = True):
+    """Calculator requests at full width, each launching the kernels
+    ``fwd`` and ``bwd`` (keys of :func:`counters`) once per layer and no
+    other; returns the launches of each kernel over the whole phase."""
     import numpy as np
     import torch
 
     from sevennet_tpu_torch.atoms import AtomsLite
     from sevennet_tpu_torch.calculator import SevenNetCalculator
     from sevennet_tpu_torch.model.model import model_compute
-    from sevennet_tpu_torch.ops import fused_conv as fc
 
     calc = SevenNetCalculator(spec, params, device=str(dev))
     plain = SevenNetCalculator(spec, params, device=str(dev), plain=True)
@@ -394,13 +499,13 @@ def request_phase(spec, params, dev):
         pos, Z, cell = boxes[n]
         at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
         torch.cuda.reset_peak_memory_stats()
-        f0, b0 = fc.fused_conv_fwd.launches, fc.fused_conv_bwd.launches
+        before = read_launches()
         res = calc.calculate(at)
-        nf, nb = fc.fused_conv_fwd.launches - f0, fc.fused_conv_bwd.launches - b0
-        n_layers = len(spec.layers)
-        if (nf, nb) != (n_layers, n_layers):
-            raise SystemExit(f"{n} atoms: {nf} forward / {nb} backward launches, "
-                             f"expected {n_layers} + {n_layers}")
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        want = dict.fromkeys(got, 0)
+        want[fwd] = want[bwd] = len(spec.layers)
+        if got != want:
+            raise SystemExit(f"{label} request, {n} atoms: launches {got}, expected {want}")
         if not (np.isfinite(res["energy"]) and np.isfinite(res["forces"]).all()
                 and np.isfinite(res["stress"]).all()):
             raise SystemExit(f"{n} atoms: non-finite results")
@@ -408,8 +513,8 @@ def request_phase(spec, params, dev):
             raise SystemExit(f"{n} atoms: forces {res['forces'].shape}, "
                              f"stress {res['stress'].shape}")
         drift = float(np.abs(res["forces"].sum(0)).max())
-        line = (f"request {n} atoms: E={res['energy']:.6f} eV, "
-                f"|sum F|={drift:.2e}, launches {nf}+{nb}")
+        line = (f"{label} request {n} atoms: E={res['energy']:.6f} eV, "
+                f"|sum F|={drift:.2e}, launches {got[fwd]} {fwd} + {got[bwd]} {bwd}")
         if n <= PLAIN_MAX_ATOMS:
             ref = plain.calculate(at)
             df = float(np.abs(res["forces"] - ref["forces"]).max())
@@ -436,7 +541,7 @@ def request_phase(spec, params, dev):
             calc.calculate(at)
             walls.append((time.perf_counter() - t0) * 1e3)
         graph_walls = []
-        for _ in range(REPS):
+        for _ in range(REPS if graph_times else 1):
             t0 = time.perf_counter()
             graph = calc.graph(at)
             torch.cuda.synchronize()
@@ -445,15 +550,13 @@ def request_phase(spec, params, dev):
         model_ms = cuda_median(lambda: model_compute(spec, calc.params, graph, True, device=dev),
                                REPS)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"  {n} atoms: K={graph.dense_k} edges={int(graph.edge_mask.sum())} "
-            f"request median {statistics.median(walls):.1f} ms (wall, {REPS} runs), "
-            f"host graph median {statistics.median(graph_walls):.1f} ms (wall), "
+        host = (f"host graph median {statistics.median(graph_walls):.1f} ms (wall), "
+                if graph_times else "")
+        log(f"  {label} {n} atoms: K={graph.dense_k} edges={int(graph.edge_mask.sum())} "
+            f"request median {statistics.median(walls):.1f} ms (wall, {REPS} runs), {host}"
             f"model median {model_ms:.2f} ms (CUDA events, {REPS} runs), "
             f"model peak mem {peak:.2f} GiB")
-    counts = read_launches()
-    if counts["bwd_pg"] or counts["reduce"]:
-        raise SystemExit(f"serving launched B2' ({counts}): it needs no parameter gradients")
-    return counts
+    return read_launches()
 
 
 def training_set(spec, params_teacher, dev, seed: int, path: str):
@@ -519,10 +622,56 @@ def step_breakdown(spec, trainer, batch):
     return out
 
 
+def compare_steps(label, kern, plain, batches, want, card):
+    """TRAIN_CMP_STEPS train steps of ``kern`` (the kernel path), each held
+    against the plain path's loss and gradients at the same weights and
+    batch, each launching exactly ``want``. Returns the launches summed over
+    the steps."""
+    import numpy as np
+    import torch
+
+    total = dict.fromkeys(want, 0)
+    for step in range(TRAIN_CMP_STEPS):
+        b = batches[step % len(batches)]
+        torch.cuda.reset_peak_memory_stats()
+        total_p, _, _ = plain._loss_and_metrics(kern.params, b)
+        g_plain = torch.autograd.grad(total_p, kern.trainable)
+        loss_p = total_p.item()
+        del total_p
+        peak_plain = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, _ = kern.train_step(b)
+        counts = read_launches()
+        peak_kern = torch.cuda.max_memory_allocated() / 2**30
+        loss_k = losses["total"].item()
+        rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
+        worst = 0.0
+        for p, gp in zip(kern.trainable, g_plain):
+            err = float((p.grad - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+            worst = max(worst, err)
+            if not (bool(torch.isfinite(p.grad).all()) and err <= GRAD_REL_TOL):
+                raise SystemExit(f"{label} train step {step + 1}: gradient leaf {tuple(p.shape)} "
+                                 f"differs from the plain path by {err:.3e} of its max")
+        log(f"  {label} step {step + 1}: loss kernel {loss_k:.8e} plain {loss_p:.8e} rel "
+            f"{rel:.3e} (tol {LOSS_REL_TOL:g}); worst gradient leaf {worst:.3e} of its max "
+            f"(tol {GRAD_REL_TOL:g}); launches {counts}; peak GiB kernel {peak_kern:.2f} "
+            f"plain {peak_plain:.2f} | {card}")
+        if not (np.isfinite(loss_k) and rel <= LOSS_REL_TOL):
+            raise SystemExit(f"{label} train step {step + 1}: loss {loss_k} vs plain {loss_p}")
+        if counts != want:
+            raise SystemExit(f"{label} train step {step + 1}: launches {counts}, expected {want}")
+        total = {k: total[k] + counts[k] for k in total}
+        del g_plain
+    return total
+
+
 def training_phase(dev, seed: int, card: str):
     """SevenNet-0 training on the card: the kernel path against the plain
-    path for TRAIN_CMP_STEPS steps, step timing, then ``train_run`` (the
-    main path). Returns the launches of the ``train_run`` run."""
+    path for TRAIN_CMP_STEPS steps, step timing, the same for the legacy
+    config (unnormalized spherical harmonics: B4 and B4'), then
+    ``train_run`` (the main path). Returns the launches of the ``train_run``
+    run and of the legacy config's compared steps."""
     import csv
     import os
 
@@ -570,44 +719,15 @@ def training_phase(dev, seed: int, card: str):
         plain = Trainer(spec, params, tcfg, device=str(dev), plain=True)
         kern.set_epoch(0)
         n_layers = len(spec.layers)
-        want = {"fwd": n_layers, "bwd": 0, "bwd_pg": 2 * n_layers, "reduce": 2 * n_layers}
         log(f"training: {len(trainset)} train / {len(validset)} valid structures of "
             f"{len(trainset.atoms_list[0])} atoms, batch {TRAIN_BATCH}, K={K}, "
             f"batch capacity {batches[0].n_atoms_cap} atoms, "
             f"{int(batches[0].edge_mask.sum())} edges")
         # each step: the plain path's loss and gradients at the kernel path's
         # current weights, then the kernel path's step (same weights, same batch)
-        for step in range(TRAIN_CMP_STEPS):
-            b = batches[step % len(batches)]
-            torch.cuda.reset_peak_memory_stats()
-            total_p, _, _ = plain._loss_and_metrics(kern.params, b)
-            g_plain = torch.autograd.grad(total_p, kern.trainable)
-            loss_p = total_p.item()
-            del total_p
-            peak_plain = torch.cuda.max_memory_allocated() / 2**30
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            losses, _ = kern.train_step(b)
-            counts = read_launches()
-            peak_kern = torch.cuda.max_memory_allocated() / 2**30
-            loss_k = losses["total"].item()
-            rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
-            worst = 0.0
-            for p, gp in zip(kern.trainable, g_plain):
-                err = float((p.grad - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
-                worst = max(worst, err)
-                if not (bool(torch.isfinite(p.grad).all()) and err <= GRAD_REL_TOL):
-                    raise SystemExit(f"train step {step + 1}: gradient leaf {tuple(p.shape)} "
-                                     f"differs from the plain path by {err:.3e} of its max")
-            log(f"  step {step + 1}: loss kernel {loss_k:.8e} plain {loss_p:.8e} rel {rel:.3e} "
-                f"(tol {LOSS_REL_TOL:g}); worst gradient leaf {worst:.3e} of its max "
-                f"(tol {GRAD_REL_TOL:g}); launches {counts}; peak GiB kernel {peak_kern:.2f} "
-                f"plain {peak_plain:.2f} | {card}")
-            if not (np.isfinite(loss_k) and rel <= LOSS_REL_TOL):
-                raise SystemExit(f"train step {step + 1}: loss {loss_k} vs plain {loss_p}")
-            if counts != want:
-                raise SystemExit(f"train step {step + 1}: launches {counts}, expected {want}")
-            del g_plain
+        want = dict(dict.fromkeys(counters(), 0), fwd=n_layers, bwd_pg=2 * n_layers,
+                    reduce=2 * n_layers)
+        compare_steps("vec", kern, plain, batches, want, card)
         reset_launches()
         kern.eval_step(batches[0])
         log(f"  eval step launches: {read_launches()}")
@@ -630,6 +750,24 @@ def training_phase(dev, seed: int, card: str):
             f"{100 * kern_ms / step_ms:.1f} % of the step; the conv's plain second-order rule "
             f"{parts['second_order']:.2f} ms = "
             f"{100 * parts['second_order'] / step_ms:.1f} % | {card}")
+        del kern, plain
+
+        # the legacy config: the same data, B4 and B4' in place of B1 and B2'
+        spec_l = build_model_spec(dict(cfg, _normalize_sph=False))
+        params_l = params_from_numpy(spec_l, random_params(spec_l, seed))
+        kern = Trainer(spec_l, params_l, tcfg, device=str(dev))
+        plain = Trainer(spec_l, params_l, tcfg, device=str(dev), plain=True)
+        kern.set_epoch(0)
+        want = dict(dict.fromkeys(counters(), 0), fwd_embsh=n_layers, bwd_embsh_pg=2 * n_layers,
+                    reduce=2 * n_layers)
+        legacy = compare_steps("legacy", kern, plain, batches, want, card)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_median(lambda: kern.train_step(b), REPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        plain_ms = cuda_median(lambda: plain.train_step(b), 2)
+        log(f"  legacy train step: median {step_ms:.2f} ms ({REPS} runs, CUDA events), "
+            f"{n_struct / step_ms * 1e3:.1f} structures/s, peak {peak:.2f} GiB; plain path "
+            f"{plain_ms:.2f} ms (median of 2) | {card}")
         del kern, plain, batches
         torch.cuda.empty_cache()
 
@@ -641,8 +779,9 @@ def training_phase(dev, seed: int, card: str):
         counts = read_launches()
         n_train = TRAIN_EPOCHS * -(-len(trainset) // TRAIN_BATCH)
         n_eval = TRAIN_EPOCHS * -(-len(validset) // TRAIN_BATCH)
-        want = {"fwd": n_layers * (n_train + n_eval), "bwd": n_layers * n_eval,
-                "bwd_pg": 2 * n_layers * n_train, "reduce": 2 * n_layers * n_train}
+        want = dict(dict.fromkeys(counters(), 0), fwd=n_layers * (n_train + n_eval),
+                    bwd=n_layers * n_eval, bwd_pg=2 * n_layers * n_train,
+                    reduce=2 * n_layers * n_train)
         log(f"train_run: {n_train} train steps, {n_eval} eval steps, launches {counts}")
         if counts != want:
             raise SystemExit(f"train_run launches {counts}, expected {want}")
@@ -658,30 +797,41 @@ def training_phase(dev, seed: int, card: str):
                 f"(E {vals['train_loss_energy']:.4e}, F {vals['train_loss_force']:.4e}, "
                 f"S {vals['train_loss_stress']:.4e}), "
                 f"valid loss {vals['valid_loss_total']:.6e} | {card}")
-        spec_l, params_l, meta = load_checkpoint(os.path.join(wd, "checkpoint_last"))
+        spec_ck, params_ck, meta = load_checkpoint(os.path.join(wd, "checkpoint_last"))
         pos, Z, cell = water_box(64, seed=seed * 1000 + 999)
         at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
-        e_loaded = SevenNetCalculator(spec_l, params_l, device=str(dev)).calculate(at)["energy"]
+        e_loaded = SevenNetCalculator(spec_ck, params_ck, device=str(dev)).calculate(at)["energy"]
         e_trained = SevenNetCalculator(trainer.spec, tree_map(lambda p: p.detach(), trainer.params),
                                        device=str(dev)).calculate(at)["energy"]
         log(f"  checkpoint_last (epoch {meta['epoch']}) reloads: E {e_loaded:.8f} vs trained "
             f"{e_trained:.8f} eV")
         # not bit for bit: the per-graph energy sum (index_add_ on CUDA) adds in
         # no fixed order
-        if spec_l != trainer.spec or abs(e_loaded - e_trained) > 1e-6 * abs(e_trained):
+        if spec_ck != trainer.spec or abs(e_loaded - e_trained) > 1e-6 * abs(e_trained):
             raise SystemExit("the reloaded checkpoint gives other energies")
-        return counts
+        return counts, legacy
 
 
+FWD_CU = "sevennet_tpu_torch/csrc/fused_conv_fwd.cu"
+BWD_CU = "sevennet_tpu_torch/csrc/fused_conv_bwd.cu"
+# kernels line entry -> (name, source, TPU kernel replaced, record and launch key)
 KERNEL_NAMES = {
-    "fwd": ("fused_conv_fwd", "sevennet_tpu_torch/csrc/fused_conv_fwd.cu",
-            "sevennet_tpu/ops/fused_conv.py:678"),
-    "bwd": ("fused_conv_bwd", "sevennet_tpu_torch/csrc/fused_conv_bwd.cu",
-            "sevennet_tpu/ops/fused_conv.py:1222"),
-    "bwd_pg": ("fused_conv_bwd_pg", "sevennet_tpu_torch/csrc/fused_conv_bwd.cu",
-               "sevennet_tpu/ops/fused_conv.py:1222"),
-    "reduce": ("param_grad_reduce", "sevennet_tpu_torch/csrc/fused_conv_bwd.cu",
-               "sevennet_tpu/ops/fused_conv.py:1064"),
+    "fwd": ("fused_conv_fwd", FWD_CU, "sevennet_tpu/ops/fused_conv.py:678", "fwd"),
+    "bwd": ("fused_conv_bwd", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222", "bwd"),
+    "bwd_pg": ("fused_conv_bwd_pg", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222", "bwd_pg"),
+    "reduce": ("param_grad_reduce", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1064", "reduce"),
+    "fwd_embsh": ("fused_conv_fwd_embsh", FWD_CU, "sevennet_tpu/ops/fused_conv.py:678",
+                  "fwd_embsh"),
+    "bwd_embsh": ("fused_conv_bwd_embsh", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222",
+                  "bwd_embsh"),
+    "bwd_embsh_pg": ("fused_conv_bwd_embsh_pg", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222",
+                     "bwd_embsh_pg"),
+    # B5 (make_fused_conv_bwd) computes B4 bwd's function: the same kernel serves it
+    "b5": ("fused_conv_bwd_embsh (serves B5)", BWD_CU, "sevennet_tpu/ops/fused_conv.py:875",
+           "bwd_embsh"),
+    # B6 (dense_conv_pallas) computes B4 fwd's function: the same kernel serves it
+    "b6": ("fused_conv_fwd_embsh (serves B6 through dense_conv_pallas)", FWD_CU,
+           "sevennet_tpu/ops/pallas_conv.py:194", "b6"),
 }
 
 
@@ -698,6 +848,7 @@ def main() -> int:
     try:
         from sevennet_tpu_torch.atoms import AtomsLite
         from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
+        from sevennet_tpu_torch.model.build import build_model_spec
         from sevennet_tpu_torch.ops import kernels
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
@@ -721,38 +872,45 @@ def main() -> int:
 
     spec = sevennet0_spec()
     params = params_from_numpy(spec, random_params(spec, args.seed))
+    spec_legacy = build_model_spec(dict(SEVENNET0, _normalize_sph=False))
     t0 = time.perf_counter()
     pos, Z, cell = water_box(1000)
     atoms = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
     records, (N, K, n_edges) = kernel_phase(spec, params, dev, atoms)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    b6 = b6_path(spec_legacy, params, dev, atoms)
+    log(f"B6 path (dense_conv_pallas over 5 layers): launches {b6}")
     t0 = time.perf_counter()
-    served = request_phase(spec, params, dev)
+    served = request_phase(spec, params, dev, "vec", "fwd", "bwd")
     log(f"request phase (main path: serving): launches {served}, "
         f"{time.perf_counter() - t0:.1f} s")
-    if not (served["fwd"] and served["bwd"]):
-        raise SystemExit("serving did not launch B1 and B2")
     t0 = time.perf_counter()
-    trained = training_phase(dev, args.seed, card)
-    log(f"training phase (main path: training): launches {trained}, "
-        f"{time.perf_counter() - t0:.1f} s")
-    if not (trained["fwd"] and trained["bwd_pg"] and trained["reduce"]):
-        raise SystemExit("training did not launch B1 and B2'")
-    launches = {k: served[k] + trained[k] for k in KERNELS}
+    served_legacy = request_phase(spec_legacy, params, dev, "legacy", "fwd_embsh", "bwd_embsh",
+                                  graph_times=False)
+    log(f"legacy request phase (main path: serving a pre-0.10 config): launches "
+        f"{served_legacy}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trained, trained_legacy = training_phase(dev, args.seed, card)
+    log(f"training phase (main path: training; legacy steps): launches {trained}, "
+        f"{trained_legacy}, {time.perf_counter() - t0:.1f} s")
+    launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
+                for k in counters()}
+    if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
+        raise SystemExit(f"a kernel was never launched on the main paths: {launches}")
 
     kernels_line = []
-    for k in KERNELS:
-        r = records[k]
+    for k, (name, source, replaces, key) in KERNEL_NAMES.items():
+        r = records["bwd_embsh" if k == "b5" else k]
         bnd, by = bound_ms(r["flops"], r["bytes"])
-        name, source, replaces = KERNEL_NAMES[k]
         kernels_line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": r["err"], "ms": r["ms"],
+            "launches": launches[key], "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
         })
     log(f"kernel times are per pass of {N} atoms (K={K}, {n_edges} edges): "
-        "layer 0 + 3 x layers 1-3 + layer 4; fused_conv_bwd_pg includes its "
-        "param_grad_reduce; launches: serving + training runs")
+        "layer 0 + 3 x layers 1-3 + layer 4; fused_conv_bwd_pg and fused_conv_bwd_embsh_pg "
+        "include their param_grad_reduce; launches: the B6 path, serving (both configs), "
+        "train_run and the legacy config's compared train steps")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,23 @@
-// Backward fused conv, vec mode. From the receiver cotangent ybar
-// (N, dim_mid) it emits the per-edge x-cotangents dxg (N*K, dim_x) and the
-// edge-vector cotangents dvec (3, N*K). The caller turns dxg into dx with
-// the mirror gather (sevennet_tpu_torch/ops/fused_conv.py, as
-// sevennet_tpu/ops/fused_conv.py:1584-1590 does in XLA).
+// Backward fused conv. From the receiver cotangent ybar (N, dim_mid) it
+// emits the per-edge x-cotangents dxg (N*K, dim_x) and, in vec mode, the
+// edge-vector cotangents dvec (3, N*K); in emb/sh mode the embedding and
+// spherical-harmonic cotangents demb (N*K, n_basis) and dsh (N*K, dim_f).
+// The caller turns dxg into dx with the mirror gather
+// (sevennet_tpu_torch/ops/fused_conv.py, as sevennet_tpu/ops/fused_conv.py:
+// 1584-1590 does in XLA).
 //
 // Replaces: the Pallas TPU kernel sevennet_tpu/ops/fused_conv.py:
-// make_fused_conv_bwd2 with `embed` set, out_slots=1 (pallas_call at :1222):
-//   - fused_conv_bwd_launch: param_grads=False (B2, serving and MD);
-//   - fused_conv_bwd_pg_launch + param_grad_reduce_launch: param_grads=True
-//     (B2', training), which also gives the radial-MLP weight gradients
-//     dW_l = sum_edges h_l (x) g_l / sqrt(d_l) and dcoef (:1060-1098).
+// make_fused_conv_bwd2, out_slots=1 (pallas_call at :1222):
+//   - fused_conv_bwd_launch: `embed` set, param_grads=False (B2, serving
+//     and MD);
+//   - fused_conv_bwd_pg_launch + param_grad_reduce_launch: `embed` set,
+//     param_grads=True (B2', training), which also gives the radial-MLP
+//     weight gradients dW_l = sum_edges h_l (x) g_l / sqrt(d_l) and dcoef
+//     (:1060-1098);
+//   - fused_conv_bwd_embsh_launch and fused_conv_bwd_embsh_pg_launch +
+//     param_grad_reduce_launch (no dcoef): embed=None (B4 bwd and B4').
+//     They also serve B5, make_fused_conv_bwd (pallas_call at :875), the
+//     round-2 factoring of the same pullback.
 //
 // Like the TPU kernel it recomputes the radial MLP (keeping
 // pre-activations) instead of storing per-edge residuals, and it uses the
@@ -27,6 +35,12 @@
 // for dh2. Every per-edge cotangent is owned by one thread (CSR tables by
 // x column, weight column and Wigner row), so there are no atomics.
 // Slots past the cutoff get exact zeros without any arithmetic.
+//
+// Emb/sh mode walks every slot, padding included: a slot whose emb row is
+// zero has w = 0, so its dxg and dsh are zero, but its demb is not (dw =
+// sum x a does not vanish with w, and silu'(0) = 1/2). The TPU kernel
+// emits that demb and the model masks it afterwards (model/model.py:387),
+// so this kernel emits it too.
 //
 // The parameter gradients are sums over every edge of the system. The TPU
 // kernel adds each grid step's dW into its output (:1064-1072), which works
@@ -73,14 +87,16 @@ __device__ inline void write_records(const WsLayout& L, const Tile& t, int ne,
   }
 }
 
-template <bool PG>
+// (ea, eb): (vec, coef) in vec mode, (emb, sh) in emb/sh mode; (da, db):
+// (dvec, unused) in vec mode, (demb, dsh) in emb/sh mode.
+template <bool PG, bool EMBSH>
 __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
     ConvDims d, const float* __restrict__ x, const int* __restrict__ src,
-    const float* __restrict__ vec, const float* __restrict__ coef,
+    const float* __restrict__ ea, const float* __restrict__ eb,
     const float* __restrict__ W1, const float* __restrict__ W2,
     const float* __restrict__ W3, const float* __restrict__ ybar,
     const int* __restrict__ itab, const float* __restrict__ ftab,
-    float* __restrict__ dxg, float* __restrict__ dvec, WsLayout L,
+    float* __restrict__ dxg, float* __restrict__ da, float* __restrict__ db, WsLayout L,
     float* __restrict__ work, unsigned char* __restrict__ wvalid) {
   extern __shared__ float4 smem_raw[];
   Tile t;
@@ -90,23 +106,23 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
   const int lane = tid & 31, warp = tid >> 5;
   const int NK = d.N * d.K;
   const int NB = d.n_basis, DF = d.dim_f;
-  list_slots(d, t, i, vec);
+  list_slots<EMBSH>(d, t, i, ea);
   const int nv = *t.count;
   if (PG) {
     for (int k = tid; k < d.K; k += NT) wvalid[(size_t)i * d.K + k] = t.valid[k];
   }
 
-  // exact zeros for the slots outside the cutoff
-  for (int idx = tid; idx < d.K * d.dim_x; idx += NT) {
+  // exact zeros for the slots outside the cutoff (vec mode)
+  for (int idx = tid; !EMBSH && idx < d.K * d.dim_x; idx += NT) {
     const int k = idx / d.dim_x;
     if (!t.valid[k]) dxg[(size_t)(i * d.K + k) * d.dim_x + (idx - k * d.dim_x)] = 0.0f;
   }
-  for (int k = tid; k < d.K; k += NT) {
+  for (int k = tid; !EMBSH && k < d.K; k += NT) {
     if (!t.valid[k]) {
       const int flat = i * d.K + k;
-      dvec[flat] = 0.0f;
-      dvec[NK + flat] = 0.0f;
-      dvec[2 * NK + flat] = 0.0f;
+      da[flat] = 0.0f;
+      da[NK + flat] = 0.0f;
+      da[2 * NK + flat] = 0.0f;
     }
   }
   for (int c = tid; c < d.dim_mid; c += NT) t.yb[c] = ybar[(size_t)i * d.dim_mid + c];
@@ -125,7 +141,7 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
 
   for (int t0 = 0; t0 < nv; t0 += TE) {
     const int ne = min(TE, nv - t0);
-    load_tile(d, t, i, t0, ne, x, src, vec, coef, W1, W2, W3, itab, ftab);
+    load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W1, W2, W3, itab, ftab);
 
     // dxg[e, xc] = sum_terms ybar[c] * w[e, wc] * tmp[e, r]
     for (int xc = tid; xc < d.dim_x; xc += NT) {
@@ -224,8 +240,18 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
     }
     __syncthreads();
     if (PG) write_records(L, t, ne, work);
-    // chain demb and dsh to the edge vector: one thread per edge
-    if (tid < ne) {
+    if (EMBSH) {
+      // demb and dsh rows out, coalesced along each row
+      for (int idx = tid; idx < ne * NB; idx += NT) {
+        const int e = idx / NB;
+        da[(size_t)t.flats[e] * NB + (idx - e * NB)] = t.demb[idx];
+      }
+      for (int idx = tid; idx < ne * DF; idx += NT) {
+        const int e = idx / DF;
+        db[(size_t)t.flats[e] * DF + (idx - e * DF)] = t.dsh[idx];
+      }
+    } else if (tid < ne) {
+      // chain demb and dsh to the edge vector: one thread per edge
       const int e = tid;
       const float* g = t.geo + e * 8;
       const float r = g[0], rinv = g[1], u0 = g[2], u1 = g[3], u2 = g[4], env = g[5], denv = g[6];
@@ -233,7 +259,7 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
       float* dc = PG ? work + (size_t)t.flats[e] * L.stride + L.dc : nullptr;
       float dr = 0.0f;
       for (int n = 0; n < NB; ++n) {
-        const float c = coef[n];
+        const float c = eb[n];
         const float sr = sinf(c * r), cr = cosf(c * r);
         const float dembdr = pref * (c * cr * (rinv * env) + sr * (denv * rinv - env * rinv * rinv));
         dr += t.demb[e * NB + n] * dembdr;
@@ -257,9 +283,9 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
       }
       const float udu = u0 * du[0] + u1 * du[1] + u2 * du[2];
       const int flat = t.flats[e];
-      dvec[flat] = (du[0] - u0 * udu) * rinv + u0 * dr;
-      dvec[NK + flat] = (du[1] - u1 * udu) * rinv + u1 * dr;
-      dvec[2 * NK + flat] = (du[2] - u2 * udu) * rinv + u2 * dr;
+      da[flat] = (du[0] - u0 * udu) * rinv + u0 * dr;
+      da[NK + flat] = (du[1] - u1 * udu) * rinv + u1 * dr;
+      da[2 * NK + flat] = (du[2] - u2 * udu) * rinv + u2 * dr;
     }
     __syncthreads();
   }
@@ -344,31 +370,34 @@ __global__ void pg_final_kernel(const float* __restrict__ partial, int n_chunks,
   out[o] = s * scale;
 }
 
-static int smem_limit[MAX_DEVICES];
-static int smem_limit_pg[MAX_DEVICES];
-
-template <bool PG>
+template <bool PG, bool EMBSH>
 static int launch_bwd(const ConvDims& d, int* limits, const float* x, const int* src,
-                      const float* vec, const float* coef, const float* W1, const float* W2,
+                      const float* ea, const float* eb, const float* W1, const float* W2,
                       const float* W3, const float* ybar, const int* itab, const float* ftab,
-                      float* dxg, float* dvec, const WsLayout& L, float* work,
+                      float* dxg, float* da, float* db, const WsLayout& L, float* work,
                       unsigned char* wvalid, void* stream) {
   const size_t smem = carve(d, true, nullptr, nullptr);
-  cudaError_t err = raise_smem_limit((const void*)fused_conv_bwd_kernel<PG>, smem, limits);
+  cudaError_t err =
+      raise_smem_limit((const void*)fused_conv_bwd_kernel<PG, EMBSH>, smem, limits);
   if (err != cudaSuccess) return (int)err;
   if (d.N > 0)
-    fused_conv_bwd_kernel<PG><<<d.N, NT, smem, (cudaStream_t)stream>>>(
-        d, x, src, vec, coef, W1, W2, W3, ybar, itab, ftab, dxg, dvec, L, work, wvalid);
+    fused_conv_bwd_kernel<PG, EMBSH><<<d.N, NT, smem, (cudaStream_t)stream>>>(
+        d, x, src, ea, eb, W1, W2, W3, ybar, itab, ftab, dxg, da, db, L, work, wvalid);
   return (int)cudaGetLastError();
 }
+
+static int smem_limit[MAX_DEVICES];
+static int smem_limit_pg[MAX_DEVICES];
+static int smem_limit_embsh[MAX_DEVICES];
+static int smem_limit_embsh_pg[MAX_DEVICES];
 
 // B2. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_conv_bwd_launch(ConvDims d, const float* x, const int* src, const float* vec,
                                      const float* coef, const float* W1, const float* W2,
                                      const float* W3, const float* ybar, const int* itab,
                                      const float* ftab, float* dxg, float* dvec, void* stream) {
-  return launch_bwd<false>(d, smem_limit, x, src, vec, coef, W1, W2, W3, ybar, itab, ftab, dxg,
-                           dvec, WsLayout{}, nullptr, nullptr, stream);
+  return launch_bwd<false, false>(d, smem_limit, x, src, vec, coef, W1, W2, W3, ybar, itab, ftab,
+                                  dxg, dvec, nullptr, WsLayout{}, nullptr, nullptr, stream);
 }
 
 // B2', first pass: B2 plus the workspace records (N*K rows of L.stride
@@ -379,13 +408,38 @@ extern "C" int fused_conv_bwd_pg_launch(ConvDims d, WsLayout L, const float* x, 
                                         const int* itab, const float* ftab, float* dxg,
                                         float* dvec, float* work, unsigned char* wvalid,
                                         void* stream) {
-  return launch_bwd<true>(d, smem_limit_pg, x, src, vec, coef, W1, W2, W3, ybar, itab, ftab, dxg,
-                          dvec, L, work, wvalid, stream);
+  return launch_bwd<true, false>(d, smem_limit_pg, x, src, vec, coef, W1, W2, W3, ybar, itab,
+                                 ftab, dxg, dvec, nullptr, L, work, wvalid, stream);
 }
 
-// B2', second pass: dW1 (n_basis, h1), dW2 (h1, h2), dW3 (h2, numel) and
-// dcoef (n_basis) from the workspace; partial holds
+// B4 bwd: emb (N*K, n_basis), sh (N*K, dim_f) -> dxg, demb, dsh.
+extern "C" int fused_conv_bwd_embsh_launch(ConvDims d, const float* x, const int* src,
+                                           const float* emb, const float* sh, const float* W1,
+                                           const float* W2, const float* W3, const float* ybar,
+                                           const int* itab, const float* ftab, float* dxg,
+                                           float* demb, float* dsh, void* stream) {
+  return launch_bwd<false, true>(d, smem_limit_embsh, x, src, emb, sh, W1, W2, W3, ybar, itab,
+                                 ftab, dxg, demb, dsh, WsLayout{}, nullptr, nullptr, stream);
+}
+
+// B4', first pass: B4 bwd plus the records (no dcoef columns: L.dc is the
+// end of the record) and a validity byte of 1 for every slot.
+extern "C" int fused_conv_bwd_embsh_pg_launch(ConvDims d, WsLayout L, const float* x,
+                                              const int* src, const float* emb, const float* sh,
+                                              const float* W1, const float* W2, const float* W3,
+                                              const float* ybar, const int* itab,
+                                              const float* ftab, float* dxg, float* demb,
+                                              float* dsh, float* work, unsigned char* wvalid,
+                                              void* stream) {
+  return launch_bwd<true, true>(d, smem_limit_embsh_pg, x, src, emb, sh, W1, W2, W3, ybar, itab,
+                                ftab, dxg, demb, dsh, L, work, wvalid, stream);
+}
+
+// B2' (and B4'), second pass: dW1 (n_basis, h1), dW2 (h1, h2), dW3 (h2,
+// numel) and dcoef (n_basis) from the workspace; partial holds
 // ceil(N*K / chunk) * (n_basis*h1 + h1*h2 + h2*numel + n_basis) floats.
+// With dcoef null (emb/sh mode, no dcoef columns) the last product is
+// skipped and partial needs n_basis floats less per chunk.
 extern "C" int param_grad_reduce_launch(ConvDims d, WsLayout L, const float* work,
                                         const unsigned char* wvalid,
                                         int chunk, float* partial, float* dW1, float* dW2,
@@ -405,6 +459,7 @@ extern "C" int param_grad_reduce_launch(ConvDims d, WsLayout L, const float* wor
   cudaStream_t s = (cudaStream_t)stream;
   size_t off = 0;
   for (const Product& q : prods) {
+    if (q.out == nullptr) continue;
     const int n = q.da * q.db;
     if (n_chunks > 0) {
       ReduceArgs a = {work, wvalid, rows, L.stride, chunk, q.a_off, q.da, q.b_off, q.db,

@@ -24,6 +24,13 @@
 //
 // All arithmetic is fp32 FMA on the CUDA cores (no TF32: the repo's force
 // budget needs full fp32, as the TPU kernels pin their dots to HIGHEST).
+//
+// Emb/sh mode (template flag EMBSH; the TPU kernels with embed=None) takes
+// a precomputed embedding emb (N*K, NB) and spherical harmonics sh (N*K, DF)
+// in place of the edge vectors and the Bessel coefficients: the tile reads
+// their rows instead of computing them, and there is no radius to list the
+// slots by, so the CTA walks all K slots of its row. A padded slot carries a
+// zero emb row: its w and message are exactly zero (the MLP has no bias).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -196,8 +203,19 @@ __device__ __forceinline__ void envelope(const ConvDims& d, float r, float& env,
 
 __device__ __forceinline__ float sigmoidf_(float z) { return 1.0f / (1.0f + expf(-z)); }
 
-// Warp 0 lists the slots of row i inside the cutoff, in slot order.
+// Warp 0 lists the slots of row i inside the cutoff, in slot order. In
+// emb/sh mode every slot of the row is listed.
+template <bool EMBSH>
 __device__ inline void list_slots(const ConvDims& d, const Tile& t, int i, const float* vec) {
+  if (EMBSH) {
+    for (int k = threadIdx.x; k < d.K; k += NT) {
+      t.slots[k] = k;
+      t.valid[k] = 1;
+    }
+    if (threadIdx.x == 0) *t.count = d.K;
+    __syncthreads();
+    return;
+  }
   const int NK = d.N * d.K;
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
@@ -217,18 +235,35 @@ __device__ inline void list_slots(const ConvDims& d, const Tile& t, int i, const
 }
 
 // Fills one tile of ne <= TE edges (slots t0 .. t0+ne of the list). Rows
-// e >= ne are zero, so loops may run over all TE rows.
+// e >= ne are zero, so loops may run over all TE rows. (ea, eb) are
+// (vec, coef) in vec mode and (emb, sh) in emb/sh mode.
+template <bool EMBSH>
 __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0, int ne,
                                  const float* __restrict__ x, const int* __restrict__ src,
-                                 const float* __restrict__ vec, const float* __restrict__ coef,
+                                 const float* __restrict__ ea, const float* __restrict__ eb,
                                  const float* __restrict__ W1, const float* __restrict__ W2,
                                  const float* __restrict__ W3, const int* __restrict__ itab,
                                  const float* __restrict__ ftab) {
   const int tid = threadIdx.x;
   const int NK = d.N * d.K;
   const int NB = d.n_basis, DF = d.dim_f;
-  // (a) geometry, Bessel embedding and spherical harmonics: one thread per edge
-  if (tid < TE) {
+  if (EMBSH) {
+    // (a) the slots' emb and sh rows, read along the rows
+    if (tid < TE) {
+      const int flat = tid < ne ? i * d.K + t.slots[t0 + tid] : -1;
+      t.flats[tid] = flat;
+      t.srcs[tid] = tid < ne ? src[flat] : 0;
+    }
+    for (int idx = tid; idx < TE * NB; idx += NT) {
+      const int e = idx / NB, n = idx - e * NB;
+      t.embT[n * TE + e] = e < ne ? ea[(size_t)(i * d.K + t.slots[t0 + e]) * NB + n] : 0.0f;
+    }
+    for (int idx = tid; idx < TE * DF; idx += NT) {
+      const int e = idx / DF;
+      t.sh[idx] = e < ne ? eb[(size_t)(i * d.K + t.slots[t0 + e]) * DF + (idx - e * DF)] : 0.0f;
+    }
+  } else if (tid < TE) {
+    // (a) geometry, Bessel embedding and spherical harmonics: one thread per edge
     const int e = tid;
     float* g = t.geo + e * 8;
     float* sh = t.sh + e * DF;
@@ -237,7 +272,7 @@ __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0
       const int flat = i * d.K + t.slots[t0 + e];
       t.flats[e] = flat;
       t.srcs[e] = src[flat];
-      const float v0 = vec[flat], v1 = vec[NK + flat], v2 = vec[2 * NK + flat];
+      const float v0 = ea[flat], v1 = ea[NK + flat], v2 = ea[2 * NK + flat];
       const float r = fmaxf(sqrtf(v0 * v0 + v1 * v1 + v2 * v2), 1e-12f);
       const float rinv = 1.0f / r;
       const float u0 = v0 * rinv, u1 = v1 * rinv, u2 = v2 * rinv;
@@ -245,7 +280,7 @@ __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0
       envelope(d, r, env, denv);
       g[0] = r; g[1] = rinv; g[2] = u0; g[3] = u1; g[4] = u2; g[5] = env; g[6] = denv; g[7] = 0.0f;
       const float s = (float)(2.0 / (double)d.cutoff) * rinv * env;
-      for (int n = 0; n < NB; ++n) t.embT[n * TE + e] = sinf(coef[n] * r) * s;
+      for (int n = 0; n < NB; ++n) t.embT[n * TE + e] = sinf(eb[n] * r) * s;
       float px[LMAXP], py[LMAXP], pz[LMAXP];
       px[0] = py[0] = pz[0] = 1.0f;
       for (int p = 1; p < LMAXP; ++p) {

@@ -11,8 +11,10 @@ A checkpoint directory holds
 - ``opt_state.npz`` and ``opt_state.json``: the optimizer state
   (:meth:`sevennet_tpu_torch.train.Trainer.opt_state`), when saved.
 
-Reading the JAX package's msgpack checkpoints and stock SevenNet ``.pth``
-files is not ported yet (ROADMAP.md, queue A: checkpoint I/O).
+Stock SevenNet ``.pth`` files are read by
+:mod:`sevennet_tpu_torch.io.torch_checkpoint` (and through
+:func:`load_checkpoint`); the JAX package's msgpack checkpoints are not
+ported yet (ROADMAP.md, queue A7).
 """
 
 from __future__ import annotations
@@ -123,14 +125,17 @@ def load_native_checkpoint(path: str) -> Tuple[Dict[str, Any], Any, Any, Dict[st
 
 
 def load_checkpoint(path: str):
-    """A checkpoint directory of this format -> ``(spec, params, meta)``,
-    the parameters as the port's tensor tree (checked against the spec)."""
+    """A checkpoint directory of this format, or a stock SevenNet ``.pth``
+    file -> ``(spec, params, meta)``, the parameters as the port's tensor
+    tree (checked against the spec)."""
     from ..model.build import build_model_spec
     from .convert import params_from_numpy
 
     if not os.path.isdir(path):
-        raise NotImplementedError(f"{path}: only {FORMAT} checkpoint directories are read; "
-                                  "stock .pth files are not ported yet (ROADMAP.md, queue A)")
+        from .torch_checkpoint import load_sevennet_checkpoint
+
+        spec, params = load_sevennet_checkpoint(path)
+        return spec, params, {"format": "sevenn_torch"}
     cfg, params, _, meta = load_native_checkpoint(path)
     spec = build_model_spec(cfg)
     return spec, params_from_numpy(spec, params), meta

@@ -130,8 +130,9 @@ class ModelSpec:
     pinned_modal: int = -1  # -1 = not pinned
     # The JAX package's execution policy (remat, edge chunks, dense K, fused
     # and ring conv paths, conv dtype). Kept so the two specs compare field
-    # by field; the port reads none of them: it always runs the dense
-    # vec-mode fused conv with the K of each graph.
+    # by field; the port reads none of them: it always runs the dense fused
+    # conv (vec or emb/sh mode, model/model.py:_vec_mode) with the K of each
+    # graph.
     remat_layers: bool = True
     edge_chunk: int = 0
     edge_dense_k: int = 0

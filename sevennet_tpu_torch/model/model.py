@@ -1,16 +1,19 @@
-"""Model forward (energy) and its derivatives on the dense vec-mode path
+"""Model forward (energy) and its derivatives on the dense fused-conv path
 (PyTorch port of ``sevennet_tpu/model/model.py:342-564``).
 
 Forces and stress are gradients of the energy with respect to the edge
 vectors, as the reference's ``ForceStressOutputFromEdge``
 (``sevenn/nn/force_output.py:139-230``). The edges form the dense ``(N, K)``
 receiver-major slot grid with a mirror index; the convolution is the fused
-vec-mode conv (:mod:`sevennet_tpu_torch.ops.fused_conv`), whose backward
-runs the hand-written kernel on the card.
+conv (:mod:`sevennet_tpu_torch.ops.fused_conv`), whose forward and backward
+run hand-written kernels on the card: in vec mode (:func:`_vec_mode`) on
+the edge vectors, otherwise on an embedding and spherical harmonics
+computed here in plain PyTorch.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -18,14 +21,16 @@ import torch.nn.functional as F
 
 from ..data.graph import GraphBatch
 from ..device import resolve_device
-from ..ops.fused_conv import EdgeEmbedSpec, fused_conv_apply_vec
+from ..ops.fused_conv import EdgeEmbedSpec, fused_conv_apply, fused_conv_apply_vec
 from ..ops.gate import gate_apply
 from ..ops.linear import linear_apply
 from ..ops.mlp import scalar_mlp_apply
+from ..ops.radial import bessel_basis, poly_cutoff, xplor_cutoff
 from ..ops.tensor_product import fctp_apply
+from ..so3.spherical import spherical_harmonics
 from .build import ModelSpec
 
-__all__ = ["model_energy", "model_compute", "params_to"]
+__all__ = ["model_energy", "model_compute", "params_to", "edge_emb_sh"]
 
 
 def edge_embed_spec(spec: ModelSpec, layer) -> EdgeEmbedSpec:
@@ -50,11 +55,38 @@ def params_to(params, device: torch.device):
     return params
 
 
+def _vec_mode(spec: ModelSpec) -> bool:
+    """Vec-mode fused conv: the kernels compute the Bessel basis, envelope
+    and spherical harmonics from the raw edge vectors. It needs normalized
+    spherical harmonics (the reference default; checkpoints older than
+    SevenNet 0.10 have them off). ``SEVENNET_TPU_VEC=0`` selects the emb/sh
+    conv for any model. The JAX package's rule
+    (``sevennet_tpu/model/model.py:70-81``), whose ``conv_fused`` the port
+    does not read: it always runs the fused conv."""
+    if not spec.normalize_sph:
+        return False
+    return bool(int(os.environ.get("SEVENNET_TPU_VEC", 1)))
+
+
 def _check_supported(spec: ModelSpec):
     if spec.num_modalities > 1:
         raise NotImplementedError("multi-fidelity models are not ported yet")
-    if not spec.normalize_sph:
-        raise NotImplementedError("the vec-mode conv needs normalized spherical harmonics")
+
+
+def edge_emb_sh(spec: ModelSpec, coef, ev3, edge_mask):
+    """Emb/sh mode: ``emb (N*K, n_basis)``, zero on padded slots, and
+    ``sh (N*K, dim_f)`` of the (sentinel-guarded) edge vectors ``ev3 (3,
+    N*K)``, in plain PyTorch (``sevennet_tpu/model/model.py:379-390``)."""
+    ev = ev3.T
+    r = torch.linalg.vector_norm(ev, dim=-1)
+    kind, arg = spec.cutoff_fn
+    if kind == "poly_cut":
+        env = poly_cutoff(r, spec.cutoff, p=int(arg))
+    else:
+        env = xplor_cutoff(r, spec.cutoff, arg)
+    emb = bessel_basis(r, coef, spec.cutoff) * (env * edge_mask.to(ev.dtype))[:, None]
+    sh = spherical_harmonics(spec.lmax_edge, ev, normalize=spec.normalize_sph)
+    return emb, sh
 
 
 def model_energy(
@@ -65,7 +97,9 @@ def model_energy(
     plain: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Per-atom and per-graph energies from explicit ``(3, N*K)`` edge
-    vectors. ``plain=True`` runs the convolution's plain PyTorch version."""
+    vectors. ``plain=True`` runs the convolution's plain PyTorch version.
+    The conv runs in vec mode or, when :func:`_vec_mode` says no, in emb/sh
+    mode."""
     _check_supported(spec)
     dtype = edge_vec3.dtype
     K = graph.dense_k
@@ -77,6 +111,10 @@ def model_energy(
     coef = params["edge_embedding"]["bessel_coeffs"]
     src_nk = graph.edge_src.view(n_atoms, K)
     mir_nk = graph.edge_mir.view(n_atoms, K)
+    vec_mode = _vec_mode(spec)
+    if not vec_mode:
+        emb, sh = edge_emb_sh(spec, coef, ev3, graph.edge_mask)
+        emb_nk, sh_nk = emb.view(n_atoms, K, -1), sh.view(n_atoms, K, -1)
 
     onehot = F.one_hot(graph.species, spec.num_species).to(dtype)
     x = linear_apply(spec.embed_linear, params["onehot_to_feature_x"], onehot)
@@ -90,10 +128,14 @@ def model_energy(
             sc = None
         x = linear_apply(layer.si1, params[f"{t}_self_interaction_1"], x)
         conv_p = params[f"{t}_convolution"]
-        x = fused_conv_apply_vec(
-            layer.conv, layer.radial_mlp, conv_p["weight_nn"], coef,
-            edge_embed_spec(spec, layer), x, ev3, src_nk, mir_nk, plain=plain,
-        )
+        if vec_mode:
+            x = fused_conv_apply_vec(
+                layer.conv, layer.radial_mlp, conv_p["weight_nn"], coef,
+                edge_embed_spec(spec, layer), x, ev3, src_nk, mir_nk, plain=plain,
+            )
+        else:
+            x = fused_conv_apply(layer.conv, layer.radial_mlp, conv_p["weight_nn"], x,
+                                 emb_nk, sh_nk, src_nk, mir_nk, plain=plain)
         x = x / conv_p["denominator"][0]
         x = linear_apply(layer.si2, params[f"{t}_self_interaction_2"], x)
         if sc is not None:

@@ -1,31 +1,44 @@
-"""Fused convolution of the dense ``(N, K)`` layout, vec mode: radial
-embedding, radial MLP, uvu tensor product and the sum over each receiver's
-neighbour slots, forward and backward (PyTorch port of the vec-mode path of
-``sevennet_tpu/ops/fused_conv.py``).
+"""Fused convolution of the dense ``(N, K)`` layout: radial MLP, uvu tensor
+product and the sum over each receiver's neighbour slots, forward and
+backward (PyTorch port of ``sevennet_tpu/ops/fused_conv.py`` without its
+chunked and ring paths). Two modes, as in the JAX package:
+
+- vec mode (an :class:`EdgeEmbedSpec`): the kernels compute the radial
+  embedding and the spherical harmonics from raw edge vectors
+  (:func:`fused_conv_apply_vec`);
+- emb/sh mode (``embed=None``): they take a precomputed embedding ``emb``
+  and spherical harmonics ``sh`` (:func:`fused_conv_apply`), the path of
+  models with unnormalized spherical harmonics and of
+  ``SEVENNET_TPU_VEC=0``.
 
 Hand-written CUDA kernels carry it on the card (``csrc/``):
 
-- ``fused_conv_fwd`` (B1): replaces the Pallas kernel
-  ``make_fused_conv_fwd`` with ``embed`` set;
-- ``fused_conv_bwd`` (B2): replaces ``make_fused_conv_bwd2`` with ``embed``
-  set, ``param_grads=False``;
-- ``fused_conv_bwd_pg`` and ``param_grad_reduce`` (B2′): the same with
-  ``param_grads=True``, in two passes (per-edge records, then a reduction
-  over all edges in a fixed order); :func:`fused_conv_bwd` with
-  ``param_grads=True`` runs both.
+- ``fused_conv_fwd`` (B1) and ``fused_conv_fwd_embsh`` (B4): replace the
+  Pallas kernel ``make_fused_conv_fwd`` with ``embed`` set and with
+  ``embed=None``; B4's kernel also serves ``dense_conv_pallas``
+  (:mod:`.pallas_conv`, B6);
+- ``fused_conv_bwd`` (B2) and ``fused_conv_bwd_embsh`` (B4 bwd): replace
+  ``make_fused_conv_bwd2`` with ``param_grads=False``; B4's also serves
+  ``make_fused_conv_bwd`` (B5), the round-2 factoring of the same pullback;
+- ``fused_conv_bwd_pg`` / ``fused_conv_bwd_embsh_pg`` and
+  ``param_grad_reduce`` (B2′ / B4′): the same with ``param_grads=True``, in
+  two passes (per-edge records, then a reduction over all edges in a fixed
+  order); :func:`fused_conv_bwd` and :func:`fused_conv_bwd_embsh` with
+  ``param_grads=True`` run both.
 
 Each has a plain PyTorch twin with the same contract
-(:func:`fused_conv_fwd_plain`, :func:`fused_conv_bwd_plain`,
-:func:`param_grad_reduce_plain`). The wrappers take the plain version only
+(``*_plain``). The wrappers take the plain version only
 for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
 Each wrapper counts its launches in ``.launches``.
 
 Layouts follow the JAX package: features ``ir_mul``, conv output in the
 grouped mid layout (:func:`~sevennet_tpu_torch.ops.dense_conv.mid_layout`),
-edge vectors ``(3, N*K)`` receiver-major, padded slots carrying a sentinel
-vector past the cutoff. The backward's ``dx`` is the mirror gather of the
-per-edge x-cotangents plus a sum over K, in plain PyTorch, as the JAX
-package leaves it to XLA (``sevennet_tpu/ops/fused_conv.py:1584-1590``).
+edge arrays receiver-major (edge vectors ``(3, N*K)``, padded slots carrying
+a sentinel vector past the cutoff; ``emb (N*K, n_basis)``, zero on padded
+slots, and ``sh (N*K, dim_f)``). The TPU's k-major lane order stays behind.
+The backward's ``dx`` is the mirror gather of the per-edge x-cotangents
+plus a sum over K, in plain PyTorch, as the JAX package leaves it to XLA
+(``sevennet_tpu/ops/fused_conv.py:1584-1590``).
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import ctypes
 import math
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +78,17 @@ __all__ = [
     "FusedConvBwd",
     "FusedConvVec",
     "fused_conv_apply_vec",
+    "fused_conv_fwd_embsh_plain",
+    "fused_conv_bwd_embsh_plain",
+    "fused_conv_bwd_embsh_vjp_plain",
+    "check_conv_inputs",
+    "launch_fused_conv_fwd",
+    "fused_conv_fwd_embsh",
+    "fused_conv_bwd_embsh",
+    "fused_conv_bwd_embsh_pg_records",
+    "FusedConvBwdEmbSh",
+    "FusedConvEmbSh",
+    "fused_conv_apply",
 ]
 
 
@@ -199,17 +223,18 @@ def _csr(keys: np.ndarray, n_rows: int, cols: np.ndarray):
     return ptr, terms
 
 
-def _workspace_layout(dims) -> Dict[str, int]:
-    """Columns of the per-edge record that kernel B2′ writes for the
+def _workspace_layout(dims, dcoef: bool = True) -> Dict[str, int]:
+    """Columns of the per-edge record that kernels B2′ and B4′ write for the
     parameter gradients (``csrc/fused_conv_bwd.cu``): the MLP's input and
     hidden activations ``emb, h1, h2``, their cotangents ``dz1, dz2, dw``
-    and the per-edge ``dcoef`` terms, in this order; the row ``stride`` is
+    and, with ``dcoef`` (vec mode), the per-edge ``dcoef`` terms, in this
+    order (without, ``dc`` is the end of the record); the row ``stride`` is
     rounded up to 4 floats. Zeros for an MLP the kernels do not take."""
     if len(dims) != 4:
         return dict.fromkeys(_WS_FIELDS, 0)
     nb, h1, h2, numel = dims
     out, col = {}, 0
-    for name, width in zip(_WS_FIELDS[1:], (nb, h1, h2, h1, h2, numel, nb)):
+    for name, width in zip(_WS_FIELDS[1:], (nb, h1, h2, h1, h2, numel, nb if dcoef else 0)):
         out[name] = col
         col += width
     out["stride"] = -(-col // 4) * 4
@@ -220,15 +245,19 @@ class FusedConvOp:
     """Static tables of one conv layer: the instruction tables of the JAX
     kernels, and the elementary uvu terms ``(c, xc, wc, r)`` (output column
     ``c`` gets ``x[xc] * w[wc] * tmp[r]``) sorted four ways for the CUDA
-    kernels. Device copies are cached per device."""
+    kernels; in vec mode also the spherical harmonics and their derivatives
+    as monomial terms. ``embed=None`` is emb/sh mode. Device copies are
+    cached per device."""
 
-    def __init__(self, conv: ConvTPSpec, mlp_spec: ScalarMLPSpec, embed: EdgeEmbedSpec):
+    def __init__(self, conv: ConvTPSpec, mlp_spec: ScalarMLPSpec,
+                 embed: Optional[EdgeEmbedSpec]):
         instr, w3j_pack, dim_mid, numel = _instr_tables(conv)
         assert numel == mlp_spec.dims[-1], (numel, mlp_spec.dims)
-        assert embed.dim_f == conv.irreps_filter.dim
-        assert embed.n_basis == mlp_spec.dims[0]
         assert mlp_spec.act == "silu", "the fused conv's radial MLP is silu"
-        assert embed.lmax <= 3
+        self.n_basis, self.dim_f = mlp_spec.dims[0], conv.irreps_filter.dim
+        if embed is not None:
+            assert (embed.dim_f, embed.n_basis) == (self.dim_f, self.n_basis)
+            assert embed.lmax <= 3
         self.conv, self.mlp_spec, self.embed = conv, mlp_spec, embed
         self.dim_x = conv.irreps_x.dim
         self.dim_mid, self.numel, self.R = dim_mid, numel, w3j_pack.shape[0]
@@ -252,9 +281,10 @@ class FusedConvOp:
         dw_ptr, dw_terms = _csr(wc, numel, t[:, [0, 1, 3]])
         dt_ptr, dt_terms = _csr(r, self.R, t[:, [0, 1, 2]])
 
-        # spherical harmonics and their u-derivatives as monomial terms
+        # spherical harmonics and their u-derivatives as monomial terms (vec
+        # mode only)
         sh_t, sh_c, shd_t, shd_comp, shd_c = [], [], [], [], []
-        for l in range(embed.lmax + 1):
+        for l in range(embed.lmax + 1 if embed is not None else 0):
             C = sh_coefficients(l)
             for m, k in zip(*np.nonzero(C)):
                 sh_t.append((l * l + m, *monomials(l)[k]))
@@ -296,7 +326,7 @@ class FusedConvOp:
         self.ftab = np.concatenate(floats).astype(np.float32)
         self._offs = dict(offs, n_sh=len(sh_c), n_shd=len(shd_c), w3j=0,
                           sh_coef=w3j_pack.size, shd_coef=w3j_pack.size + len(sh_c))
-        self.ws_layout = _workspace_layout(mlp_spec.dims)
+        self.ws_layout = _workspace_layout(mlp_spec.dims, dcoef=embed is not None)
         self._device_tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def device_tables(self, device: torch.device):
@@ -309,17 +339,19 @@ class FusedConvOp:
 
     def dims(self, N: int, K: int) -> _ConvDims:
         e, d = self.embed, self.mlp_spec.dims
+        geometry = {} if e is None else dict(
+            lmax=e.lmax, cutoff_kind=0 if e.cutoff_kind == "poly_cut" else 1,
+            cutoff=e.cutoff, cutoff_arg=e.cutoff_arg)
         return _ConvDims(
             N=N, K=K, dim_x=self.dim_x, dim_mid=self.dim_mid, numel=self.numel,
-            R=self.R, dim_f=e.dim_f, n_basis=e.n_basis, h1=d[1], h2=d[2],
-            lmax=e.lmax, cutoff_kind=0 if e.cutoff_kind == "poly_cut" else 1,
-            cutoff=e.cutoff, cutoff_arg=e.cutoff_arg,
-            act_cst=NORMALIZE2MOM_CST["silu"], **self._offs,
+            R=self.R, dim_f=self.dim_f, n_basis=self.n_basis, h1=d[1], h2=d[2],
+            act_cst=NORMALIZE2MOM_CST["silu"], **geometry, **self._offs,
         )
 
 
 @lru_cache(maxsize=None)
-def conv_op(conv: ConvTPSpec, mlp_spec: ScalarMLPSpec, embed: EdgeEmbedSpec) -> FusedConvOp:
+def conv_op(conv: ConvTPSpec, mlp_spec: ScalarMLPSpec,
+            embed: Optional[EdgeEmbedSpec] = None) -> FusedConvOp:
     return FusedConvOp(conv, mlp_spec, embed)
 
 
@@ -329,7 +361,8 @@ def conv_op(conv: ConvTPSpec, mlp_spec: ScalarMLPSpec, embed: EdgeEmbedSpec) -> 
 
 
 def edge_embedding_plain(op: FusedConvOp, vec: torch.Tensor, coef: torch.Tensor):
-    """(3, E) edge vectors -> ``emb (E, n_basis)``, ``sh (E, dim_f)``."""
+    """(3, E) edge vectors -> ``emb (E, n_basis)``, ``sh (E, dim_f)`` (vec
+    mode: normalized spherical harmonics of the unit vectors)."""
     es = op.embed
     r = torch.clamp(torch.sqrt(torch.sum(vec * vec, dim=0)), min=1e-12)
     u = vec / r
@@ -342,46 +375,77 @@ def edge_embedding_plain(op: FusedConvOp, vec: torch.Tensor, coef: torch.Tensor)
     return emb, sh
 
 
-def _fwd_plain_from_xg(op, xg, vec, coef, ws, N, K):
-    emb, sh = edge_embedding_plain(op, vec, coef)
+def _conv_from_xg(op, xg, a, b, ws, N, K):
+    """The conv on the gathered sender features ``xg (N*K, dim_x)``:
+    ``(N, dim_mid)``. ``(a, b)`` is ``(vec, coef)`` in vec mode and
+    ``(emb, sh)`` in emb/sh mode."""
+    emb, sh = (a, b) if op.embed is None else edge_embedding_plain(op, a, b)
     w = scalar_mlp_apply(op.mlp_spec, {"w": list(ws)}, emb)
     msg = conv_tp_apply(op.conv, xg, sh, w)
     return msg.view(N, K, -1).sum(1)
 
 
-def fused_conv_fwd_plain(op: FusedConvOp, x, src, vec, coef, ws):
-    """Plain twin of the forward kernel: ``x (N, dim_x)``, ``src (N, K)``,
-    ``vec (3, N*K)``, ``coef (n_basis,)``, MLP weights -> ``(N, dim_mid)``."""
+def _pullback_plain(op, x, src, a, b, ws, ybar, n_wrt):
+    """Gradients of the conv at ``ybar`` with respect to the first ``n_wrt``
+    of ``(xg, a, b, *ws)``."""
     N, K = src.shape
-    return _fwd_plain_from_xg(op, x[src.reshape(-1).long()], vec, coef, ws, N, K)
+    with torch.enable_grad():
+        prims = [x[src.reshape(-1).long()].detach(), a.detach(), b.detach(),
+                 *[w.detach() for w in ws]]
+        for t in prims[:n_wrt]:
+            t.requires_grad_(True)
+        out = _conv_from_xg(op, *prims[:3], prims[3:], N, K)
+        return torch.autograd.grad(out, prims[:n_wrt], ybar)
+
+
+def fused_conv_fwd_plain(op: FusedConvOp, x, src, vec, coef, ws):
+    """Plain twin of the vec-mode forward kernel: ``x (N, dim_x)``,
+    ``src (N, K)``, ``vec (3, N*K)``, ``coef (n_basis,)``, MLP weights ->
+    ``(N, dim_mid)``."""
+    N, K = src.shape
+    return _conv_from_xg(op, x[src.reshape(-1).long()], vec, coef, ws, N, K)
 
 
 def fused_conv_bwd_plain(op: FusedConvOp, x, src, vec, coef, ws, ybar, param_grads=False):
-    """Plain twin of the backward kernels: the pullback of
+    """Plain twin of the vec-mode backward kernels: the pullback of
     :func:`fused_conv_fwd_plain` at ``ybar (N, dim_mid)``, returning the
     per-edge x-cotangents ``dxg (N*K, dim_x)`` and ``dvec (3, N*K)`` (B2);
     with ``param_grads`` also the MLP-weight gradients ``dws`` and
     ``dcoef (n_basis,)`` (B2′): ``(dxg, dvec, dws, dcoef)``."""
-    N, K = src.shape
-    with torch.enable_grad():
-        xg = x[src.reshape(-1).long()].detach().requires_grad_(True)
-        v = vec.detach().requires_grad_(True)
-        c = coef.detach().requires_grad_(param_grads)
-        wl = [w.detach().requires_grad_(param_grads) for w in ws]
-        out = _fwd_plain_from_xg(op, xg, v, c, wl, N, K)
-        inputs = (xg, v, c, *wl) if param_grads else (xg, v)
-        grads = torch.autograd.grad(out, inputs, ybar)
+    grads = _pullback_plain(op, x, src, vec, coef, ws, ybar, 3 + len(ws) if param_grads else 2)
     if not param_grads:
         return grads
     dxg, dvec, dcoef, *dws = grads
     return dxg, dvec, dws, dcoef
 
 
+def fused_conv_fwd_embsh_plain(op: FusedConvOp, x, src, emb, sh, ws):
+    """Plain twin of the emb/sh-mode forward kernel (B4, B6): ``x (N,
+    dim_x)``, ``src (N, K)``, ``emb (N*K, n_basis)``, ``sh (N*K, dim_f)``,
+    MLP weights -> ``(N, dim_mid)``."""
+    N, K = src.shape
+    return _conv_from_xg(op, x[src.reshape(-1).long()], emb, sh, ws, N, K)
+
+
+def fused_conv_bwd_embsh_plain(op: FusedConvOp, x, src, emb, sh, ws, ybar, param_grads=False):
+    """Plain twin of the emb/sh-mode backward kernels (B4 bwd, B5): the
+    pullback of :func:`fused_conv_fwd_embsh_plain` at ``ybar``:
+    ``(dxg, demb, dsh)``, and with ``param_grads`` (B4′)
+    ``(dxg, demb, dsh, dws)``. A zero ``emb`` row (a padded slot) gets zero
+    ``dxg`` and ``dsh`` but a nonzero ``demb``, as from the JAX kernels;
+    the model masks it."""
+    grads = _pullback_plain(op, x, src, emb, sh, ws, ybar, 3 + len(ws) if param_grads else 3)
+    if not param_grads:
+        return grads
+    dxg, demb, dsh, *dws = grads
+    return dxg, demb, dsh, dws
+
+
 def param_grad_reduce_plain(op: FusedConvOp, work, valid):
-    """Plain twin of the reduction kernel of B2′: from the per-edge records
-    ``work (N*K, stride)`` (rows with ``valid == 0`` are ignored, whatever
-    they hold) the sums over edges ``dW_l = h_lᵀ g_l / sqrt(d_l)`` and
-    ``dcoef``: ``(dws, dcoef)``."""
+    """Plain twin of the reduction kernel of B2′ and B4′: from the per-edge
+    records ``work (N*K, stride)`` (rows with ``valid == 0`` are ignored,
+    whatever they hold) the sums over edges ``dW_l = h_lᵀ g_l / sqrt(d_l)``
+    and, in vec mode, ``dcoef`` (``None`` in emb/sh mode): ``(dws, dcoef)``."""
     cols = op.ws_layout
     rows = torch.where(valid.bool()[:, None], work, torch.zeros((), dtype=work.dtype,
                                                                 device=work.device))
@@ -394,28 +458,45 @@ def param_grad_reduce_plain(op: FusedConvOp, work, valid):
         (take(h, a).T @ take(g, b)) / math.sqrt(a)
         for h, a, g, b in (("emb", nb, "dz1", h1), ("h1", h1, "dz2", h2), ("h2", h2, "dw", numel))
     ]
-    return dws, take("dc", nb).sum(0)
+    return dws, None if op.embed is None else take("dc", nb).sum(0)
 
 
-def fused_conv_bwd_vjp_plain(op: FusedConvOp, x, src, vec, coef, ws, ybar, cots):
-    """The conv's second-order rule, plain PyTorch on any device: the VJP of
-    the pullback ``(dxg, dvec[, dcoef, *dws]) = bwd(x, vec, coef, ybar, ws)``
-    at the cotangents ``cots`` (one per output), with respect to
-    ``(x, vec, coef, ybar, *ws)``; ``None`` where an input gets nothing.
-    An output whose cotangent is ``None`` is not formed: a force loss sends
-    none to the parameter gradients of the force pass."""
+def _pullback_vjp(op, x, src, a, b, ws, ybar, cots):
+    """VJP of the pullback ``(dxg, da[, db, *dws]) = bwd(x, a, b, ybar,
+    ws)`` at ``cots`` with respect to ``(x, a, b, ybar, *ws)``, where the
+    pullback's outputs are the gradients of the conv with respect to
+    ``(xg, a, b, *ws)``, as many as there are cotangents."""
     N, K = src.shape
-    prims = (x, vec, coef, ybar, *ws)
+    prims = (x, a, b, ybar, *ws)
     if all(c is None for c in cots):
         return (None,) * len(prims)
     with torch.enable_grad():
         prims = [t.detach().requires_grad_(True) for t in prims]
-        xd, vd, cd, yd, *wd = prims
+        xd, ad, bd, yd, *wd = prims
         xg = xd[src.reshape(-1).long()]
-        out = _fwd_plain_from_xg(op, xg, vd, cd, wd, N, K)
-        wrt, cots = zip(*[(t, c) for t, c in zip((xg, vd, cd, *wd), cots) if c is not None])
+        out = _conv_from_xg(op, xg, ad, bd, wd, N, K)
+        wrt, cots = zip(*[(t, c) for t, c in zip((xg, ad, bd, *wd), cots) if c is not None])
         pullback = torch.autograd.grad(out, wrt, yd, create_graph=True)
         return torch.autograd.grad(pullback, prims, cots, allow_unused=True)
+
+
+def fused_conv_bwd_vjp_plain(op: FusedConvOp, x, src, vec, coef, ws, ybar, cots):
+    """The vec-mode conv's second-order rule, plain PyTorch on any device:
+    the VJP of the pullback ``(dxg, dvec[, dcoef, *dws]) = bwd(x, vec, coef,
+    ybar, ws)`` at the cotangents ``cots`` (one per output), with respect to
+    ``(x, vec, coef, ybar, *ws)``; ``None`` where an input gets nothing.
+    An output whose cotangent is ``None`` is not formed: a force loss sends
+    none to the parameter gradients of the force pass."""
+    return _pullback_vjp(op, x, src, vec, coef, ws, ybar, cots)
+
+
+def fused_conv_bwd_embsh_vjp_plain(op: FusedConvOp, x, src, emb, sh, ws, ybar, cots):
+    """The emb/sh-mode conv's second-order rule (the port of the emb/sh
+    branch of ``_make_bwd_op``, ``sevennet_tpu/ops/fused_conv.py:1301-1335``):
+    the VJP of the pullback ``(dxg, demb, dsh[, *dws])`` at ``cots`` with
+    respect to ``(x, emb, sh, ybar, *ws)``, as
+    :func:`fused_conv_bwd_vjp_plain`."""
+    return _pullback_vjp(op, x, src, emb, sh, ws, ybar, cots)
 
 
 # ---------------------------------------------------------------------------
@@ -423,15 +504,19 @@ def fused_conv_bwd_vjp_plain(op: FusedConvOp, x, src, vec, coef, ws, ybar, cots)
 # ---------------------------------------------------------------------------
 
 
-def _check(op: FusedConvOp, x, src, vec, coef, ws, ybar=None):
+def check_conv_inputs(op: FusedConvOp, embsh: bool, x, src, a, b, ws, ybar=None):
+    """Raises ValueError on inputs the kernels do not take. ``(a, b)`` is
+    ``(vec, coef)`` in vec mode and ``(emb, sh)`` in emb/sh mode."""
+    if embsh != (op.embed is None):
+        raise ValueError(f"this wrapper takes an op of {'emb/sh' if embsh else 'vec'} mode")
     dev = x.device
     N, K = src.shape
+    edge = ([("emb", a, (N * K, op.n_basis)), ("sh", b, (N * K, op.dim_f))] if embsh
+            else [("vec", a, (3, N * K)), ("coef", b, (op.n_basis,))])
     shapes = [
         ("x", x, (N, op.dim_x), torch.float32),
         ("src", src, (N, K), torch.int32),
-        ("vec", vec, (3, N * K), torch.float32),
-        ("coef", coef, (op.embed.n_basis,), torch.float32),
-    ] + [
+    ] + [(name, t, shape, torch.float32) for name, t, shape in edge] + [
         (f"w{i}", w, (a, b), torch.float32)
         for i, (w, a, b) in enumerate(zip(ws, op.mlp_spec.dims[:-1], op.mlp_spec.dims[1:]))
     ]
@@ -457,12 +542,6 @@ _P = ctypes.c_void_p
 REDUCE_CHUNK = 1024
 
 
-def _library(name: str, argc: int):
-    """Entry ``{name}_launch`` of library ``name``, taking a ``ConvDims``
-    and ``argc`` pointers."""
-    return _entry(name, f"{name}_launch", [_ConvDims] + [_P] * argc)
-
-
 def _entry(name: str, fn_name: str, argtypes):
     from .kernels import library
 
@@ -477,25 +556,65 @@ def _ptr(t: torch.Tensor):
     return _P(t.data_ptr())
 
 
-def _raise_on(rc: int, name: str):
+def _call(lib: str, fn_name: str, *args):
+    """Calls C entry ``fn_name`` of library ``lib`` with ``args`` (ctypes
+    structs and pointers; the argument types are theirs) and raises if the
+    launch failed."""
+    rc = _entry(lib, fn_name, [type(a) for a in args])(*args)
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {rc}")
 
 
-def fused_conv_fwd(op: FusedConvOp, x, src, vec, coef, ws):
-    """Forward conv. CPU tensors: the plain version. CUDA tensors: the
-    ``fused_conv_fwd`` kernel (``csrc/fused_conv_fwd.cu``)."""
-    _check(op, x, src, vec, coef, ws)
-    if x.device.type == "cpu":
-        return fused_conv_fwd_plain(op, x, src, vec, coef, ws)
+def _stream(dev: torch.device):
+    return _P(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def launch_fused_conv_fwd(op: FusedConvOp, x, src, a, b, ws):
+    """Launches the forward kernel on checked CUDA tensors, without counting
+    (its callers count): B1 on ``(vec, coef)`` in vec mode, B4 on
+    ``(emb, sh)`` in emb/sh mode. Returns ``(N, dim_mid)``."""
     N, K = src.shape
     out = torch.empty((N, op.dim_mid), dtype=torch.float32, device=x.device)
     itab, ftab = op.device_tables(x.device)
-    fn = _library("fused_conv_fwd", 11)
-    rc = fn(op.dims(N, K), _ptr(x), _ptr(src), _ptr(vec), _ptr(coef),
-            *[_ptr(w) for w in ws], _ptr(itab), _ptr(ftab), _ptr(out),
-            _P(torch.cuda.current_stream(x.device).cuda_stream))
-    _raise_on(rc, "fused_conv_fwd")
+    entry = "fused_conv_fwd_launch" if op.embed is not None else "fused_conv_fwd_embsh_launch"
+    _call("fused_conv_fwd", entry, op.dims(N, K), _ptr(x), _ptr(src), _ptr(a), _ptr(b),
+          *[_ptr(w) for w in ws], _ptr(itab), _ptr(ftab), _ptr(out), _stream(x.device))
+    return out
+
+
+def _launch_bwd(op: FusedConvOp, x, src, a, b, ws, ybar, records: bool):
+    """Launches the backward kernel on checked CUDA tensors: B2 / B4 bwd, or
+    with ``records`` the first pass of B2′ / B4′. Returns ``dxg`` and
+    ``dvec`` (vec mode) or ``demb, dsh`` (emb/sh mode), then with
+    ``records`` the workspace ``work (N*K, stride)`` and ``valid (N*K,)``
+    (:func:`_workspace_layout`)."""
+    N, K = src.shape
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = [torch.empty((N * K, op.dim_x), **f32)]
+    if op.embed is None:
+        outs += [torch.empty((N * K, op.n_basis), **f32), torch.empty((N * K, op.dim_f), **f32)]
+    else:
+        outs.append(torch.empty((3, N * K), **f32))
+    if records:
+        outs += [torch.empty((N * K, op.ws_layout["stride"]), **f32),
+                 torch.empty(N * K, dtype=torch.uint8, device=dev)]
+    name = "fused_conv_bwd" + ("_embsh" if op.embed is None else "") + ("_pg" if records else "")
+    layout = [_WsLayout(**op.ws_layout)] if records else []
+    itab, ftab = op.device_tables(dev)
+    _call("fused_conv_bwd", name + "_launch", op.dims(N, K), *layout, _ptr(x), _ptr(src),
+          _ptr(a), _ptr(b), *[_ptr(w) for w in ws], _ptr(ybar), _ptr(itab), _ptr(ftab),
+          *[_ptr(t) for t in outs], _stream(dev))
+    return tuple(outs)
+
+
+def fused_conv_fwd(op: FusedConvOp, x, src, vec, coef, ws):
+    """Vec-mode forward conv. CPU tensors: the plain version. CUDA tensors:
+    the ``fused_conv_fwd`` kernel (B1, ``csrc/fused_conv_fwd.cu``)."""
+    check_conv_inputs(op, False, x, src, vec, coef, ws)
+    if x.device.type == "cpu":
+        return fused_conv_fwd_plain(op, x, src, vec, coef, ws)
+    out = launch_fused_conv_fwd(op, x, src, vec, coef, ws)
     fused_conv_fwd.launches += 1
     return out
 
@@ -504,30 +623,21 @@ fused_conv_fwd.launches = 0
 
 
 def fused_conv_bwd(op: FusedConvOp, x, src, vec, coef, ws, ybar, param_grads=False):
-    """Backward conv: ``(dxg, dvec)`` (B2), and with ``param_grads``
-    ``(dxg, dvec, [dW1, dW2, dW3], dcoef)`` (B2′). CPU tensors: the plain
-    version. CUDA tensors: the ``fused_conv_bwd`` kernel
+    """Vec-mode backward conv: ``(dxg, dvec)`` (B2), and with
+    ``param_grads`` ``(dxg, dvec, [dW1, dW2, dW3], dcoef)`` (B2′). CPU
+    tensors: the plain version. CUDA tensors: the ``fused_conv_bwd`` kernel
     (``csrc/fused_conv_bwd.cu``); with ``param_grads``, its records pass
     :func:`fused_conv_bwd_pg_records` and then :func:`param_grad_reduce`."""
-    _check(op, x, src, vec, coef, ws, ybar)
+    check_conv_inputs(op, False, x, src, vec, coef, ws, ybar)
     if x.device.type == "cpu":
         return fused_conv_bwd_plain(op, x, src, vec, coef, ws, ybar, param_grads=param_grads)
     if param_grads:
         dxg, dvec, work, valid = fused_conv_bwd_pg_records(op, x, src, vec, coef, ws, ybar)
         dws, dcoef = param_grad_reduce(op, work, valid, *src.shape)
         return dxg, dvec, dws, dcoef
-    N, K = src.shape
-    dxg = torch.empty((N * K, op.dim_x), dtype=torch.float32, device=x.device)
-    dvec = torch.empty((3, N * K), dtype=torch.float32, device=x.device)
-    itab, ftab = op.device_tables(x.device)
-    fn = _library("fused_conv_bwd", 13)
-    rc = fn(op.dims(N, K), _ptr(x), _ptr(src), _ptr(vec), _ptr(coef),
-            *[_ptr(w) for w in ws], _ptr(ybar), _ptr(itab), _ptr(ftab),
-            _ptr(dxg), _ptr(dvec),
-            _P(torch.cuda.current_stream(x.device).cuda_stream))
-    _raise_on(rc, "fused_conv_bwd")
+    out = _launch_bwd(op, x, src, vec, coef, ws, ybar, records=False)
     fused_conv_bwd.launches += 1
-    return dxg, dvec
+    return out
 
 
 fused_conv_bwd.launches = 0
@@ -538,35 +648,75 @@ def fused_conv_bwd_pg_records(op: FusedConvOp, x, src, vec, coef, ws, ybar):
     ``(dxg, dvec, work, valid)``, with ``work (N*K, stride)`` the
     per-edge records (:func:`_workspace_layout`) and ``valid (N*K,)`` the
     slots inside the cutoff."""
-    _check(op, x, src, vec, coef, ws, ybar)
+    check_conv_inputs(op, False, x, src, vec, coef, ws, ybar)
     if x.device.type != "cuda":
         raise ValueError(f"the records of B2′ are made on the card, not on {x.device}")
-    N, K = src.shape
-    dev = x.device
-    dxg = torch.empty((N * K, op.dim_x), dtype=torch.float32, device=dev)
-    dvec = torch.empty((3, N * K), dtype=torch.float32, device=dev)
-    work = torch.empty((N * K, op.ws_layout["stride"]), dtype=torch.float32, device=dev)
-    valid = torch.empty(N * K, dtype=torch.uint8, device=dev)
-    itab, ftab = op.device_tables(dev)
-    fn = _entry("fused_conv_bwd", "fused_conv_bwd_pg_launch", [_ConvDims, _WsLayout] + [_P] * 15)
-    rc = fn(op.dims(N, K), _WsLayout(**op.ws_layout), _ptr(x), _ptr(src), _ptr(vec), _ptr(coef),
-            *[_ptr(w) for w in ws], _ptr(ybar), _ptr(itab), _ptr(ftab),
-            _ptr(dxg), _ptr(dvec), _ptr(work), _ptr(valid),
-            _P(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(rc, "fused_conv_bwd_pg")
+    out = _launch_bwd(op, x, src, vec, coef, ws, ybar, records=True)
     fused_conv_bwd_pg_records.launches += 1
-    return dxg, dvec, work, valid
+    return out
 
 
 fused_conv_bwd_pg_records.launches = 0
 
 
+def fused_conv_fwd_embsh(op: FusedConvOp, x, src, emb, sh, ws):
+    """Emb/sh-mode forward conv. CPU tensors: the plain version. CUDA
+    tensors: the ``fused_conv_fwd_embsh`` kernel (B4,
+    ``csrc/fused_conv_fwd.cu``)."""
+    check_conv_inputs(op, True, x, src, emb, sh, ws)
+    if x.device.type == "cpu":
+        return fused_conv_fwd_embsh_plain(op, x, src, emb, sh, ws)
+    out = launch_fused_conv_fwd(op, x, src, emb, sh, ws)
+    fused_conv_fwd_embsh.launches += 1
+    return out
+
+
+fused_conv_fwd_embsh.launches = 0
+
+
+def fused_conv_bwd_embsh(op: FusedConvOp, x, src, emb, sh, ws, ybar, param_grads=False):
+    """Emb/sh-mode backward conv: ``(dxg, demb, dsh)`` (B4 bwd, also serving
+    B5), and with ``param_grads`` ``(dxg, demb, dsh, [dW1, dW2, dW3])``
+    (B4′). CPU tensors: the plain version. CUDA tensors: the
+    ``fused_conv_bwd_embsh`` kernel (``csrc/fused_conv_bwd.cu``); with
+    ``param_grads``, its records pass :func:`fused_conv_bwd_embsh_pg_records`
+    and then :func:`param_grad_reduce`."""
+    check_conv_inputs(op, True, x, src, emb, sh, ws, ybar)
+    if x.device.type == "cpu":
+        return fused_conv_bwd_embsh_plain(op, x, src, emb, sh, ws, ybar, param_grads=param_grads)
+    if param_grads:
+        dxg, demb, dsh, work, valid = fused_conv_bwd_embsh_pg_records(op, x, src, emb, sh, ws, ybar)
+        dws, _ = param_grad_reduce(op, work, valid, *src.shape)
+        return dxg, demb, dsh, dws
+    out = _launch_bwd(op, x, src, emb, sh, ws, ybar, records=False)
+    fused_conv_bwd_embsh.launches += 1
+    return out
+
+
+fused_conv_bwd_embsh.launches = 0
+
+
+def fused_conv_bwd_embsh_pg_records(op: FusedConvOp, x, src, emb, sh, ws, ybar):
+    """First pass of B4′ on the card, the ``fused_conv_bwd_embsh_pg``
+    kernel: ``(dxg, demb, dsh, work, valid)``; every slot is valid."""
+    check_conv_inputs(op, True, x, src, emb, sh, ws, ybar)
+    if x.device.type != "cuda":
+        raise ValueError(f"the records of B4′ are made on the card, not on {x.device}")
+    out = _launch_bwd(op, x, src, emb, sh, ws, ybar, records=True)
+    fused_conv_bwd_embsh_pg_records.launches += 1
+    return out
+
+
+fused_conv_bwd_embsh_pg_records.launches = 0
+
+
 def param_grad_reduce(op: FusedConvOp, work, valid, N: int, K: int):
-    """Second pass of B2′: ``(dws, dcoef)`` summed over the valid rows of
-    the workspace. CPU tensors: the plain version. CUDA tensors: the
-    ``param_grad_reduce`` kernels (``csrc/fused_conv_bwd.cu``), whose sums
-    run in a fixed order (chunks of ``REDUCE_CHUNK`` rows, then the chunks
-    in turn): the result does not depend on the launch."""
+    """Second pass of B2′ and B4′: ``(dws, dcoef)`` summed over the valid
+    rows of the workspace (``dcoef`` is ``None`` in emb/sh mode). CPU
+    tensors: the plain version. CUDA tensors: the ``param_grad_reduce``
+    kernels (``csrc/fused_conv_bwd.cu``), whose sums run in a fixed order
+    (chunks of ``REDUCE_CHUNK`` rows, then the chunks in turn): the result
+    does not depend on the launch."""
     shapes = (("work", work, (N * K, op.ws_layout["stride"]), torch.float32),
               ("valid", valid, (N * K,), torch.uint8))
     for name, t, shape, dtype in shapes:
@@ -581,19 +731,17 @@ def param_grad_reduce(op: FusedConvOp, work, valid, N: int, K: int):
         raise ValueError(f"unsupported device {work.device}")
     dev = work.device
     nb, h1, h2, numel = op.mlp_spec.dims
+    n_dc = 0 if op.embed is None else nb
     n_chunks = -(-N * K // REDUCE_CHUNK)
-    partial = torch.empty(n_chunks * (nb * h1 + h1 * h2 + h2 * numel + nb),
+    partial = torch.empty(n_chunks * (nb * h1 + h1 * h2 + h2 * numel + n_dc),
                           dtype=torch.float32, device=dev)
     dws = [torch.empty((a, b), dtype=torch.float32, device=dev)
            for a, b in ((nb, h1), (h1, h2), (h2, numel))]
-    dcoef = torch.empty(nb, dtype=torch.float32, device=dev)
-    fn = _entry("fused_conv_bwd", "param_grad_reduce_launch",
-                [_ConvDims, _WsLayout, _P, _P, ctypes.c_int] + [_P] * 6)
-    rc = fn(op.dims(N, K), _WsLayout(**op.ws_layout), _ptr(work), _ptr(valid), REDUCE_CHUNK,
-            _ptr(partial),
-            *[_ptr(w) for w in dws], _ptr(dcoef),
-            _P(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(rc, "param_grad_reduce")
+    dcoef = torch.empty(nb, dtype=torch.float32, device=dev) if n_dc else None
+    _call("fused_conv_bwd", "param_grad_reduce_launch", op.dims(N, K),
+          _WsLayout(**op.ws_layout), _ptr(work), _ptr(valid), ctypes.c_int(REDUCE_CHUNK),
+          _ptr(partial), *[_ptr(w) for w in dws], _P(dcoef.data_ptr() if n_dc else None),
+          _stream(dev))
     param_grad_reduce.launches += 1
     return dws, dcoef
 
@@ -643,6 +791,30 @@ class FusedConvBwd(torch.autograd.Function):
         return (None, None, gx, None, gvec, gcoef, gybar, *gws)
 
 
+class FusedConvBwdEmbSh(torch.autograd.Function):
+    """The emb/sh-mode backward as a differentiable op, as
+    :class:`FusedConvBwd`. Forward: B4′ (``(dxg, demb, dsh, *dws)``) when
+    ``param_grads``, else B4 bwd (``(dxg, demb, dsh)``). Backward:
+    :func:`fused_conv_bwd_embsh_vjp_plain`, the VJP of the plain pullback
+    with respect to ``(x, emb, sh, ybar, *ws)``."""
+
+    @staticmethod
+    def forward(ctx, op, param_grads, x, src, emb, sh, ybar, *ws):
+        ctx.op = op
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, src, emb, sh, ybar, *ws)
+        outs = fused_conv_bwd_embsh(op, x, src, emb, sh, ws, ybar, param_grads=param_grads)
+        return (*outs[:3], *outs[3]) if param_grads else outs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cots):
+        x, src, emb, sh, ybar, *ws = ctx.saved_tensors
+        gx, gemb, gsh, gybar, *gws = fused_conv_bwd_embsh_vjp_plain(
+            ctx.op, x, src, emb, sh, ws, ybar, cots)
+        return (None, None, gx, None, gemb, gsh, gybar, *gws)
+
+
 class FusedConvVec(torch.autograd.Function):
     """Vec-mode fused conv with the mirror-gather backward. Forward: B1.
     Backward: :class:`FusedConvBwd`, which runs B2′ when the Bessel
@@ -666,6 +838,34 @@ class FusedConvVec(torch.autograd.Function):
         return (None, mirror_gather(outs[0], mir), outs[1], dcoef, None, None, *dws)
 
 
+class FusedConvEmbSh(torch.autograd.Function):
+    """Emb/sh-mode fused conv with the mirror-gather backward. Forward: B4.
+    Backward: :class:`FusedConvBwdEmbSh`, which runs B4′ when an MLP weight
+    needs a gradient (training) and B4 bwd otherwise (serving); ``emb`` and
+    ``sh`` get their cotangents either way (the model differentiates them
+    to the edge vectors and the Bessel coefficients in plain PyTorch, as
+    the JAX package does in XLA)."""
+
+    @staticmethod
+    def forward(ctx, op, x, emb, sh, src, mir, *ws):
+        ctx.op = op
+        ctx.save_for_backward(x, emb, sh, src, mir, *ws)
+        return fused_conv_fwd_embsh(op, x, src, emb, sh, ws)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        x, emb, sh, src, mir, *ws = ctx.saved_tensors
+        param_grads = any(ctx.needs_input_grad[6:])   # (op, x, emb, sh, src, mir, *ws)
+        outs = FusedConvBwdEmbSh.apply(ctx.op, param_grads, x, src, emb, sh, ybar.contiguous(),
+                                       *ws)
+        dws = outs[3:] if param_grads else (None,) * len(ws)
+        return (None, mirror_gather(outs[0], mir), outs[1], outs[2], None, None, *dws)
+
+
+def _weights(mlp_params):
+    return tuple(mlp_params["w"]) if isinstance(mlp_params, dict) else tuple(mlp_params)
+
+
 def fused_conv_apply_vec(
     conv: ConvTPSpec,
     mlp_spec: ScalarMLPSpec,
@@ -685,7 +885,7 @@ def fused_conv_apply_vec(
     instead of the kernels, on any device: the reference the kernels are
     held against."""
     op = conv_op(conv, mlp_spec, embed)
-    ws = tuple(mlp_params["w"]) if isinstance(mlp_params, dict) else tuple(mlp_params)
+    ws = _weights(mlp_params)
     coef = bessel_coef.reshape(-1)
     if plain:
         return fused_conv_fwd_plain(op, x, src_nk, vec_rows, coef, ws)
@@ -693,4 +893,36 @@ def fused_conv_apply_vec(
     return FusedConvVec.apply(
         op, x.contiguous(), vec_rows.contiguous(), coef.contiguous(),
         src.contiguous(), mir_nk.long(), *[w.contiguous() for w in ws],
+    )
+
+
+def fused_conv_apply(
+    conv: ConvTPSpec,
+    mlp_spec: ScalarMLPSpec,
+    mlp_params,
+    x: torch.Tensor,             # (N, dim_x)
+    emb_nk: torch.Tensor,        # (N, K, n_basis), zero on padded slots
+    sh_nk: torch.Tensor,         # (N, K, dim_f)
+    src_nk: torch.Tensor,        # (N, K)
+    mir_nk: torch.Tensor,        # (N, K) flat mirror indices
+    *,
+    plain: bool = False,
+) -> torch.Tensor:
+    """The emb/sh-mode fused conv as the model calls it: ``(N, dim_mid)``
+    (the port of ``sevennet_tpu/ops/fused_conv.py:fused_conv_apply`` without
+    its chunked and ring paths). Gradients reach ``x``, ``emb``, ``sh`` and
+    the MLP weights.
+
+    ``plain=True`` runs :func:`fused_conv_fwd_embsh_plain` under ordinary
+    autograd instead of the kernels, on any device."""
+    op = conv_op(conv, mlp_spec, None)
+    ws = _weights(mlp_params)
+    N, K = src_nk.shape
+    emb, sh = emb_nk.reshape(N * K, -1), sh_nk.reshape(N * K, -1)
+    if plain:
+        return fused_conv_fwd_embsh_plain(op, x, src_nk, emb, sh, ws)
+    src = src_nk if src_nk.dtype == torch.int32 else src_nk.to(torch.int32)
+    return FusedConvEmbSh.apply(
+        op, x.contiguous(), emb.contiguous(), sh.contiguous(), src.contiguous(),
+        mir_nk.long(), *[w.contiguous() for w in ws],
     )

@@ -24,7 +24,7 @@ import torch
 
 from ..irreps import Irreps
 
-__all__ = ["LinearSpec", "linear_apply"]
+__all__ = ["LinearSpec", "linear_apply", "linear_pack", "linear_unpack"]
 
 
 @dataclass(frozen=True)
@@ -96,3 +96,26 @@ def linear_apply(spec: LinearSpec, params, x: torch.Tensor) -> torch.Tensor:
             blk = x.new_zeros((*lead, mi.ir.dim, mi.mul))
         pieces.append(blk.reshape(*lead, mi.dim))
     return torch.cat(pieces, dim=-1)
+
+
+def linear_pack(spec: LinearSpec, params) -> np.ndarray:
+    """Flatten instruction weights to the e3nn checkpoint layout."""
+    return np.concatenate([np.asarray(w).reshape(-1) for w in params["w"]] or [np.zeros(0)])
+
+
+def linear_unpack(spec: LinearSpec, flat: np.ndarray, bias: Optional[np.ndarray] = None):
+    """The e3nn flat weight vector (and bias) -> ``{"w": [...], "b": ...}``
+    of numpy arrays, one ``(mul_in, mul_out)`` matrix per instruction."""
+    ws, off = [], 0
+    for shape in spec.weight_shapes:
+        n = shape[0] * shape[1]
+        ws.append(np.asarray(flat[off : off + n]).reshape(shape))
+        off += n
+    if off != len(flat):
+        raise ValueError(f"weight numel mismatch: {off} != {len(flat)}")
+    params = {"w": ws}
+    if spec.biases:
+        if bias is None or len(bias) != spec.bias_numel:
+            raise ValueError(f"expected a bias of {spec.bias_numel} values")
+        params["b"] = np.asarray(bias)
+    return params

@@ -1,6 +1,9 @@
-"""The port's vec-mode fused conv against the JAX package's
-(``sevennet_tpu/ops/fused_conv.py:fused_conv_apply_vec``, Pallas kernels in
-interpret mode on the CPU, as tests/test_fused_conv.py runs them).
+"""The port's fused conv against the JAX package's: vec mode
+(``sevennet_tpu/ops/fused_conv.py:fused_conv_apply_vec``) and emb/sh mode
+(``fused_conv_apply``, and the kernels ``make_fused_conv_fwd`` /
+``make_fused_conv_bwd2`` with ``embed=None`` and ``make_fused_conv_bwd``),
+Pallas kernels in interpret mode on the CPU, as tests/test_fused_conv.py
+runs them.
 
 On the CPU the port's wrappers run the kernels' plain PyTorch versions; the
 CUDA kernels walk precomputed term tables, which a numpy walk here holds
@@ -9,7 +12,12 @@ against the plain version. The kernels themselves are checked on the card
 
 Tiny shapes: ``8x0e+8x1e+8x2e``, N = 24, K = 16 (slots past each atom's
 neighbour count padded with the sentinel vector), MLP (8, 16, 16, numel).
-Tolerance atol 1e-5: fp32 on both sides, sums in another order.
+In emb/sh mode the inputs are what a model with unnormalized spherical
+harmonics feeds the conv: the Bessel embedding times the envelope (zero
+rows on padded slots) and the spherical harmonics of the raw edge vectors
+(large on the sentinel). Tolerance atol 1e-5, or 1e-5 of the largest
+reference value where values reach tens: fp32 on both sides, sums in
+another order.
 """
 
 import jax
@@ -21,14 +29,18 @@ import torch
 from sevennet_tpu.irreps import Irreps as JIrreps
 from sevennet_tpu.irreps import infer_irreps_out as j_infer
 from sevennet_tpu.ops import fused_conv as jfc
+from sevennet_tpu.ops import radial as jradial
 from sevennet_tpu.ops.mlp import ScalarMLPSpec as JMLPSpec
 from sevennet_tpu.ops.tensor_product import ConvTPSpec as JConvTPSpec
+from sevennet_tpu.so3.spherical import spherical_harmonics as j_sph
 from sevennet_tpu_torch.data.graph import densify_edges
 from sevennet_tpu_torch.data.neighborlist import neighbor_list_numpy
 from sevennet_tpu_torch.irreps import Irreps, infer_irreps_out
 from sevennet_tpu_torch.ops import fused_conv as fc
+from sevennet_tpu_torch.ops import radial
 from sevennet_tpu_torch.ops.mlp import ScalarMLPSpec
 from sevennet_tpu_torch.ops.tensor_product import ConvTPSpec
+from sevennet_tpu_torch.so3.spherical import spherical_harmonics
 
 torch.set_num_threads(1)
 X_IR, F_IR = "8x0e+8x1e+8x2e", "1x0e+1x1e+1x2e"
@@ -285,6 +297,36 @@ def test_wrappers_check_their_inputs():
         fc.fused_conv_fwd(op, x.T.contiguous().T, src, vec, coef, ws)
 
 
+def test_embsh_wrappers_check_their_inputs():
+    """The emb/sh wrappers run the plain twins on the CPU without counting,
+    refuse an op of the other mode and misshapen edge arrays, and their
+    reduction has no dcoef; the records pass exists only on the card."""
+    _, (conv, mlp, emb_spec) = _specs("XPLOR")
+    op, op_vec = fc.conv_op(conv, mlp), fc.conv_op(conv, mlp, emb_spec)
+    p = _problem()
+    ws = [torch.tensor(w) for w in _weights(p["rng"], mlp.dims)]
+    x, src = torch.tensor(p["x"]), torch.tensor(p["src"])
+    emb, sh = _emb_sh("XPLOR", p["vec"], p["coef"], p["mask"])
+    ybar = torch.zeros(N, op.dim_mid)
+    launches = fc.fused_conv_fwd_embsh.launches, fc.fused_conv_bwd_embsh.launches
+    assert fc.fused_conv_fwd_embsh(op, x, src, emb, sh, ws).shape == (N, op.dim_mid)
+    assert len(fc.fused_conv_bwd_embsh(op, x, src, emb, sh, ws, ybar)) == 3
+    assert (fc.fused_conv_fwd_embsh.launches, fc.fused_conv_bwd_embsh.launches) == launches
+    with pytest.raises(ValueError, match="emb/sh"):
+        fc.fused_conv_fwd_embsh(op_vec, x, src, emb, sh, ws)
+    with pytest.raises(ValueError, match="vec"):
+        fc.fused_conv_fwd(op, x, src, torch.tensor(p["vec"]), torch.tensor(p["coef"]), ws)
+    with pytest.raises(ValueError, match="emb"):
+        fc.fused_conv_fwd_embsh(op, x, src, emb.T.contiguous(), sh, ws)
+    with pytest.raises(ValueError, match="sh"):
+        fc.fused_conv_bwd_embsh(op, x, src, emb, sh[:, :4].contiguous(), ws, ybar)
+    with pytest.raises(ValueError, match="on the card"):
+        fc.fused_conv_bwd_embsh_pg_records(op, x, src, emb, sh, ws, ybar)
+    work = torch.randn(N * K, op.ws_layout["stride"])
+    dws, dcoef = fc.param_grad_reduce(op, work, torch.ones(N * K, dtype=torch.uint8), N, K)
+    assert dcoef is None and [tuple(w.shape) for w in dws] == [tuple(w.shape) for w in ws]
+
+
 def _jax_conv(jconv, jmlp, jemb, p, param_grads):
     def f(ws, coef, x, vec):
         return jfc.fused_conv_apply_vec(
@@ -371,3 +413,165 @@ def test_force_loss_grad_of_grad_matches_jax(kind):
         assert np.abs(ref).max() > 0, name
         np.testing.assert_allclose(a.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max(),
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# emb/sh mode (embed=None): kernels B4 (fwd, bwd, B4′), B5, and the whole op
+# ---------------------------------------------------------------------------
+
+A = 8  # JAX block of atoms: k-major lanes T = A * K = 128
+
+
+def _emb_sh(kind, vec, coef, mask):
+    """The legacy model's conv inputs from edge vectors ``(3, N*K)``: the
+    Bessel embedding times the envelope and the edge mask, and unnormalized
+    spherical harmonics (``sevennet_tpu/model/model.py:379-390``)."""
+    ev = torch.as_tensor(vec).T
+    r = torch.linalg.vector_norm(ev, dim=-1)
+    env = (radial.xplor_cutoff(r, CUT, 2.5) if kind == "XPLOR"
+           else radial.poly_cutoff(r, CUT, p=6))
+    emb = radial.bessel_basis(r, torch.as_tensor(coef), CUT) * (
+        env * torch.as_tensor(mask.reshape(-1), dtype=torch.float32))[:, None]
+    return emb, spherical_harmonics(2, ev, normalize=False)
+
+
+def _j_emb_sh(kind, vec, coef, mask):
+    ev = vec.T
+    r = jnp.linalg.norm(ev, axis=-1)
+    env = (jradial.xplor_cutoff(r, CUT, 2.5) if kind == "XPLOR"
+           else jradial.poly_cutoff(r, CUT, p=6))
+    emb = jradial.bessel_basis(r, coef, CUT) * (env * jnp.asarray(mask.reshape(-1), jnp.float32))[:, None]
+    return emb, j_sph(2, ev, normalize=False)
+
+
+def _close(got, want, name):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=1e-5 * np.abs(want).max(),
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("maker,param_grads", [
+    ("bwd2", False), ("bwd2", True), ("bwd", False), ("bwd", True)])
+def test_embsh_twins_match_jax_kernels(maker, param_grads):
+    """The emb/sh plain twins against the Pallas kernels they stand for, on
+    k-major inputs: the forward against ``make_fused_conv_fwd(embed=None)``
+    (B4), the backward against ``make_fused_conv_bwd2(embed=None)`` (B4
+    bwd, and B4′ with ``param_grads``) or ``make_fused_conv_bwd`` (B5).
+    Padded slots (zero emb rows) included: their demb is not zero, their
+    dxg and dsh are."""
+    (jconv, jmlp, _), (conv, mlp, _) = _specs("XPLOR")
+    p = _problem(seed=4)
+    ws = _weights(p["rng"], mlp.dims)
+    ybar = (p["rng"].normal(size=(N, conv.irreps_mid.dim)) * 0.1).astype(np.float32)
+    emb, sh = _emb_sh("XPLOR", p["vec"], p["coef"], p["mask"])
+    pad = ~p["mask"].reshape(-1)
+    assert (emb[pad] == 0).all() and sh[pad].abs().max() > 10.0
+
+    def km(a):
+        return jfc.to_k_major(jnp.asarray(a.numpy()).reshape(N, K, -1), A)
+
+    def rows(a_km):
+        return np.asarray(jfc.from_k_major(a_km, N, K, A)).reshape(N * K, -1)
+
+    jws = tuple(jnp.asarray(w) for w in ws)
+    xg = jnp.asarray(p["x"])[jfc.to_k_major(jnp.asarray(p["src"]), A)]
+    make = jfc.make_fused_conv_bwd2 if maker == "bwd2" else jfc.make_fused_conv_bwd
+    out_j = jfc.make_fused_conv_fwd(jconv, jmlp, A, K, interpret=True)(xg, km(emb), km(sh), jws)
+    res_j = make(jconv, jmlp, A, K, param_grads=param_grads, interpret=True)(
+        xg, km(emb), km(sh), jnp.asarray(ybar), jws)
+
+    op = fc.conv_op(conv, mlp)
+    # emb/sh mode: no spherical-harmonic tables, no dcoef columns
+    assert op.embed is None and op.dims(N, K).n_sh == 0
+    assert op.ws_layout["dc"] == op.ws_layout["dw"] + op.numel
+    args = (op, torch.tensor(p["x"]), torch.tensor(p["src"]), emb, sh,
+            [torch.tensor(w) for w in ws])
+    _close(fc.fused_conv_fwd_embsh_plain(*args), out_j, "out")
+    got = fc.fused_conv_bwd_embsh_plain(*args, torch.tensor(ybar), param_grads=param_grads)
+    for name, a, b in zip(("dxg", "demb", "dsh"), got, res_j):
+        _close(a, rows(b), name)
+    if param_grads:
+        for i, (a, b) in enumerate(zip(got[3], res_j[3])):
+            _close(a, b, f"dW{i + 1}")
+    demb = got[1].numpy()
+    assert np.abs(demb[pad]).max() > 1e-3
+    assert (got[0].numpy()[pad] == 0).all() and (got[2].numpy()[pad] == 0).all()
+
+
+def _embsh_problem(kind, seed):
+    (jconv, jmlp, _), (conv, mlp, _) = _specs(kind)
+    p = _problem(seed=seed)
+    ws = _weights(p["rng"], mlp.dims)
+    src, mir = jnp.asarray(p["src"]), jnp.asarray(p["mir"])
+
+    def jconv_f(ws_, x, emb, sh):
+        return jfc.fused_conv_apply(jconv, jmlp, {"w": list(ws_)}, x, emb.reshape(N, K, -1),
+                                    sh.reshape(N, K, -1), src, mir, block_atoms=A,
+                                    param_grads=True)
+
+    def tconv_f(ws_, x, emb, sh):
+        return fc.fused_conv_apply(conv, mlp, {"w": ws_}, x, emb.view(N, K, -1),
+                                   sh.view(N, K, -1), torch.tensor(p["src"]).long(),
+                                   torch.tensor(p["mir"]).long())
+
+    return p, ws, jconv_f, tconv_f
+
+
+@pytest.mark.parametrize("kind", ["XPLOR", "poly_cut"])
+def test_fused_conv_apply_matches_jax(kind):
+    """The emb/sh op through its autograd Function (plain twins on the
+    CPU, mirror gather) against JAX's ``fused_conv_apply`` with
+    ``param_grads=True``: output, dx, demb, dsh and the MLP-weight
+    gradients."""
+    p, ws, jconv_f, tconv_f = _embsh_problem(kind, seed=5)
+    ybar = (p["rng"].normal(size=(N, _specs(kind)[1][0].irreps_mid.dim)) * 0.1).astype(np.float32)
+    emb_j, sh_j = _j_emb_sh(kind, jnp.asarray(p["vec"]), jnp.asarray(p["coef"]), p["mask"])
+    out_j, pull = jax.vjp(jconv_f, tuple(jnp.asarray(w) for w in ws), jnp.asarray(p["x"]),
+                          emb_j, sh_j)
+    jdws, jdx, jdemb, jdsh = pull(jnp.asarray(ybar))
+
+    tw = [torch.tensor(w, requires_grad=True) for w in ws]
+    x = torch.tensor(p["x"], requires_grad=True)
+    emb, sh = (t.detach().requires_grad_(True)
+               for t in _emb_sh(kind, p["vec"], p["coef"], p["mask"]))
+    out = tconv_f(tw, x, emb, sh)
+    g = torch.autograd.grad(out, (x, emb, sh, *tw), torch.tensor(ybar))
+    _close(out.detach(), out_j, "out")
+    for name, a, b in [("dx", g[0], jdx), ("demb", g[1], jdemb), ("dsh", g[2], jdsh)] + [
+            (f"dW{i + 1}", a, b) for i, (a, b) in enumerate(zip(g[3:], jdws))]:
+        _close(a, b, name)
+
+
+@pytest.mark.parametrize("kind", ["XPLOR", "poly_cut"])
+def test_embsh_force_loss_grad_of_grad_matches_jax(kind):
+    """The gradient of a force-like loss ``sum (dE/dvec)^2`` in emb/sh mode
+    (emb and sh computed from the edge vectors in each framework, the conv
+    through ``fused_conv_apply``) with respect to the MLP weights, the
+    Bessel coefficients and x, against JAX's grad-of-grad through
+    ``_make_bwd_op``."""
+    p, ws, jconv_f, tconv_f = _embsh_problem(kind, seed=6)
+    R = (p["rng"].normal(size=(N, _specs(kind)[1][0].irreps_mid.dim)) * 0.1).astype(np.float32)
+
+    def jloss(ws_, coef, x, vec):
+        def energy(v):
+            out = jconv_f(ws_, x, *_j_emb_sh(kind, v, coef, p["mask"]))
+            return jnp.sum(out * R) + 0.1 * jnp.sum(out * out)
+        return jnp.sum(jax.grad(energy)(vec) ** 2)
+
+    gg_j = jax.grad(jloss, argnums=(0, 1, 2))(
+        tuple(jnp.asarray(w) for w in ws), jnp.asarray(p["coef"]), jnp.asarray(p["x"]),
+        jnp.asarray(p["vec"]))
+
+    tw = [torch.tensor(w, requires_grad=True) for w in ws]
+    x = torch.tensor(p["x"], requires_grad=True)
+    coef = torch.tensor(p["coef"], requires_grad=True)
+    vec = torch.tensor(p["vec"], requires_grad=True)
+    out = tconv_f(tw, x, *_emb_sh(kind, vec, coef, p["mask"]))
+    energy = (out * torch.tensor(R)).sum() + 0.1 * (out * out).sum()
+    (dvec,) = torch.autograd.grad(energy, vec, create_graph=True)
+    assert dvec.requires_grad
+    got = torch.autograd.grad((dvec ** 2).sum(), (*tw, coef, x))
+    for name, a, b in [(f"W{i + 1}", a, b) for i, (a, b) in enumerate(zip(got[:3], gg_j[0]))] + [
+            ("coef", got[3], gg_j[1]), ("x", got[4], gg_j[2])]:
+        assert np.abs(np.asarray(b)).max() > 0, name
+        _close(a, b, name)

@@ -8,7 +8,9 @@ nothing of JAX, so it also runs where only PyTorch is installed
 
 chip_smoke.py runs the same comparison at SevenNet-0 shapes. Tolerance:
 1e-5 of the largest plain value, fp32 on both sides with sums in another
-order (``dvec`` reaches tens and sums hundreds of products per edge).
+order (``dvec`` reaches tens and sums hundreds of products per edge). The
+emb/sh kernels (B4, B4′, and B6 through ``dense_conv_pallas``) take what a
+model with unnormalized spherical harmonics feeds them.
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ from sevennet_tpu_torch.irreps import Irreps, infer_irreps_out
 from sevennet_tpu_torch.model.build import build_model_spec
 from sevennet_tpu_torch.ops import fused_conv as fc
 from sevennet_tpu_torch.ops.mlp import ScalarMLPSpec
+from sevennet_tpu_torch.ops.pallas_conv import dense_conv_pallas
 from sevennet_tpu_torch.ops.tensor_product import ConvTPSpec
 
 pytestmark = pytest.mark.gpu
@@ -70,17 +73,20 @@ def test_kernels_match_plain(cuda, kind, arg):
     assert (dxg[pad] == 0).all() and (dvec[:, pad] == 0).all()
 
 
-def test_calculator_kernels_match_plain(cuda):
+@pytest.mark.parametrize("normalize_sph", [True, False])
+def test_calculator_kernels_match_plain(cuda, normalize_sph):
     spec = build_model_spec({"channel": 8, "lmax": 2, "num_convolution_layer": 3,
-                             "cutoff": 4.0, "chemical_species": ["Hf", "O"]})
+                             "cutoff": 4.0, "chemical_species": ["Hf", "O"],
+                             "_normalize_sph": normalize_sph})
     params = params_from_numpy(spec, random_params(spec, 3))
+    fwd = fc.fused_conv_fwd if normalize_sph else fc.fused_conv_fwd_embsh
     rng = np.random.default_rng(1)
     cell = np.eye(3) * 6.0
     at = AtomsLite(positions=rng.uniform(0, 6.0, (24, 3)), numbers=[72] * 8 + [8] * 16,
                    cell=cell, pbc=True)
-    n0 = fc.fused_conv_fwd.launches
+    n0 = fwd.launches
     res = SevenNetCalculator(spec, params).calculate(at)
-    assert fc.fused_conv_fwd.launches == n0 + len(spec.layers)
+    assert fwd.launches == n0 + len(spec.layers)
     ref = SevenNetCalculator(spec, params, plain=True).calculate(at)
     assert abs(res["energy"] - ref["energy"]) <= 1e-5 * abs(ref["energy"])
     np.testing.assert_allclose(res["forces"], ref["forces"], atol=1e-4, rtol=0)
@@ -152,8 +158,10 @@ def test_force_loss_grad_kernels_match_plain(cuda):
         np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-4 * scale)
 
 
-def test_train_step_kernels_match_plain(cuda):
-    """One train step through the kernels (B1, B2′ twice per layer: forces
+@pytest.mark.parametrize("normalize_sph", [True, False])
+def test_train_step_kernels_match_plain(cuda, normalize_sph):
+    """One train step through the kernels (B1 and B2′, or with unnormalized
+    spherical harmonics B4 and B4′; the backward twice per layer: forces
     with create_graph, then the loss's backward) against the plain path's
     loss and gradients at the same weights."""
     from sevennet_tpu_torch.data.dataset import atoms_to_graph
@@ -161,7 +169,8 @@ def test_train_step_kernels_match_plain(cuda):
     from sevennet_tpu_torch.train import Trainer
 
     spec = build_model_spec({"channel": 8, "lmax": 2, "num_convolution_layer": 3,
-                             "cutoff": 4.0, "chemical_species": ["Hf", "O"]})
+                             "cutoff": 4.0, "chemical_species": ["Hf", "O"],
+                             "_normalize_sph": normalize_sph})
     params = params_from_numpy(spec, random_params(spec, 5))
     rng = np.random.default_rng(2)
     graphs = []
@@ -175,7 +184,10 @@ def test_train_step_kernels_match_plain(cuda):
     plain = Trainer(spec, params, plain=True)
     total_p, _, _ = plain._loss_and_metrics(kern.params, b)
     g_plain = torch.autograd.grad(total_p, kern.trainable)
-    n0 = {f: f.launches for f in (fc.fused_conv_fwd, fc.fused_conv_bwd, fc.fused_conv_bwd_pg_records)}
+    kernels = ((fc.fused_conv_fwd, fc.fused_conv_bwd, fc.fused_conv_bwd_pg_records) if normalize_sph
+               else (fc.fused_conv_fwd_embsh, fc.fused_conv_bwd_embsh,
+                     fc.fused_conv_bwd_embsh_pg_records))
+    n0 = {f: f.launches for f in kernels}
     losses, _ = kern.train_step(b)
     torch.cuda.synchronize()
     assert [f.launches - n for f, n in n0.items()] == [3, 0, 6]
@@ -183,3 +195,44 @@ def test_train_step_kernels_match_plain(cuda):
     for p, gp in zip(kern.trainable, g_plain):
         np.testing.assert_allclose(p.grad.cpu(), gp.cpu(), rtol=0,
                                    atol=1e-4 * float(gp.abs().max()))
+
+
+def test_embsh_kernels_match_plain(cuda):
+    """B4 fwd, B4 bwd, B4′ (records pass and reduction) and B6 against their
+    plain twins on the emb/sh inputs of a model with unnormalized spherical
+    harmonics (Bessel embedding zero on padded slots, spherical harmonics of
+    the raw edge vectors); padded slots get zero dxg and dsh but the same
+    nonzero demb as the twin's."""
+    from sevennet_tpu_torch.model.build import build_model_spec as build
+    from sevennet_tpu_torch.model.model import edge_emb_sh
+
+    p = _small_problem(cuda, "XPLOR", 2.5, seed=2)
+    op = fc.conv_op(p["conv"], p["mlp"])
+    N, K, g = p["N"], p["K"], p["g"]
+    spec = build({"cutoff": 3.0, "lmax": 2, "chemical_species": ["O"], "_normalize_sph": False,
+                  "cutoff_function": {"cutoff_function_name": "XPLOR", "cutoff_on": 2.5}})
+    emb, sh = edge_emb_sh(spec, p["coef"], p["vec"], g.edge_mask)
+    src = g.edge_src.view(N, K).to(torch.int32)
+    args = (op, p["x"], src, emb.contiguous(), sh.contiguous(), p["ws"])
+    ybar = torch.tensor(p["rng"].normal(size=(N, op.dim_mid)), dtype=torch.float32, device=cuda)
+    counters = (fc.fused_conv_fwd_embsh, fc.fused_conv_bwd_embsh,
+                fc.fused_conv_bwd_embsh_pg_records, fc.param_grad_reduce, dense_conv_pallas)
+    n0 = [f.launches for f in counters]
+    out = fc.fused_conv_fwd_embsh(*args)
+    bwd = fc.fused_conv_bwd_embsh(*args, ybar)
+    pg = fc.fused_conv_bwd_embsh(*args, ybar, param_grads=True)
+    b6 = dense_conv_pallas(p["conv"], p["mlp"], p["x"], emb.view(N, K, -1), sh.view(N, K, -1),
+                           src, p["ws"])
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, n0)] == [1, 1, 1, 1, 1]
+    out_p = fc.fused_conv_fwd_embsh_plain(*args)
+    bwd_p = fc.fused_conv_bwd_embsh_plain(*args, ybar, param_grads=True)
+    pairs = [(out, out_p), (b6, out_p)] + list(zip(bwd, bwd_p[:3])) + list(zip(pg[:3], bwd_p[:3]))
+    pairs += list(zip(pg[3], bwd_p[3]))
+    for got, want in pairs:
+        scale = float(want.abs().max())
+        assert scale > 0
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-5 * scale)
+    pad = ~g.edge_mask
+    assert (bwd[0][pad] == 0).all() and (bwd[2][pad] == 0).all()
+    assert float(bwd[1][pad].abs().max()) > 0

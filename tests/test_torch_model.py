@@ -5,7 +5,10 @@ The calculator parity runs at full SevenNet-0 width (5 layers,
 128x0e+64x1e+32x2e, lmax 2, XPLOR 5.0/4.5) with random weights from
 ``model_init``, carried across with ``params_from_numpy``, on a small water
 box and the HfO2 cell; the reference is ``SevenNetTPUCalculator(fused=False,
-matmul_precision="highest")``. Tolerances: energy 1e-5 relative, forces
+matmul_precision="highest")``. The ``_legacy`` models have unnormalized
+spherical harmonics (``_normalize_sph: False``, as every checkpoint before
+SevenNet 0.10 loads), so the port runs its emb/sh conv; ``sevennet0_vec0``
+runs SevenNet-0 through the emb/sh conv under ``SEVENNET_TPU_VEC=0``. Tolerances: energy 1e-5 relative, forces
 1e-4 eV/A, stress 1e-6 eV/A^3, atomic virial 1e-4 eV: fp32 on both sides,
 sums in a different order (dense mirror sums here, segment sums there).
 """
@@ -26,6 +29,7 @@ from sevennet_tpu_torch.atoms import AtomsLite
 from sevennet_tpu_torch.calculator import SevenNetCalculator
 from sevennet_tpu_torch.io.convert import params_from_numpy, params_to_numpy
 from sevennet_tpu_torch.model.build import build_model_spec as t_build
+from sevennet_tpu_torch.model.model import _vec_mode
 
 torch.set_num_threads(1)
 
@@ -99,9 +103,14 @@ def _water(n_molecules=24, seed=0):
     return pos, np.asarray(Z), np.eye(3) * box
 
 
+CONFIGS = {"sevennet0": SEVENNET0, "small": SMALL,
+           "sevennet0_legacy": dict(SEVENNET0, _normalize_sph=False),
+           "small_legacy": dict(SMALL, _normalize_sph=False)}
+
+
 @functools.lru_cache(maxsize=None)
 def _calculators(name):
-    cfg = {"sevennet0": SEVENNET0, "small": SMALL}[name]
+    cfg = CONFIGS[name]
     jspec = j_build(cfg)
     jparams = model_init(jax.random.PRNGKey(7), jspec)
     # nontrivial shift/scale so the rescale path is exercised
@@ -117,9 +126,15 @@ def _calculators(name):
 
 @pytest.mark.parametrize("name,system", [
     ("sevennet0", "water"), ("sevennet0", "hfo2"), ("small", "hfo2"),
+    ("sevennet0_legacy", "water"), ("small_legacy", "hfo2"), ("sevennet0_vec0", "water"),
 ])
-def test_calculator_matches_jax(name, system, hfo2_structure):
+def test_calculator_matches_jax(name, system, hfo2_structure, monkeypatch):
+    vec0 = name.endswith("_vec0")
+    if vec0:
+        monkeypatch.setenv("SEVENNET_TPU_VEC", "0")
+        name = name[: -len("_vec0")]
     ref, port = _calculators(name)
+    assert _vec_mode(port.spec) == (not vec0 and not name.endswith("_legacy"))
     if system == "water":
         pos, Z, cell = _water()
     else:

@@ -200,19 +200,18 @@ def test_schedules_match_jax(name, param):
         assert got(epoch) == pytest.approx(want(epoch), rel=1e-12, abs=0)
 
 
-def test_trainer_loss_and_grads_match_jax(xyz, monkeypatch):
+def _trainer_grads_match_jax(xyz, monkeypatch, cfg=None):
     """One batch, the same numpy weights: the port's loss and every
-    parameter leaf's gradient (forces and stress through the conv's
-    differentiable backward, B2′'s twin on the CPU) against
-    ``jax.value_and_grad`` of the JAX Trainer's loss with its fused conv
-    (``conv_param_grads=True``)."""
+    parameter leaf's gradient against ``jax.value_and_grad`` of the JAX
+    Trainer's loss with its fused conv (``conv_param_grads=True``). Returns
+    the port's trainer, its parameters and their gradients."""
     import sevennet_tpu.ops.fused_conv as jfc
 
     monkeypatch.setenv("SEVENNET_TPU_TARGET_T", "256")
     jfc._KERNEL_CACHE.clear()
     K = 16
     (b, *_), (jb, *_) = _batches(xyz, K=K)
-    spec, jspec, tree = _param_trees()
+    spec, jspec, tree = _param_trees(cfg)
     jspec = dataclasses.replace(jspec, edge_dense_k=K, conv_fused=True, conv_param_grads=True)
     kw = dict(force_weight=0.3, stress_weight=1e-2)
     jtrainer = JTrainer(jspec, jax.tree_util.tree_map(jnp.asarray, tree),
@@ -233,6 +232,16 @@ def test_trainer_loss_and_grads_match_jax(xyz, monkeypatch):
     for g, jg in zip(grads, jleaves):
         jg = np.asarray(jg)
         np.testing.assert_allclose(g.numpy(), jg, rtol=0, atol=1e-4 * np.abs(jg).max())
+    return spec, tree, b, params, grads
+
+
+def test_trainer_loss_and_grads_match_jax(xyz, monkeypatch):
+    """One batch, the same numpy weights: the port's loss and every
+    parameter leaf's gradient (forces and stress through the conv's
+    differentiable backward, B2′'s twin on the CPU) against
+    ``jax.value_and_grad`` of the JAX Trainer's loss with its fused conv
+    (``conv_param_grads=True``)."""
+    spec, tree, b, params, grads = _trainer_grads_match_jax(xyz, monkeypatch)
     # the force and stress terms reach the radial MLP and the Bessel
     # coefficients: without them these gradients differ
     e_only = Trainer(spec, params_from_numpy(spec, tree),
@@ -243,6 +252,14 @@ def test_trainer_loss_and_grads_match_jax(xyz, monkeypatch):
     g2 = torch.autograd.grad(t2, w3)[0]
     g1 = grads[next(i for i, p in enumerate(tree_leaves(params)) if p is w3)]
     assert (g1 - g2).abs().max() > 1e-3 * g1.abs().max()
+
+
+def test_trainer_loss_and_grads_match_jax_legacy(xyz, monkeypatch):
+    """The same with unnormalized spherical harmonics (a model loaded from a
+    checkpoint older than SevenNet 0.10): the port's emb/sh conv (B4′'s
+    twin and its plain second-order rule) against the JAX Trainer's emb/sh
+    fused conv, whose backward runs B4′ in interpret mode."""
+    _trainer_grads_match_jax(xyz, monkeypatch, {"_normalize_sph": False})
 
 
 def _toy_set(path, seed=0):
