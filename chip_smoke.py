@@ -15,7 +15,9 @@
    passes) and B6 (``dense_conv_pallas`` on B4's kernel). Cross-check of
    the modes: B4 on the normalized emb/sh of the same edges matches B1, and
    B4 bwd's demb/dsh chained to the edge vectors by autograd match B2.
-   Then B6's own path: ``dense_conv_pallas`` over the five layers.
+   Then B6's own path: ``dense_conv_pallas`` over the five layers. B3 (B2
+   on one row chunk writing into a slot of the ring backward's buffer) is
+   held against its plain twin in step 5, at the shape the ring runs it.
 3. Serves single points through the calculator at full SevenNet-0 width
    (random weights from a seed) for water boxes of 192, 3,000 and 9,999
    atoms: 5 forward and 5 backward kernel launches per request; against the
@@ -31,7 +33,18 @@
    10 B2' launches per step, the same for the legacy config (5 B4 + 10 B4'
    per step), then 2 epochs through ``train_run`` (lc.csv, checkpoint
    reload); step time, structures/s, peak memory.
-5. Prints a ``kernels`` JSON line, the card's name and power limit, and as
+5. Runs NVE MD of water (0.5 fs steps, 300 K) through ``MDEngine``: 3,000
+   atoms for 10 steps against an engine on the plain conv (positions within
+   1e-4 A, energy within 1e-5 relative, a device rebuild whose slots equal
+   a host build); 9,999 atoms unchunked (40 timed steps); 99,999 atoms
+   with the ring backward in every layer: B3 against its plain twin at the
+   ring's chunk shape and on its edges (an interior and a wrapped chunk,
+   the other slots bitwise unchanged; timed over the nb chunks), the ring
+   engine's initial forces against an unchunked engine's (1e-3 eV/A and
+   1e-4 of max |F|), the peak memory of one step of each, then 10 timed
+   ring steps. Launches per force evaluation: 5 B1 + 5 B2, or with the
+   ring 5 B1 + 5 nb B3 and no B2.
+6. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -68,6 +81,19 @@ TRAIN_BATCH = 4
 TRAIN_EPOCHS = 2
 TRAIN_LR = 1e-3
 TRAIN_CMP_STEPS = 3    # steps held against the plain path
+# MD phases: NVE of water boxes at 300 K
+MD_T = 300.0
+MD_DT = 0.5            # fs
+MD_CMP_STEPS = 10      # 3,000 atoms, kernel engine vs plain-conv engine
+MD_CMP_SKIN = 0.2      # A: a device rebuild within the compared steps
+MD_POS_TOL = 1e-4      # A, positions after MD_CMP_STEPS steps
+MD_CHUNK = 10          # steps per chunk (a capacity growth retries one chunk)
+MD_WARMUP_STEPS = 10   # 9,999 atoms
+MD_TIMED_STEPS = 40
+MD_RING_WARMUP = 4     # 99,999 atoms, ring: after one step measured alone
+MD_RING_STEPS = 10
+MD_RING_EDGE_CHUNK = 163840  # slots per chunk, bench.py:139-141
+MD_RING_THRESHOLD = 1_000_000_000  # bytes: every layer chunks, bench.py:355-357
 LOSS_REL_TOL = 1e-5    # kernel vs plain train step, loss
 GRAD_REL_TOL = 1e-4    # kernel vs plain train step, per leaf of max |g_plain|
 
@@ -410,12 +436,6 @@ def kernel_phase(spec, params, dev, atoms):
                 f"({fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB), {fl / tk / 1e9:.2f} TFLOP/s")
         del work_, valid
         torch.cuda.empty_cache()
-    # the kernel still to port, at the same shapes: its bound only
-    fl = sum(n * work(ops[tag], N, K, n_edges, "bwd")[0] for tag, _, n in SHAPES)
-    by = sum(n * work(ops[tag], N, K, n_edges, "bwd")[1] for tag, _, n in SHAPES)
-    bnd, bound_by = bound_ms(fl, by)
-    log(f"  B3 (B2 into a ring slot): bound {bnd:.4f} ms per pass ({bound_by}; "
-        f"{fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB), computed, not measured")
     records = {}
     for k in KERNELS:
         rows = [(per_shape[tag][k], n) for tag, _, n in SHAPES]
@@ -423,6 +443,85 @@ def kernel_phase(spec, params, dev, atoms):
                           flops=sum(n * r[2][0] for r, n in rows),
                           bytes=sum(n * r[2][1] for r, n in rows), err=max(r[3] for r, _ in rows))
     return records, np.asarray([N, K, n_edges])
+
+
+def b3_check(eng, st, dev, card: str):
+    """Kernel B3 (``fused_conv_bwd_slot``: B2 on one row chunk, its dxg
+    written into a slot of the ring backward's buffer) against its plain
+    twin at the shape the ring engine ``eng`` runs it on the state ``st``:
+    chunks of RC = ``eng.row_chunk`` rows of K = ``eng.k_model`` slots on
+    the state's edges, x over all nb * RC rows, a buffer of 4W + 1 slots
+    pre-filled with a sentinel; at the three SevenNet-0 layer shapes, random
+    x and ybar. For an interior and a wrapped (pinned) chunk: the slot's dxg
+    and the chunk's dvec within REL_TOL of max |plain|, every other slot
+    bitwise unchanged. Times: B3 over the nb chunks per force evaluation
+    (layer 0 + 3 x layers 1-3 + layer 4), CUDA events; bound: B2's work over
+    the chunks' rows. Returns the kernels-line record."""
+    import torch
+
+    from sevennet_tpu_torch.model.model import edge_embed_spec
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    spec = eng.spec
+    N, K, RC, W, nb = st.n_atoms_cap, eng.k_model, eng.row_chunk, eng._ring_w, eng._ring_nb
+    S = 4 * W + 1
+    g = eng._graph(st)
+    sentinel = torch.tensor([2.0 * spec.cutoff, 0.0, 0.0], device=dev)
+    vec = torch.where(g.edge_mask[None], g.edge_vectors().T, sentinel[:, None]).contiguous()
+    src = g.edge_src.view(N, K).to(torch.int32).contiguous()
+    coef = eng.params["edge_embedding"]["bessel_coeffs"]
+    valid = g.edge_mask.view(N, K)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+
+    def chunk(j, ybar):
+        return fc._chunk(RC, K, j, src, vec, ybar)
+
+    log(f"  B3 at the ring's shape: N={N} K={K}, {nb} chunks of RC={RC} rows, W={W}, {S} slots")
+    rec = dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
+    for tag, t, n_layers in SHAPES:
+        layer = spec.layers[t]
+        op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+        ws = eng.params[f"{t}_convolution"]["weight_nn"]["w"]
+        x = torch.randn(N, op.dim_x, generator=gen).to(dev)
+        ybar = torch.randn(N, op.dim_mid, generator=gen).to(dev)
+        buf = torch.full((S * RC * K, op.dim_x), -7.25e30, device=dev)
+        for j in (nb // 2, 0):  # an interior chunk and a wrapped (pinned) one
+            slot = fc.ring_slot(j, W)
+            before = buf.clone()
+            src_c, vec_c, yb = chunk(j, ybar)
+            dvec = fc.fused_conv_bwd_slot(op, x, src_c, vec_c, coef, ws, yb, buf, slot)
+            dxg_p, dvec_p = fc.fused_conv_bwd_plain(op, x, src_c, vec_c, coef, ws, yb)
+            torch.cuda.synchronize()
+            rows = slice(slot * RC * K, (slot + 1) * RC * K)
+            err = max(check_close(f"{tag} chunk {j}", "B3 dxg in its slot", buf[rows], dxg_p),
+                      check_close(f"{tag} chunk {j}", "B3 dvec", dvec, dvec_p))
+            rec["err"] = max(rec["err"], err)
+            other = torch.ones(S * RC * K, dtype=torch.bool, device=dev)
+            other[rows] = False
+            if not torch.equal(buf[other], before[other]):
+                raise SystemExit(f"B3 at {tag}, chunk {j}: rows outside slot {slot} changed")
+            log(f"  {tag} chunk {j} (slot {slot}): the other {S - 1} slots bitwise unchanged")
+            del dxg_p, dvec_p, before, other
+        torch.cuda.empty_cache()
+
+        chunks = [chunk(j, ybar) for j in range(nb)]
+
+        def run(fn):
+            return lambda: [fn(op, x, s_c, v_c, coef, ws, y_c, buf, fc.ring_slot(j, W))
+                            for j, (s_c, v_c, y_c) in enumerate(chunks)]
+
+        tk = cuda_time(run(fc.fused_conv_bwd_slot), 3)
+        tp = cuda_time(run(fc.fused_conv_bwd_slot_plain), 1)
+        parts = [work(op, RC, K, int(valid[j * RC:(j + 1) * RC].sum()), "bwd") for j in range(nb)]
+        fl, by = sum(p[0] for p in parts), sum(p[1] for p in parts)
+        bnd, _ = bound_ms(fl, by)
+        log(f"  {tag} B3 over {nb} chunks: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{bnd:.4f} ms ({fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB) | {card}")
+        for key, v in (("ms", tk), ("plain_ms", tp), ("flops", fl), ("bytes", by)):
+            rec[key] += n_layers * v
+        del buf, chunks, x, ybar
+        torch.cuda.empty_cache()
+    return rec
 
 
 def b6_path(spec, params, dev, atoms):
@@ -465,7 +564,7 @@ def counters():
     from sevennet_tpu_torch.ops import fused_conv as fc
     from sevennet_tpu_torch.ops.pallas_conv import dense_conv_pallas
 
-    return {"fwd": fc.fused_conv_fwd, "bwd": fc.fused_conv_bwd,
+    return {"fwd": fc.fused_conv_fwd, "bwd": fc.fused_conv_bwd, "bwd_slot": fc.fused_conv_bwd_slot,
             "bwd_pg": fc.fused_conv_bwd_pg_records, "reduce": fc.param_grad_reduce,
             "fwd_embsh": fc.fused_conv_fwd_embsh, "bwd_embsh": fc.fused_conv_bwd_embsh,
             "bwd_embsh_pg": fc.fused_conv_bwd_embsh_pg_records, "b6": dense_conv_pallas}
@@ -812,12 +911,278 @@ def training_phase(dev, seed: int, card: str):
         return counts, legacy
 
 
+def unsorted(state, n, name):
+    """Rows of ``state.<name>`` in the input order (``atom_index``), numpy."""
+    import numpy as np
+
+    a = getattr(state, name).cpu().numpy()
+    idx = state.atom_index.cpu().numpy()
+    out = np.zeros((n,) + a.shape[1:], a.dtype)
+    real = idx < n
+    out[idx[real]] = a[real]
+    return out
+
+
+def slots_match_host(eng, st):
+    """The slots of the engine's last device rebuild against a host build at
+    the same positions: per row the same ``(src, shift)`` set, and every
+    mirror pointing back (``src[mir[e]]`` is the row of ``e``, the shift
+    negated, ``mir[mir[e]] == e``). Returns the number of edges."""
+    import numpy as np
+
+    n_cap, K = st.n_atoms_cap, eng.k_model
+    host = eng._host_initial_edges(st.nl_positions[: int(st.atom_mask.sum())].cpu().numpy(),
+                                   n_cap)
+    if host is None:
+        raise SystemExit("the host build at the rebuilt positions failed its capacity checks")
+    rows = np.repeat(np.arange(n_cap), K)
+    src, shift = st.edge_src.cpu().numpy(), st.edge_shift.cpu().numpy()
+    mask, mir = st.edge_mask.cpu().numpy(), st.edge_mir.cpu().numpy()
+
+    def edge_set(s_, sh_, m_):
+        return set(zip(rows[m_].tolist(), s_[m_].tolist(),
+                       *[np.rint(sh_[m_, i]).astype(int).tolist() for i in range(3)]))
+
+    if edge_set(src, shift, mask) != edge_set(host["src"], host["shift"], host["mask"]):
+        raise SystemExit("the device rebuild's slots differ from a host build")
+    e = np.flatnonzero(mask)
+    if not ((src[mir[e]] == rows[e]).all() and (shift[mir[e]] == -shift[e]).all()
+            and (mir[mir[e]] == e).all()):
+        raise SystemExit("the device rebuild's mirror map does not pair the edges")
+    return len(e)
+
+
+def record_evaluations(eng):
+    """Wraps the engine's force evaluation to record, per evaluation, the
+    ring's chunk count (0: no ring); returns the list it fills."""
+    seen = []
+    forces = eng._forces
+
+    def counted(state, compute_stress=False):
+        seen.append(eng._ring_nb)
+        return forces(state, compute_stress)
+
+    eng._forces = counted
+    return seen
+
+
+def md_compare_phase(spec, params, dev, seed: int, card: str):
+    """NVE MD of a 3,000-atom water box: the kernel engine against an engine
+    on the plain conv, from the same state, for MD_CMP_STEPS steps of MD_DT;
+    positions within MD_POS_TOL, potential energy within ENERGY_REL_TOL
+    relative at every step, 5 B1 + 5 B2 launches per force evaluation, at
+    least one device rebuild (skin MD_CMP_SKIN), whose slots equal a host
+    build. Returns the kernel engine's launches."""
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.md import MDEngine
+
+    pos, Z, cell = water_box(1000)
+    n = len(pos)
+    engines = {k: MDEngine(spec, params, cell, skin=MD_CMP_SKIN, device=str(dev),
+                           plain=(k == "plain")) for k in ("kernel", "plain")}
+    out = {}
+    for k, eng in engines.items():
+        st = eng.make_state(pos, Z, temperature=MD_T, seed=seed)
+        evals = record_evaluations(eng)
+        reset_launches()
+        t0 = time.perf_counter()
+        st, (pe, ke) = eng.run(st, MD_CMP_STEPS, dt=MD_DT, chunk=MD_CMP_STEPS)
+        torch.cuda.synchronize()
+        out[k] = (st, pe.cpu().numpy(), ke.cpu().numpy(), read_launches(),
+                  (time.perf_counter() - t0) / MD_CMP_STEPS * 1e3, len(evals))
+    (st_k, pe_k, ke_k, counts, ms_k, n_evals), (st_p, pe_p, _, counts_p, ms_p, _) = (
+        out["kernel"], out["plain"])
+    dx = float(np.abs(unsorted(st_k, n, "positions") - unsorted(st_p, n, "positions")).max())
+    de = float(np.abs(pe_k - pe_p).max() / np.abs(pe_p).max())
+    want = dict(dict.fromkeys(counts, 0), fwd=5 * n_evals, bwd=5 * n_evals)
+    rebuilds = engines["kernel"].n_rebuilds
+    log(f"MD 3,000 atoms, {MD_CMP_STEPS} NVE steps of {MD_DT} fs, kernel vs plain conv: "
+        f"max|dx|={dx:.3e} A (tol {MD_POS_TOL:g}), max rel dPE={de:.3e} (tol "
+        f"{ENERGY_REL_TOL:g}), PE {pe_k[0]:.6f} -> {pe_k[-1]:.6f} eV, KE {ke_k[-1]:.4f} eV, "
+        f"device rebuilds {rebuilds}, growths {engines['kernel'].n_growths}, K="
+        f"{engines['kernel'].k_model}; {ms_k:.1f} ms/step kernel, {ms_p:.1f} plain (host "
+        f"clock); {n_evals} force evaluations, launches {counts} | {card}")
+    checks = ((dx <= MD_POS_TOL, f"max|dx| {dx}"), (de <= ENERGY_REL_TOL, f"rel dPE {de}"),
+              (counts == want, f"launches {counts}, expected {want}"),
+              (not any(counts_p.values()), f"plain engine launched {counts_p}"),
+              (rebuilds > 0, "no device rebuild happened"),
+              (bool(np.isfinite(pe_k).all()), "non-finite energies"))
+    for ok, why in checks:
+        if not ok:
+            raise SystemExit(f"MD at 3,000 atoms: {why}")
+    n_edges = slots_match_host(engines["kernel"], st_k)
+    log(f"  the last device rebuild's {n_edges} edges equal a host build at its positions, "
+        f"mirrors paired")
+    return counts
+
+
+def md_timed_phase(spec, params, dev, seed: int, card: str):
+    """NVE MD of a 9,999-atom water box, unchunked: a warm-up chunk, then
+    MD_TIMED_STEPS timed steps in chunks of MD_CHUNK (host clock around
+    synchronized work): ms per step, atom-steps/s, peak memory, capacity
+    growths (a growth retries its chunk, and its steps count in the time);
+    exactly 5 B1 + 5 B2 per force evaluation. Returns the launches of the
+    timed steps."""
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.md import MDEngine
+
+    pos, Z, cell = water_box(3333)
+    n = len(pos)
+    eng = MDEngine(spec, params, cell, device=str(dev))
+    t0 = time.perf_counter()
+    st = eng.make_state(pos, Z, temperature=MD_T, seed=seed)
+    t_setup = time.perf_counter() - t0
+    k0 = eng.k_model
+    st, _ = eng.run(st, MD_WARMUP_STEPS, dt=MD_DT, chunk=MD_CHUNK)
+    rebuilds, growths = eng.n_rebuilds, eng.n_growths
+    evals = record_evaluations(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    st, (pe, ke) = eng.run(st, MD_TIMED_STEPS, dt=MD_DT, chunk=MD_CHUNK)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = dict(dict.fromkeys(counts, 0), fwd=5 * len(evals), bwd=5 * len(evals))
+    etot = (pe + ke).cpu().numpy()
+    log(f"MD 9,999 atoms (unchunked, K {k0} at make_state, {eng.k_model} timed; growths "
+        f"{growths} in the {MD_WARMUP_STEPS} warm-up steps): make_state {t_setup:.1f} s; "
+        f"{MD_TIMED_STEPS} timed NVE steps: {dt_s / MD_TIMED_STEPS * 1e3:.2f} ms/step, "
+        f"{n * MD_TIMED_STEPS / dt_s:.4e} atom-steps/s (host clock), peak {peak:.2f} GiB, "
+        f"device rebuilds {eng.n_rebuilds - rebuilds}, growths {eng.n_growths - growths}, "
+        f"{len(evals)} force evaluations, E_tot drift {float(np.abs(etot - etot[0]).max()):.3e} "
+        f"eV; launches {counts} | {card}")
+    if counts != want:
+        raise SystemExit(f"MD at 9,999 atoms: launches {counts}, expected {want}")
+    if not np.isfinite(etot).all():
+        raise SystemExit("MD at 9,999 atoms: non-finite energies")
+    return counts
+
+
+def md_ring_phase(params, dev, seed: int, card: str):
+    """NVE MD of a 99,999-atom water box with full SevenNet-0 and the ring
+    backward engaged in every layer (SEVENNET_TPU_CHUNK_THRESHOLD=1e9 and
+    an edge chunk of 163,840 slots, as bench.py:139-141 and :349-358 run
+    it; MD_RING_THRESHOLD, MD_RING_EDGE_CHUNK), against an unchunked engine (``_edge_chunk: 0``) at the same
+    positions: initial forces within FORCE_TOL and FORCE_REL_TOL of max
+    |F|, energy within ENERGY_REL_TOL; the peak memory of one step of each;
+    then MD_RING_WARMUP + MD_RING_STEPS timed ring steps with 5 B1 + 5 nb B3
+    launches per force evaluation and no B2 (nb as it stands at each
+    evaluation: a capacity growth may re-size the ring). Before the
+    reference engine, :func:`b3_check` at the ring's shape. Returns the
+    launches of the timed steps and B3's kernels-line record."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.md import MDEngine
+    from sevennet_tpu_torch.model.build import build_model_spec
+    from sevennet_tpu_torch.ops.fused_conv import CHUNK_THRESHOLD_BYTES
+
+    os.environ["SEVENNET_TPU_CHUNK_THRESHOLD"] = str(MD_RING_THRESHOLD)
+    try:
+        pos, Z, cell = water_box(33333)
+        n = len(pos)
+        ring = MDEngine(build_model_spec(dict(SEVENNET0, _edge_chunk=MD_RING_EDGE_CHUNK)),
+                        params, cell, device=str(dev))
+        dim_x = max(layer.conv.irreps_x.dim for layer in ring.spec.layers)
+        t0 = time.perf_counter()
+        reset_launches()
+        st_r = ring.make_state(pos, Z, temperature=MD_T, seed=seed)
+        torch.cuda.synchronize()
+        t_ring = time.perf_counter() - t0
+        counts = read_launches()
+        RC, nb, W = ring.row_chunk, ring._ring_nb, ring._ring_w
+        log(f"MD 99,999 atoms, ring: RC={RC} rows, nb={nb} chunks, W={W} (buffer of {4 * W + 1} "
+            f"slots, {(4 * W + 1) * RC * ring.k_model * dim_x * 4 / 2**30:.2f} GiB at dim_x "
+            f"{dim_x}), "
+            f"K={ring.k_model}, atom capacity {st_r.n_atoms_cap}, host window "
+            f"{ring._ring_window} rows; make_state {t_ring:.1f} s, launches {counts}")
+        want = dict(dict.fromkeys(counts, 0), fwd=5, bwd_slot=5 * nb)
+        if not nb or ring.spec.conv_ring != W or counts != want:
+            raise SystemExit(f"the ring is not engaged at 99,999 atoms: nb={nb}, launches "
+                             f"{counts}, expected {want}")
+        b3 = b3_check(ring, st_r, dev, card)
+        ref = MDEngine(build_model_spec(dict(SEVENNET0, _edge_chunk=0)), params, cell,
+                       device=str(dev))
+        t0 = time.perf_counter()
+        st_u = ref.make_state(pos, Z, temperature=MD_T, seed=seed)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+        f_r, f_u = unsorted(st_r, n, "forces"), unsorted(st_u, n, "forces")
+        df, fmax = float(np.abs(f_r - f_u).max()), float(np.abs(f_u).max())
+        e_r, e_u = float(st_r.potential_energy), float(st_u.potential_energy)
+        de = abs(e_r - e_u) / abs(e_u)
+        log(f"  ring vs unchunked forces at the same positions: max|dF|={df:.3e} eV/A "
+            f"(max|F|={fmax:.3e}), E {e_r:.6f} vs {e_u:.6f} eV, rel dE={de:.3e}; unchunked "
+            f"make_state {t_ref:.1f} s")
+        for ok, why in ((df <= FORCE_TOL, f"max|dF| {df} > {FORCE_TOL}"),
+                        (df <= FORCE_REL_TOL * fmax, f"max|dF| {df} > {FORCE_REL_TOL} * {fmax}"),
+                        (de <= ENERGY_REL_TOL, f"rel dE {de}")):
+            if not ok:
+                raise SystemExit(f"MD at 99,999 atoms, ring vs unchunked: {why}")
+
+        def one_step(eng, st):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            st, _ = eng.run(st, 1, dt=MD_DT, chunk=1)
+            torch.cuda.synchronize()
+            return st, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 2**30
+
+        _, ms_u, peak_u = one_step(ref, st_u)
+        gathered = st_u.n_atoms_cap * ref.k_model * dim_x * 4
+        log(f"  unchunked step: {ms_u:.1f} ms (host clock, one step), peak {peak_u:.2f} GiB; "
+            f"gathered edge tensor at dim_x {dim_x}: {gathered / 1e9:.2f} GB; peak / gathered = "
+            f"{peak_u * 2**30 / gathered:.3f}, so a 60 GiB peak at "
+            f"{60 * 2**30 / (peak_u * 2**30 / gathered) / 1e9:.1f} GB gathered (default "
+            f"chunk_threshold {CHUNK_THRESHOLD_BYTES / 1e9:.1f} GB) | {card}")
+        del ref, st_u
+        torch.cuda.empty_cache()
+        st_r, ms_r1, peak_r = one_step(ring, st_r)
+        log(f"  ring step: {ms_r1:.1f} ms (host clock, one step), peak {peak_r:.2f} GiB | {card}")
+        st_r, _ = ring.run(st_r, MD_RING_WARMUP, dt=MD_DT, chunk=MD_CHUNK)
+        rebuilds, growths = ring.n_rebuilds, ring.n_growths
+        evals = record_evaluations(ring)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        st_r, (pe, ke) = ring.run(st_r, MD_RING_STEPS, dt=MD_DT, chunk=MD_CHUNK)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        counts = read_launches()
+        want = dict(dict.fromkeys(counts, 0), fwd=5 * len(evals), bwd_slot=5 * sum(evals))
+        etot = (pe + ke).cpu().numpy()
+        log(f"  {MD_RING_STEPS} timed ring steps: {dt_s / MD_RING_STEPS * 1e3:.1f} ms/step, "
+            f"{n * MD_RING_STEPS / dt_s:.4e} atom-steps/s (host clock), device rebuilds "
+            f"{ring.n_rebuilds - rebuilds}, growths {ring.n_growths - growths} (before: "
+            f"{growths}), {len(evals)} force evaluations, ring chunks now {ring._ring_nb} "
+            f"(W {ring._ring_w}, K {ring.k_model}), E_tot drift "
+            f"{float(np.abs(etot - etot[0]).max()):.3e} eV; launches {counts} | {card}")
+        if not all(evals) or counts != want:
+            raise SystemExit(f"MD at 99,999 atoms: launches {counts}, expected {want}")
+        if not np.isfinite(etot).all():
+            raise SystemExit("MD at 99,999 atoms: non-finite energies")
+        return counts, b3
+    finally:
+        del os.environ["SEVENNET_TPU_CHUNK_THRESHOLD"]
+
+
 FWD_CU = "sevennet_tpu_torch/csrc/fused_conv_fwd.cu"
 BWD_CU = "sevennet_tpu_torch/csrc/fused_conv_bwd.cu"
 # kernels line entry -> (name, source, TPU kernel replaced, record and launch key)
 KERNEL_NAMES = {
     "fwd": ("fused_conv_fwd", FWD_CU, "sevennet_tpu/ops/fused_conv.py:678", "fwd"),
     "bwd": ("fused_conv_bwd", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222", "bwd"),
+    "bwd_slot": ("fused_conv_bwd_slot", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1208",
+                 "bwd_slot"),
     "bwd_pg": ("fused_conv_bwd_pg", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222", "bwd_pg"),
     "reduce": ("param_grad_reduce", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1064", "reduce"),
     "fwd_embsh": ("fused_conv_fwd_embsh", FWD_CU, "sevennet_tpu/ops/fused_conv.py:678",
@@ -893,8 +1258,19 @@ def main() -> int:
     trained, trained_legacy = training_phase(dev, args.seed, card)
     log(f"training phase (main path: training; legacy steps): launches {trained}, "
         f"{trained_legacy}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    md_small = md_compare_phase(spec, params, dev, args.seed, card)
+    log(f"MD phase, 3,000 atoms (main path: MD, against the plain conv): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    md_mid = md_timed_phase(spec, params, dev, args.seed, card)
+    log(f"MD phase, 9,999 atoms (main path: MD, unchunked): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    md_ring, records["bwd_slot"] = md_ring_phase(params, dev, args.seed, card)
+    log(f"MD phase, 99,999 atoms (main path: MD, ring backward): "
+        f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
-                for k in counters()}
+                + md_small[k] + md_mid[k] + md_ring[k] for k in counters()}
     if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
         raise SystemExit(f"a kernel was never launched on the main paths: {launches}")
 
@@ -908,9 +1284,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
         })
     log(f"kernel times are per pass of {N} atoms (K={K}, {n_edges} edges): "
-        "layer 0 + 3 x layers 1-3 + layer 4; fused_conv_bwd_pg and fused_conv_bwd_embsh_pg "
-        "include their param_grad_reduce; launches: the B6 path, serving (both configs), "
-        "train_run and the legacy config's compared train steps")
+        "layer 0 + 3 x layers 1-3 + layer 4 (fused_conv_bwd_slot: per force evaluation "
+        "of the 99,999-atom ring, over its nb chunks); fused_conv_bwd_pg and fused_conv_bwd_embsh_pg include their "
+        "param_grad_reduce; launches: the B6 path, serving (both configs), train_run, the "
+        "legacy config's compared train steps, and MD (3,000 and 9,999 atoms, and the timed "
+        "ring steps at 99,999)")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

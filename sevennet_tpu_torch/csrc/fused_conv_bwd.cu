@@ -14,6 +14,8 @@
 //     param_grads=True (B2', training), which also gives the radial-MLP
 //     weight gradients dW_l = sum_edges h_l (x) g_l / sqrt(d_l) and dcoef
 //     (:1060-1098);
+//   - fused_conv_bwd_slot_launch: out_slots > 1 (B3, pallas_call at :1208),
+//     B2 on one row chunk of the ring backward writing into a buffer slot;
 //   - fused_conv_bwd_embsh_launch and fused_conv_bwd_embsh_pg_launch +
 //     param_grad_reduce_launch (no dcoef): embed=None (B4 bwd and B4').
 //     They also serve B5, make_fused_conv_bwd (pallas_call at :875), the
@@ -398,6 +400,27 @@ extern "C" int fused_conv_bwd_launch(ConvDims d, const float* x, const int* src,
                                      const float* ftab, float* dxg, float* dvec, void* stream) {
   return launch_bwd<false, false>(d, smem_limit, x, src, vec, coef, W1, W2, W3, ybar, itab, ftab,
                                   dxg, dvec, nullptr, WsLayout{}, nullptr, nullptr, stream);
+}
+
+// B3, the ring backward's per-chunk kernel. Replaces the Pallas TPU kernel
+// make_fused_conv_bwd2 with out_slots > 1 (sevennet_tpu/ops/fused_conv.py,
+// pallas_call at :1208, caller :2061-2074): B2 on the d.N = RC receiver
+// rows of one chunk, its dxg written in place into slot `slot` of the
+// caller's rolling buffer buf (S * RC*K rows of dim_x). The TPU kernel
+// takes the slot by scalar prefetch and aliases the buffer to its output;
+// here the slot is a pointer offset, so B2's kernel serves unchanged:
+// src_c and ybar_c point at the chunk's first row, vec_c and dvec are the
+// chunk's own (3, RC*K) columns, and the zero rows of slots past the
+// cutoff land inside the slot too. Rows of other slots are not touched.
+// What bounds it: B2's fp32 operations on the chunk's edges.
+extern "C" int fused_conv_bwd_slot_launch(ConvDims d, const float* x, const int* src_c,
+                                          const float* vec_c, const float* coef, const float* W1,
+                                          const float* W2, const float* W3, const float* ybar_c,
+                                          const int* itab, const float* ftab, float* buf, int slot,
+                                          float* dvec, void* stream) {
+  float* dxg = buf + (size_t)slot * d.N * d.K * d.dim_x;
+  return launch_bwd<false, false>(d, smem_limit, x, src_c, vec_c, coef, W1, W2, W3, ybar_c, itab,
+                                  ftab, dxg, dvec, nullptr, WsLayout{}, nullptr, nullptr, stream);
 }
 
 // B2', first pass: B2 plus the workspace records (N*K rows of L.stride

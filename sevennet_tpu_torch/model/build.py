@@ -130,9 +130,11 @@ class ModelSpec:
     pinned_modal: int = -1  # -1 = not pinned
     # The JAX package's execution policy (remat, edge chunks, dense K, fused
     # and ring conv paths, conv dtype). Kept so the two specs compare field
-    # by field; the port reads none of them: it always runs the dense fused
-    # conv (vec or emb/sh mode, model/model.py:_vec_mode) with the K of each
-    # graph.
+    # by field. The port always runs the dense fused conv (vec or emb/sh
+    # mode, model/model.py:_vec_mode) with the K of each graph; of these it
+    # reads only edge_chunk and conv_ring (model/model.py:conv_row_chunk:
+    # the chunked and ring backward of large systems), which the MD engine
+    # sets.
     remat_layers: bool = True
     edge_chunk: int = 0
     edge_dense_k: int = 0

@@ -21,7 +21,12 @@ import torch.nn.functional as F
 
 from ..data.graph import GraphBatch
 from ..device import resolve_device
-from ..ops.fused_conv import EdgeEmbedSpec, fused_conv_apply, fused_conv_apply_vec
+from ..ops.fused_conv import (
+    EdgeEmbedSpec,
+    chunk_threshold,
+    fused_conv_apply,
+    fused_conv_apply_vec,
+)
 from ..ops.gate import gate_apply
 from ..ops.linear import linear_apply
 from ..ops.mlp import scalar_mlp_apply
@@ -30,7 +35,7 @@ from ..ops.tensor_product import fctp_apply
 from ..so3.spherical import spherical_harmonics
 from .build import ModelSpec
 
-__all__ = ["model_energy", "model_compute", "params_to", "edge_emb_sh"]
+__all__ = ["model_energy", "model_compute", "params_to", "edge_emb_sh", "conv_row_chunk"]
 
 
 def edge_embed_spec(spec: ModelSpec, layer) -> EdgeEmbedSpec:
@@ -89,6 +94,26 @@ def edge_emb_sh(spec: ModelSpec, coef, ev3, edge_mask):
     return emb, sh
 
 
+def graph_sum(batch: torch.Tensor, values: torch.Tensor, n_graphs: int) -> torch.Tensor:
+    """Per-graph sums of per-atom ``values`` (rows by ``batch``), in the
+    values' dtype but accumulated in float64: ``index_add`` on CUDA adds
+    atomically in no fixed order, and in fp32 the rounding of 100k adds
+    into one graph reaches about 1e-5 of the sum (0.7 eV of a 99,999-atom
+    water box's 47,547 eV between two runs)."""
+    out = torch.zeros((n_graphs,) + values.shape[1:], dtype=torch.float64, device=values.device)
+    return out.index_add(0, batch, values.double()).to(values.dtype)
+
+
+def conv_row_chunk(spec: ModelSpec, n_atoms: int, K: int, dim_x: int) -> int:
+    """Row chunk of one conv layer: ``spec.edge_chunk // K`` rows when the
+    spec asks for edge chunks and the layer's gathered edge tensor ``(N*K,
+    dim_x)`` would pass :func:`chunk_threshold`, else 0 (unchunked). The
+    rule of ``sevennet_tpu/model/model.py:116-147``."""
+    if spec.edge_chunk and n_atoms * K * dim_x * 4 > chunk_threshold():
+        return spec.edge_chunk // K
+    return 0
+
+
 def model_energy(
     spec: ModelSpec,
     params: Dict[str, Any],
@@ -99,7 +124,9 @@ def model_energy(
     """Per-atom and per-graph energies from explicit ``(3, N*K)`` edge
     vectors. ``plain=True`` runs the convolution's plain PyTorch version.
     The conv runs in vec mode or, when :func:`_vec_mode` says no, in emb/sh
-    mode."""
+    mode. A layer whose :func:`conv_row_chunk` is set runs the chunked
+    backward (the ring one when ``spec.conv_ring`` is set), in vec mode
+    only."""
     _check_supported(spec)
     dtype = edge_vec3.dtype
     K = graph.dense_k
@@ -128,12 +155,18 @@ def model_energy(
             sc = None
         x = linear_apply(layer.si1, params[f"{t}_self_interaction_1"], x)
         conv_p = params[f"{t}_convolution"]
+        row_chunk = conv_row_chunk(spec, n_atoms, K, layer.conv.irreps_x.dim)
         if vec_mode:
             x = fused_conv_apply_vec(
                 layer.conv, layer.radial_mlp, conv_p["weight_nn"], coef,
                 edge_embed_spec(spec, layer), x, ev3, src_nk, mir_nk, plain=plain,
+                row_chunk=row_chunk, ring=spec.conv_ring,
             )
         else:
+            if row_chunk:
+                raise NotImplementedError(
+                    "the chunked and ring conv of emb/sh mode are not ported yet "
+                    "(ROADMAP A2): run this model unchunked (_edge_chunk: 0)")
             x = fused_conv_apply(layer.conv, layer.radial_mlp, conv_p["weight_nn"], x,
                                  emb_nk, sh_nk, src_nk, mir_nk, plain=plain)
         x = x / conv_p["denominator"][0]
@@ -157,8 +190,7 @@ def model_energy(
     else:
         raise NotImplementedError(f"rescale mode {spec.rescale_mode} is not ported yet")
     e_atom = (e_scaled * scale + shift) * graph.atom_mask.to(dtype)
-    e_graph = torch.zeros(graph.n_graphs_cap, dtype=dtype, device=e_atom.device)
-    e_graph = e_graph.index_add(0, graph.batch, e_atom) * graph.graph_mask.to(dtype)
+    e_graph = graph_sum(graph.batch, e_atom, graph.n_graphs_cap) * graph.graph_mask.to(dtype)
     return {"atomic_energy": e_atom, "energy": e_graph}
 
 
@@ -183,7 +215,9 @@ def model_compute(
     is a differentiable function of the parameters, forces and stress
     through the conv's differentiable backward (the second derivative a
     force or stress loss needs, which the JAX package gets by composing
-    ``jax.grad``). Otherwise the outputs are detached."""
+    ``jax.grad``). Otherwise the outputs are detached. The chunked and ring
+    conv of large systems are first order only: ``create_graph=True`` with a
+    layer that :func:`conv_row_chunk` chunks raises."""
     dev = resolve_device(device)
     if graph.device != dev:
         graph = graph.to(dev)
@@ -191,6 +225,12 @@ def model_compute(
     if graph.dense_k <= 0 or graph.edge_mir is None:
         raise ValueError("model_compute needs a dense graph with a mirror index")
     n, K = graph.n_atoms_cap, graph.dense_k
+    if create_graph and not plain and any(
+            conv_row_chunk(spec, n, K, layer.conv.irreps_x.dim) for layer in spec.layers):
+        raise NotImplementedError(
+            "the chunked and ring conv backward have no second derivative (nor has the JAX "
+            "package's): train on smaller structures, with _edge_chunk: 0, or with a larger "
+            "SEVENNET_TPU_CHUNK_THRESHOLD")
     ev3 = graph.edge_vectors().T.contiguous().detach().requires_grad_(True)
     with torch.enable_grad():
         out = model_energy(spec, params, graph, ev3, plain=plain)
@@ -210,9 +250,7 @@ def model_compute(
         v6 = torch.stack([r0 * f0, r1 * f1, r2 * f2, r0 * f1, r1 * f2, r2 * f0])
         # per-atom virial at the SENDER: the src-side sum via the mirror rows
         atomic_virial = (-v6[:, mir].reshape(6, n, K).sum(2)).T
-        virial_graph = torch.zeros(
-            graph.n_graphs_cap, 6, dtype=fij3.dtype, device=fij3.device
-        ).index_add(0, graph.batch, atomic_virial)
+        virial_graph = graph_sum(graph.batch, atomic_virial, graph.n_graphs_cap)
         out["atomic_virial"] = atomic_virial
         out["stress"] = virial_graph / graph.volume[:, None]
     return out

@@ -1,7 +1,8 @@
 """Fused convolution of the dense ``(N, K)`` layout: radial MLP, uvu tensor
 product and the sum over each receiver's neighbour slots, forward and
-backward (PyTorch port of ``sevennet_tpu/ops/fused_conv.py`` without its
-chunked and ring paths). Two modes, as in the JAX package:
+backward (PyTorch port of ``sevennet_tpu/ops/fused_conv.py``; the chunked
+and ring paths of large systems are ported for vec mode only). Two modes,
+as in the JAX package:
 
 - vec mode (an :class:`EdgeEmbedSpec`): the kernels compute the radial
   embedding and the spherical harmonics from raw edge vectors
@@ -24,7 +25,15 @@ Hand-written CUDA kernels carry it on the card (``csrc/``):
   ``param_grad_reduce`` (B2′ / B4′): the same with ``param_grads=True``, in
   two passes (per-edge records, then a reduction over all edges in a fixed
   order); :func:`fused_conv_bwd` and :func:`fused_conv_bwd_embsh` with
-  ``param_grads=True`` run both.
+  ``param_grads=True`` run both;
+- ``fused_conv_bwd_slot`` (B3): replaces ``make_fused_conv_bwd2`` with
+  ``out_slots > 1``: B2 on one row chunk, writing its ``dxg`` into a slot
+  of the ring backward's rolling buffer (:class:`FusedConvRingVec`).
+
+Large systems (vec mode, :func:`fused_conv_apply_vec` with ``row_chunk``)
+run the backward chunk by chunk: the ring backward (B3 per chunk and a
+windowed mirror gather) or the chunked scatter backward (B2 per chunk and
+``index_add_``); :func:`chunk_threshold` decides where chunking starts.
 
 Each has a plain PyTorch twin with the same contract
 (``*_plain``). The wrappers take the plain version only
@@ -45,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Dict, List, Optional, Tuple
@@ -65,7 +75,14 @@ __all__ = [
     "EdgeEmbedSpec",
     "FusedConvOp",
     "conv_op",
+    "chunk_threshold",
     "mirror_map_numpy",
+    "mirror_map",
+    "fused_conv_bwd_slot_plain",
+    "fused_conv_bwd_slot",
+    "ring_slot",
+    "FusedConvChunkedVec",
+    "FusedConvRingVec",
     "edge_embedding_plain",
     "fused_conv_fwd_plain",
     "fused_conv_bwd_plain",
@@ -182,6 +199,57 @@ def mirror_map_numpy(src_nk, shift_nk, edge_mask_nk) -> np.ndarray:
     hit = kf[order][pos] == want.reshape(-1)
     mir = np.where(hit & mask.reshape(-1), order[pos], flat_self.reshape(-1))
     return mir.reshape(N, K).astype(np.int32)
+
+
+def mirror_map(src_nk: torch.Tensor, shift_nk: torch.Tensor, edge_mask_nk: torch.Tensor):
+    """:func:`mirror_map_numpy` on the inputs' device (the counterpart of
+    ``sevennet_tpu/ops/fused_conv.py:mirror_map``, which the MD engine
+    calls at every neighbour rebuild): ``(N, K)`` int64 flat mirror
+    indices, padded or unmatched slots mapping to themselves. One sort of
+    the edge keys and a binary search for each edge's mirror key, in place
+    of the JAX package's chunked ``(B, K, K)`` direct search; the key
+    ``(dst * N + src) * 729 + code`` passes 2**31 near 2,000 atoms, so it
+    is int64."""
+    N, K = src_nk.shape
+    dev = src_nk.device
+    src = src_nk.long()
+    sh = torch.round(shift_nk).long()
+    smax, base = 4, 9
+    code = ((sh[..., 0] + smax) * base + (sh[..., 1] + smax)) * base + (sh[..., 2] + smax)
+    mcode = ((smax - sh[..., 0]) * base + (smax - sh[..., 1])) * base + (smax - sh[..., 2])
+    dst = torch.arange(N, device=dev)[:, None]
+    key = (dst * N + src) * base**3 + code
+    want = ((src * N + dst) * base**3 + mcode).reshape(-1)
+    mask = edge_mask_nk.reshape(-1)
+    keys, order = torch.sort(torch.where(mask, key.reshape(-1), -1))
+    pos = torch.searchsorted(keys, want).clamp_(max=N * K - 1)
+    hit = (keys[pos] == want) & mask
+    return torch.where(hit, order[pos], torch.arange(N * K, device=dev)).view(N, K)
+
+
+# default of chunk_threshold(), a projection: the unchunked MD step's peak
+# memory at 99,999 atoms is 2.34 x the gathered edge tensor (26.33 GiB for
+# 12.10 GB, SevenNet-0 on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md, MD);
+# scaled linearly, a 60 GiB peak is reached at 27.6 GB. No step near that
+# size has been measured (ROADMAP A2)
+CHUNK_THRESHOLD_BYTES = 27_500_000_000
+
+
+def chunk_threshold() -> int:
+    """Size in bytes of a layer's gathered edge tensor (``N * K * dim_x *
+    4``) above which the conv runs its backward in row chunks (the ring or
+    the chunked scatter path) instead of the unchunked mirror path; the
+    counterpart of ``sevennet_tpu/ops/fused_conv.py:chunk_threshold``, with
+    the same override ``SEVENNET_TPU_CHUNK_THRESHOLD``. The JAX default
+    (3 GB) was sized for a 16 GB chip; this one keeps the unchunked path,
+    the faster, wherever its peak, projected linearly from one MD step
+    measured at 99,999 atoms, stays under about 60 GiB of the H100's 80
+    GB: about 225k water atoms with SevenNet-0 (derivation and measured
+    peaks: PERF.md, MD). It is a projection: no unchunked step near the
+    threshold has been measured, and the calculator's and the trainer's
+    peaks per gathered byte not at all. Training refuses a layer that
+    chunks (:func:`~sevennet_tpu_torch.model.model.model_compute`)."""
+    return int(os.environ.get("SEVENNET_TPU_CHUNK_THRESHOLD", CHUNK_THRESHOLD_BYTES))
 
 
 # ---------------------------------------------------------------------------
@@ -506,7 +574,10 @@ def fused_conv_bwd_embsh_vjp_plain(op: FusedConvOp, x, src, emb, sh, ws, ybar, c
 
 def check_conv_inputs(op: FusedConvOp, embsh: bool, x, src, a, b, ws, ybar=None):
     """Raises ValueError on inputs the kernels do not take. ``(a, b)`` is
-    ``(vec, coef)`` in vec mode and ``(emb, sh)`` in emb/sh mode."""
+    ``(vec, coef)`` in vec mode and ``(emb, sh)`` in emb/sh mode. ``src``,
+    the edge arrays and ``ybar`` cover the receivers (all atoms, or one row
+    chunk of them); ``x`` holds every atom ``src`` may name, at least as
+    many rows as there are receivers."""
     if embsh != (op.embed is None):
         raise ValueError(f"this wrapper takes an op of {'emb/sh' if embsh else 'vec'} mode")
     dev = x.device
@@ -514,7 +585,7 @@ def check_conv_inputs(op: FusedConvOp, embsh: bool, x, src, a, b, ws, ybar=None)
     edge = ([("emb", a, (N * K, op.n_basis)), ("sh", b, (N * K, op.dim_f))] if embsh
             else [("vec", a, (3, N * K)), ("coef", b, (op.n_basis,))])
     shapes = [
-        ("x", x, (N, op.dim_x), torch.float32),
+        ("x", x, (max(x.shape[0], N), op.dim_x), torch.float32),
         ("src", src, (N, K), torch.int32),
     ] + [(name, t, shape, torch.float32) for name, t, shape in edge] + [
         (f"w{i}", w, (a, b), torch.float32)
@@ -657,6 +728,58 @@ def fused_conv_bwd_pg_records(op: FusedConvOp, x, src, vec, coef, ws, ybar):
 
 
 fused_conv_bwd_pg_records.launches = 0
+
+
+def _check_slot(op: FusedConvOp, src_c, buf, slot: int, dev) -> int:
+    """Raises ValueError unless ``buf`` is a contiguous fp32 ``(S * RC * K,
+    dim_x)`` rolling buffer on ``dev`` for chunks of ``src_c (RC, K)`` and
+    ``0 <= slot < S``; returns S."""
+    rck = src_c.numel()
+    if (buf.dim() != 2 or buf.shape[1] != op.dim_x or rck == 0 or buf.shape[0] % rck
+            or buf.dtype != torch.float32 or not buf.is_contiguous() or buf.device != dev):
+        raise ValueError(f"buf: expected a contiguous float32 (S * {rck}, {op.dim_x}) tensor on "
+                         f"{dev}, got {buf.dtype} {tuple(buf.shape)} on {buf.device}")
+    n_slots = buf.shape[0] // rck
+    if not 0 <= slot < n_slots:
+        raise ValueError(f"slot {slot} outside the buffer's {n_slots} slots")
+    return n_slots
+
+
+def fused_conv_bwd_slot_plain(op: FusedConvOp, x, src_c, vec_c, coef, ws, ybar_c, buf, slot: int):
+    """Plain twin of B3: :func:`fused_conv_bwd_plain` on the rows of one
+    chunk (``src_c (RC, K)``, ``vec_c (3, RC*K)``, ``ybar_c (RC, dim_mid)``;
+    ``x`` holds every atom), its ``dxg`` written into rows ``[slot * RC*K,
+    (slot + 1) * RC*K)`` of ``buf`` in place, the other rows untouched.
+    Returns the chunk's ``dvec (3, RC*K)``."""
+    _check_slot(op, src_c, buf, slot, x.device)
+    dxg, dvec = fused_conv_bwd_plain(op, x, src_c, vec_c, coef, ws, ybar_c)
+    rck = src_c.numel()
+    buf[slot * rck:(slot + 1) * rck] = dxg
+    return dvec
+
+
+def fused_conv_bwd_slot(op: FusedConvOp, x, src_c, vec_c, coef, ws, ybar_c, buf, slot: int):
+    """B3, the ring backward's per-chunk kernel: B2 on one row chunk with
+    its ``dxg`` written in place into slot ``slot`` of the rolling buffer
+    ``buf (S * RC*K, dim_x)``; returns ``dvec (3, RC*K)``. CPU tensors:
+    :func:`fused_conv_bwd_slot_plain`. CUDA tensors: the
+    ``fused_conv_bwd_slot`` kernel (``csrc/fused_conv_bwd.cu``), B2's
+    kernel launched on the chunk with its output at the slot."""
+    check_conv_inputs(op, False, x, src_c, vec_c, coef, ws, ybar_c)
+    _check_slot(op, src_c, buf, slot, x.device)
+    if x.device.type == "cpu":
+        return fused_conv_bwd_slot_plain(op, x, src_c, vec_c, coef, ws, ybar_c, buf, slot)
+    RC, K = src_c.shape
+    dvec = torch.empty((3, RC * K), dtype=torch.float32, device=x.device)
+    itab, ftab = op.device_tables(x.device)
+    _call("fused_conv_bwd", "fused_conv_bwd_slot_launch", op.dims(RC, K), _ptr(x), _ptr(src_c),
+          _ptr(vec_c), _ptr(coef), *[_ptr(w) for w in ws], _ptr(ybar_c), _ptr(itab), _ptr(ftab),
+          _ptr(buf), ctypes.c_int(slot), _ptr(dvec), _stream(x.device))
+    fused_conv_bwd_slot.launches += 1
+    return dvec
+
+
+fused_conv_bwd_slot.launches = 0
 
 
 def fused_conv_fwd_embsh(op: FusedConvOp, x, src, emb, sh, ws):
@@ -862,6 +985,146 @@ class FusedConvEmbSh(torch.autograd.Function):
         return (None, mirror_gather(outs[0], mir), outs[1], outs[2], None, None, *dws)
 
 
+def _chunk(RC: int, K: int, j: int, src, vec, ybar):
+    """Rows ``[j * RC, (j + 1) * RC)``: ``src_c``, a contiguous copy of the
+    chunk's ``(3, RC*K)`` edge-vector columns (as the JAX package slices
+    them, ``sevennet_tpu/ops/fused_conv.py:2048``) and ``ybar_c``."""
+    a = j * RC
+    return src[a:a + RC], vec[:, a * K:(a + RC) * K].contiguous(), ybar[a:a + RC]
+
+
+def ring_slot(c: int, W: int) -> int:
+    """Slot of chunk ``c`` in the ring backward's buffer of ``4W + 1``
+    slots (``sevennet_tpu/ops/fused_conv.py:2032-2033``): chunks 0 ..
+    2W-1 pinned in slots 2W+1 .. 4W, the others cycling through slot
+    ``c % (2W + 1)``."""
+    span = 2 * W + 1
+    return span + c if c < 2 * W else c % span
+
+
+def _summed(total, part):
+    """``total + part`` entrywise (``part`` when ``total`` is None): the
+    per-chunk parameter gradients ``[dcoef, *dws]`` summed in chunk order."""
+    return list(part) if total is None else [a + b for a, b in zip(total, part)]
+
+
+class FusedConvChunkedVec(torch.autograd.Function):
+    """Vec-mode conv of a large system with the chunked scatter backward
+    (the port of ``_fused_conv_chunked_v``,
+    ``sevennet_tpu/ops/fused_conv.py:1606-1691``). The row count must be a
+    multiple of ``RC``.
+
+    Forward: one B1 launch over all rows (the JAX chunk loop bounds an XLA
+    gather of ``x[src]`` that B1 does inside the kernel; the function is
+    the same). Backward, chunk by chunk: B2 (B2′ when a parameter needs a
+    gradient, summed in chunk order), then ``dxg`` added into ``dx`` at
+    the chunk's senders with ``index_add_``, and the chunk's ``dvec``
+    columns copied out: no ``(N*K, dim_x)`` tensor exists at once. The
+    MD engine falls back to it when the ring cannot be sized. First order
+    only: a second backward raises, as the JAX path offers no
+    grad-of-grad."""
+
+    @staticmethod
+    def forward(ctx, op, RC, x, vec, coef, src, *ws):
+        ctx.op, ctx.RC = op, RC
+        ctx.save_for_backward(x, vec, coef, src, *ws)
+        return fused_conv_fwd(op, x, src, vec, coef, ws)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ybar):
+        x, vec, coef, src, *ws = ctx.saved_tensors
+        op, RC = ctx.op, ctx.RC
+        need = ctx.needs_input_grad  # (op, RC, x, vec, coef, src, *ws)
+        param_grads = bool(need[4] or any(need[6:]))
+        ybar = ybar.contiguous()
+        N, K = src.shape
+        dx = torch.zeros_like(x)
+        dvec = torch.empty_like(vec)
+        pg = None
+        for j in range(N // RC):
+            src_c, vec_c, yb = _chunk(RC, K, j, src, vec, ybar)
+            outs = fused_conv_bwd(op, x, src_c, vec_c, coef, ws, yb, param_grads=param_grads)
+            if param_grads:
+                pg = _summed(pg, [outs[3], *outs[2]])
+            dx.index_add_(0, src_c.reshape(-1).long(), outs[0])
+            dvec[:, j * RC * K:(j + 1) * RC * K] = outs[1]
+        dcoef, *dws = pg or [None] * (1 + len(ws))
+        return (None, None, dx, dvec, dcoef, None, *dws)
+
+
+class FusedConvRingVec(torch.autograd.Function):
+    """Vec-mode conv of a large, cell-sorted system with the rolling-buffer
+    ring backward (the port of ``_fused_conv_ring_v`` and
+    ``_fused_conv_ring_v_bwd``, ``sevennet_tpu/ops/fused_conv.py:1962-2157``).
+    Contract (the MD engine sizes it and re-checks it at every rebuild;
+    :func:`fused_conv_apply_vec` raises on a call that breaks it):
+    ``N = nb * RC`` rows, ``nb >= 2W + 1``, and the mirror of every edge of
+    chunk ``i`` lies in chunks ``i - W .. i + W``, circularly.
+
+    Forward: one B1 launch over all rows. Backward: a buffer of ``S = 4W +
+    1`` slots of ``RC*K`` rows keeps the window's ``dxg`` live. Chunks 0 ..
+    2W-1 sit pinned in slots ``2W+1 .. 4W`` (the wrapped windows of the
+    first and last W destinations need them at the end); the others cycle
+    through slot ``c % (2W + 1)``. Iteration ``j`` runs B3 on chunk ``j``
+    into its slot and, once ``j >= 2W``, emits destination ``j - W``,
+    whose window is then computed: ``dx`` of its rows is the sum of the
+    buffer rows of its mirrors, each gathered once. A gather-only epilogue
+    emits the 2W wrapped destinations. With parameter gradients each chunk
+    runs B2′ (summed in chunk order) and its ``dxg`` is copied into the
+    slot. The JAX package's window-local gather of ``x``
+    (``_windowed_xg``, ``:1937-1958``) speeds up an XLA row gather; the
+    kernels here gather ``x[src]`` themselves and have no counterpart of
+    it. First order only: a second backward raises, as the JAX ring path
+    offers no grad-of-grad."""
+
+    @staticmethod
+    def forward(ctx, op, RC, W, x, vec, coef, src, mir, *ws):
+        ctx.op, ctx.RC, ctx.W = op, RC, W
+        ctx.save_for_backward(x, vec, coef, src, mir, *ws)
+        return fused_conv_fwd(op, x, src, vec, coef, ws)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ybar):
+        x, vec, coef, src, mir, *ws = ctx.saved_tensors
+        op, RC, W = ctx.op, ctx.RC, ctx.W
+        need = ctx.needs_input_grad  # (op, RC, W, x, vec, coef, src, mir, *ws)
+        param_grads = bool(need[5] or any(need[8:]))
+        ybar = ybar.contiguous()
+        N, K = src.shape
+        nb, rck = N // RC, RC * K
+        slots = torch.tensor([ring_slot(c, W) for c in range(nb)], device=x.device)
+        buf = torch.empty(((4 * W + 1) * rck, op.dim_x), dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(x)
+        dvec = torch.empty_like(vec)
+
+        def emit(i):
+            m = mir[i * RC:(i + 1) * RC].reshape(-1)
+            q = m // rck
+            rows = slots[q] * rck + (m - q * rck)
+            dx[i * RC:(i + 1) * RC] = buf[rows].view(RC, K, -1).sum(1)
+
+        pg = None
+        for j in range(nb):
+            src_c, vec_c, yb = _chunk(RC, K, j, src, vec, ybar)
+            s = ring_slot(j, W)
+            if param_grads:
+                dxg, dvec_c, dws_c, dcoef_c = fused_conv_bwd(op, x, src_c, vec_c, coef, ws, yb,
+                                                             param_grads=True)
+                buf[s * rck:(s + 1) * rck] = dxg
+                pg = _summed(pg, [dcoef_c, *dws_c])
+            else:
+                dvec_c = fused_conv_bwd_slot(op, x, src_c, vec_c, coef, ws, yb, buf, s)
+            dvec[:, j * rck:(j + 1) * rck] = dvec_c
+            if j >= 2 * W:
+                emit(j - W)
+        for d in [*range(W), *range(nb - W, nb)]:
+            emit(d)
+        dcoef, *dws = pg or [None] * (1 + len(ws))
+        return (None, None, None, dx, dvec, dcoef, None, None, *dws)
+
+
 def _weights(mlp_params):
     return tuple(mlp_params["w"]) if isinstance(mlp_params, dict) else tuple(mlp_params)
 
@@ -878,8 +1141,21 @@ def fused_conv_apply_vec(
     mir_nk: torch.Tensor,        # (N, K) flat mirror indices
     *,
     plain: bool = False,
+    row_chunk: int = 0,
+    ring: int = 0,
 ) -> torch.Tensor:
-    """The vec-mode fused conv as the model calls it: ``(N, dim_mid)``.
+    """The vec-mode fused conv as the model calls it: ``(N, dim_mid)`` (the
+    port of ``sevennet_tpu/ops/fused_conv.py:fused_conv_apply_vec``).
+
+    ``row_chunk = RC`` (rows, any positive count) below the row count runs
+    the backward chunk by chunk: with ``ring = W > 0`` the ring backward
+    (:class:`FusedConvRingVec`; the rows must split into ``nb >= 2W + 1``
+    chunks of ``RC``, and every edge's mirror must lie within W chunks of
+    its row, as the MD engine's cell sort makes it: a call that breaks this
+    raises), else the chunked
+    scatter backward (:class:`FusedConvChunkedVec`), the rows padded to a
+    multiple of ``RC`` with zero features and sentinel edge vectors.
+    Without it, the unchunked mirror backward (:class:`FusedConvVec`).
 
     ``plain=True`` runs :func:`fused_conv_fwd_plain` under ordinary autograd
     instead of the kernels, on any device: the reference the kernels are
@@ -890,10 +1166,42 @@ def fused_conv_apply_vec(
     if plain:
         return fused_conv_fwd_plain(op, x, src_nk, vec_rows, coef, ws)
     src = src_nk if src_nk.dtype == torch.int32 else src_nk.to(torch.int32)
-    return FusedConvVec.apply(
-        op, x.contiguous(), vec_rows.contiguous(), coef.contiguous(),
-        src.contiguous(), mir_nk.long(), *[w.contiguous() for w in ws],
-    )
+    args = (x.contiguous(), vec_rows.contiguous(), coef.contiguous(), src.contiguous())
+    ws = [w.contiguous() for w in ws]
+    n, K = src_nk.shape
+    if not (row_chunk and row_chunk < n):
+        return FusedConvVec.apply(op, *args, mir_nk.long(), *ws)
+    RC = int(row_chunk)
+    if ring:
+        W = int(ring)
+        if n % RC or n // RC < 2 * W + 1:
+            raise ValueError(f"the ring backward needs row_chunk ({RC}) to divide the row count "
+                             f"({n}) into >= 2W+1 = {2 * W + 1} chunks")
+        mir = mir_nk.long()
+        # the ring's contract, checked on every call (one host read): a
+        # mirror farther than W chunks from its row would be read from a
+        # slot that already holds another chunk. Unmatched and padded slots
+        # are their own mirrors.
+        nb = n // RC
+        rows = torch.arange(n, device=mir.device)[:, None] // RC
+        d = torch.remainder(mir // K // RC - rows, nb)
+        if bool(((d > W) & (d < nb - W)).any()):
+            raise ValueError(f"the ring backward needs every edge's mirror within W = {W} chunks "
+                             f"of {RC} rows of its own row: sort the atoms by cell (MDEngine "
+                             "does), or run with conv_ring 0 (the chunked scatter backward)")
+        return FusedConvRingVec.apply(op, RC, W, *args, mir, *ws)
+    pad = -n % RC
+    if pad:
+        # padded rows: zero features, sentinel vectors past the cutoff
+        # (sevennet_tpu/ops/fused_conv.py:2267-2289); their senders (atom 0)
+        # get exact zeros
+        x_p, vec_p, coef_c, src_p = args
+        sentinel = torch.zeros((3, pad * K), dtype=vec_p.dtype, device=vec_p.device)
+        sentinel[0] = 2.0 * embed.cutoff
+        args = (torch.cat([x_p, x_p.new_zeros((pad, x_p.shape[1]))]),
+                torch.cat([vec_p, sentinel], 1), coef_c,
+                torch.cat([src_p, src_p.new_zeros((pad, K))]))
+    return FusedConvChunkedVec.apply(op, RC, *args, *ws)[:n]
 
 
 def fused_conv_apply(
@@ -909,9 +1217,10 @@ def fused_conv_apply(
     plain: bool = False,
 ) -> torch.Tensor:
     """The emb/sh-mode fused conv as the model calls it: ``(N, dim_mid)``
-    (the port of ``sevennet_tpu/ops/fused_conv.py:fused_conv_apply`` without
-    its chunked and ring paths). Gradients reach ``x``, ``emb``, ``sh`` and
-    the MLP weights.
+    (the port of ``sevennet_tpu/ops/fused_conv.py:fused_conv_apply``
+    without its chunked and ring paths, ``:1704-1781`` and ``:1803-1918``,
+    which are still to port: the model refuses to chunk in emb/sh mode).
+    Gradients reach ``x``, ``emb``, ``sh`` and the MLP weights.
 
     ``plain=True`` runs :func:`fused_conv_fwd_embsh_plain` under ordinary
     autograd instead of the kernels, on any device."""

@@ -236,3 +236,56 @@ def test_embsh_kernels_match_plain(cuda):
     pad = ~g.edge_mask
     assert (bwd[0][pad] == 0).all() and (bwd[2][pad] == 0).all()
     assert float(bwd[1][pad].abs().max()) > 0
+
+
+@pytest.mark.parametrize("j,slot", [(2, 2), (0, 3)], ids=["interior", "wrap"])
+def test_bwd_slot_kernel_matches_plain(cuda, j, slot):
+    """B3 (``fused_conv_bwd_slot``) on one chunk of 8 rows against its plain
+    twin: the slot's dxg and the chunk's dvec within 1e-5 of the largest
+    plain value, the buffer's other slots bitwise unchanged (pre-filled with
+    a sentinel), zeros for the slots past the cutoff inside the slot; then
+    the ring backward over every chunk, and the chunked scatter backward
+    (B2 per chunk and ``index_add_``), against the unchunked conv."""
+    p = _small_problem(cuda, "XPLOR", 2.5, seed=2)
+    op = fc.conv_op(p["conv"], p["mlp"], p["embed"])
+    N, K, RC, S = p["N"], p["K"], 8, 5
+    src = p["g"].edge_src.view(N, K).to(torch.int32)
+    ybar = torch.tensor(p["rng"].normal(size=(N, op.dim_mid)), dtype=torch.float32, device=cuda)
+    src_c, vec_c, yb = fc._chunk(RC, K, j, src, p["vec"], ybar)
+    buf = torch.full((S * RC * K, op.dim_x), -7.25e30, device=cuda)
+    before = buf.clone()
+    n0 = fc.fused_conv_bwd_slot.launches
+    dvec = fc.fused_conv_bwd_slot(op, p["x"], src_c, vec_c, p["coef"], p["ws"], yb, buf, slot)
+    torch.cuda.synchronize()
+    assert fc.fused_conv_bwd_slot.launches == n0 + 1
+    dxg_p, dvec_p = fc.fused_conv_bwd_plain(op, p["x"], src_c, vec_c, p["coef"], p["ws"], yb)
+    rows = slice(slot * RC * K, (slot + 1) * RC * K)
+    for got, want in ((buf[rows], dxg_p), (dvec, dvec_p)):
+        scale = float(want.abs().max())
+        assert scale > 0
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-5 * scale)
+    other = torch.ones(S * RC * K, dtype=torch.bool, device=cuda)
+    other[rows] = False
+    assert torch.equal(buf[other], before[other])
+    pad = ~p["g"].edge_mask.view(N, K)[j * RC:(j + 1) * RC].reshape(-1)
+    assert (buf[rows][pad] == 0).all() and (dvec[:, pad] == 0).all()
+
+    # the ring backward (W 2 over N // 8 chunks) against the unchunked conv
+    n = (N // RC) * RC
+    x = p["x"][:n].clone().requires_grad_(True)
+    vec = p["vec"][:, : n * K].contiguous().requires_grad_(True)
+    src_n, mask_n = src[:n], p["g"].edge_mask.view(N, K)[:n]
+    shift = p["g"].edge_shift.view(N, K, 3)[:n]
+    keep = mask_n & (src_n < n)
+    mir = fc.mirror_map(src_n, shift, keep)
+    sentinel = torch.tensor([[6.0], [0.0], [0.0]], device=cuda)
+    outs = []
+    for rc, ring in ((0, 0), (RC, 2), (RC, 0)):
+        vec_k = torch.where(keep.reshape(-1)[None], vec, sentinel)
+        out = fc.fused_conv_apply_vec(p["conv"], p["mlp"], {"w": p["ws"]}, p["coef"],
+                                      p["embed"], x, vec_k, src_n.long(), mir,
+                                      row_chunk=rc, ring=ring)
+        outs.append([t.detach() for t in (out, *torch.autograd.grad(out, (x, vec), ybar[:n]))])
+    for got, want in zip(outs[1], outs[0]):
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
