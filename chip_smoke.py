@@ -4,10 +4,15 @@
     python3 chip_smoke.py [--seed S]
 
 1. Builds the CUDA kernels from ``sevennet_tpu_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and prints each one's ptxas report.
+   source, in parallel) and prints each kernel instance's registers, stack
+   frame and spills from the ptxas report.
 2. Holds each kernel against its plain PyTorch version on the card at the
    SevenNet-0 shapes of layer 0, layers 1-3 and layer 4, on a water box of
-   ~3,000 atoms (K from its neighbour list); times both with CUDA events.
+   ~3,000 atoms (K from its neighbour list); times both with CUDA events and
+   prints two bounds beside each time: the design's, with the products that
+   the kernels run as 3xTF32 on the tensor cores at a third of the TF32
+   peak (``work``, ``bound_ms``; the ``kernels`` line's ``bound_ms``), and
+   every operation at the fp32 rate.
    Kernels: B1 (forward), B2 (backward), B2' (backward with the radial-MLP
    weight and Bessel-coefficient gradients: records pass and reduction),
    and in emb/sh mode, on the embedding and unnormalized spherical
@@ -63,6 +68,7 @@ import tempfile
 import time
 
 FP32_PEAK = 67e12     # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
+TC_3XTF32_PEAK = 495e12 / 3  # TF32 tensor cores (data sheet), three products per fp32 one
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
 REL_TOL = 1e-4        # kernel vs plain: fp32 with another summation order
 FORCE_TOL = 1e-3      # eV/A, the repo's force budget (BASELINE.md)
@@ -194,7 +200,12 @@ def cuda_median(fn, reps: int) -> float:
 
 
 def work(op, N: int, K: int, n_edges: int, kind: str):
-    """(flops, bytes) the kernel's function needs on these inputs: the fp32
+    """(flops, bytes, tc_flops) the kernel's function needs on these inputs:
+    ``tc_flops`` is the part of ``flops`` that the kernels run on the tensor
+    cores as 3xTF32: every product counted here (the radial MLP's layers,
+    ``tmp``, the uvu product and, in the backward, their transposes and
+    pullbacks) but the parameter-gradient sums of B2' and B4', which the
+    reduction kernel runs on the CUDA cores. The fp32
     multiplies and adds of the edges inside the cutoff (activations, envelope
     and spherical harmonics left out), each input read once, each output
     written once. ``kind``: ``fwd`` (B1), ``bwd`` (B2, and B3: B2 writing
@@ -237,7 +248,7 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
     pg_bytes = 4 * (n_dw + n_dc)
     if kind == "reduce":
         record = sum(d[:-1]) + sum(d[1:]) + d[0]  # emb h1 h2 | dz1 dz2 dw | dcoef terms
-        return pg_flops, 4 * n_edges * record + N * K + pg_bytes
+        return pg_flops, 4 * n_edges * record + N * K + pg_bytes, 0
     mlp = sum(mv(a, b) for a, b in zip(d[:-1], d[1:]))
     nnz = int((op.w3j_pack != 0).sum())
     tmp = 2 * nnz - op.R
@@ -250,7 +261,7 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
     if kind in ("fwd", "fwd_embsh"):
         # s: 2 n_terms - dim_mid per edge; w * s summed over each row's edges
         flops = (n_edges * (mlp + tmp + 2 * op.n_terms + op.dim_mid) - N * op.dim_mid)
-        return flops, ins + 4 * N * op.dim_mid
+        return flops, ins + 4 * N * op.dim_mid, flops
     mlp_bwd = sum(mv(b, a) for a, b in zip(d[:-1], d[1:]))
     uvu = (4 * op.n_terms - x_entries - op.R + op.dim_mid
            + (2 * x_entries - op.dim_x) + (2 * x_entries - op.numel))
@@ -258,15 +269,63 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
     flops = n_bwd * (mlp + tmp + uvu + (2 * nnz - op.dim_f) + mlp_bwd)
     nbytes = ins + 4 * (N * op.dim_mid + N * K * op.dim_x + edge_in * N * K)
     if kind in ("bwd_pg", "bwd_embsh_pg"):
-        return flops + pg_flops, nbytes + pg_bytes
-    return flops, nbytes
+        return flops + pg_flops, nbytes + pg_bytes, flops
+    return flops, nbytes, flops
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(ms, bound_by): the larger of fp32 operations over the peak rate and
-    bytes over the memory rate."""
-    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_BYTES_S * 1e3
+def bound_ms(flops: float, nbytes: float, tc_flops: float = 0.0):
+    """(ms, bound_by): the least time the card could take for this work, the
+    larger of its operations over their peak rates and its bytes over the
+    memory rate. The ``tc_flops`` of ``flops`` that the kernels run on the
+    tensor cores as 3xTF32 (fp32 accuracy) count at a third of the TF32
+    peak, the others at the fp32 peak (one after the other, as one CTA's
+    warps issue them). ``tc_flops=0`` gives the fp32 bound: every operation
+    at the fp32 peak."""
+    t_ops = (tc_flops / TC_3XTF32_PEAK + (flops - tc_flops) / FP32_PEAK) * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# kernel instances by mangled name and template arguments (ILb<PG>ELb<EMBSH>EE)
+INSTANCES = {
+    ("fused_conv_fwd_kernel", "0"): "fwd<vec> (B1)",
+    ("fused_conv_fwd_kernel", "1"): "fwd<emb/sh> (B4 fwd, B6)",
+    ("fused_conv_bwd_kernel", "00"): "bwd<vec> (B2, B3)",
+    ("fused_conv_bwd_kernel", "10"): "bwd<vec, records> (B2' first pass)",
+    ("fused_conv_bwd_kernel", "01"): "bwd<emb/sh> (B4 bwd, B5)",
+    ("fused_conv_bwd_kernel", "11"): "bwd<emb/sh, records> (B4' first pass)",
+    ("pg_partial_kernel", ""): "pg_partial (reduction)",
+    ("pg_final_kernel", ""): "pg_final (reduction)",
+}
+
+
+def ptxas_table(libs):
+    """Registers, stack frame and spills of every kernel instance, from the
+    ptxas reports (``-Xptxas -v``) that ``kernels.build`` keeps beside each
+    library."""
+    import re
+
+    rows, row = [], None
+    for so in libs.values():
+        for ln in open(str(so) + ".log"):
+            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)", ln)
+            if m:
+                n = int(m.group(1))
+                name, rest = m.group(2)[:n], m.group(2)[n:]
+                args = "".join(re.findall(r"Lb(\d)E", rest.split("Ev")[0])) if rest[:1] == "I" else ""
+                row = dict(instance=INSTANCES.get((name, args), name + args),
+                           registers=None, stack=None, spill_stores=None, spill_loads=None)
+                rows.append(row)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and row is not None:
+                row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and row is not None:
+                row["registers"] = int(m.group(1))
+    return rows
 
 
 def check_close(tag: str, name: str, got, want, tol: float = REL_TOL):
@@ -428,12 +487,13 @@ def kernel_phase(spec, params, dev, atoms):
         per_shape[tag] = {}
         for k in KERNELS:
             tk, tp = times[k]
-            fl, by = work(op_e if "embsh" in k or k == "b6" else op, N, K, n_edges,
-                          "fwd_embsh" if k == "b6" else k)
-            per_shape[tag][k] = (tk, tp, (fl, by), errs[k])
-            bnd, _ = bound_ms(fl, by)
-            log(f"  {tag} {k}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound {bnd:.4f} ms "
-                f"({fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB), {fl / tk / 1e9:.2f} TFLOP/s")
+            fl, by, tc = work(op_e if "embsh" in k or k == "b6" else op, N, K, n_edges,
+                              "fwd_embsh" if k == "b6" else k)
+            per_shape[tag][k] = (tk, tp, (fl, by, tc), errs[k])
+            log(f"  {tag} {k}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+                f"{bound_ms(fl, by, tc)[0]:.4f} ms (fp32 {bound_ms(fl, by)[0]:.4f} ms; "
+                f"{fl / 1e9:.2f} GFLOP of which {tc / 1e9:.2f} 3xTF32, {by / 1e6:.1f} MB), "
+                f"{fl / tk / 1e9:.2f} TFLOP/s")
         del work_, valid
         torch.cuda.empty_cache()
     records = {}
@@ -441,7 +501,8 @@ def kernel_phase(spec, params, dev, atoms):
         rows = [(per_shape[tag][k], n) for tag, _, n in SHAPES]
         records[k] = dict(ms=sum(n * r[0] for r, n in rows), plain_ms=sum(n * r[1] for r, n in rows),
                           flops=sum(n * r[2][0] for r, n in rows),
-                          bytes=sum(n * r[2][1] for r, n in rows), err=max(r[3] for r, _ in rows))
+                          bytes=sum(n * r[2][1] for r, n in rows),
+                          tc_flops=sum(n * r[2][2] for r, n in rows), err=max(r[3] for r, _ in rows))
     return records, np.asarray([N, K, n_edges])
 
 
@@ -477,7 +538,7 @@ def b3_check(eng, st, dev, card: str):
         return fc._chunk(RC, K, j, src, vec, ybar)
 
     log(f"  B3 at the ring's shape: N={N} K={K}, {nb} chunks of RC={RC} rows, W={W}, {S} slots")
-    rec = dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
+    rec = dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, tc_flops=0.0, err=0.0)
     for tag, t, n_layers in SHAPES:
         layer = spec.layers[t]
         op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
@@ -513,11 +574,12 @@ def b3_check(eng, st, dev, card: str):
         tk = cuda_time(run(fc.fused_conv_bwd_slot), 3)
         tp = cuda_time(run(fc.fused_conv_bwd_slot_plain), 1)
         parts = [work(op, RC, K, int(valid[j * RC:(j + 1) * RC].sum()), "bwd") for j in range(nb)]
-        fl, by = sum(p[0] for p in parts), sum(p[1] for p in parts)
-        bnd, _ = bound_ms(fl, by)
+        fl, by, tc = (sum(p[i] for p in parts) for i in range(3))
         log(f"  {tag} B3 over {nb} chunks: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
-            f"{bnd:.4f} ms ({fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB) | {card}")
-        for key, v in (("ms", tk), ("plain_ms", tp), ("flops", fl), ("bytes", by)):
+            f"{bound_ms(fl, by, tc)[0]:.4f} ms (fp32 {bound_ms(fl, by)[0]:.4f} ms; "
+            f"{fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB) | {card}")
+        for key, v in (("ms", tk), ("plain_ms", tp), ("flops", fl), ("bytes", by),
+                       ("tc_flops", tc)):
             rec[key] += n_layers * v
         del buf, chunks, x, ybar
         torch.cuda.empty_cache()
@@ -1228,12 +1290,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = kernels.build()
     log(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
-    for name, so in libs.items():
-        for ln in open(str(so) + ".log"):
-            if "Compiling entry function" in ln:
-                log(f"  {name}: {ln.split('entry function')[1].split(' for ')[0].strip()}")
-            elif "registers" in ln or "spill" in ln:
-                log(f"  {name}:   {ln.strip()}")
+    for row in ptxas_table(libs):
+        log("  ptxas {instance}: {registers} registers, {stack} B stack, {spill_stores} B spill "
+            "stores, {spill_loads} B spill loads".format(**row))
 
     spec = sevennet0_spec()
     params = params_from_numpy(spec, random_params(spec, args.seed))
@@ -1275,9 +1334,12 @@ def main() -> int:
         raise SystemExit(f"a kernel was never launched on the main paths: {launches}")
 
     kernels_line = []
-    for k, (name, source, replaces, key) in KERNEL_NAMES.items():
-        r = records["bwd_embsh" if k == "b5" else k]
-        bnd, by = bound_ms(r["flops"], r["bytes"])
+    for name, source, replaces, key in KERNEL_NAMES.values():
+        r = records[key]
+        bnd, by = bound_ms(r["flops"], r["bytes"], r["tc_flops"])
+        log(f"  bounds {name}: {bnd:.4f} ms ({r['tc_flops'] / max(r['flops'], 1):.1%} of the "
+            f"operations as 3xTF32; fp32 {bound_ms(r['flops'], r['bytes'])[0]:.4f} ms), kernel "
+            f"{r['ms']:.4f} ms | {card}")
         kernels_line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": r["err"], "ms": r["ms"],

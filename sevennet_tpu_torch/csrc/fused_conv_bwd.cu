@@ -23,20 +23,26 @@
 //
 // Like the TPU kernel it recomputes the radial MLP (keeping
 // pre-activations) instead of storing per-edge residuals, and it uses the
-// factored products of its docstring (:906-920): the weight cotangent
-// reuses the x/tmp products, dtmp reuses x*w. The embedding and
+// factored products of its docstring (:906-920): a = sum_p ybar tmp feeds
+// both dxg = w a and dw = sum_m x a, and dtmp reuses x * w. The embedding and
 // spherical-harmonic cotangents are chained to dvec inside the kernel
 // (_emb_sh_bwd_rows, :272-318), including the projection
 // (du - u (u.du)) / r + u dr.
 //
-// What bounds it on an H100: fp32 operations, about twice the forward's:
-// the last MLP layer runs forward (to rebuild w) and backward
-// (dh2 = dw @ W3^T). Per tile of TE edges, W3 (245,760 B for SevenNet-0,
-// too big for shared memory) is read twice through L2: once by column for
-// w, once by row, one warp per hidden unit with lanes along the columns,
-// for dh2. Every per-edge cotangent is owned by one thread (CSR tables by
-// x column, weight column and Wigner row), so there are no atomics.
-// Slots past the cutoff get exact zeros without any arithmetic.
+// What bounds it on an H100, and the design (fused_conv_common.cuh): about
+// twice the forward's operations, most of them the last MLP layer run
+// forward (to rebuild w) and backward (dz2 = dw W3^T). Both run on the
+// tensor cores as 3xTF32 mma.sync (fp32 accuracy), W3 staged in 64-column
+// blocks by cp.async, each pass streaming it once per tile; the backward
+// product splits its k dimension (W3's columns) over the warps and adds
+// their partial sums in warp order. The uvu pullback is 3xTF32 products
+// over host task tables (dtmp per instruction and m; dxg and dw per x irrep
+// and 8 channels, over the instructions that read it), each output owned by
+// one warp, so there are no atomics; the MLP's other products, tmp, dsh and
+// demb are 3xTF32 too. The chain of the embedding and spherical-harmonic
+// cotangents to dvec runs a warp per edge, lanes over the basis functions
+// and derivative terms, with warp sums and no local tables. Slots past the
+// cutoff get exact zeros without any arithmetic.
 //
 // Emb/sh mode walks every slot, padding included: a slot whose emb row is
 // zero has w = 0, so its dxg and dsh are zero, but its demb is not (dw =
@@ -89,10 +95,88 @@ __device__ inline void write_records(const WsLayout& L, const Tile& t, int ne,
   }
 }
 
+// dz2 (TE x h2) = (dw W3^T) / sqrt(h2) * silu'(z2) * cst, with dw in t.ws:
+// 3xTF32 mma.sync over the column blocks of W3 (pipelined as in
+// w3_forward, row stride SBB), OG hidden units per pass. The k dimension is
+// split over the warps: warp w takes the 8 columns of k-step w of every
+// block against all n-tiles, so each dw fragment is loaded and split once.
+// The NWARP partial sums go through t.stage after the last block and are
+// added in warp order. The caller has issued the first pass's first block
+// into buffer 0 (stage_w3(..., 0, min(OG, round8(h2)), w3_block_col(d, 0),
+// SBB)).
+__device__ inline void w3_backward(const ConvDims& d, const Tile& t, const float* __restrict__ W3) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int h2p = round8(d.h2);
+  const int nblk = (d.numel + BN - 1) / BN;
+  const int S = t.nstage;
+  const float inv_h2 = (float)(1.0 / sqrt((double)d.h2));
+  const float cst = d.act_cst;
+  for (int og = 0; og < h2p; og += OG) {
+    const int nrow = min(OG, h2p - og);
+    for (int jb = og > 0 ? 0 : 1; jb < S - 1 && jb < nblk; ++jb)
+      stage_w3(d, W3, t.stage + jb * OG * SBB, og, nrow, w3_block_col(d, jb), SBB);
+    float acc[OG / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < OG / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+    for (int jb = 0; jb < nblk; ++jb) {
+      const int ahead = jb + S - 1;
+      if (ahead < nblk)
+        stage_w3(d, W3, t.stage + (ahead % S) * OG * SBB, og, nrow, w3_block_col(d, ahead), SBB);
+      cp_async_wait(min(S - 1, nblk - 1 - jb));
+      __syncthreads();
+      const float* Bs = t.stage + (jb % S) * OG * SBB;
+      const int jk = w3_block_col(d, jb) + warp * 8;
+      const int j = jk + q;
+      if (jk < d.numel) {
+        float a[4];
+        a[0] = j < d.numel ? t.ws[g * t.SW + j] : 0.0f;
+        a[1] = j < d.numel ? t.ws[(g + 8) * t.SW + j] : 0.0f;
+        a[2] = j + 4 < d.numel ? t.ws[g * t.SW + j + 4] : 0.0f;
+        a[3] = j + 4 < d.numel ? t.ws[(g + 8) * t.SW + j + 4] : 0.0f;
+        unsigned ah[4], al[4];
+        split4(a, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < OG / 8; ++nt) {
+          if (nt * 8 < nrow) {
+            const float* b_row = Bs + (nt * 8 + g) * SBB + warp * 8 + q;
+            const float b[2] = {b_row[0], b_row[4]};
+            mma_3xtf32(acc[nt], ah, al, b);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    float* red = t.stage;  // (NWARP * TE, OG) partial sums, row stride SBF
+#pragma unroll
+    for (int nt = 0; nt < OG / 8; ++nt) {
+      if (nt * 8 < nrow) {
+        float* r0 = red + (warp * TE + g) * SBF + nt * 8 + 2 * q;
+        r0[0] = acc[nt][0];
+        r0[1] = acc[nt][1];
+        r0[8 * SBF] = acc[nt][2];
+        r0[8 * SBF + 1] = acc[nt][3];
+      }
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nrow * TE; idx += NT) {
+      const int o = idx / TE, e = idx - o * TE;
+      if (og + o < d.h2) {
+        float s = 0.0f;
+        for (int w = 0; w < NWARP; ++w) s += red[(w * TE + e) * SBF + o];
+        const float z = t.z2T[(og + o) * TE + e];
+        const float sg = sigmoidf_(z);
+        t.dz2T[(og + o) * TE + e] = s * inv_h2 * (sg * (1.0f + z * (1.0f - sg)) * cst);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // (ea, eb): (vec, coef) in vec mode, (emb, sh) in emb/sh mode; (da, db):
 // (dvec, unused) in vec mode, (demb, dsh) in emb/sh mode.
 template <bool PG, bool EMBSH>
-__global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
+__global__ void __launch_bounds__(NT, 1) fused_conv_bwd_kernel(
     ConvDims d, const float* __restrict__ x, const int* __restrict__ src,
     const float* __restrict__ ea, const float* __restrict__ eb,
     const float* __restrict__ W1, const float* __restrict__ W2,
@@ -108,6 +192,9 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
   const int lane = tid & 31, warp = tid >> 5;
   const int NK = d.N * d.K;
   const int NB = d.n_basis, DF = d.dim_f;
+  Prof prof;
+  prof.start();
+  load_tabs(d, t, itab);
   list_slots<EMBSH>(d, t, i, ea);
   const int nv = *t.count;
   if (PG) {
@@ -127,120 +214,49 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
       da[2 * NK + flat] = 0.0f;
     }
   }
-  for (int c = tid; c < d.dim_mid; c += NT) t.yb[c] = ybar[(size_t)i * d.dim_mid + c];
+  for (int c = tid; c < d.dim_mid; c += NT) t.yb[yb_at(c)] = ybar[(size_t)i * d.dim_mid + c];
+  prof.mark(0);
 
-  const int* dx_ptr = itab + d.dx_ptr;
-  const int4* dx_terms = (const int4*)(itab + d.dx_terms);
-  const int* dw_ptr = itab + d.dw_ptr;
-  const int4* dw_terms = (const int4*)(itab + d.dw_terms);
-  const int* dt_ptr = itab + d.dt_ptr;
-  const int4* dt_terms = (const int4*)(itab + d.dt_terms);
   const float* w3j = ftab + d.w3j;
   const float inv_nb = (float)(1.0 / sqrt((double)NB));
   const float inv_h1 = (float)(1.0 / sqrt((double)d.h1));
-  const float inv_h2 = (float)(1.0 / sqrt((double)d.h2));
   const float cst = d.act_cst;
 
   for (int t0 = 0; t0 < nv; t0 += TE) {
     const int ne = min(TE, nv - t0);
-    load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W1, W2, W3, itab, ftab);
+    load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W1, W2, W3, itab, ftab, prof);
+    // W3's first block for the dz2 product is copied during the uvu steps
+    stage_w3(d, W3, t.stage, 0, min(OG, round8(d.h2)), w3_block_col(d, 0), SBB);
 
-    // dxg[e, xc] = sum_terms ybar[c] * w[e, wc] * tmp[e, r]
-    for (int xc = tid; xc < d.dim_x; xc += NT) {
-      float acc[TE];
-#pragma unroll
-      for (int e = 0; e < TE; ++e) acc[e] = 0.0f;
-      const int q1 = dx_ptr[xc + 1];
-      for (int q = dx_ptr[xc]; q < q1; ++q) {
-        const int4 tm = dx_terms[q];  // (c, wc, r, -)
-        const float y = t.yb[tm.x];
-#pragma unroll
-        for (int e = 0; e < TE; ++e) acc[e] += y * t.ws[e * t.SW + tm.y] * t.tmp[e * t.SR + tm.z];
-      }
-#pragma unroll
-      for (int e = 0; e < TE; ++e)
-        if (e < ne) dxg[(size_t)t.flats[e] * d.dim_x + xc] = acc[e];
-    }
-    // dtmp[e, r] = sum_terms x[e, xc] * w[e, wc] * ybar[c]
-    for (int idx = tid; idx < d.R * TE; idx += NT) {
-      const int r = idx / TE, e = idx - r * TE;
-      float s = 0.0f;
-      const int q1 = dt_ptr[r + 1];
-      for (int q = dt_ptr[r]; q < q1; ++q) {
-        const int4 tm = dt_terms[q];  // (c, xc, wc, -)
-        s += t.xs[e * t.SX + tm.y] * t.ws[e * t.SW + tm.z] * t.yb[tm.x];
-      }
-      t.dtmp[e * t.SR + r] = s;
-    }
+    // the uvu pullback on the tensor cores: dtmp first (it reads w), then
+    // dxg and dw (written over w)
+    uvu_dtmp(t);
     __syncthreads();
-    // dw[e, wc] = sum_terms x[e, xc] * ybar[c] * tmp[e, r], written over w
-    for (int j = tid; j < d.numel; j += NT) {
-      float acc[TE];
-#pragma unroll
-      for (int e = 0; e < TE; ++e) acc[e] = 0.0f;
-      const int q1 = dw_ptr[j + 1];
-      for (int q = dw_ptr[j]; q < q1; ++q) {
-        const int4 tm = dw_terms[q];  // (c, xc, r, -)
-        const float y = t.yb[tm.x];
-#pragma unroll
-        for (int e = 0; e < TE; ++e) acc[e] += t.xs[e * t.SX + tm.y] * (y * t.tmp[e * t.SR + tm.z]);
-      }
-#pragma unroll
-      for (int e = 0; e < TE; ++e) t.ws[e * t.SW + j] = acc[e];
-    }
+    prof.mark(8);
+    uvu_dxg_dw(d, t, ne, dxg);
     __syncthreads();
-    // dz2 = (dw @ W3^T) / sqrt(h2) * silu'(z2) * cst: one warp per hidden
-    // unit, lanes along W3's row (coalesced), then a warp reduction per edge
-    for (int o = warp; o < d.h2; o += NT / 32) {
-      float p[TE];
-#pragma unroll
-      for (int e = 0; e < TE; ++e) p[e] = 0.0f;
-      for (int j = lane; j < d.numel; j += 32) {
-        const float wv = __ldg(W3 + (size_t)o * d.numel + j);
-#pragma unroll
-        for (int e = 0; e < TE; ++e) p[e] += t.ws[e * t.SW + j] * wv;
-      }
-#pragma unroll
-      for (int e = 0; e < TE; ++e) {
-#pragma unroll
-        for (int sh = 16; sh > 0; sh >>= 1) p[e] += __shfl_xor_sync(0xffffffffu, p[e], sh);
-      }
-      float mine = 0.0f;
-#pragma unroll
-      for (int e = 0; e < TE; ++e)
-        if (lane == e) mine = p[e];
-      if (lane < TE) {
-        const float z = t.z2T[o * TE + lane];
-        const float sg = sigmoidf_(z);
-        t.dz2T[o * TE + lane] = mine * inv_h2 * (sg * (1.0f + z * (1.0f - sg)) * cst);
-      }
+    prof.mark(9);
+    // dz2 = (dw @ W3^T) / sqrt(h2) * silu'(z2) * cst on the tensor cores
+    w3_backward(d, t, W3);
+    prof.mark(5);
+    // dz1 = (dz2 @ W2^T) / sqrt(h1) * silu'(z1) * cst and dsh = dtmp w3j_pack,
+    // then demb = (dz1 @ W1^T) / sqrt(n_basis): 3xTF32 on the tensor cores
+    {
+      const float* z1T = t.z1T;
+      small_product(t.dz2T, TE, 1, d.h2, W2, 1, d.h2, d.h1, t.dz1T, TE, 1,
+                    [=](float s, int o, int e) {
+                      const float z = z1T[o * TE + e];
+                      const float sg = sigmoidf_(z);
+                      return s * inv_h1 * (sg * (1.0f + z * (1.0f - sg)) * cst);
+                    });
     }
+    small_product(t.dtmp, 1, t.SR, d.R, w3j, DF, 1, DF, t.dsh, 1, DF,
+                  [](float v, int, int) { return v; });
     __syncthreads();
-    // dz1 = (W2 @ dz2) / sqrt(h1) * silu'(z1) * cst
-    for (int idx = tid; idx < TE * d.h1; idx += NT) {
-      const int o = idx / TE, e = idx - o * TE;
-      float s = 0.0f;
-      for (int k = 0; k < d.h2; ++k) s += W2[o * d.h2 + k] * t.dz2T[k * TE + e];
-      const float z = t.z1T[idx];
-      const float sg = sigmoidf_(z);
-      t.dz1T[idx] = s * inv_h1 * (sg * (1.0f + z * (1.0f - sg)) * cst);
-    }
-    // dsh = w3j_pack^T @ dtmp
-    for (int idx = tid; idx < TE * DF; idx += NT) {
-      const int e = idx / DF, f = idx - e * DF;
-      float s = 0.0f;
-      for (int r = 0; r < d.R; ++r) s += w3j[r * DF + f] * t.dtmp[e * t.SR + r];
-      t.dsh[e * DF + f] = s;
-    }
+    small_product(t.dz1T, TE, 1, d.h1, W1, 1, d.h1, NB, t.demb, 1, NB,
+                  [=](float v, int, int) { return v * inv_nb; });
     __syncthreads();
-    // demb = (W1 @ dz1) / sqrt(n_basis)
-    for (int idx = tid; idx < TE * NB; idx += NT) {
-      const int e = idx / NB, n = idx - e * NB;
-      float s = 0.0f;
-      for (int k = 0; k < d.h1; ++k) s += W1[n * d.h1 + k] * t.dz1T[k * TE + e];
-      t.demb[e * NB + n] = s * inv_nb;
-    }
-    __syncthreads();
+    prof.mark(6);
     if (PG) write_records(L, t, ne, work);
     if (EMBSH) {
       // demb and dsh rows out, coalesced along each row
@@ -252,45 +268,56 @@ __global__ void __launch_bounds__(NT) fused_conv_bwd_kernel(
         const int e = idx / DF;
         db[(size_t)t.flats[e] * DF + (idx - e * DF)] = t.dsh[idx];
       }
-    } else if (tid < ne) {
-      // chain demb and dsh to the edge vector: one thread per edge
-      const int e = tid;
-      const float* g = t.geo + e * 8;
-      const float r = g[0], rinv = g[1], u0 = g[2], u1 = g[3], u2 = g[4], env = g[5], denv = g[6];
+    } else {
+      // chain demb and dsh to the edge vector: a warp per edge, lanes over
+      // the basis functions and the derivative terms, warp sums
       const float pref = (float)(2.0 / (double)d.cutoff);
-      float* dc = PG ? work + (size_t)t.flats[e] * L.stride + L.dc : nullptr;
-      float dr = 0.0f;
-      for (int n = 0; n < NB; ++n) {
-        const float c = eb[n];
-        const float sr = sinf(c * r), cr = cosf(c * r);
-        const float dembdr = pref * (c * cr * (rinv * env) + sr * (denv * rinv - env * rinv * rinv));
-        dr += t.demb[e * NB + n] * dembdr;
-        // d emb_n / d c_n = pref * cos(c_n r) * env (_emb_sh_bwd_rows, :316-317)
-        if (PG) dc[n] = t.demb[e * NB + n] * (pref * cr * env);
-      }
-      float px[LMAXP], py[LMAXP], pz[LMAXP];
-      px[0] = py[0] = pz[0] = 1.0f;
-      for (int p = 1; p < LMAXP; ++p) {
-        px[p] = px[p - 1] * u0;
-        py[p] = py[p - 1] * u1;
-        pz[p] = pz[p - 1] * u2;
-      }
-      float du[3] = {0.0f, 0.0f, 0.0f};
-      const int4* st = (const int4*)(itab + d.shd_terms);
-      const int* sf = itab + d.shd_terms + 4 * d.n_shd;  // component c of each term
+      const int4* st = (const int4*)(t.tabs + d.shd_terms);
+      const int* sf = t.tabs + d.shd_terms + 4 * d.n_shd;  // component c of each term
       const float* sc = ftab + d.shd_coef;
-      for (int q = 0; q < d.n_shd; ++q) {
-        const int4 tm = st[q];  // (f, a, b, c) of dY_f/du_comp
-        du[sf[q]] += sc[q] * (t.dsh[e * DF + tm.x] * (px[tm.y] * py[tm.z] * pz[tm.w]));
+      for (int e = warp; e < ne; e += NWARP) {
+        const float* g = t.geo + e * 8;
+        const float r = g[0], rinv = g[1], u0 = g[2], u1 = g[3], u2 = g[4], env = g[5], denv = g[6];
+        const int flat = t.flats[e];
+        float* dc = PG ? work + (size_t)flat * L.stride + L.dc : nullptr;
+        float dr = 0.0f;
+        for (int n = lane; n < NB; n += 32) {
+          const float c = eb[n];
+          const float sr = sinf(c * r), cr = cosf(c * r);
+          const float dembdr = pref * (c * cr * (rinv * env) + sr * (denv * rinv - env * rinv * rinv));
+          dr += t.demb[e * NB + n] * dembdr;
+          // d emb_n / d c_n = pref * cos(c_n r) * env (_emb_sh_bwd_rows, :316-317)
+          if (PG) dc[n] = t.demb[e * NB + n] * (pref * cr * env);
+        }
+        float du0 = 0.0f, du1 = 0.0f, du2 = 0.0f;
+        const Pow3 px(u0), py(u1), pz(u2);
+        for (int q = lane; q < d.n_shd; q += 32) {
+          const int4 tm = st[q];  // (f, a, b, c) of dY_f/du_comp
+          const float v = sc[q] * (t.dsh[e * DF + tm.x] * (px(tm.y) * py(tm.z) * pz(tm.w)));
+          const int comp = sf[q];
+          du0 += comp == 0 ? v : 0.0f;
+          du1 += comp == 1 ? v : 0.0f;
+          du2 += comp == 2 ? v : 0.0f;
+        }
+#pragma unroll
+        for (int sh = 16; sh > 0; sh >>= 1) {
+          dr += __shfl_xor_sync(0xffffffffu, dr, sh);
+          du0 += __shfl_xor_sync(0xffffffffu, du0, sh);
+          du1 += __shfl_xor_sync(0xffffffffu, du1, sh);
+          du2 += __shfl_xor_sync(0xffffffffu, du2, sh);
+        }
+        if (lane == 0) {
+          const float udu = u0 * du0 + u1 * du1 + u2 * du2;
+          da[flat] = (du0 - u0 * udu) * rinv + u0 * dr;
+          da[NK + flat] = (du1 - u1 * udu) * rinv + u1 * dr;
+          da[2 * NK + flat] = (du2 - u2 * udu) * rinv + u2 * dr;
+        }
       }
-      const float udu = u0 * du[0] + u1 * du[1] + u2 * du[2];
-      const int flat = t.flats[e];
-      da[flat] = (du[0] - u0 * udu) * rinv + u0 * dr;
-      da[NK + flat] = (du[1] - u1 * udu) * rinv + u1 * dr;
-      da[2 * NK + flat] = (du[2] - u2 * udu) * rinv + u2 * dr;
     }
     __syncthreads();
+    prof.mark(7);
   }
+  prof.store();
 }
 
 // ---------------------------------------------------------------------------

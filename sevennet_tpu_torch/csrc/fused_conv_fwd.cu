@@ -14,22 +14,25 @@
 // (N, K) layout, gathering x[src] itself (no gathered (N*K, dim_x) array
 // in device memory).
 //
-// What bounds it on an H100: fp32 operations. Per edge the last radial-MLP
-// layer alone is h2 * numel FMAs (64 * 960 for SevenNet-0's middle layers),
-// against a few KB of input, so the kernel sits far above the fp32 ridge
-// point. The design keeps every intermediate (embedding, hidden layers,
-// per-edge weights, Wigner contraction) in shared memory, reads the largest
-// weight (64 x 960 fp32 = 245,760 B, more than a CTA's 227 KB of shared
-// memory) through L2 once per tile of TE edges, coalesced along its
-// columns, and keeps TE accumulators per thread in registers. No tensor
-// cores: TF32 would break the fp32 budget. Edges past the cutoff (padding)
-// are skipped in vec mode: their message is exactly zero. In emb/sh mode
-// every slot is walked (a padded slot's zero emb row gives a zero message).
+// What bounds it on an H100, and the design (fused_conv_common.cuh): the
+// radial MLP's last layer, h2 (16 x 64) W3 (64 x 960) per tile of 16 edges
+// for SevenNet-0's middle layers, is most of the operations. It runs on the
+// tensor cores as 3xTF32 mma.sync (fp32 accuracy), with W3 (245,760 B, more
+// than a CTA's 227 KB of shared memory) staged through shared memory in
+// 64-column blocks by cp.async, several blocks in flight; the x[src] rows
+// arrive by cp.async too. MLP layers 1-2, tmp and the uvu product (per
+// instruction and 16 channels, summed over the tile's (edge, m)) are 3xTF32
+// products as well; the edge geometry, Bessel basis and spherical
+// harmonics are spread over the CTA's threads. Every intermediate stays in
+// shared memory. Measured, the W3 product takes half the time, bound by the
+// mma.sync 3xTF32 path and W3's streaming (PERF.md). Edges past the cutoff (padding) are skipped in vec mode: their
+// message is exactly zero. In emb/sh mode every slot is walked (a padded
+// slot's zero emb row gives a zero message).
 #include "fused_conv_common.cuh"
 
 // (ea, eb): (vec, coef) in vec mode, (emb, sh) in emb/sh mode.
 template <bool EMBSH>
-__global__ void __launch_bounds__(NT) fused_conv_fwd_kernel(
+__global__ void __launch_bounds__(NT, 1) fused_conv_fwd_kernel(
     ConvDims d, const float* __restrict__ x, const int* __restrict__ src,
     const float* __restrict__ ea, const float* __restrict__ eb,
     const float* __restrict__ W1, const float* __restrict__ W2,
@@ -40,32 +43,25 @@ __global__ void __launch_bounds__(NT) fused_conv_fwd_kernel(
   carve(d, false, (char*)smem_raw, &t);
   const int i = blockIdx.x;
   const int tid = threadIdx.x;
+  Prof prof;
+  prof.start();
+  load_tabs(d, t, itab);
   list_slots<EMBSH>(d, t, i, ea);
   const int nv = *t.count;
   for (int c = tid; c < d.dim_mid; c += NT) t.outacc[c] = 0.0f;
+  prof.mark(0);
 
-  const int* f_ptr = itab + d.f_ptr;
-  const int4* f_terms = (const int4*)(itab + d.f_terms);
   for (int t0 = 0; t0 < nv; t0 += TE) {
     const int ne = min(TE, nv - t0);
-    load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W1, W2, W3, itab, ftab);
-    // out[c] += sum_e sum_terms x[e, xc] * w[e, wc] * tmp[e, r]
-    for (int c = tid; c < d.dim_mid; c += NT) {
-      float acc = 0.0f;
-      const int q1 = f_ptr[c + 1];
-      for (int q = f_ptr[c]; q < q1; ++q) {
-        const int4 tm = f_terms[q];  // (xc, wc, r, -)
-        float s = 0.0f;
-#pragma unroll
-        for (int e = 0; e < TE; ++e)
-          s += t.xs[e * t.SX + tm.x] * t.ws[e * t.SW + tm.y] * t.tmp[e * t.SR + tm.z];
-        acc += s;
-      }
-      t.outacc[c] += acc;
-    }
+    load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W1, W2, W3, itab, ftab, prof);
+    // out[c] += sum_e sum_terms x[e, xc] * w[e, wc] * tmp[e, r], on the tensor cores
+    uvu_forward(t);
     __syncthreads();
+    prof.mark(4);
   }
   for (int c = tid; c < d.dim_mid; c += NT) out[(size_t)i * d.dim_mid + c] = t.outacc[c];
+  prof.mark(0);
+  prof.store();
 }
 
 template <bool EMBSH>

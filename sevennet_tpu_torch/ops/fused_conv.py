@@ -100,6 +100,9 @@ __all__ = [
     "fused_conv_bwd_embsh_vjp_plain",
     "check_conv_inputs",
     "launch_fused_conv_fwd",
+    "fwd_launch_args",
+    "bwd_launch_args",
+    "check_uvu_layout",
     "fused_conv_fwd_embsh",
     "fused_conv_bwd_embsh",
     "fused_conv_bwd_embsh_pg_records",
@@ -265,8 +268,7 @@ class _ConvDims(ctypes.Structure):
         "lmax", "cutoff_kind",
     )] + [(n, ctypes.c_float) for n in ("cutoff", "cutoff_arg", "act_cst")] + [
         (n, ctypes.c_int) for n in (
-            "f_ptr", "f_terms", "dx_ptr", "dx_terms", "dw_ptr", "dw_terms",
-            "dt_ptr", "dt_terms", "sh_terms", "n_sh", "shd_terms", "n_shd",
+            "sh_terms", "n_sh", "shd_terms", "n_shd",
             "w3j", "sh_coef", "shd_coef",
         )
     ]
@@ -279,16 +281,6 @@ class _WsLayout(ctypes.Structure):
     """ctypes mirror of ``struct WsLayout`` (csrc/fused_conv_bwd.cu)."""
 
     _fields_ = [(n, ctypes.c_int) for n in _WS_FIELDS]
-
-
-def _csr(keys: np.ndarray, n_rows: int, cols: np.ndarray):
-    """Rows of ``cols`` grouped by ``keys`` (stable): (row_ptr, int4 terms)."""
-    order = np.argsort(keys, kind="stable")
-    ptr = np.zeros(n_rows + 1, np.int64)
-    np.cumsum(np.bincount(keys, minlength=n_rows), out=ptr[1:])
-    terms = np.zeros((len(keys), 4), np.int64)
-    terms[:, : cols.shape[1]] = cols[order]
-    return ptr, terms
 
 
 def _workspace_layout(dims, dcoef: bool = True) -> Dict[str, int]:
@@ -309,13 +301,78 @@ def _workspace_layout(dims, dcoef: bool = True) -> Dict[str, int]:
     return out
 
 
+UVU_HEADER = 12   # ints at the start of the int table: the uvu task tables' places
+UVU_INS = 64      # ints per instruction record
+UVU_MAX_D = 7     # irrep dimensions the uvu tables take (l <= 3)
+UVU_WARPS = 8     # warps per CTA of the kernels (csrc NWARP; check_uvu_layout)
+
+
+def _balanced(tasks, costs):
+    """``tasks`` reordered so that warp w takes the run ``[starts[w],
+    starts[w + 1])``: the costliest task first, each to the warp with the
+    least work so far (ties to the lower warp). Returns (tasks, starts)."""
+    load = [0] * UVU_WARPS
+    runs: List[list] = [[] for _ in range(UVU_WARPS)]
+    for i in sorted(range(len(tasks)), key=lambda i: -costs[i]):
+        w = min(range(UVU_WARPS), key=lambda w: load[w])
+        load[w] += costs[i]
+        runs[w].append(tasks[i])
+    starts = np.cumsum([0] + [len(r) for r in runs])
+    return [t for r in runs for t in r], starts
+
+
+def _uvu_tables(conv: ConvTPSpec, instr) -> np.ndarray:
+    """Task tables of the kernels' uvu steps on the tensor cores
+    (``csrc/fused_conv_common.cuh``, ``uvu_*``), at the start of the int
+    table: a header ``[off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw,
+    off_fw, runs_dt, runs_dx, runs_fw, 0]``; per instruction a record of
+    UVU_INS ints ``[x_start, d1, d3, mul, w_start, ybar start (g_start +
+    u_off), u_tot, 0]`` and the Wigner row r of each (m, p), ``rtab[m * 7 +
+    p]`` (-1 where the pair has no row); ``dtmp`` tasks ``(instruction, m,
+    0, 0)``; ``dxg``/``dw`` tasks ``(x_start, d1, mul, list start, list
+    length, u0, 0, 0)``, one per x irrep and 8 channels from ``u0``, over
+    the instructions that read the irrep (listed at ``off_list``); forward
+    tasks ``(instruction, u0, 0, 0)``, 16 channels each. Each task list is
+    ordered by warp: warp w takes tasks ``runs[w] .. runs[w + 1]`` of the
+    list (:func:`_balanced`, costs in tensor-core steps; ``runs_*`` are
+    UVU_WARPS + 1 ints). Offsets in ints, each table on 4 ints."""
+    recs = np.full((len(instr), UVU_INS), -1, np.int64)
+    dt, fw = [], []
+    for k, ins in enumerate(instr):
+        d1, d3, mul = ins["d1"], ins["d3"], ins["mul"]
+        if max(d1, d3) > UVU_MAX_D:
+            raise ValueError(f"the fused conv takes irreps up to l = 3, got dimensions {d1}, {d3}")
+        recs[k, :8] = [ins["x_start"], d1, d3, mul, ins["w_start"],
+                       ins["g_start"] + ins["u_off"], ins["u_tot"], 0]
+        for m, p, r in ins["mp"]:
+            recs[k, 8 + m * UVU_MAX_D + p] = r
+        dt += [(k, m, 0, 0) for m in range(d1)]
+        fw += [(k, u0, 0, 0) for u0 in range(0, mul, 16)]
+    dx, dx_cost, lists = [], [], []
+    for sl, mi in zip(conv.irreps_x.slices(), conv.irreps_x):
+        readers = [k for k, ins in enumerate(instr) if ins["x_start"] == sl.start]
+        for u0 in range(0, mi.mul, 8):
+            dx.append((sl.start, mi.ir.dim, mi.mul, len(lists), len(readers), u0, 0, 0))
+            dx_cost.append(1 + mi.ir.dim * len(readers))
+        lists += readers
+    dt, dt_runs = _balanced(dt, [-(-instr[k]["mul"] // 8) for k, _, _, _ in dt])
+    dx, dx_runs = _balanced(dx, dx_cost)
+    fw, fw_runs = _balanced(fw, [2 * instr[k]["d1"] for k, _, _, _ in fw])
+    parts = [np.zeros(UVU_HEADER, np.int64), recs, dt, dx, lists, fw, dt_runs, dx_runs, fw_runs]
+    parts = [np.asarray(a, np.int64).reshape(-1) for a in parts]
+    parts = [np.concatenate([a, np.zeros(-a.size % 4, np.int64)]) for a in parts]
+    offs = np.cumsum([0] + [a.size for a in parts[:-1]])
+    parts[0][:] = [offs[1], len(dt), offs[2], len(dx), offs[3], offs[4], len(fw), offs[5],
+                   offs[6], offs[7], offs[8], 0]
+    return np.concatenate(parts)
+
+
 class FusedConvOp:
     """Static tables of one conv layer: the instruction tables of the JAX
-    kernels, and the elementary uvu terms ``(c, xc, wc, r)`` (output column
-    ``c`` gets ``x[xc] * w[wc] * tmp[r]``) sorted four ways for the CUDA
-    kernels; in vec mode also the spherical harmonics and their derivatives
-    as monomial terms. ``embed=None`` is emb/sh mode. Device copies are
-    cached per device."""
+    kernels, and for the CUDA kernels the uvu product's instruction records
+    and task lists (:func:`_uvu_tables`) and, in vec mode, the spherical
+    harmonics and their derivatives as monomial terms. ``embed=None`` is
+    emb/sh mode. Device copies are cached per device."""
 
     def __init__(self, conv: ConvTPSpec, mlp_spec: ScalarMLPSpec,
                  embed: Optional[EdgeEmbedSpec]):
@@ -331,23 +388,8 @@ class FusedConvOp:
         self.dim_mid, self.numel, self.R = dim_mid, numel, w3j_pack.shape[0]
         self.w3j_pack = w3j_pack
 
-        terms = []
-        for ins in instr:
-            mul, x0, w0 = ins["mul"], ins["x_start"], ins["w_start"]
-            g0, u_off, u_tot = ins["g_start"], ins["u_off"], ins["u_tot"]
-            u = np.arange(mul)
-            for m, p, r in ins["mp"]:
-                terms.append(np.stack([
-                    g0 + p * u_tot + u_off + u, x0 + m * mul + u, w0 + u,
-                    np.full(mul, r),
-                ], 1))
-        t = np.concatenate(terms, 0).astype(np.int64)
-        self.n_terms = len(t)
-        c, xc, wc, r = t.T
-        f_ptr, f_terms = _csr(c, dim_mid, t[:, [1, 2, 3]])
-        dx_ptr, dx_terms = _csr(xc, self.dim_x, t[:, [0, 2, 3]])
-        dw_ptr, dw_terms = _csr(wc, numel, t[:, [0, 1, 3]])
-        dt_ptr, dt_terms = _csr(r, self.R, t[:, [0, 1, 2]])
+        # elementary uvu products (c, xc, wc, r) of the layer
+        self.n_terms = sum(ins["mul"] * len(ins["mp"]) for ins in instr)
 
         # spherical harmonics and their u-derivatives as monomial terms (vec
         # mode only)
@@ -364,24 +406,15 @@ class FusedConvOp:
                     shd_comp.append(comp)
                     shd_c.append(G[comp, m, k])
 
-        ints: List[np.ndarray] = []
+        ints: List[np.ndarray] = [_uvu_tables(conv, instr)]
         offs: Dict[str, int] = {}
 
         def put(name, arr):
             offs[name] = sum(a.size for a in ints)
             ints.append(np.asarray(arr, np.int64).reshape(-1))
 
-        for name, arr in (
-            ("f_ptr", f_ptr), ("f_terms", f_terms), ("dx_ptr", dx_ptr),
-            ("dx_terms", dx_terms), ("dw_ptr", dw_ptr), ("dw_terms", dw_terms),
-            ("dt_ptr", dt_ptr), ("dt_terms", dt_terms),
-            ("sh_terms", np.asarray(sh_t).reshape(-1, 4)),
-        ):
-            # int4 arrays start on a 16-byte boundary
-            pad = (-sum(a.size for a in ints)) % 4
-            if pad:
-                ints.append(np.zeros(pad, np.int64))
-            put(name, arr)
+        # int4 arrays start on a 16-byte boundary (the uvu tables end on one)
+        put("sh_terms", np.asarray(sh_t).reshape(-1, 4))
         pad = (-sum(a.size for a in ints)) % 4
         if pad:
             ints.append(np.zeros(pad, np.int64))
@@ -613,11 +646,25 @@ _P = ctypes.c_void_p
 REDUCE_CHUNK = 1024
 
 
+def check_uvu_layout(lib: ctypes.CDLL):
+    """Raises unless the kernels of ``lib`` read the uvu task tables as
+    :func:`_uvu_tables` lays them out (warps per CTA, record size, largest
+    irrep dimension), which ``csrc/fused_conv_common.cuh`` defines."""
+    got = (ctypes.c_int * 3)()
+    lib.fused_conv_uvu_layout(got)
+    if tuple(got) != (UVU_WARPS, UVU_INS, UVU_MAX_D):
+        raise RuntimeError(f"the kernels' uvu table layout (warps, ints per record, largest "
+                           f"dimension) is {tuple(got)}, the host's "
+                           f"{(UVU_WARPS, UVU_INS, UVU_MAX_D)}")
+
+
 def _entry(name: str, fn_name: str, argtypes):
     from .kernels import library
 
-    fn = getattr(library(name), fn_name)
+    lib = library(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
+        check_uvu_layout(lib)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
@@ -640,22 +687,25 @@ def _stream(dev: torch.device):
     return _P(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def launch_fused_conv_fwd(op: FusedConvOp, x, src, a, b, ws):
-    """Launches the forward kernel on checked CUDA tensors, without counting
-    (its callers count): B1 on ``(vec, coef)`` in vec mode, B4 on
-    ``(emb, sh)`` in emb/sh mode. Returns ``(N, dim_mid)``."""
+def fwd_launch_args(op: FusedConvOp, x, src, a, b, ws):
+    """``(library, entry, ctypes arguments, output)`` of the forward
+    kernel's launch on checked CUDA tensors: B1 on ``(vec, coef)`` in vec
+    mode, B4 on ``(emb, sh)`` in emb/sh mode; the output is ``(N,
+    dim_mid)``. ``conv_breakdown.py`` launches the same arguments on the
+    profile build."""
     N, K = src.shape
     out = torch.empty((N, op.dim_mid), dtype=torch.float32, device=x.device)
     itab, ftab = op.device_tables(x.device)
     entry = "fused_conv_fwd_launch" if op.embed is not None else "fused_conv_fwd_embsh_launch"
-    _call("fused_conv_fwd", entry, op.dims(N, K), _ptr(x), _ptr(src), _ptr(a), _ptr(b),
-          *[_ptr(w) for w in ws], _ptr(itab), _ptr(ftab), _ptr(out), _stream(x.device))
-    return out
+    return ("fused_conv_fwd", entry, (op.dims(N, K), _ptr(x), _ptr(src), _ptr(a), _ptr(b),
+                                      *[_ptr(w) for w in ws], _ptr(itab), _ptr(ftab), _ptr(out),
+                                      _stream(x.device)), out)
 
 
-def _launch_bwd(op: FusedConvOp, x, src, a, b, ws, ybar, records: bool):
-    """Launches the backward kernel on checked CUDA tensors: B2 / B4 bwd, or
-    with ``records`` the first pass of B2′ / B4′. Returns ``dxg`` and
+def bwd_launch_args(op: FusedConvOp, x, src, a, b, ws, ybar, records: bool):
+    """``(library, entry, ctypes arguments, outputs)`` of the backward
+    kernel's launch on checked CUDA tensors: B2 / B4 bwd, or with
+    ``records`` the first pass of B2′ / B4′. The outputs are ``dxg`` and
     ``dvec`` (vec mode) or ``demb, dsh`` (emb/sh mode), then with
     ``records`` the workspace ``work (N*K, stride)`` and ``valid (N*K,)``
     (:func:`_workspace_layout`)."""
@@ -673,10 +723,26 @@ def _launch_bwd(op: FusedConvOp, x, src, a, b, ws, ybar, records: bool):
     name = "fused_conv_bwd" + ("_embsh" if op.embed is None else "") + ("_pg" if records else "")
     layout = [_WsLayout(**op.ws_layout)] if records else []
     itab, ftab = op.device_tables(dev)
-    _call("fused_conv_bwd", name + "_launch", op.dims(N, K), *layout, _ptr(x), _ptr(src),
-          _ptr(a), _ptr(b), *[_ptr(w) for w in ws], _ptr(ybar), _ptr(itab), _ptr(ftab),
-          *[_ptr(t) for t in outs], _stream(dev))
-    return tuple(outs)
+    args = (op.dims(N, K), *layout, _ptr(x), _ptr(src), _ptr(a), _ptr(b),
+            *[_ptr(w) for w in ws], _ptr(ybar), _ptr(itab), _ptr(ftab),
+            *[_ptr(t) for t in outs], _stream(dev))
+    return "fused_conv_bwd", name + "_launch", args, tuple(outs)
+
+
+def launch_fused_conv_fwd(op: FusedConvOp, x, src, a, b, ws):
+    """Launches the forward kernel on checked CUDA tensors, without counting
+    (its callers count): :func:`fwd_launch_args`. Returns ``(N, dim_mid)``."""
+    lib, entry, args, out = fwd_launch_args(op, x, src, a, b, ws)
+    _call(lib, entry, *args)
+    return out
+
+
+def _launch_bwd(op: FusedConvOp, x, src, a, b, ws, ybar, records: bool):
+    """Launches the backward kernel on checked CUDA tensors:
+    :func:`bwd_launch_args`. Returns its outputs."""
+    lib, entry, args, outs = bwd_launch_args(op, x, src, a, b, ws, ybar, records)
+    _call(lib, entry, *args)
+    return outs
 
 
 def fused_conv_fwd(op: FusedConvOp, x, src, vec, coef, ws):

@@ -3,8 +3,12 @@
 Each ``*.cu`` source becomes a shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` at first use into ``build/kernels`` at
 the root of the checkout, and loaded with ``ctypes``. Libraries are keyed by
-a hash of their sources and flags, so an edited kernel is rebuilt. Nothing
-here runs at import time: this module imports on machines without CUDA.
+a hash of their sources and flags, so an edited kernel is rebuilt. A
+profile build (``profile=True``: ``-DFUSED_CONV_PROFILE``, section clocks in
+every kernel, see ``csrc/fused_conv_common.cuh:Prof``) is a library of its
+own, loaded only by ``conv_breakdown.py`` at the root of the checkout; the
+wrappers never load it. Nothing here runs at import time: this module
+imports on machines without CUDA.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 __all__ = ["SOURCES", "build", "library", "BUILD_DIR"]
 
@@ -27,7 +31,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+PROFILE_FLAGS = ("-DFUSED_CONV_PROFILE",)
+
+_LIBS: Dict[Tuple[str, bool], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -40,26 +46,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(profile: bool):
+    return NVCC_FLAGS + (PROFILE_FLAGS if profile else ())
+
+
+def _target(name: str, profile: bool = False) -> Path:
+    h = hashlib.sha256(" ".join(_flags(profile)).encode())
     for path in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
         h.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}{'_prof' if profile else ''}_{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+def build(names: Iterable[str] = SOURCES, profile: bool = False) -> Dict[str, Path]:
     """Compiles every library of ``names`` that is not built yet, one
-    ``nvcc`` per source, all started together. Returns name -> library path;
-    each library's ptxas report (registers, spills) is written beside it as
-    ``<library>.log``. Raises on the first failed build."""
+    ``nvcc`` per source, all started together (``profile``: the profile
+    builds instead). Returns name -> library path; each library's ptxas
+    report (registers, spills) is written beside it as ``<library>.log``.
+    Raises on the first failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n) for n in names}
+    targets = {n: _target(n, profile) for n in names}
     procs = {}
     for name, so in targets.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(profile), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp)
@@ -77,8 +88,10 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return targets
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of source ``name`` (built first if needed)."""
-    if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
-    return _LIBS[name]
+def library(name: str, profile: bool = False) -> ctypes.CDLL:
+    """The loaded library of source ``name`` (built first if needed), or
+    with ``profile`` its profile build."""
+    key = (name, profile)
+    if key not in _LIBS:
+        _LIBS[key] = ctypes.CDLL(str(build([name], profile)[name]))
+    return _LIBS[key]

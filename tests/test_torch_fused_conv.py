@@ -20,6 +20,9 @@ reference value where values reach tens: fp32 on both sides, sums in
 another order.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,9 +145,12 @@ def test_fused_conv_matches_jax_vec(kind):
 
 def _walk_tables(op, x, src, vec, coef, ws, ybar):
     """The CUDA kernels' algorithm in float64 numpy, reading the same
-    tables (``op.itab``/``op.ftab`` at the offsets of ``op.dims``): per
-    edge inside the cutoff, embedding and spherical-harmonic terms, the MLP,
-    then every output and cotangent column summed over its own CSR row.
+    tables (``op.itab``/``op.ftab`` at the offsets of ``op.dims`` and of
+    the uvu header at the table's start): per edge inside the cutoff,
+    embedding and spherical-harmonic terms, the MLP, then the uvu product
+    and its pullback task by task (the forward's (instruction, channels)
+    tasks, ``dtmp`` per (instruction, m), ``dxg`` and ``dw`` per (x irrep,
+    channels) over the instructions that read the irrep).
     Also what B2′ adds: the per-edge record of the parameter gradients at
     the columns of ``op.ws_layout`` (rows outside the cutoff stay NaN and
     invalid), and the sums over edges ``dW_l = h_l ⊗ g_l / sqrt(d_l)`` and
@@ -152,14 +158,19 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
     d = op.dims(*src.shape)
     it, ftab = op.itab.astype(np.int64), op.ftab.astype(np.float64)
 
-    def csr(p, t, n):
-        ptr = it[p : p + n + 1]
-        return ptr, it[t : t + 4 * ptr[-1]].reshape(-1, 4)
+    off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw, off_fw = it[:8]
+    # every task once, in the warps' runs
+    for n_t, runs in ((n_dt, it[8]), (n_dx, it[9]), (n_fw, it[10])):
+        starts = it[runs : runs + fc.UVU_WARPS + 1]
+        assert starts[0] == 0 and starts[-1] == n_t and (np.diff(starts) >= 0).all()
 
-    f_ptr, f_t = csr(d.f_ptr, d.f_terms, d.dim_mid)
-    x_ptr, x_t = csr(d.dx_ptr, d.dx_terms, d.dim_x)
-    w_ptr, w_t = csr(d.dw_ptr, d.dw_terms, d.numel)
-    r_ptr, r_t = csr(d.dt_ptr, d.dt_terms, d.R)
+    def ins(kk):
+        rec = it[off_ins + kk * fc.UVU_INS : off_ins + (kk + 1) * fc.UVU_INS]
+        return rec[:7], rec[8 : 8 + 49].reshape(7, 7)
+
+    dt_tasks = it[off_dt : off_dt + 4 * n_dt].reshape(-1, 4)
+    dx_tasks = it[off_dx : off_dx + 8 * n_dx].reshape(-1, 8)
+    fw_tasks = it[off_fw : off_fw + 4 * n_fw].reshape(-1, 4)
     sh_t = it[d.sh_terms : d.sh_terms + 4 * d.n_sh].reshape(-1, 4)
     sh_c = ftab[d.sh_coef : d.sh_coef + d.n_sh]
     sd_t = it[d.shd_terms : d.shd_terms + 4 * d.n_shd].reshape(-1, 4)
@@ -210,20 +221,30 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
         w = h2 @ W3 / np.sqrt(d.h2)
         xs = x[src[i, f % k]].astype(np.float64)
         yb = ybar[i].astype(np.float64)
-        for c in range(d.dim_mid):
-            for t in f_t[f_ptr[c] : f_ptr[c + 1]]:
-                out[i, c] += xs[t[0]] * w[t[1]] * tmp[t[2]]
-        for xc in range(d.dim_x):
-            for t in x_t[x_ptr[xc] : x_ptr[xc + 1]]:
-                dxg[f, xc] += yb[t[0]] * w[t[1]] * tmp[t[2]]
+        for kk, u0, _, _ in fw_tasks:
+            (x0, d1, d3, mul, w0, y0, ut), rt = ins(kk)
+            uu = np.arange(u0, min(u0 + 16, mul))
+            for p_ in range(d3):
+                for m in range(d1):
+                    if rt[m, p_] >= 0:
+                        out[i, y0 + p_ * ut + uu] += xs[x0 + m * mul + uu] * w[w0 + uu] * tmp[rt[m, p_]]
         dtmp = np.zeros(d.R)
-        for rr in range(d.R):
-            for t in r_t[r_ptr[rr] : r_ptr[rr + 1]]:
-                dtmp[rr] += xs[t[1]] * w[t[2]] * yb[t[0]]
+        for kk, m, _, _ in dt_tasks:
+            (x0, d1, d3, mul, w0, y0, ut), rt = ins(kk)
+            uu = np.arange(mul)
+            for p_ in range(d3):
+                if rt[m, p_] >= 0:
+                    dtmp[rt[m, p_]] = np.sum(xs[x0 + m * mul + uu] * w[w0 + uu] * yb[y0 + p_ * ut + uu])
         dw = np.zeros(d.numel)
-        for j in range(d.numel):
-            for t in w_t[w_ptr[j] : w_ptr[j + 1]]:
-                dw[j] += xs[t[1]] * yb[t[0]] * tmp[t[2]]
+        for x0, d1, mul, l0, nl, u0, _, _ in dx_tasks:
+            uu = np.arange(u0, min(u0 + 8, mul))
+            for kk in it[off_list + l0 : off_list + l0 + nl]:
+                (_, _, d3, _, w0, y0, ut), rt = ins(kk)
+                for m in range(d1):
+                    a = sum(yb[y0 + p_ * ut + uu] * tmp[rt[m, p_]] for p_ in range(d3)
+                            if rt[m, p_] >= 0)
+                    dxg[f, x0 + m * mul + uu] += w[w0 + uu] * a
+                    dw[w0 + uu] += xs[x0 + m * mul + uu] * a
         dsilu = lambda z: sig(z) * (1 + z * (1 - sig(z))) * d.act_cst  # noqa: E731
         dz2 = (W3 @ dw) / np.sqrt(d.h2) * dsilu(z2)
         dz1 = (W2 @ dz2) / np.sqrt(d.h1) * dsilu(z1)
@@ -249,9 +270,9 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
 
 @pytest.mark.parametrize("kind", ["XPLOR", "poly_cut"])
 def test_kernel_tables_reproduce_plain(kind):
-    """The term tables the CUDA kernels read (uvu products sorted by output
-    column, x column, weight column and Wigner row; spherical harmonics and
-    their derivatives as monomial terms) give the plain versions' results."""
+    """The tables the CUDA kernels read (the uvu product's instruction
+    records and task lists; spherical harmonics and their derivatives as
+    monomial terms) give the plain versions' results."""
     _, (conv, mlp, emb) = _specs(kind)
     op = fc.conv_op(conv, mlp, emb)
     p = _problem(seed=1)
@@ -274,6 +295,27 @@ def test_kernel_tables_reproduce_plain(kind):
         tol = 1e-5 * np.abs(want).max()
         np.testing.assert_allclose(want, got.numpy(), rtol=0, atol=tol)
         np.testing.assert_allclose(want, got_r.numpy(), rtol=0, atol=tol)
+
+
+def test_uvu_layout_matches_csrc():
+    """The host lays the uvu task tables out as the kernels' header defines
+    them, and the launch-time check refuses a library that reads another
+    layout."""
+    header = (Path(fc.__file__).resolve().parents[1] / "csrc" / "fused_conv_common.cuh")
+    defines = dict(re.findall(r"^#define (NT|UVU_INS|UVU_D) (\d+)", header.read_text(), re.M))
+    assert (int(defines["NT"]) // 32, int(defines["UVU_INS"]), int(defines["UVU_D"])) == (
+        fc.UVU_WARPS, fc.UVU_INS, fc.UVU_MAX_D)
+
+    class Lib:
+        def __init__(self, layout):
+            self.layout = layout
+
+        def fused_conv_uvu_layout(self, out):
+            out[:] = self.layout
+
+    fc.check_uvu_layout(Lib((fc.UVU_WARPS, fc.UVU_INS, fc.UVU_MAX_D)))
+    with pytest.raises(RuntimeError, match="uvu table layout"):
+        fc.check_uvu_layout(Lib((2 * fc.UVU_WARPS, fc.UVU_INS, fc.UVU_MAX_D)))
 
 
 def test_wrappers_check_their_inputs():

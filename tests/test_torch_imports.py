@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under ``sevennet_tpu_torch/`` nor
-``chip_smoke.py`` imports JAX, flax, optax or the JAX package, and its entry
-points never drift to the CPU when no card is present."""
+"""The port stands alone: nothing under ``sevennet_tpu_torch/``, nor
+``chip_smoke.py``, ``conv_breakdown.py`` or ``ab_compare.py``, imports JAX, flax, optax or the
+JAX package, and its entry points never drift to the CPU when no card is
+present."""
 
 import ast
 import subprocess
@@ -16,7 +17,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sevennet_tpu"}
 
 
 def _port_files():
-    return sorted((ROOT / "sevennet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "sevennet_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "conv_breakdown.py", ROOT / "ab_compare.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -289,3 +289,64 @@ def test_bwd_slot_kernel_matches_plain(cuda, j, slot):
     for got, want in zip(outs[1], outs[0]):
         np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("hidden", [(20, 24), (20, 72)], ids=["h2_24", "h2_72"])
+def test_odd_widths_ragged_tiles_match_plain(cuda, hidden):
+    """Widths that are not multiples of the tensor-core tile (dim_x 53,
+    numel 81, radial MLP (8, 20, h2, 81); h2 72 takes two k-groups in the
+    W3 forward product and two passes of the backward one) and ragged
+    tiles (K 22: a full tile of 16 slots and one of 6; rows of 4 to 22
+    edges inside the cutoff), every instance of both kernels against its
+    plain twin, 1e-5 of the largest plain value: B1, B2, B2′ (both passes),
+    B3, and in emb/sh mode B4 fwd, B4 bwd, B4′ (both passes) and B6."""
+    x_ir, f_ir = Irreps("3x0e+5x1e+7x2e"), Irreps("1x0e+1x1e+1x2e")
+    conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+    mlp = ScalarMLPSpec((8, *hidden, conv.weight_numel))
+    embed = fc.EdgeEmbedSpec(8, 3.4, "XPLOR", 3.0, 2)
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(0.0, 7.0, (40, 3))
+    dst, src, shift = neighbor_list_numpy(pos, 3.4)
+    g = dense_graph_from_arrays(pos, np.zeros(40), src, dst, shift, device=cuda)
+    N, K = g.n_atoms_cap, g.dense_k
+    assert (K, conv.weight_numel, x_ir.dim) == (22, 81, 53)
+    vec = torch.where(g.edge_mask[None], g.edge_vectors().T,
+                      torch.tensor([[7.0], [0.0], [0.0]], device=cuda)).contiguous()
+
+    def rnd(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+
+    ws = [rnd(a, b) for a, b in zip(mlp.dims[:-1], mlp.dims[1:])]
+    x, coef = rnd(N, x_ir.dim), torch.linspace(1.0, 8.0, 8, device=cuda)
+    src_nk = g.edge_src.view(N, K).to(torch.int32)
+    op, op_e = fc.conv_op(conv, mlp, embed), fc.conv_op(conv, mlp)
+    ybar = rnd(N, op.dim_mid)
+    args = (op, x, src_nk, vec, coef, ws)
+    pairs = [(fc.fused_conv_fwd(*args), fc.fused_conv_fwd_plain(*args))]
+    pairs += list(zip(fc.fused_conv_bwd(*args, ybar), fc.fused_conv_bwd_plain(*args, ybar)))
+    got = fc.fused_conv_bwd(*args, ybar, param_grads=True)
+    want = fc.fused_conv_bwd_plain(*args, ybar, param_grads=True)
+    pairs += [(got[0], want[0]), (got[1], want[1]), (got[3], want[3])] + list(zip(got[2], want[2]))
+    # B3: rows 8 .. 15 into slot 1 of a 3-slot buffer
+    src_c, vec_c, yb = fc._chunk(8, K, 1, src_nk, vec, ybar)
+    buf = torch.zeros((3 * 8 * K, op.dim_x), device=cuda)
+    dvec_c = fc.fused_conv_bwd_slot(op, x, src_c, vec_c, coef, ws, yb, buf, 1)
+    dxg_c, dvec_cp = fc.fused_conv_bwd_plain(op, x, src_c, vec_c, coef, ws, yb)
+    pairs += [(buf[8 * K:16 * K], dxg_c), (dvec_c, dvec_cp)]
+    # emb/sh mode on the same edges' embedding and spherical harmonics
+    emb, sh = (t.contiguous() for t in fc.edge_embedding_plain(op, vec, coef))
+    eargs = (op_e, x, src_nk, emb, sh, ws)
+    out_p = fc.fused_conv_fwd_embsh_plain(*eargs)
+    pairs += [(fc.fused_conv_fwd_embsh(*eargs), out_p),
+              (dense_conv_pallas(conv, mlp, x, emb.view(N, K, -1), sh.view(N, K, -1), src_nk, ws),
+               out_p)]
+    want = fc.fused_conv_bwd_embsh_plain(*eargs, ybar, param_grads=True)
+    pairs += list(zip(fc.fused_conv_bwd_embsh(*eargs, ybar), want[:3]))
+    got = fc.fused_conv_bwd_embsh(*eargs, ybar, param_grads=True)
+    pairs += list(zip(got[:3], want[:3])) + list(zip(got[3], want[3]))
+    torch.cuda.synchronize()
+    assert len(pairs) == 22
+    for got, want in pairs:
+        scale = float(want.abs().max())
+        assert scale > 0
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-5 * scale)
