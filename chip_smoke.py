@@ -49,7 +49,22 @@
    1e-4 of max |F|), the peak memory of one step of each, then 10 timed
    ring steps. Launches per force evaluation: 5 B1 + 5 B2, or with the
    ring 5 B1 + 5 nb B3 and no B2.
-6. Prints a ``kernels`` JSON line, the card's name and power limit, and as
+6. SevenNet-l3i5 (``bench.py:89-106``: lmax 3, 128x0e+64x1e+32x2e+32x3e,
+   poly cutoff, nequip self-connection; random weights from the seed):
+   B1, B2 and B2' at its layer shapes on the same box against their plain
+   versions (each layer's column blocks of w and shared-memory carve
+   printed), then radial MLPs of no, one and three hidden layers at SevenNet-0's
+   widths (B1, B2 against plain), then requests of 192 and 3,000 atoms
+   through the calculator (5 B1 + 5 B2 each; forces against the plain-conv
+   model within 1e-3 eV/A and 1e-4 of max |F|).
+7. The Hopper probes (``sevennet_tpu_torch/probes``): every variant of the
+   matmul-rate probe (both contracts, every shape of its TPU scripts) and
+   the batched products at N 10,016 against their plain versions
+   (``mm_rate.PROBE_TOL``), then the probe path with the counts from 0:
+   each timed the TPU script's way on the device alone (CUDA graphs), with
+   TFLOP/s per card and the card rate over the SM count, beside the library
+   calls (torch.matmul with TF32 off and on, torch.bmm).
+8. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -148,6 +163,17 @@ SEVENNET0 = {  # bench.py:87-147
     "conv_denominator": 35.0,
     "chemical_species": ["H", "O"],
 }
+
+
+# SevenNet-l3i5 (bench.py:89-106): lmax 3, 128x0e+64x1e+32x2e+32x3e, poly
+# cutoff p 6, nequip self-connection; the rest as SevenNet-0
+L3I5 = dict(SEVENNET0, lmax=3,
+            irreps_manual=["128x0e"] + ["128x0e+64x1e+32x2e+32x3e"] * 4 + ["128x0e"],
+            cutoff_function={"cutoff_function_name": "poly_cut", "poly_cut_p_value": 6},
+            self_connection_type="nequip")
+L3I5_SIZES = (192, 3000)
+# radial MLPs of other depths held at SevenNet-0's widths
+MLP_DEPTHS = ((), (64,), (64, 64, 64))
 
 
 def sevennet0_spec():
@@ -286,7 +312,8 @@ def bound_ms(flops: float, nbytes: float, tc_flops: float = 0.0):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-# kernel instances by mangled name and template arguments (ILb<PG>ELb<EMBSH>EE)
+# kernel instances by mangled name and template arguments (ILb<PG>ELb<EMBSH>EE,
+# ILi<variant>ELb<carry>EE)
 INSTANCES = {
     ("fused_conv_fwd_kernel", "0"): "fwd<vec> (B1)",
     ("fused_conv_fwd_kernel", "1"): "fwd<emb/sh> (B4 fwd, B6)",
@@ -296,6 +323,10 @@ INSTANCES = {
     ("fused_conv_bwd_kernel", "11"): "bwd<emb/sh, records> (B4' first pass)",
     ("pg_partial_kernel", ""): "pg_partial (reduction)",
     ("pg_final_kernel", ""): "pg_final (reduction)",
+    ("batched_dot_kernel", ""): "batched_dot (probe)",
+    **{("probe_mm_kernel", f"{i}{c}"): f"probe_mm<{v}{', carry' if c else ''}> (probe)"
+       for i, v in enumerate(("ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32", "bf16"))
+       for c in (0, 1)},
 }
 
 
@@ -312,7 +343,7 @@ def ptxas_table(libs):
             if m:
                 n = int(m.group(1))
                 name, rest = m.group(2)[:n], m.group(2)[n:]
-                args = "".join(re.findall(r"Lb(\d)E", rest.split("Ev")[0])) if rest[:1] == "I" else ""
+                args = "".join(re.findall(r"L[bi](\d+)E", rest.split("Ev")[0])) if rest[:1] == "I" else ""
                 row = dict(instance=INSTANCES.get((name, args), name + args),
                            registers=None, stack=None, spill_stores=None, spill_loads=None)
                 rows.append(row)
@@ -375,19 +406,12 @@ def kernel_phase(spec, params, dev, atoms):
     import numpy as np
     import torch
 
-    from sevennet_tpu_torch.calculator import SevenNetCalculator
     from sevennet_tpu_torch.model.model import edge_emb_sh, edge_embed_spec
     from sevennet_tpu_torch.ops import fused_conv as fc
     from sevennet_tpu_torch.ops.pallas_conv import dense_conv_pallas
 
-    calc = SevenNetCalculator(spec, params, device=str(dev))
-    g = calc.graph(atoms)
-    N, K = g.n_atoms_cap, g.dense_k
-    sentinel = torch.tensor([2.0 * spec.cutoff, 0.0, 0.0], device=dev)
-    vec = torch.where(g.edge_mask[None], g.edge_vectors().T, sentinel[:, None]).contiguous()
-    src = g.edge_src.view(N, K).to(torch.int32).contiguous()
-    n_edges = int(g.edge_mask.sum())
-    coef = calc.params["edge_embedding"]["bessel_coeffs"]
+    calc, g, vec, src, coef = box_edges(spec, params, dev, atoms)
+    N, K, n_edges = g.n_atoms_cap, g.dense_k, int(g.edge_mask.sum())
     # what the legacy model (unnormalized spherical harmonics) feeds the conv
     emb_l, sh_l = (t.contiguous() for t in edge_emb_sh(
         dataclasses.replace(spec, normalize_sph=False), coef, vec, g.edge_mask))
@@ -641,10 +665,12 @@ def read_launches():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def request_phase(spec, params, dev, label: str, fwd: str, bwd: str, graph_times: bool = True):
-    """Calculator requests at full width, each launching the kernels
-    ``fwd`` and ``bwd`` (keys of :func:`counters`) once per layer and no
-    other; returns the launches of each kernel over the whole phase."""
+def request_phase(spec, params, dev, label: str, fwd: str, bwd: str, graph_times: bool = True,
+                  sizes=SIZES):
+    """Calculator requests at full width for water boxes of ``sizes``
+    atoms, each launching the kernels ``fwd`` and ``bwd`` (keys of
+    :func:`counters`) once per layer and no other; returns the launches of
+    each kernel over the whole phase."""
     import numpy as np
     import torch
 
@@ -654,9 +680,9 @@ def request_phase(spec, params, dev, label: str, fwd: str, bwd: str, graph_times
 
     calc = SevenNetCalculator(spec, params, device=str(dev))
     plain = SevenNetCalculator(spec, params, device=str(dev), plain=True)
-    boxes = {n: water_box(n // 3) for n in SIZES}
+    boxes = {n: water_box(n // 3) for n in sizes}
     reset_launches()
-    for n in SIZES:
+    for n in sizes:
         pos, Z, cell = boxes[n]
         at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
         torch.cuda.reset_peak_memory_stats()
@@ -1237,7 +1263,251 @@ def md_ring_phase(params, dev, seed: int, card: str):
         del os.environ["SEVENNET_TPU_CHUNK_THRESHOLD"]
 
 
+def box_edges(spec, params, dev, atoms):
+    """The box's dense graph as the kernels take it: ``(calc, graph, vec,
+    src, coef)``, vec with the sentinel on padded slots."""
+    import torch
+
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+
+    calc = SevenNetCalculator(spec, params, device=str(dev))
+    g = calc.graph(atoms)
+    N, K = g.n_atoms_cap, g.dense_k
+    sentinel = torch.tensor([2.0 * spec.cutoff, 0.0, 0.0], device=dev)
+    vec = torch.where(g.edge_mask[None], g.edge_vectors().T, sentinel[:, None]).contiguous()
+    src = g.edge_src.view(N, K).to(torch.int32).contiguous()
+    coef = calc.params["edge_embedding"]["bessel_coeffs"]
+    return calc, g, vec, src, coef
+
+
+def l3i5_kernel_phase(spec, params, dev, atoms):
+    """B1, B2 and B2' (records pass and reduction) at SevenNet-l3i5's widths
+    (layer 0, layers 1-3, layer 4) on the box, each against its plain
+    version (REL_TOL of max |plain|), timed with CUDA events; prints each
+    layer shape's column blocks of w and its shared-memory carve. Returns
+    per-kernel records (times summed over one pass: layer 0 + 3 x layers
+    1-3 + layer 4)."""
+    import torch
+
+    from sevennet_tpu_torch.model.model import edge_embed_spec
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    calc, g, vec, src, coef = box_edges(spec, params, dev, atoms)
+    N, K, n_edges = g.n_atoms_cap, g.dense_k, int(g.edge_mask.sum())
+    log(f"l3i5 kernel shapes: N={N} K={K} real edges={n_edges}")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    recs = {k: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, tc_flops=0.0, err=0.0)
+            for k in ("fwd", "bwd", "bwd_pg")}
+    for tag, t, n_layers in SHAPES:
+        layer = spec.layers[t]
+        op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+        d = op.dims(N, K)
+        log(f"  l3i5 {tag}: w's {op.numel} columns in {len(op.plan.blocks)} blocks of "
+            f"{list(op.plan.widths)} columns; carve at K={K} (bytes, W3 stages): forward "
+            f"{fc.carve_bytes(d, False)}, backward {fc.carve_bytes(d, True)}, limit "
+            f"{fc.SMEM_LIMIT}")
+        ws = calc.params[f"{t}_convolution"]["weight_nn"]["w"]
+        x = torch.randn(N, op.dim_x, generator=gen).to(dev)
+        ybar = torch.randn(N, op.dim_mid, generator=gen).to(dev)
+        args = (op, x, src, vec, coef, ws)
+        errs = {"fwd": check_close(f"l3i5 {tag}", "fwd", fc.fused_conv_fwd(*args),
+                                   fc.fused_conv_fwd_plain(*args))}
+        got, want = fc.fused_conv_bwd(*args, ybar), fc.fused_conv_bwd_plain(*args, ybar)
+        errs["bwd"] = max(check_close(f"l3i5 {tag}", n, a, b)
+                          for n, a, b in zip(("dxg", "dvec"), got, want))
+        del got, want
+        got = fc.fused_conv_bwd(*args, ybar, param_grads=True)
+        want = fc.fused_conv_bwd_plain(*args, ybar, param_grads=True)
+        pairs = [("pg dxg", got[0], want[0]), ("pg dvec", got[1], want[1]),
+                 ("dcoef", got[3], want[3])]
+        pairs += [(f"dW{i + 1}", a, b) for i, (a, b) in enumerate(zip(got[2], want[2]))]
+        errs["bwd_pg"] = max(check_close(f"l3i5 {tag}", n, a, b) for n, a, b in pairs)
+        del got, want, pairs
+        times = {
+            "fwd": (cuda_time(lambda: fc.fused_conv_fwd(*args), 5),
+                    cuda_time(lambda: fc.fused_conv_fwd_plain(*args), 2)),
+            "bwd": (cuda_time(lambda: fc.fused_conv_bwd(*args, ybar), 5),
+                    cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar), 2)),
+            "bwd_pg": (cuda_time(lambda: fc.fused_conv_bwd(*args, ybar, param_grads=True), 5),
+                       cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar, param_grads=True),
+                                 2)),
+        }
+        for k, (tk, tp) in times.items():
+            fl, by, tc = work(op, N, K, n_edges, k)
+            log(f"  l3i5 {tag} {k}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+                f"{bound_ms(fl, by, tc)[0]:.4f} ms (fp32 {bound_ms(fl, by)[0]:.4f} ms; "
+                f"{fl / 1e9:.2f} GFLOP), {fl / tk / 1e9:.2f} TFLOP/s")
+            for key, v in (("ms", tk), ("plain_ms", tp), ("flops", fl), ("bytes", by),
+                           ("tc_flops", tc)):
+                recs[k][key] += n_layers * v
+            recs[k]["err"] = max(recs[k]["err"], errs[k])
+        del x, ybar, args
+        torch.cuda.empty_cache()
+    return recs
+
+
+def mlp_depth_phase(dev, atoms, seed: int):
+    """B1 and B2 at SevenNet-0's layer 1-3 widths with radial MLPs of
+    MLP_DEPTHS hidden layers (random weights from ``seed``), against their
+    plain versions on the box (REL_TOL of max |plain|)."""
+    import torch
+
+    from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
+    from sevennet_tpu_torch.model.build import build_model_spec
+    from sevennet_tpu_torch.model.model import edge_embed_spec
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    for hidden in MLP_DEPTHS:
+        spec = build_model_spec(dict(SEVENNET0, weight_nn_hidden_neurons=list(hidden)))
+        params = params_from_numpy(spec, random_params(spec, seed))
+        calc, g, vec, src, coef = box_edges(spec, params, dev, atoms)
+        N, K = g.n_atoms_cap, g.dense_k
+        layer = spec.layers[1]
+        op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+        ws = calc.params["1_convolution"]["weight_nn"]["w"]
+        x = torch.randn(N, op.dim_x, generator=gen).to(dev)
+        ybar = torch.randn(N, op.dim_mid, generator=gen).to(dev)
+        args = (op, x, src, vec, coef, ws)
+        tag = f"MLP {list(layer.radial_mlp.dims)}"
+        check_close(tag, "fwd", fc.fused_conv_fwd(*args), fc.fused_conv_fwd_plain(*args))
+        for n, a, b in zip(("dxg", "dvec"), fc.fused_conv_bwd(*args, ybar),
+                           fc.fused_conv_bwd_plain(*args, ybar)):
+            check_close(tag, n, a, b)
+        log(f"  {tag}: B1 {cuda_time(lambda: fc.fused_conv_fwd(*args), 5):.4f} ms, B2 "
+            f"{cuda_time(lambda: fc.fused_conv_bwd(*args, ybar), 5):.4f} ms per layer")
+        del x, ybar, args
+        torch.cuda.empty_cache()
+
+
+TF32_PEAK = 495e12    # H100 SXM dense TF32 tensor cores, NVIDIA data sheet
+BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores
+PEAK_OF = {"ffma": FP32_PEAK, "tf32": TF32_PEAK, "wgmma_tf32": TF32_PEAK,
+           "3xtf32": TC_3XTF32_PEAK, "3xtf32_presplit": TC_3XTF32_PEAK, "bf16": BF16_PEAK}
+
+
+def probe_inputs(variant, m, k, n, dev, seed):
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dtype = torch.bfloat16 if variant == "bf16" else torch.float32
+    return (torch.randn(m, k, generator=gen).to(dev, dtype),
+            torch.randn(k, n, generator=gen).to(dev, dtype))
+
+
+def probe_phase(dev, card: str):
+    """The Hopper probes. First each kernel against its plain version at every
+    shape of its TPU script (mm_rate.PROBE_TOL; s = 1e-3, 0 for bf16, so
+    that the (1 + s i) factor is checked; launches not counted), then the
+    probe path with the counts from 0: every variant of both matmul
+    contracts timed the TPU script's way on the device alone (captured in
+    CUDA graphs; one copy, the contract, and as many copies as fill the
+    card; at 250-450 calls too, which shows the time per call is linear),
+    the batched product at N 10,016 (rep 1 and 4); beside them the library
+    calls at the same shapes (the REP products as REP torch.matmul calls in
+    one graph, TF32 off and on, bf16; torch.bmm) and the plain versions.
+    The rate per SM is the card rate over the SM count. Returns (records by
+    kernels-line key, launches)."""
+    import math
+
+    import torch
+
+    from sevennet_tpu_torch.probes import batched_dot as bd
+    from sevennet_tpu_torch.probes import mm_rate as mr
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    s = torch.zeros((1, 1), device=dev)  # the TPU scripts' s (zeros, r2_pallas_mm.py:61)
+    errs = {}
+    for chain in (False, True):
+        for v in mr.VARIANTS:
+            s_check = torch.full((1, 1), 0.0 if v == "bf16" else 1e-3, device=dev)
+            for m, k, n in mr.shapes(v, chain):
+                a, b = probe_inputs(v, m, k, n, dev, m + k + n)
+                extra = () if chain else (s_check,)
+                fn = mr.mm_chain if chain else mr.mm_rate
+                tag = f"probe {'mm_chain' if chain else 'mm_rate'} {v} {m}x{k}x{n}"
+                err = check_close(tag, "out", fn(a, b, *extra, variant=v),
+                                  fn(a, b, *extra, variant=v, plain=True), mr.PROBE_TOL[v])
+                errs[(chain, v)] = max(errs.get((chain, v), 0.0), err)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    Ss = [(torch.randn(bd.N_ATOMS, d3, kk, generator=gen) * 0.1).to(dev) for d3, kk, _ in bd.GROUPS]
+    XWs = [(torch.randn(bd.N_ATOMS, kk, mul, generator=gen) * 0.1).to(dev)
+           for _, kk, mul in bd.GROUPS]
+    want = bd.batched_dot(Ss, XWs, plain=True)
+    errs["batched"] = max(check_close("probe batched_dot", f"Y group {i}", y, w, 1e-5)
+                          for i, (y, w) in enumerate(zip(bd.batched_dot(Ss, XWs), want)))
+    del want
+
+    # the probe path, counts from 0
+    recs = {}
+    mr.mm_rate.launches = mr.mm_chain.launches = bd.batched_dot.launches = 0
+    for fn in (mr.mm_rate, mr.mm_chain):
+        fn.by_variant = dict.fromkeys(mr.VARIANTS, 0)
+    for chain in (False, True):
+        for v in mr.VARIANTS:
+            for i, (m, k, n) in enumerate(mr.shapes(v, chain)):
+                a, b = probe_inputs(v, m, k, n, dev, m + k + n)
+                extra = () if chain else (s,)
+                fn = mr.mm_chain if chain else mr.mm_rate
+                fill = max(1, math.ceil(n_sm / mr.mm_tiles(m, n)))
+                call = lambda: fn(a, b, *extra, variant=v)  # noqa: E731
+                ms = mr.mm_time(call)
+                lin = mr.mm_time(call, 250, 450, tries=1) / ms
+                ms_fill = ms if fill == 1 else mr.mm_time(
+                    lambda: fn(a, b, *extra, variant=v, copies=fill))
+                fl, fl_fill = mr.mm_flops(m, k, n), mr.mm_flops(m, k, n, copies=fill)
+                card_rate = fl_fill / ms_fill / 1e9
+                lib_fn = lambda: [torch.matmul(a, b) for _ in range(mr.REP)]  # noqa: E731
+                if v == "bf16":
+                    lib = mr.mm_time(lib_fn)
+                else:
+                    lib_t = {}
+                    for tf32 in (False, True):
+                        torch.backends.cuda.matmul.allow_tf32 = tf32
+                        lib_t[tf32] = mr.mm_time(lib_fn)
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                    lib = lib_t[v in ("tf32", "wgmma_tf32")]
+                plain = cuda_time(lambda: fn(a, b, *extra, variant=v, plain=True), 5)
+                nbytes = a.element_size() * (a.numel() + b.numel()) + 4 * m * n
+                log(f"  probe {'mm_chain' if chain else 'mm_rate'} {v} {m}x{k}x{n}: {ms:.5f} ms "
+                    f"per call ({lin:.3f}x at 250-450 calls), {fl / ms / 1e9:.2f} TFLOP/s "
+                    f"(1 copy, {mr.mm_tiles(m, n)} CTAs); {fill} copies: {card_rate:.2f} TFLOP/s "
+                    f"per card, {card_rate / n_sm * 1e3:.1f} GFLOP/s card rate / {n_sm} SMs; "
+                    f"library {lib:.5f} ms for the same {mr.REP} products (one graph)"
+                    + ("" if v == "bf16" else f" (TF32 off {lib_t[False]:.5f}, on {lib_t[True]:.5f})")
+                    + f"; plain {plain:.4f} ms | {card}")
+                if i == 0:
+                    key = ("mm_chain" if chain else "mm_rate", v)
+                    bnd, by = max((fl / PEAK_OF[v] * 1e3, "operations"),
+                                  (nbytes / HBM_BYTES_S * 1e3, "bytes"))
+                    recs[key] = dict(ms=ms, plain_ms=plain, bound=(bnd, by), library_ms=lib,
+                                     err=errs[(chain, v)], shape=(m, k, n))
+    fl, nbytes = bd.batched_dot_work(Ss, XWs)
+    t = {rep: bd.batched_dot_time(lambda: bd.batched_dot(Ss, XWs, rep=rep)) for rep in (1, 4)}
+    lib = bd.batched_dot_time(lambda: bd.batched_dot_plain(Ss, XWs))
+    bnd = max((fl / TC_3XTF32_PEAK * 1e3, "operations"), (nbytes / HBM_BYTES_S * 1e3, "bytes"))
+    log(f"  probe batched_dot N={bd.N_ATOMS}: {t[1]:.4f} ms ({nbytes / t[1] / 1e6:.1f} GB/s, "
+        f"{fl / t[1] / 1e9:.2f} TFLOP/s; {fl / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB), rep 4 "
+        f"{t[4]:.4f} ms: {(t[4] - t[1]) / 3:.4f} ms per repeated product on staged tiles "
+        f"({fl / ((t[4] - t[1]) / 3) / 1e9:.2f} TFLOP/s); bound {bnd[0]:.4f} ms by {bnd[1]}; "
+        f"torch.bmm {lib:.4f} ms | {card}")
+    recs["batched"] = dict(ms=t[1], plain_ms=lib, bound=bnd, library_ms=lib, err=errs["batched"],
+                           shape=None)
+    launches = {"mm_rate": mr.mm_rate.launches, "mm_chain": mr.mm_chain.launches,
+                "batched": bd.batched_dot.launches}
+    by_variant = {f"{fn.__name__} {v}": n for fn in (mr.mm_rate, mr.mm_chain)
+                  for v, n in fn.by_variant.items()}
+    if not (all(launches.values()) and all(by_variant.values())):
+        raise SystemExit(f"a probe kernel was never launched on the probe path: {launches}, "
+                         f"{by_variant}")
+    del Ss, XWs
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
 FWD_CU = "sevennet_tpu_torch/csrc/fused_conv_fwd.cu"
+PROBE_MM_CU = "sevennet_tpu_torch/csrc/probe_mm.cu"
+PROBE_BD_CU = "sevennet_tpu_torch/csrc/probe_batched_dot.cu"
 BWD_CU = "sevennet_tpu_torch/csrc/fused_conv_bwd.cu"
 # kernels line entry -> (name, source, TPU kernel replaced, record and launch key)
 KERNEL_NAMES = {
@@ -1328,6 +1598,20 @@ def main() -> int:
     md_ring, records["bwd_slot"] = md_ring_phase(params, dev, args.seed, card)
     log(f"MD phase, 99,999 atoms (main path: MD, ring backward): "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    spec_l3 = build_model_spec(L3I5)
+    params_l3 = params_from_numpy(spec_l3, random_params(spec_l3, args.seed))
+    l3_records = l3i5_kernel_phase(spec_l3, params_l3, dev, atoms)
+    mlp_depth_phase(dev, atoms, args.seed)
+    log(f"l3i5 kernel and MLP-depth phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served_l3 = request_phase(spec_l3, params_l3, dev, "l3i5", "fwd", "bwd", sizes=L3I5_SIZES)
+    log(f"l3i5 request phase (main path: serving SevenNet-l3i5): launches {served_l3}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    probe_records, probe_launches = probe_phase(dev, card)
+    log(f"probe phase (the probe path): launches {probe_launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
                 + md_small[k] + md_mid[k] + md_ring[k] for k in counters()}
     if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
@@ -1345,12 +1629,45 @@ def main() -> int:
             "launches": launches[key], "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
         })
+    for key, name in (("fwd", "fused_conv_fwd (SevenNet-l3i5)"),
+                      ("bwd", "fused_conv_bwd (SevenNet-l3i5)")):
+        r = l3_records[key]
+        bnd, by = bound_ms(r["flops"], r["bytes"], r["tc_flops"])
+        source, replaces = KERNEL_NAMES[key][1:3]
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": served_l3[key], "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        })
+    from sevennet_tpu_torch.probes import mm_rate as mr
+
+    for key, r in probe_records.items():
+        if key == "batched":
+            name, source, replaces = ("batched_dot (probe)", PROBE_BD_CU,
+                                      "scripts_dev/r4_batched_dot_probe.py:95")
+            launches = probe_launches["batched"]
+        else:
+            contract, v = key
+            name = f"probe_mm {contract} {v} ({'x'.join(map(str, r['shape']))})"
+            source = PROBE_MM_CU
+            replaces = ("scripts_dev/r2_pallas_mm.py:54" if contract == "mm_rate"
+                        else "scripts_dev/r2_pallas_fma.py:115")
+            launches = (mr.mm_rate if contract == "mm_rate" else mr.mm_chain).by_variant[v]
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
+        })
     log(f"kernel times are per pass of {N} atoms (K={K}, {n_edges} edges): "
         "layer 0 + 3 x layers 1-3 + layer 4 (fused_conv_bwd_slot: per force evaluation "
         "of the 99,999-atom ring, over its nb chunks); fused_conv_bwd_pg and fused_conv_bwd_embsh_pg include their "
         "param_grad_reduce; launches: the B6 path, serving (both configs), train_run, the "
         "legacy config's compared train steps, and MD (3,000 and 9,999 atoms, and the timed "
-        "ring steps at 99,999)")
+        "ring steps at 99,999); the SevenNet-l3i5 rows per pass of its layer shapes on the "
+        "same box, launches from its requests; the probe rows per call at their first shape, "
+        "launches from the probe path, library_ms the same work as torch.matmul (16 products; "
+        "TF32 on for the tf32 and wgmma rows) or torch.bmm")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

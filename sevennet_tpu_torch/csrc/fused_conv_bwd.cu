@@ -31,7 +31,7 @@
 //
 // What bounds it on an H100, and the design (fused_conv_common.cuh): about
 // twice the forward's operations, most of them the last MLP layer run
-// forward (to rebuild w) and backward (dz2 = dw W3^T). Both run on the
+// forward (to rebuild w) and backward (dz = dw W3^T). Both run on the
 // tensor cores as 3xTF32 mma.sync (fp32 accuracy), W3 staged in 64-column
 // blocks by cp.async, each pass streaming it once per tile; the backward
 // product splits its k dimension (W3's columns) over the warps and adds
@@ -42,7 +42,10 @@
 // demb are 3xTF32 too. The chain of the embedding and spherical-harmonic
 // cotangents to dvec runs a warp per edge, lanes over the basis functions
 // and derivative terms, with warp sums and no local tables. Slots past the
-// cutoff get exact zeros without any arithmetic.
+// cutoff get exact zeros without any arithmetic. It walks the column blocks
+// of w (fused_conv_common.cuh) in order: per block it rebuilds the block's
+// w and tmp, runs the block's pullback and adds the block's share of dxg,
+// dsh and the last hidden layer's dz to the earlier blocks'.
 //
 // Emb/sh mode walks every slot, padding included: a slot whose emb row is
 // zero has w = 0, so its dxg and dsh are zero, but its demb is not (dw =
@@ -56,8 +59,8 @@
 // (64 x 960 fp32 for SevenNet-0) does not fit beside the tiles in shared
 // memory. So B2' is two passes, both deterministic:
 //   1. the CTA of atom i writes, for each of its edges inside the cutoff, a
-//      record of the factors the products need (emb, h1, h2 and their
-//      cotangents dz1, dz2, dw, plus the per-edge dcoef terms) into a
+//      record of the factors the products need (emb, every hidden layer's
+//      h and their cotangents dz, dw, plus the per-edge dcoef terms) into a
 //      workspace row at the edge's flat slot, and a validity byte for every
 //      slot of row i;
 //   2. param_grad_reduce_launch forms dW_l = H_l^T G_l over the workspace:
@@ -69,71 +72,95 @@
 #include "fused_conv_common.cuh"
 
 // Per-edge record of the parameter-gradient workspace (B2'): row stride and
-// the column of each field, in this order (ctypes mirror: _WsLayout in
+// the first column of each field, in this order: emb, the hidden layers'
+// activations h (layer by layer), their cotangents dz (the same order), dw,
+// the dcoef terms (ctypes mirror: _WsLayout in
 // sevennet_tpu_torch/ops/fused_conv.py). Kept out of ConvDims: a larger
 // ConvDims grows the kernels' stack frame and slowed B1 and B2 by 5-9 %.
 struct WsLayout {
-  int stride, emb, h1, h2, dz1, dz2, dw, dc;
+  int stride, emb, h, dz, dw, dc;
 };
 
-// Writes the workspace record of each edge of the tile: emb, h1, h2, dz1,
-// dz2 and dw, in the column order of WsLayout (emb .. dw). The per-edge
-// dcoef terms (columns dc ..) are written by the chain step.
-__device__ inline void write_records(const WsLayout& L, const Tile& t, int ne,
+// Writes the workspace record of each edge of the tile but dw and the dcoef
+// terms: emb, h and dz of every hidden layer (columns emb .. dw). dw is
+// written per column block (write_dw_records), the dcoef terms by the
+// chain step.
+__device__ inline void write_records(const ConvDims& d, const WsLayout& L, const Tile& t, int ne,
                                      float* __restrict__ work) {
-  const int W = L.dc;
+  const int W = L.dw;
   for (int idx = threadIdx.x; idx < ne * W; idx += NT) {
     const int e = idx / W, c = idx - e * W;
     float v;
-    if (c < L.h1) v = t.embT[(c - L.emb) * TE + e];
-    else if (c < L.h2) v = t.h1T[(c - L.h1) * TE + e];
-    else if (c < L.dz1) v = t.h2T[(c - L.h2) * TE + e];
-    else if (c < L.dz2) v = t.dz1T[(c - L.dz1) * TE + e];
-    else if (c < L.dw) v = t.dz2T[(c - L.dz2) * TE + e];
-    else v = t.ws[e * t.SW + (c - L.dw)];
+    if (c < L.h) {
+      v = t.embT[(c - L.emb) * TE + e];
+    } else {
+      int o = c < L.dz ? c - L.h : c - L.dz, l = 0, h = hidden_width(t, 0);
+      const float* z = t.zh;
+      for (; o >= h; h = hidden_width(t, ++l)) {
+        o -= h;
+        z += 2 * TE * h;
+      }
+      // h_l follows z_l; dz_l lies over z_l, the last layer's in dzl
+      v = c < L.dz ? z[TE * h + o * TE + e] : (l == d.nh - 1 ? t.dzl : z)[o * TE + e];
+    }
     work[(size_t)t.flats[e] * L.stride + c] = v;
   }
 }
 
-// dz2 (TE x h2) = (dw W3^T) / sqrt(h2) * silu'(z2) * cst, with dw in t.ws:
-// 3xTF32 mma.sync over the column blocks of W3 (pipelined as in
-// w3_forward, row stride SBB), OG hidden units per pass. The k dimension is
-// split over the warps: warp w takes the 8 columns of k-step w of every
-// block against all n-tiles, so each dw fragment is loaded and split once.
-// The NWARP partial sums go through t.stage after the last block and are
-// added in warp order. The caller has issued the first pass's first block
-// into buffer 0 (stage_w3(..., 0, min(OG, round8(h2)), w3_block_col(d, 0),
-// SBB)).
-__device__ inline void w3_backward(const ConvDims& d, const Tile& t, const float* __restrict__ W3) {
+// The dw columns of column block B (over w in t.ws) into the records.
+__device__ inline void write_dw_records(const WsLayout& L, const Tile& t, const Blk& B, int ne,
+                                        float* __restrict__ work) {
+  for (int idx = threadIdx.x; idx < ne * B.width; idx += NT) {
+    const int e = idx / B.width, j = idx - e * B.width;
+    work[(size_t)t.flats[e] * L.stride + L.dw + B.c0 + j] = t.ws[e * t.SW + j];
+  }
+}
+
+// dz of the last hidden layer (TE x hl) = (dw W3^T) / sqrt(hl) * silu'(z) *
+// cst, with dw of column block B in t.ws: 3xTF32 mma.sync over the block's
+// W3 sub-blocks (pipelined as in w3_forward, row stride SBB), OG hidden
+// units per pass. The k dimension is split over the warps: warp w takes
+// the 8 columns of k-step w of every sub-block against all n-tiles, so each
+// dw fragment is loaded and split once. The NWARP partial sums go through
+// t.stage after the last sub-block and are added in warp order, then to
+// what the earlier blocks left in t.dzl (block order); the last block
+// applies silu'. With no hidden layer (hl = n_basis) this is demb, and the
+// last block scales it only. The caller has issued the first pass's first sub-block
+// into buffer 0 (stage_w3(..., 0, min(OG, round8(hl)), w3_sub_col(B, 0),
+// B.c0 + B.width, SBB)).
+__device__ inline void w3_backward(const ConvDims& d, const Tile& t, const float* __restrict__ W3,
+                                   const Blk& B, bool first, bool last) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int h2p = round8(d.h2);
-  const int nblk = (d.numel + BN - 1) / BN;
+  const int h2p = round8(d.hl);
+  const int nblk = (B.width + BN - 1) / BN;
+  const int jend = B.c0 + B.width;
   const int S = t.nstage;
-  const float inv_h2 = (float)(1.0 / sqrt((double)d.h2));
+  const float inv_h2 = (float)(1.0 / sqrt((double)d.hl));
   const float cst = d.act_cst;
   for (int og = 0; og < h2p; og += OG) {
     const int nrow = min(OG, h2p - og);
     for (int jb = og > 0 ? 0 : 1; jb < S - 1 && jb < nblk; ++jb)
-      stage_w3(d, W3, t.stage + jb * OG * SBB, og, nrow, w3_block_col(d, jb), SBB);
+      stage_w3(d, W3, t.stage + jb * OG * SBB, og, nrow, w3_sub_col(B, jb), jend, SBB);
     float acc[OG / 8][4];
 #pragma unroll
     for (int nt = 0; nt < OG / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
     for (int jb = 0; jb < nblk; ++jb) {
       const int ahead = jb + S - 1;
       if (ahead < nblk)
-        stage_w3(d, W3, t.stage + (ahead % S) * OG * SBB, og, nrow, w3_block_col(d, ahead), SBB);
+        stage_w3(d, W3, t.stage + (ahead % S) * OG * SBB, og, nrow, w3_sub_col(B, ahead), jend,
+                 SBB);
       cp_async_wait(min(S - 1, nblk - 1 - jb));
       __syncthreads();
       const float* Bs = t.stage + (jb % S) * OG * SBB;
-      const int jk = w3_block_col(d, jb) + warp * 8;
-      const int j = jk + q;
-      if (jk < d.numel) {
+      const int jk = w3_sub_col(B, jb) + warp * 8;
+      const int j = jk + q, c = j - B.c0;
+      if (jk < jend) {
         float a[4];
-        a[0] = j < d.numel ? t.ws[g * t.SW + j] : 0.0f;
-        a[1] = j < d.numel ? t.ws[(g + 8) * t.SW + j] : 0.0f;
-        a[2] = j + 4 < d.numel ? t.ws[g * t.SW + j + 4] : 0.0f;
-        a[3] = j + 4 < d.numel ? t.ws[(g + 8) * t.SW + j + 4] : 0.0f;
+        a[0] = j < jend ? t.ws[g * t.SW + c] : 0.0f;
+        a[1] = j < jend ? t.ws[(g + 8) * t.SW + c] : 0.0f;
+        a[2] = j + 4 < jend ? t.ws[g * t.SW + c + 4] : 0.0f;
+        a[3] = j + 4 < jend ? t.ws[(g + 8) * t.SW + c + 4] : 0.0f;
         unsigned ah[4], al[4];
         split4(a, ah, al);
 #pragma unroll
@@ -161,16 +188,61 @@ __device__ inline void w3_backward(const ConvDims& d, const Tile& t, const float
     __syncthreads();
     for (int idx = threadIdx.x; idx < nrow * TE; idx += NT) {
       const int o = idx / TE, e = idx - o * TE;
-      if (og + o < d.h2) {
+      if (og + o < d.hl) {
         float s = 0.0f;
         for (int w = 0; w < NWARP; ++w) s += red[(w * TE + e) * SBF + o];
-        const float z = t.z2T[(og + o) * TE + e];
-        const float sg = sigmoidf_(z);
-        t.dz2T[(og + o) * TE + e] = s * inv_h2 * (sg * (1.0f + z * (1.0f - sg)) * cst);
+        float* dz = t.dzl + (og + o) * TE + e;
+        if (!first) s = *dz + s;
+        if (last && d.nh > 0) {
+          const float z = t.zh[TE * 2 * (d.hsum - d.hl) + (og + o) * TE + e];
+          const float sg = sigmoidf_(z);
+          s = s * inv_h2 * (sg * (1.0f + z * (1.0f - sg)) * cst);
+        } else if (last) {
+          s = s * inv_h2;  // no hidden layer: this is demb (hl = n_basis)
+        }
+        *dz = s;
       }
     }
     __syncthreads();
   }
+}
+
+// The backward's work on column block B after its w and tmp (for block 0
+// load_tile's): the uvu pullback, dsh and the last hidden layer's dz, added
+// to the earlier blocks' unless FIRST; with PG the block's dw records. Block
+// 0 is its own instance, so that a layer of one block (every SevenNet-0
+// layer) runs straight through, with nothing to add.
+template <bool PG, bool FIRST>
+__device__ __forceinline__ void bwd_block(const ConvDims& d, const Tile& t, const Blk& B, bool last,
+                                          int ne, const float* __restrict__ W3,
+                                          const float* __restrict__ ftab, float* __restrict__ dxg,
+                                          const WsLayout& L, float* __restrict__ work, Prof& prof) {
+  const int DF = d.dim_f;
+  if (!FIRST) {
+    block_tmp(d, t, ftab, B);
+    stage_w3_first(d, W3, t, B);
+    w3_forward(d, t, W3, B);
+    prof.mark(3);
+  }
+  // W3's first sub-block for the dz product is copied during the uvu steps
+  stage_w3(d, W3, t.stage, 0, min(OG, round8(d.hl)), w3_sub_col(B, 0), B.c0 + B.width, SBB);
+  // the uvu pullback on the tensor cores: dtmp first (it reads w), then
+  // dsh += dtmp w3j_pack[B's rows] and dxg, dw (written over w)
+  uvu_dtmp(t, B);
+  __syncthreads();
+  prof.mark(8);
+  {
+    const float* dsh = t.dsh;
+    small_product(t.dtmp, 1, t.SR, B.rows, ftab + (size_t)B.r0 * DF, DF, 1, DF, t.dsh, 1, DF,
+                  [=](float v, int f, int e) { return FIRST ? v : dsh[e * DF + f] + v; });
+  }
+  uvu_dxg_dw<!FIRST>(d, t, ne, dxg, B);
+  __syncthreads();
+  prof.mark(9);
+  // dz of the last hidden layer += (dw @ W3^T) / sqrt(hl) * silu'(z) * cst
+  w3_backward(d, t, W3, B, FIRST, last);
+  if (PG) write_dw_records(L, t, B, ne, work);
+  prof.mark(5);
 }
 
 // (ea, eb): (vec, coef) in vec mode, (emb, sh) in emb/sh mode; (da, db):
@@ -178,8 +250,7 @@ __device__ inline void w3_backward(const ConvDims& d, const Tile& t, const float
 template <bool PG, bool EMBSH>
 __global__ void __launch_bounds__(NT, 1) fused_conv_bwd_kernel(
     ConvDims d, const float* __restrict__ x, const int* __restrict__ src,
-    const float* __restrict__ ea, const float* __restrict__ eb,
-    const float* __restrict__ W1, const float* __restrict__ W2,
+    const float* __restrict__ ea, const float* __restrict__ eb, MlpWeights W,
     const float* __restrict__ W3, const float* __restrict__ ybar,
     const int* __restrict__ itab, const float* __restrict__ ftab,
     float* __restrict__ dxg, float* __restrict__ da, float* __restrict__ db, WsLayout L,
@@ -217,47 +288,46 @@ __global__ void __launch_bounds__(NT, 1) fused_conv_bwd_kernel(
   for (int c = tid; c < d.dim_mid; c += NT) t.yb[yb_at(c)] = ybar[(size_t)i * d.dim_mid + c];
   prof.mark(0);
 
-  const float* w3j = ftab + d.w3j;
   const float inv_nb = (float)(1.0 / sqrt((double)NB));
-  const float inv_h1 = (float)(1.0 / sqrt((double)d.h1));
   const float cst = d.act_cst;
+  const int nb = n_blocks(t.tabs);
 
   for (int t0 = 0; t0 < nv; t0 += TE) {
     const int ne = min(TE, nv - t0);
-    load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W1, W2, W3, itab, ftab, prof);
-    // W3's first block for the dz2 product is copied during the uvu steps
-    stage_w3(d, W3, t.stage, 0, min(OG, round8(d.h2)), w3_block_col(d, 0), SBB);
-
-    // the uvu pullback on the tensor cores: dtmp first (it reads w), then
-    // dxg and dw (written over w)
-    uvu_dtmp(t);
-    __syncthreads();
-    prof.mark(8);
-    uvu_dxg_dw(d, t, ne, dxg);
-    __syncthreads();
-    prof.mark(9);
-    // dz2 = (dw @ W3^T) / sqrt(h2) * silu'(z2) * cst on the tensor cores
-    w3_backward(d, t, W3);
-    prof.mark(5);
-    // dz1 = (dz2 @ W2^T) / sqrt(h1) * silu'(z1) * cst and dsh = dtmp w3j_pack,
-    // then demb = (dz1 @ W1^T) / sqrt(n_basis): 3xTF32 on the tensor cores
-    {
-      const float* z1T = t.z1T;
-      small_product(t.dz2T, TE, 1, d.h2, W2, 1, d.h2, d.h1, t.dz1T, TE, 1,
+        load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W, W3, ftab, uvu_blk(t.tabs, 0), prof);
+    bwd_block<PG, true>(d, t, uvu_blk(t.tabs, 0), nb == 1, ne, W3, ftab, dxg, L, work, prof);
+    for (int b = 1; b < nb; ++b)
+      bwd_block<PG, false>(d, t, uvu_blk(t.tabs, b), b == nb - 1, ne, W3, ftab, dxg, L, work, prof);
+    // down the hidden layers, dz_l = (dz_{l+1} @ W_{l+1}^T) / sqrt(h_l) *
+    // silu'(z_l) * cst over z_l, then demb = (dz_0 @ W_0^T) / sqrt(n_basis):
+    // 3xTF32 on the tensor cores
+    for (int l = d.nh - 2; l >= 0; --l) {
+      const int h = hidden_width(t, l), h_next = hidden_width(t, l + 1);
+      float* zT = hidden_z(t, l);
+      const float* dz_next = l + 1 == d.nh - 1 ? t.dzl : zT + 2 * TE * h;
+      const float inv = (float)(1.0 / sqrt((double)h));
+      small_product(dz_next, TE, 1, h_next, mlp_weight(W, l + 1), 1, h_next, h, zT, TE, 1,
                     [=](float s, int o, int e) {
-                      const float z = z1T[o * TE + e];
+                      const float z = zT[o * TE + e];
                       const float sg = sigmoidf_(z);
-                      return s * inv_h1 * (sg * (1.0f + z * (1.0f - sg)) * cst);
+                      return s * inv * (sg * (1.0f + z * (1.0f - sg)) * cst);
                     });
+      __syncthreads();
     }
-    small_product(t.dtmp, 1, t.SR, d.R, w3j, DF, 1, DF, t.dsh, 1, DF,
-                  [](float v, int, int) { return v; });
-    __syncthreads();
-    small_product(t.dz1T, TE, 1, d.h1, W1, 1, d.h1, NB, t.demb, 1, NB,
-                  [=](float v, int, int) { return v * inv_nb; });
+    if (d.nh > 0) {
+      const int h0 = hidden_width(t, 0);
+      small_product(d.nh == 1 ? t.dzl : t.zh, TE, 1, h0, mlp_weight(W, 0), 1, h0, NB, t.demb, 1,
+                    NB, [=](float v, int, int) { return v * inv_nb; });
+    } else {
+      // no hidden layer: the W3 product left demb in dzl, (n_basis x TE)
+      for (int idx = tid; idx < TE * NB; idx += NT) {
+        const int e = idx / NB;
+        t.demb[idx] = t.dzl[(idx - e * NB) * TE + e];
+      }
+    }
     __syncthreads();
     prof.mark(6);
-    if (PG) write_records(L, t, ne, work);
+    if (PG) write_records(d, L, t, ne, work);
     if (EMBSH) {
       // demb and dsh rows out, coalesced along each row
       for (int idx = tid; idx < ne * NB; idx += NT) {
@@ -401,17 +471,16 @@ __global__ void pg_final_kernel(const float* __restrict__ partial, int n_chunks,
 
 template <bool PG, bool EMBSH>
 static int launch_bwd(const ConvDims& d, int* limits, const float* x, const int* src,
-                      const float* ea, const float* eb, const float* W1, const float* W2,
-                      const float* W3, const float* ybar, const int* itab, const float* ftab,
-                      float* dxg, float* da, float* db, const WsLayout& L, float* work,
-                      unsigned char* wvalid, void* stream) {
+                      const float* ea, const float* eb, const MlpWeights& W, const float* ybar,
+                      const int* itab, const float* ftab, float* dxg, float* da, float* db,
+                      const WsLayout& L, float* work, unsigned char* wvalid, void* stream) {
   const size_t smem = carve(d, true, nullptr, nullptr);
   cudaError_t err =
       raise_smem_limit((const void*)fused_conv_bwd_kernel<PG, EMBSH>, smem, limits);
   if (err != cudaSuccess) return (int)err;
   if (d.N > 0)
     fused_conv_bwd_kernel<PG, EMBSH><<<d.N, NT, smem, (cudaStream_t)stream>>>(
-        d, x, src, ea, eb, W1, W2, W3, ybar, itab, ftab, dxg, da, db, L, work, wvalid);
+        d, x, src, ea, eb, W, W.w[d.nh], ybar, itab, ftab, dxg, da, db, L, work, wvalid);
   return (int)cudaGetLastError();
 }
 
@@ -422,11 +491,11 @@ static int smem_limit_embsh_pg[MAX_DEVICES];
 
 // B2. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_conv_bwd_launch(ConvDims d, const float* x, const int* src, const float* vec,
-                                     const float* coef, const float* W1, const float* W2,
-                                     const float* W3, const float* ybar, const int* itab,
-                                     const float* ftab, float* dxg, float* dvec, void* stream) {
-  return launch_bwd<false, false>(d, smem_limit, x, src, vec, coef, W1, W2, W3, ybar, itab, ftab,
-                                  dxg, dvec, nullptr, WsLayout{}, nullptr, nullptr, stream);
+                                     const float* coef, MlpWeights W, const float* ybar,
+                                     const int* itab, const float* ftab, float* dxg, float* dvec,
+                                     void* stream) {
+  return launch_bwd<false, false>(d, smem_limit, x, src, vec, coef, W, ybar, itab, ftab, dxg,
+                                  dvec, nullptr, WsLayout{}, nullptr, nullptr, stream);
 }
 
 // B3, the ring backward's per-chunk kernel. Replaces the Pallas TPU kernel
@@ -441,84 +510,71 @@ extern "C" int fused_conv_bwd_launch(ConvDims d, const float* x, const int* src,
 // cutoff land inside the slot too. Rows of other slots are not touched.
 // What bounds it: B2's fp32 operations on the chunk's edges.
 extern "C" int fused_conv_bwd_slot_launch(ConvDims d, const float* x, const int* src_c,
-                                          const float* vec_c, const float* coef, const float* W1,
-                                          const float* W2, const float* W3, const float* ybar_c,
-                                          const int* itab, const float* ftab, float* buf, int slot,
-                                          float* dvec, void* stream) {
+                                          const float* vec_c, const float* coef, MlpWeights W,
+                                          const float* ybar_c, const int* itab, const float* ftab,
+                                          float* buf, int slot, float* dvec, void* stream) {
   float* dxg = buf + (size_t)slot * d.N * d.K * d.dim_x;
-  return launch_bwd<false, false>(d, smem_limit, x, src_c, vec_c, coef, W1, W2, W3, ybar_c, itab,
-                                  ftab, dxg, dvec, nullptr, WsLayout{}, nullptr, nullptr, stream);
+  return launch_bwd<false, false>(d, smem_limit, x, src_c, vec_c, coef, W, ybar_c, itab, ftab,
+                                  dxg, dvec, nullptr, WsLayout{}, nullptr, nullptr, stream);
 }
 
 // B2', first pass: B2 plus the workspace records (N*K rows of L.stride
 // floats) and the validity byte of every slot (N*K).
 extern "C" int fused_conv_bwd_pg_launch(ConvDims d, WsLayout L, const float* x, const int* src,
-                                        const float* vec, const float* coef, const float* W1,
-                                        const float* W2, const float* W3, const float* ybar,
-                                        const int* itab, const float* ftab, float* dxg,
-                                        float* dvec, float* work, unsigned char* wvalid,
-                                        void* stream) {
-  return launch_bwd<true, false>(d, smem_limit_pg, x, src, vec, coef, W1, W2, W3, ybar, itab,
-                                 ftab, dxg, dvec, nullptr, L, work, wvalid, stream);
+                                        const float* vec, const float* coef, MlpWeights W,
+                                        const float* ybar, const int* itab, const float* ftab,
+                                        float* dxg, float* dvec, float* work,
+                                        unsigned char* wvalid, void* stream) {
+  return launch_bwd<true, false>(d, smem_limit_pg, x, src, vec, coef, W, ybar, itab, ftab, dxg,
+                                 dvec, nullptr, L, work, wvalid, stream);
 }
 
 // B4 bwd: emb (N*K, n_basis), sh (N*K, dim_f) -> dxg, demb, dsh.
 extern "C" int fused_conv_bwd_embsh_launch(ConvDims d, const float* x, const int* src,
-                                           const float* emb, const float* sh, const float* W1,
-                                           const float* W2, const float* W3, const float* ybar,
-                                           const int* itab, const float* ftab, float* dxg,
-                                           float* demb, float* dsh, void* stream) {
-  return launch_bwd<false, true>(d, smem_limit_embsh, x, src, emb, sh, W1, W2, W3, ybar, itab,
-                                 ftab, dxg, demb, dsh, WsLayout{}, nullptr, nullptr, stream);
+                                           const float* emb, const float* sh, MlpWeights W,
+                                           const float* ybar, const int* itab, const float* ftab,
+                                           float* dxg, float* demb, float* dsh, void* stream) {
+  return launch_bwd<false, true>(d, smem_limit_embsh, x, src, emb, sh, W, ybar, itab, ftab, dxg,
+                                 demb, dsh, WsLayout{}, nullptr, nullptr, stream);
 }
 
 // B4', first pass: B4 bwd plus the records (no dcoef columns: L.dc is the
 // end of the record) and a validity byte of 1 for every slot.
 extern "C" int fused_conv_bwd_embsh_pg_launch(ConvDims d, WsLayout L, const float* x,
                                               const int* src, const float* emb, const float* sh,
-                                              const float* W1, const float* W2, const float* W3,
-                                              const float* ybar, const int* itab,
+                                              MlpWeights W, const float* ybar, const int* itab,
                                               const float* ftab, float* dxg, float* demb,
                                               float* dsh, float* work, unsigned char* wvalid,
                                               void* stream) {
-  return launch_bwd<true, true>(d, smem_limit_embsh_pg, x, src, emb, sh, W1, W2, W3, ybar, itab,
-                                ftab, dxg, demb, dsh, L, work, wvalid, stream);
+  return launch_bwd<true, true>(d, smem_limit_embsh_pg, x, src, emb, sh, W, ybar, itab, ftab, dxg,
+                                demb, dsh, L, work, wvalid, stream);
 }
 
-// B2' (and B4'), second pass: dW1 (n_basis, h1), dW2 (h1, h2), dW3 (h2,
-// numel) and dcoef (n_basis) from the workspace; partial holds
-// ceil(N*K / chunk) * (n_basis*h1 + h1*h2 + h2*numel + n_basis) floats.
-// With dcoef null (emb/sh mode, no dcoef columns) the last product is
-// skipped and partial needs n_basis floats less per chunk.
-extern "C" int param_grad_reduce_launch(ConvDims d, WsLayout L, const float* work,
-                                        const unsigned char* wvalid,
-                                        int chunk, float* partial, float* dW1, float* dW2,
-                                        float* dW3, float* dcoef, void* stream) {
-  const int rows = d.N * d.K;
+// B2' (and B4'), second pass: the radial MLP's weight gradients and, in vec
+// mode, dcoef from the workspace (rows * stride floats, rows = N*K). Product
+// p is prods[4p .. 4p+3] = (a_off, da, b_off, db): out[p] (da x db) = A^T B
+// / sqrt(da) over the valid rows, A = work[:, a_off : a_off + da] (a_off < 0:
+// a column of ones, da 1: the column sums of B, dcoef) and B = work[:,
+// b_off : b_off + db]; the host lists one product per weight matrix
+// (ops/fused_conv.py:_reduce_products). partial holds ceil(rows / chunk) *
+// sum(da * db) floats.
+extern "C" int param_grad_reduce_launch(const int* prods, int n_prod, float* const* outs,
+                                        const float* work, const unsigned char* wvalid, int rows,
+                                        int stride, int chunk, float* partial, void* stream) {
   const int n_chunks = (rows + chunk - 1) / chunk;
-  struct Product {
-    int a_off, da, b_off, db;
-    double fan_in;
-    float* out;
-  } prods[4] = {
-      {L.emb, d.n_basis, L.dz1, d.h1, (double)d.n_basis, dW1},
-      {L.h1, d.h1, L.dz2, d.h2, (double)d.h1, dW2},
-      {L.h2, d.h2, L.dw, d.numel, (double)d.h2, dW3},
-      {-1, 1, L.dc, d.n_basis, 1.0, dcoef},
-  };
   cudaStream_t s = (cudaStream_t)stream;
   size_t off = 0;
-  for (const Product& q : prods) {
-    if (q.out == nullptr) continue;
-    const int n = q.da * q.db;
+  for (int p = 0; p < n_prod; ++p) {
+    const int a_off = prods[4 * p], da = prods[4 * p + 1], b_off = prods[4 * p + 2],
+              db = prods[4 * p + 3];
+    const int n = da * db;
     if (n_chunks > 0) {
-      ReduceArgs a = {work, wvalid, rows, L.stride, chunk, q.a_off, q.da, q.b_off, q.db,
-                      partial + off};
-      dim3 grid((q.db + RT - 1) / RT, (q.da + RT - 1) / RT, n_chunks);
+      ReduceArgs a = {work, wvalid, rows, stride, chunk, a_off, da, b_off, db, partial + off};
+      dim3 grid((db + RT - 1) / RT, (da + RT - 1) / RT, n_chunks);
       pg_partial_kernel<<<grid, 256, 0, s>>>(a);
     }
     pg_final_kernel<<<(n + 255) / 256, 256, 0, s>>>(partial + off, n_chunks, n,
-                                                    (float)(1.0 / sqrt(q.fan_in)), q.out);
+                                                    (float)(1.0 / sqrt((double)da)), outs[p]);
     off += (size_t)n_chunks * n;
   }
   return (int)cudaGetLastError();

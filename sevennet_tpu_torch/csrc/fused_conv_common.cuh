@@ -10,10 +10,27 @@
 //   geometry  r, 1/r, u = v/r, envelope and its derivative
 //   emb       Bessel basis 2/rc * sin(c_n r)/r * env           (TE, NB)
 //   sh        real spherical harmonics of u up to lmax          (TE, DF)
-//   tmp       w3j_pack @ sh                                     (TE, R)
-//   h1, h2    the radial MLP's hidden layers (silu * cst)       (H, TE)
-//   w         the last MLP layer, the per-edge uvu weights      (TE, numel)
+//   z, h      the radial MLP's hidden layers, any number of them: the
+//             pre-activations and silu(z) * cst                 (H_l, TE)
+//   tmp       w3j_pack @ sh, one column block's rows            (TE, R_b)
+//   w         the last MLP layer, the per-edge uvu weights of
+//             one column block                                  (TE, W_b)
 //   xs        the gathered sender features x[src]               (TE, dim_x)
+//
+// Column blocks: the uvu weights of instruction i are mul_i consecutive
+// columns of w, and its Wigner rows consecutive rows of w3j_pack. The host
+// groups consecutive instructions into blocks (ops/fused_conv.py:
+// plan_blocks, the widest that let the CTA's shared memory fit; one block
+// for every SevenNet-0 layer) and lists each block's columns, rows and uvu
+// tasks in the int table. The kernels form w and tmp for one block, run that
+// block's uvu tasks, and go on to the next, so w needs one block's columns
+// of shared memory (lmax-3 widths, 1,760 columns, do not fit whole). The
+// forward's blocks write disjoint output columns; the backward's add their
+// dxg and their share of dz and dsh in block order, a fixed order. Block 0
+// is formed by load_tile, as the whole of w was before there were blocks,
+// and the backward's block 0 is an instance of its own (bwd_block<.., true>)
+// that stores where the later blocks add: a layer of one block runs
+// straight through, at the speed it had before blocking (PERF.md).
 //
 // The uvu tensor product runs from host-built task tables (instruction
 // records with the Wigner row of each (m, p), and task lists): its sums
@@ -32,11 +49,11 @@
 // The rest (geometry, Bessel basis, spherical harmonics and their chain to
 // the edge vector, activations) is fp32 on the CUDA cores.
 //
-// W3 (64 x 960 fp32 for SevenNet-0, more than a CTA's shared memory) is
-// staged through shared memory in blocks of 64 columns by cp.async, up to
-// MAX_STAGES blocks in flight, each CTA starting at its own block; the
-// forward product (w) and the backward one (dz2) each stream it once per
-// tile.
+// W3, the last layer's weights (64 x 960 fp32 for SevenNet-0, more than a
+// CTA's shared memory), is staged through shared memory in sub-blocks of 64
+// columns by cp.async, up to MAX_STAGES sub-blocks in flight, each CTA
+// starting at its own; the forward product (w) and the backward one (dz of
+// the last hidden layer) each stream it once per tile.
 //
 // What bounds the kernels on an H100: the two W3 products, about half of
 // either kernel's time, bound by the mma.sync path of 3xTF32 (three mma and
@@ -63,31 +80,53 @@
 #define OG 64      // hidden units per pass of the backward product
 #define MAX_STAGES 4       // W3 blocks in flight, fewer where shared memory is short
 #define SMEM_LIMIT 232448  // dynamic shared memory a CTA may have on sm_90
+#define MAX_MLP 8          // radial-MLP weight matrices (hidden layers + 1)
 
 // Layer description, filled by sevennet_tpu_torch/ops/fused_conv.py
 // (ctypes mirror: _ConvDims). All fields are 4 bytes: no padding.
 struct ConvDims {
-  int N, K, dim_x, dim_mid, numel, R, dim_f, n_basis, h1, h2;
-  int lmax;
+  int N, K, dim_x, dim_mid, numel;
+  int rblk;          // Wigner rows of the widest column block (tmp, dtmp)
+  int dim_f, n_basis;
+  int nh, hsum, hl;  // the radial MLP's hidden layers: count, total and last width
+  int wblk;          // columns of the widest column block of w
   int cutoff_kind;   // 0 = polynomial (p = cutoff_arg), 1 = XPLOR (r_on = cutoff_arg)
   float cutoff, cutoff_arg, act_cst;
   // offsets (in ints) into the int table, which starts with the uvu tables
   int sh_terms, n_sh, shd_terms, n_shd;
-  // offsets (in floats) into the float table
-  int w3j, sh_coef, shd_coef;
+  // offsets (in floats) into the float table, which starts with w3j_pack
+  int sh_coef, shd_coef;
 };
+
+// The radial MLP's weight matrices, layer l (n_in x n_out) at w[l], the
+// last one (W3 above) at w[nh]; ctypes mirror: _MlpWeights.
+struct MlpWeights {
+  const float* w[MAX_MLP];
+};
+
+// w[l] by selects on constant indices: a dynamic index into a kernel
+// parameter would copy the struct to the stack.
+__device__ __forceinline__ const float* mlp_weight(const MlpWeights& W, int l) {
+  const float* p = W.w[0];
+#pragma unroll
+  for (int j = 1; j < MAX_MLP; ++j) p = l == j ? W.w[j] : p;
+  return p;
+}
 
 // Shared-memory carve-up of one CTA. The row strides of xs and ws put a
 // warp's mma fragments in distinct banks: 4 (mod 32) in the backward, whose
-// fragments are (edge g, column q) (dtmp, the dz2 product), 8 in the
+// fragments are (edge g, column q) (dtmp, the dz product), 8 in the
 // forward, whose uvu fragments are (edge q, channel g). tmp's rows are odd.
+// The hidden layers lie in zh, layer l as z_l (h_l x TE) then h_l (h_l x
+// TE); the backward writes dz_l over z_l, but the last layer's dz, which the
+// column blocks add up, has a buffer of its own (dzl).
 struct Tile {
   int *slots, *count, *srcs, *flats;
   unsigned char* valid;
-  float *geo, *embT, *sh, *tmp, *z1T, *h1T, *z2T, *h2T, *xs, *ws;
-  float *outacc;                                  // forward only
-  float *yb, *dtmp, *dz2T, *dz1T, *demb, *dsh;    // backward only
-  float* stage;  // nstage staged W3 blocks; the backward's dz2 partial sums
+  float *geo, *embT, *sh, *tmp, *zh, *hlT, *xs, *ws;
+  float *outacc;                              // forward only
+  float *yb, *dtmp, *dzl, *demb, *dsh;        // backward only
+  float* stage;  // nstage staged W3 sub-blocks; the backward's dz partial sums
   int* tabs;     // the int table's first tab_ints(d) ints: uvu and monomial tables
   int SX, SW, SR, nstage;
 };
@@ -141,11 +180,11 @@ __host__ __device__ inline int bank_stride(int n, int rem) { return n + ((rem - 
 
 __host__ __device__ inline int round8(int n) { return (n + 7) & ~7; }
 
-// nstage W3 blocks of round8(h2) rows (at least OG), and at least the
+// nstage W3 sub-blocks of round8(hl) rows (at least OG), and at least the
 // backward product's NWARP x TE x OG partial sums (row stride SBF), which
 // reuse the same floats.
 __host__ __device__ inline int stage_floats(const ConvDims& d, int nstage) {
-  const int rows = round8(d.h2) > OG ? round8(d.h2) : OG;
+  const int rows = round8(d.hl) > OG ? round8(d.hl) : OG;
   const int n = nstage * rows * SBF;
   return n > NWARP * TE * SBF ? n : NWARP * TE * SBF;
 }
@@ -174,11 +213,13 @@ __host__ __device__ inline size_t take(size_t& off, size_t nbytes) {
 }
 
 // Assigns the pointers of t inside base (when base is non-null) and
-// returns the bytes the layout needs. The host calls it with base = null.
+// returns the bytes the layout needs. The host calls it with base = null,
+// and keeps a copy of it (ops/fused_conv.py:carve_bytes) that plans the
+// column blocks; fused_conv_smem_bytes lets it check the two agree.
 __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base, Tile* t) {
   size_t off = 0;
   const int rem = bwd ? 4 : 8;
-  const int SX = bank_stride(d.dim_x, rem), SW = bank_stride(d.numel, rem), SR = odd_stride(d.R);
+  const int SX = bank_stride(d.dim_x, rem), SW = bank_stride(d.wblk, rem), SR = odd_stride(d.rblk);
   size_t o_slots = take(off, sizeof(int) * d.K);
   size_t o_valid = take(off, d.K);
   size_t o_count = take(off, sizeof(int) * 4);
@@ -188,25 +229,21 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
   size_t o_emb = take(off, sizeof(float) * TE * d.n_basis);
   size_t o_sh = take(off, sizeof(float) * TE * d.dim_f);
   size_t o_tmp = take(off, sizeof(float) * TE * SR);
-  size_t o_z1 = take(off, sizeof(float) * TE * d.h1);
-  size_t o_h1 = take(off, sizeof(float) * TE * d.h1);
-  size_t o_z2 = take(off, sizeof(float) * TE * d.h2);
-  size_t o_h2 = take(off, sizeof(float) * TE * d.h2);
+  size_t o_zh = take(off, sizeof(float) * TE * 2 * d.hsum);
   size_t o_xs = take(off, sizeof(float) * TE * SX);
   size_t o_ws = take(off, sizeof(float) * TE * SW);
   size_t o_tabs = take(off, sizeof(int) * tab_ints(d));
-  size_t o_out = 0, o_yb = 0, o_dtmp = 0, o_dz2 = 0, o_dz1 = 0, o_demb = 0, o_dsh = 0;
+  size_t o_out = 0, o_yb = 0, o_dtmp = 0, o_dzl = 0, o_demb = 0, o_dsh = 0;
   if (!bwd) {
     o_out = take(off, sizeof(float) * d.dim_mid);
   } else {
     o_yb = take(off, sizeof(float) * yb_floats(d));
     o_dtmp = take(off, sizeof(float) * TE * SR);
-    o_dz2 = take(off, sizeof(float) * TE * d.h2);
-    o_dz1 = take(off, sizeof(float) * TE * d.h1);
+    o_dzl = take(off, sizeof(float) * TE * d.hl);
     o_demb = take(off, sizeof(float) * TE * d.n_basis);
     o_dsh = take(off, sizeof(float) * TE * d.dim_f);
   }
-  // last: as many W3 blocks in flight as the CTA's shared memory allows
+  // last: as many W3 sub-blocks in flight as the CTA's shared memory allows
   int nstage = MAX_STAGES;
   while (nstage > 2 && off + sizeof(float) * stage_floats(d, nstage) > SMEM_LIMIT) --nstage;
   size_t o_stage = take(off, sizeof(float) * stage_floats(d, nstage));
@@ -220,10 +257,9 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
     t->embT = (float*)(base + o_emb);
     t->sh = (float*)(base + o_sh);
     t->tmp = (float*)(base + o_tmp);
-    t->z1T = (float*)(base + o_z1);
-    t->h1T = (float*)(base + o_h1);
-    t->z2T = (float*)(base + o_z2);
-    t->h2T = (float*)(base + o_h2);
+    t->zh = (float*)(base + o_zh);
+    // h of the last hidden layer, or with none the embedding (hl = n_basis)
+    t->hlT = d.nh > 0 ? t->zh + TE * (2 * (d.hsum - d.hl) + d.hl) : t->embT;
     t->xs = (float*)(base + o_xs);
     t->ws = (float*)(base + o_ws);
     t->stage = (float*)(base + o_stage);
@@ -231,8 +267,7 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
     t->outacc = bwd ? nullptr : (float*)(base + o_out);
     t->yb = bwd ? (float*)(base + o_yb) : nullptr;
     t->dtmp = bwd ? (float*)(base + o_dtmp) : nullptr;
-    t->dz2T = bwd ? (float*)(base + o_dz2) : nullptr;
-    t->dz1T = bwd ? (float*)(base + o_dz1) : nullptr;
+    t->dzl = bwd ? (float*)(base + o_dzl) : nullptr;
     t->demb = bwd ? (float*)(base + o_demb) : nullptr;
     t->dsh = bwd ? (float*)(base + o_dsh) : nullptr;
     t->SX = SX;
@@ -241,6 +276,12 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
     t->nstage = nstage;
   }
   return off;
+}
+
+// The bytes of carve's layout for a layer, so that the host can check its
+// copy (ops/fused_conv.py:check_carve) before a layer shape's first launch.
+extern "C" long long fused_conv_smem_bytes(ConvDims d, int bwd) {
+  return (long long)carve(d, bwd != 0, nullptr, nullptr);
 }
 
 // Raises kernel fn's dynamic shared-memory limit on the current device to
@@ -403,38 +444,75 @@ __device__ __forceinline__ void cp_async_wait(int n) {
   else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The CTAs walk W3's column blocks from different starts (CTA i from block
-// i mod nblk), so that at any time they read all of W3 and not the same few
-// L2 lines. Column offset of the jb-th block this CTA multiplies.
-__device__ __forceinline__ int w3_block_col(const ConvDims& d, int jb) {
-  const int nblk = (d.numel + BN - 1) / BN;
-  int b = jb + (int)(blockIdx.x % nblk);
-  if (b >= nblk) b -= nblk;
-  return b * BN;
+// A column block of w (ops/fused_conv.py:_uvu_tables): its first column of
+// w (and of W3), width, first Wigner row and rows, and where its record
+// lies in the table (the offsets of its warps' runs of each uvu task list
+// follow at rec + 4, 5, 6; read where a step starts, not held across the
+// block).
+#define UVU_BLK 8
+#define UVU_HEADER 20  // the header's ints; the block records follow it
+#define UVU_MLP 12     // the hidden widths' place in the header
+struct Blk {
+  int c0, width, r0, rows, rec;
+};
+
+__device__ __forceinline__ int n_blocks(const int* tab) { return tab[9]; }
+
+__device__ __forceinline__ Blk uvu_blk(const int* tab, int b) {
+  const int rec = UVU_HEADER + b * UVU_BLK;
+  return Blk{tab[rec], tab[rec + 1], tab[rec + 2], tab[rec + 3], rec};
+}
+
+// Width of hidden layer l.
+__device__ __forceinline__ int hidden_width(const Tile& t, int l) { return t.tabs[UVU_MLP + l]; }
+
+// z of hidden layer l; its h follows at + TE * hidden_width(t, l).
+__device__ __forceinline__ float* hidden_z(const Tile& t, int l) {
+  float* z = t.zh;
+  for (int j = 0; j < l; ++j) z += 2 * TE * hidden_width(t, j);
+  return z;
+}
+
+// The CTAs walk a block's 64-column W3 sub-blocks from different starts
+// (CTA i from sub-block i mod nsub), so that at any time they read all of
+// the block and not the same few L2 lines. Column of the jb-th sub-block
+// this CTA multiplies.
+__device__ __forceinline__ int w3_sub_col(const Blk& B, int jb) {
+  const int nsub = (B.width + BN - 1) / BN;
+  int b = jb + (int)(blockIdx.x % nsub);
+  if (b >= nsub) b -= nsub;
+  return B.c0 + b * BN;
 }
 
 // Starts the copy of W3[row0 : row0 + nrows, j0 : j0 + BN] into dst (row
-// stride sb floats) and commits it as one group; rows past h2 and columns
-// past numel are filled with zeros. 16-byte copies where W3's rows allow.
+// stride sb floats) and commits it as one group; rows past hl and columns
+// past jend (the end of the block) are filled with zeros. 16-byte copies
+// where W3's rows and the block's ends allow.
 __device__ inline void stage_w3(const ConvDims& d, const float* __restrict__ W3, float* dst,
-                                int row0, int nrows, int j0, int sb) {
-  const bool wide = (d.numel & 3) == 0 && ((uintptr_t)W3 & 15) == 0;
+                                int row0, int nrows, int j0, int jend, int sb) {
+  const bool wide = ((d.numel | j0 | jend) & 3) == 0 && ((uintptr_t)W3 & 15) == 0;
   if (wide) {
     for (int idx = threadIdx.x; idx < nrows * (BN / 4); idx += NT) {
       const int r = idx / (BN / 4), c = (idx - r * (BN / 4)) * 4;
       const int k = row0 + r, j = j0 + c;
-      const bool ok = k < d.h2 && j < d.numel;
+      const bool ok = k < d.hl && j < jend;
       cp_async16(dst + r * sb + c, ok ? W3 + (size_t)k * d.numel + j : W3, ok ? 16 : 0);
     }
   } else {
     for (int idx = threadIdx.x; idx < nrows * BN; idx += NT) {
       const int r = idx / BN, c = idx - r * BN;
       const int k = row0 + r, j = j0 + c;
-      const bool ok = k < d.h2 && j < d.numel;
+      const bool ok = k < d.hl && j < jend;
       cp_async4(dst + r * sb + c, ok ? W3 + (size_t)k * d.numel + j : W3, ok ? 4 : 0);
     }
   }
   cp_async_commit();
+}
+
+// The first W3 sub-block of block B for the forward product, into buffer 0.
+__device__ __forceinline__ void stage_w3_first(const ConvDims& d, const float* __restrict__ W3,
+                                               const Tile& t, const Blk& B) {
+  stage_w3(d, W3, t.stage, 0, round8(d.hl), w3_sub_col(B, 0), B.c0 + B.width, SBF);
 }
 
 // Powers u^a, a <= 3, of a unit-vector component, by selects instead of a
@@ -479,55 +557,58 @@ __device__ inline void list_slots(const ConvDims& d, const Tile& t, int i, const
   __syncthreads();
 }
 
-// A fragments of h2 (TE x h2, stored transposed) for the 8 k-steps of
-// hidden units kg * 64 .., split into hi and lo; zero past h2.
-__device__ __forceinline__ void h2_fragments(const ConvDims& d, const Tile& t, int kg,
+// A fragments of the last hidden layer (TE x hl, stored transposed) for
+// the 8 k-steps of hidden units kg * 64 .., split into hi and lo; zero past
+// hl.
+__device__ __forceinline__ void hl_fragments(const ConvDims& d, const Tile& t, int kg,
                                              unsigned (&ah)[8][4], unsigned (&al)[8][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
     const int k = kg * 64 + ks * 8 + q;
     float a[4];
-    a[0] = k < d.h2 ? t.h2T[k * TE + g] : 0.0f;
-    a[1] = k < d.h2 ? t.h2T[k * TE + g + 8] : 0.0f;
-    a[2] = k + 4 < d.h2 ? t.h2T[(k + 4) * TE + g] : 0.0f;
-    a[3] = k + 4 < d.h2 ? t.h2T[(k + 4) * TE + g + 8] : 0.0f;
+    a[0] = k < d.hl ? t.hlT[k * TE + g] : 0.0f;
+    a[1] = k < d.hl ? t.hlT[k * TE + g + 8] : 0.0f;
+    a[2] = k + 4 < d.hl ? t.hlT[(k + 4) * TE + g] : 0.0f;
+    a[3] = k + 4 < d.hl ? t.hlT[(k + 4) * TE + g + 8] : 0.0f;
     split4(a, ah[ks], al[ks]);
   }
 }
 
-// The last MLP layer, w (TE x numel) = h2 (TE x h2) W3 / sqrt(h2), written
-// to t.ws: 3xTF32 mma.sync over column blocks of BN that stage_w3 copies
-// into t.stage, t.nstage - 1 blocks in flight ahead of the one multiplied.
-// Warp w owns the 8-column n-tile w of each block; its A fragments (h2,
-// split into hi and lo) stay in registers across the blocks, 64 hidden
-// units at a time. The caller has issued the first block into buffer 0
-// (stage_w3(..., 0, round8(h2), w3_block_col(d, 0), SBF)).
-__device__ inline void w3_forward(const ConvDims& d, const Tile& t, const float* __restrict__ W3) {
+// The last MLP layer on column block B, w (TE x B.width) = h (TE x hl)
+// W3[:, block] / sqrt(hl), written to t.ws: 3xTF32 mma.sync over sub-blocks
+// of BN columns that stage_w3 copies into t.stage, t.nstage - 1 in flight
+// ahead of the one multiplied. Warp w owns the 8-column n-tile w of each
+// sub-block; its A fragments (h, split into hi and lo) stay in registers
+// across the sub-blocks, 64 hidden units at a time. The caller has issued
+// the first sub-block into buffer 0 (stage_w3_first).
+__device__ inline void w3_forward(const ConvDims& d, const Tile& t, const float* __restrict__ W3,
+                                  const Blk& B) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int h2p = round8(d.h2);
-  const int nblk = (d.numel + BN - 1) / BN;
+  const int h2p = round8(d.hl);
+  const int nblk = (B.width + BN - 1) / BN;
+  const int jend = B.c0 + B.width;
   const int S = t.nstage;
   const int nkg = (h2p + 63) / 64;  // groups of 64 hidden units (8 k-steps)
-  const float inv_h2 = (float)(1.0 / sqrt((double)d.h2));
+  const float inv_h2 = (float)(1.0 / sqrt((double)d.hl));
   for (int jb = 1; jb < S - 1 && jb < nblk; ++jb)
-    stage_w3(d, W3, t.stage + jb * h2p * SBF, 0, h2p, w3_block_col(d, jb), SBF);
+    stage_w3(d, W3, t.stage + jb * h2p * SBF, 0, h2p, w3_sub_col(B, jb), jend, SBF);
   unsigned ah[8][4], al[8][4];
-  if (nkg == 1) h2_fragments(d, t, 0, ah, al);
+  if (nkg == 1) hl_fragments(d, t, 0, ah, al);
   for (int jb = 0; jb < nblk; ++jb) {
     const int ahead = jb + S - 1;
     if (ahead < nblk)
-      stage_w3(d, W3, t.stage + (ahead % S) * h2p * SBF, 0, h2p, w3_block_col(d, ahead), SBF);
+      stage_w3(d, W3, t.stage + (ahead % S) * h2p * SBF, 0, h2p, w3_sub_col(B, ahead), jend, SBF);
     cp_async_wait(min(S - 1, nblk - 1 - jb));
     __syncthreads();
     const float* Bs = t.stage + (jb % S) * h2p * SBF;
-    const int j = w3_block_col(d, jb) + warp * 8;
-    if (j < d.numel) {
+    const int j = w3_sub_col(B, jb) + warp * 8;
+    if (j < jend) {
       float c3[3][4], c[4];
       zero3(c3);
       for (int kg = 0; kg < nkg; ++kg) {
-        if (nkg > 1) h2_fragments(d, t, kg, ah, al);
+        if (nkg > 1) hl_fragments(d, t, kg, ah, al);
 #pragma unroll
         for (int ks = 0; ks < 8; ++ks) {
           const int k = kg * 64 + ks * 8;
@@ -539,13 +620,14 @@ __device__ inline void w3_forward(const ConvDims& d, const Tile& t, const float*
       }
       sum3(c3, c);
       const int j0 = j + 2 * q;
-      if (j0 < d.numel) {
-        t.ws[g * t.SW + j0] = c[0] * inv_h2;
-        t.ws[(g + 8) * t.SW + j0] = c[2] * inv_h2;
+      const int c0 = j0 - B.c0;
+      if (j0 < jend) {
+        t.ws[g * t.SW + c0] = c[0] * inv_h2;
+        t.ws[(g + 8) * t.SW + c0] = c[2] * inv_h2;
       }
-      if (j0 + 1 < d.numel) {
-        t.ws[g * t.SW + j0 + 1] = c[1] * inv_h2;
-        t.ws[(g + 8) * t.SW + j0 + 1] = c[3] * inv_h2;
+      if (j0 + 1 < jend) {
+        t.ws[g * t.SW + c0 + 1] = c[1] * inv_h2;
+        t.ws[(g + 8) * t.SW + c0 + 1] = c[3] * inv_h2;
       }
     }
     __syncthreads();
@@ -616,17 +698,23 @@ __device__ inline void small_product(const float* in, int ik, int ie, int n_in,
 #define UVU_D 7
 
 // The task tables' layout, which the host checks its copy against before
-// its first launch (ops/fused_conv.py: UVU_WARPS, UVU_INS, UVU_MAX_D): the
-// host balances the tasks into exactly NWARP runs.
+// its first launch (ops/fused_conv.py: UVU_WARPS, UVU_INS, UVU_MAX_D,
+// UVU_BLK, MAX_MLP, UVU_HEADER): the host balances the tasks into exactly
+// NWARP runs.
 extern "C" void fused_conv_uvu_layout(int* out) {
   out[0] = NWARP;
   out[1] = UVU_INS;
   out[2] = UVU_D;
+  out[3] = UVU_BLK;
+  out[4] = MAX_MLP;
+  out[5] = UVU_HEADER;
 }
 
 struct UvuIns {  // an instruction's record
-  int x_start, d1, d3, mul, w_start, y_start, u_tot;
-  const int* rtab;  // rtab[m * UVU_D + p]: Wigner row of (m, p), -1 if none
+  int x_start, d1, d3, mul;
+  int w_start;      // first column in its block of w
+  int y_start, u_tot;
+  const int* rtab;  // rtab[m * UVU_D + p]: Wigner row of (m, p) in its block, -1 if none
 };
 
 __device__ __forceinline__ UvuIns uvu_ins(const int* tab, int k) {
@@ -637,13 +725,14 @@ __device__ __forceinline__ UvuIns uvu_ins(const int* tab, int k) {
 // Forward: out[c(p, u)] += sum over the tile's (edge, m) of x[e, m, u] w[e, u]
 // tmp[e, r(m, p)], a (16 channels x 16 d1) by (16 d1 x d3) product per task
 // (instruction, 16 channels from u0), its k dimension walked as (m, 8 edges).
-// Each output column belongs to one task: no two warps add to it.
-__device__ inline void uvu_forward(const Tile& t) {
+// Each output column belongs to one task: no two warps add to it. The
+// tasks of column block B.
+__device__ inline void uvu_forward(const Tile& t, const Blk& B) {
   const int* tab = t.tabs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int* tasks = tab + tab[7];
-  const int* runs = tab + tab[10];
+  const int* runs = tab + tab[B.rec + 6];
   for (int task = runs[warp]; task < runs[warp + 1]; ++task) {
     const UvuIns I = uvu_ins(tab, tasks[4 * task]);
     const int u0 = tasks[4 * task + 1];
@@ -683,13 +772,14 @@ __device__ inline void uvu_forward(const Tile& t) {
 // Backward, dtmp[e, r(m, p)] = sum_u x[e, m, u] w[e, u] ybar[p, u]: per task
 // (instruction, m) a (TE x mul) by (mul x d3) product, k over the channels.
 // Six accumulators (two k-step parities times the three products) keep the
-// mma chains short. Each Wigner row belongs to one (instruction, m, p).
-__device__ inline void uvu_dtmp(const Tile& t) {
+// mma chains short. Each Wigner row belongs to one (instruction, m, p). The
+// tasks of column block B, whose rows dtmp holds.
+__device__ inline void uvu_dtmp(const Tile& t, const Blk& B) {
   const int* tab = t.tabs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int* tasks = tab + tab[2];
-  const int* runs = tab + tab[8];
+  const int* runs = tab + tab[B.rec + 4];
   for (int task = runs[warp]; task < runs[warp + 1]; ++task) {
     const UvuIns I = uvu_ins(tab, tasks[4 * task]);
     const int m = tasks[4 * task + 1];
@@ -737,17 +827,21 @@ __device__ inline void uvu_dtmp(const Tile& t) {
 // Backward, a[e, m, u] = sum_p ybar[p, u] tmp[e, r(m, p)] (one (TE x d3) by
 // (d3 x 8) product per instruction, m and 8 channels), then dxg[e, m, u] +=
 // w[e, u] a and dw[e, u] = sum_m x[e, m, u] a. A task (x irrep, 8 channels
-// from u0) walks every instruction that reads the irrep, so it owns its dxg
-// columns and, per instruction, its dw columns: dxg goes to global memory
-// (rows e < ne), dw over w in t.ws (dtmp, which reads w, is done).
+// from u0, column block B) walks every instruction of the block that reads
+// the irrep, so it owns its dxg columns and, per instruction, its dw
+// columns: dxg goes to global memory (rows e < ne), dw over w in t.ws
+// (dtmp, which reads w, is done). Block 0's tasks write the dxg of every x
+// irrep (zeros where none of its instructions reads it); the later blocks'
+// (ACC) add to it.
+template <bool ACC>
 __device__ inline void uvu_dxg_dw(const ConvDims& d, const Tile& t, int ne,
-                                  float* __restrict__ dxg) {
+                                  float* __restrict__ dxg, const Blk& B) {
   const int* tab = t.tabs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int* tasks = tab + tab[4];
   const int* list = tab + tab[5];
-  const int* runs = tab + tab[9];
+  const int* runs = tab + tab[B.rec + 5];
   for (int task = runs[warp]; task < runs[warp + 1]; ++task) {
     const int* T = tasks + 8 * task;
     const int x_start = T[0], d1 = T[1], mul = T[2], l0 = T[3], nl = T[4], u0 = T[5];
@@ -758,6 +852,7 @@ __device__ inline void uvu_dxg_dw(const ConvDims& d, const Tile& t, int ne,
     float dx[UVU_D][4];
 #pragma unroll
     for (int m = 0; m < UVU_D; ++m) dx[m][0] = dx[m][1] = dx[m][2] = dx[m][3] = 0.0f;
+
     for (int li = 0; li < nl; ++li) {
       const UvuIns I = uvu_ins(tab, list[l0 + li]);
       float wv[4], dw[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -803,28 +898,37 @@ __device__ inline void uvu_dxg_dw(const ConvDims& d, const Tile& t, int ne,
       if (m < d1) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (ok[i] && e_[i] < ne)
-            dxg[(size_t)t.flats[e_[i]] * d.dim_x + x_start + m * mul + uc + (i & 1)] = dx[m][i];
+          if (ok[i] && e_[i] < ne) {
+            float* p = dxg + (size_t)t.flats[e_[i]] * d.dim_x + x_start + m * mul + uc + (i & 1);
+            *p = ACC ? __ldcg(p) + dx[m][i] : dx[m][i];
+          }
       }
     }
   }
 }
 
-// Fills one tile of ne <= TE edges (slots t0 .. t0+ne of the list). Rows
-// e >= ne are zero, so loops may run over all TE rows. (ea, eb) are
-// (vec, coef) in vec mode and (emb, sh) in emb/sh mode.
+// tmp (TE x B.rows) = sh w3j_pack[B's rows]^T, 3xTF32 on the tensor cores.
+__device__ __forceinline__ void block_tmp(const ConvDims& d, const Tile& t,
+                                          const float* __restrict__ ftab, const Blk& B) {
+  small_product(t.sh, 1, d.dim_f, d.dim_f, ftab + (size_t)B.r0 * d.dim_f, 1, d.dim_f, B.rows,
+                t.tmp, 1, t.SR, [](float v, int, int) { return v; });
+}
+
+// Fills one tile of ne <= TE edges (slots t0 .. t0+ne of the list) up to
+// w and tmp of column block B0, the layer's first. Rows e >= ne are zero,
+// so loops may run over all TE rows. (ea, eb) are (vec, coef) in vec mode
+// and (emb, sh) in emb/sh mode.
 template <bool EMBSH>
 __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0, int ne,
                                  const float* __restrict__ x, const int* __restrict__ src,
                                  const float* __restrict__ ea, const float* __restrict__ eb,
-                                 const float* __restrict__ W1, const float* __restrict__ W2,
-                                 const float* __restrict__ W3, const int* __restrict__ itab,
-                                 const float* __restrict__ ftab, Prof& prof) {
+                                 const MlpWeights& W, const float* __restrict__ W3,
+                                 const float* __restrict__ ftab, const Blk& B0, Prof& prof) {
   const int tid = threadIdx.x;
   const int NK = d.N * d.K;
   const int NB = d.n_basis, DF = d.dim_f;
-  // W3's first block is copied while the tile's inputs are formed
-  stage_w3(d, W3, t.stage, 0, round8(d.h2), w3_block_col(d, 0), SBF);
+  // W3's first sub-block is copied while the tile's inputs are formed
+  stage_w3_first(d, W3, t, B0);
   if (EMBSH) {
     // (a) the slots' emb and sh rows, read along the rows
     if (tid < TE) {
@@ -906,30 +1010,29 @@ __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0
     }
   }
   cp_async_commit();
-  // (c) tmp = sh w3j_pack^T and (d) the first MLP layer, 3xTF32 on the tensor cores
-  small_product(t.sh, 1, DF, DF, ftab + d.w3j, 1, DF, d.R, t.tmp, 1, t.SR,
-                [](float v, int, int) { return v; });
-  const float inv_nb = (float)(1.0 / sqrt((double)NB));
+  // (c) tmp of block 0 and (d) the MLP's hidden layers, each z = h W /
+  // sqrt(n_in) and h = silu(z) * cst, 3xTF32 on the tensor cores
+  block_tmp(d, t, ftab, B0);
   const float cst = d.act_cst;
-  float* z1T = t.z1T;
-  small_product(t.embT, TE, 1, NB, W1, d.h1, 1, d.h1, t.h1T, TE, 1, [=](float v, int o, int e) {
-    const float z = v * inv_nb;
-    z1T[o * TE + e] = z;
-    return z * sigmoidf_(z) * cst;
-  });
-  __syncthreads();
-  prof.mark(2);
-  // (e) second MLP layer, 3xTF32 on the tensor cores
-  const float inv_h1 = (float)(1.0 / sqrt((double)d.h1));
-  float* z2T = t.z2T;
-  small_product(t.h1T, TE, 1, d.h1, W2, d.h2, 1, d.h2, t.h2T, TE, 1, [=](float s, int o, int e) {
-    const float z = s * inv_h1;
-    z2T[o * TE + e] = z;
-    return z * sigmoidf_(z) * cst;
-  });
-  __syncthreads();
-  prof.mark(10);
-  // (f) last MLP layer on the tensor cores
-  w3_forward(d, t, W3);
+  const float* in = t.embT;
+  int n_in = NB;
+  float* zT = t.zh;
+  for (int l = 0; l < d.nh; ++l) {
+    const int h = hidden_width(t, l);
+    const float inv = (float)(1.0 / sqrt((double)n_in));
+    float* hT = zT + TE * h;
+    small_product(in, TE, 1, n_in, mlp_weight(W, l), h, 1, h, hT, TE, 1, [=](float v, int o, int e) {
+      const float z = v * inv;
+      zT[o * TE + e] = z;
+      return z * sigmoidf_(z) * cst;
+    });
+    __syncthreads();
+    prof.mark(l == 0 ? 2 : 10);
+    in = hT;
+    n_in = h;
+    zT = hT + TE * h;
+  }
+  // (f) block 0's columns of w, the last MLP layer on the tensor cores
+  w3_forward(d, t, W3, B0);
   prof.mark(3);
 }

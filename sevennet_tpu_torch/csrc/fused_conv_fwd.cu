@@ -15,7 +15,7 @@
 // in device memory).
 //
 // What bounds it on an H100, and the design (fused_conv_common.cuh): the
-// radial MLP's last layer, h2 (16 x 64) W3 (64 x 960) per tile of 16 edges
+// radial MLP's last layer, h (16 x 64) W3 (64 x 960) per tile of 16 edges
 // for SevenNet-0's middle layers, is most of the operations. It runs on the
 // tensor cores as 3xTF32 mma.sync (fp32 accuracy), with W3 (245,760 B, more
 // than a CTA's 227 KB of shared memory) staged through shared memory in
@@ -24,8 +24,10 @@
 // instruction and 16 channels, summed over the tile's (edge, m)) are 3xTF32
 // products as well; the edge geometry, Bessel basis and spherical
 // harmonics are spread over the CTA's threads. Every intermediate stays in
-// shared memory. Measured, the W3 product takes half the time, bound by the
-// mma.sync 3xTF32 path and W3's streaming (PERF.md). Edges past the cutoff (padding) are skipped in vec mode: their
+// shared memory, w and tmp one column block at a time (one block for
+// SevenNet-0, three for SevenNet-l3i5's lmax-3 layers). Measured, the W3
+// product takes half the time, bound by the mma.sync 3xTF32 path and W3's
+// streaming (PERF.md). Edges past the cutoff (padding) are skipped in vec mode: their
 // message is exactly zero. In emb/sh mode every slot is walked (a padded
 // slot's zero emb row gives a zero message).
 #include "fused_conv_common.cuh"
@@ -34,10 +36,8 @@
 template <bool EMBSH>
 __global__ void __launch_bounds__(NT, 1) fused_conv_fwd_kernel(
     ConvDims d, const float* __restrict__ x, const int* __restrict__ src,
-    const float* __restrict__ ea, const float* __restrict__ eb,
-    const float* __restrict__ W1, const float* __restrict__ W2,
-    const float* __restrict__ W3, const int* __restrict__ itab,
-    const float* __restrict__ ftab, float* __restrict__ out) {
+    const float* __restrict__ ea, const float* __restrict__ eb, MlpWeights W,
+    const float* __restrict__ W3, const int* __restrict__ itab, const float* __restrict__ ftab, float* __restrict__ out) {
   extern __shared__ float4 smem_raw[];
   Tile t;
   carve(d, false, (char*)smem_raw, &t);
@@ -53,11 +53,20 @@ __global__ void __launch_bounds__(NT, 1) fused_conv_fwd_kernel(
 
   for (int t0 = 0; t0 < nv; t0 += TE) {
     const int ne = min(TE, nv - t0);
-    load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W1, W2, W3, itab, ftab, prof);
-    // out[c] += sum_e sum_terms x[e, xc] * w[e, wc] * tmp[e, r], on the tensor cores
-    uvu_forward(t);
-    __syncthreads();
-    prof.mark(4);
+        load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W, W3, ftab, uvu_blk(t.tabs, 0), prof);
+    for (int b = 0; b < n_blocks(t.tabs); ++b) {
+      const Blk B = uvu_blk(t.tabs, b);
+      if (b > 0) {  // load_tile formed block 0's w and tmp
+        block_tmp(d, t, ftab, B);
+        stage_w3_first(d, W3, t, B);
+        w3_forward(d, t, W3, B);
+        prof.mark(3);
+      }
+      // out[c] += sum_e sum_terms x[e, xc] * w[e, wc] * tmp[e, r], on the tensor cores
+      uvu_forward(t, B);
+      __syncthreads();
+      prof.mark(4);
+    }
   }
   for (int c = tid; c < d.dim_mid; c += NT) out[(size_t)i * d.dim_mid + c] = t.outacc[c];
   prof.mark(0);
@@ -66,15 +75,14 @@ __global__ void __launch_bounds__(NT, 1) fused_conv_fwd_kernel(
 
 template <bool EMBSH>
 static int launch_fwd(const ConvDims& d, int* limits, const float* x, const int* src,
-                      const float* ea, const float* eb, const float* W1, const float* W2,
-                      const float* W3, const int* itab, const float* ftab, float* out,
-                      void* stream) {
+                      const float* ea, const float* eb, const MlpWeights& W, const int* itab,
+                      const float* ftab, float* out, void* stream) {
   const size_t smem = carve(d, false, nullptr, nullptr);
   cudaError_t err = raise_smem_limit((const void*)fused_conv_fwd_kernel<EMBSH>, smem, limits);
   if (err != cudaSuccess) return (int)err;
   if (d.N > 0)
     fused_conv_fwd_kernel<EMBSH><<<d.N, NT, smem, (cudaStream_t)stream>>>(
-        d, x, src, ea, eb, W1, W2, W3, itab, ftab, out);
+        d, x, src, ea, eb, W, W.w[d.nh], itab, ftab, out);
   return (int)cudaGetLastError();
 }
 
@@ -83,17 +91,15 @@ static int smem_limit_embsh[MAX_DEVICES];
 
 // B1. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_conv_fwd_launch(ConvDims d, const float* x, const int* src, const float* vec,
-                                     const float* coef, const float* W1, const float* W2,
-                                     const float* W3, const int* itab, const float* ftab,
-                                     float* out, void* stream) {
-  return launch_fwd<false>(d, smem_limit, x, src, vec, coef, W1, W2, W3, itab, ftab, out, stream);
+                                     const float* coef, MlpWeights W, const int* itab,
+                                     const float* ftab, float* out, void* stream) {
+  return launch_fwd<false>(d, smem_limit, x, src, vec, coef, W, itab, ftab, out, stream);
 }
 
 // B4 (and B6): emb (N*K, n_basis) and sh (N*K, dim_f) receiver-major.
 extern "C" int fused_conv_fwd_embsh_launch(ConvDims d, const float* x, const int* src,
-                                           const float* emb, const float* sh, const float* W1,
-                                           const float* W2, const float* W3, const int* itab,
-                                           const float* ftab, float* out, void* stream) {
-  return launch_fwd<true>(d, smem_limit_embsh, x, src, emb, sh, W1, W2, W3, itab, ftab, out,
-                          stream);
+                                           const float* emb, const float* sh, MlpWeights W,
+                                           const int* itab, const float* ftab, float* out,
+                                           void* stream) {
+  return launch_fwd<true>(d, smem_limit_embsh, x, src, emb, sh, W, itab, ftab, out, stream);
 }

@@ -264,17 +264,24 @@ class _ConvDims(ctypes.Structure):
     """ctypes mirror of ``struct ConvDims`` (csrc/fused_conv_common.cuh)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "N", "K", "dim_x", "dim_mid", "numel", "R", "dim_f", "n_basis", "h1", "h2",
-        "lmax", "cutoff_kind",
+        "N", "K", "dim_x", "dim_mid", "numel", "rblk", "dim_f", "n_basis", "nh", "hsum", "hl",
+        "wblk", "cutoff_kind",
     )] + [(n, ctypes.c_float) for n in ("cutoff", "cutoff_arg", "act_cst")] + [
-        (n, ctypes.c_int) for n in (
-            "sh_terms", "n_sh", "shd_terms", "n_shd",
-            "w3j", "sh_coef", "shd_coef",
-        )
+        (n, ctypes.c_int) for n in ("sh_terms", "n_sh", "shd_terms", "n_shd", "sh_coef", "shd_coef")
     ]
 
 
-_WS_FIELDS = ("stride", "emb", "h1", "h2", "dz1", "dz2", "dw", "dc")
+MAX_MLP = 8  # radial-MLP weight matrices the kernels take (csrc MAX_MLP)
+
+
+class _MlpWeights(ctypes.Structure):
+    """ctypes mirror of ``struct MlpWeights`` (csrc/fused_conv_common.cuh):
+    the radial MLP's weight matrices, unused entries null."""
+
+    _fields_ = [("w", ctypes.c_void_p * MAX_MLP)]
+
+
+_WS_FIELDS = ("stride", "emb", "h", "dz", "dw", "dc")
 
 
 class _WsLayout(ctypes.Structure):
@@ -285,24 +292,40 @@ class _WsLayout(ctypes.Structure):
 
 def _workspace_layout(dims, dcoef: bool = True) -> Dict[str, int]:
     """Columns of the per-edge record that kernels B2′ and B4′ write for the
-    parameter gradients (``csrc/fused_conv_bwd.cu``): the MLP's input and
-    hidden activations ``emb, h1, h2``, their cotangents ``dz1, dz2, dw``
+    parameter gradients (``csrc/fused_conv_bwd.cu``): the MLP's input
+    ``emb``, its hidden activations ``h`` (the layers in order), their
+    cotangents ``dz`` (in the same order), the last layer's cotangent ``dw``
     and, with ``dcoef`` (vec mode), the per-edge ``dcoef`` terms, in this
     order (without, ``dc`` is the end of the record); the row ``stride`` is
-    rounded up to 4 floats. Zeros for an MLP the kernels do not take."""
-    if len(dims) != 4:
-        return dict.fromkeys(_WS_FIELDS, 0)
-    nb, h1, h2, numel = dims
+    rounded up to 4 floats."""
+    nb, hidden, numel = dims[0], dims[1:-1], dims[-1]
     out, col = {}, 0
-    for name, width in zip(_WS_FIELDS[1:], (nb, h1, h2, h1, h2, numel, nb if dcoef else 0)):
+    for name, width in zip(_WS_FIELDS[1:], (nb, sum(hidden), sum(hidden), numel,
+                                            nb if dcoef else 0)):
         out[name] = col
         col += width
     out["stride"] = -(-col // 4) * 4
     return out
 
 
-UVU_HEADER = 12   # ints at the start of the int table: the uvu task tables' places
+def _reduce_products(dims, layout, dcoef: bool):
+    """The sums over edges of B2′'s reduction, ``dW_l = A_lᵀ B_l /
+    sqrt(d_in)``, as ``(a_off, d_in, b_off, d_out)`` record columns per
+    weight matrix (``A_0`` the embedding, ``A_l`` hidden layer l; ``B_l``
+    the next layer's cotangent), then with ``dcoef`` the column sums of the
+    ``dc`` terms (``a_off = -1``: a column of ones, d_in 1)."""
+    hid = dims[1:-1]
+    a_offs = [layout["emb"]] + [layout["h"] + sum(hid[:l]) for l in range(len(hid))]
+    b_offs = [layout["dz"] + sum(hid[:l]) for l in range(len(hid))] + [layout["dw"]]
+    prods = [(a, din, b, dout) for a, b, din, dout in zip(a_offs, b_offs, dims[:-1], dims[1:])]
+    if dcoef:
+        prods.append((-1, 1, layout["dc"], dims[0]))
+    return prods
+
+
+UVU_HEADER = 20   # ints at the start of the int table: the uvu task tables' places, MLP widths
 UVU_INS = 64      # ints per instruction record
+UVU_BLK = 8       # ints per column-block record
 UVU_MAX_D = 7     # irrep dimensions the uvu tables take (l <= 3)
 UVU_WARPS = 8     # warps per CTA of the kernels (csrc NWARP; check_uvu_layout)
 
@@ -321,58 +344,210 @@ def _balanced(tasks, costs):
     return [t for r in runs for t in r], starts
 
 
-def _uvu_tables(conv: ConvTPSpec, instr) -> np.ndarray:
+def _column_blocks(instr, budget: int) -> List[List[int]]:
+    """Consecutive instructions grouped into blocks of ``w``'s columns at
+    most ``budget`` wide (an instruction's uvu weights are ``mul``
+    consecutive columns; each block starts at an instruction boundary)."""
+    blocks: List[List[int]] = [[]]
+    width = 0
+    for k, ins in enumerate(instr):
+        if blocks[-1] and width + ins["mul"] > budget:
+            blocks.append([])
+            width = 0
+        blocks[-1].append(k)
+        width += ins["mul"]
+    return blocks
+
+
+def _uvu_tables(conv: ConvTPSpec, instr, blocks: List[List[int]], hidden) -> np.ndarray:
     """Task tables of the kernels' uvu steps on the tensor cores
     (``csrc/fused_conv_common.cuh``, ``uvu_*``), at the start of the int
-    table: a header ``[off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw,
-    off_fw, runs_dt, runs_dx, runs_fw, 0]``; per instruction a record of
-    UVU_INS ints ``[x_start, d1, d3, mul, w_start, ybar start (g_start +
-    u_off), u_tot, 0]`` and the Wigner row r of each (m, p), ``rtab[m * 7 +
-    p]`` (-1 where the pair has no row); ``dtmp`` tasks ``(instruction, m,
-    0, 0)``; ``dxg``/``dw`` tasks ``(x_start, d1, mul, list start, list
-    length, u0, 0, 0)``, one per x irrep and 8 channels from ``u0``, over
-    the instructions that read the irrep (listed at ``off_list``); forward
-    tasks ``(instruction, u0, 0, 0)``, 16 channels each. Each task list is
-    ordered by warp: warp w takes tasks ``runs[w] .. runs[w + 1]`` of the
-    list (:func:`_balanced`, costs in tensor-core steps; ``runs_*`` are
-    UVU_WARPS + 1 ints). Offsets in ints, each table on 4 ints."""
+    table. The kernels form the per-edge weights ``w`` one column block at
+    a time (``blocks``: consecutive instructions, :func:`plan_blocks`) and
+    run that block's tasks before the next block overwrites it.
+
+    A header ``[off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw,
+    off_fw, off_blk, n_blk, 0, 0]`` and the radial MLP's hidden widths (at
+    ints 12 .., so that the kernels read them and the block records
+    without a chain of loads); the block records right after it; per
+    instruction a record of
+    UVU_INS ints ``[x_start, d1, d3, mul, w_start (from its block's first
+    column), ybar start (g_start + u_off), u_tot, 0]`` and the Wigner row r
+    of each (m, p) counted from its block's first row, ``rtab[m * 7 + p]``
+    (-1 where the pair has no row; a block's instructions own consecutive
+    rows of ``w3j_pack``, so ``tmp`` and ``dtmp`` hold one block's rows);
+    ``dtmp`` tasks ``(instruction, m, 0, 0)``; ``dxg``/``dw`` tasks
+    ``(x_start, d1, mul, list start, list length, u0, 0, 0)``, one per x
+    irrep, 8 channels from ``u0`` and block, over the block's instructions
+    that read the irrep (listed at ``off_list``): block 0 has tasks for
+    every irrep, with an empty list where none of its instructions reads
+    it (they write the irrep's zeros), and the later blocks' tasks add to
+    ``dxg``; forward tasks ``(instruction, u0, 0, 0)``, 16
+    channels each. Each task list is ordered by block, then by warp; per
+    block a record of UVU_BLK ints ``[first column, width, first Wigner
+    row, rows, runs_dt, runs_dx, runs_fw, 0]``: warp w of the block takes
+    tasks ``runs[w] .. runs[w + 1]`` of each list, the ``runs_*`` offsets
+    of UVU_WARPS + 1 ints each (:func:`_balanced`, costs in tensor-core
+    steps). Offsets in ints, each table on 4 ints."""
+    block_of = {k: b for b, ks in enumerate(blocks) for k in ks}
+    c0 = [sum(instr[k]["mul"] for bb in blocks[:b] for k in bb) for b in range(len(blocks))]
+    rows = [[r for k in ks for _, _, r in instr[k]["mp"]] for ks in blocks]
+    r0 = [min(rs) for rs in rows]
+    assert all(rs == list(range(a, a + len(rs))) for rs, a in zip(rows, r0))
     recs = np.full((len(instr), UVU_INS), -1, np.int64)
-    dt, fw = [], []
     for k, ins in enumerate(instr):
-        d1, d3, mul = ins["d1"], ins["d3"], ins["mul"]
+        d1, d3 = ins["d1"], ins["d3"]
         if max(d1, d3) > UVU_MAX_D:
             raise ValueError(f"the fused conv takes irreps up to l = 3, got dimensions {d1}, {d3}")
-        recs[k, :8] = [ins["x_start"], d1, d3, mul, ins["w_start"],
+        assert ins["w_start"] >= c0[block_of[k]]
+        recs[k, :8] = [ins["x_start"], d1, d3, ins["mul"], ins["w_start"] - c0[block_of[k]],
                        ins["g_start"] + ins["u_off"], ins["u_tot"], 0]
         for m, p, r in ins["mp"]:
-            recs[k, 8 + m * UVU_MAX_D + p] = r
-        dt += [(k, m, 0, 0) for m in range(d1)]
-        fw += [(k, u0, 0, 0) for u0 in range(0, mul, 16)]
-    dx, dx_cost, lists = [], [], []
-    for sl, mi in zip(conv.irreps_x.slices(), conv.irreps_x):
-        readers = [k for k, ins in enumerate(instr) if ins["x_start"] == sl.start]
-        for u0 in range(0, mi.mul, 8):
-            dx.append((sl.start, mi.ir.dim, mi.mul, len(lists), len(readers), u0, 0, 0))
-            dx_cost.append(1 + mi.ir.dim * len(readers))
-        lists += readers
-    dt, dt_runs = _balanced(dt, [-(-instr[k]["mul"] // 8) for k, _, _, _ in dt])
-    dx, dx_runs = _balanced(dx, dx_cost)
-    fw, fw_runs = _balanced(fw, [2 * instr[k]["d1"] for k, _, _, _ in fw])
-    parts = [np.zeros(UVU_HEADER, np.int64), recs, dt, dx, lists, fw, dt_runs, dx_runs, fw_runs]
+            recs[k, 8 + m * UVU_MAX_D + p] = r - r0[block_of[k]]
+    irreps = list(zip(conv.irreps_x.slices(), conv.irreps_x))
+    dt, dx, fw, lists, runs, blk = [], [], [], [], [[], [], []], []
+    for b, ks in enumerate(blocks):
+        bdt = [(k, m, 0, 0) for k in ks for m in range(instr[k]["d1"])]
+        bfw = [(k, u0, 0, 0) for k in ks for u0 in range(0, instr[k]["mul"], 16)]
+        bdx, bdx_cost = [], []
+        for sl, mi in irreps:
+            readers = [k for k in ks if instr[k]["x_start"] == sl.start]
+            if not readers and b > 0:
+                continue
+            for u0 in range(0, mi.mul, 8):
+                bdx.append((sl.start, mi.ir.dim, mi.mul, len(lists), len(readers), u0, 0, 0))
+                bdx_cost.append(1 + mi.ir.dim * len(readers))
+            lists += readers
+        rec = [c0[b], sum(instr[k]["mul"] for k in ks), r0[b], len(rows[b])]
+        for i, (lst, tasks, starts) in enumerate((
+                (dt, *_balanced(bdt, [-(-instr[k]["mul"] // 8) for k, _, _, _ in bdt])),
+                (dx, *_balanced(bdx, bdx_cost)),
+                (fw, *_balanced(bfw, [2 * instr[k]["d1"] for k, _, _, _ in bfw])))):
+            runs[i].append(np.asarray(starts) + len(lst))
+            lst += tasks
+        blk.append(rec)
+    parts = [np.zeros(UVU_HEADER, np.int64), np.zeros((len(blocks), UVU_BLK), np.int64), recs,
+             dt, dx, lists, fw, *runs]
     parts = [np.asarray(a, np.int64).reshape(-1) for a in parts]
     parts = [np.concatenate([a, np.zeros(-a.size % 4, np.int64)]) for a in parts]
     offs = np.cumsum([0] + [a.size for a in parts[:-1]])
-    parts[0][:] = [offs[1], len(dt), offs[2], len(dx), offs[3], offs[4], len(fw), offs[5],
-                   offs[6], offs[7], offs[8], 0]
+    for b, rec in enumerate(blk):
+        parts[1][b * UVU_BLK : b * UVU_BLK + 7] = rec + [
+            offs[7 + i] + b * (UVU_WARPS + 1) for i in range(3)]
+    parts[0][:12] = [offs[2], len(dt), offs[3], len(dx), offs[4], offs[5], len(fw), offs[6],
+                     offs[1], len(blocks), 0, 0]
+    # the widths the kernels take (at most MAX_MLP - 1 hidden layers;
+    # check_conv_inputs raises for a deeper MLP on CUDA tensors)
+    parts[0][12:][: len(hidden)] = hidden[: UVU_HEADER - 12]
     return np.concatenate(parts)
+
+
+# ---------------------------------------------------------------------------
+# shared-memory plan of the kernels (mirror of csrc/fused_conv_common.cuh:carve)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448  # dynamic shared memory a CTA may have on sm_90 (csrc SMEM_LIMIT)
+TE, BN, SBF, OG, MAX_STAGES = 16, 64, 72, 64, 4  # csrc TE, BN, SBF, OG, MAX_STAGES
+NWARP = UVU_WARPS
+# neighbour slots a row may have for the block plan to fit: each slot takes
+# 5 bytes of a CTA's shared memory (its index and validity byte)
+PLAN_K = 256
+
+
+def _bank_stride(n: int, rem: int) -> int:
+    return n + (rem - n) % 32
+
+
+def _round8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def carve_bytes(d: _ConvDims, bwd: bool) -> Tuple[int, int]:
+    """``(bytes, W3 stages)`` of one CTA's shared memory for the layer ``d``:
+    the host's copy of ``carve`` in ``csrc/fused_conv_common.cuh``, which
+    the kernels' ``fused_conv_smem_bytes`` must match (checked at the first
+    launch of each layer shape, :func:`check_carve`)."""
+    def take(nbytes):
+        nonlocal off
+        off += (nbytes + 15) & ~15
+
+    off = 0
+    rem = 4 if bwd else 8
+    SX, SW, SR = _bank_stride(d.dim_x, rem), _bank_stride(d.wblk, rem), d.rblk | 1
+    for nbytes in (4 * d.K, d.K, 16, 4 * TE, 4 * TE, 32 * TE, 4 * TE * d.n_basis,
+                   4 * TE * d.dim_f, 4 * TE * SR, 8 * TE * d.hsum, 4 * TE * SX, 4 * TE * SW,
+                   4 * (d.shd_terms + 5 * d.n_shd)):
+        take(nbytes)
+    if not bwd:
+        take(4 * d.dim_mid)
+    else:
+        for nbytes in (4 * (d.dim_mid + (d.dim_mid >> 5) + 1), 4 * TE * SR, 4 * TE * d.hl,
+                       4 * TE * d.n_basis, 4 * TE * d.dim_f):
+            take(nbytes)
+
+    def stage(n):
+        return 4 * max(n * max(_round8(d.hl), OG) * SBF, NWARP * TE * SBF)
+
+    nstage = MAX_STAGES
+    while nstage > 2 and off + stage(nstage) > SMEM_LIMIT:
+        nstage -= 1
+    take(stage(nstage))
+    return off, nstage
+
+
+@dataclass(frozen=True)
+class BlockPlan:
+    """The column blocks of a layer's per-edge weights ``w``: each block's
+    instructions and width; ``wblk`` the widest, and the
+    shared-memory bytes and W3 stages of both kernels at ``PLAN_K`` slots."""
+
+    blocks: Tuple[Tuple[int, ...], ...]
+    widths: Tuple[int, ...]
+    wblk: int
+    fwd: Tuple[int, int]
+    bwd: Tuple[int, int]
+
+
+def _describe(conv: ConvTPSpec, mlp_dims) -> str:
+    return (f"x {conv.irreps_x}, filter {conv.irreps_filter}, out {conv.irreps_mid}, radial MLP "
+            f"{list(mlp_dims)}")
+
+
+def plan_blocks(conv: ConvTPSpec, mlp_dims, instr, table_fn) -> BlockPlan:
+    """The widest column blocks of ``w`` for which both kernels' shared
+    memory fits (``carve_bytes`` at ``PLAN_K`` slots, at least 2 W3 stages):
+    one block when the whole of ``numel`` fits, as for every SevenNet-0
+    layer; else consecutive instructions up to the widest budget that fits.
+    ``table_fn(blocks)`` gives the ``_ConvDims`` of a plan (its tables and
+    the widest block's Wigner rows change with the blocks). Raises
+    ValueError, naming the layer's widths, the bytes and the limit, when not
+    even one instruction per block fits."""
+    widest = max(ins["mul"] for ins in instr)
+    budget = sum(ins["mul"] for ins in instr)
+    while True:
+        blocks = _column_blocks(instr, budget)
+        d = table_fn(blocks)
+        fwd, bwd = carve_bytes(d, False), carve_bytes(d, True)
+        if max(fwd[0], bwd[0]) <= SMEM_LIMIT:
+            break
+        if d.wblk <= widest:
+            raise ValueError(
+                "the fused-conv kernels cannot fit this layer in a CTA's shared memory ("
+                f"{_describe(conv, mlp_dims)}): even with blocks of one instruction's {d.wblk} "
+                f"columns the forward needs {fwd[0]} B and the backward {bwd[0]} B at "
+                f"{PLAN_K} neighbour slots, over the limit of {SMEM_LIMIT} B")
+        budget = d.wblk - 1
+    widths = tuple(int(sum(instr[k]["mul"] for k in bb)) for bb in blocks)
+    return BlockPlan(tuple(tuple(b) for b in blocks), widths, d.wblk, fwd, bwd)
 
 
 class FusedConvOp:
     """Static tables of one conv layer: the instruction tables of the JAX
-    kernels, and for the CUDA kernels the uvu product's instruction records
-    and task lists (:func:`_uvu_tables`) and, in vec mode, the spherical
-    harmonics and their derivatives as monomial terms. ``embed=None`` is
-    emb/sh mode. Device copies are cached per device."""
+    kernels, and for the CUDA kernels the column blocks of ``w``
+    (:func:`plan_blocks`), the uvu product's instruction records and task
+    lists (:func:`_uvu_tables`) and, in vec mode, the spherical harmonics
+    and their derivatives as monomial terms. ``embed=None`` is emb/sh mode.
+    Device copies are cached per device."""
 
     def __init__(self, conv: ConvTPSpec, mlp_spec: ScalarMLPSpec,
                  embed: Optional[EdgeEmbedSpec]):
@@ -405,29 +580,38 @@ class FusedConvOp:
                     shd_t.append((l * l + m, *monomials(l - 1)[k]))
                     shd_comp.append(comp)
                     shd_c.append(G[comp, m, k])
+        hidden = tuple(mlp_spec.dims[1:-1])
+        self.ftab = np.concatenate([w3j_pack.reshape(-1), np.asarray(sh_c, np.float32),
+                                    np.asarray(shd_c, np.float32)]).astype(np.float32)
+        tables = {}
 
-        ints: List[np.ndarray] = [_uvu_tables(conv, instr)]
-        offs: Dict[str, int] = {}
+        def table_fn(blocks):
+            ints: List[np.ndarray] = [_uvu_tables(conv, instr, blocks, hidden)]
+            offs: Dict[str, int] = {}
 
-        def put(name, arr):
-            offs[name] = sum(a.size for a in ints)
-            ints.append(np.asarray(arr, np.int64).reshape(-1))
+            def put(name, arr):
+                offs[name] = sum(a.size for a in ints)
+                ints.append(np.asarray(arr, np.int64).reshape(-1))
 
-        # int4 arrays start on a 16-byte boundary (the uvu tables end on one)
-        put("sh_terms", np.asarray(sh_t).reshape(-1, 4))
-        pad = (-sum(a.size for a in ints)) % 4
-        if pad:
-            ints.append(np.zeros(pad, np.int64))
-        put("shd_terms", np.concatenate([np.asarray(shd_t).reshape(-1), shd_comp]))
-        itab = np.concatenate(ints)
-        assert itab.max() < 2**31
-        self.itab = itab.astype(np.int32)
-        floats = [w3j_pack.reshape(-1), np.asarray(sh_c, np.float32),
-                  np.asarray(shd_c, np.float32)]
-        self.ftab = np.concatenate(floats).astype(np.float32)
-        self._offs = dict(offs, n_sh=len(sh_c), n_shd=len(shd_c), w3j=0,
-                          sh_coef=w3j_pack.size, shd_coef=w3j_pack.size + len(sh_c))
+            # int4 arrays start on a 16-byte boundary (the uvu tables end on one)
+            put("sh_terms", np.asarray(sh_t).reshape(-1, 4))
+            pad = (-sum(a.size for a in ints)) % 4
+            if pad:
+                ints.append(np.zeros(pad, np.int64))
+            put("shd_terms", np.concatenate([np.asarray(shd_t).reshape(-1), shd_comp]))
+            itab = np.concatenate(ints)
+            assert itab.max() < 2**31
+            wblk = max(sum(instr[k]["mul"] for k in ks) for ks in blocks)
+            rblk = max(sum(len(instr[k]["mp"]) for k in ks) for ks in blocks)
+            tables["itab"], tables["offs"] = itab.astype(np.int32), dict(
+                offs, n_sh=len(sh_c), n_shd=len(shd_c), sh_coef=w3j_pack.size,
+                shd_coef=w3j_pack.size + len(sh_c), wblk=wblk, rblk=rblk)
+            return self.dims(1, PLAN_K, tables["offs"])
+
+        self.plan = plan_blocks(conv, mlp_spec.dims, instr, table_fn)
+        self.itab, self._offs = tables["itab"], tables["offs"]
         self.ws_layout = _workspace_layout(mlp_spec.dims, dcoef=embed is not None)
+        self.reduce_products = _reduce_products(mlp_spec.dims, self.ws_layout, embed is not None)
         self._device_tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def device_tables(self, device: torch.device):
@@ -438,15 +622,16 @@ class FusedConvOp:
             )
         return self._device_tables[device]
 
-    def dims(self, N: int, K: int) -> _ConvDims:
+    def dims(self, N: int, K: int, offs=None) -> _ConvDims:
         e, d = self.embed, self.mlp_spec.dims
         geometry = {} if e is None else dict(
-            lmax=e.lmax, cutoff_kind=0 if e.cutoff_kind == "poly_cut" else 1,
+            cutoff_kind=0 if e.cutoff_kind == "poly_cut" else 1,
             cutoff=e.cutoff, cutoff_arg=e.cutoff_arg)
         return _ConvDims(
             N=N, K=K, dim_x=self.dim_x, dim_mid=self.dim_mid, numel=self.numel,
-            R=self.R, dim_f=self.dim_f, n_basis=self.n_basis, h1=d[1], h2=d[2],
-            act_cst=NORMALIZE2MOM_CST["silu"], **geometry, **self._offs,
+            dim_f=self.dim_f, n_basis=self.n_basis, nh=len(d) - 2, hsum=sum(d[1:-1]),
+            hl=d[-2], act_cst=NORMALIZE2MOM_CST["silu"], **geometry,
+            **(self._offs if offs is None else offs),
         )
 
 
@@ -547,19 +732,13 @@ def param_grad_reduce_plain(op: FusedConvOp, work, valid):
     records ``work (N*K, stride)`` (rows with ``valid == 0`` are ignored,
     whatever they hold) the sums over edges ``dW_l = h_lᵀ g_l / sqrt(d_l)``
     and, in vec mode, ``dcoef`` (``None`` in emb/sh mode): ``(dws, dcoef)``."""
-    cols = op.ws_layout
     rows = torch.where(valid.bool()[:, None], work, torch.zeros((), dtype=work.dtype,
                                                                 device=work.device))
-    nb, h1, h2, numel = op.mlp_spec.dims
-
-    def take(name, width):
-        return rows[:, cols[name] : cols[name] + width]
-
-    dws = [
-        (take(h, a).T @ take(g, b)) / math.sqrt(a)
-        for h, a, g, b in (("emb", nb, "dz1", h1), ("h1", h1, "dz2", h2), ("h2", h2, "dw", numel))
-    ]
-    return dws, None if op.embed is None else take("dc", nb).sum(0)
+    sums = [rows[:, b:b + db].sum(0) if a < 0 else
+            (rows[:, a:a + da].T @ rows[:, b:b + db]) / math.sqrt(da)
+            for a, da, b, db in op.reduce_products]
+    n_w = len(op.mlp_spec.dims) - 1
+    return sums[:n_w], None if op.embed is None else sums[n_w]
 
 
 def _pullback_vjp(op, x, src, a, b, ws, ybar, cots):
@@ -637,8 +816,9 @@ def check_conv_inputs(op: FusedConvOp, embsh: bool, x, src, a, b, ws, ybar=None)
             raise ValueError(f"{name} must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and len(ws) != 3:
-        raise ValueError("the CUDA fused conv takes a radial MLP with two hidden layers")
+    if dev.type == "cuda" and len(ws) > MAX_MLP:
+        raise ValueError(f"the CUDA fused conv takes a radial MLP of at most {MAX_MLP} layers, "
+                         f"got {len(ws)}")
 
 
 _P = ctypes.c_void_p
@@ -646,41 +826,68 @@ _P = ctypes.c_void_p
 REDUCE_CHUNK = 1024
 
 
+UVU_LAYOUT = (UVU_WARPS, UVU_INS, UVU_MAX_D, UVU_BLK, MAX_MLP, UVU_HEADER)
+
+
 def check_uvu_layout(lib: ctypes.CDLL):
-    """Raises unless the kernels of ``lib`` read the uvu task tables as
-    :func:`_uvu_tables` lays them out (warps per CTA, record size, largest
-    irrep dimension), which ``csrc/fused_conv_common.cuh`` defines."""
-    got = (ctypes.c_int * 3)()
+    """Raises unless the kernels of ``lib`` read the uvu task tables and the
+    MLP weights as :func:`_uvu_tables` and :class:`_MlpWeights` lay them out
+    (warps per CTA, ints per instruction record, largest irrep dimension,
+    ints per column-block record, MLP weight slots, header ints), which
+    ``csrc/fused_conv_common.cuh`` defines."""
+    got = (ctypes.c_int * len(UVU_LAYOUT))()
     lib.fused_conv_uvu_layout(got)
-    if tuple(got) != (UVU_WARPS, UVU_INS, UVU_MAX_D):
+    if tuple(got) != UVU_LAYOUT:
         raise RuntimeError(f"the kernels' uvu table layout (warps, ints per record, largest "
-                           f"dimension) is {tuple(got)}, the host's "
-                           f"{(UVU_WARPS, UVU_INS, UVU_MAX_D)}")
+                           f"dimension, ints per block record, MLP weights, header ints) is "
+                           f"{tuple(got)}, "
+                           f"the host's {UVU_LAYOUT}")
 
 
-def _entry(name: str, fn_name: str, argtypes):
+_CARVE_CHECKED = set()
+
+
+def check_carve(lib_name: str, op: FusedConvOp, dims: _ConvDims, bwd: bool):
+    """Raises ValueError, before any launch, when the layer's CTA layout
+    (:func:`carve_bytes`) exceeds the shared memory a CTA may have, naming
+    the layer's widths, the bytes and the limit; and, at the first launch of
+    each layer shape, RuntimeError unless the kernels of ``lib_name`` lay it
+    out in as many bytes (their ``fused_conv_smem_bytes``)."""
+    nbytes, _ = carve_bytes(dims, bwd)
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(
+            f"the fused-conv {'backward' if bwd else 'forward'} kernel needs {nbytes} B of shared "
+            f"memory per CTA for this layer ({_describe(op.conv, op.mlp_spec.dims)}, "
+            f"{dims.K} neighbour slots, column blocks of {dims.wblk}), over the limit of "
+            f"{SMEM_LIMIT} B")
+    key = (lib_name, bwd) + tuple(getattr(dims, f) for f, _ in _ConvDims._fields_[1:])
+    if key in _CARVE_CHECKED:
+        return
     from .kernels import library
 
-    lib = library(name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        check_uvu_layout(lib)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+    fn = library(lib_name).fused_conv_smem_bytes
+    fn.argtypes, fn.restype = [_ConvDims, ctypes.c_int], ctypes.c_longlong
+    got = fn(dims, int(bwd))
+    if got != nbytes:
+        raise RuntimeError(f"the kernels of {lib_name} lay a CTA out in {got} B, the host's "
+                           f"carve_bytes in {nbytes} B: the two copies of carve disagree")
+    _CARVE_CHECKED.add(key)
 
 
 def _ptr(t: torch.Tensor):
     return _P(t.data_ptr())
 
 
+def _mlp_weights(ws) -> _MlpWeights:
+    return _MlpWeights((_P * MAX_MLP)(*[w.data_ptr() for w in ws]))
+
+
 def _call(lib: str, fn_name: str, *args):
-    """Calls C entry ``fn_name`` of library ``lib`` with ``args`` (ctypes
-    structs and pointers; the argument types are theirs) and raises if the
-    launch failed."""
-    rc = _entry(lib, fn_name, [type(a) for a in args])(*args)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {rc}")
+    """Calls C entry ``fn_name`` of library ``lib`` (:func:`.kernels.call`),
+    the uvu table layout checked before an entry's first call."""
+    from .kernels import call
+
+    call(lib, fn_name, *args, on_load=check_uvu_layout)
 
 
 def _stream(dev: torch.device):
@@ -694,11 +901,13 @@ def fwd_launch_args(op: FusedConvOp, x, src, a, b, ws):
     dim_mid)``. ``conv_breakdown.py`` launches the same arguments on the
     profile build."""
     N, K = src.shape
+    dims = op.dims(N, K)
+    check_carve("fused_conv_fwd", op, dims, bwd=False)
     out = torch.empty((N, op.dim_mid), dtype=torch.float32, device=x.device)
     itab, ftab = op.device_tables(x.device)
     entry = "fused_conv_fwd_launch" if op.embed is not None else "fused_conv_fwd_embsh_launch"
-    return ("fused_conv_fwd", entry, (op.dims(N, K), _ptr(x), _ptr(src), _ptr(a), _ptr(b),
-                                      *[_ptr(w) for w in ws], _ptr(itab), _ptr(ftab), _ptr(out),
+    return ("fused_conv_fwd", entry, (dims, _ptr(x), _ptr(src), _ptr(a), _ptr(b),
+                                      _mlp_weights(ws), _ptr(itab), _ptr(ftab), _ptr(out),
                                       _stream(x.device)), out)
 
 
@@ -711,6 +920,8 @@ def bwd_launch_args(op: FusedConvOp, x, src, a, b, ws, ybar, records: bool):
     (:func:`_workspace_layout`)."""
     N, K = src.shape
     dev = x.device
+    dims = op.dims(N, K)
+    check_carve("fused_conv_bwd", op, dims, bwd=True)
     f32 = dict(dtype=torch.float32, device=dev)
     outs = [torch.empty((N * K, op.dim_x), **f32)]
     if op.embed is None:
@@ -723,8 +934,8 @@ def bwd_launch_args(op: FusedConvOp, x, src, a, b, ws, ybar, records: bool):
     name = "fused_conv_bwd" + ("_embsh" if op.embed is None else "") + ("_pg" if records else "")
     layout = [_WsLayout(**op.ws_layout)] if records else []
     itab, ftab = op.device_tables(dev)
-    args = (op.dims(N, K), *layout, _ptr(x), _ptr(src), _ptr(a), _ptr(b),
-            *[_ptr(w) for w in ws], _ptr(ybar), _ptr(itab), _ptr(ftab),
+    args = (dims, *layout, _ptr(x), _ptr(src), _ptr(a), _ptr(b),
+            _mlp_weights(ws), _ptr(ybar), _ptr(itab), _ptr(ftab),
             *[_ptr(t) for t in outs], _stream(dev))
     return "fused_conv_bwd", name + "_launch", args, tuple(outs)
 
@@ -761,7 +972,7 @@ fused_conv_fwd.launches = 0
 
 def fused_conv_bwd(op: FusedConvOp, x, src, vec, coef, ws, ybar, param_grads=False):
     """Vec-mode backward conv: ``(dxg, dvec)`` (B2), and with
-    ``param_grads`` ``(dxg, dvec, [dW1, dW2, dW3], dcoef)`` (B2′). CPU
+    ``param_grads`` ``(dxg, dvec, dws, dcoef)``, a gradient per MLP weight (B2′). CPU
     tensors: the plain version. CUDA tensors: the ``fused_conv_bwd`` kernel
     (``csrc/fused_conv_bwd.cu``); with ``param_grads``, its records pass
     :func:`fused_conv_bwd_pg_records` and then :func:`param_grad_reduce`."""
@@ -836,10 +1047,12 @@ def fused_conv_bwd_slot(op: FusedConvOp, x, src_c, vec_c, coef, ws, ybar_c, buf,
     if x.device.type == "cpu":
         return fused_conv_bwd_slot_plain(op, x, src_c, vec_c, coef, ws, ybar_c, buf, slot)
     RC, K = src_c.shape
+    dims = op.dims(RC, K)
+    check_carve("fused_conv_bwd", op, dims, bwd=True)
     dvec = torch.empty((3, RC * K), dtype=torch.float32, device=x.device)
     itab, ftab = op.device_tables(x.device)
-    _call("fused_conv_bwd", "fused_conv_bwd_slot_launch", op.dims(RC, K), _ptr(x), _ptr(src_c),
-          _ptr(vec_c), _ptr(coef), *[_ptr(w) for w in ws], _ptr(ybar_c), _ptr(itab), _ptr(ftab),
+    _call("fused_conv_bwd", "fused_conv_bwd_slot_launch", dims, _ptr(x), _ptr(src_c),
+          _ptr(vec_c), _ptr(coef), _mlp_weights(ws), _ptr(ybar_c), _ptr(itab), _ptr(ftab),
           _ptr(buf), ctypes.c_int(slot), _ptr(dvec), _stream(x.device))
     fused_conv_bwd_slot.launches += 1
     return dvec
@@ -865,7 +1078,7 @@ fused_conv_fwd_embsh.launches = 0
 
 def fused_conv_bwd_embsh(op: FusedConvOp, x, src, emb, sh, ws, ybar, param_grads=False):
     """Emb/sh-mode backward conv: ``(dxg, demb, dsh)`` (B4 bwd, also serving
-    B5), and with ``param_grads`` ``(dxg, demb, dsh, [dW1, dW2, dW3])``
+    B5), and with ``param_grads`` ``(dxg, demb, dsh, dws)``
     (B4′). CPU tensors: the plain version. CUDA tensors: the
     ``fused_conv_bwd_embsh`` kernel (``csrc/fused_conv_bwd.cu``); with
     ``param_grads``, its records pass :func:`fused_conv_bwd_embsh_pg_records`
@@ -919,20 +1132,22 @@ def param_grad_reduce(op: FusedConvOp, work, valid, N: int, K: int):
     if work.device.type != "cuda":
         raise ValueError(f"unsupported device {work.device}")
     dev = work.device
-    nb, h1, h2, numel = op.mlp_spec.dims
-    n_dc = 0 if op.embed is None else nb
+    prods = op.reduce_products
     n_chunks = -(-N * K // REDUCE_CHUNK)
-    partial = torch.empty(n_chunks * (nb * h1 + h1 * h2 + h2 * numel + n_dc),
+    partial = torch.empty(n_chunks * sum(da * db for _, da, _, db in prods),
                           dtype=torch.float32, device=dev)
-    dws = [torch.empty((a, b), dtype=torch.float32, device=dev)
-           for a, b in ((nb, h1), (h1, h2), (h2, numel))]
-    dcoef = torch.empty(nb, dtype=torch.float32, device=dev) if n_dc else None
-    _call("fused_conv_bwd", "param_grad_reduce_launch", op.dims(N, K),
-          _WsLayout(**op.ws_layout), _ptr(work), _ptr(valid), ctypes.c_int(REDUCE_CHUNK),
-          _ptr(partial), *[_ptr(w) for w in dws], _P(dcoef.data_ptr() if n_dc else None),
-          _stream(dev))
+    outs = [torch.empty((da, db) if a >= 0 else (db,), dtype=torch.float32, device=dev)
+            for a, da, _, db in prods]
+    flat = [v for p in prods for v in p]
+    _call("fused_conv_bwd", "param_grad_reduce_launch",
+          ctypes.cast((ctypes.c_int * len(flat))(*flat), ctypes.POINTER(ctypes.c_int)),
+          ctypes.c_int(len(prods)),
+          ctypes.cast((_P * len(outs))(*[o.data_ptr() for o in outs]), ctypes.POINTER(_P)),
+          _ptr(work), _ptr(valid), ctypes.c_int(N * K), ctypes.c_int(op.ws_layout["stride"]),
+          ctypes.c_int(REDUCE_CHUNK), _ptr(partial), _stream(dev))
     param_grad_reduce.launches += 1
-    return dws, dcoef
+    n_w = len(op.mlp_spec.dims) - 1
+    return outs[:n_w], None if op.embed is None else outs[n_w]
 
 
 param_grad_reduce.launches = 0

@@ -1,4 +1,6 @@
-"""Builds and loads the hand-written CUDA kernels of ``sevennet_tpu_torch/csrc``.
+"""Builds and loads the hand-written CUDA kernels of ``sevennet_tpu_torch/csrc``:
+the fused conv (``fused_conv_fwd``, ``fused_conv_bwd``) and the Hopper
+probes (``probe_mm``, ``probe_batched_dot``, :mod:`..probes`).
 
 Each ``*.cu`` source becomes a shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` at first use into ``build/kernels`` at
@@ -21,11 +23,11 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
-__all__ = ["SOURCES", "build", "library", "BUILD_DIR"]
+__all__ = ["SOURCES", "build", "library", "call", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fused_conv_fwd", "fused_conv_bwd")
+SOURCES = ("fused_conv_fwd", "fused_conv_bwd", "probe_mm", "probe_batched_dot")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -95,3 +97,20 @@ def library(name: str, profile: bool = False) -> ctypes.CDLL:
     if key not in _LIBS:
         _LIBS[key] = ctypes.CDLL(str(build([name], profile)[name]))
     return _LIBS[key]
+
+
+def call(name: str, fn_name: str, *args, on_load=None) -> None:
+    """Calls C entry ``fn_name`` of library ``name`` with ``args`` (ctypes
+    values; the argument types are theirs, fixed at the first call) and
+    raises if it returns non-zero, a launch that failed. ``on_load(lib)``
+    runs before an entry's first call (a check of the library's layout)."""
+    lib = library(name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        if on_load is not None:
+            on_load(lib)
+        fn.argtypes = [type(a) for a in args]
+        fn.restype = ctypes.c_int
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {rc}")

@@ -1,0 +1,5 @@
+"""Hopper probes: the TPU probe kernels of ``scripts_dev/`` as hand-written
+CUDA kernels, each with a plain PyTorch version of its contract and a timing
+function that follows the TPU script's method (:mod:`.mm_rate`,
+:mod:`.batched_dot`). They measure the ingredients of the conv kernels'
+design on the card; no model path calls them."""

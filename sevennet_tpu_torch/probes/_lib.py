@@ -1,0 +1,49 @@
+"""What the probes share: the launch stream, the device check of their
+wrappers and CUDA-event timing of captured calls."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def check_device(plain: bool, *tensors) -> bool:
+    """True when the plain version runs: ``plain``, on any device. Else the
+    kernel: every tensor must lie on one CUDA device (a CPU tensor raises)."""
+    if plain:
+        return True
+    devs = {t.device for t in tensors}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"the probe kernels run on one CUDA device, got {sorted(map(str, devs))}; "
+                         "pass plain=True for the plain version")
+    return False
+
+
+def graph_ms(fn, n: int) -> float:
+    """ms of ``n`` back-to-back calls of ``fn`` on the device alone: the
+    calls are captured in one CUDA graph, whose replay is timed by CUDA
+    events, so that the host's cost per call (the wrapper's checks and
+    allocation, the launch) is not in the time. ``fn`` runs once on a
+    side stream before the capture (build and first-launch set-up stay
+    out of the graph)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()  # warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)

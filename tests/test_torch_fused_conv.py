@@ -147,10 +147,14 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
     """The CUDA kernels' algorithm in float64 numpy, reading the same
     tables (``op.itab``/``op.ftab`` at the offsets of ``op.dims`` and of
     the uvu header at the table's start): per edge inside the cutoff,
-    embedding and spherical-harmonic terms, the MLP, then the uvu product
-    and its pullback task by task (the forward's (instruction, channels)
-    tasks, ``dtmp`` per (instruction, m), ``dxg`` and ``dw`` per (x irrep,
-    channels) over the instructions that read the irrep).
+    embedding and spherical-harmonic terms, the MLP's hidden layers (their
+    widths from the table), then column block by column block ``w`` and
+    ``tmp`` of the block's columns and rows, the uvu product and its
+    pullback task by task (the forward's (instruction, channels) tasks,
+    ``dtmp`` per (instruction, m), ``dxg`` and ``dw`` per (x irrep,
+    channels) over the block's instructions that read the irrep, added to
+    the earlier blocks' where the task says so), ``dsh`` and the last
+    hidden layer's cotangent summed over the blocks.
     Also what B2′ adds: the per-edge record of the parameter gradients at
     the columns of ``op.ws_layout`` (rows outside the cutoff stay NaN and
     invalid), and the sums over edges ``dW_l = h_l ⊗ g_l / sqrt(d_l)`` and
@@ -158,26 +162,44 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
     d = op.dims(*src.shape)
     it, ftab = op.itab.astype(np.int64), op.ftab.astype(np.float64)
 
-    off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw, off_fw = it[:8]
-    # every task once, in the warps' runs
-    for n_t, runs in ((n_dt, it[8]), (n_dx, it[9]), (n_fw, it[10])):
-        starts = it[runs : runs + fc.UVU_WARPS + 1]
+    off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw, off_fw, off_blk, n_blk = it[:10]
+    assert off_blk == fc.UVU_HEADER
+    blocks = it[off_blk : off_blk + n_blk * fc.UVU_BLK].reshape(n_blk, fc.UVU_BLK)
+    hidden = list(it[12 : 12 + d.nh])
+    assert hidden == list(op.mlp_spec.dims[1:-1])
+    assert (d.hsum, d.hl) == (sum(hidden), (hidden or [d.n_basis])[-1])
+    # every task once, in the block's warps' runs, the blocks in order; the
+    # blocks tile w's columns and w3_pack's rows
+    for i, n_t in ((4, n_dt), (5, n_dx), (6, n_fw)):
+        starts = np.concatenate([it[r : r + fc.UVU_WARPS + 1] for r in blocks[:, i]])
         assert starts[0] == 0 and starts[-1] == n_t and (np.diff(starts) >= 0).all()
+    assert (blocks[:, 0] == np.cumsum([0, *blocks[:-1, 1]])).all() and blocks[:, 1].sum() == d.numel
+    assert (blocks[:, 2] == np.cumsum([0, *blocks[:-1, 3]])).all() and blocks[:, 3].sum() == op.R
+    assert (d.wblk, d.rblk) == (blocks[:, 1].max(), blocks[:, 3].max())
 
     def ins(kk):
         rec = it[off_ins + kk * fc.UVU_INS : off_ins + (kk + 1) * fc.UVU_INS]
         return rec[:7], rec[8 : 8 + 49].reshape(7, 7)
 
+    def runs(b, i):
+        r = blocks[b, i]
+        return it[r], it[r + fc.UVU_WARPS]
+
     dt_tasks = it[off_dt : off_dt + 4 * n_dt].reshape(-1, 4)
     dx_tasks = it[off_dx : off_dx + 8 * n_dx].reshape(-1, 8)
     fw_tasks = it[off_fw : off_fw + 4 * n_fw].reshape(-1, 4)
+    # block 0's dxg tasks write every x irrep's channels (the later blocks'
+    # add to them)
+    assert {(x0, u0) for x0, _, _, _, _, u0, _, _ in dx_tasks[slice(*runs(0, 5))]} == {
+        (sl.start, u0) for sl, mi in zip(op.conv.irreps_x.slices(), op.conv.irreps_x)
+        for u0 in range(0, mi.mul, 8)}
     sh_t = it[d.sh_terms : d.sh_terms + 4 * d.n_sh].reshape(-1, 4)
     sh_c = ftab[d.sh_coef : d.sh_coef + d.n_sh]
     sd_t = it[d.shd_terms : d.shd_terms + 4 * d.n_shd].reshape(-1, 4)
     sd_comp = it[d.shd_terms + 4 * d.n_shd : d.shd_terms + 5 * d.n_shd]
     sd_c = ftab[d.shd_coef : d.shd_coef + d.n_shd]
-    w3j = ftab[d.w3j : d.w3j + d.R * d.dim_f].reshape(d.R, d.dim_f)
-    W1, W2, W3 = [np.asarray(w, np.float64) for w in ws]
+    w3j = ftab[: op.R * d.dim_f].reshape(op.R, d.dim_f)
+    Ws = [np.asarray(w, np.float64) for w in ws]
     n, k = src.shape
     out = np.zeros((n, d.dim_mid))
     dxg = np.zeros((n * k, d.dim_x))
@@ -185,10 +207,11 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
     L = op.ws_layout
     work = np.full((n * k, L["stride"]), np.nan, np.float32)
     valid = np.zeros(n * k, np.uint8)
-    dws = [np.zeros(w.shape) for w in (W1, W2, W3)]
+    dws = [np.zeros(w.shape) for w in Ws]
     dcoef = np.zeros(d.n_basis)
     es = op.embed
     sig = lambda z: 1.0 / (1.0 + np.exp(-z))  # noqa: E731
+    dsilu = lambda z: sig(z) * (1 + z * (1 - sig(z))) * d.act_cst  # noqa: E731
     for f in range(n * k):
         i = f // k
         v = vec[:, f].astype(np.float64)
@@ -213,43 +236,50 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
         for t, c in zip(sh_t, sh_c):
             sh[t[0]] += c * mono(t)
         emb = np.sin(coef * r) * (2.0 / es.cutoff) * rinv * env
-        tmp = w3j @ sh
-        z1 = emb @ W1 / np.sqrt(d.n_basis)
-        h1 = z1 * sig(z1) * d.act_cst
-        z2 = h1 @ W2 / np.sqrt(d.h1)
-        h2 = z2 * sig(z2) * d.act_cst
-        w = h2 @ W3 / np.sqrt(d.h2)
+        zs, hs = [], [emb]
+        for W in Ws[:-1]:
+            zs.append(hs[-1] @ W / np.sqrt(W.shape[0]))
+            hs.append(zs[-1] * sig(zs[-1]) * d.act_cst)
+        w_all = hs[-1] @ Ws[-1] / np.sqrt(d.hl)
         xs = x[src[i, f % k]].astype(np.float64)
         yb = ybar[i].astype(np.float64)
-        for kk, u0, _, _ in fw_tasks:
-            (x0, d1, d3, mul, w0, y0, ut), rt = ins(kk)
-            uu = np.arange(u0, min(u0 + 16, mul))
-            for p_ in range(d3):
-                for m in range(d1):
-                    if rt[m, p_] >= 0:
-                        out[i, y0 + p_ * ut + uu] += xs[x0 + m * mul + uu] * w[w0 + uu] * tmp[rt[m, p_]]
-        dtmp = np.zeros(d.R)
-        for kk, m, _, _ in dt_tasks:
-            (x0, d1, d3, mul, w0, y0, ut), rt = ins(kk)
-            uu = np.arange(mul)
-            for p_ in range(d3):
-                if rt[m, p_] >= 0:
-                    dtmp[rt[m, p_]] = np.sum(xs[x0 + m * mul + uu] * w[w0 + uu] * yb[y0 + p_ * ut + uu])
         dw = np.zeros(d.numel)
-        for x0, d1, mul, l0, nl, u0, _, _ in dx_tasks:
-            uu = np.arange(u0, min(u0 + 8, mul))
-            for kk in it[off_list + l0 : off_list + l0 + nl]:
-                (_, _, d3, _, w0, y0, ut), rt = ins(kk)
-                for m in range(d1):
-                    a = sum(yb[y0 + p_ * ut + uu] * tmp[rt[m, p_]] for p_ in range(d3)
-                            if rt[m, p_] >= 0)
-                    dxg[f, x0 + m * mul + uu] += w[w0 + uu] * a
-                    dw[w0 + uu] += xs[x0 + m * mul + uu] * a
-        dsilu = lambda z: sig(z) * (1 + z * (1 - sig(z))) * d.act_cst  # noqa: E731
-        dz2 = (W3 @ dw) / np.sqrt(d.h2) * dsilu(z2)
-        dz1 = (W2 @ dz2) / np.sqrt(d.h1) * dsilu(z1)
-        demb = (W1 @ dz1) / np.sqrt(d.n_basis)
-        dsh = w3j.T @ dtmp
+        dsh = np.zeros(d.dim_f)
+        for b, (c0, width, r0, rows) in enumerate(blocks[:, :4]):
+            w = w_all[c0 : c0 + width]
+            tmp = w3j[r0 : r0 + rows] @ sh
+            for kk, u0, _, _ in fw_tasks[slice(*runs(b, 6))]:
+                (x0, d1, d3, mul, w0, y0, ut), rt = ins(kk)
+                uu = np.arange(u0, min(u0 + 16, mul))
+                for p_ in range(d3):
+                    for m in range(d1):
+                        if rt[m, p_] >= 0:
+                            out[i, y0 + p_ * ut + uu] += (xs[x0 + m * mul + uu] * w[w0 + uu]
+                                                          * tmp[rt[m, p_]])
+            dtmp = np.zeros(rows)
+            for kk, m, _, _ in dt_tasks[slice(*runs(b, 4))]:
+                (x0, d1, d3, mul, w0, y0, ut), rt = ins(kk)
+                uu = np.arange(mul)
+                for p_ in range(d3):
+                    if rt[m, p_] >= 0:
+                        dtmp[rt[m, p_]] = np.sum(xs[x0 + m * mul + uu] * w[w0 + uu]
+                                                 * yb[y0 + p_ * ut + uu])
+            dsh += w3j[r0 : r0 + rows].T @ dtmp
+            for x0, d1, mul, l0, nl, u0, _, _ in dx_tasks[slice(*runs(b, 5))]:
+                uu = np.arange(u0, min(u0 + 8, mul))
+                for kk in it[off_list + l0 : off_list + l0 + nl]:
+                    (_, _, d3, _, w0, y0, ut), rt = ins(kk)
+                    for m in range(d1):
+                        a = sum(yb[y0 + p_ * ut + uu] * tmp[rt[m, p_]] for p_ in range(d3)
+                                if rt[m, p_] >= 0)
+                        dxg[f, x0 + m * mul + uu] += w[w0 + uu] * a
+                        dw[c0 + w0 + uu] += xs[x0 + m * mul + uu] * a
+        dzs = [None] * len(zs)
+        g = dw
+        for l in range(len(zs) - 1, -1, -1):
+            dzs[l] = (Ws[l + 1] @ g) / np.sqrt(Ws[l + 1].shape[0]) * dsilu(zs[l])
+            g = dzs[l]
+        demb = (Ws[0] @ g) / np.sqrt(d.n_basis)
         dr = np.sum(demb * (2.0 / es.cutoff) * (
             coef * np.cos(coef * r) * rinv * env
             + np.sin(coef * r) * (denv * rinv - env * rinv * rinv)))
@@ -258,12 +288,11 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
             du[comp] += c * dsh[t[0]] * mono(t)
         dvec[:, f] = (du - u * (u @ du)) * rinv + u * dr
         dc = demb * (2.0 / es.cutoff) * np.cos(coef * r) * env
-        for dW, h, g, fan_in in ((dws[0], emb, dz1, d.n_basis), (dws[1], h1, dz2, d.h1),
-                                 (dws[2], h2, dw, d.h2)):
-            dW += np.outer(h, g) / np.sqrt(fan_in)
+        for dW, h, g_ in zip(dws, hs, dzs + [dw]):
+            dW += np.outer(h, g_) / np.sqrt(len(h))
         dcoef += dc
         work[f, L["emb"] : L["dc"] + d.n_basis] = np.concatenate(
-            [emb, h1, h2, dz1, dz2, dw, dc])
+            [emb, *hs[1:], *dzs, dw, dc])
         valid[f] = 1
     return out, dxg, dvec, dws, dcoef, work, valid
 
@@ -302,9 +331,14 @@ def test_uvu_layout_matches_csrc():
     them, and the launch-time check refuses a library that reads another
     layout."""
     header = (Path(fc.__file__).resolve().parents[1] / "csrc" / "fused_conv_common.cuh")
-    defines = dict(re.findall(r"^#define (NT|UVU_INS|UVU_D) (\d+)", header.read_text(), re.M))
-    assert (int(defines["NT"]) // 32, int(defines["UVU_INS"]), int(defines["UVU_D"])) == (
-        fc.UVU_WARPS, fc.UVU_INS, fc.UVU_MAX_D)
+    defines = {k: int(v) for k, v in re.findall(
+        r"^#define (NT|UVU_INS|UVU_D|UVU_BLK|MAX_MLP|UVU_HEADER|TE|BN|OG|MAX_STAGES|SMEM_LIMIT) "
+        r"(\d+)", header.read_text(), re.M)}
+    assert (defines["NT"] // 32, defines["UVU_INS"], defines["UVU_D"], defines["UVU_BLK"],
+            defines["MAX_MLP"], defines["UVU_HEADER"]) == fc.UVU_LAYOUT
+    # the host's copy of carve uses the same constants
+    assert (defines["TE"], defines["BN"], defines["OG"], defines["MAX_STAGES"],
+            defines["SMEM_LIMIT"]) == (fc.TE, fc.BN, fc.OG, fc.MAX_STAGES, fc.SMEM_LIMIT)
 
     class Lib:
         def __init__(self, layout):
@@ -313,9 +347,9 @@ def test_uvu_layout_matches_csrc():
         def fused_conv_uvu_layout(self, out):
             out[:] = self.layout
 
-    fc.check_uvu_layout(Lib((fc.UVU_WARPS, fc.UVU_INS, fc.UVU_MAX_D)))
+    fc.check_uvu_layout(Lib(fc.UVU_LAYOUT))
     with pytest.raises(RuntimeError, match="uvu table layout"):
-        fc.check_uvu_layout(Lib((2 * fc.UVU_WARPS, fc.UVU_INS, fc.UVU_MAX_D)))
+        fc.check_uvu_layout(Lib((2 * fc.UVU_WARPS, *fc.UVU_LAYOUT[1:])))
 
 
 def test_wrappers_check_their_inputs():

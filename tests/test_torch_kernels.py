@@ -350,3 +350,119 @@ def test_odd_widths_ragged_tiles_match_plain(cuda, hidden):
         scale = float(want.abs().max())
         assert scale > 0
         np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-5 * scale)
+
+
+def _instances_match_plain(cuda, conv, mlp, embed, n_atoms, box, seed):
+    """B1, B2, B2′ (both passes) and, on the same edges' embedding and
+    spherical harmonics, B4 fwd, B4 bwd and B4′ against their plain twins
+    on random atoms, 1e-5 of the largest plain value; returns the vec op."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, box, (n_atoms, 3))
+    dst, src, shift = neighbor_list_numpy(pos, embed.cutoff)
+    g = dense_graph_from_arrays(pos, np.zeros(n_atoms), src, dst, shift, device=cuda)
+    N, K = g.n_atoms_cap, g.dense_k
+    sentinel = torch.tensor([[2.0 * embed.cutoff], [0.0], [0.0]], device=cuda)
+    vec = torch.where(g.edge_mask[None], g.edge_vectors().T, sentinel).contiguous()
+
+    def rnd(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+
+    ws = [rnd(a, b) for a, b in zip(mlp.dims[:-1], mlp.dims[1:])]
+    x, coef = rnd(N, conv.irreps_x.dim), torch.linspace(1.0, 8.0, embed.n_basis, device=cuda)
+    src_nk = g.edge_src.view(N, K).to(torch.int32)
+    op, op_e = fc.conv_op(conv, mlp, embed), fc.conv_op(conv, mlp)
+    ybar = rnd(N, op.dim_mid)
+    args = (op, x, src_nk, vec, coef, ws)
+    pairs = [(fc.fused_conv_fwd(*args), fc.fused_conv_fwd_plain(*args))]
+    pairs += list(zip(fc.fused_conv_bwd(*args, ybar), fc.fused_conv_bwd_plain(*args, ybar)))
+    got = fc.fused_conv_bwd(*args, ybar, param_grads=True)
+    want = fc.fused_conv_bwd_plain(*args, ybar, param_grads=True)
+    pairs += [(got[0], want[0]), (got[1], want[1]), (got[3], want[3])] + list(zip(got[2], want[2]))
+    emb, sh = (t.contiguous() for t in fc.edge_embedding_plain(op, vec, coef))
+    eargs = (op_e, x, src_nk, emb, sh, ws)
+    pairs += [(fc.fused_conv_fwd_embsh(*eargs), fc.fused_conv_fwd_embsh_plain(*eargs))]
+    want = fc.fused_conv_bwd_embsh_plain(*eargs, ybar, param_grads=True)
+    pairs += list(zip(fc.fused_conv_bwd_embsh(*eargs, ybar), want[:3]))
+    got = fc.fused_conv_bwd_embsh(*eargs, ybar, param_grads=True)
+    pairs += list(zip(got[:3], want[:3])) + list(zip(got[3], want[3]))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        scale = float(want.abs().max())
+        assert scale > 0
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-5 * scale)
+    return op
+
+
+def test_l3i5_layer_kernels_match_plain(cuda):
+    """SevenNet-l3i5's middle-layer widths (bench.py:89-106: lmax 3,
+    128x0e+64x1e+32x2e+32x3e, 1,760 uvu weights, poly cutoff p 6), whose
+    per-edge weights the kernels form in several column blocks: every
+    instance against its plain twin on 48 random atoms (about 30
+    neighbours each)."""
+    spec = build_model_spec({
+        "lmax": 3, "channel": 128, "cutoff": 5.0, "is_parity": False,
+        "num_convolution_layer": 5, "chemical_species": ["H", "O"],
+        "irreps_manual": ["128x0e"] + ["128x0e+64x1e+32x2e+32x3e"] * 4 + ["128x0e"],
+        "cutoff_function": {"cutoff_function_name": "poly_cut", "poly_cut_p_value": 6},
+        "self_connection_type": "nequip", "weight_nn_hidden_neurons": [64, 64]})
+    layer = spec.layers[1]
+    embed = fc.EdgeEmbedSpec(8, 5.0, "poly_cut", 6.0, 3)
+    op = _instances_match_plain(cuda, layer.conv, layer.radial_mlp, embed, 48, 8.0, 4)
+    assert op.numel == 1760 and len(op.plan.blocks) > 1
+
+
+@pytest.mark.parametrize("hidden", [(), (16,), (16, 16, 16)], ids=["depth0", "depth1", "depth3"])
+def test_mlp_depth_kernels_match_plain(cuda, hidden):
+    """Radial MLPs of no, one and three hidden layers: every instance against
+    its plain twin (the kernels walk the hidden layers in a loop; with none,
+    W3 reads the embedding)."""
+    x_ir, f_ir = Irreps("8x0e+8x1e+8x2e"), Irreps("1x0e+1x1e+1x2e")
+    conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+    mlp = ScalarMLPSpec((8, *hidden, conv.weight_numel))
+    _instances_match_plain(cuda, conv, mlp, fc.EdgeEmbedSpec(8, 3.0, "XPLOR", 2.5, 2), 40, 7.0, 5)
+
+
+@pytest.mark.parametrize("chain", [False, True], ids=["rate", "chain"])
+@pytest.mark.parametrize("variant", ["ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32",
+                                     "bf16"])
+def test_probe_mm_matches_plain(cuda, variant, chain):
+    """The matmul-rate probe's every variant, both contracts (r2_pallas_mm's
+    scaled and r2_pallas_fma's carried products), at ragged shapes, one with
+    k chunked, and with copies, against the plain loop (mm_rate.PROBE_TOL)."""
+    from sevennet_tpu_torch.probes import mm_rate as mr
+
+    rng = np.random.default_rng(6)
+    dtype = torch.bfloat16 if variant == "bf16" else torch.float32
+    s = torch.full((1, 1), 0.0 if variant == "bf16" else 1e-3, device=cuda)
+    for m, k, n, copies in ((100, 64, 70, 1), (70, 130, 40, 3), (185, 9, 33, 1)):
+        a = torch.tensor(rng.normal(size=(m, k)), device=cuda).to(dtype)
+        b = torch.tensor(rng.normal(size=(k, n)), device=cuda).to(dtype)
+        fn = mr.mm_chain if chain else mr.mm_rate
+        extra = () if chain else (s,)
+        n0 = fn.launches
+        got = fn(a, b, *extra, variant=variant, copies=copies)
+        want = fn(a, b, *extra, variant=variant, copies=copies, plain=True)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1 and got.shape == want.shape
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0,
+                                   atol=mr.PROBE_TOL[variant] * float(want.abs().max()))
+
+
+def test_batched_dot_matches_plain(cuda):
+    """The batched small products (SevenNet-0's three path groups at K 72)
+    on 300 atoms, rep 1 and 3, against torch.bmm, 1e-5 of max |plain|."""
+    from sevennet_tpu_torch.probes import batched_dot as bd
+
+    rng = np.random.default_rng(7)
+    Ss = [torch.tensor(rng.normal(size=(300, d3, kk)) * 0.1, dtype=torch.float32, device=cuda)
+          for d3, kk, _ in bd.GROUPS]
+    XWs = [torch.tensor(rng.normal(size=(300, kk, mul)) * 0.1, dtype=torch.float32, device=cuda)
+           for _, kk, mul in bd.GROUPS]
+    want = bd.batched_dot(Ss, XWs, plain=True)
+    for rep in (1, 3):
+        n0 = bd.batched_dot.launches
+        got = bd.batched_dot(Ss, XWs, rep=rep)
+        torch.cuda.synchronize()
+        assert bd.batched_dot.launches == n0 + 1
+        for y, w in zip(got, want):
+            np.testing.assert_allclose(y.cpu(), w.cpu(), rtol=0, atol=1e-5 * float(w.abs().max()))
