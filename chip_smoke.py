@@ -63,7 +63,15 @@
    (``mm_rate.PROBE_TOL``), then the probe path with the counts from 0:
    each timed the TPU script's way on the device alone (CUDA graphs), with
    TFLOP/s per card and the card rate over the SM count, beside the library
-   calls (torch.matmul with TF32 off and on, torch.bmm).
+   calls (torch.matmul with TF32 off and on, torch.bmm). Then the FMA-rate
+   and gather probes (``probes/fma_rate.py``, ``probes/gather.py``): each
+   against its plain version at every shape of its TPU script (the chains
+   within 1e-5 of max |plain|, the gathers bitwise), then with the counts
+   from 0 each timed by its script's method, the FMA chains also at the
+   copies that fill the card with the SM clock read before and after, the
+   row gather at SevenNet-0's 9,999-atom x[src] shape with and without
+   streaming stores, beside torch.index_select. The SASS of the FMA
+   kernels (``cuobjdump``) is counted after the build.
 8. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -184,12 +192,17 @@ def sevennet0_spec():
     return build_model_spec(SEVENNET0)
 
 
-def gpu_line() -> str:
+def nvidia_smi(query: str) -> str:
+    """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def gpu_line() -> str:
+    return nvidia_smi("name,power.limit")
 
 
 def cuda_time(fn, reps: int, warmup: int = 1) -> float:
@@ -327,6 +340,13 @@ INSTANCES = {
     **{("probe_mm_kernel", f"{i}{c}"): f"probe_mm<{v}{', carry' if c else ''}> (probe)"
        for i, v in enumerate(("ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32", "bf16"))
        for c in (0, 1)},
+    **{("probe_fma_kernel", f"{i}{c}"): f"probe_fma<{lay}, {'carry' if c else 'one pass'}> (probe)"
+       for i, lay in enumerate(("feat", "edge")) for c in (0, 1)},
+    ("probe_vpu_kernel", ""): "probe_vpu (probe)",
+    **{("probe_gather_rows_kernel", f"{i}{st}"):
+       f"probe_gather_rows<{v}{', streaming' if st else ''}> (probe)"
+       for i, v in enumerate(("ldg", "cp_async")) for st in (0, 1)},
+    ("probe_gather_cols_kernel", ""): "probe_gather_cols (probe)",
 }
 
 
@@ -1505,10 +1525,257 @@ def probe_phase(dev, card: str):
     return recs, launches
 
 
+FILL_THREADS_PER_SM = 16 * 1024  # threads the FMA probes' fill copies give each SM
+
+
+def sass_counts(so):
+    """fp32 instructions (FFMA, FADD, FMUL) of every kernel in library
+    ``so``, and the FFMAs that read an operand from the reuse cache (a
+    ``.reuse`` flag on the FFMA before: one register read fewer), from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    counts, fn = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict(FFMA=0, FADD=0, FMUL=0, reuse=0)
+            reuse = False
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
+        if m and fn is not None and m.group(1) in ("FFMA", "FADD", "FMUL"):
+            counts[fn][m.group(1)] += 1
+            counts[fn]["reuse"] += m.group(1) == "FFMA" and reuse
+            reuse = m.group(1) == "FFMA" and ".reuse" in ln
+    return counts
+
+
+def check_equal(tag: str, got, want) -> float:
+    """A gather copies bits: ``got`` equals ``want`` exactly (NaN in neither);
+    returns the max abs error, 0. Raises SystemExit otherwise."""
+    import torch
+
+    ok = got.shape == want.shape and bool(torch.equal(got, want))
+    log(f"  {tag}: bitwise equal to plain: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{tag} differs from its plain version")
+    return 0.0
+
+
+def fma_gather_phase(dev, card: str):
+    """The FMA-rate and gather probes. First each kernel against its plain
+    version at every shape of its TPU script (chains within fma_rate.TOL of
+    max |plain|: F1 at mul 128, 64 and 32, F2 and F3; gathers bitwise: G1 in
+    both variants with and without streaming stores, G2, G3 in both
+    variants; launches not counted), then the probe path with the counts
+    from 0, each site timed on the device alone by its script's method
+    (CUDA graphs): F1 250 against 50 calls, F2, G2′ and G3 240 against 40,
+    G1 16 against 4, F3 one graph of 8 calls, G2 one call alone; one copy,
+    the contract, and the copies that fill the card (FMA probes: 16 K
+    threads an SM; small gathers: a CTA or more an SM), the SM clock read
+    before and after the FMA probes; beside them the plain versions and,
+    for the gathers, index_select (into a preallocated output). Returns
+    (records by kernels-line key, launches by key)."""
+    import math
+
+    import torch
+
+    from sevennet_tpu_torch.probes import fma_rate as fr
+    from sevennet_tpu_torch.probes import gather as ga
+    from sevennet_tpu_torch.probes._lib import graph_ms
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device="cpu").manual_seed(9)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, dtype=torch.int32).to(dev)
+
+    fma_in = {(lay, mul): tuple(rnd(*sh) for sh in fr.fma_shapes(lay, mul))
+              for lay in fr.LAYOUTS for mul in sorted({*fr.CHAIN_MULS, fr.PASS_MUL})}
+    va, vb = rnd(*fr.VPU_SHAPE), rnd(*fr.VPU_SHAPE)
+    n, d, t_rows = ga.ROWS_SHAPE
+    x, idx = rnd(n, d), ints(n, t_rows)
+    dx, w, t_tab = ga.TABLE_SHAPE
+    tbl_c, idx_c = rnd(dx, w), ints(w, 1, t_tab)  # p1: (DX, W), idx (1, T)
+    tbl_r, idx_r = rnd(w, dx), ints(w, t_tab, 1)  # p2: (W, DX), idx (T, 1)
+
+    errs = {}
+    for lay in fr.LAYOUTS:
+        for mul in fr.CHAIN_MULS:
+            xx, tt = fma_in[(lay, mul)]
+            errs[("chain", lay, mul)] = check_close(
+                f"probe fma_chain {lay} mul {mul}", "out", fr.fma_chain(xx, tt, lay),
+                fr.fma_chain(xx, tt, lay, plain=True), fr.TOL)
+        xx, tt = fma_in[(lay, fr.PASS_MUL)]
+        errs[("pass", lay)] = check_close(f"probe fma_pass {lay} mul {fr.PASS_MUL}", "out",
+                                          fr.fma_pass(xx, tt, lay),
+                                          fr.fma_pass(xx, tt, lay, plain=True), fr.TOL)
+    errs["vpu"] = check_close(f"probe vpu_chain {fr.VPU_SHAPE}", "out", fr.vpu_chain(va, vb),
+                              fr.vpu_chain(va, vb, plain=True), fr.TOL)
+    want = ga.gather_rows_plain(x, idx)
+    out = torch.empty_like(want)
+    for v in ga.VARIANTS:
+        for st in (True, False):
+            out.fill_(float("nan"))
+            errs[("rows", v, st)] = check_equal(
+                f"probe gather_rows {v}{' stcs' if st else ''} {n}x{d} T {t_rows}",
+                ga.gather_rows(x, idx, v, st, out=out), want)
+    del want
+    errs["cols"] = check_equal(f"probe gather_cols {dx}x{w} T {t_tab}",
+                               ga.gather_cols(tbl_c, idx_c), ga.gather_cols_plain(tbl_c, idx_c))
+    for v in ga.VARIANTS:
+        errs[("small_rows", v)] = check_equal(f"probe gather_rows {v} {w}x{dx} T {t_tab}",
+                                              ga.gather_rows(tbl_r, idx_r, v),
+                                              ga.gather_rows_plain(tbl_r, idx_r))
+
+    # the probe path, counts from 0
+    for fn in (fr.fma_chain, fr.fma_pass):
+        fn.launches, fn.by_layout = 0, dict.fromkeys(fr.LAYOUTS, 0)
+    fr.vpu_chain.launches = ga.gather_cols.launches = ga.gather_rows.launches = 0
+    ga.gather_rows.by_variant = dict.fromkeys(ga.VARIANTS, 0)
+    recs, launches = {}, {}
+    log(f"  SM clock before the FMA probes (now, max): {nvidia_smi('clocks.sm,clocks.max.sm')}")
+
+    def fma_rec(key, fn, timer, xx, tt, lay, fl_one, nbytes, mul, **kw):
+        fill = max(1, math.ceil(FILL_THREADS_PER_SM * n_sm / (xx.numel() // fr.E)))
+        ms = timer(lambda: fn(xx, tt, lay, **kw))
+        ms_fill = timer(lambda: fn(xx, tt, lay, copies=fill, **kw))
+        rate, rate_fill = fl_one / ms / 1e9, fl_one * fill / ms_fill / 1e9
+        log(f"  probe {fn.__name__} {lay} mul {mul}: {ms:.5f} ms per call, {rate:.2f} TFLOP/s "
+            f"(1 copy, {xx.numel() // fr.E} threads); {fill} copies: {ms_fill:.5f} ms, "
+            f"{rate_fill:.2f} TFLOP/s per card = {rate_fill / FP32_PEAK * 1e12:.1%} of "
+            f"{FP32_PEAK / 1e12:.0f}, {rate_fill / n_sm * 1e3:.1f} GFLOP/s card rate / {n_sm} "
+            f"SMs (derived) | {card}")
+        if key is not None:
+            plain = cuda_time(lambda: fn(xx, tt, lay, plain=True, **kw), 2)
+            bnd = max((fl_one / FP32_PEAK * 1e3, "operations"),
+                      (nbytes / HBM_BYTES_S * 1e3, "bytes"))
+            recs[key] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=None, err=errs[key],
+                             name=f"{fn.__name__} {lay}-major (mul {mul}, T {fr.T})")
+
+    for lay in fr.LAYOUTS:
+        for mul in fr.CHAIN_MULS:
+            xx, tt = fma_in[(lay, mul)]
+            fma_rec(("chain", lay, mul) if mul == fr.CHAIN_MULS[0] else None, fr.fma_chain,
+                    fr.fma_time, xx, tt, lay, fr.fma_flops(mul, fr.REP), fr.fma_bytes(mul), mul)
+        xx, tt = fma_in[(lay, fr.PASS_MUL)]
+        fma_rec(("pass", lay), fr.fma_pass, fr.pass_time, xx, tt, lay, fr.fma_flops(fr.PASS_MUL),
+                fr.fma_bytes(fr.PASS_MUL), fr.PASS_MUL)
+    fl, nbytes = fr.vpu_work(va.numel())
+    ms = fr.vpu_time(lambda: fr.vpu_chain(va, vb))
+    plain = cuda_time(lambda: fr.vpu_chain(va, vb, plain=True), 2)
+    t_ops, t_bytes = fl / FP32_PEAK * 1e3, nbytes / HBM_BYTES_S * 1e3
+    log(f"  probe vpu_chain {fr.VPU_SHAPE}: {ms:.5f} ms per call; {fl / ms / 1e9:.2f} TFLOP/s "
+        f"counting FFMA and FADD 2 each ({t_ops / ms:.1%} of the fp32 bound {t_ops:.5f} ms), "
+        f"{nbytes / ms / 1e6:.1f} GB/s ({t_bytes / ms:.1%} of the HBM bound {t_bytes:.5f} ms); "
+        f"plain {plain:.4f} ms | {card}")
+    recs["vpu"] = dict(ms=ms, plain_ms=plain, bound=max((t_ops, "operations"), (t_bytes, "bytes")),
+                       library_ms=None, err=errs["vpu"], name=f"vpu_chain {fr.VPU_SHAPE}")
+    log(f"  SM clock after the FMA probes (now, max): {nvidia_smi('clocks.sm,clocks.max.sm')}")
+    for key, fn in (("chain", fr.fma_chain), ("pass", fr.fma_pass)):
+        for lay in fr.LAYOUTS:
+            launches[(key, lay, fr.CHAIN_MULS[0]) if key == "chain" else (key, lay)] = \
+                fn.by_layout[lay]
+    launches["vpu"] = fr.vpu_chain.launches
+
+    # G1: SevenNet-0's x[src] at 9,999 atoms, into one preallocated output
+    nbytes = ga.gather_bytes(x, idx, 0)
+    bnd = (nbytes / HBM_BYTES_S * 1e3, "bytes")
+    lib = ga.gather_time(lambda: torch.index_select(x, 0, idx, out=out))
+    plain = cuda_time(lambda: ga.gather_rows_plain(x, idx), 2)
+    for v in ga.VARIANTS:
+        t_st = {}
+        for st in (True, False):
+            t_st[st] = ga.gather_time(lambda: ga.gather_rows(x, idx, v, st, out=out))
+        log(f"  probe gather_rows {v} {n}x{d} T {t_rows}: {t_st[True]:.5f} ms with streaming "
+            f"stores ({nbytes / t_st[True] / 1e6:.1f} GB/s, {bnd[0] / t_st[True]:.1%} of HBM), "
+            f"{t_st[False]:.5f} ms without ({nbytes / t_st[False] / 1e6:.1f} GB/s); "
+            f"index_select {lib:.5f} ms ({nbytes / lib / 1e6:.1f} GB/s); plain {plain:.4f} ms; "
+            f"bound {bnd[0]:.5f} ms | {card}")
+        recs[("rows", v)] = dict(ms=t_st[True], plain_ms=plain, bound=bnd, library_ms=lib,
+                                 err=errs[("rows", v, True)],
+                                 name=f"gather_rows {v}, streaming stores ({n}x{d}, T {t_rows})")
+        launches[("rows", v)] = ga.gather_rows.by_variant[v]
+    del out
+    torch.cuda.empty_cache()
+
+    # G2, G2', G3: the resident-table gathers, 3 MB a call
+    out_c, out_r = torch.empty(dx, t_tab, device=dev), torch.empty(t_tab, dx, device=dev)
+    sites = (
+        ("cols_one", lambda **kw: ga.gather_cols(tbl_c, idx_c, **kw), tbl_c, idx_c, 1, out_c,
+         lambda: torch.index_select(tbl_c, 1, idx_c[0], out=out_c),
+         lambda: ga.gather_cols_plain(tbl_c, idx_c)),
+        ("cols", lambda **kw: ga.gather_cols(tbl_c, idx_c, **kw), tbl_c, idx_c, 1, out_c,
+         lambda: torch.index_select(tbl_c, 1, idx_c[0], out=out_c),
+         lambda: ga.gather_cols_plain(tbl_c, idx_c)),
+        ("small_rows", lambda **kw: ga.gather_rows(tbl_r, idx_r, **kw), tbl_r, idx_r, 0, out_r,
+         lambda: torch.index_select(tbl_r, 0, idx_r[:, 0], out=out_r),
+         lambda: ga.gather_rows_plain(tbl_r, idx_r)),
+    )
+    for key, fn, table, ix, axis, o, lib_fn, plain_fn in sites:
+        before = (ga.gather_cols.launches, ga.gather_rows.launches)
+        nbytes = ga.gather_bytes(table, ix, axis)
+        if key == "cols_one":  # p1's single call: one launch alone, best of 20
+            ms = graph_ms(lambda: fn(out=o), 1, replays=20)
+            lib = graph_ms(lib_fn, 1, replays=20)
+            fill, ms_fill = 1, ms
+        else:
+            ms = ga.gather_time(lambda: fn(out=o), ga.TABLE_TIMING)
+            lib = ga.gather_time(lib_fn, ga.TABLE_TIMING)
+            per_copy = (dx + 7) // 8 if axis == 1 else math.ceil(t_tab / 8)  # CTAs of one copy
+            fill = max(1, math.ceil(2 * n_sm / per_copy))
+            o_fill = torch.empty((fill, *o.shape), device=dev)
+            ms_fill = ga.gather_time(lambda: fn(copies=fill, out=o_fill), ga.TABLE_TIMING)
+            del o_fill
+        plain = cuda_time(plain_fn, 5)
+        bnd = (nbytes / HBM_BYTES_S * 1e3, "bytes")
+        fill_bytes = ga.gather_bytes(table, ix, axis, fill)
+        log(f"  probe {key} {tuple(table.shape)} T {ix.numel()}: {ms * 1e3:.3f} us per call "
+            f"({nbytes / ms / 1e6:.1f} GB/s, {bnd[0] / ms:.1%} of HBM); {fill} copies "
+            f"{ms_fill * 1e3:.3f} us ({fill_bytes / ms_fill / 1e6:.1f} GB/s); library "
+            f"{lib * 1e3:.3f} us; plain {plain * 1e3:.3f} us; bound {bnd[0] * 1e3:.3f} us | {card}")
+        recs[key] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
+                         err=errs["cols" if key.startswith("cols") else ("small_rows", "ldg")],
+                         name=f"gather_{'cols' if axis else 'rows ldg'} ({tuple(table.shape)}, "
+                              f"T {ix.numel()}){', one call alone' if key == 'cols_one' else ''}")
+        launches[key] = (ga.gather_cols.launches + ga.gather_rows.launches) - sum(before)
+    if not all(launches.values()):
+        raise SystemExit(f"an FMA or gather probe kernel was never launched on the probe path: "
+                         f"{launches}")
+    log(f"  FMA and gather probes: peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del x, idx, va, vb
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
 FWD_CU = "sevennet_tpu_torch/csrc/fused_conv_fwd.cu"
 PROBE_MM_CU = "sevennet_tpu_torch/csrc/probe_mm.cu"
 PROBE_BD_CU = "sevennet_tpu_torch/csrc/probe_batched_dot.cu"
 BWD_CU = "sevennet_tpu_torch/csrc/fused_conv_bwd.cu"
+FMA_CU = "sevennet_tpu_torch/csrc/probe_fma.cu"
+GATHER_CU = "sevennet_tpu_torch/csrc/probe_gather.cu"
+# fma_gather_phase's record kinds -> (source, TPU kernel replaced)
+FG_SITES = {
+    "chain": (FMA_CU, "scripts_dev/r2_pallas_fma.py:72"),
+    "pass": (FMA_CU, "scripts_dev/r2_pallas_caps.py:127"),
+    "vpu": (FMA_CU, "scripts_dev/r4_vpu_roofline.py:28"),
+    "rows": (GATHER_CU, "scripts_dev/r3_gather_probe.py:27"),
+    "cols_one": (GATHER_CU, "scripts_dev/r2_pallas_caps.py:55"),
+    "cols": (GATHER_CU, "scripts_dev/r2_pallas_caps.py:68"),
+    "small_rows": (GATHER_CU, "scripts_dev/r2_pallas_caps.py:91"),
+}
 # kernels line entry -> (name, source, TPU kernel replaced, record and launch key)
 KERNEL_NAMES = {
     "fwd": ("fused_conv_fwd", FWD_CU, "sevennet_tpu/ops/fused_conv.py:678", "fwd"),
@@ -1554,6 +1821,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
+    t_start = time.perf_counter()
     log(f"device: {torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
@@ -1563,6 +1831,8 @@ def main() -> int:
     for row in ptxas_table(libs):
         log("  ptxas {instance}: {registers} registers, {stack} B stack, {spill_stores} B spill "
             "stores, {spill_loads} B spill loads".format(**row))
+    for fn, c in (sass_counts(libs["probe_fma"]) or {"cuobjdump": "not found"}).items():
+        log(f"  sass {fn}: {c}")
 
     spec = sevennet0_spec()
     params = params_from_numpy(spec, random_params(spec, args.seed))
@@ -1612,6 +1882,10 @@ def main() -> int:
     probe_records, probe_launches = probe_phase(dev, card)
     log(f"probe phase (the probe path): launches {probe_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fg_records, fg_launches = fma_gather_phase(dev, card)
+    log(f"FMA and gather probe phase (the probe path): launches {fg_launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
                 + md_small[k] + md_mid[k] + md_ring[k] for k in counters()}
     if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
@@ -1659,6 +1933,15 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         })
+    for key, r in fg_records.items():
+        kind = key[0] if isinstance(key, tuple) else key
+        source, replaces = FG_SITES[kind]
+        kernels_line.append({
+            "name": f"{r['name']} (probe)", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": fg_launches[key], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+        })
     log(f"kernel times are per pass of {N} atoms (K={K}, {n_edges} edges): "
         "layer 0 + 3 x layers 1-3 + layer 4 (fused_conv_bwd_slot: per force evaluation "
         "of the 99,999-atom ring, over its nb chunks); fused_conv_bwd_pg and fused_conv_bwd_embsh_pg include their "
@@ -1667,7 +1950,10 @@ def main() -> int:
         "ring steps at 99,999); the SevenNet-l3i5 rows per pass of its layer shapes on the "
         "same box, launches from its requests; the probe rows per call at their first shape, "
         "launches from the probe path, library_ms the same work as torch.matmul (16 products; "
-        "TF32 on for the tf32 and wgmma rows) or torch.bmm")
+        "TF32 on for the tf32 and wgmma rows) or torch.bmm; the FMA and gather probe rows per "
+        "call at their TPU script's first shape and method, library_ms torch.index_select into "
+        "a preallocated output, none for the FMA chains")
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the build to the kernels line")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,13 +24,13 @@ def check_device(plain: bool, *tensors) -> bool:
     return False
 
 
-def graph_ms(fn, n: int) -> float:
+def graph_ms(fn, n: int, replays: int = 1) -> float:
     """ms of ``n`` back-to-back calls of ``fn`` on the device alone: the
     calls are captured in one CUDA graph, whose replay is timed by CUDA
     events, so that the host's cost per call (the wrapper's checks and
-    allocation, the launch) is not in the time. ``fn`` runs once on a
-    side stream before the capture (build and first-launch set-up stay
-    out of the graph)."""
+    allocation, the launch) is not in the time; the least of ``replays``
+    replays. ``fn`` runs once on a side stream before the capture (build and
+    first-launch set-up stay out of the graph)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -41,9 +41,27 @@ def graph_ms(fn, n: int) -> float:
         for _ in range(n):
             fn()
     graph.replay()  # warm
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
+    best = float("inf")
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def diff_ms(fn, n1: int, n2: int, tries: int) -> float:
+    """Device ms per call of ``fn``, the TPU probe scripts' differential
+    method: the difference of ``n2`` and ``n1`` back-to-back calls over ``n2
+    - n1``, best of ``tries``, after one call as warm-up, which removes the
+    fixed cost of a run; each run of calls is one CUDA graph
+    (:func:`graph_ms`)."""
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    best = float("inf")
+    for _ in range(tries):
+        t1, t2 = graph_ms(fn, n1), graph_ms(fn, n2)
+        best = min(best, (t2 - t1) / (n2 - n1))
+    return best

@@ -32,7 +32,7 @@ from typing import Tuple
 import torch
 
 from ..ops.kernels import call
-from ._lib import check_device, graph_ms, stream
+from ._lib import check_device, diff_ms, stream
 
 __all__ = ["VARIANTS", "PROBE_TOL", "REP", "MM_SHAPES", "CHAIN_SHAPES", "BF16_SHAPES",
            "mm_plain", "mm_rate", "mm_chain", "mm_time", "mm_tiles", "mm_flops"]
@@ -157,16 +157,8 @@ def mm_flops(m: int, k: int, n: int, rep: int = REP, copies: int = 1) -> int:
 def mm_time(fn, n1: int = 50, n2: int = 250, tries: int = 3) -> float:
     """Device ms per call of ``fn`` (a call of :func:`mm_rate` or
     :func:`mm_chain` on the card, or library calls), the TPU script's
-    method: the difference of ``n2`` and ``n1`` back-to-back calls over
-    ``n2 - n1``, best of ``tries``, after one call as warm-up; each run of
-    calls is one CUDA graph (``_lib.graph_ms``)."""
-    fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(tries):
-        t1, t2 = graph_ms(fn, n1), graph_ms(fn, n2)
-        best = min(best, (t2 - t1) / (n2 - n1))
-    return best
+    method (``_lib.diff_ms``): 250 against 50 calls, best of 3."""
+    return diff_ms(fn, n1, n2, tries)
 
 
 def shapes(variant: str, chain: bool) -> Tuple[Tuple[int, int, int], ...]:

@@ -466,3 +466,81 @@ def test_batched_dot_matches_plain(cuda):
         assert bd.batched_dot.launches == n0 + 1
         for y, w in zip(got, want):
             np.testing.assert_allclose(y.cpu(), w.cpu(), rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("layout", ["feat", "edge"])
+def test_probe_fma_matches_plain(cuda, layout):
+    """The FMA-rate probe's carried chain (r2_pallas_fma's fma, 4 reps) and
+    one pass (r2_pallas_caps's fma_probe), both layouts, with copies and at a
+    width whose threads leave a CTA partly idle, against the torch loops
+    (fma_rate.TOL)."""
+    from sevennet_tpu_torch.probes import fma_rate as fr
+
+    rng = np.random.default_rng(9)
+    for mul, t_len, copies in ((32, 256, 1), (8, 100, 3)):
+        xs, ts = fr.fma_shapes(layout, mul, t_len)
+        x = torch.tensor(rng.normal(size=xs), dtype=torch.float32, device=cuda)
+        t = torch.tensor(rng.normal(size=ts), dtype=torch.float32, device=cuda)
+        for fn, kw in ((fr.fma_chain, dict(rep=4)), (fr.fma_pass, {})):
+            n0 = fn.launches
+            got = fn(x, t, layout, copies=copies, **kw)
+            want = fn(x, t, layout, copies=copies, plain=True, **kw)
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1 and got.shape == want.shape
+            np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0,
+                                       atol=fr.TOL * float(want.abs().max()))
+
+
+def test_probe_vpu_matches_plain(cuda):
+    """The elementwise chain (r4_vpu_roofline's kernel) on more elements than
+    its resident CTAs take in one sweep, some |a| small enough that the 1e-9
+    bump moves it, against the torch loop (fma_rate.TOL)."""
+    from sevennet_tpu_torch.probes import fma_rate as fr
+
+    rng = np.random.default_rng(10)
+    a = rng.normal(size=(3000, 300)) * np.where(rng.random((3000, 300)) < 0.3, 1e-3, 1.0)
+    a = torch.tensor(a, dtype=torch.float32, device=cuda)
+    b = torch.tensor(rng.normal(size=(3000, 300)), dtype=torch.float32, device=cuda)
+    n0 = fr.vpu_chain.launches
+    got = fr.vpu_chain(a, b)
+    want = fr.vpu_chain(a, b, plain=True)
+    torch.cuda.synchronize()
+    assert fr.vpu_chain.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=fr.TOL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("streaming", [True, False], ids=["stcs", "st"])
+@pytest.mark.parametrize("variant", ["ldg", "cp_async"])
+def test_probe_gather_rows_matches_plain(cuda, variant, streaming):
+    """The row gather, both variants, with and without streaming stores,
+    at a width of several float4 sweeps a lane, a narrow one, with copies and
+    into a preallocated output: bitwise equal to index_select."""
+    from sevennet_tpu_torch.probes import gather as ga
+
+    rng = np.random.default_rng(11)
+    for n, d, t, copies in ((1000, 1040, 5000, 1), (64, 24, 333, 2)):
+        x = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32, device=cuda)
+        idx = torch.tensor(rng.integers(0, n, size=t), dtype=torch.int32, device=cuda)
+        want = ga.gather_rows(x, idx, copies=copies, plain=True)
+        out = torch.full(want.shape, float("nan"), device=cuda)
+        n0 = ga.gather_rows.by_variant[variant]
+        got = ga.gather_rows(x, idx, variant=variant, streaming=streaming, copies=copies, out=out)
+        torch.cuda.synchronize()
+        assert got is out and ga.gather_rows.by_variant[variant] == n0 + 1
+        assert torch.equal(got, want)
+
+
+def test_probe_gather_cols_matches_plain(cuda):
+    """The column gather from shared-memory bands, a row count that leaves
+    the last band short, with copies: bitwise equal to index_select."""
+    from sevennet_tpu_torch.probes import gather as ga
+
+    rng = np.random.default_rng(12)
+    for d, w, t, copies in ((37, 512, 1000, 1), (480, 64, 33, 3)):
+        tbl = torch.tensor(rng.normal(size=(d, w)), dtype=torch.float32, device=cuda)
+        idx = torch.tensor(rng.integers(0, w, size=(1, t)), dtype=torch.int32, device=cuda)
+        n0 = ga.gather_cols.launches
+        got = ga.gather_cols(tbl, idx, copies=copies)
+        want = ga.gather_cols(tbl, idx, copies=copies, plain=True)
+        torch.cuda.synchronize()
+        assert ga.gather_cols.launches == n0 + 1 and torch.equal(got, want)
