@@ -72,6 +72,13 @@
    row gather at SevenNet-0's 9,999-atom x[src] shape with and without
    streaming stores, beside torch.index_select. The SASS of the FMA
    kernels (``cuobjdump``) is counted after the build.
+   Then the K-reduction, transpose and fold probes (``probes/reduce.py``,
+   ``probes/xpose.py``, ``probes/fold.py``, ``probes/fold_conv.py``): each
+   variant against its plain version at every shape of its TPU script (sums
+   within 1e-5 of max |plain|, the conv fold 1e-4, streamed transposes
+   bitwise), the conv fold also against B4 fwd on the same x[src]; then with
+   the counts from 0 each timed by its script's method beside the library
+   calls (torch.sum, x.t().contiguous(), x.clone()).
 8. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -347,6 +354,15 @@ INSTANCES = {
        f"probe_gather_rows<{v}{', streaming' if st else ''}> (probe)"
        for i, v in enumerate(("ldg", "cp_async")) for st in (0, 1)},
     ("probe_gather_cols_kernel", ""): "probe_gather_cols (probe)",
+    ("probe_reduce_rows_kernel", "0"): "probe_reduce_rows<kreduce> (probe)",
+    ("probe_reduce_rows_kernel", "1"): "probe_reduce_rows<scaled> (subreduce, probe)",
+    ("probe_reduce_lanes_kernel", ""): "probe_reduce_lanes (lanereduce, probe)",
+    **{("probe_xpose_kernel", f"{i}{pad}"): f"probe_xpose<{mode}, pad {pad}> (probe)"
+       for i, mode in enumerate(("xpose", "round trip", "carry")) for pad in (0, 1)},
+    **{("probe_fold_roll_kernel", str(k)): f"probe_fold_roll<K {k}> (probe)" for k in (8, 9, 72)},
+    **{("probe_fold_mma_kernel", str(p)): f"probe_fold_mma<{p} pieces> (probe)" for p in (2, 3)},
+    **{("probe_fold_conv_kernel", str(i)): f"probe_fold_conv<{v}> (probe)"
+       for i, v in enumerate(("sliceadd", "group4", "group8"))},
 }
 
 
@@ -1760,12 +1776,227 @@ def fma_gather_phase(dev, card: str):
     return recs, launches
 
 
+def reduce_fold_xpose_phase(dev, card: str):
+    """The K-reduction, transpose and fold probes (``probes/reduce.py``,
+    ``probes/xpose.py``, ``probes/fold.py``, ``probes/fold_conv.py``). First
+    each kernel and variant against its plain version at every shape of its
+    TPU script (sums within 1e-5 of max |plain|, the conv fold 1e-4, the
+    streamed transposes bitwise, the carried one 1e-6; kreduce also on an
+    input whose carry crosses CTAs; the fold's mxu variants printed against
+    roll as the script prints them; the conv fold against B4 fwd on the same
+    x[src], 1e-4 of max |B4|; launches not counted), then the probe path
+    with the counts from 0: each timed by its script's method on the device
+    alone (CUDA graphs: the r2 sites 250 against 50 calls, the fold sites 9
+    against 3, the streamed transposes 8 calls over 8), beside the plain
+    versions and the library calls (16 torch.sum over the reshaped K axis in
+    one graph; 16 x.t().contiguous(); x.t().contiguous(); x.clone();
+    torch.sum over K for the fold, without its column map; every plain
+    version warm, the mean of 3 or 5 calls after one). Bounds: each
+    function's own work, whatever the method (the fold's K - 1 adds a
+    column for every variant; the conv fold the work of B4 fwd's function,
+    products at the 3xTF32 rate as B4's bound counts them). Returns (records
+    by kernels-line key, launches by key)."""
+    import torch
+
+    from sevennet_tpu_torch.ops import fused_conv as fc
+    from sevennet_tpu_torch.probes import fold as fo
+    from sevennet_tpu_torch.probes import fold_conv as fcv
+    from sevennet_tpu_torch.probes import reduce as rd
+    from sevennet_tpu_torch.probes import xpose as xp
+    from sevennet_tpu_torch.probes._lib import FOLD_TIME, R2_TIME, diff_ms
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device="cpu").manual_seed(10)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    s_chk = torch.full((1, 1), 1e-3, device=dev)  # checks: the (1 + s i) factor moves
+    s = torch.zeros((1, 1), device=dev)  # timing: the TPU scripts' s (r2_pallas_mm.py:97)
+    red_in = {("kreduce", m): rnd(rd.T, m) for m in rd.KREDUCE_MULS}
+    red_in.update({("subreduce", m): rnd(rd.T, m) for m in rd.SUB_MULS})
+    red_in.update({("lanereduce", r): rnd(r, rd.A * rd.LANE_K) for r in rd.LANE_ROWS})
+    red_fn = {"kreduce": lambda x, ss, **kw: rd.kreduce(x, **kw),
+              "subreduce": lambda x, ss, **kw: rd.subreduce(x, ss, **kw),
+              "lanereduce": lambda x, ss, **kw: rd.lanereduce(x, ss, **kw)}
+    errs = {}
+    for (kind, n), x in red_in.items():
+        err = check_close(f"probe {kind} {tuple(x.shape)}", "out", red_fn[kind](x, s_chk),
+                          red_fn[kind](x, s_chk, plain=True), rd.TOL)
+        errs[kind] = max(errs.get(kind, 0.0), err)
+    xc = red_in[("kreduce", rd.KREDUCE_MULS[-1])].clone()
+    xc[: rd.T // rd.A, 0] = 1e8  # acc[0, 0] grows by about K a rep; 98 CTAs recompute it
+    got, want = rd.kreduce(xc), rd.kreduce(xc, plain=True)
+    errs["kreduce"] = max(errs["kreduce"], check_close(
+        f"probe kreduce carried across CTAs {tuple(xc.shape)}", "out", got, want, rd.TOL),
+        check_close(f"probe kreduce carried across CTAs {tuple(xc.shape)}", "columns 1:",
+                    got[:, 1:], want[:, 1:], rd.TOL))
+    del xc, got, want
+    car_in = {shape: rnd(*shape) for shape in xp.CARRY_SHAPES}
+    for v in xp.VARIANTS:
+        for shape, a in car_in.items():
+            err = check_close(f"probe transpose {v} {shape}", "out",
+                              xp.transpose_carry(a, s_chk, v),
+                              xp.transpose_carry(a, s_chk, v, plain=True), xp.CARRY_TOL)
+            errs[("transpose", v)] = max(errs.get(("transpose", v), 0.0), err)
+    xs = rnd(*xp.STREAM_SHAPE, scale=0.3)
+    out_t = torch.empty(xs.shape[1], xs.shape[0], device=dev)
+    out_s = torch.empty_like(xs)
+    for v in xp.VARIANTS:
+        for key, fn, o in (("xpose", xp.xpose, out_t), ("xpose2", xp.xpose2, out_s)):
+            o.fill_(float("nan"))
+            errs[(key, v)] = check_equal(f"probe {key} {v} {xp.STREAM_SHAPE}", fn(xs, v, out=o),
+                                         fn(xs, v, plain=True))
+    torch.cuda.empty_cache()
+
+    # the fold at r3_fold_probe.py's shape: x (NB T, DM / 8), 1.154 GB
+    nb, t_rows = fo.N // fo.A, fo.A * fo.K
+    fx = rnd(nb * t_rows, fo.DM // 8, scale=0.5)
+    fm = fo.fold_matrix(fo.K, fo.A, dev)
+    out_f = torch.empty(fo.N, fo.DM, device=dev)
+    roll = None
+    for v in fo.VARIANTS:
+        want = fo.fold(fx, fm, variant=v, plain=True)
+        errs[("fold", v)] = check_close(f"probe fold {v} {tuple(fx.shape)}", "out",
+                                        fo.fold(fx, fm, variant=v, out=out_f), want, fo.TOL)
+        if v == "roll":
+            roll = out_f.clone()
+        elif v != "bigroll":
+            rel = float((out_f - roll).abs().max()) / float(roll.abs().max())
+            log(f"  probe fold {v} max rel err vs roll: {rel:.2e}")
+        del want
+    del roll
+    torch.cuda.empty_cache()
+
+    # the conv fold at r4_fold_probe.py's shape, and B4 fwd on the same x[src]
+    conv, mlp = fcv.sevennet0_conv()
+    n, k = fcv.N, fcv.K
+    x = rnd(n, conv.irreps_x.dim, scale=0.5)
+    src = torch.randint(0, n, (n, k), generator=gen, dtype=torch.int32).to(dev)
+    xg = x[src.reshape(-1).long()].contiguous()
+    emb, sh = rnd(n * k, mlp.dims[0], scale=0.3), rnd(n * k, conv.irreps_filter.dim, scale=0.5)
+    ws = [rnd(a, b) for a, b in zip(mlp.dims[:-1], mlp.dims[1:])]
+    w3j = torch.as_tensor(fcv._tables(conv)[1], device=dev)
+    op = fc.conv_op(conv, mlp, None)
+    b4 = fc.fused_conv_fwd_embsh(op, x, src, emb, sh, ws)
+    for v in fcv.VARIANTS:
+        got = fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v)
+        want = fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v, plain=True)
+        errs[("fold_conv", v)] = check_close(f"probe fold_conv {v} N {n} K {k}", "out", got,
+                                             want, fcv.TOL)
+        del want
+        check_close(f"probe fold_conv {v} N {n} K {k}", "against B4 fwd", got, b4, fcv.TOL)
+        del got
+    torch.cuda.empty_cache()
+
+    # the probe path, counts from 0
+    for fn in (rd.kreduce, rd.subreduce, rd.lanereduce):
+        fn.launches = 0
+    for mod, fns in ((xp, (xp.transpose_carry, xp.xpose, xp.xpose2)), (fo, (fo.fold,)),
+                     (fcv, (fcv.fold_conv,))):
+        for fn in fns:
+            fn.launches, fn.by_variant = 0, dict.fromkeys(mod.VARIANTS, 0)
+    recs = {}
+    first = {"kreduce": rd.KREDUCE_MULS[0], "subreduce": rd.SUB_MULS[0],
+             "lanereduce": rd.LANE_ROWS[0]}  # the kernels line's shape: the script's first
+    for (kind, n_), xr in red_in.items():
+        k_ = (xr.shape[0] if kind != "lanereduce" else xr.shape[1]) // rd.A
+        ms = diff_ms(lambda: red_fn[kind](xr, s), *R2_TIME)
+        view = (xr.view(rd.A, k_, -1), 1) if kind != "lanereduce" else (xr.view(-1, rd.A, k_), 2)
+        lib = diff_ms(lambda: [view[0].sum(view[1]) for _ in range(rd.REP)], *R2_TIME)
+        plain = cuda_time(lambda: red_fn[kind](xr, s, plain=True), 5)
+        n_out = rd.A * xr.shape[1] if kind != "lanereduce" else xr.shape[0] * rd.A
+        fl, nbytes = rd.reduce_work(xr.numel(), n_out)
+        bnd = bound_ms(fl, nbytes)
+        log(f"  probe {kind} {tuple(xr.shape)} K {k_}: {ms * 1e3:.3f} us per call "
+            f"({ms * 1e3 / rd.REP:.3f} us per reduce, {nbytes / ms / 1e6:.1f} GB/s); 16 torch.sum "
+            f"{lib * 1e3:.3f} us; plain {plain:.4f} ms; bound {bnd[0] * 1e3:.3f} us by {bnd[1]} | "
+            f"{card}")
+        if n_ == first[kind]:
+            recs[kind] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=lib, err=errs[kind],
+                              name=f"{kind} {tuple(xr.shape)}, K {k_}, REP {rd.REP}")
+    for shape, a in car_in.items():
+        lib = diff_ms(lambda: [a.t().contiguous() for _ in range(xp.REP)], *R2_TIME)
+        plain = cuda_time(lambda: xp.transpose_carry(a, s, plain=True), 5)
+        fl, nbytes = xp.xpose_work(a.numel(), carried=True)
+        bnd = bound_ms(fl, nbytes)
+        for v in xp.VARIANTS:
+            ms = diff_ms(lambda: xp.transpose_carry(a, s, v), *R2_TIME)
+            log(f"  probe transpose {v} {shape}: {ms * 1e3:.3f} us per call "
+                f"({ms * 1e3 / xp.REP:.3f} us per transpose); 16 x.t().contiguous() "
+                f"{lib * 1e3:.3f} us; plain {plain:.4f} ms; bound {bnd[0] * 1e3:.3f} us by "
+                f"{bnd[1]} | {card}")
+            if shape == xp.CARRY_SHAPES[0]:
+                recs[("transpose", v)] = dict(
+                    ms=ms, plain_ms=plain, bound=bnd, library_ms=lib, err=errs[("transpose", v)],
+                    name=f"transpose {v} {shape}, REP {xp.REP}")
+    nbytes = xp.xpose_work(xs.numel())[1]
+    bnd = bound_ms(0, nbytes)
+    for key, fn, o, lib_fn in (("xpose", xp.xpose, out_t, lambda: xs.t().contiguous()),
+                               ("xpose2", xp.xpose2, out_s, lambda: xs.clone())):
+        lib = xp.stream_time(lib_fn)
+        plain = cuda_time(lambda: fn(xs, plain=True), 3)
+        for v in xp.VARIANTS:
+            ms = xp.stream_time(lambda: fn(xs, v, out=o))
+            log(f"  probe {key} {v} {xp.STREAM_SHAPE}: {ms:.5f} ms per call "
+                f"({nbytes / ms / 1e6:.1f} GB/s, {bnd[0] / ms:.1%} of HBM); library "
+                f"{lib:.5f} ms; plain {plain:.4f} ms; bound {bnd[0]:.5f} ms | {card}")
+            recs[(key, v)] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
+                                  err=errs[(key, v)], name=f"{key} {v} {xp.STREAM_SHAPE}")
+    del xs, out_t, out_s
+    torch.cuda.empty_cache()
+    lib = diff_ms(lambda: fx.view(nb, fo.K, fo.A, -1).sum(1), *FOLD_TIME)
+    fl, nbytes = fo.fold_work(nb)
+    bnd = bound_ms(fl, nbytes)
+    for v in fo.VARIANTS:
+        ms = diff_ms(lambda: fo.fold(fx, fm, variant=v, out=out_f), *FOLD_TIME)
+        plain = cuda_time(lambda: fo.fold(fx, fm, variant=v, plain=True), 3)
+        log(f"  probe fold {v} {tuple(fx.shape)} -> {tuple(out_f.shape)}: {ms:.4f} ms per call "
+            f"({nbytes / ms / 1e6:.1f} GB/s, {bnd[0] / ms:.1%} of the bound); "
+            f"torch.sum over K (fold only, no column map) {lib:.4f} ms; plain {plain:.4f} ms; "
+            f"bound {bnd[0]:.4f} ms by {bnd[1]} | {card}")
+        recs[("fold", v)] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
+                                 err=errs[("fold", v)], name=f"fold {v} (N {fo.N}, K {fo.K}, "
+                                                             f"DM {fo.DM})")
+    del fx, out_f
+    torch.cuda.empty_cache()
+    fl, nbytes = fcv.fold_conv_work(conv, mlp.dims, n, k)
+    bnd = bound_ms(fl, nbytes, fl)  # as work("fwd_embsh") bounds B4 fwd: products at 3xTF32
+    b4_ms = cuda_time(lambda: fc.fused_conv_fwd_embsh(op, x, src, emb, sh, ws), 3)
+    for v in fcv.VARIANTS:
+        ms = diff_ms(lambda: fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v), *FOLD_TIME)
+        plain = cuda_time(lambda: fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v, plain=True), 3)
+        log(f"  probe fold_conv {v} N {n} K {k}: {ms:.4f} ms per call ({fl / ms / 1e9:.2f} "
+            f"TFLOP/s, {bnd[0] / ms:.1%} of the bound {bnd[0]:.4f} ms by {bnd[1]}); B4 fwd on "
+            f"x[src] {b4_ms:.4f} ms; plain {plain:.4f} ms | {card}")
+        recs[("fold_conv", v)] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=None,
+                                      err=errs[("fold_conv", v)],
+                                      name=f"fold_conv {v} (SevenNet-0 layer, N {n}, K {k})")
+    launches = {"kreduce": rd.kreduce.launches, "subreduce": rd.subreduce.launches,
+                "lanereduce": rd.lanereduce.launches}
+    for key, fn in (("transpose", xp.transpose_carry), ("xpose", xp.xpose),
+                    ("xpose2", xp.xpose2), ("fold", fo.fold), ("fold_conv", fcv.fold_conv)):
+        launches.update({(key, v): c for v, c in fn.by_variant.items()})
+    if not all(launches.values()):
+        raise SystemExit(f"a reduction, transpose or fold probe kernel was never launched on the "
+                         f"probe path: {launches}")
+    log(f"  reduction, transpose and fold probes: peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del x, src, xg, emb, sh, ws, b4
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
 FWD_CU = "sevennet_tpu_torch/csrc/fused_conv_fwd.cu"
 PROBE_MM_CU = "sevennet_tpu_torch/csrc/probe_mm.cu"
 PROBE_BD_CU = "sevennet_tpu_torch/csrc/probe_batched_dot.cu"
 BWD_CU = "sevennet_tpu_torch/csrc/fused_conv_bwd.cu"
 FMA_CU = "sevennet_tpu_torch/csrc/probe_fma.cu"
 GATHER_CU = "sevennet_tpu_torch/csrc/probe_gather.cu"
+REDUCE_CU = "sevennet_tpu_torch/csrc/probe_reduce.cu"
+XPOSE_CU = "sevennet_tpu_torch/csrc/probe_xpose.cu"
+FOLD_CU = "sevennet_tpu_torch/csrc/probe_fold.cu"
+FOLD_CONV_CU = "sevennet_tpu_torch/csrc/probe_fold_conv.cu"
 # fma_gather_phase's record kinds -> (source, TPU kernel replaced)
 FG_SITES = {
     "chain": (FMA_CU, "scripts_dev/r2_pallas_fma.py:72"),
@@ -1775,6 +2006,17 @@ FG_SITES = {
     "cols_one": (GATHER_CU, "scripts_dev/r2_pallas_caps.py:55"),
     "cols": (GATHER_CU, "scripts_dev/r2_pallas_caps.py:68"),
     "small_rows": (GATHER_CU, "scripts_dev/r2_pallas_caps.py:91"),
+}
+# reduce_fold_xpose_phase's record kinds -> (source, TPU kernel replaced)
+RFX_SITES = {
+    "kreduce": (REDUCE_CU, "scripts_dev/r2_pallas_fma.py:94"),
+    "lanereduce": (REDUCE_CU, "scripts_dev/r2_pallas_mm.py:98"),
+    "subreduce": (REDUCE_CU, "scripts_dev/r2_pallas_mm.py:120"),
+    "transpose": (XPOSE_CU, "scripts_dev/r2_pallas_mm.py:76"),
+    "xpose": (XPOSE_CU, "scripts_dev/r5_xpose_probe.py:96"),
+    "xpose2": (XPOSE_CU, "scripts_dev/r5_xpose_probe.py:114"),
+    "fold": (FOLD_CU, "scripts_dev/r3_fold_probe.py:85"),
+    "fold_conv": (FOLD_CONV_CU, "scripts_dev/r4_fold_probe.py:153"),
 }
 # kernels line entry -> (name, source, TPU kernel replaced, record and launch key)
 KERNEL_NAMES = {
@@ -1831,8 +2073,9 @@ def main() -> int:
     for row in ptxas_table(libs):
         log("  ptxas {instance}: {registers} registers, {stack} B stack, {spill_stores} B spill "
             "stores, {spill_loads} B spill loads".format(**row))
-    for fn, c in (sass_counts(libs["probe_fma"]) or {"cuobjdump": "not found"}).items():
-        log(f"  sass {fn}: {c}")
+    for lib_name in ("probe_fma", "probe_reduce", "probe_fold"):
+        for fn, c in (sass_counts(libs[lib_name]) or {"cuobjdump": "not found"}).items():
+            log(f"  sass {fn}: {c}")
 
     spec = sevennet0_spec()
     params = params_from_numpy(spec, random_params(spec, args.seed))
@@ -1885,6 +2128,10 @@ def main() -> int:
     t0 = time.perf_counter()
     fg_records, fg_launches = fma_gather_phase(dev, card)
     log(f"FMA and gather probe phase (the probe path): launches {fg_launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rfx_records, rfx_launches = reduce_fold_xpose_phase(dev, card)
+    log(f"reduction, transpose and fold probe phase (the probe path): launches {rfx_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
                 + md_small[k] + md_mid[k] + md_ring[k] for k in counters()}
@@ -1942,6 +2189,14 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
+    for key, r in rfx_records.items():
+        source, replaces = RFX_SITES[key[0] if isinstance(key, tuple) else key]
+        kernels_line.append({
+            "name": f"{r['name']} (probe)", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": rfx_launches[key], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+        })
     log(f"kernel times are per pass of {N} atoms (K={K}, {n_edges} edges): "
         "layer 0 + 3 x layers 1-3 + layer 4 (fused_conv_bwd_slot: per force evaluation "
         "of the 99,999-atom ring, over its nb chunks); fused_conv_bwd_pg and fused_conv_bwd_embsh_pg include their "
@@ -1952,7 +2207,10 @@ def main() -> int:
         "launches from the probe path, library_ms the same work as torch.matmul (16 products; "
         "TF32 on for the tf32 and wgmma rows) or torch.bmm; the FMA and gather probe rows per "
         "call at their TPU script's first shape and method, library_ms torch.index_select into "
-        "a preallocated output, none for the FMA chains")
+        "a preallocated output, none for the FMA chains; the reduction, transpose and fold "
+        "probe rows per call at their script's first shape and method, library_ms 16 torch.sum "
+        "or x.t().contiguous() in one graph (REP-16 sites), x.t().contiguous(), x.clone(), "
+        "torch.sum over K (the fold, without its column map), none for the conv fold")
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the build to the kernels line")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(gpu_line(), flush=True)

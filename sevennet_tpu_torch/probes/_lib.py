@@ -7,6 +7,12 @@ import ctypes
 
 import torch
 
+# (n1, n2, tries) of diff_ms for the TPU scripts' timing methods: the r2
+# scripts' difftime (r2_pallas_mm.py:14-29, r2_pallas_fma.py:19-34) and the
+# fold scripts' timed (r3_fold_probe.py:99-117, r4_fold_probe.py:167-187)
+R2_TIME = (50, 250, 3)
+FOLD_TIME = (3, 9, 3)
+
 
 def stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)

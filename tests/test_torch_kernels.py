@@ -544,3 +544,115 @@ def test_probe_gather_cols_matches_plain(cuda):
         want = ga.gather_cols(tbl, idx, copies=copies, plain=True)
         torch.cuda.synchronize()
         assert ga.gather_cols.launches == n0 + 1 and torch.equal(got, want)
+
+
+def _close_to(got, want, tol):
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=tol * float(want.abs().max()))
+
+
+def test_probe_reduce_matches_plain(cuda):
+    """The K reductions (r2_pallas_fma's kreduce, r2_pallas_mm's subreduce
+    and lanereduce) at K 16 and 128, over several CTAs, against the torch
+    loops (reduce.TOL); kreduce's carry, which each CTA recomputes, also on
+    the columns that only the carry moves far."""
+    from sevennet_tpu_torch.probes import reduce as rd
+
+    rng = np.random.default_rng(13)
+    s = torch.full((1, 1), 1e-3, device=cuda)
+    for k, mul in ((16, 40), (128, 300)):
+        x = rng.normal(size=(rd.A * k, mul)).astype(np.float32)
+        x[:k, 0] = 1e8  # acc[0, 0] grows by about K a rep
+        x = torch.tensor(x, device=cuda)
+        n0 = rd.kreduce.launches
+        got, want = rd.kreduce(x), rd.kreduce(x, plain=True)
+        torch.cuda.synchronize()
+        assert rd.kreduce.launches == n0 + 1
+        _close_to(got, want, rd.TOL)
+        _close_to(got[:, 1:], want[:, 1:], rd.TOL)
+        a = torch.tensor(rng.normal(size=(rd.A * k, mul)), dtype=torch.float32, device=cuda)
+        _close_to(rd.subreduce(a, s), rd.subreduce(a, s, plain=True), rd.TOL)
+    for k, rows in ((8, 37), (64, 20), (128, 129)):
+        a = torch.tensor(rng.normal(size=(rows, rd.A * k)), dtype=torch.float32, device=cuda)
+        n0 = rd.lanereduce.launches
+        got = rd.lanereduce(a, s)
+        torch.cuda.synchronize()
+        assert rd.lanereduce.launches == n0 + 1
+        _close_to(got, rd.lanereduce(a, s, plain=True), rd.TOL)
+
+
+@pytest.mark.parametrize("variant", ["pad0", "pad1"])
+def test_probe_xpose_matches_plain(cuda, variant):
+    """The transposes at ragged shapes and at the streamed width 480: the
+    carried form (r2_pallas_mm's transpose) within xpose.CARRY_TOL, xpose and
+    the round trip (r5_xpose_probe's xpose, xpose2) bitwise."""
+    from sevennet_tpu_torch.probes import xpose as xp
+
+    rng = np.random.default_rng(14)
+    s = torch.full((1, 1), 1e-3, device=cuda)
+    for r, c in ((70, 45), (96, 480)):
+        a = torch.tensor(rng.normal(size=(r, c)), dtype=torch.float32, device=cuda)
+        n0 = xp.transpose_carry.by_variant[variant]
+        got = xp.transpose_carry(a, s, variant)
+        torch.cuda.synchronize()
+        assert xp.transpose_carry.by_variant[variant] == n0 + 1
+        _close_to(got, xp.transpose_carry(a, s, variant, plain=True), xp.CARRY_TOL)
+        for fn in (xp.xpose, xp.xpose2):
+            out = torch.full(fn(a, variant, plain=True).shape, float("nan"), device=cuda)
+            n0 = fn.launches
+            assert fn(a, variant, out=out) is out
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1 and torch.equal(out, fn(a, variant, plain=True))
+
+
+@pytest.mark.parametrize("variant", ["roll", "mxu2", "mxu3", "bigroll"])
+def test_probe_fold_matches_plain(cuda, variant):
+    """The K fold (r3_fold_probe's make) at K 9 (odd, peeled) and 8, A 16 and
+    32, 3 blocks, tiles that wrap around DX, and at the script's DM 3,136
+    over 2 blocks (four CTAs a block for mxu), against plain (fold.TOL)."""
+    from sevennet_tpu_torch.probes import fold as fo
+
+    rng = np.random.default_rng(15)
+    muls = (12, 12, 8, 8, 8, 8, 8, 8, 4, 4, 4, 4, 4, 4)
+    for k, a, m in ((9, 16, muls), (8, 32, muls), (72, 32, fo.MULS)):
+        dx = sum(m) // 8
+        x = torch.tensor(rng.normal(size=(3 * a * k if k < 72 else 2 * a * k, dx)) * 0.5,
+                         dtype=torch.float32, device=cuda)
+        fm = fo.fold_matrix(k, a, cuda)
+        n0 = fo.fold.by_variant[variant]
+        got = fo.fold(x, fm, k, a, variant, m)
+        torch.cuda.synchronize()
+        assert fo.fold.by_variant[variant] == n0 + 1
+        _close_to(got, fo.fold(x, fm, k, a, variant, m, plain=True), fo.TOL)
+
+
+def test_probe_fold_conv_matches_plain_and_b4(cuda):
+    """The conv fold (r4_fold_probe's make) on 16x0e+8x1e+4x2e (the kernel
+    takes multiplicities that are multiples of 4), K 24, radial MLP (8, 16,
+    16, numel), every variant against plain and against B4 fwd on the same
+    x[src] (fold_conv.TOL)."""
+    from sevennet_tpu_torch.ops.mlp import ScalarMLPSpec
+    from sevennet_tpu_torch.probes import fold_conv as fcv
+
+    x_ir, f_ir = Irreps("16x0e+8x1e+4x2e"), Irreps.spherical_harmonics(2, 1)
+    conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+    dims = (8, 16, 16, conv.weight_numel)
+    rng = np.random.default_rng(16)
+    n, k = 30, 24
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=cuda)
+
+    x = t(50, x_ir.dim, scale=0.5)
+    src = torch.tensor(rng.integers(0, 50, size=(n, k)), dtype=torch.int32, device=cuda)
+    emb, sh = t(n * k, 8, scale=0.3), t(n * k, 9, scale=0.5)
+    ws = [t(a, b) for a, b in zip(dims[:-1], dims[1:])]
+    w3j = torch.tensor(fcv._tables(conv)[1], device=cuda)
+    xg = x[src.reshape(-1).long()].contiguous()
+    b4 = fc.fused_conv_fwd_embsh(fc.conv_op(conv, ScalarMLPSpec(dims), None), x, src, emb, sh, ws)
+    for variant in fcv.VARIANTS:
+        n0 = fcv.fold_conv.by_variant[variant]
+        got = fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, variant)
+        torch.cuda.synchronize()
+        assert fcv.fold_conv.by_variant[variant] == n0 + 1
+        _close_to(got, fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, variant, plain=True), fcv.TOL)
+        _close_to(got, b4, fcv.TOL)
