@@ -79,6 +79,17 @@
    bitwise), the conv fold also against B4 fwd on the same x[src]; then with
    the counts from 0 each timed by its script's method beside the library
    calls (torch.sum, x.t().contiguous(), x.clone()).
+   Then the breakdown and knock-out probes (``probes/breakdown.py``,
+   ``probes/knockout.py``: kernel B4 fwd instantiated with the phases of
+   each variant of ``r2_fused_breakdown.py`` and ``r3_fwd_knockout.py``):
+   their SASS (HMMA, FFMA, FADD: one TF32 pass a third of 3xTF32's HMMAs,
+   each knocked-out phase's gone), each variant against its plain version
+   at its script's shape (3xTF32 1e-4 of max |plain|, one TF32 pass 2^-8,
+   the transpose bitwise), ``full_hi`` and the knock-out's ``full`` bitwise
+   against B4 fwd, then with the counts from 0 each timed the knock-out
+   script's way, with the knock-outs' savings beside B4 fwd's section
+   clocks (``conv_breakdown.py``'s profile build). The B2'/B4' reduction's
+   row also times one torch.mm per weight matrix as its library call.
 8. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -95,6 +106,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 FP32_PEAK = 67e12     # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
@@ -363,6 +375,11 @@ INSTANCES = {
     **{("probe_fold_mma_kernel", str(p)): f"probe_fold_mma<{p} pieces> (probe)" for p in (2, 3)},
     **{("probe_fold_conv_kernel", str(i)): f"probe_fold_conv<{v}> (probe)"
        for i, v in enumerate(("sliceadd", "group4", "group8"))},
+    **{("probe_breakdown_kernel", str(i)): f"probe_breakdown<{v}> (probe)"
+       for i, v in enumerate(("mlp", "mlp_hi", "tmp", "tp", "tpred", "full", "full_hi", "tpredk",
+                              "storek", "fullk", "tpredmm", "fullmm", "feat_full",
+                              "feat_transpose", "featroll_full", "featroll_mlp", "ko full",
+                              "ko nomlp", "ko notp", "ko nofold", "ko nothing"))},
 }
 
 
@@ -544,7 +561,17 @@ def kernel_phase(spec, params, dev, atoms):
                 layer.conv, layer.radial_mlp, x, emb_l.view(N, K, -1), sh_l.view(N, K, -1), src,
                 ws), reps), cuda_time(lambda: fc.fused_conv_fwd_embsh_plain(*eargs), 3)),
         }
-        per_shape[tag] = {}
+        # the reduction's library call: one torch.mm(A_l^T, B_l) per weight
+        # matrix over the valid rows (fp32, TF32 off), the 1 / sqrt(d_in)
+        # scale and dcoef's column sums left out
+        rows = work_[valid.bool()]
+        mats = [(rows[:, a:a + da], rows[:, b:b + db]) for a, da, b, db in op.reduce_products
+                if a >= 0]
+        reduce_lib = cuda_time(lambda: [torch.mm(m_a.t(), m_b) for m_a, m_b in mats], reps)
+        del rows, mats
+        per_shape[tag] = {"reduce_lib": reduce_lib}
+        log(f"  {tag} reduce: library {reduce_lib:.4f} ms (torch.mm per weight matrix over the "
+            f"valid rows)")
         for k in KERNELS:
             tk, tp = times[k]
             fl, by, tc = work(op_e if "embsh" in k or k == "b6" else op, N, K, n_edges,
@@ -563,6 +590,7 @@ def kernel_phase(spec, params, dev, atoms):
                           flops=sum(n * r[2][0] for r, n in rows),
                           bytes=sum(n * r[2][1] for r, n in rows),
                           tc_flops=sum(n * r[2][2] for r, n in rows), err=max(r[3] for r, _ in rows))
+    records["reduce"]["library_ms"] = sum(n * per_shape[tag]["reduce_lib"] for tag, _, n in SHAPES)
     return records, np.asarray([N, K, n_edges])
 
 
@@ -1545,10 +1573,11 @@ FILL_THREADS_PER_SM = 16 * 1024  # threads the FMA probes' fill copies give each
 
 
 def sass_counts(so):
-    """fp32 instructions (FFMA, FADD, FMUL) of every kernel in library
-    ``so``, and the FFMAs that read an operand from the reuse cache (a
-    ``.reuse`` flag on the FFMA before: one register read fewer), from
-    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    """fp32 instructions (FFMA, FADD, FMUL) and tensor-core ones (HMMA) of
+    every kernel in library ``so``, and the FFMAs that read an operand from
+    the reuse cache (a ``.reuse`` flag on the FFMA before: one register read
+    fewer), from ``cuobjdump -sass``; None where the toolkit has no
+    cuobjdump."""
     import re
     import shutil
 
@@ -1563,11 +1592,11 @@ def sass_counts(so):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = dict(FFMA=0, FADD=0, FMUL=0, reuse=0)
+            counts[fn] = dict(FFMA=0, FADD=0, FMUL=0, HMMA=0, reuse=0)
             reuse = False
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
-        if m and fn is not None and m.group(1) in ("FFMA", "FADD", "FMUL"):
+        if m and fn is not None and m.group(1) in ("FFMA", "FADD", "FMUL", "HMMA"):
             counts[fn][m.group(1)] += 1
             counts[fn]["reuse"] += m.group(1) == "FFMA" and reuse
             reuse = m.group(1) == "FFMA" and ".reuse" in ln
@@ -1987,6 +2016,181 @@ def reduce_fold_xpose_phase(dev, card: str):
     return recs, launches
 
 
+BD_LIBS = ("probe_breakdown", "probe_breakdown_k", "probe_breakdown_feat", "probe_knockout")
+# the conv variant each breakdown variant's saving is taken against (else full)
+BD_FULL = {"mlp_hi": "full_hi", "full_hi": "full_hi", "feat_full": "feat_full",
+           "feat_transpose": "feat_full", "featroll_full": "featroll_full",
+           "featroll_mlp": "featroll_full"}
+
+
+def bd_bound(flops: float, nbytes: float, one_pass: float):
+    """(ms, bound_by) of a breakdown variant: its products at 3xTF32 (165
+    TFLOP/s) as B4 fwd's bound counts them, those it runs in one TF32 pass
+    (``one_pass``) at 495, against its bytes at HBM rate."""
+    t_ops = (one_pass / TF32_PEAK + (flops - one_pass) / TC_3XTF32_PEAK) * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def breakdown_sass(libs):
+    """HMMA, FFMA and FADD of every breakdown instantiation (``cuobjdump``),
+    printed, and the checks that each knock-out removed its phase's
+    tensor-core instructions and kept the rest: one TF32 pass is a third of
+    3xTF32's HMMAs (mlp against mlp_hi; full against the MLP, W3 and tmp of
+    notp at a third plus the uvu product's), nomlp is B4 (ko full) without
+    the MLP and W3 (mlp_hi's), nothing is nomlp without the uvu product,
+    transpose runs no arithmetic, and the per-edge uvu product keeps its 3
+    HMMAs for each of a tile's 16 edges (ptxas drops an mma whose result
+    nothing reads). Returns the counts by variant name, None
+    without cuobjdump."""
+    import re
+
+    names = dict(INSTANCES)
+    counts = {}
+    for lib in BD_LIBS:
+        per_fn = sass_counts(libs[lib])
+        if per_fn is None:
+            log("  breakdown sass: cuobjdump not found")
+            return None
+        for fn, c in per_fn.items():
+            m = re.search(r"probe_breakdown_kernelILi(\d+)E", fn)
+            if m:
+                v = names[("probe_breakdown_kernel", m.group(1))].split("<")[1].split(">")[0]
+                counts[v] = c
+                log(f"  sass probe_breakdown<{v}>: HMMA {c['HMMA']}, FFMA {c['FFMA']}, FADD "
+                    f"{c['FADD']}")
+    h = {v: c["HMMA"] for v, c in counts.items()}
+    uvu = h["full_hi"] - h["ko notp"]
+    checks = {
+        "one pass: 3 x mlp = mlp_hi": 3 * h["mlp"] == h["mlp_hi"],
+        "one pass: full = notp / 3 + uvu": 3 * (h["full"] - uvu) == h["ko notp"] and uvu > 0,
+        "nomlp = full - mlp_hi (MLP and W3 gone)": h["ko nomlp"] == h["ko full"] - h["mlp_hi"],
+        "nothing = nomlp - uvu (uvu gone too)": h["ko nothing"] == h["ko nomlp"] - uvu,
+        "full_hi and ko full = B4 fwd": h["full_hi"] == h["ko full"],
+        "transpose: no arithmetic": sum(counts["feat_transpose"][i] for i in
+                                        ("HMMA", "FFMA", "FADD")) == 0,
+        "per-edge messages: 16 edges x 3 in tpred and nofold (none dropped)":
+            h["tpred"] - (h["full"] - uvu) == 48 and h["ko nofold"] - h["ko notp"] == 48,
+    }
+    for name, ok in checks.items():
+        log(f"  breakdown sass check {name}: {'ok' if ok else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit(f"a breakdown instantiation's SASS does not match its phases: {h}")
+    return counts
+
+
+def breakdown_phase(dev, card: str, libs, prof_build):
+    """The fused-conv breakdown and knock-out probes (``probes/breakdown.py``,
+    ``probes/knockout.py``: B4 fwd's kernel with compile-time phase
+    parameters). After the SASS checks (``breakdown_sass``), at the TPU
+    scripts' shapes (SevenNet-0's layer; breakdown N 3,072, K 96; knock-out
+    N 10,016, K 72; xg, emb and sh from the seed, x = xg with the identity
+    gather), each variant against its plain version (3xTF32 variants 1e-4
+    of max |plain|, the one-pass ones 2^-8, transpose bitwise; launches not
+    counted), ``full_hi`` and knock-out ``full`` bitwise against B4 fwd on
+    the same inputs; then the probe path with the counts from 0: each
+    variant timed by ``diff_ms`` at (3, 9, 3) (the knock-out script's
+    method, on the device alone), beside its bound (``bd_bound``: its own
+    work), its plain version (warm, mean of 3), its registers and the time
+    it saves against its full; and for the knock-out, B4 fwd's section
+    clocks at the same layer and inputs (``conv_breakdown.py``'s profile
+    build, ``prof_build`` the thread building it). Returns (records by
+    variant, launches by variant)."""
+    import torch
+
+    from conv_breakdown import SECTIONS, profile_call
+    from sevennet_tpu_torch.ops import fused_conv as fc
+    from sevennet_tpu_torch.probes import breakdown as bd
+    from sevennet_tpu_torch.probes import fold_conv as fcv
+    from sevennet_tpu_torch.probes import knockout as ko
+    from sevennet_tpu_torch.probes._lib import diff_ms
+
+    breakdown_sass(libs)
+    ptx = {r["instance"]: r for r in ptxas_table({k: libs[k] for k in BD_LIBS})}
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device="cpu").manual_seed(12)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    conv, mlp = fcv.sevennet0_conv()
+    op = fc.conv_op(conv, mlp)
+    ws = [rnd(a, b) for a, b in zip(mlp.dims[:-1], mlp.dims[1:])]
+    recs, launches = {}, {}
+    for key, mod, fn, n, k, work in (
+            ("breakdown", bd, bd.breakdown, bd.N, bd.K, bd.breakdown_work),
+            ("knockout", ko, ko.knockout, ko.N, ko.K, ko.knockout_work)):
+        xg = rnd(n * k, op.dim_x, scale=0.5)
+        emb, sh = rnd(n * k, op.n_basis, scale=0.3), rnd(n * k, op.dim_f, scale=0.5)
+        src = torch.arange(n * k, dtype=torch.int32, device=dev).view(n, k)
+        b4 = fc.fused_conv_fwd_embsh(op, xg, src, emb, sh, ws)
+        errs = {}
+        for v in mod.VARIANTS:
+            tag = f"probe {key} {v} N {n} K {k}"
+            got = fn(op, xg, emb, sh, ws, k, v)
+            want = fn(op, xg, emb, sh, ws, k, v, plain=True)
+            tol = bd.tol(v) if mod is bd else ko.TOL
+            errs[v] = (check_equal(tag, got, want) if tol == 0 else
+                       check_close(tag, "out", got, want, tol))
+            if v == ("full_hi" if mod is bd else "full"):
+                check_equal(f"{tag} against B4 fwd on the same inputs", got, b4)
+            del got, want
+        del b4
+        torch.cuda.empty_cache()
+
+        # the probe path, counts from 0
+        fn.launches, fn.by_variant = 0, dict.fromkeys(mod.VARIANTS, 0)
+        b4_ms = diff_ms(lambda: fc.fused_conv_fwd_embsh(op, xg, src, emb, sh, ws), *bd.KNOCK_TIME)
+        times = {}
+        for v in mod.VARIANTS:
+            times[v] = diff_ms(lambda: fn(op, xg, emb, sh, ws, k, v), *bd.KNOCK_TIME)
+        for v in mod.VARIANTS:
+            ms = times[v]
+            plain = cuda_time(lambda: fn(op, xg, emb, sh, ws, k, v, plain=True), 3)
+            fl, nbytes, one = work(op, v, n, k)
+            bnd = bd_bound(fl, nbytes, one)
+            full = BD_FULL.get(v, "full") if mod is bd else "full"
+            inst = f"probe_breakdown<{'ko ' if mod is ko else ''}{v.replace('_amaj', '')}> (probe)"
+            r = ptx.get(inst, {})
+            log(f"  probe {key} {v} N {n} K {k}: {ms:.4f} ms per call, saves "
+                f"{times[full] - ms:+.4f} ms ({(times[full] - ms) / times[full]:+.1%}) against "
+                f"{full}; bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / ms:.1%}; {fl / 1e9:.2f} "
+                f"GFLOP, {one / 1e9:.2f} of it one TF32 pass, {nbytes / 1e6:.1f} MB); plain "
+                f"{plain:.3f} ms; ptxas {r.get('registers')} registers, {r.get('stack')} B stack, "
+                f"{r.get('spill_stores')} B spill stores | {card}")
+            recs[(key, v)] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=None, err=errs[v],
+                                  name=f"{key} {v} (SevenNet-0 layer, N {n}, K {k})")
+        log(f"  probe {key}: B4 fwd on the same inputs {b4_ms:.4f} ms per call | {card}")
+        launches.update({(key, v): c for v, c in fn.by_variant.items()})
+        if key == "knockout":
+            # what each knock-out saves, beside B4 fwd's section clocks here
+            prof_build.join()
+            lib, entry, args, _ = fc.fwd_launch_args(op, xg, src, emb, sh, ws)
+            cycles = profile_call(lib, entry, args, n, dev)
+            share = {label: c / sum(cycles) for label, c in zip(SECTIONS, cycles) if c}
+            for label, sh_ in share.items():
+                log(f"  B4 fwd section {label:32s} {sh_:6.1%} ({sh_ * b4_ms:.4f} ms)")
+            mlp_sec = sum(share.get(s_, 0.0) for s_ in ("(f) W3 forward product", "(e) MLP 2"))
+            for v, sec, what in (("nomlp", mlp_sec, "W3 product and MLP layer 2 (layer 1 shares "
+                                                    "section (b) with the gather and tmp)"),
+                                 ("notp", share.get("uvu product (forward)", 0.0), "uvu product"),
+                                 ("nofold", share.get("uvu product (forward)", 0.0),
+                                  "uvu product (nofold swaps its K sum for per-edge messages)"),
+                                 ("nothing", mlp_sec + share.get("uvu product (forward)", 0.0),
+                                  "W3, MLP 2 and uvu")):
+                saved = times["full"] - times[v]
+                log(f"  knock-out {v} saves {saved:.4f} ms = {saved / times['full']:.1%} of full; "
+                    f"the clocked sections {what}: {sec:.1%} | {card}")
+        del xg, emb, sh, src
+        torch.cuda.empty_cache()
+    if not all(launches.values()):
+        raise SystemExit(f"a breakdown or knock-out probe kernel was never launched on the probe "
+                         f"path: {launches}")
+    log(f"  breakdown and knock-out probes: peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return recs, launches
+
+
 FWD_CU = "sevennet_tpu_torch/csrc/fused_conv_fwd.cu"
 PROBE_MM_CU = "sevennet_tpu_torch/csrc/probe_mm.cu"
 PROBE_BD_CU = "sevennet_tpu_torch/csrc/probe_batched_dot.cu"
@@ -1997,6 +2201,18 @@ REDUCE_CU = "sevennet_tpu_torch/csrc/probe_reduce.cu"
 XPOSE_CU = "sevennet_tpu_torch/csrc/probe_xpose.cu"
 FOLD_CU = "sevennet_tpu_torch/csrc/probe_fold.cu"
 FOLD_CONV_CU = "sevennet_tpu_torch/csrc/probe_fold_conv.cu"
+# breakdown_phase's variants -> (source, TPU kernel replaced)
+BD_SITES = {
+    **{v: ("sevennet_tpu_torch/csrc/probe_breakdown.cu", "scripts_dev/r2_fused_breakdown.py:170")
+       for v in ("mlp", "mlp_hi", "tmp", "tp", "tpred", "full", "full_hi")},
+    **{v: ("sevennet_tpu_torch/csrc/probe_breakdown_k.cu", "scripts_dev/r2_fused_breakdown.py:170")
+       for v in ("tpredk", "storek", "fullk", "tpredmm", "tpredmm_amaj", "fullmm")},
+    **{v: ("sevennet_tpu_torch/csrc/probe_breakdown_feat.cu",
+           "scripts_dev/r2_fused_breakdown.py:262") for v in ("feat_full", "feat_transpose")},
+    **{v: ("sevennet_tpu_torch/csrc/probe_breakdown_feat.cu",
+           "scripts_dev/r2_fused_breakdown.py:343") for v in ("featroll_full", "featroll_mlp")},
+}
+KO_CU = "sevennet_tpu_torch/csrc/probe_knockout.cu"
 # fma_gather_phase's record kinds -> (source, TPU kernel replaced)
 FG_SITES = {
     "chain": (FMA_CU, "scripts_dev/r2_pallas_fma.py:72"),
@@ -2070,6 +2286,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = kernels.build()
     log(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+    # B4 fwd's profile build (breakdown_phase's section clocks), meanwhile
+    prof_build = threading.Thread(target=kernels.build, args=(["fused_conv_fwd"], True))
+    prof_build.start()
     for row in ptxas_table(libs):
         log("  ptxas {instance}: {registers} registers, {stack} B stack, {spill_stores} B spill "
             "stores, {spill_loads} B spill loads".format(**row))
@@ -2133,6 +2352,10 @@ def main() -> int:
     rfx_records, rfx_launches = reduce_fold_xpose_phase(dev, card)
     log(f"reduction, transpose and fold probe phase (the probe path): launches {rfx_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bd_records, bd_launches = breakdown_phase(dev, card, libs, prof_build)
+    log(f"breakdown and knock-out probe phase (the probe path): launches {bd_launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
                 + md_small[k] + md_mid[k] + md_ring[k] for k in counters()}
     if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
@@ -2148,7 +2371,8 @@ def main() -> int:
         kernels_line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by,
+            "library_ms": r.get("library_ms"),
         })
     for key, name in (("fwd", "fused_conv_fwd (SevenNet-l3i5)"),
                       ("bwd", "fused_conv_bwd (SevenNet-l3i5)")):
@@ -2197,6 +2421,15 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
+    for (key, v), r in bd_records.items():
+        source, replaces = BD_SITES[v] if key == "breakdown" else (
+            KO_CU, "scripts_dev/r3_fwd_knockout.py:128")
+        kernels_line.append({
+            "name": f"{r['name']} (probe)", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": bd_launches[(key, v)], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+        })
     log(f"kernel times are per pass of {N} atoms (K={K}, {n_edges} edges): "
         "layer 0 + 3 x layers 1-3 + layer 4 (fused_conv_bwd_slot: per force evaluation "
         "of the 99,999-atom ring, over its nb chunks); fused_conv_bwd_pg and fused_conv_bwd_embsh_pg include their "
@@ -2210,7 +2443,10 @@ def main() -> int:
         "a preallocated output, none for the FMA chains; the reduction, transpose and fold "
         "probe rows per call at their script's first shape and method, library_ms 16 torch.sum "
         "or x.t().contiguous() in one graph (REP-16 sites), x.t().contiguous(), x.clone(), "
-        "torch.sum over K (the fold, without its column map), none for the conv fold")
+        "torch.sum over K (the fold, without its column map), none for the conv fold; the "
+        "breakdown and knock-out rows per call at their script's shape (diff_ms at 3, 9, 3), "
+        "none for the library; param_grad_reduce's library_ms one torch.mm per weight matrix "
+        "over the valid workspace rows")
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the build to the kernels line")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(gpu_line(), flush=True)

@@ -81,6 +81,7 @@
 #define MAX_STAGES 4       // W3 blocks in flight, fewer where shared memory is short
 #define SMEM_LIMIT 232448  // dynamic shared memory a CTA may have on sm_90
 #define MAX_MLP 8          // radial-MLP weight matrices (hidden layers + 1)
+#define FS (TE + 4)        // row stride of a feature-major tile (4 mod 8: conflict-free fragments)
 
 // Layer description, filled by sevennet_tpu_torch/ops/fused_conv.py
 // (ctypes mirror: _ConvDims). All fields are 4 bytes: no padding.
@@ -130,6 +131,21 @@ struct Tile {
   int* tabs;     // the int table's first tab_ints(d) ints: uvu and monomial tables
   int SX, SW, SR, nstage;
 };
+
+// Entry (edge e, column c) of the x, w and tmp tiles: edge-major, or
+// feature-major (FEAT, carve<true>).
+template <bool FEAT>
+__device__ __forceinline__ float& xs_at(const Tile& t, int e, int c) {
+  return FEAT ? t.xs[c * t.SX + e] : t.xs[e * t.SX + c];
+}
+template <bool FEAT>
+__device__ __forceinline__ float& ws_at(const Tile& t, int e, int c) {
+  return FEAT ? t.ws[c * t.SW + e] : t.ws[e * t.SW + c];
+}
+template <bool FEAT>
+__device__ __forceinline__ float& tmp_at(const Tile& t, int e, int r) {
+  return FEAT ? t.tmp[r * t.SR + e] : t.tmp[e * t.SR + r];
+}
 
 // Section clocks for the breakdown of a kernel's time (profile builds only:
 // ops/kernels.py builds a separate library with -DFUSED_CONV_PROFILE, which
@@ -216,10 +232,16 @@ __host__ __device__ inline size_t take(size_t& off, size_t nbytes) {
 // returns the bytes the layout needs. The host calls it with base = null,
 // and keeps a copy of it (ops/fused_conv.py:carve_bytes) that plans the
 // column blocks; fused_conv_smem_bytes lets it check the two agree.
+// FEAT (the breakdown probes' feature-major tiles, forward only): xs, ws
+// and tmp are stored transposed, (features, TE), every row FS floats apart.
+template <bool FEAT = false>
 __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base, Tile* t) {
   size_t off = 0;
   const int rem = bwd ? 4 : 8;
-  const int SX = bank_stride(d.dim_x, rem), SW = bank_stride(d.wblk, rem), SR = odd_stride(d.rblk);
+  const int SX = FEAT ? FS : bank_stride(d.dim_x, rem), SW = FEAT ? FS : bank_stride(d.wblk, rem),
+            SR = FEAT ? FS : odd_stride(d.rblk);
+  // rows of the three tiles and the floats of each row
+  const int nx = FEAT ? d.dim_x : TE, nw = FEAT ? d.wblk : TE, nr = FEAT ? d.rblk : TE;
   size_t o_slots = take(off, sizeof(int) * d.K);
   size_t o_valid = take(off, d.K);
   size_t o_count = take(off, sizeof(int) * 4);
@@ -228,10 +250,10 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
   size_t o_geo = take(off, sizeof(float) * TE * 8);
   size_t o_emb = take(off, sizeof(float) * TE * d.n_basis);
   size_t o_sh = take(off, sizeof(float) * TE * d.dim_f);
-  size_t o_tmp = take(off, sizeof(float) * TE * SR);
+  size_t o_tmp = take(off, sizeof(float) * nr * SR);
   size_t o_zh = take(off, sizeof(float) * TE * 2 * d.hsum);
-  size_t o_xs = take(off, sizeof(float) * TE * SX);
-  size_t o_ws = take(off, sizeof(float) * TE * SW);
+  size_t o_xs = take(off, sizeof(float) * nx * SX);
+  size_t o_ws = take(off, sizeof(float) * nw * SW);
   size_t o_tabs = take(off, sizeof(int) * tab_ints(d));
   size_t o_out = 0, o_yb = 0, o_dtmp = 0, o_dzl = 0, o_demb = 0, o_dsh = 0;
   if (!bwd) {
@@ -382,26 +404,37 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b in 3xTF32, on split fragments: the two small products first
+// c += a b in 3xTF32, on split fragments: the two small products first.
+// PASSES = 1 (the breakdown probes, csrc/probe_breakdown.cuh) keeps only
+// hi*hi: one TF32 pass, the counterpart of a TPU dot at default precision;
+// the lo halves are then dead and not computed.
+template <int PASSES = 3>
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ah)[4],
                                            const unsigned (&al)[4], const float (&b)[2]) {
+  static_assert(PASSES == 1 || PASSES == 3, "one TF32 pass or three");
   unsigned bh[2], bl[2];
   split_tf32(b[0], bh[0], bl[0]);
   split_tf32(b[1], bh[1], bl[1]);
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
+  if constexpr (PASSES == 3) {
+    mma_tf32(c, al, bh);
+    mma_tf32(c, ah, bl);
+  }
   mma_tf32(c, ah, bh);
 }
 
 // The same three products, each into its own accumulator (c[0..2]): three
 // independent mma chains instead of one; add them with sum3.
+template <int PASSES = 3>
 __device__ __forceinline__ void mma_3xtf32_3(float (&c)[3][4], const unsigned (&ah)[4],
                                              const unsigned (&al)[4], const float (&b)[2]) {
+  static_assert(PASSES == 1 || PASSES == 3, "one TF32 pass or three");
   unsigned bh[2], bl[2];
   split_tf32(b[0], bh[0], bl[0]);
   split_tf32(b[1], bh[1], bl[1]);
-  mma_tf32(c[0], al, bh);
-  mma_tf32(c[1], ah, bl);
+  if constexpr (PASSES == 3) {
+    mma_tf32(c[0], al, bh);
+    mma_tf32(c[1], ah, bl);
+  }
   mma_tf32(c[2], ah, bh);
 }
 
@@ -581,7 +614,10 @@ __device__ __forceinline__ void hl_fragments(const ConvDims& d, const Tile& t, i
 // ahead of the one multiplied. Warp w owns the 8-column n-tile w of each
 // sub-block; its A fragments (h, split into hi and lo) stay in registers
 // across the sub-blocks, 64 hidden units at a time. The caller has issued
-// the first sub-block into buffer 0 (stage_w3_first).
+// the first sub-block into buffer 0 (stage_w3_first). PASSES: TF32 passes
+// of each product (3, or 1 for the breakdown probes); FEAT: w stored
+// transposed (carve<true>).
+template <int PASSES = 3, bool FEAT = false>
 __device__ inline void w3_forward(const ConvDims& d, const Tile& t, const float* __restrict__ W3,
                                   const Blk& B) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -614,7 +650,7 @@ __device__ inline void w3_forward(const ConvDims& d, const Tile& t, const float*
           const int k = kg * 64 + ks * 8;
           if (k < h2p) {
             const float b[2] = {Bs[(k + q) * SBF + warp * 8 + g], Bs[(k + q + 4) * SBF + warp * 8 + g]};
-            mma_3xtf32_3(c3, ah[ks], al[ks], b);
+            mma_3xtf32_3<PASSES>(c3, ah[ks], al[ks], b);
           }
         }
       }
@@ -622,12 +658,12 @@ __device__ inline void w3_forward(const ConvDims& d, const Tile& t, const float*
       const int j0 = j + 2 * q;
       const int c0 = j0 - B.c0;
       if (j0 < jend) {
-        t.ws[g * t.SW + c0] = c[0] * inv_h2;
-        t.ws[(g + 8) * t.SW + c0] = c[2] * inv_h2;
+        ws_at<FEAT>(t, g, c0) = c[0] * inv_h2;
+        ws_at<FEAT>(t, g + 8, c0) = c[2] * inv_h2;
       }
       if (j0 + 1 < jend) {
-        t.ws[g * t.SW + c0 + 1] = c[1] * inv_h2;
-        t.ws[(g + 8) * t.SW + c0 + 1] = c[3] * inv_h2;
+        ws_at<FEAT>(t, g, c0 + 1) = c[1] * inv_h2;
+        ws_at<FEAT>(t, g + 8, c0 + 1) = c[3] * inv_h2;
       }
     }
     __syncthreads();
@@ -637,8 +673,9 @@ __device__ inline void w3_forward(const ConvDims& d, const Tile& t, const float*
 // out (TE x n_out) = in (TE x n_in) M on the tensor cores in 3xTF32: in[e][k]
 // at in[k * ik + e * ie] in shared memory, M[k][n] at M[k * sk + n * sn] in
 // global memory, and out[e][n] at out[n * on + e * oe] = epilogue(sum, n, e).
-// Warps over the 8-wide n-tiles.
-template <typename Epi>
+// Warps over the 8-wide n-tiles. PASSES: TF32 passes (3, or 1 for the
+// breakdown probes).
+template <int PASSES = 3, typename Epi>
 __device__ inline void small_product(const float* in, int ik, int ie, int n_in,
                                      const float* __restrict__ M, int sk, int sn, int n_out,
                                      float* out, int on, int oe, Epi epilogue) {
@@ -663,7 +700,7 @@ __device__ inline void small_product(const float* in, int ik, int ie, int n_in,
         const float b[2] = {
             k < n_in && n < n_out ? __ldg(M + (size_t)k * sk + (size_t)n * sn) : 0.0f,
             k + 4 < n_in && n < n_out ? __ldg(M + (size_t)(k + 4) * sk + (size_t)n * sn) : 0.0f};
-        mma_3xtf32_3(c6[h], ah, al, b);
+        mma_3xtf32_3<PASSES>(c6[h], ah, al, b);
       }
     }
     sum3(c6[0], c);
@@ -907,28 +944,56 @@ __device__ inline void uvu_dxg_dw(const ConvDims& d, const Tile& t, int ne,
   }
 }
 
-// tmp (TE x B.rows) = sh w3j_pack[B's rows]^T, 3xTF32 on the tensor cores.
+// tmp (TE x B.rows) = sh w3j_pack[B's rows]^T, 3xTF32 on the tensor cores
+// (PASSES, FEAT: as w3_forward; sh and tmp are then stored transposed).
+template <int PASSES = 3, bool FEAT = false>
 __device__ __forceinline__ void block_tmp(const ConvDims& d, const Tile& t,
                                           const float* __restrict__ ftab, const Blk& B) {
-  small_product(t.sh, 1, d.dim_f, d.dim_f, ftab + (size_t)B.r0 * d.dim_f, 1, d.dim_f, B.rows,
-                t.tmp, 1, t.SR, [](float v, int, int) { return v; });
+  if constexpr (FEAT)
+    small_product<PASSES>(t.sh, TE, 1, d.dim_f, ftab + (size_t)B.r0 * d.dim_f, 1, d.dim_f, B.rows,
+                          t.tmp, t.SR, 1, [](float v, int, int) { return v; });
+  else
+    small_product<PASSES>(t.sh, 1, d.dim_f, d.dim_f, ftab + (size_t)B.r0 * d.dim_f, 1, d.dim_f,
+                          B.rows, t.tmp, 1, t.SR, [](float v, int, int) { return v; });
+}
+
+// What load_tile forms of the radial MLP's output w: the MLP (MLP_FULL);
+// the breakdown probes' knock-out, w[e, c] = 0.1 emb[e, 0] with no MLP
+// layer and no W3 staged (MLP_KNOCK); nothing (MLP_NONE).
+#define MLP_FULL 0
+#define MLP_KNOCK 1
+#define MLP_NONE 2
+
+// The knock-out's w of column block B: every column 0.1 emb[e, 0] (rows e
+// >= ne are zero with emb). The caller's next barrier publishes it.
+template <bool FEAT>
+__device__ __forceinline__ void knock_w(const Tile& t, const Blk& B) {
+  for (int idx = threadIdx.x; idx < TE * B.width; idx += NT) {
+    const int e = idx / B.width;
+    ws_at<FEAT>(t, e, idx - e * B.width) = t.embT[e] * 0.1f;
+  }
 }
 
 // Fills one tile of ne <= TE edges (slots t0 .. t0+ne of the list) up to
 // w and tmp of column block B0, the layer's first. Rows e >= ne are zero,
 // so loops may run over all TE rows. (ea, eb) are (vec, coef) in vec mode
-// and (emb, sh) in emb/sh mode.
-template <bool EMBSH>
+// and (emb, sh) in emb/sh mode. The breakdown probes (csrc/probe_breakdown.cuh,
+// emb/sh mode only) set the rest: TF32 passes of the MLP and tmp products
+// (PASSES), feature-major tiles (FEAT), what is formed of w (MLP) and
+// whether tmp is (TMP); the defaults are B1's and B4's tile.
+template <bool EMBSH, int PASSES = 3, bool FEAT = false, int MLP = MLP_FULL, bool TMP = true>
 __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0, int ne,
                                  const float* __restrict__ x, const int* __restrict__ src,
                                  const float* __restrict__ ea, const float* __restrict__ eb,
                                  const MlpWeights& W, const float* __restrict__ W3,
                                  const float* __restrict__ ftab, const Blk& B0, Prof& prof) {
+  static_assert(EMBSH || (PASSES == 3 && !FEAT && MLP == MLP_FULL && TMP),
+                "the probes' tiles are emb/sh mode");
   const int tid = threadIdx.x;
   const int NK = d.N * d.K;
   const int NB = d.n_basis, DF = d.dim_f;
   // W3's first sub-block is copied while the tile's inputs are formed
-  stage_w3_first(d, W3, t, B0);
+  if constexpr (MLP == MLP_FULL) stage_w3_first(d, W3, t, B0);
   if (EMBSH) {
     // (a) the slots' emb and sh rows, read along the rows
     if (tid < TE) {
@@ -942,7 +1007,11 @@ __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0
     }
     for (int idx = tid; idx < TE * DF; idx += NT) {
       const int e = idx / DF;
-      t.sh[idx] = e < ne ? eb[(size_t)(i * d.K + t.slots[t0 + e]) * DF + (idx - e * DF)] : 0.0f;
+      const float v = e < ne ? eb[(size_t)(i * d.K + t.slots[t0 + e]) * DF + (idx - e * DF)] : 0.0f;
+      if constexpr (FEAT)
+        t.sh[(idx - e * DF) * TE + e] = v;
+      else
+        t.sh[idx] = v;
     }
   } else {
     // (a) geometry, a thread per edge; then the Bessel embedding, a thread
@@ -994,8 +1063,15 @@ __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0
   __syncthreads();
   prof.mark(1);
   // (b) the x[src] rows by asynchronous copies (zeros past ne): the uvu
-  // step reads them after w3_forward's first wait, which covers this group
-  if ((d.dim_x & 3) == 0 && ((uintptr_t)x & 15) == 0) {
+  // step reads them after w3_forward's first wait, which covers this group.
+  // Feature-major: 4-byte copies, a warp along a row's columns.
+  if constexpr (FEAT) {
+    for (int idx = tid; idx < TE * d.dim_x; idx += NT) {
+      const int e = idx / d.dim_x, c = idx - e * d.dim_x;
+      const bool ok = e < ne;
+      cp_async4(t.xs + c * t.SX + e, ok ? x + (size_t)t.srcs[e] * d.dim_x + c : x, ok ? 4 : 0);
+    }
+  } else if ((d.dim_x & 3) == 0 && ((uintptr_t)x & 15) == 0) {
     const int c4 = d.dim_x >> 2;
     for (int idx = tid; idx < TE * c4; idx += NT) {
       const int e = idx / c4, c = (idx - e * c4) * 4;
@@ -1012,27 +1088,35 @@ __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0
   cp_async_commit();
   // (c) tmp of block 0 and (d) the MLP's hidden layers, each z = h W /
   // sqrt(n_in) and h = silu(z) * cst, 3xTF32 on the tensor cores
-  block_tmp(d, t, ftab, B0);
-  const float cst = d.act_cst;
-  const float* in = t.embT;
-  int n_in = NB;
-  float* zT = t.zh;
-  for (int l = 0; l < d.nh; ++l) {
-    const int h = hidden_width(t, l);
-    const float inv = (float)(1.0 / sqrt((double)n_in));
-    float* hT = zT + TE * h;
-    small_product(in, TE, 1, n_in, mlp_weight(W, l), h, 1, h, hT, TE, 1, [=](float v, int o, int e) {
-      const float z = v * inv;
-      zT[o * TE + e] = z;
-      return z * sigmoidf_(z) * cst;
-    });
+  if constexpr (TMP) block_tmp<PASSES, FEAT>(d, t, ftab, B0);
+  if constexpr (MLP == MLP_FULL) {
+    const float cst = d.act_cst;
+    const float* in = t.embT;
+    int n_in = NB;
+    float* zT = t.zh;
+    for (int l = 0; l < d.nh; ++l) {
+      const int h = hidden_width(t, l);
+      const float inv = (float)(1.0 / sqrt((double)n_in));
+      float* hT = zT + TE * h;
+      small_product<PASSES>(in, TE, 1, n_in, mlp_weight(W, l), h, 1, h, hT, TE, 1,
+                            [=](float v, int o, int e) {
+                              const float z = v * inv;
+                              zT[o * TE + e] = z;
+                              return z * sigmoidf_(z) * cst;
+                            });
+      __syncthreads();
+      prof.mark(l == 0 ? 2 : 10);
+      in = hT;
+      n_in = h;
+      zT = hT + TE * h;
+    }
+    // (f) block 0's columns of w, the last MLP layer on the tensor cores
+    w3_forward<PASSES, FEAT>(d, t, W3, B0);
+  } else {
+    // no MLP: the knock-out's w, or none; then the x rows' wait
+    if constexpr (MLP == MLP_KNOCK) knock_w<FEAT>(t, B0);
+    cp_async_wait(0);
     __syncthreads();
-    prof.mark(l == 0 ? 2 : 10);
-    in = hT;
-    n_in = h;
-    zT = hT + TE * h;
   }
-  // (f) block 0's columns of w, the last MLP layer on the tensor cores
-  w3_forward(d, t, W3, B0);
   prof.mark(3);
 }

@@ -2,7 +2,8 @@
 the fused conv (``fused_conv_fwd``, ``fused_conv_bwd``) and the Hopper
 probes (``probe_mm``, ``probe_batched_dot``, ``probe_fma``, ``probe_gather``,
 ``probe_reduce``, ``probe_xpose``, ``probe_fold``, ``probe_fold_conv``,
-:mod:`..probes`).
+``probe_breakdown``, ``probe_breakdown_k``, ``probe_breakdown_feat``,
+``probe_knockout``, :mod:`..probes`).
 
 Each ``*.cu`` source becomes a shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` at first use into ``build/kernels`` at
@@ -30,7 +31,8 @@ __all__ = ["SOURCES", "build", "library", "call", "BUILD_DIR"]
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fused_conv_fwd", "fused_conv_bwd", "probe_mm", "probe_batched_dot", "probe_fma",
-           "probe_gather", "probe_reduce", "probe_xpose", "probe_fold", "probe_fold_conv")
+           "probe_gather", "probe_reduce", "probe_xpose", "probe_fold", "probe_fold_conv",
+           "probe_breakdown", "probe_breakdown_k", "probe_breakdown_feat", "probe_knockout")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -2,6 +2,7 @@
 CUDA kernels, each with a plain PyTorch version of its contract and a timing
 function that follows the TPU script's method (:mod:`.mm_rate`,
 :mod:`.batched_dot`, :mod:`.fma_rate`, :mod:`.gather`, :mod:`.reduce`,
-:mod:`.xpose`, :mod:`.fold`, :mod:`.fold_conv`). They measure the
+:mod:`.xpose`, :mod:`.fold`, :mod:`.fold_conv`, :mod:`.breakdown`,
+:mod:`.knockout`). They measure the
 ingredients of the conv kernels' design on the card; no model path calls
 them."""

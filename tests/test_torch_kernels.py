@@ -656,3 +656,44 @@ def test_probe_fold_conv_matches_plain_and_b4(cuda):
         assert fcv.fold_conv.by_variant[variant] == n0 + 1
         _close_to(got, fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, variant, plain=True), fcv.TOL)
         _close_to(got, b4, fcv.TOL)
+
+
+@pytest.mark.parametrize("k", [12, 20])
+def test_probe_breakdown_knockout_match_plain_and_b4(cuda, k):
+    """The breakdown and knock-out probes (r2_fused_breakdown's build,
+    build_feat, build_featroll; r3_fwd_knockout's make) on 8x0e+4x1e+2x2e
+    (dim_mid 196, over the scripts' 128 lanes), radial MLP (8, 16, 16,
+    numel), K 12 (one partial tile) and 20 (a whole and a partial one):
+    every variant against plain (breakdown.tol: 1e-4, 2^-8 for one TF32
+    pass, bitwise for the transpose), each launch counted, full_hi and the
+    knock-out's full bitwise equal to B4 fwd on the same inputs."""
+    from sevennet_tpu_torch.probes import breakdown as bd
+    from sevennet_tpu_torch.probes import knockout as ko
+
+    x_ir, f_ir = Irreps("8x0e+4x1e+2x2e"), Irreps.spherical_harmonics(2, 1)
+    conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+    op = fc.conv_op(conv, ScalarMLPSpec((8, 16, 16, conv.weight_numel)))
+    rng = np.random.default_rng(17)
+    n = 30
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=cuda)
+
+    xg, emb, sh = t(n * k, op.dim_x, scale=0.5), t(n * k, 8, scale=0.3), t(n * k, 9, scale=0.5)
+    ws = [t(a, b) for a, b in zip(op.mlp_spec.dims[:-1], op.mlp_spec.dims[1:])]
+    src = torch.arange(n * k, dtype=torch.int32, device=cuda).view(n, k)
+    b4 = fc.fused_conv_fwd_embsh(op, xg, src, emb, sh, ws)
+    for mod, fn, full in ((bd, bd.breakdown, "full_hi"), (ko, ko.knockout, "full")):
+        for variant in mod.VARIANTS:
+            n0 = fn.by_variant[variant]
+            got = fn(op, xg, emb, sh, ws, k, variant)
+            torch.cuda.synchronize()
+            assert fn.by_variant[variant] == n0 + 1
+            want = fn(op, xg, emb, sh, ws, k, variant, plain=True)
+            tol = bd.tol(variant) if mod is bd else ko.TOL
+            if tol == 0:
+                assert torch.equal(got, want)
+            else:
+                _close_to(got, want, tol)
+            if variant == full:
+                assert torch.equal(got, b4)
