@@ -14,7 +14,11 @@
    peak (``work``, ``bound_ms``; the ``kernels`` line's ``bound_ms``), and
    every operation at the fp32 rate.
    Kernels: B1 (forward), B2 (backward), B2' (backward with the radial-MLP
-   weight and Bessel-coefficient gradients: records pass and reduction),
+   weight and Bessel-coefficient gradients: records pass and reduction;
+   the reduction alone also twice bitwise, its device kernels of one call
+   from torch.profiler, at most 2, and beside one torch.mm per weight
+   matrix, also at SevenNet-l3i5's widths and on a training batch; its
+   SASS after the build: HGMMA, no FFMA),
    and in emb/sh mode, on the embedding and unnormalized spherical
    harmonics a legacy model feeds them: B4 (forward), B4 bwd, B4' (both
    passes) and B6 (``dense_conv_pallas`` on B4's kernel). Cross-check of
@@ -89,7 +93,7 @@
    against B4 fwd, then with the counts from 0 each timed the knock-out
    script's way, with the knock-outs' savings beside B4 fwd's section
    clocks (``conv_breakdown.py``'s profile build). The B2'/B4' reduction's
-   row also times one torch.mm per weight matrix as its library call.
+   row times one torch.mm per weight matrix as its library call.
 8. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -262,8 +266,10 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
     ``tc_flops`` is the part of ``flops`` that the kernels run on the tensor
     cores as 3xTF32: every product counted here (the radial MLP's layers,
     ``tmp``, the uvu product and, in the backward, their transposes and
-    pullbacks) but the parameter-gradient sums of B2' and B4', which the
-    reduction kernel runs on the CUDA cores. The fp32
+    pullbacks) and the parameter-gradient sums of B2' and B4', which the
+    reduction kernel runs as wgmma products (2E operations per dW entry,
+    and 2E per dcoef entry: a product with a ones column); the rest of
+    dcoef's 4E - 1 (its per-edge terms) at fp32. The fp32
     multiplies and adds of the edges inside the cutoff (activations, envelope
     and spherical harmonics left out), each input read once, each output
     written once. ``kind``: ``fwd`` (B1), ``bwd`` (B2, and B3: B2 writing
@@ -303,10 +309,11 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
     n_dw = sum(a * b for a, b in zip(d[:-1], d[1:]))
     n_dc = 0 if embsh else d[0]
     pg_flops = n_dw * 2 * n_edges + n_dc * (4 * n_edges - 1)
+    pg_tc = (n_dw + n_dc) * 2 * n_edges
     pg_bytes = 4 * (n_dw + n_dc)
     if kind == "reduce":
         record = sum(d[:-1]) + sum(d[1:]) + d[0]  # emb h1 h2 | dz1 dz2 dw | dcoef terms
-        return pg_flops, 4 * n_edges * record + N * K + pg_bytes, 0
+        return pg_flops, 4 * n_edges * record + N * K + pg_bytes, pg_tc
     mlp = sum(mv(a, b) for a, b in zip(d[:-1], d[1:]))
     nnz = int((op.w3j_pack != 0).sum())
     tmp = 2 * nnz - op.R
@@ -327,7 +334,7 @@ def work(op, N: int, K: int, n_edges: int, kind: str):
     flops = n_bwd * (mlp + tmp + uvu + (2 * nnz - op.dim_f) + mlp_bwd)
     nbytes = ins + 4 * (N * op.dim_mid + N * K * op.dim_x + edge_in * N * K)
     if kind in ("bwd_pg", "bwd_embsh_pg"):
-        return flops + pg_flops, nbytes + pg_bytes, flops
+        return flops + pg_flops, nbytes + pg_bytes, flops + pg_tc
     return flops, nbytes, flops
 
 
@@ -353,8 +360,8 @@ INSTANCES = {
     ("fused_conv_bwd_kernel", "10"): "bwd<vec, records> (B2' first pass)",
     ("fused_conv_bwd_kernel", "01"): "bwd<emb/sh> (B4 bwd, B5)",
     ("fused_conv_bwd_kernel", "11"): "bwd<emb/sh, records> (B4' first pass)",
-    ("pg_partial_kernel", ""): "pg_partial (reduction)",
-    ("pg_final_kernel", ""): "pg_final (reduction)",
+    ("pg_partial_kernel", ""): "pg_partial (reduction: 3xTF32 wgmma, cp.async ring)",
+    ("pg_final_kernel", ""): "pg_final (reduction: the chunks in order)",
     ("batched_dot_kernel", ""): "batched_dot (probe)",
     **{("probe_mm_kernel", f"{i}{c}"): f"probe_mm<{v}{', carry' if c else ''}> (probe)"
        for i, v in enumerate(("ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32", "bf16"))
@@ -450,6 +457,72 @@ def pg_float64_check(tag, op, args, ybar, outs_k, outs_p):
             log(f"  {tag} {name} {side} vs float64: rel {err:.3e}")
 
 
+def reduce_check(tag, op, work_, valid, N, K, reps: int = 10):
+    """The B2'/B4' reduction alone on the records of a first pass: against
+    its plain version (REL_TOL of max |plain| per output), two calls
+    bitwise equal, then timed (CUDA events) beside its plain version and its
+    library call, one torch.mm(A_l^T, B_l) per weight matrix over the valid
+    rows (fp32, TF32 off; the 1 / sqrt(d_in) scale and dcoef's column sums
+    left out). Returns (ms, plain_ms, library_ms, max abs error)."""
+    import torch
+
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    names = [f"dW{i + 1}" for i in range(len(op.mlp_spec.dims) - 1)] + ["dcoef"]
+    dws, dcoef = fc.param_grad_reduce(op, work_, valid, N, K)
+    dws2, dcoef2 = fc.param_grad_reduce(op, work_, valid, N, K)
+    pw, pc = fc.param_grad_reduce_plain(op, work_, valid)
+    got, again, want = [*dws, dcoef], [*dws2, dcoef2], [*pw, pc]
+    torch.cuda.synchronize()
+    err = max(check_close(tag, f"reduce {n}", a, b) for n, a, b in zip(names, got, want)
+              if b is not None)
+    dws64, dcoef64 = fc.param_grad_reduce_plain(op, work_.double(), valid)
+    exact = [*dws64, dcoef64]
+    rel = [max(float((a.double() - e).abs().max()) / float(e.abs().max())
+               for a, e in zip(side, exact) if e is not None and float(e.abs().max()) > 0)
+           for side in (got, want)]
+    log(f"  {tag} reduce against a float64 sum: kernel {rel[0]:.2e}, plain fp32 {rel[1]:.2e} "
+        f"of max |float64| (worst output)")
+    same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+    log(f"  {tag} reduce: two calls bitwise equal: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit(f"the reduction is not deterministic at {tag}")
+    ms = cuda_time(lambda: fc.param_grad_reduce(op, work_, valid, N, K), reps)
+    plain_ms = cuda_time(lambda: fc.param_grad_reduce_plain(op, work_, valid), 3)
+    rows = work_[valid.bool()]
+    mats = [(rows[:, a:a + da], rows[:, b:b + db]) for a, da, b, db in op.reduce_products
+            if a >= 0]
+    lib_ms = cuda_time(lambda: [torch.mm(m_a.t(), m_b) for m_a, m_b in mats], reps)
+    log(f"  {tag} reduce: kernel {ms:.4f} ms, library {lib_ms:.4f} ms (torch.mm per weight "
+        f"matrix over the {rows.shape[0]} valid rows of {N * K}, chunk "
+        f"{fc.reduce_chunk(N * K)}), kernel/library {ms / lib_ms:.3f}, plain {plain_ms:.4f} ms")
+    return ms, plain_ms, lib_ms, err
+
+
+def reduce_device_kernels(op, work_, valid, N, K):
+    """The device kernels of one reduction call, from torch.profiler:
+    [(name, device us)]. Raises SystemExit unless there are at most 2, the
+    partial sums' among them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    fc.param_grad_reduce(op, work_, valid, N, K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fc.param_grad_reduce(op, work_, valid, N, K)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = sum(c for _, c, _ in kernels)
+    log(f"  reduce: device kernels of one call (torch.profiler): {n}: "
+        + ", ".join(f"{k} x{c} {us:.1f} us" for k, c, us in kernels))
+    if not 0 < n <= 2 or not any("pg_partial" in k for k, _, _ in kernels):
+        raise SystemExit(f"one reduction call ran {n} device kernels: {kernels}")
+    return kernels
+
+
 def kernel_phase(spec, params, dev, atoms):
     """Each kernel against its plain version at the three SevenNet-0 layer
     shapes, in vec mode on the box's edge vectors and in emb/sh mode on the
@@ -500,13 +573,13 @@ def kernel_phase(spec, params, dev, atoms):
         except SystemExit:
             pg_float64_check(tag, op, args, ybar, outs_k, outs_p)
             raise
-        # the reduction alone, on the records of the first pass
+        del outs_k, outs_p
+        # the reduction alone, on the records of the first pass: against
+        # plain, bitwise twice, timed beside torch.mm
         _, _, work_, valid = fc.fused_conv_bwd_pg_records(*args, ybar)
-        red_k = fc.param_grad_reduce(op, work_, valid, N, K)
-        red_p = fc.param_grad_reduce_plain(op, work_, valid)
-        errs["reduce"] = max(check_close(tag, f"reduce {n}", a, b) for n, a, b in zip(
-            ("dW1", "dW2", "dW3", "dcoef"), [*red_k[0], red_k[1]], [*red_p[0], red_p[1]]))
-        del outs_k, outs_p, red_k, red_p
+        red_ms, red_plain, reduce_lib, errs["reduce"] = reduce_check(tag, op, work_, valid, N, K)
+        if tag == "layers1-3":
+            reduce_device_kernels(op, work_, valid, N, K)
 
         # emb/sh mode against vec mode on the same edges: B4 on the normalized
         # emb/sh of the edge vectors matches B1; B4 bwd's demb and dsh, chained
@@ -547,8 +620,7 @@ def kernel_phase(spec, params, dev, atoms):
                     cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar), 3)),
             "bwd_pg": (cuda_time(lambda: fc.fused_conv_bwd(*args, ybar, param_grads=True), reps),
                        cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar, param_grads=True), 3)),
-            "reduce": (cuda_time(lambda: fc.param_grad_reduce(op, work_, valid, N, K), reps),
-                       cuda_time(lambda: fc.param_grad_reduce_plain(op, work_, valid), 3)),
+            "reduce": (red_ms, red_plain),
             "fwd_embsh": (cuda_time(lambda: fc.fused_conv_fwd_embsh(*eargs), reps),
                           cuda_time(lambda: fc.fused_conv_fwd_embsh_plain(*eargs), 3)),
             "bwd_embsh": (cuda_time(lambda: fc.fused_conv_bwd_embsh(*eargs, ybar), reps),
@@ -561,17 +633,7 @@ def kernel_phase(spec, params, dev, atoms):
                 layer.conv, layer.radial_mlp, x, emb_l.view(N, K, -1), sh_l.view(N, K, -1), src,
                 ws), reps), cuda_time(lambda: fc.fused_conv_fwd_embsh_plain(*eargs), 3)),
         }
-        # the reduction's library call: one torch.mm(A_l^T, B_l) per weight
-        # matrix over the valid rows (fp32, TF32 off), the 1 / sqrt(d_in)
-        # scale and dcoef's column sums left out
-        rows = work_[valid.bool()]
-        mats = [(rows[:, a:a + da], rows[:, b:b + db]) for a, da, b, db in op.reduce_products
-                if a >= 0]
-        reduce_lib = cuda_time(lambda: [torch.mm(m_a.t(), m_b) for m_a, m_b in mats], reps)
-        del rows, mats
         per_shape[tag] = {"reduce_lib": reduce_lib}
-        log(f"  {tag} reduce: library {reduce_lib:.4f} ms (torch.mm per weight matrix over the "
-            f"valid rows)")
         for k in KERNELS:
             tk, tp = times[k]
             fl, by, tc = work(op_e if "embsh" in k or k == "b6" else op, N, K, n_edges,
@@ -873,6 +935,37 @@ def step_breakdown(spec, trainer, batch):
     return out
 
 
+def reduce_batch(spec, trainer, batch, card):
+    """The B2' reduction on one training batch's records (``reduce_check``),
+    each layer's on the batch's edge vectors with random x and cotangent;
+    per step B2' runs it twice a layer. Returns the summed (ms, library_ms)
+    of a step."""
+    import torch
+
+    from sevennet_tpu_torch.model.model import edge_embed_spec
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    N, K = batch.n_atoms_cap, batch.dense_k
+    sentinel = torch.tensor([2.0 * spec.cutoff, 0.0, 0.0], device=batch.device)
+    vec = torch.where(batch.edge_mask[None], batch.edge_vectors().T, sentinel[:, None]).contiguous()
+    src = batch.edge_src.view(N, K).to(torch.int32).contiguous()
+    coef = trainer.params["edge_embedding"]["bessel_coeffs"].detach()
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    ms = lib = 0.0
+    for layer in spec.layers:
+        op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+        ws = [w.detach() for w in trainer.params[f"{layer.t}_convolution"]["weight_nn"]["w"]]
+        x = torch.randn(N, op.dim_x, generator=gen).to(batch.device)
+        ybar = torch.randn(N, op.dim_mid, generator=gen).to(batch.device)
+        _, _, work_, valid = fc.fused_conv_bwd_pg_records(op, x, src, vec, coef, ws, ybar)
+        k_ms, _, l_ms, _ = reduce_check(f"train batch layer {layer.t}", op, work_, valid, N, K)
+        ms += 2 * k_ms
+        lib += 2 * l_ms
+    log(f"  train batch (N={N}, K={K}): the reduction per step (2 x 5 calls) kernel {ms:.4f} ms, "
+        f"library {lib:.4f} ms | {card}")
+    return ms, lib
+
+
 def compare_steps(label, kern, plain, batches, want, card):
     """TRAIN_CMP_STEPS train steps of ``kern`` (the kernel path), each held
     against the plain path's loss and gradients at the same weights and
@@ -990,6 +1083,7 @@ def training_phase(dev, seed: int, card: str):
         peak = torch.cuda.max_memory_allocated() / 2**30
         plain_ms = cuda_median(lambda: plain.train_step(b), 2)
         parts = step_breakdown(spec, kern, b)
+        reduce_batch(spec, kern, b, card)
         n_struct = int(b.graph_mask.sum())
         kern_ms = parts["b1"] + parts["b2pg"]
         log(f"  train step: median {step_ms:.2f} ms ({REPS} runs, CUDA events), "
@@ -1347,10 +1441,11 @@ def box_edges(spec, params, dev, atoms):
 def l3i5_kernel_phase(spec, params, dev, atoms):
     """B1, B2 and B2' (records pass and reduction) at SevenNet-l3i5's widths
     (layer 0, layers 1-3, layer 4) on the box, each against its plain
-    version (REL_TOL of max |plain|), timed with CUDA events; prints each
-    layer shape's column blocks of w and its shared-memory carve. Returns
-    per-kernel records (times summed over one pass: layer 0 + 3 x layers
-    1-3 + layer 4)."""
+    version (REL_TOL of max |plain|), timed with CUDA events, and the
+    reduction alone (``reduce_check``: against plain, twice bitwise, beside
+    torch.mm); prints each layer shape's column blocks of w and its
+    shared-memory carve. Returns per-kernel records (times summed over one
+    pass: layer 0 + 3 x layers 1-3 + layer 4)."""
     import torch
 
     from sevennet_tpu_torch.model.model import edge_embed_spec
@@ -1362,6 +1457,7 @@ def l3i5_kernel_phase(spec, params, dev, atoms):
     gen = torch.Generator(device="cpu").manual_seed(5)
     recs = {k: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, tc_flops=0.0, err=0.0)
             for k in ("fwd", "bwd", "bwd_pg")}
+    recs["reduce"] = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
     for tag, t, n_layers in SHAPES:
         layer = spec.layers[t]
         op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
@@ -1387,6 +1483,11 @@ def l3i5_kernel_phase(spec, params, dev, atoms):
         pairs += [(f"dW{i + 1}", a, b) for i, (a, b) in enumerate(zip(got[2], want[2]))]
         errs["bwd_pg"] = max(check_close(f"l3i5 {tag}", n, a, b) for n, a, b in pairs)
         del got, want, pairs
+        _, _, work_, valid = fc.fused_conv_bwd_pg_records(*args, ybar)
+        red = reduce_check(f"l3i5 {tag}", op, work_, valid, N, K, reps=5)
+        for key, v in zip(("ms", "plain_ms", "library_ms"), red):
+            recs["reduce"][key] += n_layers * v
+        del work_, valid
         times = {
             "fwd": (cuda_time(lambda: fc.fused_conv_fwd(*args), 5),
                     cuda_time(lambda: fc.fused_conv_fwd_plain(*args), 2)),
@@ -1407,6 +1508,9 @@ def l3i5_kernel_phase(spec, params, dev, atoms):
             recs[k]["err"] = max(recs[k]["err"], errs[k])
         del x, ybar, args
         torch.cuda.empty_cache()
+    r = recs["reduce"]
+    log(f"  l3i5 reduce per pass: kernel {r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f} ms")
     return recs
 
 
@@ -1573,8 +1677,9 @@ FILL_THREADS_PER_SM = 16 * 1024  # threads the FMA probes' fill copies give each
 
 
 def sass_counts(so):
-    """fp32 instructions (FFMA, FADD, FMUL) and tensor-core ones (HMMA) of
-    every kernel in library ``so``, and the FFMAs that read an operand from
+    """fp32 instructions (FFMA, FADD, FMUL) and tensor-core ones (HMMA:
+    mma.sync, HGMMA: wgmma) of every kernel in library ``so``, and the
+    FFMAs that read an operand from
     the reuse cache (a ``.reuse`` flag on the FFMA before: one register read
     fewer), from ``cuobjdump -sass``; None where the toolkit has no
     cuobjdump."""
@@ -1592,15 +1697,30 @@ def sass_counts(so):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = dict(FFMA=0, FADD=0, FMUL=0, HMMA=0, reuse=0)
+            counts[fn] = dict(FFMA=0, FADD=0, FMUL=0, HMMA=0, HGMMA=0, reuse=0)
             reuse = False
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
-        if m and fn is not None and m.group(1) in ("FFMA", "FADD", "FMUL", "HMMA"):
+        if m and fn is not None and m.group(1) in ("FFMA", "FADD", "FMUL", "HMMA", "HGMMA"):
             counts[fn][m.group(1)] += 1
             counts[fn]["reuse"] += m.group(1) == "FFMA" and reuse
             reuse = m.group(1) == "FFMA" and ".reuse" in ln
     return counts
+
+
+def reduce_sass(so):
+    """The reduction kernels' SASS counts (``sass_counts``): the partial
+    sums' products on the tensor cores (HGMMA, wgmma's instruction, nonzero)
+    and no FFMA anywhere in that kernel, so none in its product loop.
+    Raises SystemExit otherwise, or without cuobjdump."""
+    counts = sass_counts(so)
+    if counts is None:
+        raise SystemExit("cuobjdump not found: the reduction's SASS cannot be checked")
+    for fn, c in counts.items():
+        log(f"  sass {fn}: {c}")
+    part = [c for fn, c in counts.items() if "pg_partial_kernel" in fn]
+    if len(part) != 1 or part[0]["HGMMA"] == 0 or part[0]["FFMA"] != 0:
+        raise SystemExit(f"pg_partial_kernel's SASS: {part}, expected HGMMA > 0 and no FFMA")
 
 
 def check_equal(tag: str, got, want) -> float:
@@ -2195,6 +2315,7 @@ FWD_CU = "sevennet_tpu_torch/csrc/fused_conv_fwd.cu"
 PROBE_MM_CU = "sevennet_tpu_torch/csrc/probe_mm.cu"
 PROBE_BD_CU = "sevennet_tpu_torch/csrc/probe_batched_dot.cu"
 BWD_CU = "sevennet_tpu_torch/csrc/fused_conv_bwd.cu"
+PG_CU = "sevennet_tpu_torch/csrc/pg_reduce.cu"
 FMA_CU = "sevennet_tpu_torch/csrc/probe_fma.cu"
 GATHER_CU = "sevennet_tpu_torch/csrc/probe_gather.cu"
 REDUCE_CU = "sevennet_tpu_torch/csrc/probe_reduce.cu"
@@ -2241,7 +2362,7 @@ KERNEL_NAMES = {
     "bwd_slot": ("fused_conv_bwd_slot", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1208",
                  "bwd_slot"),
     "bwd_pg": ("fused_conv_bwd_pg", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222", "bwd_pg"),
-    "reduce": ("param_grad_reduce", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1064", "reduce"),
+    "reduce": ("param_grad_reduce", PG_CU, "sevennet_tpu/ops/fused_conv.py:1064", "reduce"),
     "fwd_embsh": ("fused_conv_fwd_embsh", FWD_CU, "sevennet_tpu/ops/fused_conv.py:678",
                   "fwd_embsh"),
     "bwd_embsh": ("fused_conv_bwd_embsh", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222",
@@ -2295,6 +2416,7 @@ def main() -> int:
     for lib_name in ("probe_fma", "probe_reduce", "probe_fold"):
         for fn, c in (sass_counts(libs[lib_name]) or {"cuobjdump": "not found"}).items():
             log(f"  sass {fn}: {c}")
+    reduce_sass(libs["pg_reduce"])
 
     spec = sevennet0_spec()
     params = params_from_numpy(spec, random_params(spec, args.seed))

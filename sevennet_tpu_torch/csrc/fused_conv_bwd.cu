@@ -10,14 +10,14 @@
 // make_fused_conv_bwd2, out_slots=1 (pallas_call at :1222):
 //   - fused_conv_bwd_launch: `embed` set, param_grads=False (B2, serving
 //     and MD);
-//   - fused_conv_bwd_pg_launch + param_grad_reduce_launch: `embed` set,
+//   - fused_conv_bwd_pg_launch + pg_reduce_launch (pg_reduce.cu): `embed` set,
 //     param_grads=True (B2', training), which also gives the radial-MLP
 //     weight gradients dW_l = sum_edges h_l (x) g_l / sqrt(d_l) and dcoef
 //     (:1060-1098);
 //   - fused_conv_bwd_slot_launch: out_slots > 1 (B3, pallas_call at :1208),
 //     B2 on one row chunk of the ring backward writing into a buffer slot;
 //   - fused_conv_bwd_embsh_launch and fused_conv_bwd_embsh_pg_launch +
-//     param_grad_reduce_launch (no dcoef): embed=None (B4 bwd and B4').
+//     pg_reduce_launch (no dcoef): embed=None (B4 bwd and B4').
 //     They also serve B5, make_fused_conv_bwd (pallas_call at :875), the
 //     round-2 factoring of the same pullback.
 //
@@ -63,12 +63,12 @@
 //      h and their cotangents dz, dw, plus the per-edge dcoef terms) into a
 //      workspace row at the edge's flat slot, and a validity byte for every
 //      slot of row i;
-//   2. param_grad_reduce_launch forms dW_l = H_l^T G_l over the workspace:
-//      64 x 64 output tiles per CTA over a fixed chunk of rows (invalid rows
-//      read as zeros), each chunk's tile to a partial buffer, then one pass
-//      that sums the partials in chunk order. It is bound by fp32
-//      operations (2 d_in d_out per edge and layer); the workspace is read
-//      once per 64-column tile of G.
+//   2. pg_reduce_launch (pg_reduce.cu) forms dW_l = H_l^T G_l over the
+//      workspace: one launch over every product's output tiles and row
+//      chunks (invalid rows zero-filled by the copies), 3xTF32 on the
+//      tensor cores, each chunk's tile to a partial buffer, then a second
+//      launch that adds the partials in chunk order. It is bound by the
+//      bytes of the records, each read once (pg_reduce.cu has the design).
 #include "fused_conv_common.cuh"
 
 // Per-edge record of the parameter-gradient workspace (B2'): row stride and
@@ -390,85 +390,6 @@ __global__ void __launch_bounds__(NT, 1) fused_conv_bwd_kernel(
   prof.store();
 }
 
-// ---------------------------------------------------------------------------
-// second pass of B2': C = scale * A^T B over the valid workspace rows
-// ---------------------------------------------------------------------------
-
-#define RT 64  // output tile: RT rows of A's columns x RT columns of B's
-#define RK 16  // workspace rows per step
-
-struct ReduceArgs {
-  const float* work;
-  const unsigned char* valid;
-  int rows, stride, chunk;
-  int a_off, da;  // A = work[:, a_off : a_off + da]; a_off < 0: a column of ones
-  int b_off, db;  // B = work[:, b_off : b_off + db]
-  float* partial; // (n_chunks, da, db)
-};
-
-// One 64 x 64 tile of A^T B over rows [z * chunk, (z + 1) * chunk): 256
-// threads, 4 x 4 outputs each, in registers; rows step RK at a time through
-// shared memory, loaded along the workspace columns (coalesced).
-__global__ void __launch_bounds__(256) pg_partial_kernel(ReduceArgs p) {
-  __shared__ __align__(16) float As[RK][RT];
-  __shared__ __align__(16) float Bs[RK][RT];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b0 = blockIdx.x * RT, a0 = blockIdx.y * RT;
-  const int r_begin = blockIdx.z * p.chunk;
-  const int r_end = min(p.rows, r_begin + p.chunk);
-  float acc[4][4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = 0.0f;
-  for (int r0 = r_begin; r0 < r_end; r0 += RK) {
-    for (int idx = threadIdx.x; idx < RK * RT; idx += 256) {
-      const int k = idx / RT, c = idx - k * RT;
-      const int r = r0 + k;
-      const bool ok = r < r_end && p.valid[r];
-      const float* row = p.work + (size_t)r * p.stride;
-      float a = 0.0f, b = 0.0f;
-      if (ok && a0 + c < p.da) a = p.a_off < 0 ? 1.0f : row[p.a_off + a0 + c];
-      if (ok && b0 + c < p.db) b = row[p.b_off + b0 + c];
-      As[k][c] = a;
-      Bs[k][c] = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < RK; ++k) {
-      const float4 av = *(const float4*)&As[k][ty * 4];
-      const float4 bv = *(const float4*)&Bs[k][tx * 4];
-      const float a[4] = {av.x, av.y, av.z, av.w};
-      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] += a[u] * b[v];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int a = a0 + ty * 4 + u;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int b = b0 + tx * 4 + v;
-      if (a < p.da && b < p.db)
-        p.partial[((size_t)blockIdx.z * p.da + a) * p.db + b] = acc[u][v];
-    }
-  }
-}
-
-// out[o] = scale * sum over chunks, in chunk order, of partial[chunk, o]
-__global__ void pg_final_kernel(const float* __restrict__ partial, int n_chunks, int n,
-                                float scale, float* __restrict__ out) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n) return;
-  float s = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) s += partial[(size_t)c * n + o];
-  out[o] = s * scale;
-}
-
 template <bool PG, bool EMBSH>
 static int launch_bwd(const ConvDims& d, int* limits, const float* x, const int* src,
                       const float* ea, const float* eb, const MlpWeights& W, const float* ybar,
@@ -548,34 +469,4 @@ extern "C" int fused_conv_bwd_embsh_pg_launch(ConvDims d, WsLayout L, const floa
                                               void* stream) {
   return launch_bwd<true, true>(d, smem_limit_embsh_pg, x, src, emb, sh, W, ybar, itab, ftab, dxg,
                                 demb, dsh, L, work, wvalid, stream);
-}
-
-// B2' (and B4'), second pass: the radial MLP's weight gradients and, in vec
-// mode, dcoef from the workspace (rows * stride floats, rows = N*K). Product
-// p is prods[4p .. 4p+3] = (a_off, da, b_off, db): out[p] (da x db) = A^T B
-// / sqrt(da) over the valid rows, A = work[:, a_off : a_off + da] (a_off < 0:
-// a column of ones, da 1: the column sums of B, dcoef) and B = work[:,
-// b_off : b_off + db]; the host lists one product per weight matrix
-// (ops/fused_conv.py:_reduce_products). partial holds ceil(rows / chunk) *
-// sum(da * db) floats.
-extern "C" int param_grad_reduce_launch(const int* prods, int n_prod, float* const* outs,
-                                        const float* work, const unsigned char* wvalid, int rows,
-                                        int stride, int chunk, float* partial, void* stream) {
-  const int n_chunks = (rows + chunk - 1) / chunk;
-  cudaStream_t s = (cudaStream_t)stream;
-  size_t off = 0;
-  for (int p = 0; p < n_prod; ++p) {
-    const int a_off = prods[4 * p], da = prods[4 * p + 1], b_off = prods[4 * p + 2],
-              db = prods[4 * p + 3];
-    const int n = da * db;
-    if (n_chunks > 0) {
-      ReduceArgs a = {work, wvalid, rows, stride, chunk, a_off, da, b_off, db, partial + off};
-      dim3 grid((db + RT - 1) / RT, (da + RT - 1) / RT, n_chunks);
-      pg_partial_kernel<<<grid, 256, 0, s>>>(a);
-    }
-    pg_final_kernel<<<(n + 255) / 256, 256, 0, s>>>(partial + off, n_chunks, n,
-                                                    (float)(1.0 / sqrt((double)da)), outs[p]);
-    off += (size_t)n_chunks * n;
-  }
-  return (int)cudaGetLastError();
 }

@@ -24,8 +24,8 @@ Hand-written CUDA kernels carry it on the card (``csrc/``):
 - ``fused_conv_bwd_pg`` / ``fused_conv_bwd_embsh_pg`` and
   ``param_grad_reduce`` (B2′ / B4′): the same with ``param_grads=True``, in
   two passes (per-edge records, then a reduction over all edges in a fixed
-  order); :func:`fused_conv_bwd` and :func:`fused_conv_bwd_embsh` with
-  ``param_grads=True`` run both;
+  order, ``csrc/pg_reduce.cu``); :func:`fused_conv_bwd` and
+  :func:`fused_conv_bwd_embsh` with ``param_grads=True`` run both;
 - ``fused_conv_bwd_slot`` (B3): replaces ``make_fused_conv_bwd2`` with
   ``out_slots > 1``: B2 on one row chunk, writing its ``dxg`` into a slot
   of the ring backward's rolling buffer (:class:`FusedConvRingVec`).
@@ -323,6 +323,74 @@ def _reduce_products(dims, layout, dcoef: bool):
     return prods
 
 
+# the reduction kernel's layout (csrc/pg_reduce.cu; check_reduce_layout):
+# threads, output tile rows and columns, rows per stage, staged row strides,
+# largest chunk, tiles and products of a call
+REDUCE_NT, REDUCE_TM, REDUCE_TN, REDUCE_RK = 640, 128, 64, 16
+REDUCE_SA, REDUCE_SB = REDUCE_TM + 8, REDUCE_TN + 8
+REDUCE_MAX_CHUNK, REDUCE_MAX_TILES = 4096, 64
+REDUCE_SMS = 132        # SMs of an H100 SXM: the chunk plan's target of chunks
+REDUCE_MIN_CHUNK = 64   # rows
+
+
+def reduce_chunk(rows: int) -> int:
+    """Workspace rows per chunk of the reduction: about ``REDUCE_SMS``
+    chunks, each a whole number of stages (``REDUCE_RK`` rows), within
+    ``[REDUCE_MIN_CHUNK, REDUCE_MAX_CHUNK]``. A function of the row count
+    alone, so the order of the sums depends on the shape only."""
+    per_sm = -(-rows // REDUCE_SMS)
+    return min(REDUCE_MAX_CHUNK, max(REDUCE_MIN_CHUNK, -(-per_sm // REDUCE_RK) * REDUCE_RK))
+
+
+def _staged(col: int, width: int):
+    """(first column, shift, columns) by which the reduction kernel copies
+    the record field ``[col, col + width)``: the aligned superset of its
+    columns (16-byte boundaries, whole 16 bytes), the fragments reading
+    from ``col = first + shift`` on."""
+    c0 = col - col % 4
+    return c0, col - c0, -(-(col + width - c0) // 4) * 4
+
+
+def _split_width(n: int, most: int) -> int:
+    """The width of the equal parts, a multiple of 8, that cut ``n``
+    columns into as few parts of at most ``most`` as there can be."""
+    per = -(-n // -(-n // most))
+    return -(-per // 8) * 8
+
+
+def reduce_tiles(prods):
+    """The reduction kernel's output tiles over the products ``prods``
+    (:func:`_reduce_products`), and where each product's outputs start in
+    the concatenated output (``begins``, one more than the products):
+    ``(tiles, begins)``. Product ``(a, da, b, db)`` gives the ``(da, db)``
+    matrix ``A^T B`` (dcoef: ``a = -1``, a ones column, ``(db,)``), entry
+    ``(i, j)`` at ``i * db + j``. A tile's M operand is the wider of A and B
+    (B on a tie; never the ones column), its N operand the other: the
+    kernel loads M into registers and transposes N through shared memory.
+    Tiles of at most ``REDUCE_TM`` rows (M's columns) and ``REDUCE_TN``
+    columns, each side split into equal widths (a multiple of 8). A tile is
+    ``(m_col, m_sh, m_cols, m_len, n_col, n_sh, n_cols, n_len, out, sm,
+    sn)`` (``struct PgTile``): each operand copied as :func:`_staged` says
+    (``n_col = -1``: the ones column, not copied), entry (m, n) at ``out +
+    m * sm + n * sn``."""
+    tiles, begins = [], [0]
+    for a, da, b, db in prods:
+        out0 = begins[-1]
+        transposed = a < 0 or db >= da
+        (m_off, m_n), (n_off, n_n) = ((b, db), (a, da)) if transposed else ((a, da), (b, db))
+        sm, sn = (1, db) if transposed else (db, 1)
+        m_width, n_width = _split_width(m_n, REDUCE_TM), _split_width(n_n, REDUCE_TN)
+        for m0 in range(0, m_n, m_width):
+            ml = min(m_width, m_n - m0)
+            for n0 in range(0, n_n, n_width):
+                nl = min(n_width, n_n - n0)
+                n_st = (-1, 0, 0) if n_off < 0 else _staged(n_off + n0, nl)
+                tiles.append((*_staged(m_off + m0, ml), ml, *n_st, nl, out0 + m0 * sm + n0 * sn,
+                              sm, sn))
+        begins.append(out0 + da * db)
+    return tiles, begins
+
+
 UVU_HEADER = 20   # ints at the start of the int table: the uvu task tables' places, MLP widths
 UVU_INS = 64      # ints per instruction record
 UVU_BLK = 8       # ints per column-block record
@@ -612,6 +680,7 @@ class FusedConvOp:
         self.itab, self._offs = tables["itab"], tables["offs"]
         self.ws_layout = _workspace_layout(mlp_spec.dims, dcoef=embed is not None)
         self.reduce_products = _reduce_products(mlp_spec.dims, self.ws_layout, embed is not None)
+        self._reduce_args: Optional[tuple] = None
         self._device_tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def device_tables(self, device: torch.device):
@@ -621,6 +690,26 @@ class FusedConvOp:
                 torch.as_tensor(self.ftab, device=device),
             )
         return self._device_tables[device]
+
+    def reduce_args(self):
+        """ctypes arrays of the reduction's launch: ``(tiles, n_tiles,
+        begins, scales, n_prod)`` (:func:`reduce_tiles`; scales ``1 /
+        sqrt(d_in)``), cached."""
+        if self._reduce_args is None:
+            tiles, begins = reduce_tiles(self.reduce_products)
+            if len(tiles) > REDUCE_MAX_TILES:
+                raise ValueError(f"the reduction kernel takes {REDUCE_MAX_TILES} tiles, got "
+                                 f"{len(tiles)}")
+            flat = [v for t in tiles for v in t]
+            scales = [1.0 / math.sqrt(da) for _, da, _, _ in self.reduce_products]
+            self._reduce_args = (
+                ctypes.cast((ctypes.c_int * len(flat))(*flat), ctypes.POINTER(ctypes.c_int)),
+                ctypes.c_int(len(tiles)),
+                ctypes.cast((ctypes.c_int * len(begins))(*begins), ctypes.POINTER(ctypes.c_int)),
+                ctypes.cast((ctypes.c_float * len(scales))(*scales),
+                            ctypes.POINTER(ctypes.c_float)),
+                ctypes.c_int(len(scales)))
+        return self._reduce_args
 
     def dims(self, N: int, K: int, offs=None) -> _ConvDims:
         e, d = self.embed, self.mlp_spec.dims
@@ -822,8 +911,6 @@ def check_conv_inputs(op: FusedConvOp, embsh: bool, x, src, a, b, ws, ybar=None)
 
 
 _P = ctypes.c_void_p
-# workspace rows per CTA of the reduction kernel's first pass
-REDUCE_CHUNK = 1024
 
 
 UVU_LAYOUT = (UVU_WARPS, UVU_INS, UVU_MAX_D, UVU_BLK, MAX_MLP, UVU_HEADER)
@@ -1112,13 +1199,29 @@ def fused_conv_bwd_embsh_pg_records(op: FusedConvOp, x, src, emb, sh, ws, ybar):
 fused_conv_bwd_embsh_pg_records.launches = 0
 
 
+REDUCE_LAYOUT = (REDUCE_NT, REDUCE_TM, REDUCE_TN, REDUCE_RK, REDUCE_SA, REDUCE_SB,
+                 REDUCE_MAX_CHUNK, REDUCE_MAX_TILES, MAX_MLP + 1)
+
+
+def check_reduce_layout(lib: ctypes.CDLL):
+    """Raises unless the reduction kernel of ``lib`` (``csrc/pg_reduce.cu``)
+    has the layout :func:`reduce_tiles` and :func:`reduce_chunk` build for
+    (``REDUCE_LAYOUT``)."""
+    got = (ctypes.c_int * len(REDUCE_LAYOUT))()
+    lib.pg_reduce_layout(got)
+    if tuple(got) != REDUCE_LAYOUT:
+        raise RuntimeError(f"csrc/pg_reduce.cu has layout {tuple(got)}, the host builds for "
+                           f"{REDUCE_LAYOUT}")
+
+
 def param_grad_reduce(op: FusedConvOp, work, valid, N: int, K: int):
     """Second pass of B2′ and B4′: ``(dws, dcoef)`` summed over the valid
     rows of the workspace (``dcoef`` is ``None`` in emb/sh mode). CPU
-    tensors: the plain version. CUDA tensors: the ``param_grad_reduce``
-    kernels (``csrc/fused_conv_bwd.cu``), whose sums run in a fixed order
-    (chunks of ``REDUCE_CHUNK`` rows, then the chunks in turn): the result
-    does not depend on the launch."""
+    tensors: the plain version. CUDA tensors: the ``pg_reduce`` kernels
+    (``csrc/pg_reduce.cu``): one launch over every product's output tiles
+    (:func:`reduce_tiles`) and row chunks (:func:`reduce_chunk`), one that
+    adds the chunks in turn. The sums run in an order fixed by the shapes:
+    two calls give the same bits."""
     shapes = (("work", work, (N * K, op.ws_layout["stride"]), torch.float32),
               ("valid", valid, (N * K,), torch.uint8))
     for name, t, shape, dtype in shapes:
@@ -1131,20 +1234,24 @@ def param_grad_reduce(op: FusedConvOp, work, valid, N: int, K: int):
         return param_grad_reduce_plain(op, work, valid)
     if work.device.type != "cuda":
         raise ValueError(f"unsupported device {work.device}")
-    dev = work.device
+    from .kernels import call
+
+    if work.data_ptr() % 16:
+        raise ValueError("the reduction kernel copies whole 16 bytes: work must start on a "
+                         "16-byte boundary")
+    dev, rows = work.device, N * K
     prods = op.reduce_products
-    n_chunks = -(-N * K // REDUCE_CHUNK)
-    partial = torch.empty(n_chunks * sum(da * db for _, da, _, db in prods),
-                          dtype=torch.float32, device=dev)
+    tiles, n_tiles, begins, scales, n_prod = op.reduce_args()
+    chunk = reduce_chunk(rows)
+    partial = torch.empty(-(-rows // chunk) * begins[n_prod.value], dtype=torch.float32,
+                          device=dev)
     outs = [torch.empty((da, db) if a >= 0 else (db,), dtype=torch.float32, device=dev)
             for a, da, _, db in prods]
-    flat = [v for p in prods for v in p]
-    _call("fused_conv_bwd", "param_grad_reduce_launch",
-          ctypes.cast((ctypes.c_int * len(flat))(*flat), ctypes.POINTER(ctypes.c_int)),
-          ctypes.c_int(len(prods)),
-          ctypes.cast((_P * len(outs))(*[o.data_ptr() for o in outs]), ctypes.POINTER(_P)),
-          _ptr(work), _ptr(valid), ctypes.c_int(N * K), ctypes.c_int(op.ws_layout["stride"]),
-          ctypes.c_int(REDUCE_CHUNK), _ptr(partial), _stream(dev))
+    call("pg_reduce", "pg_reduce_launch", tiles, n_tiles, begins, scales,
+         ctypes.cast((_P * len(outs))(*[o.data_ptr() for o in outs]), ctypes.POINTER(_P)),
+         n_prod, _ptr(work), _ptr(valid), ctypes.c_int(rows),
+         ctypes.c_int(op.ws_layout["stride"]), ctypes.c_int(chunk), _ptr(partial), _stream(dev),
+         on_load=check_reduce_layout)
     param_grad_reduce.launches += 1
     n_w = len(op.mlp_spec.dims) - 1
     return outs[:n_w], None if op.embed is None else outs[n_w]

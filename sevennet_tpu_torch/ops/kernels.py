@@ -1,5 +1,5 @@
 """Builds and loads the hand-written CUDA kernels of ``sevennet_tpu_torch/csrc``:
-the fused conv (``fused_conv_fwd``, ``fused_conv_bwd``) and the Hopper
+the fused conv (``fused_conv_fwd``, ``fused_conv_bwd``, ``pg_reduce``) and the Hopper
 probes (``probe_mm``, ``probe_batched_dot``, ``probe_fma``, ``probe_gather``,
 ``probe_reduce``, ``probe_xpose``, ``probe_fold``, ``probe_fold_conv``,
 ``probe_breakdown``, ``probe_breakdown_k``, ``probe_breakdown_feat``,
@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "build", "library", "call", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fused_conv_fwd", "fused_conv_bwd", "probe_mm", "probe_batched_dot", "probe_fma",
+SOURCES = ("fused_conv_fwd", "fused_conv_bwd", "pg_reduce", "probe_mm", "probe_batched_dot", "probe_fma",
            "probe_gather", "probe_reduce", "probe_xpose", "probe_fold", "probe_fold_conv",
            "probe_breakdown", "probe_breakdown_k", "probe_breakdown_feat", "probe_knockout")
 NVCC_FLAGS = (

@@ -411,6 +411,98 @@ def test_l3i5_layer_kernels_match_plain(cuda):
     assert op.numel == 1760 and len(op.plan.blocks) > 1
 
 
+_SEVENNET0 = {  # bench.py:87-147
+    "lmax": 2, "channel": 128, "cutoff": 5.0, "is_parity": False, "num_convolution_layer": 5,
+    "irreps_manual": ["128x0e"] + ["128x0e+64x1e+32x2e"] * 4 + ["128x0e"],
+    "cutoff_function": {"cutoff_function_name": "XPLOR", "cutoff_on": 4.5},
+    "self_connection_type": "linear", "weight_nn_hidden_neurons": [64, 64],
+    "chemical_species": ["H", "O"]}
+_L3I5 = dict(_SEVENNET0, lmax=3,  # bench.py:89-106
+             irreps_manual=["128x0e"] + ["128x0e+64x1e+32x2e+32x3e"] * 4 + ["128x0e"],
+             cutoff_function={"cutoff_function_name": "poly_cut", "poly_cut_p_value": 6},
+             self_connection_type="nequip")
+
+
+def _reduce_op(which, vec_mode):
+    """The conv op of a SevenNet-0 or l3i5 layer (``("s0", t)``, ``("l3i5",
+    t)``), or of the odd widths (``("odd", hidden)``: dim_x 53, 81 uvu
+    weights, radial MLP (8, *hidden, 81))."""
+    kind, arg = which
+    if kind == "odd":
+        x_ir, f_ir = Irreps("3x0e+5x1e+7x2e"), Irreps("1x0e+1x1e+1x2e")
+        conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+        embed = fc.EdgeEmbedSpec(8, 3.4, "XPLOR", 3.0, 2) if vec_mode else None
+        return fc.conv_op(conv, ScalarMLPSpec((8, *arg, conv.weight_numel)), embed)
+    from sevennet_tpu_torch.model.model import edge_embed_spec
+
+    spec = build_model_spec(_SEVENNET0 if kind == "s0" else _L3I5)
+    layer = spec.layers[arg]
+    return fc.conv_op(layer.conv, layer.radial_mlp,
+                      edge_embed_spec(spec, layer) if vec_mode else None)
+
+
+@pytest.mark.parametrize("which,vec_mode,rows,case", [
+    (("s0", 0), True, 3_001, "nan"),          # d_out 384
+    (("s0", 1), True, 10_007, "nan"),         # d_out 960, rows not a multiple of the chunk
+    (("s0", 4), False, 50, "nan"),            # d_out 224, below one chunk
+    (("l3i5", 1), True, 2_117, "nan"),        # d_out 1,760
+    (("odd", (20, 24)), True, 880, "nan"),    # d_out 81, dc off the 4-float grid
+    (("odd", (21, 27)), True, 1_000, "nan"),  # h1, dz1 and dc off the 4-float grid
+    (("odd", (21, 27)), False, 500, "all_invalid"),
+    (("odd", (21, 27)), True, 700, "misaligned"),  # the workspace 4 bytes off: refused
+], ids=["s0_layer0", "s0_layers1-3", "s0_layer4_one_chunk", "l3i5_layers1-3", "odd_20_24",
+        "odd_21_27", "all_invalid", "misaligned"])
+def test_param_grad_reduce_matches_plain(cuda, which, vec_mode, rows, case):
+    """The reduction kernel (``csrc/pg_reduce.cu``) on random records
+    against its plain version, 1e-5 of the largest plain value: d_in 8 and
+    64, d_out 224, 384, 960, 1,760 and 81, record fields on and off the
+    4-float grid, one chunk and a ragged last chunk; invalid records hold
+    NaN (all of them invalid: exact zeros). Two calls give the same bits,
+    and each call counts one launch. A workspace that does not start on a
+    16-byte boundary (the kernel's bulk copies move whole 16 bytes) is
+    refused, with no launch."""
+    op = _reduce_op(which, vec_mode)
+    stride = op.ws_layout["stride"]
+    rng = np.random.default_rng(rows)
+    records = rng.normal(size=(rows, stride)).astype(np.float32)
+    valid = (rng.uniform(size=rows) < 0.9).astype(np.uint8)
+    if case == "all_invalid":
+        valid[:] = 0
+    records[valid == 0] = np.nan
+    if case == "misaligned":
+        buf = torch.empty(rows * stride + 1, device=cuda)
+        work = buf[1:].view(rows, stride)
+        work.copy_(torch.from_numpy(records))
+        assert work.is_contiguous() and work.data_ptr() % 16 == 4
+        n0 = fc.param_grad_reduce.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            fc.param_grad_reduce(op, work, torch.from_numpy(valid).to(cuda), rows, 1)
+        assert fc.param_grad_reduce.launches == n0
+        return
+    else:
+        work = torch.from_numpy(records).to(cuda)
+    valid = torch.from_numpy(valid).to(cuda)
+    n0 = fc.param_grad_reduce.launches
+    dws, dcoef = fc.param_grad_reduce(op, work, valid, rows, 1)
+    dws2, dcoef2 = fc.param_grad_reduce(op, work, valid, rows, 1)
+    torch.cuda.synchronize()
+    assert fc.param_grad_reduce.launches == n0 + 2
+    dws_p, dcoef_p = fc.param_grad_reduce_plain(op, work, valid)
+    got, again = [*dws, dcoef], [*dws2, dcoef2]
+    want = [*dws_p, dcoef_p]
+    assert (dcoef is None) == (not vec_mode)
+    for g, g2, w in zip(got, again, want):
+        if w is None:
+            continue
+        assert g.shape == w.shape and torch.equal(g, g2)
+        scale = float(w.abs().max())
+        if case == "all_invalid":
+            assert scale == 0 and (g == 0).all()
+            continue
+        assert scale > 0
+        np.testing.assert_allclose(g.cpu(), w.cpu(), rtol=0, atol=1e-5 * scale)
+
+
 @pytest.mark.parametrize("hidden", [(), (16,), (16, 16, 16)], ids=["depth0", "depth1", "depth3"])
 def test_mlp_depth_kernels_match_plain(cuda, hidden):
     """Radial MLPs of no, one and three hidden layers: every instance against
