@@ -32,7 +32,11 @@
    atoms: 5 forward and 5 backward kernel launches per request; against the
    plain path (192 and 3,000 atoms) forces within 1e-3 eV/A and 1e-4 of the
    largest force, energy within 1e-5 relative, stress within 1e-6 eV/A^3;
-   ms per request. Then the same with ``_normalize_sph: False`` (the
+   ms per request, and the host graph split into its three parts (the
+   native cell list, the sort by receiver, and the device densify with the
+   mirror map) beside the host graph the port built before (scipy's list
+   and the host densify), with the count of lists each builder served.
+   Then the same with ``_normalize_sph: False`` (the
    legacy config every pre-0.10 checkpoint loads as): 5 B4 + 5 B4 bwd
    launches per request and none of B1/B2.
 4. Trains SevenNet-0 (full width and depth) on 16 water boxes of 192 atoms
@@ -61,7 +65,18 @@
    widths (B1, B2 against plain), then requests of 192 and 3,000 atoms
    through the calculator (5 B1 + 5 B2 each; forces against the plain-conv
    model within 1e-3 eV/A and 1e-4 of max |F|).
-7. The Hopper probes (``sevennet_tpu_torch/probes``): every variant of the
+7. SevenNet-MF-ompa (``sevennet_tpu_torch/model/presets.py``: five parity
+   layers up to lmax 3, 6 A cutoff, two modalities; random weights from the
+   seed): B1 and B2 at each of its five layer shapes against their plain
+   versions on a 192-atom water box (each layer's passes, blocks and carve
+   printed; layers 2 and 3 run in several passes), timed there and on the
+   3,000-atom box; then requests of 192 and 3,000 atoms through the
+   calculator with each modality pinned by ``select_modality`` (5 B1 + 5 B2
+   each; the 192-atom request against the plain-conv model, forces within
+   1e-3 eV/A and 1e-4 of max |F|; the two modalities' energies differ),
+   with the model's time, the request's, the host graph's parts and the
+   peak memory.
+8. The Hopper probes (``sevennet_tpu_torch/probes``): every variant of the
    matmul-rate probe (both contracts, every shape of its TPU scripts) and
    the batched products at N 10,016 against their plain versions
    (``mm_rate.PROBE_TOL``), then the probe path with the counts from 0:
@@ -94,7 +109,7 @@
    script's way, with the knock-outs' savings beside B4 fwd's section
    clocks (``conv_breakdown.py``'s profile build). The B2'/B4' reduction's
    row times one torch.mm per weight matrix as its library call.
-8. Prints a ``kernels`` JSON line, the card's name and power limit, and as
+9. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -203,6 +218,10 @@ L3I5 = dict(SEVENNET0, lmax=3,
             cutoff_function={"cutoff_function_name": "poly_cut", "poly_cut_p_value": 6},
             self_connection_type="nequip")
 L3I5_SIZES = (192, 3000)
+MF_SIZES = (192, 3000)
+MF_PLAIN_MAX_ATOMS = 192   # the plain mf-ompa conv's messages: 15,552 floats an edge
+MF_MODALITIES = ("mpa", "omat24")
+MF_DENOMINATOR = 81.0      # mean neighbours of a water atom at 6 A
 # radial MLPs of other depths held at SevenNet-0's widths
 MLP_DEPTHS = ((), (64,), (64, 64, 64))
 
@@ -351,15 +370,17 @@ def bound_ms(flops: float, nbytes: float, tc_flops: float = 0.0):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-# kernel instances by mangled name and template arguments (ILb<PG>ELb<EMBSH>EE,
+# kernel instances by mangled name and template arguments (ILb<PG>ELb<EMBSH>ELb<MULTI>EE,
 # ILi<variant>ELb<carry>EE)
 INSTANCES = {
     ("fused_conv_fwd_kernel", "0"): "fwd<vec> (B1)",
     ("fused_conv_fwd_kernel", "1"): "fwd<emb/sh> (B4 fwd, B6)",
-    ("fused_conv_bwd_kernel", "00"): "bwd<vec> (B2, B3)",
-    ("fused_conv_bwd_kernel", "10"): "bwd<vec, records> (B2' first pass)",
-    ("fused_conv_bwd_kernel", "01"): "bwd<emb/sh> (B4 bwd, B5)",
-    ("fused_conv_bwd_kernel", "11"): "bwd<emb/sh, records> (B4' first pass)",
+    **{("fused_conv_bwd_kernel", f"{pg}{embsh}{multi}"):
+       f"bwd<{'emb/sh' if embsh else 'vec'}{', records' if pg else ''}"
+       f"{', passes' if multi else ''}> ({name})"
+       for (pg, embsh), name in (((0, 0), "B2, B3"), ((1, 0), "B2' first pass"),
+                                 ((0, 1), "B4 bwd, B5"), ((1, 1), "B4' first pass"))
+       for multi in (0, 1)},
     ("pg_partial_kernel", ""): "pg_partial (reduction: 3xTF32 wgmma, cp.async ring)",
     ("pg_final_kernel", ""): "pg_final (reduction: the chunks in order)",
     ("batched_dot_kernel", ""): "batched_dot (probe)",
@@ -791,17 +812,57 @@ def read_launches():
     return {k: fn.launches for k, fn in counters().items()}
 
 
+def host_graph_split(calc, at, reps: int = REPS):
+    """Median wall ms of the host graph's parts as the calculator runs
+    them (the neighbour list, the sort by receiver, the device densify with
+    the mirror map, synchronised), and of the host graph before them
+    (scipy's list and the host densify with ``mirror_map_numpy``, then the
+    copy to the card): ``(list, sort, densify, before)``."""
+    import torch
+
+    from sevennet_tpu_torch.data.graph import (
+        dense_graph_device,
+        dense_graph_from_arrays,
+        receiver_sorted,
+    )
+    from sevennet_tpu_torch.data.neighborlist import neighbor_list_numpy, neighbor_list_scipy
+
+    species = calc.spec.z_to_type[at.numbers]
+    parts = {"list": [], "sort": [], "densify": [], "before": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        dst, src, sh = neighbor_list_numpy(at.positions, calc.spec.cutoff, at.cell, at.pbc)
+        t1 = time.perf_counter()
+        dst, src, sh = receiver_sorted(dst, src, sh)
+        t2 = time.perf_counter()
+        dense_graph_device(at.positions, species, src, dst, sh, at.cell, device=calc.device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        dst, src, sh = neighbor_list_scipy(at.positions, calc.spec.cutoff, at.cell, at.pbc)
+        dense_graph_from_arrays(at.positions, species, src, dst, sh, at.cell, device=calc.device)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, a, b in (("list", t0, t1), ("sort", t1, t2), ("densify", t2, t3),
+                          ("before", t3, t4)):
+            parts[key].append((b - a) * 1e3)
+    return tuple(statistics.median(parts[k]) for k in ("list", "sort", "densify", "before"))
+
+
 def request_phase(spec, params, dev, label: str, fwd: str, bwd: str, graph_times: bool = True,
-                  sizes=SIZES):
+                  sizes=SIZES, plain_max: int = PLAIN_MAX_ATOMS, energies=None):
     """Calculator requests at full width for water boxes of ``sizes``
     atoms, each launching the kernels ``fwd`` and ``bwd`` (keys of
-    :func:`counters`) once per layer and no other; returns the launches of
-    each kernel over the whole phase."""
+    :func:`counters`) once per layer and no other, held against the
+    plain-conv model up to ``plain_max`` atoms; with ``graph_times`` the
+    host graph's parts timed (:func:`host_graph_split`). Returns the
+    launches of each kernel over the whole phase; ``energies`` (a dict)
+    gets each size's energy."""
     import numpy as np
     import torch
 
     from sevennet_tpu_torch.atoms import AtomsLite
     from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.data.neighborlist import neighbor_list_numpy
     from sevennet_tpu_torch.model.model import model_compute
 
     calc = SevenNetCalculator(spec, params, device=str(dev))
@@ -826,9 +887,11 @@ def request_phase(spec, params, dev, label: str, fwd: str, bwd: str, graph_times
             raise SystemExit(f"{n} atoms: forces {res['forces'].shape}, "
                              f"stress {res['stress'].shape}")
         drift = float(np.abs(res["forces"].sum(0)).max())
+        if energies is not None:
+            energies[n] = res["energy"]
         line = (f"{label} request {n} atoms: E={res['energy']:.6f} eV, "
                 f"|sum F|={drift:.2e}, launches {got[fwd]} {fwd} + {got[bwd]} {bwd}")
-        if n <= PLAIN_MAX_ATOMS:
+        if n <= plain_max:
             ref = plain.calculate(at)
             df = float(np.abs(res["forces"] - ref["forces"]).max())
             de = abs(res["energy"] - ref["energy"]) / max(abs(ref["energy"]), 1e-30)
@@ -865,6 +928,13 @@ def request_phase(spec, params, dev, label: str, fwd: str, bwd: str, graph_times
         peak = torch.cuda.max_memory_allocated() / 2**30
         host = (f"host graph median {statistics.median(graph_walls):.1f} ms (wall), "
                 if graph_times else "")
+        if graph_times:
+            served = dict(neighbor_list_numpy.served)
+            lst, srt, dens, before = host_graph_split(calc, at)
+            builders = {k: v - served[k] for k, v in neighbor_list_numpy.served.items()}
+            log(f"  {label} {n} atoms host graph: list {lst:.2f} ms, sort {srt:.2f} ms, device "
+                f"densify + mirror map {dens:.2f} ms (wall medians, {REPS} runs); before "
+                f"(scipy list + host densify + copy) {before:.2f} ms; lists served {builders}")
         log(f"  {label} {n} atoms: K={graph.dense_k} edges={int(graph.edge_mask.sum())} "
             f"request median {statistics.median(walls):.1f} ms (wall, {REPS} runs), {host}"
             f"model median {model_ms:.2f} ms (CUDA events, {REPS} runs), "
@@ -1512,6 +1582,124 @@ def l3i5_kernel_phase(spec, params, dev, atoms):
     log(f"  l3i5 reduce per pass: kernel {r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
         f"plain {r['plain_ms']:.4f} ms")
     return recs
+
+
+def mf_ompa_kernel_phase(spec, params, dev):
+    """B1 and B2 at each of SevenNet-MF-ompa's five layer shapes: against
+    their plain versions (REL_TOL of max |plain|) on the 192-atom water box,
+    timed with CUDA events there (kernel and plain) and on the 3,000-atom
+    box (kernel); prints each layer's passes, column blocks and carve.
+    Returns per-kernel records summed over the five layers (one request's
+    launches): at the 192-atom box ``ms``, ``plain_ms`` and the work, at the
+    3,000-atom box ``ms_big`` and its work."""
+    import torch
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.model.model import edge_embed_spec
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    boxes = {}
+    for n in MF_SIZES:
+        pos, Z, cell = water_box(n // 3)
+        boxes[n] = box_edges(spec, params, dev, AtomsLite(positions=pos, numbers=Z, cell=cell,
+                                                          pbc=True))
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    recs = {k: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, tc_flops=0.0, err=0.0,
+                    ms_big=0.0, flops_big=0.0, bytes_big=0.0, tc_flops_big=0.0)
+            for k in ("fwd", "bwd")}
+    for t, layer in enumerate(spec.layers):
+        op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+        plan = op.plan
+        for n in MF_SIZES:
+            calc, g, vec, src, coef = boxes[n]
+            N, K, n_edges = g.n_atoms_cap, g.dense_k, int(g.edge_mask.sum())
+            d = op.dims(N, K)
+            if n == MF_SIZES[0]:
+                log(f"  mf-ompa layer {t}: x {op.dim_x}, mid {op.dim_mid}, w {op.numel} columns; "
+                    f"{len(plan.passes)} passes of {[cp.mw for cp in plan.passes]} mid columns "
+                    f"in {list(plan.pass_blocks)} blocks of {list(plan.widths)} columns; carve "
+                    f"at K={K} (bytes, W3 stages): forward {op.carve(d, False)}, backward "
+                    f"{op.carve(d, True)}, limit {fc.SMEM_LIMIT}")
+            ws = calc.params[f"{t}_convolution"]["weight_nn"]["w"]
+            x = torch.randn(N, op.dim_x, generator=gen).to(dev)
+            ybar = torch.randn(N, op.dim_mid, generator=gen).to(dev)
+            args = (op, x, src, vec, coef, ws)
+            tag = f"mf-ompa layer {t} ({n} atoms)"
+            times = {"fwd": cuda_time(lambda: fc.fused_conv_fwd(*args), 3),
+                     "bwd": cuda_time(lambda: fc.fused_conv_bwd(*args, ybar), 3)}
+            plain = {}
+            if n <= MF_PLAIN_MAX_ATOMS:
+                errs = {"fwd": check_close(tag, "fwd", fc.fused_conv_fwd(*args),
+                                           fc.fused_conv_fwd_plain(*args))}
+                got, want = fc.fused_conv_bwd(*args, ybar), fc.fused_conv_bwd_plain(*args, ybar)
+                errs["bwd"] = max(check_close(tag, name, a, b)
+                                  for name, a, b in zip(("dxg", "dvec"), got, want))
+                del got, want
+                plain = {"fwd": cuda_time(lambda: fc.fused_conv_fwd_plain(*args), 2),
+                         "bwd": cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar), 2)}
+            for k, tk in times.items():
+                fl, by, tc = work(op, N, K, n_edges, k)
+                bnd = bound_ms(fl, by, tc)[0]
+                line = (f"  {tag} {k}: kernel {tk:.4f} ms, bound {bnd:.4f} ms "
+                        f"({tk / bnd:.1f}x; fp32 {bound_ms(fl, by)[0]:.4f} ms), "
+                        f"{fl / tk / 1e9:.2f} TFLOP/s")
+                r = recs[k]
+                if k in plain:
+                    line += f", plain {plain[k]:.4f} ms"
+                    for key, v in (("ms", tk), ("plain_ms", plain[k]), ("flops", fl),
+                                   ("bytes", by), ("tc_flops", tc)):
+                        r[key] += v
+                    r["err"] = max(r["err"], errs[k])
+                else:
+                    for key, v in (("ms_big", tk), ("flops_big", fl), ("bytes_big", by),
+                                   ("tc_flops_big", tc)):
+                        r[key] += v
+                log(line)
+            del x, ybar, args
+            torch.cuda.empty_cache()
+    for k, r in recs.items():
+        log(f"  mf-ompa {k} per request: {r['ms']:.4f} ms at {MF_SIZES[0]} atoms (plain "
+            f"{r['plain_ms']:.4f} ms, bound {bound_ms(r['flops'], r['bytes'], r['tc_flops'])[0]:.4f}"
+            f" ms), {r['ms_big']:.4f} ms at {MF_SIZES[1]} atoms (bound "
+            f"{bound_ms(r['flops_big'], r['bytes_big'], r['tc_flops_big'])[0]:.4f} ms)")
+    return recs
+
+
+def mf_ompa_phase(dev, seed: int):
+    """SevenNet-MF-ompa on the card: the layer shapes' kernel checks
+    (:func:`mf_ompa_kernel_phase`), then requests of MF_SIZES atoms with
+    each modality pinned by ``select_modality`` (:func:`request_phase`,
+    held against the plain-conv model up to MF_PLAIN_MAX_ATOMS atoms). The
+    two modalities' energies must differ. Returns ``(records, launches)``,
+    the launches over the requests."""
+    from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
+    from sevennet_tpu_torch.model.build import build_model_spec
+    from sevennet_tpu_torch.model.presets import MF_OMPA
+    from sevennet_tpu_torch.scripts.modal_tools import select_modality
+
+    # the reference sets the conv denominator to the training set's average
+    # neighbour count (avg_num_neigh), which the checkpoint carries; the
+    # preset leaves it at 1.0. The water box's at 6 A is 81 (K 82).
+    cfg = dict(MF_OMPA, chemical_species=["H", "O"], conv_denominator=MF_DENOMINATOR)
+    spec = build_model_spec(cfg)
+    params = params_from_numpy(spec, random_params(spec, seed))
+    t0 = time.perf_counter()
+    records = mf_ompa_kernel_phase(spec, params, dev)
+    log(f"mf-ompa kernel phase: {time.perf_counter() - t0:.1f} s")
+    launches, energies = None, {}
+    for modal in MF_MODALITIES:
+        cfg_m, params_m = select_modality(cfg, params, modal)
+        energies[modal] = {}
+        got = request_phase(build_model_spec(cfg_m), params_m, dev, f"mf-ompa {modal}", "fwd",
+                            "bwd", sizes=MF_SIZES, plain_max=MF_PLAIN_MAX_ATOMS,
+                            energies=energies[modal])
+        launches = got if launches is None else {k: v + got[k] for k, v in launches.items()}
+    for n in MF_SIZES:
+        e = [energies[m][n] for m in MF_MODALITIES]
+        log(f"  mf-ompa {n} atoms: E {dict(zip(MF_MODALITIES, e))} eV")
+        if abs(e[0] - e[1]) <= 1e-6 * max(abs(e[0]), 1.0):
+            raise SystemExit(f"mf-ompa {n} atoms: the modalities give the same energy {e}")
+    return records, launches
 
 
 def mlp_depth_phase(dev, atoms, seed: int):
@@ -2463,6 +2651,10 @@ def main() -> int:
     log(f"l3i5 request phase (main path: serving SevenNet-l3i5): launches {served_l3}, "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    mf_records, served_mf = mf_ompa_phase(dev, args.seed)
+    log(f"mf-ompa phase (main path: serving SevenNet-MF-ompa, both modalities): launches "
+        f"{served_mf}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     probe_records, probe_launches = probe_phase(dev, card)
     log(f"probe phase (the probe path): launches {probe_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2504,6 +2696,16 @@ def main() -> int:
         kernels_line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": served_l3[key], "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        })
+    for key, name in (("fwd", "fused_conv_fwd (SevenNet-MF-ompa)"),
+                      ("bwd", "fused_conv_bwd (SevenNet-MF-ompa)")):
+        r = mf_records[key]
+        bnd, by = bound_ms(r["flops"], r["bytes"], r["tc_flops"])
+        source, replaces = KERNEL_NAMES[key][1:3]
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": served_mf[key], "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
         })
     from sevennet_tpu_torch.probes import mm_rate as mr
@@ -2558,7 +2760,9 @@ def main() -> int:
         "param_grad_reduce; launches: the B6 path, serving (both configs), train_run, the "
         "legacy config's compared train steps, and MD (3,000 and 9,999 atoms, and the timed "
         "ring steps at 99,999); the SevenNet-l3i5 rows per pass of its layer shapes on the "
-        "same box, launches from its requests; the probe rows per call at their first shape, "
+        "same box, launches from its requests; the SevenNet-MF-ompa rows per request of its "
+        "five layer shapes on the 192-atom box, launches from its requests (both "
+        "modalities); the probe rows per call at their first shape, "
         "launches from the probe path, library_ms the same work as torch.matmul (16 products; "
         "TF32 on for the tf32 and wgmma rows) or torch.bmm; the FMA and gather probe rows per "
         "call at their TPU script's first shape and method, library_ms torch.index_select into "

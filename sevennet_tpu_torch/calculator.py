@@ -2,11 +2,18 @@
 ``sevennet_tpu/calculator.py:SevenNetTPUCalculator`` on its fused path;
 reference ``SevenNetCalculator``, ``sevenn/calculator.py:20-233``).
 
-Each request builds the neighbour list on the host, densifies the edges into
-the receiver-major ``(N, K)`` slot grid with its mirror index, and runs
-:func:`~sevennet_tpu_torch.model.model.model_compute`. The grid's K is the
-largest neighbour count: the kernels need a rectangular grid, nothing more
-(the JAX package's bucketed capacities served XLA's compile cache).
+Each request builds the neighbour list on the host (the native cell list
+for 256 atoms or more, :mod:`sevennet_tpu_torch.data.neighborlist`) and
+sorts it by receiver; the device scatters the edges into the receiver-major
+``(N, K)`` slot grid and builds the mirror index
+(:func:`~sevennet_tpu_torch.data.graph.dense_graph_device`, as the JAX
+package's fused calculator does), and
+:func:`~sevennet_tpu_torch.model.model.model_compute` runs. The grid's K is
+the largest neighbour count: the kernels need a rectangular grid, nothing
+more (the JAX package's bucketed capacities served XLA's compile cache).
+A multi-fidelity model serves the modality its config pins
+(:func:`~sevennet_tpu_torch.scripts.modal_tools.select_modality`), else
+modality 0.
 
 Results use ASE conventions: ``stress`` in eV/A^3, Voigt order
 (xx, yy, zz, yz, xz, xy), with the reference's sign flip.
@@ -19,7 +26,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from .atoms import as_atoms
-from .data.graph import dense_graph_from_arrays
+from .data.graph import dense_graph_device, receiver_sorted
 from .data.neighborlist import neighbor_list_numpy
 from .device import resolve_device
 from .model.build import ModelSpec
@@ -58,12 +65,10 @@ class SevenNetCalculator:
         if (species < 0).any():
             bad = sorted(set(at.numbers[species < 0].tolist()))
             raise ValueError(f"model does not know atomic numbers {bad}")
-        dst, src, shifts = neighbor_list_numpy(
-            at.positions, self.spec.cutoff, at.cell, at.pbc
-        )
-        return dense_graph_from_arrays(
-            at.positions, species, src, dst, shifts, at.cell, device=self.device
-        )
+        dst, src, shifts = neighbor_list_numpy(at.positions, self.spec.cutoff, at.cell, at.pbc)
+        dst, src, shifts = receiver_sorted(dst, src, shifts)
+        return dense_graph_device(at.positions, species, src, dst, shifts, at.cell,
+                                  device=self.device)
 
     def calculate(self, atoms) -> Dict[str, Any]:
         at = as_atoms(atoms)

@@ -45,7 +45,10 @@
 // cutoff get exact zeros without any arithmetic. It walks the column blocks
 // of w (fused_conv_common.cuh) in order: per block it rebuilds the block's
 // w and tmp, runs the block's pullback and adds the block's share of dxg,
-// dsh and the last hidden layer's dz to the earlier blocks'.
+// dsh and the last hidden layer's dz to the earlier blocks'. A layer in
+// passes (fused_conv_common.cuh) runs all that once per pass, each pass
+// adding its dxg and its share of the edge cotangents to the earlier
+// passes'.
 //
 // Emb/sh mode walks every slot, padding included: a slot whose emb row is
 // zero has w = 0, so its dxg and dsh are zero, but its demb is not (dw =
@@ -82,14 +85,14 @@ struct WsLayout {
 };
 
 // Writes the workspace record of each edge of the tile but dw and the dcoef
-// terms: emb, h and dz of every hidden layer (columns emb .. dw). dw is
-// written per column block (write_dw_records), the dcoef terms by the
-// chain step.
+// terms: emb, h and dz of every hidden layer (columns emb .. dw); with acc
+// (a later pass) it adds its dz only. dw is written per column block
+// (write_dw_records), the dcoef terms by the chain step.
 __device__ inline void write_records(const ConvDims& d, const WsLayout& L, const Tile& t, int ne,
-                                     float* __restrict__ work) {
-  const int W = L.dw;
+                                     float* __restrict__ work, bool acc) {
+  const int c0 = acc ? L.dz : 0, W = L.dw - c0;
   for (int idx = threadIdx.x; idx < ne * W; idx += NT) {
-    const int e = idx / W, c = idx - e * W;
+    const int e = idx / W, c = c0 + idx - e * W;
     float v;
     if (c < L.h) {
       v = t.embT[(c - L.emb) * TE + e];
@@ -103,7 +106,8 @@ __device__ inline void write_records(const ConvDims& d, const WsLayout& L, const
       // h_l follows z_l; dz_l lies over z_l, the last layer's in dzl
       v = c < L.dz ? z[TE * h + o * TE + e] : (l == d.nh - 1 ? t.dzl : z)[o * TE + e];
     }
-    work[(size_t)t.flats[e] * L.stride + c] = v;
+    float* p = work + (size_t)t.flats[e] * L.stride + c;
+    *p = acc ? *p + v : v;
   }
 }
 
@@ -207,12 +211,13 @@ __device__ inline void w3_backward(const ConvDims& d, const Tile& t, const float
   }
 }
 
-// The backward's work on column block B after its w and tmp (for block 0
-// load_tile's): the uvu pullback, dsh and the last hidden layer's dz, added
-// to the earlier blocks' unless FIRST; with PG the block's dw records. Block
-// 0 is its own instance, so that a layer of one block (every SevenNet-0
-// layer) runs straight through, with nothing to add.
-template <bool PG, bool FIRST>
+// The backward's work on column block B after its w and tmp (for a pass's
+// block 0 load_tile's): the uvu pullback, dsh and the last hidden layer's
+// dz, added to the pass's earlier blocks' unless FIRST, and dxg, added to
+// the earlier blocks' and passes' with ACC; with PG the block's dw records.
+// Block 0 is its own instance, so that a layer of one block (every
+// SevenNet-0 layer) runs straight through, with nothing to add.
+template <bool PG, bool FIRST, bool ACC = !FIRST>
 __device__ __forceinline__ void bwd_block(const ConvDims& d, const Tile& t, const Blk& B, bool last,
                                           int ne, const float* __restrict__ W3,
                                           const float* __restrict__ ftab, float* __restrict__ dxg,
@@ -236,7 +241,7 @@ __device__ __forceinline__ void bwd_block(const ConvDims& d, const Tile& t, cons
     small_product(t.dtmp, 1, t.SR, B.rows, ftab + (size_t)B.r0 * DF, DF, 1, DF, t.dsh, 1, DF,
                   [=](float v, int f, int e) { return FIRST ? v : dsh[e * DF + f] + v; });
   }
-  uvu_dxg_dw<!FIRST>(d, t, ne, dxg, B);
+  uvu_dxg_dw<ACC>(d, t, ne, dxg, B);
   __syncthreads();
   prof.mark(9);
   // dz of the last hidden layer += (dw @ W3^T) / sqrt(hl) * silu'(z) * cst
@@ -246,18 +251,20 @@ __device__ __forceinline__ void bwd_block(const ConvDims& d, const Tile& t, cons
 }
 
 // (ea, eb): (vec, coef) in vec mode, (emb, sh) in emb/sh mode; (da, db):
-// (dvec, unused) in vec mode, (demb, dsh) in emb/sh mode.
-template <bool PG, bool EMBSH>
+// (dvec, unused) in vec mode, (demb, dsh) in emb/sh mode. MULTI: the layer
+// runs in passes; a layer of one pass takes the instance without, whose
+// code has nothing to add across passes.
+template <bool PG, bool EMBSH, bool MULTI>
 __global__ void __launch_bounds__(NT, 1) fused_conv_bwd_kernel(
     ConvDims d, const float* __restrict__ x, const int* __restrict__ src,
     const float* __restrict__ ea, const float* __restrict__ eb, MlpWeights W,
     const float* __restrict__ W3, const float* __restrict__ ybar,
     const int* __restrict__ itab, const float* __restrict__ ftab,
     float* __restrict__ dxg, float* __restrict__ da, float* __restrict__ db, WsLayout L,
-    float* __restrict__ work, unsigned char* __restrict__ wvalid) {
+    float* __restrict__ work, unsigned char* __restrict__ wvalid, int mblk) {
   extern __shared__ float4 smem_raw[];
   Tile t;
-  carve(d, true, (char*)smem_raw, &t);
+  carve(d, true, (char*)smem_raw, &t, mblk);
   const int i = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -285,137 +292,169 @@ __global__ void __launch_bounds__(NT, 1) fused_conv_bwd_kernel(
       da[2 * NK + flat] = 0.0f;
     }
   }
-  for (int c = tid; c < d.dim_mid; c += NT) t.yb[yb_at(c)] = ybar[(size_t)i * d.dim_mid + c];
-  prof.mark(0);
 
   const float inv_nb = (float)(1.0 / sqrt((double)NB));
   const float cst = d.act_cst;
-  const int nb = n_blocks(t.tabs);
 
-  for (int t0 = 0; t0 < nv; t0 += TE) {
-    const int ne = min(TE, nv - t0);
-        load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W, W3, ftab, uvu_blk(t.tabs, 0), prof);
-    bwd_block<PG, true>(d, t, uvu_blk(t.tabs, 0), nb == 1, ne, W3, ftab, dxg, L, work, prof);
-    for (int b = 1; b < nb; ++b)
-      bwd_block<PG, false>(d, t, uvu_blk(t.tabs, b), b == nb - 1, ne, W3, ftab, dxg, L, work, prof);
-    // down the hidden layers, dz_l = (dz_{l+1} @ W_{l+1}^T) / sqrt(h_l) *
-    // silu'(z_l) * cst over z_l, then demb = (dz_0 @ W_0^T) / sqrt(n_basis):
-    // 3xTF32 on the tensor cores
-    for (int l = d.nh - 2; l >= 0; --l) {
-      const int h = hidden_width(t, l), h_next = hidden_width(t, l + 1);
-      float* zT = hidden_z(t, l);
-      const float* dz_next = l + 1 == d.nh - 1 ? t.dzl : zT + 2 * TE * h;
-      const float inv = (float)(1.0 / sqrt((double)h));
-      small_product(dz_next, TE, 1, h_next, mlp_weight(W, l + 1), 1, h_next, h, zT, TE, 1,
-                    [=](float s, int o, int e) {
-                      const float z = zT[o * TE + e];
-                      const float sg = sigmoidf_(z);
-                      return s * inv * (sg * (1.0f + z * (1.0f - sg)) * cst);
-                    });
+  // the passes, each over all of the row's edges (one for most layers); the
+  // later ones (acc) add to the first's outputs
+  for (int pass = 0;; ++pass) {
+    const int m0 = t.tabs[H_M0], mw = t.tabs[H_MW], next = t.tabs[H_NEXT];
+    const bool acc = MULTI && pass > 0;
+    for (int c = tid; c < mw; c += NT) t.yb[yb_at(c)] = ybar[(size_t)i * d.dim_mid + m0 + c];
+    prof.mark(0);
+    const int nb = n_blocks(t.tabs);
+
+    for (int t0 = 0; t0 < nv; t0 += TE) {
+      const int ne = min(TE, nv - t0);
+      load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W, W3, ftab, uvu_blk(t.tabs, 0), prof);
+      if (MULTI && acc)
+        bwd_block<PG, true, true>(d, t, uvu_blk(t.tabs, 0), nb == 1, ne, W3, ftab, dxg, L, work,
+                                  prof);
+      else
+        bwd_block<PG, true>(d, t, uvu_blk(t.tabs, 0), nb == 1, ne, W3, ftab, dxg, L, work, prof);
+      for (int b = 1; b < nb; ++b)
+        bwd_block<PG, false>(d, t, uvu_blk(t.tabs, b), b == nb - 1, ne, W3, ftab, dxg, L, work,
+                             prof);
+      // down the hidden layers, dz_l = (dz_{l+1} @ W_{l+1}^T) / sqrt(h_l) *
+      // silu'(z_l) * cst over z_l, then demb = (dz_0 @ W_0^T) / sqrt(n_basis):
+      // 3xTF32 on the tensor cores
+      for (int l = d.nh - 2; l >= 0; --l) {
+        const int h = hidden_width(t, l), h_next = hidden_width(t, l + 1);
+        float* zT = hidden_z(t, l);
+        const float* dz_next = l + 1 == d.nh - 1 ? t.dzl : zT + 2 * TE * h;
+        const float inv = (float)(1.0 / sqrt((double)h));
+        small_product(dz_next, TE, 1, h_next, mlp_weight(W, l + 1), 1, h_next, h, zT, TE, 1,
+                      [=](float s, int o, int e) {
+                        const float z = zT[o * TE + e];
+                        const float sg = sigmoidf_(z);
+                        return s * inv * (sg * (1.0f + z * (1.0f - sg)) * cst);
+                      });
+        __syncthreads();
+      }
+      if (d.nh > 0) {
+        const int h0 = hidden_width(t, 0);
+        small_product(d.nh == 1 ? t.dzl : t.zh, TE, 1, h0, mlp_weight(W, 0), 1, h0, NB, t.demb, 1,
+                      NB, [=](float v, int, int) { return v * inv_nb; });
+      } else {
+        // no hidden layer: the W3 product left demb in dzl, (n_basis x TE)
+        for (int idx = tid; idx < TE * NB; idx += NT) {
+          const int e = idx / NB;
+          t.demb[idx] = t.dzl[(idx - e * NB) * TE + e];
+        }
+      }
       __syncthreads();
-    }
-    if (d.nh > 0) {
-      const int h0 = hidden_width(t, 0);
-      small_product(d.nh == 1 ? t.dzl : t.zh, TE, 1, h0, mlp_weight(W, 0), 1, h0, NB, t.demb, 1,
-                    NB, [=](float v, int, int) { return v * inv_nb; });
-    } else {
-      // no hidden layer: the W3 product left demb in dzl, (n_basis x TE)
-      for (int idx = tid; idx < TE * NB; idx += NT) {
-        const int e = idx / NB;
-        t.demb[idx] = t.dzl[(idx - e * NB) * TE + e];
-      }
-    }
-    __syncthreads();
-    prof.mark(6);
-    if (PG) write_records(d, L, t, ne, work);
-    if (EMBSH) {
-      // demb and dsh rows out, coalesced along each row
-      for (int idx = tid; idx < ne * NB; idx += NT) {
-        const int e = idx / NB;
-        da[(size_t)t.flats[e] * NB + (idx - e * NB)] = t.demb[idx];
-      }
-      for (int idx = tid; idx < ne * DF; idx += NT) {
-        const int e = idx / DF;
-        db[(size_t)t.flats[e] * DF + (idx - e * DF)] = t.dsh[idx];
-      }
-    } else {
-      // chain demb and dsh to the edge vector: a warp per edge, lanes over
-      // the basis functions and the derivative terms, warp sums
-      const float pref = (float)(2.0 / (double)d.cutoff);
-      const int4* st = (const int4*)(t.tabs + d.shd_terms);
-      const int* sf = t.tabs + d.shd_terms + 4 * d.n_shd;  // component c of each term
-      const float* sc = ftab + d.shd_coef;
-      for (int e = warp; e < ne; e += NWARP) {
-        const float* g = t.geo + e * 8;
-        const float r = g[0], rinv = g[1], u0 = g[2], u1 = g[3], u2 = g[4], env = g[5], denv = g[6];
-        const int flat = t.flats[e];
-        float* dc = PG ? work + (size_t)flat * L.stride + L.dc : nullptr;
-        float dr = 0.0f;
-        for (int n = lane; n < NB; n += 32) {
-          const float c = eb[n];
-          const float sr = sinf(c * r), cr = cosf(c * r);
-          const float dembdr = pref * (c * cr * (rinv * env) + sr * (denv * rinv - env * rinv * rinv));
-          dr += t.demb[e * NB + n] * dembdr;
-          // d emb_n / d c_n = pref * cos(c_n r) * env (_emb_sh_bwd_rows, :316-317)
-          if (PG) dc[n] = t.demb[e * NB + n] * (pref * cr * env);
+      prof.mark(6);
+      if (PG) write_records(d, L, t, ne, work, acc);
+      if (EMBSH) {
+        // demb and dsh rows out, coalesced along each row
+        for (int idx = tid; idx < ne * NB; idx += NT) {
+          const int e = idx / NB;
+          float* p = da + (size_t)t.flats[e] * NB + (idx - e * NB);
+          *p = acc ? *p + t.demb[idx] : t.demb[idx];
         }
-        float du0 = 0.0f, du1 = 0.0f, du2 = 0.0f;
-        const Pow3 px(u0), py(u1), pz(u2);
-        for (int q = lane; q < d.n_shd; q += 32) {
-          const int4 tm = st[q];  // (f, a, b, c) of dY_f/du_comp
-          const float v = sc[q] * (t.dsh[e * DF + tm.x] * (px(tm.y) * py(tm.z) * pz(tm.w)));
-          const int comp = sf[q];
-          du0 += comp == 0 ? v : 0.0f;
-          du1 += comp == 1 ? v : 0.0f;
-          du2 += comp == 2 ? v : 0.0f;
+        for (int idx = tid; idx < ne * DF; idx += NT) {
+          const int e = idx / DF;
+          float* p = db + (size_t)t.flats[e] * DF + (idx - e * DF);
+          *p = acc ? *p + t.dsh[idx] : t.dsh[idx];
         }
+      } else {
+        // chain demb and dsh to the edge vector: a warp per edge, lanes over
+        // the basis functions and the derivative terms, warp sums
+        const float pref = (float)(2.0 / (double)d.cutoff);
+        const int4* st = (const int4*)(t.tabs + d.shd_terms);
+        const int* sf = t.tabs + d.shd_terms + 4 * d.n_shd;  // component c of each term
+        const float* sc = ftab + d.shd_coef;
+        for (int e = warp; e < ne; e += NWARP) {
+          const float* g = t.geo + e * 8;
+          const float r = g[0], rinv = g[1], u0 = g[2], u1 = g[3], u2 = g[4], env = g[5], denv = g[6];
+          const int flat = t.flats[e];
+          float* dc = PG ? work + (size_t)flat * L.stride + L.dc : nullptr;
+          float dr = 0.0f;
+          for (int n = lane; n < NB; n += 32) {
+            const float c = eb[n];
+            const float sr = sinf(c * r), cr = cosf(c * r);
+            const float dembdr = pref * (c * cr * (rinv * env) + sr * (denv * rinv - env * rinv * rinv));
+            dr += t.demb[e * NB + n] * dembdr;
+            // d emb_n / d c_n = pref * cos(c_n r) * env (_emb_sh_bwd_rows, :316-317)
+            if (PG) {
+              const float v = t.demb[e * NB + n] * (pref * cr * env);
+              dc[n] = acc ? dc[n] + v : v;
+            }
+          }
+          float du0 = 0.0f, du1 = 0.0f, du2 = 0.0f;
+          const Pow3 px(u0), py(u1), pz(u2);
+          for (int q = lane; q < d.n_shd; q += 32) {
+            const int4 tm = st[q];  // (f, a, b, c) of dY_f/du_comp
+            const float v = sc[q] * (t.dsh[e * DF + tm.x] * (px(tm.y) * py(tm.z) * pz(tm.w)));
+            const int comp = sf[q];
+            du0 += comp == 0 ? v : 0.0f;
+            du1 += comp == 1 ? v : 0.0f;
+            du2 += comp == 2 ? v : 0.0f;
+          }
 #pragma unroll
-        for (int sh = 16; sh > 0; sh >>= 1) {
-          dr += __shfl_xor_sync(0xffffffffu, dr, sh);
-          du0 += __shfl_xor_sync(0xffffffffu, du0, sh);
-          du1 += __shfl_xor_sync(0xffffffffu, du1, sh);
-          du2 += __shfl_xor_sync(0xffffffffu, du2, sh);
-        }
-        if (lane == 0) {
-          const float udu = u0 * du0 + u1 * du1 + u2 * du2;
-          da[flat] = (du0 - u0 * udu) * rinv + u0 * dr;
-          da[NK + flat] = (du1 - u1 * udu) * rinv + u1 * dr;
-          da[2 * NK + flat] = (du2 - u2 * udu) * rinv + u2 * dr;
+          for (int sh = 16; sh > 0; sh >>= 1) {
+            dr += __shfl_xor_sync(0xffffffffu, dr, sh);
+            du0 += __shfl_xor_sync(0xffffffffu, du0, sh);
+            du1 += __shfl_xor_sync(0xffffffffu, du1, sh);
+            du2 += __shfl_xor_sync(0xffffffffu, du2, sh);
+          }
+          if (lane == 0) {
+            const float udu = u0 * du0 + u1 * du1 + u2 * du2;
+            const float v0 = (du0 - u0 * udu) * rinv + u0 * dr;
+            const float v1 = (du1 - u1 * udu) * rinv + u1 * dr;
+            const float v2 = (du2 - u2 * udu) * rinv + u2 * dr;
+            da[flat] = acc ? da[flat] + v0 : v0;
+            da[NK + flat] = acc ? da[NK + flat] + v1 : v1;
+            da[2 * NK + flat] = acc ? da[2 * NK + flat] + v2 : v2;
+          }
         }
       }
+      __syncthreads();
+      prof.mark(7);
     }
+    if (!MULTI || next == 0) break;
     __syncthreads();
-    prof.mark(7);
+    load_pass(d, t, itab, next);
+    __syncthreads();
   }
   prof.store();
 }
 
 template <bool PG, bool EMBSH>
-static int launch_bwd(const ConvDims& d, int* limits, const float* x, const int* src,
+static int launch_bwd(const ConvDims& d, int mblk, int* limits, const float* x, const int* src,
                       const float* ea, const float* eb, const MlpWeights& W, const float* ybar,
                       const int* itab, const float* ftab, float* dxg, float* da, float* db,
                       const WsLayout& L, float* work, unsigned char* wvalid, void* stream) {
-  const size_t smem = carve(d, true, nullptr, nullptr);
-  cudaError_t err =
-      raise_smem_limit((const void*)fused_conv_bwd_kernel<PG, EMBSH>, smem, limits);
+  const size_t smem = carve(d, true, nullptr, nullptr, mblk);
+  // a layer of several passes has a widest pass narrower than its mid columns
+  const bool multi = mblk < d.dim_mid;
+  const void* fn = multi ? (const void*)fused_conv_bwd_kernel<PG, EMBSH, true>
+                         : (const void*)fused_conv_bwd_kernel<PG, EMBSH, false>;
+  cudaError_t err = raise_smem_limit(fn, smem, limits + (multi ? MAX_DEVICES : 0));
   if (err != cudaSuccess) return (int)err;
-  if (d.N > 0)
-    fused_conv_bwd_kernel<PG, EMBSH><<<d.N, NT, smem, (cudaStream_t)stream>>>(
-        d, x, src, ea, eb, W, W.w[d.nh], ybar, itab, ftab, dxg, da, db, L, work, wvalid);
+  if (d.N > 0 && multi)
+    fused_conv_bwd_kernel<PG, EMBSH, true><<<d.N, NT, smem, (cudaStream_t)stream>>>(
+        d, x, src, ea, eb, W, W.w[d.nh], ybar, itab, ftab, dxg, da, db, L, work, wvalid, mblk);
+  else if (d.N > 0)
+    fused_conv_bwd_kernel<PG, EMBSH, false><<<d.N, NT, smem, (cudaStream_t)stream>>>(
+        d, x, src, ea, eb, W, W.w[d.nh], ybar, itab, ftab, dxg, da, db, L, work, wvalid, mblk);
   return (int)cudaGetLastError();
 }
 
-static int smem_limit[MAX_DEVICES];
-static int smem_limit_pg[MAX_DEVICES];
-static int smem_limit_embsh[MAX_DEVICES];
-static int smem_limit_embsh_pg[MAX_DEVICES];
+// per instance: the one-pass kernel's limit by device, then the passes one's
+static int smem_limit[2 * MAX_DEVICES];
+static int smem_limit_pg[2 * MAX_DEVICES];
+static int smem_limit_embsh[2 * MAX_DEVICES];
+static int smem_limit_embsh_pg[2 * MAX_DEVICES];
 
-// B2. Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int fused_conv_bwd_launch(ConvDims d, const float* x, const int* src, const float* vec,
+// B2. Returns cudaGetLastError() after the launch (0 = launched). mblk: the
+// output columns of the layer's widest pass (ops/fused_conv.py: BlockPlan.mblk).
+extern "C" int fused_conv_bwd_launch(ConvDims d, int mblk, const float* x, const int* src, const float* vec,
                                      const float* coef, MlpWeights W, const float* ybar,
                                      const int* itab, const float* ftab, float* dxg, float* dvec,
                                      void* stream) {
-  return launch_bwd<false, false>(d, smem_limit, x, src, vec, coef, W, ybar, itab, ftab, dxg,
+  return launch_bwd<false, false>(d, mblk, smem_limit, x, src, vec, coef, W, ybar, itab, ftab, dxg,
                                   dvec, nullptr, WsLayout{}, nullptr, nullptr, stream);
 }
 
@@ -430,43 +469,43 @@ extern "C" int fused_conv_bwd_launch(ConvDims d, const float* x, const int* src,
 // chunk's own (3, RC*K) columns, and the zero rows of slots past the
 // cutoff land inside the slot too. Rows of other slots are not touched.
 // What bounds it: B2's fp32 operations on the chunk's edges.
-extern "C" int fused_conv_bwd_slot_launch(ConvDims d, const float* x, const int* src_c,
+extern "C" int fused_conv_bwd_slot_launch(ConvDims d, int mblk, const float* x, const int* src_c,
                                           const float* vec_c, const float* coef, MlpWeights W,
                                           const float* ybar_c, const int* itab, const float* ftab,
                                           float* buf, int slot, float* dvec, void* stream) {
   float* dxg = buf + (size_t)slot * d.N * d.K * d.dim_x;
-  return launch_bwd<false, false>(d, smem_limit, x, src_c, vec_c, coef, W, ybar_c, itab, ftab,
+  return launch_bwd<false, false>(d, mblk, smem_limit, x, src_c, vec_c, coef, W, ybar_c, itab, ftab,
                                   dxg, dvec, nullptr, WsLayout{}, nullptr, nullptr, stream);
 }
 
 // B2', first pass: B2 plus the workspace records (N*K rows of L.stride
 // floats) and the validity byte of every slot (N*K).
-extern "C" int fused_conv_bwd_pg_launch(ConvDims d, WsLayout L, const float* x, const int* src,
+extern "C" int fused_conv_bwd_pg_launch(ConvDims d, int mblk, WsLayout L, const float* x, const int* src,
                                         const float* vec, const float* coef, MlpWeights W,
                                         const float* ybar, const int* itab, const float* ftab,
                                         float* dxg, float* dvec, float* work,
                                         unsigned char* wvalid, void* stream) {
-  return launch_bwd<true, false>(d, smem_limit_pg, x, src, vec, coef, W, ybar, itab, ftab, dxg,
+  return launch_bwd<true, false>(d, mblk, smem_limit_pg, x, src, vec, coef, W, ybar, itab, ftab, dxg,
                                  dvec, nullptr, L, work, wvalid, stream);
 }
 
 // B4 bwd: emb (N*K, n_basis), sh (N*K, dim_f) -> dxg, demb, dsh.
-extern "C" int fused_conv_bwd_embsh_launch(ConvDims d, const float* x, const int* src,
+extern "C" int fused_conv_bwd_embsh_launch(ConvDims d, int mblk, const float* x, const int* src,
                                            const float* emb, const float* sh, MlpWeights W,
                                            const float* ybar, const int* itab, const float* ftab,
                                            float* dxg, float* demb, float* dsh, void* stream) {
-  return launch_bwd<false, true>(d, smem_limit_embsh, x, src, emb, sh, W, ybar, itab, ftab, dxg,
+  return launch_bwd<false, true>(d, mblk, smem_limit_embsh, x, src, emb, sh, W, ybar, itab, ftab, dxg,
                                  demb, dsh, WsLayout{}, nullptr, nullptr, stream);
 }
 
 // B4', first pass: B4 bwd plus the records (no dcoef columns: L.dc is the
 // end of the record) and a validity byte of 1 for every slot.
-extern "C" int fused_conv_bwd_embsh_pg_launch(ConvDims d, WsLayout L, const float* x,
+extern "C" int fused_conv_bwd_embsh_pg_launch(ConvDims d, int mblk, WsLayout L, const float* x,
                                               const int* src, const float* emb, const float* sh,
                                               MlpWeights W, const float* ybar, const int* itab,
                                               const float* ftab, float* dxg, float* demb,
                                               float* dsh, float* work, unsigned char* wvalid,
                                               void* stream) {
-  return launch_bwd<true, true>(d, smem_limit_embsh_pg, x, src, emb, sh, W, ybar, itab, ftab, dxg,
+  return launch_bwd<true, true>(d, mblk, smem_limit_embsh_pg, x, src, emb, sh, W, ybar, itab, ftab, dxg,
                                 demb, dsh, L, work, wvalid, stream);
 }

@@ -60,6 +60,24 @@
 // four cvt per k-step) and W3's streaming from L2 (PERF.md has the measured
 // sections; wgmma on 64-edge tiles is the next step).
 //
+// Passes: where a layer's output accumulator (forward), ybar (backward) and
+// task tables do not fit a CTA whole (SevenNet-MF-ompa's widest layers, 13,504
+// and 15,552 mid columns), the host cuts its instructions into passes, each a
+// run of whole output groups of the mid layout (ops/fused_conv.py:
+// plan_blocks), and the CTA walks its edges once per pass: the pass's
+// outputs are mid columns m0 .. m0 + mw, its task tables (its own column
+// blocks) replace the previous pass's in shared memory, and the x tile is
+// the whole x row, since every output group reads nearly every x irrep. The
+// forward's passes write disjoint output columns. The backward's passes add
+// their dxg (the first pass's first block writes every x irrep, zeros where
+// none of its instructions reads it), and their edge cotangents (dvec, or
+// demb and dsh), each a linear function of the pass's share of dsh and of
+// the last hidden layer's dz, in pass order; B2's records add their dz and
+// dcoef terms likewise. One CTA runs the passes in turn, so the sums have a
+// fixed order. A layer of one pass (every SevenNet-0 and l3i5 layer) walks
+// its edges once, and the backward takes an instance (MULTI false) with no
+// sums across passes.
+//
 // Emb/sh mode (template flag EMBSH; the TPU kernels with embed=None) takes
 // a precomputed embedding emb (N*K, NB) and spherical harmonics sh (N*K, DF)
 // in place of the edge vectors and the Bessel coefficients: the tile reads
@@ -205,21 +223,37 @@ __host__ __device__ inline int stage_floats(const ConvDims& d, int nstage) {
   return n > NWARP * TE * SBF ? n : NWARP * TE * SBF;
 }
 
-// ybar is kept skewed in shared memory, column c at c + c / 32 (yb_at), so
-// that the uvu pullback's fragments, which step through ybar by an output
-// block's channel count (often a multiple of 32), fall in distinct banks.
-__host__ __device__ inline int yb_floats(const ConvDims& d) { return d.dim_mid + (d.dim_mid >> 5) + 1; }
+// ybar (a pass's mblk columns at most) is kept skewed in shared memory,
+// column c at c + c / 32 (yb_at), so that the uvu pullback's fragments,
+// which step through ybar by an output block's channel count (often a
+// multiple of 32), fall in distinct banks.
+__host__ __device__ inline int yb_floats(int mblk) { return mblk + (mblk >> 5) + 1; }
 __host__ __device__ inline int yb_at(int c) { return c + (c >> 5); }
 
 // The int table up to the end of the monomial terms of the spherical
-// harmonics' derivatives (uvu tables, sh terms, dsh terms, their
-// components): copied to shared memory once per CTA, since the tiles read
-// it in dependent chains.
+// harmonics' derivatives (the first pass's uvu tables, sh terms, dsh terms,
+// their components): copied to shared memory once per CTA, since the tiles
+// read it in dependent chains.
 __host__ __device__ inline int tab_ints(const ConvDims& d) { return d.shd_terms + 5 * d.n_shd; }
 
 // Copies the tables into t.tabs; the caller's next barrier publishes them.
 __device__ inline void load_tabs(const ConvDims& d, const Tile& t, const int* __restrict__ itab) {
   for (int k = threadIdx.x; k < tab_ints(d); k += NT) t.tabs[k] = itab[k];
+}
+
+// The pass fields of a table's header (ops/fused_conv.py: H_NEXT ..): the
+// next pass's table in itab (0 after the last pass), the pass's first mid
+// column and its columns.
+#define H_NEXT 10
+#define H_M0 11
+#define H_MW 19
+
+// Copies the uvu tables of the pass at itab + off over the previous pass's
+// (each table is d.sh_terms ints, padded; the monomial terms after them
+// stay). The caller's barriers come before (the last reads of the old
+// tables) and after (publishing the new).
+__device__ inline void load_pass(const ConvDims& d, const Tile& t, const int* __restrict__ itab, int off) {
+  for (int k = threadIdx.x; k < d.sh_terms; k += NT) t.tabs[k] = itab[off + k];
 }
 
 __host__ __device__ inline size_t take(size_t& off, size_t nbytes) {
@@ -229,13 +263,17 @@ __host__ __device__ inline size_t take(size_t& off, size_t nbytes) {
 }
 
 // Assigns the pointers of t inside base (when base is non-null) and
-// returns the bytes the layout needs. The host calls it with base = null,
-// and keeps a copy of it (ops/fused_conv.py:carve_bytes) that plans the
-// column blocks; fused_conv_smem_bytes lets it check the two agree.
-// FEAT (the breakdown probes' feature-major tiles, forward only): xs, ws
-// and tmp are stored transposed, (features, TE), every row FS floats apart.
+// returns the bytes the layout needs, for a layer whose widest pass has
+// mblk output columns (< 0: dim_mid, one pass). The host calls it with
+// base = null, and keeps a copy of it (ops/fused_conv.py:carve_bytes) that
+// plans the passes and column blocks; fused_conv_smem_bytes lets it check
+// the two agree. FEAT (the breakdown probes' feature-major tiles, forward
+// only): xs, ws and tmp are stored transposed, (features, TE), every row FS
+// floats apart.
 template <bool FEAT = false>
-__host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base, Tile* t) {
+__host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base, Tile* t,
+                                        int mblk = -1) {
+  if (mblk < 0) mblk = d.dim_mid;
   size_t off = 0;
   const int rem = bwd ? 4 : 8;
   const int SX = FEAT ? FS : bank_stride(d.dim_x, rem), SW = FEAT ? FS : bank_stride(d.wblk, rem),
@@ -257,9 +295,9 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
   size_t o_tabs = take(off, sizeof(int) * tab_ints(d));
   size_t o_out = 0, o_yb = 0, o_dtmp = 0, o_dzl = 0, o_demb = 0, o_dsh = 0;
   if (!bwd) {
-    o_out = take(off, sizeof(float) * d.dim_mid);
+    o_out = take(off, sizeof(float) * mblk);
   } else {
-    o_yb = take(off, sizeof(float) * yb_floats(d));
+    o_yb = take(off, sizeof(float) * yb_floats(mblk));
     o_dtmp = take(off, sizeof(float) * TE * SR);
     o_dzl = take(off, sizeof(float) * TE * d.hl);
     o_demb = take(off, sizeof(float) * TE * d.n_basis);
@@ -302,8 +340,8 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
 
 // The bytes of carve's layout for a layer, so that the host can check its
 // copy (ops/fused_conv.py:check_carve) before a layer shape's first launch.
-extern "C" long long fused_conv_smem_bytes(ConvDims d, int bwd) {
-  return (long long)carve(d, bwd != 0, nullptr, nullptr);
+extern "C" long long fused_conv_smem_bytes(ConvDims d, int bwd, int mblk) {
+  return (long long)carve(d, bwd != 0, nullptr, nullptr, mblk);
 }
 
 // Raises kernel fn's dynamic shared-memory limit on the current device to
@@ -867,9 +905,9 @@ __device__ inline void uvu_dtmp(const Tile& t, const Blk& B) {
 // from u0, column block B) walks every instruction of the block that reads
 // the irrep, so it owns its dxg columns and, per instruction, its dw
 // columns: dxg goes to global memory (rows e < ne), dw over w in t.ws
-// (dtmp, which reads w, is done). Block 0's tasks write the dxg of every x
-// irrep (zeros where none of its instructions reads it); the later blocks'
-// (ACC) add to it.
+// (dtmp, which reads w, is done). Block 0's tasks of the first pass write
+// the dxg of every x irrep (zeros where none of its instructions reads it);
+// the later blocks' and passes' (ACC) add to it.
 template <bool ACC>
 __device__ inline void uvu_dxg_dw(const ConvDims& d, const Tile& t, int ne,
                                   float* __restrict__ dxg, const Blk& B) {

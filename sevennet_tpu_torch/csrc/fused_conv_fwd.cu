@@ -25,7 +25,9 @@
 // products as well; the edge geometry, Bessel basis and spherical
 // harmonics are spread over the CTA's threads. Every intermediate stays in
 // shared memory, w and tmp one column block at a time (one block for
-// SevenNet-0, three for SevenNet-l3i5's lmax-3 layers). Measured, the W3
+// SevenNet-0, three for SevenNet-l3i5's lmax-3 layers), the output
+// accumulator one pass of output groups at a time (one pass but for
+// SevenNet-MF-ompa's two widest layers, fused_conv_common.cuh). Measured, the W3
 // product takes half the time, bound by the mma.sync 3xTF32 path and W3's
 // streaming (PERF.md). Edges past the cutoff (padding) are skipped in vec mode: their
 // message is exactly zero. In emb/sh mode every slot is walked (a padded
@@ -37,10 +39,11 @@ template <bool EMBSH>
 __global__ void __launch_bounds__(NT, 1) fused_conv_fwd_kernel(
     ConvDims d, const float* __restrict__ x, const int* __restrict__ src,
     const float* __restrict__ ea, const float* __restrict__ eb, MlpWeights W,
-    const float* __restrict__ W3, const int* __restrict__ itab, const float* __restrict__ ftab, float* __restrict__ out) {
+    const float* __restrict__ W3, const int* __restrict__ itab, const float* __restrict__ ftab, float* __restrict__ out,
+    int mblk) {
   extern __shared__ float4 smem_raw[];
   Tile t;
-  carve(d, false, (char*)smem_raw, &t);
+  carve(d, false, (char*)smem_raw, &t, mblk);
   const int i = blockIdx.x;
   const int tid = threadIdx.x;
   Prof prof;
@@ -48,58 +51,67 @@ __global__ void __launch_bounds__(NT, 1) fused_conv_fwd_kernel(
   load_tabs(d, t, itab);
   list_slots<EMBSH>(d, t, i, ea);
   const int nv = *t.count;
-  for (int c = tid; c < d.dim_mid; c += NT) t.outacc[c] = 0.0f;
-  prof.mark(0);
 
-  for (int t0 = 0; t0 < nv; t0 += TE) {
-    const int ne = min(TE, nv - t0);
-        load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W, W3, ftab, uvu_blk(t.tabs, 0), prof);
-    for (int b = 0; b < n_blocks(t.tabs); ++b) {
-      const Blk B = uvu_blk(t.tabs, b);
-      if (b > 0) {  // load_tile formed block 0's w and tmp
-        block_tmp(d, t, ftab, B);
-        stage_w3_first(d, W3, t, B);
-        w3_forward(d, t, W3, B);
-        prof.mark(3);
+  // the passes, each over all of the row's edges (one for most layers)
+  for (;;) {
+    const int m0 = t.tabs[H_M0], mw = t.tabs[H_MW], next = t.tabs[H_NEXT];
+    for (int c = tid; c < mw; c += NT) t.outacc[c] = 0.0f;
+    prof.mark(0);
+    for (int t0 = 0; t0 < nv; t0 += TE) {
+      const int ne = min(TE, nv - t0);
+      load_tile<EMBSH>(d, t, i, t0, ne, x, src, ea, eb, W, W3, ftab, uvu_blk(t.tabs, 0), prof);
+      for (int b = 0; b < n_blocks(t.tabs); ++b) {
+        const Blk B = uvu_blk(t.tabs, b);
+        if (b > 0) {  // load_tile formed block 0's w and tmp
+          block_tmp(d, t, ftab, B);
+          stage_w3_first(d, W3, t, B);
+          w3_forward(d, t, W3, B);
+          prof.mark(3);
+        }
+        // out[c] += sum_e sum_terms x[e, xc] * w[e, wc] * tmp[e, r], on the tensor cores
+        uvu_forward(t, B);
+        __syncthreads();
+        prof.mark(4);
       }
-      // out[c] += sum_e sum_terms x[e, xc] * w[e, wc] * tmp[e, r], on the tensor cores
-      uvu_forward(t, B);
-      __syncthreads();
-      prof.mark(4);
     }
+    for (int c = tid; c < mw; c += NT) out[(size_t)i * d.dim_mid + m0 + c] = t.outacc[c];
+    prof.mark(0);
+    if (next == 0) break;
+    __syncthreads();
+    load_pass(d, t, itab, next);
+    __syncthreads();
   }
-  for (int c = tid; c < d.dim_mid; c += NT) out[(size_t)i * d.dim_mid + c] = t.outacc[c];
-  prof.mark(0);
   prof.store();
 }
 
 template <bool EMBSH>
-static int launch_fwd(const ConvDims& d, int* limits, const float* x, const int* src,
+static int launch_fwd(const ConvDims& d, int mblk, int* limits, const float* x, const int* src,
                       const float* ea, const float* eb, const MlpWeights& W, const int* itab,
                       const float* ftab, float* out, void* stream) {
-  const size_t smem = carve(d, false, nullptr, nullptr);
+  const size_t smem = carve(d, false, nullptr, nullptr, mblk);
   cudaError_t err = raise_smem_limit((const void*)fused_conv_fwd_kernel<EMBSH>, smem, limits);
   if (err != cudaSuccess) return (int)err;
   if (d.N > 0)
     fused_conv_fwd_kernel<EMBSH><<<d.N, NT, smem, (cudaStream_t)stream>>>(
-        d, x, src, ea, eb, W, W.w[d.nh], itab, ftab, out);
+        d, x, src, ea, eb, W, W.w[d.nh], itab, ftab, out, mblk);
   return (int)cudaGetLastError();
 }
 
 static int smem_limit[MAX_DEVICES];
 static int smem_limit_embsh[MAX_DEVICES];
 
-// B1. Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int fused_conv_fwd_launch(ConvDims d, const float* x, const int* src, const float* vec,
+// B1. Returns cudaGetLastError() after the launch (0 = launched). mblk: the
+// output columns of the layer's widest pass (ops/fused_conv.py: BlockPlan.mblk).
+extern "C" int fused_conv_fwd_launch(ConvDims d, int mblk, const float* x, const int* src, const float* vec,
                                      const float* coef, MlpWeights W, const int* itab,
                                      const float* ftab, float* out, void* stream) {
-  return launch_fwd<false>(d, smem_limit, x, src, vec, coef, W, itab, ftab, out, stream);
+  return launch_fwd<false>(d, mblk, smem_limit, x, src, vec, coef, W, itab, ftab, out, stream);
 }
 
 // B4 (and B6): emb (N*K, n_basis) and sh (N*K, dim_f) receiver-major.
-extern "C" int fused_conv_fwd_embsh_launch(ConvDims d, const float* x, const int* src,
+extern "C" int fused_conv_fwd_embsh_launch(ConvDims d, int mblk, const float* x, const int* src,
                                            const float* emb, const float* sh, MlpWeights W,
                                            const int* itab, const float* ftab, float* out,
                                            void* stream) {
-  return launch_fwd<true>(d, smem_limit_embsh, x, src, emb, sh, W, itab, ftab, out, stream);
+  return launch_fwd<true>(d, mblk, smem_limit_embsh, x, src, emb, sh, W, itab, ftab, out, stream);
 }

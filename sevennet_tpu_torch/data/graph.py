@@ -26,7 +26,7 @@ import torch
 
 __all__ = [
     "GraphBatch", "graph_from_arrays", "densify_edges", "dense_graph_from_arrays",
-    "batch_graphs", "pad_graph",
+    "receiver_sorted", "dense_graph_device", "batch_graphs", "pad_graph",
 ]
 
 
@@ -56,6 +56,8 @@ class GraphBatch:
     stress: Optional[torch.Tensor] = None  # (G, 6) eV/A^3, -stress (xx,yy,zz,xy,yz,zx)
     # per-structure loss weights (reference loss.py:115-120)
     data_weight: Optional[torch.Tensor] = None  # (G, 3): energy/force/stress
+    # multi-fidelity modality index of each graph (model/model.py:graph_modality)
+    modal: Optional[torch.Tensor] = None  # (G,) int64
 
     @property
     def n_atoms_cap(self) -> int:
@@ -100,10 +102,12 @@ def graph_from_arrays(
     forces: Optional[np.ndarray] = None,
     stress: Optional[np.ndarray] = None,
     data_weight=None,
+    modal: int = 0,
 ) -> GraphBatch:
     """Single graph with a flat, receiver-sorted edge list. Labels are kept
     where given (``stress`` as the 6-vector label, ``data_weight`` as the
-    energy/force/stress triple)."""
+    energy/force/stress triple); ``modal`` is the graph's modality index
+    (multi-fidelity models)."""
     n = len(positions)
     e = len(edge_src)
     order = np.argsort(np.asarray(edge_dst), kind="stable")
@@ -130,6 +134,7 @@ def graph_from_arrays(
         forces=None if forces is None else t(forces, dtype).reshape(n, 3),
         stress=None if stress is None else t(stress, dtype).reshape(1, 6),
         data_weight=None if data_weight is None else t([list(data_weight)], dtype),
+        modal=t([modal], np.int64),
     )
 
 
@@ -180,13 +185,15 @@ def dense_graph_from_arrays(
     cell: Optional[np.ndarray] = None,
     device="cpu",
     dtype=np.float32,
+    modal: int = 0,
 ) -> GraphBatch:
     """Single graph in the dense ``(N, K)`` slot layout with its mirror
     index, built on the host. ``K`` is the largest neighbour count: the
     kernels need a rectangular grid but no further padding."""
     from ..ops.fused_conv import mirror_map_numpy
 
-    flat = graph_from_arrays(positions, species, edge_src, edge_dst, edge_shift, cell, "cpu", dtype)
+    flat = graph_from_arrays(positions, species, edge_src, edge_dst, edge_shift, cell, "cpu", dtype,
+                             modal=modal)
     n = flat.n_atoms_cap
     dst = flat.edge_dst.numpy()
     k = max(int(np.bincount(dst, minlength=n).max(initial=0)), 1)
@@ -206,6 +213,63 @@ def dense_graph_from_arrays(
         dense_k=k,
     )
     return dense.to(device)
+
+
+def receiver_sorted(edge_dst: np.ndarray, edge_src: np.ndarray, edge_shift: np.ndarray):
+    """The edges in receiver order, ``(dst, src, shift)``: a stable sort by
+    ``dst`` (none when they are sorted already, as the native list gives
+    them), so that each receiver keeps its edges in the list's order."""
+    dst = np.asarray(edge_dst, np.int64)
+    if dst.size and not (dst[1:] >= dst[:-1]).all():
+        order = np.argsort(dst, kind="stable")
+        return dst[order], np.asarray(edge_src)[order], np.asarray(edge_shift).reshape(-1, 3)[order]
+    return dst, np.asarray(edge_src), np.asarray(edge_shift).reshape(-1, 3)
+
+
+def dense_graph_device(
+    positions: np.ndarray,
+    species: np.ndarray,
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    edge_shift: np.ndarray,
+    cell: Optional[np.ndarray] = None,
+    device="cpu",
+    dtype=np.float32,
+    modal: int = 0,
+) -> GraphBatch:
+    """The graph of :func:`dense_graph_from_arrays`, bit for bit, with the
+    slot grid and the mirror index built on ``device``: the host counts the
+    receiver-sorted edges (:func:`receiver_sorted`) for ``K`` and each
+    receiver's first edge; the device scatters the edges into the ``(N,
+    K)`` grid and builds the mirror index with
+    :func:`~sevennet_tpu_torch.ops.fused_conv.mirror_map` (as
+    ``sevennet_tpu/calculator.py:88-160`` does on the TPU). ``K`` is the
+    largest neighbour count."""
+    from ..ops.fused_conv import mirror_map
+
+    n, e = len(positions), len(edge_src)
+    dst = np.asarray(edge_dst, np.int64)
+    if e and (dst[1:] < dst[:-1]).any():
+        raise ValueError("dense_graph_device takes edges sorted by receiver (receiver_sorted)")
+    counts = np.bincount(dst, minlength=n)
+    k = max(int(counts.max(initial=0)), 1)
+    starts = np.zeros(n, np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    dst_t = torch.as_tensor(dst, device=device)
+    flat = dst_t * k + torch.arange(e, device=device) - torch.as_tensor(starts, device=device)[dst_t]
+    owner = torch.arange(n * k, device=device) // k
+    src_d = owner.clone()
+    src_d[flat] = torch.as_tensor(np.asarray(edge_src, np.int64), device=device)
+    shift_d = torch.zeros((n * k, 3), dtype=tdt, device=device)
+    shift_d[flat] = torch.as_tensor(np.asarray(edge_shift, dtype).reshape(e, 3), device=device)
+    mask_d = torch.zeros(n * k, dtype=torch.bool, device=device)
+    mask_d[flat] = True
+    mir = mirror_map(src_d.view(n, k), shift_d.view(n, k, 3), mask_d.view(n, k)).reshape(-1)
+    atoms = graph_from_arrays(positions, species, np.zeros(0, np.int64), np.zeros(0, np.int64),
+                              np.zeros((0, 3)), cell, device, dtype, modal=modal)
+    return replace(atoms, edge_src=src_d, edge_dst=owner, edge_shift=shift_d, edge_mask=mask_d,
+                   edge_mir=mir, dense_k=k)
 
 
 def _pad_to(arr: np.ndarray, n: int, fill=0):
@@ -236,12 +300,12 @@ def batch_graphs(
     ``dense_k`` set and ``with_mirror``). ``dense_k <= 0`` takes the batch's
     largest neighbour count. Padding atoms sit at position 0 with species 0
     in the last graph slot; padding graphs have volume 1, one atom, NaN
-    energy and stress labels and unit data weights."""
+    energy and stress labels, unit data weights and modality 0."""
     from ..ops.fused_conv import mirror_map_numpy
 
     gs = [{k: _numpy(getattr(g, k)) for k in (
         "positions", "species", "edge_src", "edge_dst", "edge_shift", "cell", "volume",
-        "energy", "forces", "stress", "data_weight")} for g in graphs]
+        "energy", "forces", "stress", "data_weight", "modal")} for g in graphs]
     n_tot = sum(g["positions"].shape[0] for g in gs)
     g_tot = len(gs)
     n_cap = n_atoms_cap or n_tot
@@ -251,7 +315,7 @@ def batch_graphs(
                          f"({n_tot}, {g_tot})")
 
     pos, spec, bat, f, esrc, edst, eshift = [], [], [], [], [], [], []
-    cells, vols, natoms, energies, stresses, weights = [], [], [], [], [], []
+    cells, vols, natoms, energies, stresses, weights, modals = [], [], [], [], [], [], []
     a_off = 0
     for gi, g in enumerate(gs):
         n = g["positions"].shape[0]
@@ -268,6 +332,7 @@ def batch_graphs(
         energies.append(g["energy"][0] if g["energy"] is not None else np.nan)
         stresses.append(g["stress"][0] if g["stress"] is not None else np.full(6, np.nan))
         weights.append(g["data_weight"][0] if g["data_weight"] is not None else [1.0] * 3)
+        modals.append(g["modal"][0] if g["modal"] is not None else 0)
         a_off += n
 
     e_src = np.concatenate(esrc).astype(np.int64)
@@ -305,6 +370,7 @@ def batch_graphs(
         forces=t(_pad_to(np.concatenate(f).astype(dtype), n_cap), dtype),
         stress=t(_pad_to(np.stack(stresses).astype(dtype), g_cap, fill=np.nan), dtype),
         data_weight=t(_pad_to(np.asarray(weights, dtype), g_cap, fill=1.0), dtype),
+        modal=t(_pad_to(np.asarray(modals, np.int64), g_cap), np.int64),
     )
 
 

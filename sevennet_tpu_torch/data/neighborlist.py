@@ -7,9 +7,12 @@ within ``cutoff`` both directions appear. Semantics match matscipy
 ``neighbour_list('ijDS')``: for an edge ``(dst=i, src=j, shift=S)`` the
 displacement is ``D = pos[j] + S @ cell - pos[i]``.
 
-The port's copy of the numpy/scipy path of
-``sevennet_tpu/data/neighborlist.py``; the native C++ cell list is not
-ported yet.
+The port's copy of ``sevennet_tpu/data/neighborlist.py``: periodic systems
+of ``NATIVE_MIN_ATOMS`` atoms or more go to the native C++ cell list
+(:mod:`sevennet_tpu_torch.native`), the rest, and the systems the cell list
+does not take (a periodic height under the cutoff), to scipy's cKDTree.
+``neighbor_list_numpy.served`` counts the lists each builder served, as the
+kernels count their launches.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ from typing import Optional, Tuple
 import numpy as np
 from scipy.spatial import cKDTree
 
-__all__ = ["neighbor_list_numpy"]
+__all__ = ["neighbor_list_numpy", "neighbor_list_scipy", "NATIVE_MIN_ATOMS"]
+
+# the JAX package's threshold of the native list (sevennet_tpu/data/neighborlist.py:44)
+NATIVE_MIN_ATOMS = 256
 
 
 def neighbor_list_numpy(
@@ -32,7 +38,36 @@ def neighbor_list_numpy(
 
     Returns ``(edge_dst, edge_src, shifts)`` — receiver ``i``, sender ``j``,
     integer cell shifts ``S`` with ``r_ij = pos[j] + S @ cell - pos[i]``.
+    The native list gives the edges receiver by receiver; scipy's are in
+    its own order.
     """
+    positions = np.asarray(positions, dtype=np.float64)
+    n = len(positions)
+    if isinstance(pbc, (bool, np.bool_)):
+        pbc = (bool(pbc),) * 3
+    pbc = np.asarray(pbc, dtype=bool)
+    if cell is not None and pbc.any() and n >= NATIVE_MIN_ATOMS:
+        from ..native import native_neighbor_list
+
+        out = native_neighbor_list(positions, cutoff, cell, pbc)
+        if out is not None:
+            neighbor_list_numpy.served["native"] += 1
+            return out
+    neighbor_list_numpy.served["scipy"] += 1
+    return neighbor_list_scipy(positions, cutoff, cell, pbc)
+
+
+neighbor_list_numpy.served = {"native": 0, "scipy": 0}
+
+
+def neighbor_list_scipy(
+    positions: np.ndarray,
+    cutoff: float,
+    cell: Optional[np.ndarray] = None,
+    pbc=(False, False, False),
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`neighbor_list_numpy` by scipy's cKDTree alone, whatever the
+    system's size."""
     positions = np.asarray(positions, dtype=np.float64)
     n = len(positions)
     if isinstance(pbc, (bool, np.bool_)):

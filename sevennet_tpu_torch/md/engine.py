@@ -8,7 +8,7 @@ integrates. Capacities are fixed; a rebuild that overflows one (or breaks
 the ring backward's window) raises a flag, and :meth:`MDEngine.run`
 retries the chunk of steps from its snapshot with grown capacities. The
 JAX package compiles each chunk into one ``lax.scan``; here the steps are
-a Python loop (CUDA graphs are a later lever, ROADMAP A4).
+a Python loop (CUDA graphs are a later lever, ROADMAP performance lever 5).
 
 Large systems: when a layer's gathered edge tensor would pass
 :func:`~sevennet_tpu_torch.ops.fused_conv.chunk_threshold` and the spec
@@ -19,7 +19,7 @@ cannot be sized, the conv runs its chunked scatter backward.
 
 The port's engine always runs the dense fused conv (the JAX package's
 ``dense=True, fused=True``); D3 dispersion and integrators other than NVE
-are not ported yet (ROADMAP A8, A11).
+are not ported yet (ROADMAP A.5, A.3).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ class MDEngine:
         when the ring backward engages (100k-atom systems)."""
         if d3:
             raise NotImplementedError("D3 dispersion in the MD engine is not ported yet "
-                                      "(ROADMAP A8)")
+                                      "(ROADMAP A.5)")
         self.device = resolve_device(device)
         self.spec = spec
         self.params = params_to(params, self.device)
@@ -377,7 +377,7 @@ class MDEngine:
         chunk), atoms in the input order."""
         if integrator != "nve":
             raise NotImplementedError(f"integrator {integrator!r} is not ported yet "
-                                      "(ROADMAP A11); the port runs 'nve'")
+                                      "(ROADMAP A.3); the port runs 'nve'")
         traj_pe, traj_ke = [], []
         if traj_path and traj_every <= 0:
             traj_every = chunk

@@ -2,7 +2,7 @@
 velocity-Verlet NVE. A pure function of :class:`~.state.MDState`; the
 force evaluation comes from the engine. The JAX package's other
 integrators (Langevin, Nose-Hoover chain, Berendsen and MTK NPT) are not
-ported yet (ROADMAP A11): they raise.
+ported yet (ROADMAP A.3): they raise.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def nve_step(state: MDState, forces_fn, dt: float) -> MDState:
 
 def _not_ported(name: str):
     def step(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP A11); use nve_step")
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP A.3); use nve_step")
 
     step.__name__ = name
     return step

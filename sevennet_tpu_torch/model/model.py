@@ -35,7 +35,8 @@ from ..ops.tensor_product import fctp_apply
 from ..so3.spherical import spherical_harmonics
 from .build import ModelSpec
 
-__all__ = ["model_energy", "model_compute", "params_to", "edge_emb_sh", "conv_row_chunk"]
+__all__ = ["model_energy", "model_compute", "params_to", "edge_emb_sh", "conv_row_chunk",
+           "graph_modality"]
 
 
 def edge_embed_spec(spec: ModelSpec, layer) -> EdgeEmbedSpec:
@@ -73,9 +74,15 @@ def _vec_mode(spec: ModelSpec) -> bool:
     return bool(int(os.environ.get("SEVENNET_TPU_VEC", 1)))
 
 
-def _check_supported(spec: ModelSpec):
-    if spec.num_modalities > 1:
-        raise NotImplementedError("multi-fidelity models are not ported yet")
+def graph_modality(spec: ModelSpec, graph: GraphBatch) -> torch.Tensor:
+    """The modality index of every graph slot of a multi-fidelity model:
+    the spec's pinned modality (:func:`~sevennet_tpu_torch.scripts.
+    modal_tools.select_modality`) over ``graph.modal`` over 0, as
+    ``sevennet_tpu/model/model.py:394-402`` chooses it."""
+    if spec.pinned_modal >= 0 or graph.modal is None:
+        fill = max(spec.pinned_modal, 0)
+        return torch.full((graph.n_graphs_cap,), fill, dtype=torch.int64, device=graph.device)
+    return graph.modal.long()
 
 
 def edge_emb_sh(spec: ModelSpec, coef, ev3, edge_mask):
@@ -127,7 +134,6 @@ def model_energy(
     mode. A layer whose :func:`conv_row_chunk` is set runs the chunked
     backward (the ring one when ``spec.conv_ring`` is set), in vec mode
     only."""
-    _check_supported(spec)
     dtype = edge_vec3.dtype
     K = graph.dense_k
     n_atoms = graph.n_atoms_cap
@@ -144,7 +150,19 @@ def model_energy(
         emb_nk, sh_nk = emb.view(n_atoms, K, -1), sh.view(n_atoms, K, -1)
 
     onehot = F.one_hot(graph.species, spec.num_species).to(dtype)
-    x = linear_apply(spec.embed_linear, params["onehot_to_feature_x"], onehot)
+    # multi-fidelity: the per-atom modality one-hot appended to the inputs of
+    # the linears the spec names (sevennet_tpu/model/model.py:394-413)
+    if spec.num_modalities > 1:
+        modal = graph_modality(spec, graph)
+        modal_oh = F.one_hot(modal, spec.num_modalities).to(dtype)[graph.batch]
+
+    def with_modal(name, v):
+        if spec.num_modalities > 1 and name in spec.modal_linears:
+            return torch.cat([v, modal_oh], dim=-1)
+        return v
+
+    x = linear_apply(spec.embed_linear, params["onehot_to_feature_x"],
+                     with_modal("onehot_to_feature_x", onehot))
     for layer in spec.layers:
         t = layer.t
         if layer.sc_type == "nequip":
@@ -153,7 +171,8 @@ def model_energy(
             sc = linear_apply(layer.sc_linear, params[f"{t}_self_connection_intro"], x)
         else:
             sc = None
-        x = linear_apply(layer.si1, params[f"{t}_self_interaction_1"], x)
+        x = linear_apply(layer.si1, params[f"{t}_self_interaction_1"],
+                         with_modal(f"{t}_self_interaction_1", x))
         conv_p = params[f"{t}_convolution"]
         row_chunk = conv_row_chunk(spec, n_atoms, K, layer.conv.irreps_x.dim)
         if vec_mode:
@@ -166,11 +185,12 @@ def model_energy(
             if row_chunk:
                 raise NotImplementedError(
                     "the chunked and ring conv of emb/sh mode are not ported yet "
-                    "(ROADMAP A2): run this model unchunked (_edge_chunk: 0)")
+                    "(ROADMAP A.6): run this model unchunked (_edge_chunk: 0)")
             x = fused_conv_apply(layer.conv, layer.radial_mlp, conv_p["weight_nn"], x,
                                  emb_nk, sh_nk, src_nk, mir_nk, plain=plain)
         x = x / conv_p["denominator"][0]
-        x = linear_apply(layer.si2, params[f"{t}_self_interaction_2"], x)
+        x = linear_apply(layer.si2, params[f"{t}_self_interaction_2"],
+                         with_modal(f"{t}_self_interaction_2", x))
         if sc is not None:
             x = x + sc
         x = gate_apply(layer.gate, x)
@@ -178,17 +198,24 @@ def model_energy(
     if spec.readout_as_fcn:
         e_scaled = scalar_mlp_apply(spec.readout_fcn, params["readout_FCN"], x)
     else:
-        h = linear_apply(spec.readout1, params["reduce_input_to_hidden"], x)
+        h = linear_apply(spec.readout1, params["reduce_input_to_hidden"],
+                         with_modal("reduce_input_to_hidden", x))
         e_scaled = linear_apply(spec.readout2, params["reduce_hidden_to_energy"], h)
     e_scaled = e_scaled[:, 0]
 
     rs = params["rescale_atomic_energy"]
-    if spec.rescale_mode == "species":
+    if spec.rescale_mode == "modal":
+        # modal-wise shift and scale, (modalities, species) where the spec
+        # says so, per species otherwise (sevennet_tpu/model/model.py:480-498)
+        m_atom = graph_modality(spec, graph)[graph.batch]
+        shift = (rs["shift"][m_atom, graph.species] if spec.use_modal_wise_shift
+                 else rs["shift"][graph.species])
+        scale = (rs["scale"][m_atom, graph.species] if spec.use_modal_wise_scale
+                 else rs["scale"][graph.species])
+    elif spec.rescale_mode == "species":
         shift, scale = rs["shift"][graph.species], rs["scale"][graph.species]
-    elif spec.rescale_mode == "scalar":
-        shift, scale = rs["shift"][0], rs["scale"][0]
     else:
-        raise NotImplementedError(f"rescale mode {spec.rescale_mode} is not ported yet")
+        shift, scale = rs["shift"][0], rs["scale"][0]
     e_atom = (e_scaled * scale + shift) * graph.atom_mask.to(dtype)
     e_graph = graph_sum(graph.batch, e_atom, graph.n_graphs_cap) * graph.graph_mask.to(dtype)
     return {"atomic_energy": e_atom, "energy": e_graph}

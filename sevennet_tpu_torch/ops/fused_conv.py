@@ -53,6 +53,7 @@ plus a sum over K, in plain PyTorch, as the JAX package leaves it to XLA
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
 import os
 from dataclasses import dataclass
@@ -234,7 +235,7 @@ def mirror_map(src_nk: torch.Tensor, shift_nk: torch.Tensor, edge_mask_nk: torch
 # memory at 99,999 atoms is 2.34 x the gathered edge tensor (26.33 GiB for
 # 12.10 GB, SevenNet-0 on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md, MD);
 # scaled linearly, a 60 GiB peak is reached at 27.6 GB. No step near that
-# size has been measured (ROADMAP A2)
+# size has been measured (ROADMAP A.6)
 CHUNK_THRESHOLD_BYTES = 27_500_000_000
 
 
@@ -391,11 +392,13 @@ def reduce_tiles(prods):
     return tiles, begins
 
 
-UVU_HEADER = 20   # ints at the start of the int table: the uvu task tables' places, MLP widths
+UVU_HEADER = 20   # ints at the start of a pass's table: task tables' places, MLP widths, pass
 UVU_INS = 64      # ints per instruction record
 UVU_BLK = 8       # ints per column-block record
 UVU_MAX_D = 7     # irrep dimensions the uvu tables take (l <= 3)
 UVU_WARPS = 8     # warps per CTA of the kernels (csrc NWARP; check_uvu_layout)
+# the pass fields of a table's header (csrc H_NEXT ..; _pass_itab)
+H_NEXT, H_M0, H_MW = 10, 11, 19
 
 
 def _balanced(tasks, costs):
@@ -412,75 +415,117 @@ def _balanced(tasks, costs):
     return [t for r in runs for t in r], starts
 
 
-def _column_blocks(instr, budget: int) -> List[List[int]]:
-    """Consecutive instructions grouped into blocks of ``w``'s columns at
-    most ``budget`` wide (an instruction's uvu weights are ``mul``
-    consecutive columns; each block starts at an instruction boundary)."""
+def _column_blocks(instr, ks, budget: int) -> List[List[int]]:
+    """The consecutive instructions ``ks`` grouped into blocks of ``w``'s
+    columns at most ``budget`` wide (an instruction's uvu weights are
+    ``mul`` consecutive columns; each block starts at an instruction
+    boundary)."""
     blocks: List[List[int]] = [[]]
     width = 0
-    for k, ins in enumerate(instr):
-        if blocks[-1] and width + ins["mul"] > budget:
+    for k in ks:
+        if blocks[-1] and width + instr[k]["mul"] > budget:
             blocks.append([])
             width = 0
         blocks[-1].append(k)
-        width += ins["mul"]
+        width += instr[k]["mul"]
     return blocks
 
 
-def _uvu_tables(conv: ConvTPSpec, instr, blocks: List[List[int]], hidden) -> np.ndarray:
-    """Task tables of the kernels' uvu steps on the tensor cores
-    (``csrc/fused_conv_common.cuh``, ``uvu_*``), at the start of the int
-    table. The kernels form the per-edge weights ``w`` one column block at
-    a time (``blocks``: consecutive instructions, :func:`plan_blocks`) and
-    run that block's tasks before the next block overwrites it.
+@dataclass(frozen=True)
+class ConvPass:
+    """One pass of the kernels over a receiver's edges: consecutive
+    instructions ``ks`` whose outputs are whole groups of the mid layout, so
+    that they write the ``mw`` mid columns from ``m0``."""
 
-    A header ``[off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw,
-    off_fw, off_blk, n_blk, 0, 0]`` and the radial MLP's hidden widths (at
-    ints 12 .., so that the kernels read them and the block records
-    without a chain of loads); the block records right after it; per
+    ks: Tuple[int, ...]
+    m0: int
+    mw: int
+
+
+def _mid_groups(instr) -> List[List[int]]:
+    """The instructions in runs that share a group of the mid layout (one
+    output irrep): consecutive, since the instructions are sorted by
+    output."""
+    groups: List[List[int]] = []
+    for k, ins in enumerate(instr):
+        if groups and instr[groups[-1][0]]["g_start"] == ins["g_start"]:
+            groups[-1].append(k)
+        else:
+            groups.append([k])
+    return groups
+
+
+def _conv_pass(instr, ks) -> ConvPass:
+    m0 = instr[ks[0]]["g_start"]
+    end = instr[ks[-1]]["g_start"] + instr[ks[-1]]["d3"] * instr[ks[-1]]["u_tot"]
+    return ConvPass(tuple(ks), m0, end - m0)
+
+
+def _uvu_tables(conv: ConvTPSpec, instr, blocks: List[List[int]], hidden, cp: ConvPass,
+                zero_all: bool) -> np.ndarray:
+    """Task tables of the kernels' uvu steps on the tensor cores
+    (``csrc/fused_conv_common.cuh``, ``uvu_*``) for one pass ``cp``, the
+    table the kernels copy to shared memory.
+    The kernels form the per-edge weights ``w`` one column block at a time
+    (``blocks``: consecutive instructions of the pass, :func:`plan_blocks`)
+    and run that block's tasks before the next block overwrites it.
+
+    A header of UVU_HEADER ints ``[off_ins, n_dt, off_dt, n_dx, off_dx,
+    off_list, n_fw, off_fw, off_blk, n_blk, next, m0]``, the radial MLP's
+    hidden widths (at ints 12 .., so that the kernels read them and the
+    block records without a chain of loads) and the pass's output columns
+    (``H_MW``); the block records right after it; per
     instruction a record of
     UVU_INS ints ``[x_start, d1, d3, mul, w_start (from its block's first
-    column), ybar start (g_start + u_off), u_tot, 0]`` and the Wigner row r
+    column), ybar start (g_start + u_off - m0), u_tot, 0]`` and the Wigner
+    row r
     of each (m, p) counted from its block's first row, ``rtab[m * 7 + p]``
     (-1 where the pair has no row; a block's instructions own consecutive
     rows of ``w3j_pack``, so ``tmp`` and ``dtmp`` hold one block's rows);
     ``dtmp`` tasks ``(instruction, m, 0, 0)``; ``dxg``/``dw`` tasks
     ``(x_start, d1, mul, list start, list length, u0, 0, 0)``, one per x
     irrep, 8 channels from ``u0`` and block, over the block's instructions
-    that read the irrep (listed at ``off_list``): block 0 has tasks for
-    every irrep, with an empty list where none of its instructions reads
-    it (they write the irrep's zeros), and the later blocks' tasks add to
+    that read the irrep (listed at ``off_list``): with ``zero_all`` (the
+    layer's first pass) block 0 has tasks for
+    every irrep of x, with an empty list where none of its instructions reads
+    it (they write the irrep's zeros), and the later blocks' and passes'
+    tasks add to
     ``dxg``; forward tasks ``(instruction, u0, 0, 0)``, 16
     channels each. Each task list is ordered by block, then by warp; per
-    block a record of UVU_BLK ints ``[first column, width, first Wigner
+    block a record of UVU_BLK ints ``[first column of w, width, first Wigner
     row, rows, runs_dt, runs_dx, runs_fw, 0]``: warp w of the block takes
     tasks ``runs[w] .. runs[w + 1]`` of each list, the ``runs_*`` offsets
     of UVU_WARPS + 1 ints each (:func:`_balanced`, costs in tensor-core
-    steps). Offsets in ints, each table on 4 ints."""
+    steps). Offsets in ints from the table's start, each part on 4 ints."""
+    ks_all = [k for ks in blocks for k in ks]
     block_of = {k: b for b, ks in enumerate(blocks) for k in ks}
-    c0 = [sum(instr[k]["mul"] for bb in blocks[:b] for k in bb) for b in range(len(blocks))]
+    c0 = [instr[ks[0]]["w_start"] for ks in blocks]
     rows = [[r for k in ks for _, _, r in instr[k]["mp"]] for ks in blocks]
     r0 = [min(rs) for rs in rows]
     assert all(rs == list(range(a, a + len(rs))) for rs, a in zip(rows, r0))
     recs = np.full((len(instr), UVU_INS), -1, np.int64)
-    for k, ins in enumerate(instr):
+    for k in ks_all:
+        ins = instr[k]
         d1, d3 = ins["d1"], ins["d3"]
         if max(d1, d3) > UVU_MAX_D:
             raise ValueError(f"the fused conv takes irreps up to l = 3, got dimensions {d1}, {d3}")
         assert ins["w_start"] >= c0[block_of[k]]
         recs[k, :8] = [ins["x_start"], d1, d3, ins["mul"], ins["w_start"] - c0[block_of[k]],
-                       ins["g_start"] + ins["u_off"], ins["u_tot"], 0]
+                       ins["g_start"] + ins["u_off"] - cp.m0, ins["u_tot"], 0]
         for m, p, r in ins["mp"]:
             recs[k, 8 + m * UVU_MAX_D + p] = r - r0[block_of[k]]
+    # the records of the pass's instructions, numbered from its first
+    kfirst = ks_all[0]
+    recs = recs[kfirst:kfirst + len(ks_all)]
     irreps = list(zip(conv.irreps_x.slices(), conv.irreps_x))
     dt, dx, fw, lists, runs, blk = [], [], [], [], [[], [], []], []
     for b, ks in enumerate(blocks):
-        bdt = [(k, m, 0, 0) for k in ks for m in range(instr[k]["d1"])]
-        bfw = [(k, u0, 0, 0) for k in ks for u0 in range(0, instr[k]["mul"], 16)]
+        bdt = [(k - kfirst, m, 0, 0) for k in ks for m in range(instr[k]["d1"])]
+        bfw = [(k - kfirst, u0, 0, 0) for k in ks for u0 in range(0, instr[k]["mul"], 16)]
         bdx, bdx_cost = [], []
         for sl, mi in irreps:
-            readers = [k for k in ks if instr[k]["x_start"] == sl.start]
-            if not readers and b > 0:
+            readers = [k - kfirst for k in ks if instr[k]["x_start"] == sl.start]
+            if not readers and not (b == 0 and zero_all):
                 continue
             for u0 in range(0, mi.mul, 8):
                 bdx.append((sl.start, mi.ir.dim, mi.mul, len(lists), len(readers), u0, 0, 0))
@@ -488,9 +533,9 @@ def _uvu_tables(conv: ConvTPSpec, instr, blocks: List[List[int]], hidden) -> np.
             lists += readers
         rec = [c0[b], sum(instr[k]["mul"] for k in ks), r0[b], len(rows[b])]
         for i, (lst, tasks, starts) in enumerate((
-                (dt, *_balanced(bdt, [-(-instr[k]["mul"] // 8) for k, _, _, _ in bdt])),
+                (dt, *_balanced(bdt, [-(-instr[k + kfirst]["mul"] // 8) for k, _, _, _ in bdt])),
                 (dx, *_balanced(bdx, bdx_cost)),
-                (fw, *_balanced(bfw, [2 * instr[k]["d1"] for k, _, _, _ in bfw])))):
+                (fw, *_balanced(bfw, [2 * instr[k + kfirst]["d1"] for k, _, _, _ in bfw])))):
             runs[i].append(np.asarray(starts) + len(lst))
             lst += tasks
         blk.append(rec)
@@ -503,11 +548,31 @@ def _uvu_tables(conv: ConvTPSpec, instr, blocks: List[List[int]], hidden) -> np.
         parts[1][b * UVU_BLK : b * UVU_BLK + 7] = rec + [
             offs[7 + i] + b * (UVU_WARPS + 1) for i in range(3)]
     parts[0][:12] = [offs[2], len(dt), offs[3], len(dx), offs[4], offs[5], len(fw), offs[6],
-                     offs[1], len(blocks), 0, 0]
+                     offs[1], len(blocks), 0, cp.m0]
     # the widths the kernels take (at most MAX_MLP - 1 hidden layers;
     # check_conv_inputs raises for a deeper MLP on CUDA tensors)
-    parts[0][12:][: len(hidden)] = hidden[: UVU_HEADER - 12]
+    parts[0][12:H_MW][: len(hidden)] = hidden[: H_MW - 12]
+    parts[0][H_MW] = cp.mw
     return np.concatenate(parts)
+
+
+def _pass_itab(conv: ConvTPSpec, instr, passes, pass_blocks, hidden, terms) -> Tuple[np.ndarray, int]:
+    """The int table of a layer's passes and the ints of its part before the
+    monomial terms: pass 0's table, the terms ``terms`` (sh, then dsh),
+    then the later passes' tables, each table padded to the largest. The
+    kernels copy the table and the terms to shared memory, then each later
+    pass's table over the first. Each table's header links the next pass
+    (``H_NEXT``, 0 after the last); a layer of one pass is its table and the
+    terms. Returns ``(itab, ints before the terms)``."""
+    tabs = [_uvu_tables(conv, instr, bl, hidden, cp, zero_all=p == 0)
+            for p, (cp, bl) in enumerate(zip(passes, pass_blocks))]
+    tabw = max(t.size for t in tabs)
+    tabs = [np.concatenate([t, np.zeros(tabw - t.size, np.int64)]) for t in tabs]
+    parts = [tabs[0], terms, *tabs[1:]]
+    starts = np.cumsum([0] + [a.size for a in parts])
+    for p, tab in enumerate(tabs):
+        tab[H_NEXT] = starts[2 + p] if p + 1 < len(passes) else 0
+    return np.concatenate(parts), tabw
 
 
 # ---------------------------------------------------------------------------
@@ -530,15 +595,18 @@ def _round8(n: int) -> int:
     return (n + 7) & ~7
 
 
-def carve_bytes(d: _ConvDims, bwd: bool) -> Tuple[int, int]:
-    """``(bytes, W3 stages)`` of one CTA's shared memory for the layer ``d``:
-    the host's copy of ``carve`` in ``csrc/fused_conv_common.cuh``, which
-    the kernels' ``fused_conv_smem_bytes`` must match (checked at the first
-    launch of each layer shape, :func:`check_carve`)."""
+def carve_bytes(d: _ConvDims, bwd: bool, mblk: Optional[int] = None) -> Tuple[int, int]:
+    """``(bytes, W3 stages)`` of one CTA's shared memory for the layer ``d``
+    whose widest pass has ``mblk`` output columns (default ``dim_mid``, a
+    layer of one pass): the host's copy of ``carve`` in
+    ``csrc/fused_conv_common.cuh``, which the kernels'
+    ``fused_conv_smem_bytes`` must match (checked at the first launch of
+    each layer shape, :func:`check_carve`)."""
     def take(nbytes):
         nonlocal off
         off += (nbytes + 15) & ~15
 
+    mblk = d.dim_mid if mblk is None else mblk
     off = 0
     rem = 4 if bwd else 8
     SX, SW, SR = _bank_stride(d.dim_x, rem), _bank_stride(d.wblk, rem), d.rblk | 1
@@ -547,9 +615,9 @@ def carve_bytes(d: _ConvDims, bwd: bool) -> Tuple[int, int]:
                    4 * (d.shd_terms + 5 * d.n_shd)):
         take(nbytes)
     if not bwd:
-        take(4 * d.dim_mid)
+        take(4 * mblk)
     else:
-        for nbytes in (4 * (d.dim_mid + (d.dim_mid >> 5) + 1), 4 * TE * SR, 4 * TE * d.hl,
+        for nbytes in (4 * (mblk + (mblk >> 5) + 1), 4 * TE * SR, 4 * TE * d.hl,
                        4 * TE * d.n_basis, 4 * TE * d.dim_f):
             take(nbytes)
 
@@ -565,15 +633,23 @@ def carve_bytes(d: _ConvDims, bwd: bool) -> Tuple[int, int]:
 
 @dataclass(frozen=True)
 class BlockPlan:
-    """The column blocks of a layer's per-edge weights ``w``: each block's
-    instructions and width; ``wblk`` the widest, and the
-    shared-memory bytes and W3 stages of both kernels at ``PLAN_K`` slots."""
+    """How the kernels walk a layer: its passes (:class:`ConvPass`, one for
+    every layer whose tiles fit whole, as every SevenNet-0 and l3i5 layer)
+    and, pass by pass, the column blocks of the per-edge weights ``w``:
+    each block's instructions and width (``blocks``, ``widths``: the
+    passes' blocks in order; ``pass_blocks``: how many belong to each
+    pass); ``wblk`` the widest block, ``mblk`` the widest pass's output
+    columns, and the shared-memory bytes and W3 stages of both kernels at
+    ``PLAN_K`` slots."""
 
     blocks: Tuple[Tuple[int, ...], ...]
     widths: Tuple[int, ...]
     wblk: int
     fwd: Tuple[int, int]
     bwd: Tuple[int, int]
+    passes: Tuple[ConvPass, ...]
+    pass_blocks: Tuple[int, ...]
+    mblk: int
 
 
 def _describe(conv: ConvTPSpec, mlp_dims) -> str:
@@ -581,41 +657,82 @@ def _describe(conv: ConvTPSpec, mlp_dims) -> str:
             f"{list(mlp_dims)}")
 
 
-def plan_blocks(conv: ConvTPSpec, mlp_dims, instr, table_fn) -> BlockPlan:
-    """The widest column blocks of ``w`` for which both kernels' shared
-    memory fits (``carve_bytes`` at ``PLAN_K`` slots, at least 2 W3 stages):
-    one block when the whole of ``numel`` fits, as for every SevenNet-0
-    layer; else consecutive instructions up to the widest budget that fits.
-    ``table_fn(blocks)`` gives the ``_ConvDims`` of a plan (its tables and
-    the widest block's Wigner rows change with the blocks). Raises
-    ValueError, naming the layer's widths, the bytes and the limit, when not
-    even one instruction per block fits."""
+def _fit_blocks(passes, instr, table_fn):
+    """The widest column blocks of the passes ``passes`` for which both
+    kernels' carve fits at ``PLAN_K`` slots: ``(fit, floor)``, each a tuple
+    ``(pass_blocks, dims, mblk, fwd, bwd)``, ``fit`` None where not even
+    blocks of one instruction (``floor``) fit. The budget of a block's
+    columns starts at the widest pass and falls to below the widest block
+    that did not fit."""
     widest = max(ins["mul"] for ins in instr)
-    budget = sum(ins["mul"] for ins in instr)
-    while True:
-        blocks = _column_blocks(instr, budget)
-        d = table_fn(blocks)
-        fwd, bwd = carve_bytes(d, False), carve_bytes(d, True)
-        if max(fwd[0], bwd[0]) <= SMEM_LIMIT:
-            break
-        if d.wblk <= widest:
-            raise ValueError(
-                "the fused-conv kernels cannot fit this layer in a CTA's shared memory ("
-                f"{_describe(conv, mlp_dims)}): even with blocks of one instruction's {d.wblk} "
-                f"columns the forward needs {fwd[0]} B and the backward {bwd[0]} B at "
-                f"{PLAN_K} neighbour slots, over the limit of {SMEM_LIMIT} B")
-        budget = d.wblk - 1
-    widths = tuple(int(sum(instr[k]["mul"] for k in bb)) for bb in blocks)
-    return BlockPlan(tuple(tuple(b) for b in blocks), widths, d.wblk, fwd, bwd)
+    mblk = max(cp.mw for cp in passes)
+
+    def carve_at(budget):
+        pass_blocks = [_column_blocks(instr, cp.ks, budget) for cp in passes]
+        d = table_fn(passes, pass_blocks)
+        return pass_blocks, d, mblk, carve_bytes(d, False, mblk), carve_bytes(d, True, mblk)
+
+    def fits(r):
+        return max(r[3][0], r[4][0]) <= SMEM_LIMIT
+
+    floor = carve_at(widest)
+    if not fits(floor):
+        return None, floor
+    r = carve_at(max(sum(instr[k]["mul"] for k in cp.ks) for cp in passes))
+    while not fits(r) and r[1].wblk > widest:
+        r = carve_at(r[1].wblk - 1)
+    return (r if fits(r) else floor), floor
+
+
+def plan_blocks(conv: ConvTPSpec, mlp_dims, instr, table_fn) -> BlockPlan:
+    """The passes and column blocks for which both kernels' shared memory
+    fits (``carve_bytes`` at ``PLAN_K`` slots, at least 2 W3 stages): the
+    fewest passes (one when the layer's output accumulator, ybar and tables
+    fit whole), each a run of whole output groups of the mid layout (at
+    most 8 groups up to l = 3, so every cut is tried); within them the
+    widest blocks of consecutive instructions (:func:`_fit_blocks`), one
+    block per pass when the pass's columns of ``w`` fit; among the cuts
+    that fit, the fewest blocks, then the fewest bytes. ``table_fn(passes,
+    pass_blocks)`` builds a plan's tables and gives its ``_ConvDims`` (the
+    tables and the widest block's Wigner rows change with the blocks); the
+    last call is the plan's. Raises ValueError, naming the layer's widths,
+    the bytes and the limit, when no cut fits even with blocks of one
+    instruction."""
+    groups = _mid_groups(instr)
+    smallest = None
+    for n_pass in range(1, len(groups) + 1):
+        fitting = []
+        for cuts in itertools.combinations(range(1, len(groups)), n_pass - 1):
+            bounds = zip((0, *cuts), (*cuts, len(groups)))
+            passes = [_conv_pass(instr, [k for g in groups[a:b] for k in g]) for a, b in bounds]
+            fit, floor = _fit_blocks(passes, instr, table_fn)
+            if smallest is None or max(floor[3][0], floor[4][0]) < max(smallest[3][0],
+                                                                       smallest[4][0]):
+                smallest = floor
+            if fit is not None:
+                fitting.append((passes, *fit))
+        if fitting:
+            passes, pass_blocks, d, mblk, fwd, bwd = min(fitting, key=lambda r: (
+                sum(map(len, r[1])), max(r[4][0], r[5][0])))
+            table_fn(passes, pass_blocks)
+            blocks = tuple(tuple(b) for bl in pass_blocks for b in bl)
+            return BlockPlan(blocks, tuple(int(sum(instr[k]["mul"] for k in b)) for b in blocks),
+                             d.wblk, fwd, bwd, tuple(passes), tuple(map(len, pass_blocks)), mblk)
+    _, d, _, fwd, bwd = smallest
+    raise ValueError(
+        "the fused-conv kernels cannot fit this layer in a CTA's shared memory ("
+        f"{_describe(conv, mlp_dims)}): even with blocks of one instruction's {d.wblk} "
+        f"columns the forward needs {fwd[0]} B and the backward {bwd[0]} B at "
+        f"{PLAN_K} neighbour slots, over the limit of {SMEM_LIMIT} B")
 
 
 class FusedConvOp:
     """Static tables of one conv layer: the instruction tables of the JAX
-    kernels, and for the CUDA kernels the column blocks of ``w``
+    kernels, and for the CUDA kernels the passes and column blocks of ``w``
     (:func:`plan_blocks`), the uvu product's instruction records and task
-    lists (:func:`_uvu_tables`) and, in vec mode, the spherical harmonics
-    and their derivatives as monomial terms. ``embed=None`` is emb/sh mode.
-    Device copies are cached per device."""
+    lists (:func:`_uvu_tables`, :func:`_pass_itab`) and, in vec mode, the
+    spherical harmonics and their derivatives as monomial terms.
+    ``embed=None`` is emb/sh mode. Device copies are cached per device."""
 
     def __init__(self, conv: ConvTPSpec, mlp_spec: ScalarMLPSpec,
                  embed: Optional[EdgeEmbedSpec]):
@@ -651,29 +768,23 @@ class FusedConvOp:
         hidden = tuple(mlp_spec.dims[1:-1])
         self.ftab = np.concatenate([w3j_pack.reshape(-1), np.asarray(sh_c, np.float32),
                                     np.asarray(shd_c, np.float32)]).astype(np.float32)
+        # the monomial terms: sh (int4 each, on a 16-byte boundary, as the
+        # tables end on one), then dsh and each dsh term's component
+        sh_ints = np.asarray(sh_t, np.int64).reshape(-1)
+        sh_ints = np.concatenate([sh_ints, np.zeros(-sh_ints.size % 4, np.int64)])
+        terms = np.concatenate([sh_ints, np.asarray(shd_t, np.int64).reshape(-1),
+                                np.asarray(shd_comp, np.int64)])
         tables = {}
 
-        def table_fn(blocks):
-            ints: List[np.ndarray] = [_uvu_tables(conv, instr, blocks, hidden)]
-            offs: Dict[str, int] = {}
-
-            def put(name, arr):
-                offs[name] = sum(a.size for a in ints)
-                ints.append(np.asarray(arr, np.int64).reshape(-1))
-
-            # int4 arrays start on a 16-byte boundary (the uvu tables end on one)
-            put("sh_terms", np.asarray(sh_t).reshape(-1, 4))
-            pad = (-sum(a.size for a in ints)) % 4
-            if pad:
-                ints.append(np.zeros(pad, np.int64))
-            put("shd_terms", np.concatenate([np.asarray(shd_t).reshape(-1), shd_comp]))
-            itab = np.concatenate(ints)
+        def table_fn(passes, pass_blocks):
+            itab, tabw = _pass_itab(conv, instr, passes, pass_blocks, hidden, terms)
             assert itab.max() < 2**31
+            blocks = [ks for bl in pass_blocks for ks in bl]
             wblk = max(sum(instr[k]["mul"] for k in ks) for ks in blocks)
             rblk = max(sum(len(instr[k]["mp"]) for k in ks) for ks in blocks)
             tables["itab"], tables["offs"] = itab.astype(np.int32), dict(
-                offs, n_sh=len(sh_c), n_shd=len(shd_c), sh_coef=w3j_pack.size,
-                shd_coef=w3j_pack.size + len(sh_c), wblk=wblk, rblk=rblk)
+                sh_terms=tabw, shd_terms=tabw + sh_ints.size, n_sh=len(sh_c), n_shd=len(shd_c),
+                sh_coef=w3j_pack.size, shd_coef=w3j_pack.size + len(sh_c), wblk=wblk, rblk=rblk)
             return self.dims(1, PLAN_K, tables["offs"])
 
         self.plan = plan_blocks(conv, mlp_spec.dims, instr, table_fn)
@@ -682,6 +793,10 @@ class FusedConvOp:
         self.reduce_products = _reduce_products(mlp_spec.dims, self.ws_layout, embed is not None)
         self._reduce_args: Optional[tuple] = None
         self._device_tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def carve(self, d: _ConvDims, bwd: bool) -> Tuple[int, int]:
+        """:func:`carve_bytes` of this layer's plan at the shape of ``d``."""
+        return carve_bytes(d, bwd, self.plan.mblk)
 
     def device_tables(self, device: torch.device):
         if device not in self._device_tables:
@@ -940,21 +1055,21 @@ def check_carve(lib_name: str, op: FusedConvOp, dims: _ConvDims, bwd: bool):
     the layer's widths, the bytes and the limit; and, at the first launch of
     each layer shape, RuntimeError unless the kernels of ``lib_name`` lay it
     out in as many bytes (their ``fused_conv_smem_bytes``)."""
-    nbytes, _ = carve_bytes(dims, bwd)
+    nbytes, _ = op.carve(dims, bwd)
     if nbytes > SMEM_LIMIT:
         raise ValueError(
             f"the fused-conv {'backward' if bwd else 'forward'} kernel needs {nbytes} B of shared "
             f"memory per CTA for this layer ({_describe(op.conv, op.mlp_spec.dims)}, "
             f"{dims.K} neighbour slots, column blocks of {dims.wblk}), over the limit of "
             f"{SMEM_LIMIT} B")
-    key = (lib_name, bwd) + tuple(getattr(dims, f) for f, _ in _ConvDims._fields_[1:])
+    key = (lib_name, bwd, op.plan.mblk) + tuple(getattr(dims, f) for f, _ in _ConvDims._fields_[1:])
     if key in _CARVE_CHECKED:
         return
     from .kernels import library
 
     fn = library(lib_name).fused_conv_smem_bytes
-    fn.argtypes, fn.restype = [_ConvDims, ctypes.c_int], ctypes.c_longlong
-    got = fn(dims, int(bwd))
+    fn.argtypes, fn.restype = [_ConvDims, ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    got = fn(dims, int(bwd), op.plan.mblk)
     if got != nbytes:
         raise RuntimeError(f"the kernels of {lib_name} lay a CTA out in {got} B, the host's "
                            f"carve_bytes in {nbytes} B: the two copies of carve disagree")
@@ -993,7 +1108,8 @@ def fwd_launch_args(op: FusedConvOp, x, src, a, b, ws):
     out = torch.empty((N, op.dim_mid), dtype=torch.float32, device=x.device)
     itab, ftab = op.device_tables(x.device)
     entry = "fused_conv_fwd_launch" if op.embed is not None else "fused_conv_fwd_embsh_launch"
-    return ("fused_conv_fwd", entry, (dims, _ptr(x), _ptr(src), _ptr(a), _ptr(b),
+    return ("fused_conv_fwd", entry, (dims, ctypes.c_int(op.plan.mblk), _ptr(x), _ptr(src),
+                                      _ptr(a), _ptr(b),
                                       _mlp_weights(ws), _ptr(itab), _ptr(ftab), _ptr(out),
                                       _stream(x.device)), out)
 
@@ -1021,7 +1137,7 @@ def bwd_launch_args(op: FusedConvOp, x, src, a, b, ws, ybar, records: bool):
     name = "fused_conv_bwd" + ("_embsh" if op.embed is None else "") + ("_pg" if records else "")
     layout = [_WsLayout(**op.ws_layout)] if records else []
     itab, ftab = op.device_tables(dev)
-    args = (dims, *layout, _ptr(x), _ptr(src), _ptr(a), _ptr(b),
+    args = (dims, ctypes.c_int(op.plan.mblk), *layout, _ptr(x), _ptr(src), _ptr(a), _ptr(b),
             _mlp_weights(ws), _ptr(ybar), _ptr(itab), _ptr(ftab),
             *[_ptr(t) for t in outs], _stream(dev))
     return "fused_conv_bwd", name + "_launch", args, tuple(outs)
@@ -1138,7 +1254,8 @@ def fused_conv_bwd_slot(op: FusedConvOp, x, src_c, vec_c, coef, ws, ybar_c, buf,
     check_carve("fused_conv_bwd", op, dims, bwd=True)
     dvec = torch.empty((3, RC * K), dtype=torch.float32, device=x.device)
     itab, ftab = op.device_tables(x.device)
-    _call("fused_conv_bwd", "fused_conv_bwd_slot_launch", dims, _ptr(x), _ptr(src_c),
+    _call("fused_conv_bwd", "fused_conv_bwd_slot_launch", dims, ctypes.c_int(op.plan.mblk),
+          _ptr(x), _ptr(src_c),
           _ptr(vec_c), _ptr(coef), _mlp_weights(ws), _ptr(ybar_c), _ptr(itab), _ptr(ftab),
           _ptr(buf), ctypes.c_int(slot), _ptr(dvec), _stream(x.device))
     fused_conv_bwd_slot.launches += 1

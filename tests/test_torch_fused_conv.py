@@ -146,15 +146,17 @@ def test_fused_conv_matches_jax_vec(kind):
 def _walk_tables(op, x, src, vec, coef, ws, ybar):
     """The CUDA kernels' algorithm in float64 numpy, reading the same
     tables (``op.itab``/``op.ftab`` at the offsets of ``op.dims`` and of
-    the uvu header at the table's start): per edge inside the cutoff,
-    embedding and spherical-harmonic terms, the MLP's hidden layers (their
-    widths from the table), then column block by column block ``w`` and
+    the uvu headers): per edge inside the cutoff, embedding and
+    spherical-harmonic terms, the MLP's hidden layers (their widths from the
+    table), then pass by pass (the tables linked from each header's
+    ``H_NEXT``) and column block by column block ``w`` and
     ``tmp`` of the block's columns and rows, the uvu product and its
     pullback task by task (the forward's (instruction, channels) tasks,
     ``dtmp`` per (instruction, m), ``dxg`` and ``dw`` per (x irrep,
     channels) over the block's instructions that read the irrep, added to
-    the earlier blocks' where the task says so), ``dsh`` and the last
-    hidden layer's cotangent summed over the blocks.
+    the earlier blocks' and passes'), the pass's ``dsh`` and last hidden
+    layer's cotangent summed over its blocks and chained to the edge
+    vector, the passes' shares added in turn.
     Also what B2′ adds: the per-edge record of the parameter gradients at
     the columns of ``op.ws_layout`` (rows outside the cutoff stay NaN and
     invalid), and the sums over edges ``dW_l = h_l ⊗ g_l / sqrt(d_l)`` and
@@ -162,35 +164,50 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
     d = op.dims(*src.shape)
     it, ftab = op.itab.astype(np.int64), op.ftab.astype(np.float64)
 
-    off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw, off_fw, off_blk, n_blk = it[:10]
-    assert off_blk == fc.UVU_HEADER
-    blocks = it[off_blk : off_blk + n_blk * fc.UVU_BLK].reshape(n_blk, fc.UVU_BLK)
-    hidden = list(it[12 : 12 + d.nh])
-    assert hidden == list(op.mlp_spec.dims[1:-1])
+    # the pass tables, linked from table 0
+    starts = [0]
+    while it[starts[-1] + fc.H_NEXT]:
+        starts.append(int(it[starts[-1] + fc.H_NEXT]))
+    assert len(starts) == len(op.plan.passes)
+    passes = []
+    for po in starts:
+        tab = it[po:]
+        off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw, off_fw, off_blk, n_blk = tab[:10]
+        assert off_blk == fc.UVU_HEADER
+        blocks = tab[off_blk : off_blk + n_blk * fc.UVU_BLK].reshape(n_blk, fc.UVU_BLK)
+        hidden = list(tab[12 : 12 + d.nh])
+        assert hidden == list(op.mlp_spec.dims[1:-1])
+        # every task once, in the block's warps' runs, the blocks in order
+        for i, n_t in ((4, n_dt), (5, n_dx), (6, n_fw)):
+            runs = np.concatenate([tab[r : r + fc.UVU_WARPS + 1] for r in blocks[:, i]])
+            assert runs[0] == 0 and runs[-1] == n_t and (np.diff(runs) >= 0).all()
+        passes.append(dict(
+            tab=tab, blocks=blocks, off_ins=off_ins, off_list=off_list, m0=tab[fc.H_M0],
+            mw=tab[fc.H_MW], dt=tab[off_dt : off_dt + 4 * n_dt].reshape(-1, 4),
+            dx=tab[off_dx : off_dx + 8 * n_dx].reshape(-1, 8),
+            fw=tab[off_fw : off_fw + 4 * n_fw].reshape(-1, 4)))
     assert (d.hsum, d.hl) == (sum(hidden), (hidden or [d.n_basis])[-1])
-    # every task once, in the block's warps' runs, the blocks in order; the
-    # blocks tile w's columns and w3_pack's rows
-    for i, n_t in ((4, n_dt), (5, n_dx), (6, n_fw)):
-        starts = np.concatenate([it[r : r + fc.UVU_WARPS + 1] for r in blocks[:, i]])
-        assert starts[0] == 0 and starts[-1] == n_t and (np.diff(starts) >= 0).all()
+    # the passes' blocks tile w's columns and w3_pack's rows, their outputs
+    # the mid columns
+    blocks = np.concatenate([P["blocks"] for P in passes])
     assert (blocks[:, 0] == np.cumsum([0, *blocks[:-1, 1]])).all() and blocks[:, 1].sum() == d.numel
     assert (blocks[:, 2] == np.cumsum([0, *blocks[:-1, 3]])).all() and blocks[:, 3].sum() == op.R
     assert (d.wblk, d.rblk) == (blocks[:, 1].max(), blocks[:, 3].max())
+    assert [P["m0"] for P in passes] == list(np.cumsum([0] + [P["mw"] for P in passes])[:-1])
+    assert sum(P["mw"] for P in passes) == d.dim_mid and op.plan.mblk == max(P["mw"] for P in passes)
 
-    def ins(kk):
-        rec = it[off_ins + kk * fc.UVU_INS : off_ins + (kk + 1) * fc.UVU_INS]
+    def ins(P, kk):
+        rec = P["tab"][P["off_ins"] + kk * fc.UVU_INS : P["off_ins"] + (kk + 1) * fc.UVU_INS]
         return rec[:7], rec[8 : 8 + 49].reshape(7, 7)
 
-    def runs(b, i):
-        r = blocks[b, i]
-        return it[r], it[r + fc.UVU_WARPS]
+    def runs(P, b, i):
+        r = P["blocks"][b, i]
+        return P["tab"][r], P["tab"][r + fc.UVU_WARPS]
 
-    dt_tasks = it[off_dt : off_dt + 4 * n_dt].reshape(-1, 4)
-    dx_tasks = it[off_dx : off_dx + 8 * n_dx].reshape(-1, 8)
-    fw_tasks = it[off_fw : off_fw + 4 * n_fw].reshape(-1, 4)
-    # block 0's dxg tasks write every x irrep's channels (the later blocks'
-    # add to them)
-    assert {(x0, u0) for x0, _, _, _, _, u0, _, _ in dx_tasks[slice(*runs(0, 5))]} == {
+    # the first pass's block 0 dxg tasks write every x irrep's channels (the
+    # later blocks' and passes' add to them)
+    P0 = passes[0]
+    assert {(x0, u0) for x0, _, _, _, _, u0, _, _ in P0["dx"][slice(*runs(P0, 0, 5))]} == {
         (sl.start, u0) for sl, mi in zip(op.conv.irreps_x.slices(), op.conv.irreps_x)
         for u0 in range(0, mi.mul, 8)}
     sh_t = it[d.sh_terms : d.sh_terms + 4 * d.n_sh].reshape(-1, 4)
@@ -242,57 +259,65 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
             hs.append(zs[-1] * sig(zs[-1]) * d.act_cst)
         w_all = hs[-1] @ Ws[-1] / np.sqrt(d.hl)
         xs = x[src[i, f % k]].astype(np.float64)
-        yb = ybar[i].astype(np.float64)
         dw = np.zeros(d.numel)
-        dsh = np.zeros(d.dim_f)
-        for b, (c0, width, r0, rows) in enumerate(blocks[:, :4]):
-            w = w_all[c0 : c0 + width]
-            tmp = w3j[r0 : r0 + rows] @ sh
-            for kk, u0, _, _ in fw_tasks[slice(*runs(b, 6))]:
-                (x0, d1, d3, mul, w0, y0, ut), rt = ins(kk)
-                uu = np.arange(u0, min(u0 + 16, mul))
-                for p_ in range(d3):
-                    for m in range(d1):
+        dz_rec = [np.zeros_like(z) for z in zs]
+        dc = np.zeros(d.n_basis)
+        for P in passes:
+            yb = ybar[i, P["m0"]:].astype(np.float64)
+            dw_p = np.zeros(d.numel)
+            dsh = np.zeros(d.dim_f)
+            for b, (c0, width, r0, rows) in enumerate(P["blocks"][:, :4]):
+                w = w_all[c0 : c0 + width]
+                tmp = w3j[r0 : r0 + rows] @ sh
+                for kk, u0, _, _ in P["fw"][slice(*runs(P, b, 6))]:
+                    (x0, d1, d3, mul, w0, y0, ut), rt = ins(P, kk)
+                    uu = np.arange(u0, min(u0 + 16, mul))
+                    for p_ in range(d3):
+                        for m in range(d1):
+                            if rt[m, p_] >= 0:
+                                out[i, P["m0"] + y0 + p_ * ut + uu] += (
+                                    xs[x0 + m * mul + uu] * w[w0 + uu] * tmp[rt[m, p_]])
+                dtmp = np.zeros(rows)
+                for kk, m, _, _ in P["dt"][slice(*runs(P, b, 4))]:
+                    (x0, d1, d3, mul, w0, y0, ut), rt = ins(P, kk)
+                    uu = np.arange(mul)
+                    for p_ in range(d3):
                         if rt[m, p_] >= 0:
-                            out[i, y0 + p_ * ut + uu] += (xs[x0 + m * mul + uu] * w[w0 + uu]
-                                                          * tmp[rt[m, p_]])
-            dtmp = np.zeros(rows)
-            for kk, m, _, _ in dt_tasks[slice(*runs(b, 4))]:
-                (x0, d1, d3, mul, w0, y0, ut), rt = ins(kk)
-                uu = np.arange(mul)
-                for p_ in range(d3):
-                    if rt[m, p_] >= 0:
-                        dtmp[rt[m, p_]] = np.sum(xs[x0 + m * mul + uu] * w[w0 + uu]
-                                                 * yb[y0 + p_ * ut + uu])
-            dsh += w3j[r0 : r0 + rows].T @ dtmp
-            for x0, d1, mul, l0, nl, u0, _, _ in dx_tasks[slice(*runs(b, 5))]:
-                uu = np.arange(u0, min(u0 + 8, mul))
-                for kk in it[off_list + l0 : off_list + l0 + nl]:
-                    (_, _, d3, _, w0, y0, ut), rt = ins(kk)
-                    for m in range(d1):
-                        a = sum(yb[y0 + p_ * ut + uu] * tmp[rt[m, p_]] for p_ in range(d3)
-                                if rt[m, p_] >= 0)
-                        dxg[f, x0 + m * mul + uu] += w[w0 + uu] * a
-                        dw[c0 + w0 + uu] += xs[x0 + m * mul + uu] * a
-        dzs = [None] * len(zs)
-        g = dw
-        for l in range(len(zs) - 1, -1, -1):
-            dzs[l] = (Ws[l + 1] @ g) / np.sqrt(Ws[l + 1].shape[0]) * dsilu(zs[l])
-            g = dzs[l]
-        demb = (Ws[0] @ g) / np.sqrt(d.n_basis)
-        dr = np.sum(demb * (2.0 / es.cutoff) * (
-            coef * np.cos(coef * r) * rinv * env
-            + np.sin(coef * r) * (denv * rinv - env * rinv * rinv)))
-        du = np.zeros(3)
-        for t, comp, c in zip(sd_t, sd_comp, sd_c):
-            du[comp] += c * dsh[t[0]] * mono(t)
-        dvec[:, f] = (du - u * (u @ du)) * rinv + u * dr
-        dc = demb * (2.0 / es.cutoff) * np.cos(coef * r) * env
-        for dW, h, g_ in zip(dws, hs, dzs + [dw]):
-            dW += np.outer(h, g_) / np.sqrt(len(h))
-        dcoef += dc
+                            dtmp[rt[m, p_]] = np.sum(xs[x0 + m * mul + uu] * w[w0 + uu]
+                                                     * yb[y0 + p_ * ut + uu])
+                dsh += w3j[r0 : r0 + rows].T @ dtmp
+                for x0, d1, mul, l0, nl, u0, _, _ in P["dx"][slice(*runs(P, b, 5))]:
+                    uu = np.arange(u0, min(u0 + 8, mul))
+                    for kk in P["tab"][P["off_list"] + l0 : P["off_list"] + l0 + nl]:
+                        (_, _, d3, _, w0, y0, ut), rt = ins(P, kk)
+                        for m in range(d1):
+                            a = sum(yb[y0 + p_ * ut + uu] * tmp[rt[m, p_]] for p_ in range(d3)
+                                    if rt[m, p_] >= 0)
+                            dxg[f, x0 + m * mul + uu] += w[w0 + uu] * a
+                            dw_p[c0 + w0 + uu] += xs[x0 + m * mul + uu] * a
+            # the pass's share of the edge's cotangents, chained on its own
+            dzs = [None] * len(zs)
+            g = dw_p
+            for l in range(len(zs) - 1, -1, -1):
+                dzs[l] = (Ws[l + 1] @ g) / np.sqrt(Ws[l + 1].shape[0]) * dsilu(zs[l])
+                g = dzs[l]
+            demb = (Ws[0] @ g) / np.sqrt(d.n_basis)
+            dr = np.sum(demb * (2.0 / es.cutoff) * (
+                coef * np.cos(coef * r) * rinv * env
+                + np.sin(coef * r) * (denv * rinv - env * rinv * rinv)))
+            du = np.zeros(3)
+            for t, comp, c in zip(sd_t, sd_comp, sd_c):
+                du[comp] += c * dsh[t[0]] * mono(t)
+            dvec[:, f] += (du - u * (u @ du)) * rinv + u * dr
+            dc_p = demb * (2.0 / es.cutoff) * np.cos(coef * r) * env
+            for dW, h, g_ in zip(dws, hs, dzs + [dw_p]):
+                dW += np.outer(h, g_) / np.sqrt(len(h))
+            dcoef += dc_p
+            dc += dc_p
+            dw += dw_p
+            dz_rec = [a + b for a, b in zip(dz_rec, dzs)]
         work[f, L["emb"] : L["dc"] + d.n_basis] = np.concatenate(
-            [emb, *hs[1:], *dzs, dw, dc])
+            [emb, *hs[1:], *dz_rec, dw, dc])
         valid[f] = 1
     return out, dxg, dvec, dws, dcoef, work, valid
 

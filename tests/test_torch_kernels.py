@@ -24,6 +24,7 @@ from sevennet_tpu_torch.data.neighborlist import neighbor_list_numpy
 from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
 from sevennet_tpu_torch.irreps import Irreps, infer_irreps_out
 from sevennet_tpu_torch.model.build import build_model_spec
+from sevennet_tpu_torch.model.presets import MF_OMPA
 from sevennet_tpu_torch.ops import fused_conv as fc
 from sevennet_tpu_torch.ops.mlp import ScalarMLPSpec
 from sevennet_tpu_torch.ops.pallas_conv import dense_conv_pallas
@@ -409,6 +410,42 @@ def test_l3i5_layer_kernels_match_plain(cuda):
     embed = fc.EdgeEmbedSpec(8, 5.0, "poly_cut", 6.0, 3)
     op = _instances_match_plain(cuda, layer.conv, layer.radial_mlp, embed, 48, 8.0, 4)
     assert op.numel == 1760 and len(op.plan.blocks) > 1
+
+
+
+@pytest.mark.parametrize("t", range(5))
+def test_mf_ompa_layer_kernels_match_plain(cuda, t):
+    """SevenNet-MF-ompa's layer widths (lmax 3 with parity, up to 1,408 x
+    and 15,552 mid columns; cutoff 6, XPLOR from 5.5): every instance against
+    its plain twin on 40 random atoms, and B3 on a chunk of them; layers 2
+    and 3 run in several passes."""
+    spec = build_model_spec(dict(MF_OMPA, chemical_species=["H", "O"]))
+    layer = spec.layers[t]
+    embed = fc.EdgeEmbedSpec(8, 6.0, "XPLOR", 5.5, 3)
+    op = _instances_match_plain(cuda, layer.conv, layer.radial_mlp, embed, 40, 9.0, 5 + t)
+    assert len(op.plan.passes) == (1, 1, 2, 3, 1)[t]
+    rng = np.random.default_rng(t)
+    pos = rng.uniform(0.0, 9.0, (40, 3))
+    dst, src, shift = neighbor_list_numpy(pos, 6.0)
+    g = dense_graph_from_arrays(pos, np.zeros(40), src, dst, shift, device=cuda)
+    N, K, RC = g.n_atoms_cap, g.dense_k, 8
+    vec = torch.where(g.edge_mask[None], g.edge_vectors().T,
+                      torch.tensor([[12.0], [0.0], [0.0]], device=cuda)).contiguous()
+    ws = [torch.tensor(rng.normal(size=(a, b)), dtype=torch.float32, device=cuda)
+          for a, b in zip(op.mlp_spec.dims[:-1], op.mlp_spec.dims[1:])]
+    x = torch.tensor(rng.normal(size=(N, op.dim_x)), dtype=torch.float32, device=cuda)
+    ybar = torch.tensor(rng.normal(size=(N, op.dim_mid)), dtype=torch.float32, device=cuda)
+    coef = torch.linspace(1.0, 8.0, 8, device=cuda)
+    src_c = g.edge_src.view(N, K).to(torch.int32)[RC:2 * RC].contiguous()
+    vec_c = vec[:, RC * K:2 * RC * K].contiguous()
+    buf = torch.full((3 * RC * K, op.dim_x), -7.25, device=cuda)
+    buf_p = buf.cpu()
+    dv = fc.fused_conv_bwd_slot(op, x, src_c, vec_c, coef, ws, ybar[RC:2 * RC], buf, 1)
+    dv_p = fc.fused_conv_bwd_slot_plain(op, x.cpu(), src_c.cpu(), vec_c.cpu(), coef.cpu(),
+                                        [w.cpu() for w in ws], ybar[RC:2 * RC].cpu(), buf_p, 1)
+    torch.cuda.synchronize()
+    for got, want in ((dv.cpu(), dv_p), (buf.cpu(), buf_p)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
 _SEVENNET0 = {  # bench.py:87-147

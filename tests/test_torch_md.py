@@ -248,9 +248,9 @@ def test_trajectory_and_refusals(system, tmp_path, monkeypatch):
     np.testing.assert_array_equal(frames[0].numbers, s["Z"])
     np.testing.assert_allclose(frames[-1].positions, _unsorted(st, s["n"], "positions"),
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A.3"):
         eng.run(st, 1, integrator="langevin")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A.5"):
         MDEngine(s["spec"], s["params"], s["cell"], d3={"functional": "pbe"}, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
