@@ -56,7 +56,17 @@
    engine's initial forces against an unchunked engine's (1e-3 eV/A and
    1e-4 of max |F|), the peak memory of one step of each, then 10 timed
    ring steps. Launches per force evaluation: 5 B1 + 5 B2, or with the
-   ring 5 B1 + 5 nb B3 and no B2.
+   ring 5 B1 + 5 nb B3 and no B2. Then the other ensembles at 3,000 atoms,
+   5 steps each from one state: ``langevin`` and ``npt`` (MTK) against a
+   plain-conv engine (positions 1e-4 A, energy 1e-5 relative, the npt cell
+   1e-6 relative), ``nose_hoover`` and ``npt_berendsen`` on the kernels
+   alone (finite; Berendsen changes the volume); ms/step of each beside
+   NVE's, the drift of the MTK invariant; 5 B1 + 5 B2 per force
+   evaluation, with the stress for NPT. Then a SevenNet-0 checkpoint saved
+   by the port under its registry name in a temporary
+   ``$SEVENN_TPU_CHECKPOINT_DIR``, served by name
+   (``SevenNetCalculator("7net-0")``, 192 atoms) against the spec-and-params
+   calculator (bitwise, else 1e-6 relative; the log says which).
 6. SevenNet-l3i5 (``bench.py:89-106``: lmax 3, 128x0e+64x1e+32x2e+32x3e,
    poly cutoff, nequip self-connection; random weights from the seed):
    B1, B2 and B2' at its layer shapes on the same box against their plain
@@ -75,7 +85,17 @@
    each; the 192-atom request against the plain-conv model, forces within
    1e-3 eV/A and 1e-4 of max |F|; the two modalities' energies differ),
    with the model's time, the request's, the host graph's parts and the
-   peak memory.
+   peak memory. B2' and its reduction join B1 and B2 at the five layer
+   shapes (against plain at 192 atoms, the reduction also bitwise twice and
+   against a float64 sum; timed at 192 and 3,000 atoms, the reduction beside
+   one torch.mm per weight matrix). Then mf-ompa training on 8
+   teacher-labelled 192-atom boxes, 4 of each modality: the first 3 steps
+   on batches of 4 that mix the modalities, kernel path against plain
+   (loss 1e-5 relative, every gradient leaf 1e-4 of its max; 5 B1 + 10 B2'
+   + 10 reductions a step), the step's ms, structures/s and peak memory,
+   then 1 epoch of ``train_run`` on the two-modality config with a
+   modal-wise shift, its checkpoint reloaded and each modality served from
+   it (against the trained model, 1e-6 relative).
 8. The Hopper probes (``sevennet_tpu_torch/probes``): every variant of the
    matmul-rate probe (both contracts, every shape of its TPU scripts) and
    the batched products at N 10,016 against their plain versions
@@ -222,6 +242,22 @@ MF_SIZES = (192, 3000)
 MF_PLAIN_MAX_ATOMS = 192   # the plain mf-ompa conv's messages: 15,552 floats an edge
 MF_MODALITIES = ("mpa", "omat24")
 MF_DENOMINATOR = 81.0      # mean neighbours of a water atom at 6 A
+MF_TRAIN_BOXES = 4         # teacher-labelled 192-atom water boxes per modality
+MF_TRAIN_BATCH = 4         # structures per mf-ompa training batch
+MF_TRAIN_EPOCHS = 1
+ENS_STEPS = 5              # steps of each ensemble at 3,000 atoms
+CELL_REL_TOL = 1e-6        # npt cell, kernel engine vs plain-conv engine
+# MDEngine.run keywords of each ensemble: the JAX engine's defaults, but
+# MTK's piston at tau_p 100 fs (default 1000), so that its cell moves by
+# about 1e-4 in the 5 steps and CELL_REL_TOL tests it
+ENSEMBLES = {
+    "nve": {},
+    "langevin": dict(temperature=MD_T, friction=0.01),
+    "nose_hoover": dict(temperature=MD_T, tau=50.0),
+    "npt": dict(temperature=MD_T, pressure=0.0, tau_t=100.0, tau_p=100.0),
+    "npt_berendsen": dict(temperature=MD_T, pressure=0.0, tau_t=100.0, tau_p=1000.0),
+}
+ENS_PLAIN = ("langevin", "npt")  # also run on a plain-conv engine and compared
 # radial MLPs of other depths held at SevenNet-0's widths
 MLP_DEPTHS = ((), (64,), (64, 64, 64))
 
@@ -1248,7 +1284,7 @@ def slots_match_host(eng, st):
 
     n_cap, K = st.n_atoms_cap, eng.k_model
     host = eng._host_initial_edges(st.nl_positions[: int(st.atom_mask.sum())].cpu().numpy(),
-                                   n_cap)
+                                   n_cap, st.cell.cpu().numpy())
     if host is None:
         raise SystemExit("the host build at the rebuilt positions failed its capacity checks")
     rows = np.repeat(np.arange(n_cap), K)
@@ -1585,13 +1621,17 @@ def l3i5_kernel_phase(spec, params, dev, atoms):
 
 
 def mf_ompa_kernel_phase(spec, params, dev):
-    """B1 and B2 at each of SevenNet-MF-ompa's five layer shapes: against
-    their plain versions (REL_TOL of max |plain|) on the 192-atom water box,
-    timed with CUDA events there (kernel and plain) and on the 3,000-atom
-    box (kernel); prints each layer's passes, column blocks and carve.
-    Returns per-kernel records summed over the five layers (one request's
-    launches): at the 192-atom box ``ms``, ``plain_ms`` and the work, at the
-    3,000-atom box ``ms_big`` and its work."""
+    """B1, B2, B2' (both passes) and the B2' reduction alone at each of
+    SevenNet-MF-ompa's five layer shapes: against their plain versions
+    (REL_TOL of max |plain|; the reduction also twice bitwise and against a
+    float64 sum, :func:`reduce_check`) on the 192-atom water box, timed with
+    CUDA events there (kernel and plain; the reduction beside one torch.mm
+    per weight matrix) and on the 3,000-atom box (kernel, and the
+    reduction's library call); prints each layer's passes, column blocks
+    and carve. Returns per-kernel records summed over the five layers (one
+    request's or one force pass's launches): at the 192-atom box ``ms``,
+    ``plain_ms``, ``library_ms`` and the work, at the 3,000-atom box
+    ``ms_big``, ``library_ms_big`` and its work."""
     import torch
 
     from sevennet_tpu_torch.atoms import AtomsLite
@@ -1605,8 +1645,9 @@ def mf_ompa_kernel_phase(spec, params, dev):
                                                           pbc=True))
     gen = torch.Generator(device="cpu").manual_seed(11)
     recs = {k: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, tc_flops=0.0, err=0.0,
-                    ms_big=0.0, flops_big=0.0, bytes_big=0.0, tc_flops_big=0.0)
-            for k in ("fwd", "bwd")}
+                    ms_big=0.0, flops_big=0.0, bytes_big=0.0, tc_flops_big=0.0,
+                    library_ms=0.0, library_ms_big=0.0)
+            for k in ("fwd", "bwd", "bwd_pg", "reduce")}
     for t, layer in enumerate(spec.layers):
         op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
         plan = op.plan
@@ -1626,17 +1667,42 @@ def mf_ompa_kernel_phase(spec, params, dev):
             args = (op, x, src, vec, coef, ws)
             tag = f"mf-ompa layer {t} ({n} atoms)"
             times = {"fwd": cuda_time(lambda: fc.fused_conv_fwd(*args), 3),
-                     "bwd": cuda_time(lambda: fc.fused_conv_bwd(*args, ybar), 3)}
-            plain = {}
+                     "bwd": cuda_time(lambda: fc.fused_conv_bwd(*args, ybar), 3),
+                     "bwd_pg": cuda_time(lambda: fc.fused_conv_bwd(*args, ybar,
+                                                                   param_grads=True), 3)}
+            _, _, work_, valid = fc.fused_conv_bwd_pg_records(*args, ybar)
+            plain, lib = {}, {}
             if n <= MF_PLAIN_MAX_ATOMS:
                 errs = {"fwd": check_close(tag, "fwd", fc.fused_conv_fwd(*args),
                                            fc.fused_conv_fwd_plain(*args))}
                 got, want = fc.fused_conv_bwd(*args, ybar), fc.fused_conv_bwd_plain(*args, ybar)
                 errs["bwd"] = max(check_close(tag, name, a, b)
                                   for name, a, b in zip(("dxg", "dvec"), got, want))
+                got = fc.fused_conv_bwd(*args, ybar, param_grads=True)
+                want = fc.fused_conv_bwd_plain(*args, ybar, param_grads=True)
+                pairs = [("pg dxg", got[0], want[0]), ("pg dvec", got[1], want[1])]
+                pairs += [(f"dW{i + 1}", a, b) for i, (a, b) in enumerate(zip(got[2], want[2]))]
+                pairs += [("dcoef", got[3], want[3])]
+                errs["bwd_pg"] = max(check_close(tag, name, a, b) for name, a, b in pairs)
                 del got, want
+                red_ms, red_plain, lib["reduce"], errs["reduce"] = reduce_check(
+                    tag, op, work_, valid, N, K, reps=3)
+                times["reduce"] = red_ms
                 plain = {"fwd": cuda_time(lambda: fc.fused_conv_fwd_plain(*args), 2),
-                         "bwd": cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar), 2)}
+                         "bwd": cuda_time(lambda: fc.fused_conv_bwd_plain(*args, ybar), 2),
+                         "bwd_pg": cuda_time(lambda: fc.fused_conv_bwd_plain(
+                             *args, ybar, param_grads=True), 2),
+                         "reduce": red_plain}
+            else:
+                times["reduce"] = cuda_time(lambda: fc.param_grad_reduce(op, work_, valid, N, K),
+                                            3)
+                rows = work_[valid.bool()]
+                mats = [(rows[:, a:a + da], rows[:, b:b + db])
+                        for a, da, b, db in op.reduce_products if a >= 0]
+                lib["reduce"] = cuda_time(lambda: [torch.mm(m_a.t(), m_b) for m_a, m_b in mats],
+                                          3)
+                del rows, mats
+            del work_, valid
             for k, tk in times.items():
                 fl, by, tc = work(op, N, K, n_edges, k)
                 bnd = bound_ms(fl, by, tc)[0]
@@ -1644,24 +1710,30 @@ def mf_ompa_kernel_phase(spec, params, dev):
                         f"({tk / bnd:.1f}x; fp32 {bound_ms(fl, by)[0]:.4f} ms), "
                         f"{fl / tk / 1e9:.2f} TFLOP/s")
                 r = recs[k]
+                if k in lib:
+                    line += f", library (torch.mm per weight matrix) {lib[k]:.4f} ms"
                 if k in plain:
                     line += f", plain {plain[k]:.4f} ms"
                     for key, v in (("ms", tk), ("plain_ms", plain[k]), ("flops", fl),
-                                   ("bytes", by), ("tc_flops", tc)):
+                                   ("bytes", by), ("tc_flops", tc),
+                                   ("library_ms", lib.get(k, 0.0))):
                         r[key] += v
                     r["err"] = max(r["err"], errs[k])
                 else:
                     for key, v in (("ms_big", tk), ("flops_big", fl), ("bytes_big", by),
-                                   ("tc_flops_big", tc)):
+                                   ("tc_flops_big", tc), ("library_ms_big", lib.get(k, 0.0))):
                         r[key] += v
                 log(line)
             del x, ybar, args
             torch.cuda.empty_cache()
     for k, r in recs.items():
-        log(f"  mf-ompa {k} per request: {r['ms']:.4f} ms at {MF_SIZES[0]} atoms (plain "
-            f"{r['plain_ms']:.4f} ms, bound {bound_ms(r['flops'], r['bytes'], r['tc_flops'])[0]:.4f}"
-            f" ms), {r['ms_big']:.4f} ms at {MF_SIZES[1]} atoms (bound "
-            f"{bound_ms(r['flops_big'], r['bytes_big'], r['tc_flops_big'])[0]:.4f} ms)")
+        libs = (f", library {r['library_ms']:.4f} / {r['library_ms_big']:.4f} ms"
+                if k == "reduce" else "")
+        log(f"  mf-ompa {k} per pass of the five layers: {r['ms']:.4f} ms at {MF_SIZES[0]} atoms "
+            f"(plain {r['plain_ms']:.4f} ms, bound "
+            f"{bound_ms(r['flops'], r['bytes'], r['tc_flops'])[0]:.4f} ms), {r['ms_big']:.4f} ms "
+            f"at {MF_SIZES[1]} atoms (bound "
+            f"{bound_ms(r['flops_big'], r['bytes_big'], r['tc_flops_big'])[0]:.4f} ms){libs}")
     return recs
 
 
@@ -1700,6 +1772,306 @@ def mf_ompa_phase(dev, seed: int):
         if abs(e[0] - e[1]) <= 1e-6 * max(abs(e[0]), 1.0):
             raise SystemExit(f"mf-ompa {n} atoms: the modalities give the same energy {e}")
     return records, launches
+
+
+def mf_training_set(cfg, teacher, dev, seed: int, tmp: str):
+    """MF_TRAIN_BOXES water boxes of 192 atoms per modality, jittered from
+    ``seed``, labelled (energy, forces, stress) by ``teacher`` with that
+    modality pinned; one extxyz per modality under ``tmp``. Returns the
+    multi-modal data entries (the reference's multi_modal.yaml format)."""
+    import os
+
+    import numpy as np
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.data.extxyz import write_extxyz
+    from sevennet_tpu_torch.model.build import build_model_spec
+    from sevennet_tpu_torch.scripts.modal_tools import select_modality
+
+    entries = []
+    for m, modal in enumerate(MF_MODALITIES):
+        cfg_m, params_m = select_modality(cfg, teacher, modal)
+        calc = SevenNetCalculator(build_model_spec(cfg_m), params_m, device=str(dev))
+        rng = np.random.default_rng(seed + 100 * m)
+        frames = []
+        for i in range(MF_TRAIN_BOXES):
+            pos, Z, cell = water_box(64, seed=seed * 1000 + 500 + 10 * m + i)
+            pos = pos + rng.normal(scale=0.05, size=pos.shape)
+            r = calc.calculate(AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True))
+            label = -np.asarray(r["stress"])[[0, 1, 2, 5, 3, 4]]
+            frames.append(AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True,
+                                    energy=r["energy"], forces=r["forces"], stress=label))
+        path = os.path.join(tmp, f"{modal}.extxyz")
+        write_extxyz(path, frames)
+        entries.append({"data_modality": modal, "file_list": [{"file": path}]})
+    return entries
+
+
+def mf_train_phase(dev, seed: int, card: str):
+    """SevenNet-MF-ompa training on the card, both modalities in one set: the
+    kernel path against the plain path for TRAIN_CMP_STEPS steps on batches
+    that mix the modalities (5 B1 + 10 B2' + 10 reductions a step), the
+    step's time, structures/s and peak memory, then MF_TRAIN_EPOCHS epoch
+    through ``train_run`` on the two-modality config with a modal-wise shift
+    (the main path), the checkpoint reloaded and one 192-atom request per
+    modality served from it (5 B1 + 5 B2 each), against the trained model.
+    Returns the launches of ``train_run`` and the requests."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.data.modal_dataset import MultiModalDataset
+    from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
+    from sevennet_tpu_torch.io.native_checkpoint import load_checkpoint
+    from sevennet_tpu_torch.logger import Logger
+    from sevennet_tpu_torch.model.build import build_model_spec
+    from sevennet_tpu_torch.model.presets import MF_OMPA
+    from sevennet_tpu_torch.scripts.modal_tools import select_modality
+    from sevennet_tpu_torch.scripts.train import dense_capacity, resolve_statistics, train_run
+    from sevennet_tpu_torch.train import LossConfig, Trainer, TrainerConfig
+    from sevennet_tpu_torch.train.trainer import tree_map
+
+    base = dict(MF_OMPA, chemical_species=["H", "O"], conv_denominator=MF_DENOMINATOR)
+    spec_t = build_model_spec(base)
+    teacher = params_from_numpy(spec_t, random_params(spec_t, seed + 1))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mf_train_") as tmp:
+        entries = mf_training_set(base, teacher, dev, seed, tmp)
+        del teacher
+        model_cfg = dict(base, shift="per_atom_energy_mean", scale="force_rms")
+        train_cfg = {"epoch": MF_TRAIN_EPOCHS, "optimizer": "adam",
+                     "optim_param": {"lr": TRAIN_LR}, "force_loss_weight": 0.1,
+                     "stress_loss_weight": 1e-6, "per_epoch": 1, "random_seed": seed}
+        data_cfg = {"batch_size": MF_TRAIN_BATCH, "load_trainset_path": entries, "ratio": 0.25}
+
+        # the compared steps: the whole set, statistics, weights from the seed
+        trainset = MultiModalDataset.from_config(entries, base["cutoff"], base["modal_map"])
+        cfg = dict(model_cfg)
+        resolve_statistics(cfg, data_cfg, trainset, Logger(None, screen=False))
+        spec = build_model_spec(cfg)
+        params = params_from_numpy(spec, random_params(spec, seed))
+        trainset.build(spec.z_to_type)
+        K = dense_capacity(trainset.max_neighbors())
+        batches = [b.to(dev) for b in
+                   trainset.batches(MF_TRAIN_BATCH, shuffle=True, seed=1, dense_k=K)]
+        mixed = [sorted(set(b.modal[b.graph_mask].tolist())) for b in batches]
+        log(f"mf-ompa training: {len(trainset)} structures of 192 atoms ({MF_TRAIN_BOXES} per "
+            f"modality), batch {MF_TRAIN_BATCH}, K={K}, batch capacity "
+            f"{batches[0].n_atoms_cap} atoms, {int(batches[0].edge_mask.sum())} edges, "
+            f"modal-wise shift {cfg['shift']}, modalities per batch {mixed}")
+        if all(len(m) < 2 for m in mixed):
+            raise SystemExit("mf-ompa training: no batch mixes the modalities")
+        tcfg = TrainerConfig(loss=LossConfig(force_weight=0.1, stress_weight=1e-6),
+                             optimizer="adam", lr=TRAIN_LR)
+        kern = Trainer(spec, params, tcfg, device=str(dev))
+        plain = Trainer(spec, params, tcfg, device=str(dev), plain=True)
+        kern.set_epoch(0)
+        n_layers = len(spec.layers)
+        want = dict(dict.fromkeys(counters(), 0), fwd=n_layers, bwd_pg=2 * n_layers,
+                    reduce=2 * n_layers)
+        compare_steps("mf-ompa", kern, plain, batches, want, card)
+        b = batches[0]
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_median(lambda: kern.train_step(b), 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_median(lambda: plain.train_step(b), 1)
+        peak_plain = torch.cuda.max_memory_allocated() / 2**30
+        n_struct = int(b.graph_mask.sum())
+        log(f"  mf-ompa train step ({n_struct} x 192 atoms, K={K}): median {step_ms:.2f} ms (3 "
+            f"runs, CUDA events), {n_struct / step_ms * 1e3:.2f} structures/s, peak {peak:.2f} "
+            f"GiB; plain path {plain_ms:.2f} ms (one run), peak {peak_plain:.2f} GiB | {card}")
+        del kern, plain, batches, trainset
+        torch.cuda.empty_cache()
+
+        # the main path: train_run on the two-modality config, counts from 0
+        wd = os.path.join(tmp, "run")
+        tr, va = MultiModalDataset.from_config(entries, base["cutoff"]).split(0.25)
+        n_train = MF_TRAIN_EPOCHS * -(-len(tr) // MF_TRAIN_BATCH)
+        n_eval = MF_TRAIN_EPOCHS * -(-len(va) // MF_TRAIN_BATCH)
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_run(dict(model_cfg), dict(train_cfg), dict(data_cfg), working_dir=wd,
+                            device=str(dev))
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = read_launches()
+        want = dict(dict.fromkeys(counters(), 0), fwd=n_layers * (n_train + n_eval),
+                    bwd=n_layers * n_eval, bwd_pg=2 * n_layers * n_train,
+                    reduce=2 * n_layers * n_train)
+        log(f"mf-ompa train_run: {len(tr)} train / {len(va)} valid structures, {n_train} train "
+            f"steps, {n_eval} eval steps in {t_run:.1f} s (host clock, set-up included), "
+            f"launches {counts}")
+        if counts != want:
+            raise SystemExit(f"mf-ompa train_run launches {counts}, expected {want}")
+
+        # serve each modality from the reloaded checkpoint (main path), then
+        # the trained model itself with the modality pinned (reference)
+        spec_ck, params_ck, meta = load_checkpoint(os.path.join(wd, "checkpoint_last"))
+        cfg_ck = meta["model_config"]
+        if cfg_ck.get("modal_map") != base["modal_map"] or len(cfg_ck["shift"]) != 2:
+            raise SystemExit(f"mf-ompa checkpoint lost its modal map or modal-wise shift: "
+                             f"{cfg_ck.get('modal_map')}, {cfg_ck.get('shift')}")
+        pos, Z, cell = water_box(64, seed=seed * 1000 + 998)
+        at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
+        served = {}
+        reset_launches()
+        for modal in MF_MODALITIES:
+            cfg_m, params_m = select_modality(cfg_ck, params_ck, modal)
+            served[modal] = SevenNetCalculator(build_model_spec(cfg_m), params_m,
+                                               device=str(dev)).calculate(at)["energy"]
+        requests = read_launches()
+        want = dict(dict.fromkeys(counters(), 0), fwd=2 * n_layers, bwd=2 * n_layers)
+        live = tree_map(lambda p: p.detach(), trainer.params)
+        for modal in MF_MODALITIES:
+            spec_m = dataclasses.replace(trainer.spec, pinned_modal=cfg_ck["modal_map"][modal])
+            e_live = SevenNetCalculator(spec_m, live, device=str(dev)).calculate(at)["energy"]
+            log(f"  checkpoint_last serves {modal}: E {served[modal]:.8f} eV, trained model "
+                f"{e_live:.8f} eV")
+            if not (np.isfinite(served[modal])
+                    and abs(served[modal] - e_live) <= 1e-6 * abs(e_live)):
+                raise SystemExit(f"mf-ompa checkpoint serves {modal} at {served[modal]}, the "
+                                 f"trained model {e_live}")
+        if requests != want:
+            raise SystemExit(f"mf-ompa requests from the checkpoint launched {requests}, "
+                             f"expected {want}")
+        e = list(served.values())
+        if abs(e[0] - e[1]) <= 1e-6 * max(abs(e[0]), 1.0):
+            raise SystemExit(f"mf-ompa checkpoint: the modalities give the same energy {e}")
+        return {k: counts[k] + requests[k] for k in counts}
+
+
+def ensemble_phase(spec, params, dev, seed: int, card: str):
+    """The ensembles of ``MDEngine.run`` on a 3,000-atom water box with
+    SevenNet-0, ENS_STEPS steps of MD_DT from one state each: ms/step
+    (host clock around synchronized work) beside NVE's; ENS_PLAIN also on a
+    plain-conv engine (positions within MD_POS_TOL, energies within
+    ENERGY_REL_TOL relative, the npt cell within CELL_REL_TOL relative);
+    every run finite, 5 B1 + 5 B2 per force evaluation (with the stress
+    for the NPT ones); Berendsen changes the volume; the drift of the MTK
+    invariant. Returns the kernel engine's launches."""
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.md import MDEngine, npt_conserved_quantity
+
+    pos, Z, cell = water_box(1000)
+    n = len(pos)
+    engines = {k: MDEngine(spec, params, cell, device=str(dev), plain=(k == "plain"))
+               for k in ("kernel", "plain")}
+    start = {k: eng.make_state(pos, Z, temperature=MD_T, seed=seed) for k, eng in engines.items()}
+    total = dict.fromkeys(counters(), 0)
+    runs = {}
+    for name, kw in ENSEMBLES.items():
+        for side in ("kernel", "plain") if name in ENS_PLAIN else ("kernel",):
+            eng = engines[side]
+            evals = record_evaluations(eng)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            st, (pe, ke) = eng.run(start[side], ENS_STEPS, dt=MD_DT, chunk=ENS_STEPS,
+                                   integrator=name, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / ENS_STEPS * 1e3
+            counts = read_launches()
+            del eng._forces  # undo record_evaluations
+            pe, ke = pe.cpu().numpy(), ke.cpu().numpy()
+            runs[(name, side)] = (st, pe, ke, ms)
+            if side == "plain":
+                if any(counts.values()):
+                    raise SystemExit(f"{name}: the plain engine launched {counts}")
+                continue
+            want = dict(dict.fromkeys(counts, 0), fwd=5 * len(evals), bwd=5 * len(evals))
+            if counts != want:
+                raise SystemExit(f"{name} at 3,000 atoms: launches {counts}, expected {want}")
+            total = {k: total[k] + counts[k] for k in total}
+            v0, v1 = float(start[side].volume()), float(st.volume())
+            line = (f"{name} 3,000 atoms, {ENS_STEPS} steps of {MD_DT} fs {kw}: {ms:.1f} ms/step "
+                    f"(host clock; NVE {runs[('nve', 'kernel')][3]:.1f}), PE {pe[0]:.6f} -> "
+                    f"{pe[-1]:.6f} eV, T {float(st.temperature()):.1f} K, volume rel change "
+                    f"{(v1 - v0) / v0:.3e}, {len(evals)} force evaluations, launches "
+                    f"{want['fwd']} B1 + {want['bwd']} B2")
+            if name == "npt":
+                h = [float(npt_conserved_quantity(x, **kw)) for x in (start[side], st)]
+                line += (f"; MTK invariant {h[0]:.6f} -> {h[1]:.6f} eV (drift {h[1] - h[0]:.3e} "
+                         f"eV over {ENS_STEPS} steps, KE {float(st.kinetic_energy()):.3f} eV)")
+            log(line + f" | {card}")
+            if not (np.isfinite(pe).all() and np.isfinite(ke).all()
+                    and bool(torch.isfinite(st.positions).all())):
+                raise SystemExit(f"{name} at 3,000 atoms: non-finite state")
+            if name == "npt_berendsen" and v1 == v0:
+                raise SystemExit("npt_berendsen did not change the volume")
+    for name in ENS_PLAIN:
+        (st_k, pe_k, _, _), (st_p, pe_p, _, ms_p) = runs[(name, "kernel")], runs[(name, "plain")]
+        dx = float(np.abs(unsorted(st_k, n, "positions") - unsorted(st_p, n, "positions")).max())
+        de = float(np.abs(pe_k - pe_p).max() / np.abs(pe_p).max())
+        dc = float((st_k.cell - st_p.cell).abs().max() / st_p.cell.abs().max())
+        log(f"  {name} kernel vs plain conv over {ENS_STEPS} steps: max|dx|={dx:.3e} A (tol "
+            f"{MD_POS_TOL:g}), max rel dPE={de:.3e} (tol {ENERGY_REL_TOL:g}), cell rel "
+            f"{dc:.3e} (tol {CELL_REL_TOL:g}); plain {ms_p:.1f} ms/step | {card}")
+        if not (dx <= MD_POS_TOL and de <= ENERGY_REL_TOL and dc <= CELL_REL_TOL):
+            raise SystemExit(f"{name}: the kernel engine left the plain-conv engine: dx {dx}, "
+                             f"dPE {de}, cell {dc}")
+    cell0 = start["kernel"].cell
+    dcell = float(((runs[("npt", "kernel")][0].cell - cell0).abs().max() / cell0.abs().max()))
+    log(f"  npt cell moved {dcell:.3e} relative over {ENS_STEPS} steps")
+    return total
+
+
+def resolution_phase(spec, params, dev, card: str):
+    """A SevenNet-0 checkpoint saved by the port under its registry base
+    name in a temporary ``$SEVENN_TPU_CHECKPOINT_DIR``, served by name
+    (``SevenNetCalculator("7net-0")``) for a 192-atom water box (5 B1 +
+    5 B2) and held against the spec-and-params calculator on the same
+    weights: bitwise, or else within 1e-6 relative (the per-graph energy
+    sum, ``index_add_`` on CUDA, adds in no fixed order). Returns the
+    request's launches."""
+    import os
+
+    import numpy as np
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.io.native_checkpoint import save_checkpoint
+    from sevennet_tpu_torch.io.registry import resolve_checkpoint
+
+    pos, Z, cell = water_box(64, seed=7)
+    at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
+    old = os.environ.get("SEVENN_TPU_CHECKPOINT_DIR")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as tmp:
+        os.environ["SEVENN_TPU_CHECKPOINT_DIR"] = tmp
+        try:
+            save_checkpoint(os.path.join(tmp, "checkpoint_sevennet_0"), dict(SEVENNET0), params)
+            path = resolve_checkpoint("7net-0")
+            t0 = time.perf_counter()
+            by_name = SevenNetCalculator("7net-0", device=str(dev))
+            t_load = time.perf_counter() - t0
+            reset_launches()
+            got = by_name.calculate(at)
+            counts = read_launches()
+        finally:
+            if old is None:
+                os.environ.pop("SEVENN_TPU_CHECKPOINT_DIR")
+            else:
+                os.environ["SEVENN_TPU_CHECKPOINT_DIR"] = old
+    want = SevenNetCalculator(spec, params, device=str(dev)).calculate(at)
+    bitwise = all(np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+                  for k in ("energy", "forces", "stress"))
+    de = abs(got["energy"] - want["energy"]) / abs(want["energy"])
+    df = float(np.abs(got["forces"] - want["forces"]).max())
+    fmax = float(np.abs(want["forces"]).max())
+    log(f"resolution: '7net-0' -> {os.path.basename(path)}, loaded in {t_load:.2f} s; 192 atoms "
+        f"E {got['energy']:.8f} vs spec+params {want['energy']:.8f} eV (rel {de:.3e}), max|dF| "
+        f"{df:.3e} eV/A; bitwise equal: {bitwise}; launches {counts} | {card}")
+    n_layers = len(spec.layers)
+    if counts != dict(dict.fromkeys(counts, 0), fwd=n_layers, bwd=n_layers):
+        raise SystemExit(f"the request by name launched {counts}")
+    if not bitwise and not (de <= 1e-6 and df <= 1e-6 * fmax):
+        raise SystemExit("the request by name disagrees with the spec-and-params calculator")
+    return counts
 
 
 def mlp_depth_phase(dev, atoms, seed: int):
@@ -2641,6 +3013,14 @@ def main() -> int:
     log(f"MD phase, 99,999 atoms (main path: MD, ring backward): "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    ensembles = ensemble_phase(spec, params, dev, args.seed, card)
+    log(f"ensemble phase, 3,000 atoms (main path: MD, NVT and NPT): launches {ensembles}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resolved = resolution_phase(spec, params, dev, card)
+    log(f"resolution phase (main path: serving by checkpoint name): launches {resolved}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     spec_l3 = build_model_spec(L3I5)
     params_l3 = params_from_numpy(spec_l3, random_params(spec_l3, args.seed))
     l3_records = l3i5_kernel_phase(spec_l3, params_l3, dev, atoms)
@@ -2654,6 +3034,10 @@ def main() -> int:
     mf_records, served_mf = mf_ompa_phase(dev, args.seed)
     log(f"mf-ompa phase (main path: serving SevenNet-MF-ompa, both modalities): launches "
         f"{served_mf}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trained_mf = mf_train_phase(dev, args.seed, card)
+    log(f"mf-ompa training phase (main path: multi-fidelity training): launches {trained_mf}, "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     probe_records, probe_launches = probe_phase(dev, card)
     log(f"probe phase (the probe path): launches {probe_launches}, "
@@ -2671,9 +3055,14 @@ def main() -> int:
     log(f"breakdown and knock-out probe phase (the probe path): launches {bd_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
-                + md_small[k] + md_mid[k] + md_ring[k] for k in counters()}
+                + md_small[k] + md_mid[k] + md_ring[k] + ensembles[k] + resolved[k]
+                for k in counters()}
     if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
         raise SystemExit(f"a kernel was never launched on the main paths: {launches}")
+    mf_launches = {k: served_mf[k] + trained_mf[k] for k in counters()}
+    if not all(mf_launches[k] for k in ("fwd", "bwd", "bwd_pg", "reduce")):
+        raise SystemExit(f"a kernel was never launched on SevenNet-MF-ompa's paths: "
+                         f"{mf_launches}")
 
     kernels_line = []
     for name, source, replaces, key in KERNEL_NAMES.values():
@@ -2698,15 +3087,15 @@ def main() -> int:
             "launches": served_l3[key], "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
         })
-    for key, name in (("fwd", "fused_conv_fwd (SevenNet-MF-ompa)"),
-                      ("bwd", "fused_conv_bwd (SevenNet-MF-ompa)")):
+    for key in ("fwd", "bwd", "bwd_pg", "reduce"):
         r = mf_records[key]
         bnd, by = bound_ms(r["flops"], r["bytes"], r["tc_flops"])
-        source, replaces = KERNEL_NAMES[key][1:3]
+        name, source, replaces = KERNEL_NAMES[key][:3]
         kernels_line.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": served_mf[key], "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "name": f"{name} (SevenNet-MF-ompa)", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": mf_launches[key], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by,
+            "library_ms": r["library_ms"] if key == "reduce" else None,
         })
     from sevennet_tpu_torch.probes import mm_rate as mr
 
@@ -2758,11 +3147,13 @@ def main() -> int:
         "layer 0 + 3 x layers 1-3 + layer 4 (fused_conv_bwd_slot: per force evaluation "
         "of the 99,999-atom ring, over its nb chunks); fused_conv_bwd_pg and fused_conv_bwd_embsh_pg include their "
         "param_grad_reduce; launches: the B6 path, serving (both configs), train_run, the "
-        "legacy config's compared train steps, and MD (3,000 and 9,999 atoms, and the timed "
-        "ring steps at 99,999); the SevenNet-l3i5 rows per pass of its layer shapes on the "
-        "same box, launches from its requests; the SevenNet-MF-ompa rows per request of its "
+        "legacy config's compared train steps, MD (3,000 and 9,999 atoms, and the timed "
+        "ring steps at 99,999), the ensembles at 3,000 atoms and the request by checkpoint "
+        "name; the SevenNet-l3i5 rows per pass of its layer shapes on the "
+        "same box, launches from its requests; the SevenNet-MF-ompa rows per pass of its "
         "five layer shapes on the 192-atom box, launches from its requests (both "
-        "modalities); the probe rows per call at their first shape, "
+        "modalities), its train_run and the requests from its checkpoint; the probe rows per "
+        "call at their first shape, "
         "launches from the probe path, library_ms the same work as torch.matmul (16 products; "
         "TF32 on for the tf32 and wgmma rows) or torch.bmm; the FMA and gather probe rows per "
         "call at their TPU script's first shape and method, library_ms torch.index_select into "

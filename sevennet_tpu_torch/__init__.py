@@ -2,17 +2,20 @@
 to one NVIDIA H100, slice by slice. It imports ``torch``, numpy and scipy,
 never JAX or the JAX package.
 
-Ported so far: single-point serving of energy, forces and stress,
-training, and NVE molecular dynamics (with the ring-chunked backward of
-100k-atom systems), through the dense fused convolution, whose forward and
-backward are hand-written CUDA kernels (``csrc/``)::
+Ported so far: single-point serving of energy, forces and stress (from a
+spec with parameters, a checkpoint or a pretrained name), training (also
+multi-fidelity), and molecular dynamics in NVE, NVT and NPT (with the
+ring-chunked backward of 100k-atom systems), through the dense fused
+convolution, whose forward and backward are hand-written CUDA kernels
+(``csrc/``)::
 
     from sevennet_tpu_torch import MDEngine, SevenNetCalculator, build_model_spec, train_run
     calc = SevenNetCalculator(spec, params)          # runs on cuda
-    calc = SevenNetCalculator(spec, params, device="cpu")
+    calc = SevenNetCalculator("7net-0", device="cpu")  # a name, .pth or checkpoint dir
     trainer = train_run(model_cfg, train_cfg, data_cfg, working_dir="wd")
     engine = MDEngine(spec, params, cell)            # runs on cuda
-    state, (pe, ke) = engine.run(engine.make_state(pos, Z, temperature=300.0), 100, dt=0.5)
+    state, (pe, ke) = engine.run(engine.make_state(pos, Z, temperature=300.0), 100, dt=0.5,
+                                 integrator="npt", temperature=300.0, pressure=0.0)
 """
 
 __version__ = "0.1.0"
@@ -22,6 +25,8 @@ _LAZY = {
     "build_model_spec": ("sevennet_tpu_torch.model.build", "build_model_spec"),
     "model_compute": ("sevennet_tpu_torch.model.model", "model_compute"),
     "params_from_numpy": ("sevennet_tpu_torch.io.convert", "params_from_numpy"),
+    "load_model": ("sevennet_tpu_torch.io.registry", "load_model"),
+    "MultiModalDataset": ("sevennet_tpu_torch.data.modal_dataset", "MultiModalDataset"),
     "Trainer": ("sevennet_tpu_torch.train.trainer", "Trainer"),
     "train_run": ("sevennet_tpu_torch.scripts.train", "train_run"),
     "MDEngine": ("sevennet_tpu_torch.md.engine", "MDEngine"),

@@ -16,12 +16,17 @@ A multi-fidelity model serves the modality its config pins
 modality 0.
 
 Results use ASE conventions: ``stress`` in eV/A^3, Voigt order
-(xx, yy, zz, yz, xz, xy), with the reference's sign flip.
+(xx, yy, zz, yz, xz, xy), with the reference's sign flip. The model is a
+spec with its parameters, or anything :func:`~sevennet_tpu_torch.io.
+registry.load_model` resolves: a pretrained name ("7net-0"), a stock
+``.pth``, or a checkpoint directory of the port or of the JAX package.
+:meth:`SevenNetCalculator.as_ase` wraps the calculator as an ASE one.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import os
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 
@@ -41,17 +46,30 @@ _VOIGT_REORDER = (0, 1, 2, 4, 5, 3)
 class SevenNetCalculator:
     def __init__(
         self,
-        spec: ModelSpec,
-        params: Dict[str, Any],
+        model: Union[ModelSpec, str, "os.PathLike"],
+        params: Optional[Dict[str, Any]] = None,
         compute_stress: bool = True,
         device: Optional[str] = None,
         plain: bool = False,
     ):
-        """``params``: the port's parameter tree
-        (:func:`sevennet_tpu_torch.io.params_from_numpy`). Runs on ``cuda``
-        unless ``device="cpu"``; ``plain=True`` runs the convolution's plain
-        PyTorch version instead of the kernels (the reference path)."""
+        """``model``: a :class:`ModelSpec` with ``params``, the port's
+        parameter tree (:func:`sevennet_tpu_torch.io.params_from_numpy`);
+        or a pretrained name, a ``.pth`` path or a checkpoint directory
+        (:func:`~sevennet_tpu_torch.io.registry.load_model`), without
+        ``params``. Runs on ``cuda`` unless ``device="cpu"``; ``plain=True``
+        runs the convolution's plain PyTorch version instead of the kernels
+        (the reference path)."""
         self.device = resolve_device(device)
+        if isinstance(model, ModelSpec):
+            if params is None:
+                raise ValueError("a ModelSpec needs its params")
+            spec = model
+        else:
+            if params is not None:
+                raise ValueError("params go with a ModelSpec, not with a name or path")
+            from .io.registry import load_model
+
+            spec, params = load_model(os.fspath(model))
         self.spec = spec
         self.params = params_to(params, self.device)
         self.compute_stress = compute_stress
@@ -99,3 +117,23 @@ class SevenNetCalculator:
 
     def get_stress(self, atoms) -> np.ndarray:
         return self.calculate(atoms)["stress"]
+
+    def as_ase(self):
+        """An ``ase.calculators.calculator.Calculator`` that serves through
+        this calculator. Raises ``ImportError`` (naming ``ase``) when ASE is
+        not installed; the port does not need it otherwise."""
+        try:
+            from ase.calculators.calculator import Calculator, all_changes
+        except ImportError as exc:
+            raise ImportError("as_ase() needs the 'ase' package, which is not installed") from exc
+
+        parent = self
+
+        class _ASECalc(Calculator):
+            implemented_properties = ["energy", "free_energy", "forces", "stress", "energies"]
+
+            def calculate(self, atoms=None, properties=None, system_changes=all_changes):
+                super().calculate(atoms, properties, system_changes)
+                self.results = dict(parent.calculate(self.atoms))
+
+        return _ASECalc()

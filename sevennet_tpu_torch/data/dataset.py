@@ -13,8 +13,10 @@ are reproduced:
 - ``force_rms``
 - ``avg_num_neigh`` / ``sqrt_avg_num_neigh``  (conv denominator sources)
 
-Not ported yet (ROADMAP queue A, item "Training, the rest"): readers other
-than extxyz, the multiprocess build, the disk cache and lazy batches.
+Multi-fidelity sets are :class:`~.modal_dataset.MultiModalDataset`s of
+these, one per modality. Not ported yet (ROADMAP queue A, item "Training,
+the rest"): readers other than extxyz, the multiprocess build, the disk
+cache and lazy batches.
 """
 
 from __future__ import annotations
@@ -35,9 +37,11 @@ __all__ = ["GraphDataset", "atoms_to_graph"]
 _LATER = "not ported yet (ROADMAP.md, queue A: training, the rest)"
 
 
-def atoms_to_graph(at: AtomsLite, cutoff: float, z_to_type: np.ndarray) -> GraphBatch:
+def atoms_to_graph(at: AtomsLite, cutoff: float, z_to_type: np.ndarray,
+                   modal: int = 0) -> GraphBatch:
     """A single labeled graph with a flat edge list on the CPU (reference
-    ``atoms_to_graph``, ``dataload.py:102-223``). Missing labels are NaN."""
+    ``atoms_to_graph``, ``dataload.py:102-223``), of modality ``modal``.
+    Missing labels are NaN."""
     species = z_to_type[at.numbers]
     if (species < 0).any():
         bad = sorted(set(int(z) for z in at.numbers[species < 0]))
@@ -54,6 +58,7 @@ def atoms_to_graph(at: AtomsLite, cutoff: float, z_to_type: np.ndarray) -> Graph
         stress=at.stress if at.stress is not None else np.full(6, np.nan),
         data_weight=(float(dw.get("energy", 1.0)), float(dw.get("force", 1.0)),
                      float(dw.get("stress", 1.0))),
+        modal=modal,
     )
 
 
@@ -64,11 +69,12 @@ class GraphDataset:
     z_to_type: Optional[np.ndarray] = None
     graphs: List[GraphBatch] = field(default_factory=list)
     _stats: Optional[Dict] = None
+    modal: int = 0  # modality index of every graph (multi-fidelity training)
 
     @staticmethod
-    def from_files(path, cutoff: float, z_to_type=None) -> "GraphDataset":
+    def from_files(path, cutoff: float, z_to_type=None, modal: int = 0) -> "GraphDataset":
         """Every frame of the extxyz file(s) ``path`` (``*.xyz`` /
-        ``*.extxyz``)."""
+        ``*.extxyz``), of modality ``modal``."""
         from .extxyz import read_extxyz
 
         paths = [path] if isinstance(path, str) else list(path)
@@ -77,7 +83,7 @@ class GraphDataset:
             if not str(p).lower().endswith((".xyz", ".extxyz")):
                 raise NotImplementedError(f"{p}: readers other than extxyz are {_LATER}")
             frames.extend(read_extxyz(str(p)))
-        return GraphDataset(frames, cutoff, z_to_type)
+        return GraphDataset(frames, cutoff, z_to_type, modal=modal)
 
     # -- species ------------------------------------------------------------
     @property
@@ -93,7 +99,8 @@ class GraphDataset:
             self.z_to_type = z_to_type
         if self.z_to_type is None:
             raise ValueError("build() needs z_to_type")
-        self.graphs = [atoms_to_graph(at, self.cutoff, self.z_to_type) for at in self.atoms_list]
+        self.graphs = [atoms_to_graph(at, self.cutoff, self.z_to_type, self.modal)
+                       for at in self.atoms_list]
         return self
 
     def __len__(self):
@@ -222,5 +229,5 @@ class GraphDataset:
         valid_idx = set(idx[:n_valid].tolist())
         tr = [a for i, a in enumerate(self.atoms_list) if i not in valid_idx]
         va = [a for i, a in enumerate(self.atoms_list) if i in valid_idx]
-        return (GraphDataset(tr, self.cutoff, self.z_to_type),
-                GraphDataset(va, self.cutoff, self.z_to_type))
+        return (GraphDataset(tr, self.cutoff, self.z_to_type, modal=self.modal),
+                GraphDataset(va, self.cutoff, self.z_to_type, modal=self.modal))

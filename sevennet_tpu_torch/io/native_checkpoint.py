@@ -11,10 +11,14 @@ A checkpoint directory holds
 - ``opt_state.npz`` and ``opt_state.json``: the optimizer state
   (:meth:`sevennet_tpu_torch.train.Trainer.opt_state`), when saved.
 
-Stock SevenNet ``.pth`` files are read by
+:func:`load_native_checkpoint` also reads the JAX package's checkpoint
+directories (format ``sevennet_tpu.v1``: ``config.json``,
+``params.msgpack`` and ``opt_state.msgpack`` from
+``flax.serialization.to_bytes``) through the port's own msgpack decoder
+(:mod:`.msgpack`), so a model the JAX package trained serves here. Stock
+SevenNet ``.pth`` files are read by
 :mod:`sevennet_tpu_torch.io.torch_checkpoint` (and through
-:func:`load_checkpoint`); the JAX package's msgpack checkpoints are not
-ported yet (ROADMAP.md, queue A7).
+:func:`load_checkpoint`).
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["FORMAT", "save_checkpoint", "load_native_checkpoint", "load_checkpoint"]
+__all__ = ["FORMAT", "JAX_FORMAT", "save_checkpoint", "load_native_checkpoint",
+           "load_checkpoint"]
 
 FORMAT = "sevennet_tpu_torch.v1"
+JAX_FORMAT = "sevennet_tpu.v1"  # the JAX package's (sevennet_tpu/io/native_checkpoint.py)
 
 
 def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]):
@@ -105,14 +111,41 @@ def save_checkpoint(
             json.dump(_jsonable(opt_state["meta"]), f)
 
 
+def _rebuild_params_lists(params):
+    """A msgpack state dict keeps lists as dicts of ``"0"``, ``"1"``, ...
+    keys; turn them back into lists ordered by index."""
+    if isinstance(params, dict):
+        if params and all(isinstance(k, str) and k.isdigit() for k in params):
+            return [_rebuild_params_lists(params[str(i)]) for i in range(len(params))]
+        return {k: _rebuild_params_lists(v) for k, v in params.items()}
+    return params
+
+
+def _load_jax_checkpoint(path: str, meta: Dict[str, Any]):
+    from .msgpack import msgpack_restore
+
+    with open(os.path.join(path, "params.msgpack"), "rb") as f:
+        params = _rebuild_params_lists(msgpack_restore(f.read()))
+    opt_state = None
+    op = os.path.join(path, "opt_state.msgpack")
+    if os.path.exists(op):
+        with open(op, "rb") as f:
+            opt_state = msgpack_restore(f.read())
+    return meta["model_config"], params, opt_state, meta
+
+
 def load_native_checkpoint(path: str) -> Tuple[Dict[str, Any], Any, Any, Dict[str, Any]]:
     """Returns ``(model_config, params as a numpy tree, opt_state or None,
-    meta)``."""
+    meta)``. ``path`` is a checkpoint directory of the port's format or of
+    the JAX package's (``meta["format"]`` says which); the JAX one's
+    ``opt_state`` is its optax state dict as it was saved."""
     with open(os.path.join(path, "config.json")) as f:
         meta = json.load(f)
+    if meta.get("format") == JAX_FORMAT:
+        return _load_jax_checkpoint(path, meta)
     if meta.get("format") != FORMAT:
-        raise ValueError(f"{path}: not a {FORMAT} checkpoint (format {meta.get('format')!r}); "
-                         "other formats are not ported yet (ROADMAP.md, queue A)")
+        raise ValueError(f"{path}: not a {FORMAT} or {JAX_FORMAT} checkpoint (format "
+                         f"{meta.get('format')!r})")
     with np.load(os.path.join(path, "params.npz")) as z:
         params = _unflatten({k: z[k] for k in z.files})
     opt_state = None
@@ -125,9 +158,9 @@ def load_native_checkpoint(path: str) -> Tuple[Dict[str, Any], Any, Any, Dict[st
 
 
 def load_checkpoint(path: str):
-    """A checkpoint directory of this format, or a stock SevenNet ``.pth``
-    file -> ``(spec, params, meta)``, the parameters as the port's tensor
-    tree (checked against the spec)."""
+    """A checkpoint directory (the port's format or the JAX package's), or a
+    stock SevenNet ``.pth`` file -> ``(spec, params, meta)``, the parameters
+    as the port's tensor tree (checked against the spec)."""
     from ..model.build import build_model_spec
     from .convert import params_from_numpy
 

@@ -1,5 +1,6 @@
-"""MD engine (PyTorch port of ``sevennet_tpu/md/engine.py``): NVE molecular
-dynamics of one periodic system through the fused-conv model on the card.
+"""MD engine (PyTorch port of ``sevennet_tpu/md/engine.py``): molecular
+dynamics of one periodic system through the fused-conv model on the card,
+NVE, NVT (Langevin, Nose-Hoover chain) and NPT (MTK, Berendsen).
 
 Each step checks the skin (one host read), rebuilds the neighbour slots on
 the device when an atom has moved more than half the skin, evaluates the
@@ -18,8 +19,10 @@ row chunks) and sizes the conv's ring backward (kernel B3); where the ring
 cannot be sized, the conv runs its chunked scatter backward.
 
 The port's engine always runs the dense fused conv (the JAX package's
-``dense=True, fused=True``); D3 dispersion and integrators other than NVE
-are not ported yet (ROADMAP A.5, A.3).
+``dense=True, fused=True``); D3 dispersion is not ported yet (ROADMAP A.5).
+The NPT integrators scale the cell every step: the rebuild, the slot
+truncation and the graph read the state's cell, and a cell that shrinks
+below the grid's cell size flags an overflow.
 """
 
 from __future__ import annotations
@@ -37,11 +40,15 @@ from ..device import resolve_device
 from ..model.build import ModelSpec
 from ..model.model import _vec_mode, model_compute, params_to
 from ..ops.fused_conv import chunk_threshold, mirror_map, mirror_map_numpy
-from .integrators import nve_step
+from .integrators import (berendsen_npt_step, langevin_step, mtk_npt_step, nose_hoover_step,
+                          nve_step)
 from .neighbor import CellListSpec, build_cell_list_spec, cell_coords, rebuild_neighbors
 from .state import ATOMIC_MASSES, MDState, init_md_state, thermal_velocities
 
-__all__ = ["MDEngine"]
+__all__ = ["MDEngine", "INTEGRATORS"]
+
+_NPT = ("npt", "npt_mtk", "npt_nose_hoover", "npt_berendsen")
+INTEGRATORS = ("nve", "langevin", "nose_hoover", "nvt") + _NPT
 
 
 def _interleave(c: np.ndarray, n: int) -> np.ndarray:
@@ -128,7 +135,7 @@ class MDEngine:
         rank = np.empty(n, np.int64)
         rank[perm] = np.arange(n)
         host_edges = self._host_initial_edges(pos_w[perm], n_cap,
-                                              (rank[dst], rank[src], sh, d2))
+                                              edges=(rank[dst], rank[src], sh, d2))
         velocities = None
         if temperature is not None:
             velocities = thermal_velocities(ATOMIC_MASSES[Z], temperature, seed)
@@ -141,7 +148,7 @@ class MDEngine:
             if velocities is not None:
                 velocities = velocities[perm]
         state = init_md_state(pos_w, species, self.cell, atomic_numbers=Z,
-                              velocities=velocities, n_atoms_cap=n_cap,
+                              velocities=velocities, seed=seed, n_atoms_cap=n_cap,
                               n_edges_cap=n_cap * self.k_model, device=self.device)
         if host_edges is not None:
             idx = np.concatenate([perm, np.arange(n, n_cap)])
@@ -169,22 +176,29 @@ class MDEngine:
     def _put(self, a, dtype):
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
-    def _wrap(self, pos: np.ndarray) -> np.ndarray:
-        return ((pos @ np.linalg.inv(self.cell)) % 1.0) @ self.cell
+    # the host helpers take the cell (default: the initial one); an NPT
+    # state's cell is the state's own
+    def _cell(self, cell) -> np.ndarray:
+        return self.cell if cell is None else np.asarray(cell, np.float64)
 
-    def _dist2(self, pos, dst, src, sh) -> np.ndarray:
-        vec = pos[src] + sh @ self.cell - pos[dst]
+    def _wrap(self, pos: np.ndarray, cell=None) -> np.ndarray:
+        cell = self._cell(cell)
+        return ((pos @ np.linalg.inv(cell)) % 1.0) @ cell
+
+    def _dist2(self, pos, dst, src, sh, cell=None) -> np.ndarray:
+        vec = pos[src] + sh @ self._cell(cell) - pos[dst]
         return np.sum(vec * vec, axis=1)
 
-    def _cell_ids(self, pos: np.ndarray) -> np.ndarray:
+    def _cell_ids(self, pos: np.ndarray, cell=None) -> np.ndarray:
         """Interleaved cell id of each atom (the order of :meth:`_sort_state`)."""
         nx, ny, nz = self.cl_spec.n_cells
-        frac = (pos @ np.linalg.inv(self.cell)) % 1.0
+        cell = self._cell(cell)
+        frac = (pos @ np.linalg.inv(cell)) % 1.0
         grid = np.array([nx, ny, nz])
         c = np.clip((frac * grid).astype(np.int64), 0, grid - 1)
         return (c[:, 0] * ny + _interleave(c[:, 1], ny)) * nz + _interleave(c[:, 2], nz)
 
-    def _host_window(self, pos, dst, src) -> int:
+    def _host_window(self, pos, dst, src, cell=None) -> int:
         """Largest circular row distance between neighbours under the
         interleaved cell-id sort: the ring backward's window, measured on
         the system (about 1.3 x-layers of cells for a homogeneous box)."""
@@ -192,24 +206,24 @@ class MDEngine:
         if len(dst) == 0 or n == 0:
             return 0
         rank = np.empty(n, np.int64)
-        rank[np.argsort(self._cell_ids(pos), kind="stable")] = np.arange(n)
+        rank[np.argsort(self._cell_ids(pos, cell), kind="stable")] = np.arange(n)
         d = np.abs(rank[dst] - rank[src])
         return int(np.minimum(d, n - d).max())
 
-    def _host_sort_perm(self, pos_w: np.ndarray) -> np.ndarray:
+    def _host_sort_perm(self, pos_w: np.ndarray, cell=None) -> np.ndarray:
         """Numpy twin of :meth:`_sort_state`'s order."""
-        return np.argsort(self._cell_ids(pos_w), kind="stable")
+        return np.argsort(self._cell_ids(pos_w, cell), kind="stable")
 
-    def _host_initial_edges(self, pos_w: np.ndarray, n_cap: int, edges=None):
-        """The initial dense ``(N, K)`` slots and mirror map, built on the
+    def _host_initial_edges(self, pos_w: np.ndarray, n_cap: int, cell=None, edges=None):
+        """The dense ``(N, K)`` slots and mirror map of ``cell``, built on the
         host: what the device rebuild gives, from ``edges = (dst, src,
         shift, d2)`` at cutoff + skin (computed here when None). Returns None
         when K drops an edge inside the cutoff or the ring window fails."""
-        n, K = len(pos_w), self.k_model
+        n, K, cell = len(pos_w), self.k_model, self._cell(cell)
         if edges is None:
-            dst, src, sh = neighbor_list_numpy(pos_w, self.spec.cutoff + self.skin, self.cell,
+            dst, src, sh = neighbor_list_numpy(pos_w, self.spec.cutoff + self.skin, cell,
                                                (True,) * 3)
-            edges = (dst, src, sh, self._dist2(pos_w, dst, src, sh))
+            edges = (dst, src, sh, self._dist2(pos_w, dst, src, sh, cell))
         dst, src, sh, d2 = edges
         order = np.lexsort((d2, dst))
         dst, src, sh, d2 = dst[order], src[order], sh[order], d2[order]
@@ -350,9 +364,36 @@ class MDEngine:
                   else torch.zeros(6, dtype=torch.float32, device=self.device))
         return out["forces"], out["energy"][0], stress
 
-    def _run_chunk(self, state: MDState, length: int, dt: float):
-        """``length`` NVE steps; stops early once a rebuild overflows (the
-        caller retries from its snapshot)."""
+    def _step_fn(self, integrator: str, dt: float, **kw):
+        """The integrator step ``state -> state`` of ``integrator`` (the JAX
+        engine's names and keyword defaults); the NPT integrators (and
+        ``compute_stress=True``) evaluate the stress with the forces."""
+        need_stress = kw.pop("compute_stress", False) or integrator in _NPT
+
+        def forces_fn(state):
+            return self._forces(state, compute_stress=need_stress)
+
+        if integrator == "nve":
+            return lambda s: nve_step(s, forces_fn, dt)
+        if integrator not in INTEGRATORS:
+            raise ValueError(f"unknown integrator {integrator!r}; one of {INTEGRATORS}")
+        if "temperature" not in kw:
+            raise ValueError(f"integrator {integrator!r} needs temperature=")
+        T = kw["temperature"]
+        if integrator == "langevin":
+            return lambda s: langevin_step(s, forces_fn, dt, T, kw.get("friction", 0.01))
+        if integrator in ("nose_hoover", "nvt"):
+            return lambda s: nose_hoover_step(s, forces_fn, dt, T, kw.get("tau", 50.0))
+        npt = dict(pressure=kw.get("pressure", 0.0), tau_t=kw.get("tau_t", 100.0),
+                   tau_p=kw.get("tau_p", 1000.0))
+        if integrator == "npt_berendsen":
+            return lambda s: berendsen_npt_step(
+                s, forces_fn, dt, T, compressibility=kw.get("compressibility", 4.6e-5), **npt)
+        return lambda s: mtk_npt_step(s, forces_fn, dt, T, **npt)
+
+    def _run_chunk(self, state: MDState, length: int, step_fn):
+        """``length`` steps of ``step_fn``; stops early once a rebuild
+        overflows (the caller retries from its snapshot)."""
         skin_half_sq = (self.skin / 2.0) ** 2
         pe, ke = [], []
         for _ in range(length):
@@ -361,23 +402,28 @@ class MDEngine:
                 state = self._rebuild(state)
                 if bool(state.nl_overflow | state.ring_overflow):
                     break
-            state = nve_step(state, self._forces, dt)
+            state = step_fn(state)
             pe.append(state.potential_energy)
             ke.append(state.kinetic_energy())
         return state, pe, ke
 
     # -- public --------------------------------------------------------------
     def run(self, state: MDState, n_steps: int, dt: float = 1.0, integrator: str = "nve",
-            chunk: int = 10, traj_path: Optional[str] = None, traj_every: int = 0):
-        """``n_steps`` NVE steps in chunks of ``chunk``; returns ``(state,
-        (pe, ke))``, the potential and kinetic energy of every step. A chunk
-        whose rebuild overflows is retried from its snapshot with grown
-        capacities, up to 3 times. ``traj_path`` appends an extxyz frame
-        every ``traj_every`` steps (rounded to chunk ends; default: every
-        chunk), atoms in the input order."""
-        if integrator != "nve":
-            raise NotImplementedError(f"integrator {integrator!r} is not ported yet "
-                                      "(ROADMAP A.3); the port runs 'nve'")
+            chunk: int = 10, traj_path: Optional[str] = None, traj_every: int = 0, **kw):
+        """``n_steps`` steps of ``integrator`` in chunks of ``chunk``; returns
+        ``(state, (pe, ke))``, the potential and kinetic energy of every
+        step. Integrators and their keywords (``sevennet_tpu/md/engine.py``):
+        ``nve``; ``langevin`` (``temperature``, ``friction`` 0.01 1/fs);
+        ``nose_hoover``/``nvt`` (``temperature``, ``tau`` 50 fs);
+        ``npt``/``npt_mtk``/``npt_nose_hoover`` (``temperature``,
+        ``pressure`` 0 eV/A^3, ``tau_t`` 100 fs, ``tau_p`` 1000 fs);
+        ``npt_berendsen`` (the same and ``compressibility`` 4.6e-5 1/bar).
+        A chunk whose rebuild overflows is retried from its snapshot with
+        grown capacities, up to 3 times (Langevin redraws the same noise).
+        ``traj_path`` appends an extxyz frame every ``traj_every`` steps
+        (rounded to chunk ends; default: every chunk), atoms in the input
+        order."""
+        step_fn = self._step_fn(integrator, dt, **kw)
         traj_pe, traj_ke = [], []
         if traj_path and traj_every <= 0:
             traj_every = chunk
@@ -387,7 +433,7 @@ class MDEngine:
         for length in [chunk] * (n_steps // chunk) + ([n_steps % chunk] if n_steps % chunk else []):
             for _ in range(4):
                 prev = state
-                state, pe, ke = self._run_chunk(state, length, dt)
+                state, pe, ke = self._run_chunk(state, length, step_fn)
                 ofl_nl, ofl_ring = bool(state.nl_overflow), bool(state.ring_overflow)
                 if not (ofl_nl or ofl_ring):
                     break
@@ -411,7 +457,7 @@ class MDEngine:
         ``factor`` larger, or with ``ring_only`` just the ring's window
         margin; the state re-created from the snapshot ``state`` (positions,
         velocities, identity, step), rebuilt on the device, forces
-        evaluated."""
+        evaluated. The thermostat, barostat and noise seed carry over."""
         self.n_growths += 1
         if not ring_only:
             up8 = lambda v: -(-int(np.ceil(v)) // 8) * 8  # noqa: E731
@@ -431,7 +477,8 @@ class MDEngine:
             n_edges_cap=n_cap * self.k_model, device=self.device)
         idx = torch.arange(n_cap, dtype=torch.int64, device=self.device)
         idx[:n_real] = state.atom_index[:n_real]
-        new = self._rebuild(new.replace(step=state.step, atom_index=idx))
+        new = self._rebuild(new.replace(step=state.step, atom_index=idx, rng=state.rng,
+                                        thermo=state.thermo, baro=state.baro))
         forces, energy, stress = self._forces(new, compute_stress=True)
         return new.replace(forces=forces, potential_energy=energy, stress=stress)
 

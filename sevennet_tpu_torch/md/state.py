@@ -6,6 +6,11 @@ amu, time in femtoseconds; ``1 eV/Angstrom/amu = 9.64853e-3 Angstrom/fs^2``.
 The state is a dataclass of fp32 tensors on the engine's device; steps
 return new states (:meth:`MDState.replace`) and never write into a state's
 tensors, so a state kept as a snapshot stays valid.
+
+The JAX state carries a PRNG key that Langevin splits each step; here
+``rng`` is an integer seed, and a step's noise comes from a generator
+seeded from ``(rng, step)`` (:func:`step_generator`). A chunk retried from
+its snapshot therefore draws the same noise, as a JAX key in the state does.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["MDState", "ATOMIC_MASSES", "init_md_state", "EV_A_AMU_TO_A_FS2", "KB_EV"]
+__all__ = ["MDState", "ATOMIC_MASSES", "init_md_state", "step_generator", "EV_A_AMU_TO_A_FS2",
+           "KB_EV"]
 
 EV_A_AMU_TO_A_FS2 = 9.648533212e-3  # (eV/A/amu) -> A/fs^2
 KB_EV = 8.617333262e-5  # Boltzmann, eV/K
@@ -64,6 +70,10 @@ class MDState:
     stress: torch.Tensor  # (6,) eV/A^3 (zeros unless the engine computed it)
     # input index of each row (tracks identity under spatial sorting)
     atom_index: torch.Tensor  # (N,) int64
+    thermo: torch.Tensor  # (2, 3) Nose-Hoover chain (xi, v_xi) per link
+    # MTK barostat: [v_eps, xi_b1..3, vxi_b1..3, eps] (zeros when unused)
+    baro: torch.Tensor  # (8,)
+    rng: int = 0  # Langevin noise seed (step_generator)
 
     @property
     def n_atoms_cap(self) -> int:
@@ -81,6 +91,26 @@ class MDState:
     def temperature(self) -> torch.Tensor:
         ndof = 3 * torch.clamp(self.atom_mask.sum(), min=1)
         return 2.0 * self.kinetic_energy() / (ndof * KB_EV)
+
+    def volume(self) -> torch.Tensor:
+        return torch.abs(torch.linalg.det(self.cell))
+
+    def pressure(self) -> torch.Tensor:
+        """Total pressure (eV/A^3): virial + kinetic ideal-gas term. Needs
+        the engine to have filled ``stress``. The model's internal stress
+        convention has P = +trace/3 (= -dE/dV); the calculator flips the
+        sign for ASE."""
+        p_virial = (self.stress[0] + self.stress[1] + self.stress[2]) / 3.0
+        p_kin = 2.0 * self.kinetic_energy() / (3.0 * self.volume())
+        return p_virial + p_kin
+
+
+def step_generator(state: MDState) -> torch.Generator:
+    """The generator of one step's noise, on the state's device, seeded from
+    ``(state.rng, state.step)``: the same state draws the same noise."""
+    gen = torch.Generator(device=state.positions.device)
+    gen.manual_seed((state.rng * 0x9E3779B97F4A7C15 + state.step) % (1 << 63))
+    return gen
 
 
 def thermal_velocities(masses: np.ndarray, temperature: float, seed: int) -> np.ndarray:
@@ -108,7 +138,8 @@ def init_md_state(
     """A state of ``len(positions)`` atoms padded to ``n_atoms_cap`` rows
     (padded rows masked, mass 1), with an empty slot grid of
     ``n_edges_cap`` slots. Velocities: given, thermal at ``temperature``
-    (numpy generator from ``seed``), or zero."""
+    (numpy generator from ``seed``), or zero. ``seed`` also seeds the
+    Langevin noise (``rng``); thermostat and barostat start at rest."""
     n = len(positions)
     cap = n_atoms_cap or n
     if masses is None:
@@ -154,4 +185,7 @@ def init_md_state(
         potential_energy=torch.zeros((), dtype=torch.float32, device=device),
         stress=torch.zeros(6, dtype=torch.float32, device=device),
         atom_index=torch.arange(cap, dtype=torch.int64, device=device),
+        thermo=torch.zeros((2, 3), dtype=torch.float32, device=device),
+        baro=torch.zeros(8, dtype=torch.float32, device=device),
+        rng=int(seed),
     )

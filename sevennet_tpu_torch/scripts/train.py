@@ -11,8 +11,11 @@ denominator) are NOT recomputed.
 
 The conv is always the fused one: the CUDA kernels on the card (B1 forward,
 B2′ backward with parameter gradients), their plain versions on the CPU.
-Not ported yet (ROADMAP.md, queue A): multi-modal datasets, data-parallel
-training, readers other than extxyz.
+A data config in the reference's multi-modal format (entries with
+``data_modality``) trains a multi-fidelity model: ``use_modality``,
+``num_modalities`` and ``modal_map`` come from the data, batches mix the
+modalities, and the checkpoint keeps the map. Not ported yet (ROADMAP.md,
+queue A): data-parallel training, readers other than extxyz.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import numpy as np
 
 from ..config import read_config_yaml
 from ..data.dataset import GraphDataset
+from ..data.modal_dataset import MultiModalDataset
 from ..io.convert import params_from_numpy, random_params
-from ..io.native_checkpoint import load_native_checkpoint, save_checkpoint
+from ..io.native_checkpoint import JAX_FORMAT, load_native_checkpoint, save_checkpoint
 from ..logger import LearningCurveCSV, Logger
 from ..model.build import build_model_spec
 from ..train.error_recorder import DEFAULT_ERROR_RECORD
@@ -45,10 +49,16 @@ _METRIC_KEY = {
 
 def resolve_statistics(model_cfg: Dict, data_cfg: Dict, trainset, log: Logger):
     """Replace string placeholders (shift/scale/conv_denominator) with
-    dataset statistics, mirroring ``graph_dataset.from_config`` (:682-692)."""
+    dataset statistics, mirroring ``graph_dataset.from_config`` (:682-692).
+    On a multi-modal set, ``use_modal_wise_shift/scale`` take the
+    per-modality list; otherwise the statistic pooled over the modalities
+    (``<name>_combined`` where the set has one)."""
     for key in ("shift", "scale"):
         v = data_cfg.get(key, model_cfg.get(key))
         if isinstance(v, str):
+            modal_wise = bool(model_cfg.get(f"use_modal_wise_{key}", False))
+            if not modal_wise and hasattr(trainset, v + "_combined"):
+                v += "_combined"
             v = getattr(trainset, v)
             log.format_k_v(f"{key} (from statistics)", v if np.isscalar(v) else "per-element list")
         model_cfg[key] = v
@@ -91,13 +101,27 @@ def train_run(
     train_paths = data_cfg["load_trainset_path"]
     if not train_paths:
         raise ValueError("data.load_trainset_path must be given")
-    if isinstance(train_paths, list) and isinstance(train_paths[0], dict):
-        raise NotImplementedError("multi-modal datasets are not ported yet (ROADMAP.md, queue A)")
-    trainset = GraphDataset.from_files(train_paths, cutoff)
+    # multi-modal when entries carry 'data_modality' (the reference's
+    # multi_modal.yaml format)
+    multimodal = (isinstance(train_paths, list) and isinstance(train_paths[0], dict)
+                  and "data_modality" in train_paths[0])
+    if multimodal:
+        trainset = MultiModalDataset.from_config(train_paths, cutoff,
+                                                 model_cfg.get("modal_map") or None)
+        model_cfg["use_modality"] = True
+        model_cfg.setdefault("num_modalities", len(trainset.modal_map))
+        model_cfg.setdefault("modal_map", dict(trainset.modal_map))
+        log.format_k_v("modalities", sorted(trainset.modal_map))
+    else:
+        trainset = GraphDataset.from_files(train_paths, cutoff)
     validset = None
     ratio = float(data_cfg.get("ratio") or data_cfg.get("data_divide_ratio") or 0.0)
     if data_cfg.get("load_validset_path"):
-        validset = GraphDataset.from_files(data_cfg["load_validset_path"], cutoff)
+        if multimodal:  # the training set's modality indices
+            validset = MultiModalDataset.from_config(data_cfg["load_validset_path"], cutoff,
+                                                     model_cfg["modal_map"])
+        else:
+            validset = GraphDataset.from_files(data_cfg["load_validset_path"], cutoff)
     elif ratio > 0:
         # reference key: data_divide_ratio (``_const.py``); 'ratio' kept as
         # a shorthand alias
@@ -120,6 +144,9 @@ def train_run(
         params = params_from_numpy(spec, params)
         if not cont.get("reset_epoch"):
             start_epoch = int(cont_meta.get("epoch", 0))
+        if cont_meta["format"] == JAX_FORMAT and not cont.get("reset_optimizer"):
+            raise ValueError(f"{cont['checkpoint']}: the JAX package's optimizer state (optax) "
+                             "does not carry over; set continue.reset_optimizer: true")
         if not cont.get("reset_optimizer"):
             cont_opt_state = opt_state
         log.format_k_v("continue from", cont["checkpoint"])

@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``sevennet_tpu_torch/``, nor
 ``chip_smoke.py``, ``conv_breakdown.py`` or ``ab_compare.py``, imports JAX, flax, optax or the
-JAX package, and its entry points never drift to the CPU when no card is
-present."""
+JAX package, nor the ``msgpack`` package (the card's machine has none: the
+port reads msgpack checkpoints with its own decoder), and its entry points
+never drift to the CPU when no card is present."""
 
 import ast
 import subprocess
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sevennet_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "sevennet_tpu"}
 
 
 def _port_files():
@@ -41,7 +42,7 @@ def test_port_modules_load_without_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'sevennet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'sevennet_tpu'))\n"
+        "('jax', 'flax', 'optax', 'msgpack', 'sevennet_tpu'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -234,8 +234,10 @@ def test_nve_conserves_energy(system):
 
 
 def test_trajectory_and_refusals(system, tmp_path, monkeypatch):
-    """Trajectory frames keep the input order; integrators other than NVE
-    and D3 raise; without CUDA the engine refuses to drift to the CPU."""
+    """Trajectory frames keep the input order; Langevin runs from the same
+    state (the other integrators are held against JAX in
+    tests/test_torch_integrators.py), an unknown integrator and D3 raise;
+    without CUDA the engine refuses to drift to the CPU."""
     from sevennet_tpu_torch.data.extxyz import read_extxyz
 
     s = system
@@ -248,8 +250,11 @@ def test_trajectory_and_refusals(system, tmp_path, monkeypatch):
     np.testing.assert_array_equal(frames[0].numbers, s["Z"])
     np.testing.assert_allclose(frames[-1].positions, _unsorted(st, s["n"], "positions"),
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        eng.run(st, 1, integrator="langevin")
+    st2, (pe, ke) = eng.run(st, 2, dt=0.5, chunk=2, integrator="langevin", temperature=T0)
+    assert st2.step == st.step + 2 and torch.isfinite(pe).all() and torch.isfinite(ke).all()
+    assert not torch.equal(st2.positions, st.positions)
+    with pytest.raises(ValueError, match="unknown integrator"):
+        eng.run(st, 1, integrator="verlet")
     with pytest.raises(NotImplementedError, match="A.5"):
         MDEngine(s["spec"], s["params"], s["cell"], d3={"functional": "pbe"}, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
