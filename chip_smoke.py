@@ -62,7 +62,18 @@
    1e-6 relative), ``nose_hoover`` and ``npt_berendsen`` on the kernels
    alone (finite; Berendsen changes the volume); ms/step of each beside
    NVE's, the drift of the MTK invariant; 5 B1 + 5 B2 per force
-   evaluation, with the stress for NPT. Then a SevenNet-0 checkpoint saved
+   evaluation, with the stress for NPT. Then Grimme D3 (PBE, BJ damping;
+   plain PyTorch, no kernel of its own): ``D3Calculator`` against the
+   reference CUDA goldens (H2O; strained NaCl with the full lattice sum); a
+   192-atom request through ``SevenNetCalculator(...).with_d3()`` at the
+   full ~50.2 A cutoff (about 1e7 D3 edges), its fp32 D3 against float64 on
+   the card and against another chunk size, its wall clock split into the
+   model, the D3 host list and D3's device time, D3's peak memory; NVE with
+   D3 at 3,000 atoms (the D3 cutoff bounded by the box, about 30.4 A): the
+   engine's D3 term against ``D3Calculator`` at that cutoff, 10 steps
+   against a plain-conv engine with D3, ms/step with and without D3, D3's
+   ms per force evaluation, live edges and slots, the peak memory of a step
+   and of a rebuild; 5 ``npt`` steps with D3. Then a SevenNet-0 checkpoint saved
    by the port under its registry name in a temporary
    ``$SEVENN_TPU_CHECKPOINT_DIR``, served by name
    (``SevenNetCalculator("7net-0")``, 192 atoms) against the spec-and-params
@@ -258,6 +269,17 @@ ENSEMBLES = {
     "npt_berendsen": dict(temperature=MD_T, pressure=0.0, tau_t=100.0, tau_p=1000.0),
 }
 ENS_PLAIN = ("langevin", "npt")  # also run on a plain-conv engine and compared
+# D3 phase: Grimme D3 (PBE, BJ damping), the calculator at the full ~50.2 A
+# cutoff and the MD engine at the box-bounded one
+D3 = {"functional": "pbe", "damping": "damp_bj"}
+D3_REQ_MOLECULES = 64      # the 192-atom request
+D3_E64_REL_TOL = 1e-5      # fp32 D3 against float64 on the card: energy, relative
+D3_F64_REL_TOL = 1e-4      # forces, of max |F_float64|
+D3_CHUNK_E_REL_TOL = 1e-6  # two chunk sizes: energy, relative
+D3_CHUNK_F_REL_TOL = 1e-5  # forces, of max |F| (sums by atomics in another order)
+D3_ENGINE_TOL = 5e-5       # eV and eV/A: the engine's D3 term against D3Calculator
+D3_MD_STEPS = 10
+D3_NPT_STEPS = 5
 # radial MLPs of other depths held at SevenNet-0's widths
 MLP_DEPTHS = ((), (64,), (64, 64, 64))
 
@@ -2021,6 +2043,260 @@ def ensemble_phase(spec, params, dev, seed: int, card: str):
     return total
 
 
+def d3_goldens(dev, card: str):
+    """``D3Calculator()`` (PBE, BJ, full cutoff) on the card against the
+    reference CUDA goldens that tests/test_d3.py embeds: H2O (energy 2e-6
+    eV, forces 5e-6 eV/A) and strained NaCl with the full lattice sum
+    (energy 5e-5 eV, forces and stress 2e-5)."""
+    import numpy as np
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.d3 import D3Calculator
+
+    calc = D3Calculator(device=str(dev))
+    h2o = calc.calculate(AtomsLite(
+        positions=np.array([[0.0, 0.2, 0.12], [0.0, 0.76, -0.48], [0.0, -0.76, -0.48]]),
+        numbers=np.array([8, 1, 1]), cell=None, pbc=False))
+    cell = np.array([[1.0, 2.815, 2.815], [2.815, 0.0, 2.815], [2.815, 2.815, 0.0]])
+    nacl = calc.calculate(AtomsLite(positions=np.array([[0.0, 0.0, 0.0], [2.815, 0.0, 0.0]]),
+                                    numbers=np.array([11, 17]), cell=cell, pbc=True))
+    errs = {
+        "H2O energy": (abs(h2o["energy"] + 0.009889134535170716), 2e-6),
+        "H2O forces": (float(np.abs(h2o["forces"] - np.array([
+            [0.0, 2.04263840e-03, 1.27477674e-03], [0.0, -9.90038901e-05, 1.18046682e-06],
+            [0.0, -1.94363451e-03, -1.27595721e-03]])).max()), 5e-6),
+        "NaCl energy": (abs(nacl["energy"] + 0.531393751583389), 5e-5),
+        "NaCl forces": (float(np.abs(nacl["forces"] - np.array([
+            [-0.00570205, 0.00107457, 0.00107459],
+            [0.00570205, -0.00107457, -0.00107459]])).max()), 2e-5),
+        "NaCl stress": (float(np.abs(nacl["stress"] - np.array([
+            1.52403705e-02, 1.50417333e-02, 1.50417321e-02, -3.22684163e-05, -5.05532863e-05,
+            -5.05586994e-05])).max()), 2e-5),
+    }
+    log("D3 goldens (reference CUDA D3, tests/test_d3.py:98-146) on the card: " + ", ".join(
+        f"{k} err {e:.3e} (tol {t:g})" for k, (e, t) in errs.items()) + f" | {card}")
+    bad = [k for k, (e, t) in errs.items() if not e <= t]
+    if bad:
+        raise SystemExit(f"D3 goldens: {bad} out of tolerance")
+
+
+def d3_request(spec, params, dev, card: str):
+    """A 192-atom water request through ``SevenNetCalculator(...).with_d3()``
+    at the full ~50.2 A D3 cutoff: 5 B1 + 5 B2 launches, finite results; the
+    fp32 D3 part against the same module in float64 on the card (energy
+    D3_E64_REL_TOL relative, forces D3_F64_REL_TOL of max |F|), the default
+    chunks against chunks of another size; the request's wall clock split
+    into the model, the D3 host list (with the copy to the card) and D3's
+    device time (CUDA events), and D3's peak memory. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.d3 import D3Calculator, chunk_edges, d3_compute
+
+    pos, Z, cell = water_box(D3_REQ_MOLECULES)
+    n = len(pos)
+    at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
+    calc = SevenNetCalculator(spec, params, device=str(dev)).with_d3(D3["functional"],
+                                                                    D3["damping"])
+    reset_launches()
+    t0 = time.perf_counter()
+    res = calc.calculate(at)
+    first_s = time.perf_counter() - t0
+    counts = read_launches()
+    want = dict(dict.fromkeys(counts, 0), fwd=len(spec.layers), bwd=len(spec.layers))
+    if counts != want:
+        raise SystemExit(f"D3 request: launches {counts}, expected {want}")
+    if not (np.isfinite(res["energy"]) and np.isfinite(res["forces"]).all()
+            and np.isfinite(res["stress"]).all() and res["forces"].shape == (n, 3)):
+        raise SystemExit("D3 request: non-finite or misshapen results")
+    d3_32 = calc.d3.results
+    d3_64 = D3Calculator(device=str(dev), dtype=torch.float64).calculate(at)
+    de = abs(d3_32["energy"] - d3_64["energy"]) / abs(d3_64["energy"])
+    df = float(np.abs(d3_32["forces"] - d3_64["forces"]).max())
+    f64 = float(np.abs(d3_64["forces"]).max())
+    ds = float(np.abs(d3_32["stress"] - d3_64["stress"]).max())
+    # the split of one request: the model, the D3 host list, D3 on the card
+    p = calc.d3.params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calc.base.calculate(at)
+    t1 = time.perf_counter()
+    edges = calc.d3.edges(at)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    d3_ms = cuda_time(lambda: d3_compute(p, *edges), reps=3)
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    n_edges = int(edges[1].shape[0])
+    e_a, f_a, _ = d3_compute(p, *edges)
+    other = -(-n_edges // 7)
+    e_b, f_b, _ = d3_compute(p, *edges, chunk=other)
+    dce = abs(float(e_a - e_b)) / abs(float(e_a))
+    dcf = float((f_a - f_b).abs().max() / f_a.abs().max())
+    t3 = time.perf_counter()
+    calc.calculate(at)
+    wall = (time.perf_counter() - t3) * 1e3
+    log(f"D3 request 192 atoms (SevenNet-0 + D3 PBE/BJ, cutoff {p.cutoff:.4f} A, {n_edges} edges, "
+        f"{-(-n_edges // chunk_edges(torch.float32))} chunks of {chunk_edges(torch.float32)}): "
+        f"E {res['energy']:.6f} eV (D3 {d3_32['energy']:.6f}); fp32 D3 vs float64 on the card: "
+        f"rel dE {de:.3e} (tol {D3_E64_REL_TOL:g}), max|dF| {df:.3e} eV/A = {df / f64:.3e} of "
+        f"max|F| {f64:.3e} (tol {D3_F64_REL_TOL:g}), max|dS| {ds:.3e} eV/A^3; "
+        f"{-(-n_edges // other)} chunks vs the default: rel dE {dce:.3e} (tol "
+        f"{D3_CHUNK_E_REL_TOL:g}), max|dF| "
+        f"{dcf:.3e} of max|F| (tol {D3_CHUNK_F_REL_TOL:g}); launches {want['fwd']} B1 + "
+        f"{want['bwd']} B2 | {card}")
+    log(f"  D3 request split: request {wall:.1f} ms (wall; the first {first_s * 1e3:.1f} ms), "
+        f"model {(t1 - t0) * 1e3:.1f} ms (wall), D3 host list + copy {(t2 - t1) * 1e3:.1f} ms "
+        f"(wall), D3 on the card {d3_ms:.2f} ms (CUDA events, mean of 3), D3 peak "
+        f"{peak:.2f} GiB over {before / 2**30:.2f} GiB held | {card}")
+    checks = ((de <= D3_E64_REL_TOL, f"fp32 vs float64 rel dE {de}"),
+              (df <= D3_F64_REL_TOL * f64, f"fp32 vs float64 max|dF| {df}"),
+              (dce <= D3_CHUNK_E_REL_TOL, f"chunks rel dE {dce}"),
+              (dcf <= D3_CHUNK_F_REL_TOL, f"chunks max|dF| {dcf} of max|F|"))
+    for ok, why in checks:
+        if not ok:
+            raise SystemExit(f"D3 request: {why}")
+    return counts
+
+
+def d3_md(spec, params, dev, seed: int, card: str):
+    """NVE with D3 at 3,000 atoms (SevenNet-0, the D3 cutoff bounded by the
+    box): the initial energy and forces less the no-D3 engine's against
+    ``D3Calculator(cutoff_ang=engine cutoff)`` (D3_ENGINE_TOL; the energy
+    also as the engine's own D3 term, since two fp32 totals of about 1,400 eV
+    resolve only 1.2e-4 eV); D3_MD_STEPS steps against a plain-conv engine
+    with D3 (positions MD_POS_TOL, energy ENERGY_REL_TOL relative, 5 B1 + 5 B2
+    per force evaluation); ms/step with and without D3, D3's ms per force
+    evaluation (CUDA events), live D3 edges and slots, the peak memory of a
+    step and of a rebuild; then D3_NPT_STEPS ``npt`` steps with D3 (the
+    volume moves, all finite). Returns the kernel engine's launches."""
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.d3 import D3Calculator
+    from sevennet_tpu_torch.md import MDEngine
+
+    pos, Z, cell = water_box(1000)
+    n = len(pos)
+    eng0 = MDEngine(spec, params, cell, device=str(dev))
+    eng = MDEngine(spec, params, cell, device=str(dev), d3=D3)
+    plain = MDEngine(spec, params, cell, device=str(dev), d3=D3, plain=True)
+    st0 = eng0.make_state(pos, Z, temperature=MD_T, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = eng.make_state(pos, Z, temperature=MD_T, seed=seed)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    cut = eng.d3_params.cutoff
+    slots = st.d3_edge_mask.numel()
+    live = int(st.d3_edge_mask.sum())
+    t0 = time.perf_counter()
+    ref = D3Calculator(cutoff_ang=cut, device=str(dev)).calculate(
+        AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True))
+    t_calc = time.perf_counter() - t0
+    e3, f3, _ = eng._d3_term(st)
+    de_term = abs(float(e3) - ref["energy"])
+    de_tot = abs(float(st.potential_energy - st0.potential_energy) - ref["energy"])
+    e_res = 2 * float(np.spacing(np.float32(abs(float(st0.potential_energy)))))
+    df = float(np.abs(unsorted(st, n, "forces") - unsorted(st0, n, "forces")
+                      - ref["forces"]).max())
+    log(f"D3 MD 3,000 atoms: cutoff {cut:.4f} A (box {cell[0, 0]:.4f} A, skin {eng.skin}), "
+        f"{live} live D3 edges in {slots} slots (K3 {eng.d3_cl_spec.neighbor_capacity}, "
+        f"{eng.d3_cl_spec.n_cells} grid cells), make_state {t_make:.1f} s; against "
+        f"D3Calculator at that cutoff ({t_calc:.1f} s, host list of {len(ref['forces'])} atoms): "
+        f"the engine's D3 term dE {de_term:.3e} eV, E(D3) - E(no D3) dE {de_tot:.3e} eV "
+        f"(fp32 totals resolve {e_res:.2e} eV), max|dF| {df:.3e} eV/A (tol {D3_ENGINE_TOL:g}) "
+        f"| {card}")
+    if not (de_term <= D3_ENGINE_TOL and de_tot <= D3_ENGINE_TOL + e_res
+            and df <= D3_ENGINE_TOL):
+        raise SystemExit(f"D3 MD: the engine's D3 term left D3Calculator: dE {de_term}, "
+                         f"total dE {de_tot}, dF {df}")
+    runs = {}
+    for key, e in (("kernel", eng), ("plain", plain), ("no_d3", eng0)):
+        start = st0 if key == "no_d3" else (st if key == "kernel" else
+                                             e.make_state(pos, Z, temperature=MD_T, seed=seed))
+        evals = record_evaluations(e)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        end, (pe, _) = e.run(start, D3_MD_STEPS, dt=MD_DT, chunk=D3_MD_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / D3_MD_STEPS * 1e3
+        del e._forces  # undo record_evaluations
+        runs[key] = (end, pe.cpu().numpy(), ms, read_launches(), len(evals))
+    (st_k, pe_k, ms_k, counts, n_evals), (st_p, pe_p, ms_p, counts_p, _) = (runs["kernel"],
+                                                                             runs["plain"])
+    dx = float(np.abs(unsorted(st_k, n, "positions") - unsorted(st_p, n, "positions")).max())
+    dpe = float(np.abs(pe_k - pe_p).max() / np.abs(pe_p).max())
+    want = dict(dict.fromkeys(counts, 0), fwd=5 * n_evals, bwd=5 * n_evals)
+    d3_ms = cuda_median(lambda: eng._d3_term(st_k), 3)
+    # one step with no rebuild in it (the skin test reads zero displacement),
+    # then one rebuild alone
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.run(st_k.replace(nl_positions=st_k.positions), 1, dt=MD_DT, chunk=1)
+    torch.cuda.synchronize()
+    peak_step = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng._rebuild(st_k)
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    peak_rebuild = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  D3 NVE {D3_MD_STEPS} steps of {MD_DT} fs, kernel vs plain conv (both with D3): "
+        f"max|dx|={dx:.3e} A (tol {MD_POS_TOL:g}), max rel dPE={dpe:.3e} (tol "
+        f"{ENERGY_REL_TOL:g}), PE {pe_k[0]:.6f} -> {pe_k[-1]:.6f} eV; {ms_k:.1f} ms/step with "
+        f"D3, {runs['no_d3'][2]:.1f} without, plain conv with D3 {ms_p:.1f} (host clock); D3 "
+        f"{d3_ms:.2f} ms per force evaluation (CUDA events, median of 3); peak {peak_step:.2f} "
+        f"GiB in a step without a rebuild, {peak_rebuild:.2f} GiB in a rebuild of both grids "
+        f"({rebuild_ms:.1f} ms, wall); device "
+        f"rebuilds {eng.n_rebuilds}, growths {eng.n_growths}; {n_evals} force evaluations, "
+        f"launches {want['fwd']} B1 + {want['bwd']} B2 | {card}")
+    checks = ((dx <= MD_POS_TOL, f"max|dx| {dx}"), (dpe <= ENERGY_REL_TOL, f"rel dPE {dpe}"),
+              (counts == want, f"launches {counts}, expected {want}"),
+              (not any(counts_p.values()), f"the plain engine launched {counts_p}"),
+              (bool(np.isfinite(pe_k).all() and torch.isfinite(st_k.positions).all()),
+               "non-finite state"))
+    for ok, why in checks:
+        if not ok:
+            raise SystemExit(f"D3 MD at 3,000 atoms: {why}")
+    total = dict(counts)
+    # npt with D3: the D3 virial reaches the barostat
+    evals = record_evaluations(eng)
+    reset_launches()
+    t0 = time.perf_counter()
+    end, (pe, ke) = eng.run(st, D3_NPT_STEPS, dt=MD_DT, chunk=D3_NPT_STEPS, integrator="npt",
+                            **ENSEMBLES["npt"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / D3_NPT_STEPS * 1e3
+    del eng._forces
+    counts = read_launches()
+    v0, v1 = float(st.volume()), float(end.volume())
+    log(f"  D3 npt {D3_NPT_STEPS} steps {ENSEMBLES['npt']}: {ms:.1f} ms/step (host clock), "
+        f"volume rel change {(v1 - v0) / v0:.3e}, PE {float(pe[0]):.6f} -> {float(pe[-1]):.6f} "
+        f"eV, pressure {float(end.pressure()):.3e} eV/A^3; {len(evals)} force evaluations, "
+        f"launches {counts} | {card}")
+    if counts != dict(dict.fromkeys(counts, 0), fwd=5 * len(evals), bwd=5 * len(evals)):
+        raise SystemExit(f"D3 npt: launches {counts}")
+    if not (v1 != v0 and np.isfinite(v1) and bool(torch.isfinite(pe).all())
+            and bool(torch.isfinite(end.positions).all())):
+        raise SystemExit(f"D3 npt: volume {v0} -> {v1}, or non-finite state")
+    return {k: total[k] + counts[k] for k in total}
+
+
+def d3_phase(spec, params, dev, seed: int, card: str):
+    """Grimme D3 on the card: the goldens, the 192-atom request with D3 and
+    MD with D3 at 3,000 atoms. Returns the launches of the main paths."""
+    d3_goldens(dev, card)
+    served = d3_request(spec, params, dev, card)
+    md = d3_md(spec, params, dev, seed, card)
+    return {k: served[k] + md[k] for k in served}
+
+
 def resolution_phase(spec, params, dev, card: str):
     """A SevenNet-0 checkpoint saved by the port under its registry base
     name in a temporary ``$SEVENN_TPU_CHECKPOINT_DIR``, served by name
@@ -3017,6 +3293,10 @@ def main() -> int:
     log(f"ensemble phase, 3,000 atoms (main path: MD, NVT and NPT): launches {ensembles}, "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    d3_launches = d3_phase(spec, params, dev, args.seed, card)
+    log(f"D3 phase (main paths: serving and MD with D3): launches {d3_launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     resolved = resolution_phase(spec, params, dev, card)
     log(f"resolution phase (main path: serving by checkpoint name): launches {resolved}, "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3055,7 +3335,8 @@ def main() -> int:
     log(f"breakdown and knock-out probe phase (the probe path): launches {bd_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
-                + md_small[k] + md_mid[k] + md_ring[k] + ensembles[k] + resolved[k]
+                + md_small[k] + md_mid[k] + md_ring[k] + ensembles[k] + d3_launches[k]
+                + resolved[k]
                 for k in counters()}
     if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
         raise SystemExit(f"a kernel was never launched on the main paths: {launches}")
@@ -3148,8 +3429,9 @@ def main() -> int:
         "of the 99,999-atom ring, over its nb chunks); fused_conv_bwd_pg and fused_conv_bwd_embsh_pg include their "
         "param_grad_reduce; launches: the B6 path, serving (both configs), train_run, the "
         "legacy config's compared train steps, MD (3,000 and 9,999 atoms, and the timed "
-        "ring steps at 99,999), the ensembles at 3,000 atoms and the request by checkpoint "
-        "name; the SevenNet-l3i5 rows per pass of its layer shapes on the "
+        "ring steps at 99,999), the ensembles at 3,000 atoms, the D3 phase (a 192-atom "
+        "request and MD at 3,000 atoms with D3) and the request by checkpoint name; the "
+        "SevenNet-l3i5 rows per pass of its layer shapes on the "
         "same box, launches from its requests; the SevenNet-MF-ompa rows per pass of its "
         "five layer shapes on the 192-atom box, launches from its requests (both "
         "modalities), its train_run and the requests from its checkpoint; the probe rows per "

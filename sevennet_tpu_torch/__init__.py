@@ -5,15 +5,17 @@ never JAX or the JAX package.
 Ported so far: single-point serving of energy, forces and stress (from a
 spec with parameters, a checkpoint or a pretrained name), training (also
 multi-fidelity), and molecular dynamics in NVE, NVT and NPT (with the
-ring-chunked backward of 100k-atom systems), through the dense fused
-convolution, whose forward and backward are hand-written CUDA kernels
-(``csrc/``)::
+ring-chunked backward of 100k-atom systems), each with Grimme D3 dispersion
+on request, through the dense fused convolution, whose forward and backward
+are hand-written CUDA kernels (``csrc/``)::
 
     from sevennet_tpu_torch import MDEngine, SevenNetCalculator, build_model_spec, train_run
     calc = SevenNetCalculator(spec, params)          # runs on cuda
     calc = SevenNetCalculator("7net-0", device="cpu")  # a name, .pth or checkpoint dir
+    calc_d3 = calc.with_d3("pbe", "damp_bj")         # + D3 dispersion
     trainer = train_run(model_cfg, train_cfg, data_cfg, working_dir="wd")
     engine = MDEngine(spec, params, cell)            # runs on cuda
+    engine = MDEngine(spec, params, cell, d3={"functional": "pbe", "damping": "damp_bj"})
     state, (pe, ke) = engine.run(engine.make_state(pos, Z, temperature=300.0), 100, dt=0.5,
                                  integrator="npt", temperature=300.0, pressure=0.0)
 """
@@ -22,6 +24,8 @@ __version__ = "0.1.0"
 
 _LAZY = {
     "SevenNetCalculator": ("sevennet_tpu_torch.calculator", "SevenNetCalculator"),
+    "SevenNetD3Calculator": ("sevennet_tpu_torch.calculator", "SevenNetD3Calculator"),
+    "D3Calculator": ("sevennet_tpu_torch.d3", "D3Calculator"),
     "build_model_spec": ("sevennet_tpu_torch.model.build", "build_model_spec"),
     "model_compute": ("sevennet_tpu_torch.model.model", "model_compute"),
     "params_from_numpy": ("sevennet_tpu_torch.io.convert", "params_from_numpy"),

@@ -21,6 +21,10 @@ spec with its parameters, or anything :func:`~sevennet_tpu_torch.io.
 registry.load_model` resolves: a pretrained name ("7net-0"), a stock
 ``.pth``, or a checkpoint directory of the port or of the JAX package.
 :meth:`SevenNetCalculator.as_ase` wraps the calculator as an ASE one.
+
+:class:`SevenNetD3Calculator` (or :meth:`SevenNetCalculator.with_d3`) adds
+Grimme D3 dispersion (:class:`~sevennet_tpu_torch.d3.D3Calculator`, on the
+model's device) to the model's energy, forces and stress.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from .device import resolve_device
 from .model.build import ModelSpec
 from .model.model import model_compute, params_to
 
-__all__ = ["SevenNetCalculator"]
+__all__ = ["SevenNetCalculator", "SevenNetD3Calculator"]
 
 # model stress (xx,yy,zz,xy,yz,zx) -> ASE Voigt (xx,yy,zz,yz,xz,xy)
 _VOIGT_REORDER = (0, 1, 2, 4, 5, 3)
@@ -118,6 +122,12 @@ class SevenNetCalculator:
     def get_stress(self, atoms) -> np.ndarray:
         return self.calculate(atoms)["stress"]
 
+    def with_d3(self, functional: str = "pbe", damping_type: str = "damp_bj",
+                **d3_kwargs) -> "SevenNetD3Calculator":
+        """This calculator plus D3 dispersion (keywords of
+        :class:`~sevennet_tpu_torch.d3.D3Calculator`)."""
+        return SevenNetD3Calculator(self, functional, damping_type, **d3_kwargs)
+
     def as_ase(self):
         """An ``ase.calculators.calculator.Calculator`` that serves through
         this calculator. Raises ``ImportError`` (naming ``ase``) when ASE is
@@ -137,3 +147,47 @@ class SevenNetCalculator:
                 self.results = dict(parent.calculate(self.atoms))
 
         return _ASECalc()
+
+
+class SevenNetD3Calculator:
+    """Model + Grimme D3 dispersion (the reference's ``SevenNetD3Calculator``,
+    ``sevenn/calculator.py:236-314``, a SumCalculator of both): energy, free
+    energy and forces summed, and the stress where both give one.
+
+    ``model``: a :class:`SevenNetCalculator`, or what it takes (a
+    :class:`ModelSpec` with ``params``, a name or a path, with ``device``).
+    The D3 part runs on the model's device; ``d3_kwargs`` go to
+    :class:`~sevennet_tpu_torch.d3.D3Calculator` (``cutoff_ang``,
+    ``bound_by_box``)."""
+
+    def __init__(self, model, functional: str = "pbe", damping_type: str = "damp_bj", *,
+                 params=None, device: Optional[str] = None, **d3_kwargs):
+        from .d3 import D3Calculator
+
+        if isinstance(model, SevenNetCalculator):
+            if params is not None or device is not None:
+                raise ValueError("params and device go with a model, not with a calculator")
+            base = model
+        else:
+            base = SevenNetCalculator(model, params, device=device)
+        self.base = base
+        self.d3 = D3Calculator(functional, damping_type, device=str(base.device), **d3_kwargs)
+        self.results: Dict[str, Any] = {}
+
+    def calculate(self, atoms) -> Dict[str, Any]:
+        a = self.base.calculate(atoms)
+        b = self.d3.calculate(atoms)
+        out = dict(a)
+        out["energy"] = a["energy"] + b["energy"]
+        out["free_energy"] = out["energy"]
+        out["forces"] = a["forces"] + b["forces"]
+        if "stress" in a and "stress" in b:
+            out["stress"] = a["stress"] + b["stress"]
+        self.results = out
+        return out
+
+    def get_potential_energy(self, atoms) -> float:
+        return self.calculate(atoms)["energy"]
+
+    def get_forces(self, atoms) -> np.ndarray:
+        return self.calculate(atoms)["forces"]

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 from scipy.spatial import cKDTree
 
-__all__ = ["neighbor_list_numpy", "neighbor_list_scipy", "NATIVE_MIN_ATOMS"]
+__all__ = ["neighbor_list_numpy", "neighbor_list_scipy", "neighbor_counts", "NATIVE_MIN_ATOMS"]
 
 # the JAX package's threshold of the native list (sevennet_tpu/data/neighborlist.py:44)
 NATIVE_MIN_ATOMS = 256
@@ -76,6 +76,46 @@ def neighbor_list_scipy(
     if cell is None or not pbc.any():
         return _nopbc(positions, cutoff)
 
+    pos_w, wrap, shift_table, center, images, in_shell = _images(positions, cutoff, cell, pbc)
+    tree_recv = cKDTree(pos_w)
+    tree_img = cKDTree(images)
+    hits = tree_recv.sparse_distance_matrix(
+        tree_img, max_distance=cutoff, output_type="ndarray"
+    )
+    i = hits["i"].astype(np.int64)
+    jj = in_shell[hits["j"].astype(np.int64)]
+    k = jj // n
+    j = jj % n
+    keep = ~((k == center) & (i == j))
+    dst, src, k = i[keep], j[keep], k[keep]
+    if len(dst) == 0:
+        return (
+            np.zeros(0, np.int64),
+            np.zeros(0, np.int64),
+            np.zeros((0, 3), np.float64),
+        )
+    S = shift_table[k]
+    # correct shifts back to the original (unwrapped) positions:
+    # pos_w = pos - wrap@cell  =>  D = pos[j] + (S - wrap_j + wrap_i)@cell - pos[i]
+    S = S - wrap[src] + wrap[dst]
+    return dst, src, S
+
+
+def neighbor_counts(positions: np.ndarray, cutoff: float, cell: np.ndarray) -> np.ndarray:
+    """Each atom's neighbour count within ``cutoff`` in a system periodic
+    along all three axes: the row lengths of :func:`neighbor_list_scipy`'s
+    list without forming it (a count-only kd-tree query over the same
+    images)."""
+    positions = np.asarray(positions, dtype=np.float64)
+    pos_w, *_, images, _ = _images(positions, cutoff, cell, np.ones(3, dtype=bool))
+    counts = cKDTree(images).query_ball_point(pos_w, cutoff, return_length=True)
+    return np.asarray(counts, np.int64) - 1  # the atom itself
+
+
+def _images(positions: np.ndarray, cutoff: float, cell, pbc: np.ndarray):
+    """The wrapped positions, their integer wraps, the image shift table and
+    its zero row, and the sender images within a cutoff-shell of the box
+    with their flat indices (image * n + atom)."""
     cell = np.asarray(cell, dtype=np.float64).reshape(3, 3)
     if abs(np.linalg.det(cell)) < 1e-12:
         raise ValueError("periodic system with singular cell")
@@ -114,30 +154,7 @@ def neighbor_list_scipy(
     in_shell = np.flatnonzero(
         ((frac_img >= lo - eps) & (frac_img <= hi + eps)).all(axis=1)
     )
-    images = images[in_shell]
-
-    tree_recv = cKDTree(pos_w)
-    tree_img = cKDTree(images)
-    hits = tree_recv.sparse_distance_matrix(
-        tree_img, max_distance=cutoff, output_type="ndarray"
-    )
-    i = hits["i"].astype(np.int64)
-    jj = in_shell[hits["j"].astype(np.int64)]
-    k = jj // n
-    j = jj % n
-    keep = ~((k == center) & (i == j))
-    dst, src, k = i[keep], j[keep], k[keep]
-    if len(dst) == 0:
-        return (
-            np.zeros(0, np.int64),
-            np.zeros(0, np.int64),
-            np.zeros((0, 3), np.float64),
-        )
-    S = shift_table[k]
-    # correct shifts back to the original (unwrapped) positions:
-    # pos_w = pos - wrap@cell  =>  D = pos[j] + (S - wrap_j + wrap_i)@cell - pos[i]
-    S = S - wrap[src] + wrap[dst]
-    return dst, src, S
+    return pos_w, wrap, shift_table, center, images[in_shell], in_shell
 
 
 def _nopbc(positions: np.ndarray, cutoff: float):

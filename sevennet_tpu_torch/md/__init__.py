@@ -1,6 +1,7 @@
 """Molecular dynamics on the card (PyTorch port of ``sevennet_tpu/md``):
 :class:`MDEngine` runs NVE, NVT (Langevin, Nose-Hoover chain) and NPT (MTK,
-Berendsen) with on-device neighbour rebuilds through the fused-conv model."""
+Berendsen) with on-device neighbour rebuilds through the fused-conv model,
+with Grimme D3 dispersion on request."""
 
 from .engine import INTEGRATORS, MDEngine
 from .integrators import (berendsen_npt_step, langevin_step, mtk_npt_step, nose_hoover_step,

@@ -9,7 +9,7 @@ integrates. Capacities are fixed; a rebuild that overflows one (or breaks
 the ring backward's window) raises a flag, and :meth:`MDEngine.run`
 retries the chunk of steps from its snapshot with grown capacities. The
 JAX package compiles each chunk into one ``lax.scan``; here the steps are
-a Python loop (CUDA graphs are a later lever, ROADMAP performance lever 5).
+a Python loop (CUDA graphs are a later lever, ROADMAP performance lever 7).
 
 Large systems: when a layer's gathered edge tensor would pass
 :func:`~sevennet_tpu_torch.ops.fused_conv.chunk_threshold` and the spec
@@ -19,10 +19,15 @@ row chunks) and sizes the conv's ring backward (kernel B3); where the ring
 cannot be sized, the conv runs its chunked scatter backward.
 
 The port's engine always runs the dense fused conv (the JAX package's
-``dense=True, fused=True``); D3 dispersion is not ported yet (ROADMAP A.5).
-The NPT integrators scale the cell every step: the rebuild, the slot
-truncation and the graph read the state's cell, and a cell that shrinks
-below the grid's cell size flags an overflow.
+``dense=True, fused=True``). The NPT integrators scale the cell every step:
+the rebuild, the slot truncation and the graph read the state's cell, and a
+cell that shrinks below the grid's cell size flags an overflow.
+
+D3 dispersion (``d3=``) adds :func:`~sevennet_tpu_torch.d3.d3_compute` over
+a second dense slot grid at the D3 cutoff (bounded by the box), rebuilt on
+the device with the model's and grown with it. Its grid usually has one
+cell (the cutoff is clamped to the box height less the skin); the skin test
+then uses the skin that the grid still covers when NPT shrinks the box.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import numpy as np
 import torch
 
 from ..data.graph import GraphBatch, densify_edges
-from ..data.neighborlist import neighbor_list_numpy
+from ..data.neighborlist import neighbor_counts, neighbor_list_numpy
 from ..device import resolve_device
 from ..model.build import ModelSpec
 from ..model.model import _vec_mode, model_compute, params_to
@@ -72,10 +77,15 @@ class MDEngine:
         """``params``: the port's parameter tree. Runs on ``cuda`` unless
         ``device="cpu"``; ``plain=True`` runs the conv's plain PyTorch
         version (the reference path). The atoms are sorted by cell exactly
-        when the ring backward engages (100k-atom systems)."""
-        if d3:
-            raise NotImplementedError("D3 dispersion in the MD engine is not ported yet "
-                                      "(ROADMAP A.5)")
+        when the ring backward engages (100k-atom systems).
+
+        ``d3``: adds Grimme D3 dispersion (the engine-side analogue of the
+        reference's LAMMPS ``pair d3``), a dict like ``{"functional": "pbe",
+        "damping": "damp_bj", "cutoff": 12.0}`` (``damping_type`` is taken
+        for ``damping``). The pair cutoff defaults to
+        :func:`~sevennet_tpu_torch.d3.bounded_cutoff` and is clamped to the
+        smallest box height less the skin; the CN cutoff to the pair
+        cutoff."""
         self.device = resolve_device(device)
         self.spec = spec
         self.params = params_to(params, self.device)
@@ -91,6 +101,19 @@ class MDEngine:
         self._ring_margin = 1.15  # slack over the measured window
         self.n_rebuilds = 0  # device rebuilds so far
         self.n_growths = 0  # capacity growths so far
+        self.d3_params = None
+        self.d3_cl_spec: Optional[CellListSpec] = None
+        self._skin_cell, self._skin_sq = None, None  # cell -> (skin / 2)^2 of the D3 grid
+        if d3:
+            from ..d3 import D3Params, bounded_cutoff
+
+            p = D3Params.from_functional(d3.get("functional", "pbe"),
+                                         d3.get("damping", d3.get("damping_type", "damp_bj")))
+            cut = d3.get("cutoff") or bounded_cutoff(p, self.cell, True)
+            heights = 1.0 / np.linalg.norm(np.linalg.inv(self.cell).T, axis=1)
+            # the cell list resolves neighbours within +-1 image only
+            cut = min(cut, float(heights.min()) - self.skin - 1e-6)
+            self.d3_params = dataclasses.replace(p, cutoff=cut, cn_cutoff=min(p.cn_cutoff, cut))
 
     # -- setup ---------------------------------------------------------------
     def make_state(self, positions, atomic_numbers, temperature: Optional[float] = None,
@@ -99,9 +122,11 @@ class MDEngine:
         at cutoff + skin (cell list, conv slot width K from the counts within
         cutoff + 0.1 skin, the ring window), atoms wrapped into the box and,
         when the ring engages, sorted by cell; the initial slots and mirror
-        map built on the host from the same list. Thermal velocities are
-        drawn in the input order, then permuted with the atoms: a structure
-        and seed give the same physics whether or not the engine sorts."""
+        map built on the host from the same list. With D3, the D3 slot width
+        comes from a count-only host pass at the D3 cutoff + skin and the D3
+        grid is built on the device. Thermal velocities are drawn in the
+        input order, then permuted with the atoms: a structure and seed give
+        the same physics whether or not the engine sorts."""
         n = len(positions)
         Z = np.asarray(atomic_numbers)
         species = self.spec.z_to_type[Z]
@@ -130,6 +155,15 @@ class MDEngine:
         self.k_model = min(k_model, self.cl_spec.neighbor_capacity)
         self._ring_window = self._host_window(pos_w, dst, src)
         n_cap = self._size_ring(n)
+        if self.d3_params is not None and self.d3_cl_spec is None:
+            # the D3 slot width from a count-only pass (the list itself
+            # holds about 3.7e7 pairs at 3,000 atoms and 30 A), with the
+            # JAX package's margin
+            counts = neighbor_counts(pos_w, self.d3_params.cutoff + self.skin, self.cell)
+            self.d3_cl_spec = build_cell_list_spec(
+                self.cell, n, self.d3_params.cutoff, self.skin,
+                neighbor_capacity=int(np.ceil((int(counts.max()) if counts.sum() else 8) * 1.15))
+                + 2)
 
         perm = self._host_sort_perm(pos_w) if self._ring_nb else np.arange(n)
         rank = np.empty(n, np.int64)
@@ -149,7 +183,8 @@ class MDEngine:
                 velocities = velocities[perm]
         state = init_md_state(pos_w, species, self.cell, atomic_numbers=Z,
                               velocities=velocities, seed=seed, n_atoms_cap=n_cap,
-                              n_edges_cap=n_cap * self.k_model, device=self.device)
+                              n_edges_cap=n_cap * self.k_model, device=self.device,
+                              d3_edges_cap=self._d3_slots(n_cap))
         if host_edges is not None:
             idx = np.concatenate([perm, np.arange(n, n_cap)])
             state = state.replace(
@@ -160,13 +195,15 @@ class MDEngine:
                 edge_mir=self._put(host_edges["mir"], torch.int64),
                 atom_index=self._put(idx, torch.int64),
             )
+            if self.d3_params is not None:  # the initial D3 grid, built on the device
+                state = state.replace(**self._rebuild_d3(state, state.nl_overflow))
         else:
             state = self._rebuild(state)
-            for _ in range(3):
-                ofl_nl, ofl_ring = bool(state.nl_overflow), bool(state.ring_overflow)
-                if not (ofl_nl or ofl_ring):
-                    break
-                state = self._grow_capacities(state, ring_only=ofl_ring and not ofl_nl)
+        for _ in range(3):
+            ofl_nl, ofl_ring = bool(state.nl_overflow), bool(state.ring_overflow)
+            if not (ofl_nl or ofl_ring):
+                break
+            state = self._grow_capacities(state, ring_only=ofl_ring and not ofl_nl)
         if not compute_forces:
             return state
         forces, energy, stress = self._forces(state, compute_stress=True)
@@ -175,6 +212,46 @@ class MDEngine:
     # -- internals -----------------------------------------------------------
     def _put(self, a, dtype):
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
+
+    def _d3_slots(self, n_cap: int) -> int:
+        """Slots of the D3 grid for ``n_cap`` rows (0 without D3)."""
+        return n_cap * self.d3_cl_spec.neighbor_capacity if self.d3_params is not None else 0
+
+    @staticmethod
+    def _heights(cell: torch.Tensor) -> torch.Tensor:
+        """Distances between opposite faces of the cell (3,)."""
+        return 1.0 / torch.linalg.vector_norm(torch.linalg.inv(cell).T, dim=1)
+
+    def _d3_cover(self, cell: torch.Tensor) -> torch.Tensor:
+        """How far the D3 grid reaches past the D3 cutoff in ``cell``: a
+        grid cell's smallest height less the cutoff. The stencil of +-1 grid
+        cells finds every pair within a grid cell's height, so the list is
+        complete to the cutoff and this much further."""
+        n_cells = torch.tensor(self.d3_cl_spec.n_cells, device=cell.device)
+        return (self._heights(cell) / n_cells).min() - self.d3_params.cutoff
+
+    def _rebuild_d3(self, state: MDState, overflow: torch.Tensor) -> dict:
+        """The D3 slot grid of ``state``'s positions and cell on the device,
+        and ``nl_overflow``: ``overflow`` or'ed with the grid's capacity
+        overflow and with a box whose grid cells are lower than the D3
+        cutoff (``too_small``: a pair within the cutoff could be missed)."""
+        src, dst, shift, mask, ofl, _ = rebuild_neighbors(
+            self.d3_cl_spec, state.positions, state.cell, state.atom_mask)
+        too_small = self._d3_cover(state.cell) < 0
+        return dict(d3_edge_src=src, d3_edge_dst=dst, d3_edge_shift=shift, d3_edge_mask=mask,
+                    nl_overflow=overflow | ofl | too_small)
+
+    def _skin_half_sq(self, state: MDState):
+        """The rebuild test's limit on the squared displacement: (skin / 2)^2,
+        or with D3 the square of half of the smaller of the skin and the D3
+        grid's cover (``_d3_cover``), which a shrinking NPT box narrows;
+        computed on the device when the cell changes."""
+        if self.d3_params is None:
+            return (self.skin / 2.0) ** 2
+        if state.cell is not self._skin_cell:
+            cover = torch.clamp(self._d3_cover(state.cell), min=0.0, max=self.skin)
+            self._skin_cell, self._skin_sq = state.cell, (cover / 2.0) ** 2
+        return self._skin_sq
 
     # the host helpers take the cell (default: the initial one); an NPT
     # state's cell is the state's own
@@ -303,14 +380,17 @@ class MDEngine:
             rows = torch.arange(n, device=self.device)[:, None] // RC
             d = torch.remainder((mir // K) // RC - rows, nb)
             ring_bad = (mask.view(n, K) & (d > W) & (d < nb - W)).any()
-        heights = 1.0 / torch.linalg.vector_norm(torch.linalg.inv(state.cell).T, dim=1)
-        too_small = (heights / torch.tensor(self.cl_spec.n_cells, device=self.device)
+        too_small = (self._heights(state.cell) / torch.tensor(self.cl_spec.n_cells,
+                                                             device=self.device)
                      < self.cl_spec.cutoff).any()
-        return state.replace(
+        state = state.replace(
             positions=pos_w, nl_positions=pos_w, edge_src=src, edge_dst=dst,
             edge_shift=shift, edge_mask=mask, edge_mir=mir.reshape(-1),
             nl_overflow=state.nl_overflow | overflow | too_small,
             ring_overflow=state.ring_overflow | ring_bad)
+        if self.d3_params is not None:
+            state = state.replace(**self._rebuild_d3(state, state.nl_overflow))
+        return state
 
     def _sort_state(self, state: MDState) -> MDState:
         """Atoms permuted into interleaved cell-id order, padded rows last.
@@ -327,7 +407,8 @@ class MDEngine:
             positions=state.positions[p], velocities=state.velocities[p],
             forces=state.forces[p], species=state.species[p], masses=state.masses[p],
             atom_mask=state.atom_mask[p], nl_positions=state.nl_positions[p],
-            atom_index=state.atom_index[p])
+            atom_index=state.atom_index[p],
+            z_numbers=None if state.z_numbers is None else state.z_numbers[p])
 
     def _truncate_sorted(self, src, shift, mask, pos_w, cell, n):
         """Each atom's slots sorted by distance, the first ``k_model`` kept;
@@ -362,7 +443,23 @@ class MDEngine:
                             compute_stress=compute_stress, device=self.device, plain=self.plain)
         stress = (out["stress"][0] if compute_stress
                   else torch.zeros(6, dtype=torch.float32, device=self.device))
-        return out["forces"], out["energy"][0], stress
+        forces, energy = out["forces"], out["energy"][0]
+        if self.d3_params is not None:
+            e3, f3, v3 = self._d3_term(state)
+            energy, forces = energy + e3, forces + f3
+            if compute_stress:
+                stress = stress + v3 / state.volume()
+        return forces, energy, stress
+
+    def _d3_term(self, state: MDState):
+        """D3's energy (eV), forces (eV/A) and 6-virial (eV) over the
+        state's D3 grid (:func:`~sevennet_tpu_torch.d3.d3_compute`)."""
+        from ..d3 import d3_compute
+
+        ev = (state.positions[state.d3_edge_src] - state.positions[state.d3_edge_dst]
+              + state.d3_edge_shift @ state.cell)
+        return d3_compute(self.d3_params, state.z_numbers, state.d3_edge_dst, state.d3_edge_src,
+                          ev, state.d3_edge_mask)
 
     def _step_fn(self, integrator: str, dt: float, **kw):
         """The integrator step ``state -> state`` of ``integrator`` (the JAX
@@ -394,11 +491,11 @@ class MDEngine:
     def _run_chunk(self, state: MDState, length: int, step_fn):
         """``length`` steps of ``step_fn``; stops early once a rebuild
         overflows (the caller retries from its snapshot)."""
-        skin_half_sq = (self.skin / 2.0) ** 2
         pe, ke = [], []
         for _ in range(length):
             disp = state.positions - state.nl_positions
-            if bool((torch.sum(disp * disp, dim=-1) * state.atom_mask > skin_half_sq).any()):
+            limit = self._skin_half_sq(state)
+            if bool((torch.sum(disp * disp, dim=-1) * state.atom_mask > limit).any()):
                 state = self._rebuild(state)
                 if bool(state.nl_overflow | state.ring_overflow):
                     break
@@ -437,6 +534,10 @@ class MDEngine:
                 ofl_nl, ofl_ring = bool(state.nl_overflow), bool(state.ring_overflow)
                 if not (ofl_nl or ofl_ring):
                     break
+                if self.d3_params is not None and float(self._d3_cover(state.cell)) < 0:
+                    raise RuntimeError(
+                        f"the box shrank below the D3 cutoff {self.d3_params.cutoff:.4f} A "
+                        "(one periodic image a side); give MDEngine a smaller d3 'cutoff'")
                 state = self._grow_capacities(prev, ring_only=ofl_ring and not ofl_nl)
             else:
                 raise RuntimeError(
@@ -453,8 +554,8 @@ class MDEngine:
 
     def _grow_capacities(self, state: MDState, factor: float = 1.35,
                          ring_only: bool = False) -> MDState:
-        """Capacities (cell occupancy, neighbour slots, conv slot width)
-        ``factor`` larger, or with ``ring_only`` just the ring's window
+        """Capacities (cell occupancy, neighbour slots, conv slot width, the
+        D3 grid's) ``factor`` larger, or with ``ring_only`` just the ring's window
         margin; the state re-created from the snapshot ``state`` (positions,
         velocities, identity, step), rebuilt on the device, forces
         evaluated. The thermostat, barostat and noise seed carry over."""
@@ -466,6 +567,11 @@ class MDEngine:
                 self.cl_spec, neighbor_capacity=K_new,
                 cell_capacity=int(np.ceil(self.cl_spec.cell_capacity * factor)) + 2)
             self.k_model = min(int(np.ceil(self.k_model * factor)), K_new)
+            if self.d3_cl_spec is not None:
+                spec3 = self.d3_cl_spec
+                self.d3_cl_spec = dataclasses.replace(
+                    spec3, neighbor_capacity=int(np.ceil(spec3.neighbor_capacity * factor)),
+                    cell_capacity=int(np.ceil(spec3.cell_capacity * factor)) + 2)
         else:
             self._ring_margin *= factor
         n_real = int(state.atom_mask.sum())
@@ -474,7 +580,10 @@ class MDEngine:
             state.positions[:n_real].cpu().numpy(), state.species[:n_real].cpu().numpy(),
             state.cell.cpu().numpy(), masses=state.masses[:n_real].cpu().numpy(),
             velocities=state.velocities[:n_real].cpu().numpy(), n_atoms_cap=n_cap,
-            n_edges_cap=n_cap * self.k_model, device=self.device)
+            n_edges_cap=n_cap * self.k_model, device=self.device,
+            atomic_numbers=(None if state.z_numbers is None
+                            else state.z_numbers[:n_real].cpu().numpy()),
+            d3_edges_cap=self._d3_slots(n_cap))
         idx = torch.arange(n_cap, dtype=torch.int64, device=self.device)
         idx[:n_real] = state.atom_index[:n_real]
         new = self._rebuild(new.replace(step=state.step, atom_index=idx, rng=state.rng,

@@ -96,10 +96,11 @@ def rebuild_neighbors(spec: CellListSpec, positions, cell, atom_mask):
 
     For edge e, ``vec_e = pos_w[src] + shift @ cell - pos_w[dst]``; both
     directions are emitted. The arrays are the dense slot grid of ``N *
-    neighbor_capacity`` entries (``dst`` is the slot owner; the JAX
-    package's compaction to ``edge_cap`` entries serves its sparse conv
-    and its D3 list, which the port does not have); ``overflow`` is a 0-d
-    bool tensor, ``pos_w`` the wrapped positions."""
+    neighbor_capacity`` entries (``dst`` is the slot owner), for the model
+    and for the D3 term alike (the JAX package compacts its sparse conv's
+    and its D3 list to ``edge_cap`` entries; the port's D3 takes the grid
+    with its empty slots); ``overflow`` is a 0-d bool tensor, ``pos_w`` the
+    wrapped positions."""
     n = positions.shape[0]
     dev = positions.device
     nx, ny, nz = spec.n_cells

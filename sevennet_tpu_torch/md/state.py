@@ -74,6 +74,13 @@ class MDState:
     # MTK barostat: [v_eps, xi_b1..3, vxi_b1..3, eps] (zeros when unused)
     baro: torch.Tensor  # (8,)
     rng: int = 0  # Langevin noise seed (step_generator)
+    # optional D3 dispersion term: atomic numbers (0 on padded rows) and the
+    # second, longer-ranged dense slot grid (N*K3,), receiver-major
+    z_numbers: Optional[torch.Tensor] = None  # (N,) int64
+    d3_edge_src: Optional[torch.Tensor] = None  # (N*K3,) int64
+    d3_edge_dst: Optional[torch.Tensor] = None  # (N*K3,) int64
+    d3_edge_shift: Optional[torch.Tensor] = None  # (N*K3, 3)
+    d3_edge_mask: Optional[torch.Tensor] = None  # (N*K3,) bool
 
     @property
     def n_atoms_cap(self) -> int:
@@ -134,12 +141,15 @@ def init_md_state(
     n_atoms_cap: Optional[int] = None,
     n_edges_cap: int = 0,
     device="cpu",
+    d3_edges_cap: int = 0,
 ) -> MDState:
     """A state of ``len(positions)`` atoms padded to ``n_atoms_cap`` rows
     (padded rows masked, mass 1), with an empty slot grid of
     ``n_edges_cap`` slots. Velocities: given, thermal at ``temperature``
     (numpy generator from ``seed``), or zero. ``seed`` also seeds the
-    Langevin noise (``rng``); thermostat and barostat start at rest."""
+    Langevin noise (``rng``); thermostat and barostat start at rest.
+    ``d3_edges_cap`` > 0 adds the atomic numbers and an empty D3 slot grid
+    of that many slots (the D3 fields stay None otherwise)."""
     n = len(positions)
     cap = n_atoms_cap or n
     if masses is None:
@@ -165,6 +175,16 @@ def init_md_state(
     zeros_i = torch.zeros(n_edges_cap, dtype=torch.int64, device=device)
     no = torch.zeros((), dtype=torch.bool, device=device)
     pos = f32(pad(np.asarray(positions, np.float64)))
+    d3 = {}
+    if d3_edges_cap:
+        if atomic_numbers is None:
+            raise ValueError("the D3 term needs atomic_numbers")
+        zeros_3 = torch.zeros(d3_edges_cap, dtype=torch.int64, device=device)
+        d3 = dict(
+            z_numbers=torch.as_tensor(pad(np.asarray(atomic_numbers, np.int64)), device=device),
+            d3_edge_src=zeros_3, d3_edge_dst=zeros_3,
+            d3_edge_shift=torch.zeros((d3_edges_cap, 3), dtype=torch.float32, device=device),
+            d3_edge_mask=torch.zeros(d3_edges_cap, dtype=torch.bool, device=device))
     return MDState(
         positions=pos,
         velocities=f32(pad(np.asarray(velocities, np.float64))),
@@ -188,4 +208,5 @@ def init_md_state(
         thermo=torch.zeros((2, 3), dtype=torch.float32, device=device),
         baro=torch.zeros(8, dtype=torch.float32, device=device),
         rng=int(seed),
+        **d3,
     )

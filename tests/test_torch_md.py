@@ -236,8 +236,10 @@ def test_nve_conserves_energy(system):
 def test_trajectory_and_refusals(system, tmp_path, monkeypatch):
     """Trajectory frames keep the input order; Langevin runs from the same
     state (the other integrators are held against JAX in
-    tests/test_torch_integrators.py), an unknown integrator and D3 raise;
-    without CUDA the engine refuses to drift to the CPU."""
+    tests/test_torch_integrators.py), an unknown integrator raises, D3 is
+    taken (held against JAX in tests/test_torch_md_d3.py) with its cutoff
+    bounded by the box; without CUDA the engine, with or without D3,
+    refuses to drift to the CPU."""
     from sevennet_tpu_torch.data.extxyz import read_extxyz
 
     s = system
@@ -255,8 +257,11 @@ def test_trajectory_and_refusals(system, tmp_path, monkeypatch):
     assert not torch.equal(st2.positions, st.positions)
     with pytest.raises(ValueError, match="unknown integrator"):
         eng.run(st, 1, integrator="verlet")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        MDEngine(s["spec"], s["params"], s["cell"], d3={"functional": "pbe"}, device="cpu")
+    eng3 = MDEngine(s["spec"], s["params"], s["cell"], d3={"functional": "pbe"}, device="cpu")
+    assert eng3.d3_params.damping == "bj"
+    assert eng3.d3_params.cutoff < min(np.diag(s["cell"])) - eng3.skin
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MDEngine(s["spec"], s["params"], s["cell"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MDEngine(s["spec"], s["params"], s["cell"], d3={"functional": "pbe"})
