@@ -189,9 +189,12 @@ MD_CHUNK = 10          # steps per chunk (a capacity growth retries one chunk)
 MD_WARMUP_STEPS = 10   # 9,999 atoms
 MD_TIMED_STEPS = 40
 MD_RING_WARMUP = 4     # 99,999 atoms, ring: after one step measured alone
-MD_RING_STEPS = 10
+MD_RING_STEPS = 5
 MD_RING_EDGE_CHUNK = 163840  # slots per chunk, bench.py:139-141
 MD_RING_THRESHOLD = 1_000_000_000  # bytes: every layer chunks, bench.py:355-357
+MD_LEGACY_STEPS = 3    # 99,999 atoms, legacy config: timed steps of each chunked engine
+EXT_GHOST = 0.3        # ghost rows of the ext conv's x_ext, beyond the receivers
+THRESHOLD_MOLECULES = 66666  # --threshold-probe: 199,998 atoms, one unchunked MD step
 LOSS_REL_TOL = 1e-5    # kernel vs plain train step, loss
 GRAD_REL_TOL = 1e-4    # kernel vs plain train step, per leaf of max |g_plain|
 
@@ -735,24 +738,28 @@ def kernel_phase(spec, params, dev, atoms):
     return records, np.asarray([N, K, n_edges])
 
 
-def b3_check(eng, st, dev, card: str):
-    """Kernel B3 (``fused_conv_bwd_slot``: B2 on one row chunk, its dxg
-    written into a slot of the ring backward's buffer) against its plain
-    twin at the shape the ring engine ``eng`` runs it on the state ``st``:
-    chunks of RC = ``eng.row_chunk`` rows of K = ``eng.k_model`` slots on
-    the state's edges, x over all nb * RC rows, a buffer of 4W + 1 slots
-    pre-filled with a sentinel; at the three SevenNet-0 layer shapes, random
-    x and ybar. For an interior and a wrapped (pinned) chunk: the slot's dxg
-    and the chunk's dvec within REL_TOL of max |plain|, every other slot
-    bitwise unchanged. Times: B3 over the nb chunks per force evaluation
-    (layer 0 + 3 x layers 1-3 + layer 4), CUDA events; bound: B2's work over
-    the chunks' rows. Returns the kernels-line record."""
+def slot_check(eng, st, dev, card: str):
+    """The ring backward's per-chunk kernel against its plain twin at the
+    shape the ring engine ``eng`` runs it on the state ``st``: B3
+    (``fused_conv_bwd_slot``: B2 on one row chunk, its dxg written into a
+    slot of the ring's buffer) in vec mode, B4 bwd's slot entry
+    (``fused_conv_bwd_embsh_slot``) on a legacy model's emb/sh. Chunks of
+    RC = ``eng.row_chunk`` rows of K = ``eng.k_model`` slots on the state's
+    edges, x over all nb * RC rows, a buffer of 4W + 1 slots pre-filled
+    with a sentinel; at the three SevenNet-0 layer shapes, random x and
+    ybar. For an interior and a wrapped (pinned) chunk: the slot's dxg and
+    the chunk's dvec (or demb and dsh) within REL_TOL of max |plain|, every
+    other slot bitwise unchanged. Times: the kernel over the nb chunks per
+    force evaluation (layer 0 + 3 x layers 1-3 + layer 4), CUDA events;
+    bound: B2's (B4 bwd's) work over the chunks' rows. Returns the
+    kernels-line record."""
     import torch
 
-    from sevennet_tpu_torch.model.model import edge_embed_spec
+    from sevennet_tpu_torch.model.model import _vec_mode, edge_emb_sh, edge_embed_spec
     from sevennet_tpu_torch.ops import fused_conv as fc
 
     spec = eng.spec
+    vec_mode = _vec_mode(spec)
     N, K, RC, W, nb = st.n_atoms_cap, eng.k_model, eng.row_chunk, eng._ring_w, eng._ring_nb
     S = 4 * W + 1
     g = eng._graph(st)
@@ -762,15 +769,30 @@ def b3_check(eng, st, dev, card: str):
     coef = eng.params["edge_embedding"]["bessel_coeffs"]
     valid = g.edge_mask.view(N, K)
     gen = torch.Generator(device="cpu").manual_seed(4)
+    if vec_mode:
+        name, kind = "B3", "bwd"
+        fn, twin, plain = fc.fused_conv_bwd_slot, fc.fused_conv_bwd_slot_plain, fc.fused_conv_bwd_plain
 
-    def chunk(j, ybar):
-        return fc._chunk(RC, K, j, src, vec, ybar)
+        def chunk(j, ybar):
+            src_c, vec_c, yb = fc._chunk(RC, K, j, src, vec, ybar)
+            return src_c, vec_c, coef, yb
+    else:
+        name, kind = "B4 bwd slot", "bwd_embsh"
+        fn, twin = fc.fused_conv_bwd_embsh_slot, fc.fused_conv_bwd_embsh_slot_plain
+        plain = fc.fused_conv_bwd_embsh_plain
+        emb, sh = (t.contiguous() for t in edge_emb_sh(spec, coef, vec, g.edge_mask))
 
-    log(f"  B3 at the ring's shape: N={N} K={K}, {nb} chunks of RC={RC} rows, W={W}, {S} slots")
+        def chunk(j, ybar):
+            rows = slice(j * RC * K, (j + 1) * RC * K)
+            return src[j * RC:(j + 1) * RC], emb[rows], sh[rows], ybar[j * RC:(j + 1) * RC]
+
+    log(f"  {name} at the ring's shape: N={N} K={K}, {nb} chunks of RC={RC} rows, W={W}, "
+        f"{S} slots")
     rec = dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, tc_flops=0.0, err=0.0)
     for tag, t, n_layers in SHAPES:
         layer = spec.layers[t]
-        op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+        op = fc.conv_op(layer.conv, layer.radial_mlp,
+                        edge_embed_spec(spec, layer) if vec_mode else None)
         ws = eng.params[f"{t}_convolution"]["weight_nn"]["w"]
         x = torch.randn(N, op.dim_x, generator=gen).to(dev)
         ybar = torch.randn(N, op.dim_mid, generator=gen).to(dev)
@@ -778,33 +800,35 @@ def b3_check(eng, st, dev, card: str):
         for j in (nb // 2, 0):  # an interior chunk and a wrapped (pinned) one
             slot = fc.ring_slot(j, W)
             before = buf.clone()
-            src_c, vec_c, yb = chunk(j, ybar)
-            dvec = fc.fused_conv_bwd_slot(op, x, src_c, vec_c, coef, ws, yb, buf, slot)
-            dxg_p, dvec_p = fc.fused_conv_bwd_plain(op, x, src_c, vec_c, coef, ws, yb)
+            src_c, a_c, b_c, yb = chunk(j, ybar)
+            out = fn(op, x, src_c, a_c, b_c, ws, yb, buf, slot)
+            dxg_p, *edge_p = plain(op, x, src_c, a_c, b_c, ws, yb)
             torch.cuda.synchronize()
             rows = slice(slot * RC * K, (slot + 1) * RC * K)
-            err = max(check_close(f"{tag} chunk {j}", "B3 dxg in its slot", buf[rows], dxg_p),
-                      check_close(f"{tag} chunk {j}", "B3 dvec", dvec, dvec_p))
-            rec["err"] = max(rec["err"], err)
+            errs = [check_close(f"{tag} chunk {j}", f"{name} dxg in its slot", buf[rows], dxg_p)]
+            errs += [check_close(f"{tag} chunk {j}", f"{name} d{e}", got, want) for e, got, want
+                     in zip(("vec",) if vec_mode else ("emb", "sh"),
+                            (out,) if vec_mode else out, edge_p)]
+            rec["err"] = max(rec["err"], *errs)
             other = torch.ones(S * RC * K, dtype=torch.bool, device=dev)
             other[rows] = False
             if not torch.equal(buf[other], before[other]):
-                raise SystemExit(f"B3 at {tag}, chunk {j}: rows outside slot {slot} changed")
+                raise SystemExit(f"{name} at {tag}, chunk {j}: rows outside slot {slot} changed")
             log(f"  {tag} chunk {j} (slot {slot}): the other {S - 1} slots bitwise unchanged")
-            del dxg_p, dvec_p, before, other
+            del dxg_p, edge_p, before, other
         torch.cuda.empty_cache()
 
         chunks = [chunk(j, ybar) for j in range(nb)]
 
-        def run(fn):
-            return lambda: [fn(op, x, s_c, v_c, coef, ws, y_c, buf, fc.ring_slot(j, W))
-                            for j, (s_c, v_c, y_c) in enumerate(chunks)]
+        def run(f):
+            return lambda: [f(op, x, s_c, a_c, b_c, ws, y_c, buf, fc.ring_slot(j, W))
+                            for j, (s_c, a_c, b_c, y_c) in enumerate(chunks)]
 
-        tk = cuda_time(run(fc.fused_conv_bwd_slot), 3)
-        tp = cuda_time(run(fc.fused_conv_bwd_slot_plain), 1)
-        parts = [work(op, RC, K, int(valid[j * RC:(j + 1) * RC].sum()), "bwd") for j in range(nb)]
+        tk = cuda_time(run(fn), 3)
+        tp = cuda_time(run(twin), 1)
+        parts = [work(op, RC, K, int(valid[j * RC:(j + 1) * RC].sum()), kind) for j in range(nb)]
         fl, by, tc = (sum(p[i] for p in parts) for i in range(3))
-        log(f"  {tag} B3 over {nb} chunks: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+        log(f"  {tag} {name} over {nb} chunks: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
             f"{bound_ms(fl, by, tc)[0]:.4f} ms (fp32 {bound_ms(fl, by)[0]:.4f} ms; "
             f"{fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB) | {card}")
         for key, v in (("ms", tk), ("plain_ms", tp), ("flops", fl), ("bytes", by),
@@ -858,7 +882,8 @@ def counters():
     return {"fwd": fc.fused_conv_fwd, "bwd": fc.fused_conv_bwd, "bwd_slot": fc.fused_conv_bwd_slot,
             "bwd_pg": fc.fused_conv_bwd_pg_records, "reduce": fc.param_grad_reduce,
             "fwd_embsh": fc.fused_conv_fwd_embsh, "bwd_embsh": fc.fused_conv_bwd_embsh,
-            "bwd_embsh_pg": fc.fused_conv_bwd_embsh_pg_records, "b6": dense_conv_pallas}
+            "bwd_embsh_pg": fc.fused_conv_bwd_embsh_pg_records,
+            "bwd_embsh_slot": fc.fused_conv_bwd_embsh_slot, "b6": dense_conv_pallas}
 
 
 def reset_launches():
@@ -1138,6 +1163,92 @@ def compare_steps(label, kern, plain, batches, want, card):
     return total
 
 
+def dataset_check(trainset, z2t, K: int, batches, tmp: str, card: str):
+    """The training set's data paths on this machine: the graphs built over
+    a fork pool of 4 processes (``preprocess_num_cores: 4``) bitwise equal
+    to the serial build's; the disk cache (the JAX package's format)
+    written and loaded back to the same graphs and statistics; lazy batches,
+    built as they are made, bitwise equal to the built set's ``batches``
+    (the same shuffle)."""
+    import os
+
+    import torch
+
+    from sevennet_tpu_torch.data.dataset import CACHE_KEYS, GraphDataset
+
+    def same(a, b, keys):  # bit for bit, NaN labels equal
+        return all(torch.equal(*(torch.nan_to_num(getattr(g, k), nan=7.25e30) for g in (a, b)))
+                   for k in keys)
+
+    t0 = time.perf_counter()
+    pooled = GraphDataset(list(trainset.atoms_list), trainset.cutoff).build(z2t, processes=4)
+    t_pool = time.perf_counter() - t0
+    if not all(same(a, b, CACHE_KEYS) for a, b in zip(pooled.graphs, trainset.graphs)):
+        raise SystemExit("the 4-process build differs from the serial one")
+    path = os.path.join(tmp, "trainset_cache")
+    pooled.save_cache(path)
+    cached = GraphDataset.load_cache(path)
+    if (not all(same(a, b, CACHE_KEYS) for a, b in zip(cached.graphs, trainset.graphs))
+            or cached.statistics != trainset.statistics):
+        raise SystemExit("the cache does not load back to the built graphs and statistics")
+    lazy = GraphDataset(list(trainset.atoms_list), trainset.cutoff, z2t)
+    got = list(lazy.batches(TRAIN_BATCH, shuffle=True, seed=1, dense_k=K, lazy=True))
+    fields = ("positions", "species", "edge_src", "edge_shift", "edge_mask", "edge_mir", "energy",
+              "forces", "stress", "batch", "atom_mask")
+    if len(got) != len(batches) or not all(same(a.to(b.device), b, fields)
+                                           for a, b in zip(got, batches)):
+        raise SystemExit("lazy batches differ from the built set's")
+    log(f"  data: the 4-process build ({t_pool:.2f} s), the cache round trip "
+        f"({os.path.getsize(path + '.npz') / 1e6:.2f} MB) and {len(got)} lazy batches equal the "
+        f"serial build | {card}")
+
+
+def data_parallel_check(spec, params, tcfg, batch, dev, card: str):
+    """Data-parallel training on the card: one train step of a trainer in a
+    world-1 ``nccl`` group (``Trainer(data_parallel=True)``: the broadcast,
+    the flattened gradient all-reduce, the losses and metrics reduced)
+    bitwise equal, parameters and losses, to the same step of a trainer
+    without a group; a second trainer without a group says whether the
+    step itself repeats bit for bit. NCCL refuses two ranks on one device,
+    so the two-rank check is the CPU test (tests/test_torch_dp.py)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from sevennet_tpu_torch.train.trainer import Trainer, init_process_group, tree_leaves
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init_process_group(f"tcp://localhost:{port}", 0, 1, device=str(dev))
+    try:
+        runs = []
+        for dp in (True, False, False):
+            trainer = Trainer(spec, params, tcfg, device=str(dev), data_parallel=dp)
+            trainer.set_epoch(0)
+            losses, _ = trainer.train_step(batch)
+            runs.append(([p.detach().clone() for p in tree_leaves(trainer.params)],
+                         {k: v.clone() for k, v in losses.items()}))
+            del trainer
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+    def equal(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+                and all(torch.equal(a[1][k], b[1][k]) for k in a[1]))
+
+    repeats = equal(runs[1], runs[2])
+    ok = equal(runs[0], runs[1])
+    log(f"  data parallel: a world-1 nccl step {'bitwise equal' if ok else 'DIFFERS from'} the "
+        f"step without a group ({len(runs[0][0])} parameter leaves and "
+        f"{len(runs[0][1])} losses); the step without a group repeats bit for bit: {repeats} "
+        f"| {card}")
+    if not ok:
+        raise SystemExit("the world-1 data-parallel step differs from the plain trainer step")
+
+
 def training_phase(dev, seed: int, card: str):
     """SevenNet-0 training on the card: the kernel path against the plain
     path for TRAIN_CMP_STEPS steps, step timing, the same for the legacy
@@ -1171,7 +1282,8 @@ def training_phase(dev, seed: int, card: str):
         train_cfg = {"epoch": TRAIN_EPOCHS, "optimizer": "adam", "optim_param": {"lr": TRAIN_LR},
                      "force_loss_weight": 0.1, "stress_loss_weight": 1e-6, "per_epoch": 1,
                      "random_seed": seed}
-        data_cfg = {"batch_size": TRAIN_BATCH, "load_trainset_path": [path], "ratio": 0.25}
+        data_cfg = {"batch_size": TRAIN_BATCH, "load_trainset_path": [path], "ratio": 0.25,
+                    "preprocess_num_cores": 4}
 
         # train_run's set-up, to hold its first steps against the plain path:
         # split, statistics, spec, weights from the seed, K, batch order
@@ -1200,6 +1312,8 @@ def training_phase(dev, seed: int, card: str):
         want = dict(dict.fromkeys(counters(), 0), fwd=n_layers, bwd_pg=2 * n_layers,
                     reduce=2 * n_layers)
         compare_steps("vec", kern, plain, batches, want, card)
+        dataset_check(trainset, spec.z_to_type, K, batches, tmp, card)
+        data_parallel_check(spec, params, tcfg, batches[0], dev, card)
         reset_launches()
         kern.eval_step(batches[0])
         log(f"  eval step launches: {read_launches()}")
@@ -1449,7 +1563,7 @@ def md_ring_phase(params, dev, seed: int, card: str):
     then MD_RING_WARMUP + MD_RING_STEPS timed ring steps with 5 B1 + 5 nb B3
     launches per force evaluation and no B2 (nb as it stands at each
     evaluation: a capacity growth may re-size the ring). Before the
-    reference engine, :func:`b3_check` at the ring's shape. Returns the
+    reference engine, :func:`slot_check` (B3) at the ring's shape. Returns the
     launches of the timed steps and B3's kernels-line record."""
     import os
 
@@ -1483,7 +1597,7 @@ def md_ring_phase(params, dev, seed: int, card: str):
         if not nb or ring.spec.conv_ring != W or counts != want:
             raise SystemExit(f"the ring is not engaged at 99,999 atoms: nb={nb}, launches "
                              f"{counts}, expected {want}")
-        b3 = b3_check(ring, st_r, dev, card)
+        b3 = slot_check(ring, st_r, dev, card)
         ref = MDEngine(build_model_spec(dict(SEVENNET0, _edge_chunk=0)), params, cell,
                        device=str(dev))
         t0 = time.perf_counter()
@@ -1502,14 +1616,6 @@ def md_ring_phase(params, dev, seed: int, card: str):
                         (de <= ENERGY_REL_TOL, f"rel dE {de}")):
             if not ok:
                 raise SystemExit(f"MD at 99,999 atoms, ring vs unchunked: {why}")
-
-        def one_step(eng, st):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            st, _ = eng.run(st, 1, dt=MD_DT, chunk=1)
-            torch.cuda.synchronize()
-            return st, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 2**30
 
         _, ms_u, peak_u = one_step(ref, st_u)
         gathered = st_u.n_atoms_cap * ref.k_model * dim_x * 4
@@ -1547,6 +1653,240 @@ def md_ring_phase(params, dev, seed: int, card: str):
         return counts, b3
     finally:
         del os.environ["SEVENNET_TPU_CHUNK_THRESHOLD"]
+
+
+def one_step(eng, st):
+    """One MD step alone: ``(state, host ms, peak GiB)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, _ = eng.run(st, 1, dt=MD_DT, chunk=1)
+    torch.cuda.synchronize()
+    return st, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 2**30
+
+
+def scatter_chunks(eng, n_cap: int) -> int:
+    """Chunks of the chunked scatter backward in one force evaluation of
+    ``eng`` at atom capacity ``n_cap``: each chunking layer's rows in
+    chunks of ``conv_row_chunk`` rows, the last one padded."""
+    from sevennet_tpu_torch.model.model import conv_row_chunk
+
+    rcs = [conv_row_chunk(eng.spec, n_cap, eng.k_model, layer.conv.irreps_x.dim)
+           for layer in eng.spec.layers]
+    return sum(-(-n_cap // rc) for rc in rcs if rc)
+
+
+def md_legacy_phase(params, dev, seed: int, card: str):
+    """NVE MD of the 99,999-atom water box with SevenNet-0's legacy config
+    (``_normalize_sph: False``: full width and depth on the emb/sh conv, as
+    every checkpoint older than SevenNet 0.10 loads) and every layer
+    chunked (MD_RING_THRESHOLD and MD_RING_EDGE_CHUNK, as
+    :func:`md_ring_phase`). (a) The default engine: the ring stays off in
+    emb/sh mode and each layer runs the chunked scatter backward, 5 B4 +
+    (chunks) B4 bwd per force evaluation (:func:`scatter_chunks`), no B1,
+    B2 or B3. (b) ``SEVENNET_TPU_RING=1``: the ring at W = 1 on cell-sorted
+    atoms, 5 B4 + 5 nb B4-bwd-slot, after :func:`slot_check` has held the
+    slot entry against its plain twin at the ring's chunk shape. Each
+    engine's initial forces against an unchunked legacy engine's at the same
+    positions (FORCE_TOL and FORCE_REL_TOL of max |F|, energy
+    ENERGY_REL_TOL); the peak memory of one step of each engine; then
+    MD_LEGACY_STEPS timed steps of (a) and (b): ms/step and atom-steps/s
+    (host clock). Returns the launches of the timed steps of (a) and (b)
+    and the slot entry's kernels-line record."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.md import MDEngine
+    from sevennet_tpu_torch.model.build import build_model_spec
+
+    legacy = dict(SEVENNET0, _normalize_sph=False)
+    pos, Z, cell = water_box(33333)
+    n = len(pos)
+    initial, counts, slot = {}, {}, None
+    os.environ["SEVENNET_TPU_CHUNK_THRESHOLD"] = str(MD_RING_THRESHOLD)
+    try:
+        for mode in ("scatter", "ring"):
+            if mode == "ring":
+                os.environ["SEVENNET_TPU_RING"] = "1"
+            eng = MDEngine(build_model_spec(dict(legacy, _edge_chunk=MD_RING_EDGE_CHUNK)), params,
+                           cell, device=str(dev))
+            t0 = time.perf_counter()
+            reset_launches()
+            st = eng.make_state(pos, Z, temperature=MD_T, seed=seed)
+            torch.cuda.synchronize()
+            t_make = time.perf_counter() - t0
+            got = read_launches()
+            per_eval = 5 * eng._ring_nb if mode == "ring" else scatter_chunks(eng, st.n_atoms_cap)
+            key = "bwd_embsh_slot" if mode == "ring" else "bwd_embsh"
+            want = dict(dict.fromkeys(got, 0), fwd_embsh=5, **{key: per_eval})
+            log(f"MD 99,999 atoms, legacy, {mode}: RC={eng.row_chunk or eng.spec.edge_chunk // eng.k_model} "
+                f"rows, ring nb={eng._ring_nb} W={eng._ring_w}, K={eng.k_model}, atom capacity "
+                f"{st.n_atoms_cap}, host window {eng._ring_window} rows; make_state {t_make:.1f} s, "
+                f"launches {got}")
+            if got != want or (mode == "ring") != bool(eng._ring_nb):
+                raise SystemExit(f"legacy {mode} at 99,999 atoms: launches {got}, expected {want}")
+            if mode == "ring":
+                slot = slot_check(eng, st, dev, card)
+            initial[mode] = (unsorted(st, n, "forces"), float(st.potential_energy))
+            st, ms1, peak = one_step(eng, st)
+            evals = []
+            forces = eng._forces
+
+            def counted(state, compute_stress=False, eng=eng, forces=forces, evals=evals,
+                        ring=mode == "ring"):
+                evals.append(5 * eng._ring_nb if ring else scatter_chunks(eng, state.n_atoms_cap))
+                return forces(state, compute_stress)
+
+            eng._forces = counted
+            growths = eng.n_growths
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            st, (pe, ke) = eng.run(st, MD_LEGACY_STEPS, dt=MD_DT, chunk=MD_LEGACY_STEPS)
+            torch.cuda.synchronize()
+            dt_s = time.perf_counter() - t0
+            counts[mode] = read_launches()
+            want = dict(dict.fromkeys(got, 0), fwd_embsh=5 * len(evals), **{key: sum(evals)})
+            etot = (pe + ke).cpu().numpy()
+            log(f"  legacy {mode}: one step {ms1:.1f} ms, peak {peak:.2f} GiB; "
+                f"{MD_LEGACY_STEPS} timed steps: {dt_s / MD_LEGACY_STEPS * 1e3:.1f} ms/step, "
+                f"{n * MD_LEGACY_STEPS / dt_s:.4e} atom-steps/s (host clock), growths "
+                f"{eng.n_growths - growths}, {len(evals)} force evaluations, E_tot drift "
+                f"{float(np.abs(etot - etot[0]).max()):.3e} eV; launches {counts[mode]} | {card}")
+            if counts[mode] != want or not np.isfinite(etot).all():
+                raise SystemExit(f"legacy {mode} at 99,999 atoms: launches {counts[mode]}, "
+                                 f"expected {want}, E_tot finite {np.isfinite(etot).all()}")
+            del eng, st
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("SEVENNET_TPU_RING", None)
+        del os.environ["SEVENNET_TPU_CHUNK_THRESHOLD"]
+    ref = MDEngine(build_model_spec(dict(legacy, _edge_chunk=0)), params, cell, device=str(dev))
+    t0 = time.perf_counter()
+    st_u = ref.make_state(pos, Z, temperature=MD_T, seed=seed)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    f_u, e_u = unsorted(st_u, n, "forces"), float(st_u.potential_energy)
+    fmax = float(np.abs(f_u).max())
+    for mode, (f, e) in initial.items():
+        df, de = float(np.abs(f - f_u).max()), abs(e - e_u) / abs(e_u)
+        log(f"  legacy {mode} vs unchunked forces at the same positions: max|dF|={df:.3e} eV/A "
+            f"(max|F|={fmax:.3e}), E {e:.6f} vs {e_u:.6f} eV, rel dE={de:.3e}")
+        for ok, why in ((df <= FORCE_TOL, f"max|dF| {df} > {FORCE_TOL}"),
+                        (df <= FORCE_REL_TOL * fmax, f"max|dF| {df} > {FORCE_REL_TOL} * {fmax}"),
+                        (de <= ENERGY_REL_TOL, f"rel dE {de}")):
+            if not ok:
+                raise SystemExit(f"MD at 99,999 atoms, legacy {mode} vs unchunked: {why}")
+    _, ms_u, peak_u = one_step(ref, st_u)
+    log(f"  legacy unchunked: make_state {t_ref:.1f} s, one step {ms_u:.1f} ms (host clock), "
+        f"peak {peak_u:.2f} GiB | {card}")
+    return counts["scatter"], counts["ring"], slot
+
+
+def ext_conv_check(spec, spec_legacy, params, dev, atoms, card: str):
+    """The ext conv (``fused_conv_apply_ext_vec`` and ``fused_conv_apply_ext``:
+    senders index an extended set of owned and ghost rows, the chunked
+    scatter backward) at SevenNet-0's layer-1 shape on the box's edges, in
+    both modes: ``x_ext`` EXT_GHOST larger than the receivers, a third of
+    the senders moved onto ghost rows, three row chunks; the output and the
+    gradients of ``x_ext`` (ghost rows included), the edge inputs and the
+    MLP weights against the plain versions on the same inputs, within
+    REL_TOL of max |plain|."""
+    import torch
+
+    from sevennet_tpu_torch.model.model import edge_emb_sh, edge_embed_spec
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    calc, g, vec, src, coef = box_edges(spec, params, dev, atoms)
+    N, K = src.shape
+    n_ext = int(N * (1 + EXT_GHOST))
+    src_ext = torch.where(src % 3 == 0, N + src % (n_ext - N), src).long()
+    layer = spec.layers[1]
+    ws = calc.params["1_convolution"]["weight_nn"]["w"]
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn(n_ext, layer.conv.irreps_x.dim, generator=gen).to(dev)
+    ybar = torch.randn(N, layer.conv.irreps_mid.dim, generator=gen).to(dev)
+    emb, sh = edge_emb_sh(spec_legacy, coef, vec, g.edge_mask)
+    for mode, edge in (("vec", (vec,)), ("emb/sh", (emb.view(N, K, -1), sh.view(N, K, -1)))):
+        outs = {}
+        for plain in (False, True):
+            xs = x.clone().requires_grad_(True)
+            es = [e.detach().clone().requires_grad_(True) for e in edge]
+            wl = [w.detach().clone().requires_grad_(True) for w in ws]
+            if mode == "vec":
+                out = fc.fused_conv_apply_ext_vec(layer.conv, layer.radial_mlp, wl, coef,
+                                                  edge_embed_spec(spec, layer), xs, es[0],
+                                                  src_ext, plain=plain, row_chunk=-(-N // 3))
+            else:
+                out = fc.fused_conv_apply_ext(layer.conv, layer.radial_mlp, wl, xs, *es, src_ext,
+                                              plain=plain, row_chunk=-(-N // 3))
+            outs[plain] = [out.detach(), *torch.autograd.grad(out, (xs, *es, *wl), ybar)]
+        names = ["out", "dx_ext"] + (["dvec"] if mode == "vec" else ["demb", "dsh"]) + [
+            f"dW{i}" for i in range(len(ws))]
+        err = max(check_close(f"ext conv {mode}", nm, a, b)
+                  for nm, a, b in zip(names, outs[False], outs[True]))
+        log(f"  ext conv {mode} at layer 1 (N {N}, x_ext {n_ext} rows, 3 chunks): max abs err "
+            f"{err:.3e}, each within {REL_TOL:g} of max |plain| | {card}")
+        del outs
+    torch.cuda.empty_cache()
+
+
+def threshold_probe(params, dev, seed: int, card: str):
+    """``--threshold-probe``: the measurements ``CHUNK_THRESHOLD_BYTES``
+    rests on. One unchunked SevenNet-0 MD step (``_edge_chunk: 0``) of
+    THRESHOLD_MOLECULES water molecules (near 200k atoms): its peak memory
+    per byte of the largest layer's gathered edge tensor ``N * K * dim_x *
+    4``; and the calculator's peak per gathered byte at 99,999 atoms with
+    SevenNet-0 (vec mode) and its legacy config (emb/sh mode), the second
+    of two requests."""
+    import torch
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.md import MDEngine
+    from sevennet_tpu_torch.model.build import build_model_spec
+    from sevennet_tpu_torch.ops.fused_conv import chunk_threshold
+
+    spec = build_model_spec(dict(SEVENNET0, _edge_chunk=0))
+    dim_x = max(layer.conv.irreps_x.dim for layer in spec.layers)
+    pos, Z, cell = water_box(THRESHOLD_MOLECULES)
+    eng = MDEngine(spec, params, cell, device=str(dev))
+    t0 = time.perf_counter()
+    st = eng.make_state(pos, Z, temperature=MD_T, seed=seed)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    st, ms, peak = one_step(eng, st)
+    gathered = st.n_atoms_cap * eng.k_model * dim_x * 4
+    log(f"threshold probe: unchunked MD step of {len(pos)} atoms (K {eng.k_model}, capacity "
+        f"{st.n_atoms_cap}): make_state {t_make:.1f} s, one step {ms:.1f} ms (host clock), peak "
+        f"{peak:.2f} GiB; gathered edge tensor at dim_x {dim_x}: {gathered / 1e9:.3f} GB; peak / "
+        f"gathered = {peak * 2**30 / gathered:.4f} (chunk_threshold now "
+        f"{chunk_threshold() / 1e9:.1f} GB) | {card}")
+    del eng, st
+    torch.cuda.empty_cache()
+    pos, Z, cell = water_box(33333)
+    at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
+    for label, cfg in (("vec", SEVENNET0), ("legacy", dict(SEVENNET0, _normalize_sph=False))):
+        calc = SevenNetCalculator(build_model_spec(cfg), params, device=str(dev))
+        calc.calculate(at)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        calc.calculate(at)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        g = calc.graph(at)
+        gathered = g.n_atoms_cap * g.dense_k * dim_x * 4
+        log(f"threshold probe: calculator, {label}, {len(pos)} atoms (K {g.dense_k}): request "
+            f"{ms:.1f} ms (host clock), peak {peak:.2f} GiB; gathered {gathered / 1e9:.3f} GB; "
+            f"peak / gathered = {peak * 2**30 / gathered:.4f} | {card}")
+        del calc
+        torch.cuda.empty_cache()
 
 
 def box_edges(spec, params, dev, atoms):
@@ -3205,6 +3545,8 @@ KERNEL_NAMES = {
                   "bwd_embsh"),
     "bwd_embsh_pg": ("fused_conv_bwd_embsh_pg", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222",
                      "bwd_embsh_pg"),
+    "bwd_embsh_slot": ("fused_conv_bwd_embsh_slot", BWD_CU, "sevennet_tpu/ops/fused_conv.py:1222",
+                       "bwd_embsh_slot"),
     # B5 (make_fused_conv_bwd) computes B4 bwd's function: the same kernel serves it
     "b5": ("fused_conv_bwd_embsh (serves B5)", BWD_CU, "sevennet_tpu/ops/fused_conv.py:875",
            "bwd_embsh"),
@@ -3217,6 +3559,8 @@ KERNEL_NAMES = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--threshold-probe", action="store_true",
+                    help="only measure the peaks chunk_threshold rests on (threshold_probe)")
     args = ap.parse_args()
 
     import torch
@@ -3257,6 +3601,13 @@ def main() -> int:
     spec = sevennet0_spec()
     params = params_from_numpy(spec, random_params(spec, args.seed))
     spec_legacy = build_model_spec(dict(SEVENNET0, _normalize_sph=False))
+    if args.threshold_probe:
+        threshold_probe(params, dev, args.seed, card)
+        print(gpu_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     t0 = time.perf_counter()
     pos, Z, cell = water_box(1000)
     atoms = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
@@ -3264,6 +3615,9 @@ def main() -> int:
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     b6 = b6_path(spec_legacy, params, dev, atoms)
     log(f"B6 path (dense_conv_pallas over 5 layers): launches {b6}")
+    t0 = time.perf_counter()
+    ext_conv_check(spec, spec_legacy, params, dev, atoms, card)
+    log(f"ext conv check: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     served = request_phase(spec, params, dev, "vec", "fwd", "bwd")
     log(f"request phase (main path: serving): launches {served}, "
@@ -3288,6 +3642,11 @@ def main() -> int:
     md_ring, records["bwd_slot"] = md_ring_phase(params, dev, args.seed, card)
     log(f"MD phase, 99,999 atoms (main path: MD, ring backward): "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    md_scatter, md_ring_legacy, records["bwd_embsh_slot"] = md_legacy_phase(params, dev, args.seed,
+                                                                            card)
+    log(f"MD phase, 99,999 atoms, legacy config (main path: MD of a pre-0.10 model, chunked "
+        f"scatter and ring backward): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ensembles = ensemble_phase(spec, params, dev, args.seed, card)
     log(f"ensemble phase, 3,000 atoms (main path: MD, NVT and NPT): launches {ensembles}, "
@@ -3335,8 +3694,8 @@ def main() -> int:
     log(f"breakdown and knock-out probe phase (the probe path): launches {bd_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
-                + md_small[k] + md_mid[k] + md_ring[k] + ensembles[k] + d3_launches[k]
-                + resolved[k]
+                + md_small[k] + md_mid[k] + md_ring[k] + md_scatter[k] + md_ring_legacy[k]
+                + ensembles[k] + d3_launches[k] + resolved[k]
                 for k in counters()}
     if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
         raise SystemExit(f"a kernel was never launched on the main paths: {launches}")
@@ -3425,11 +3784,13 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
     log(f"kernel times are per pass of {N} atoms (K={K}, {n_edges} edges): "
-        "layer 0 + 3 x layers 1-3 + layer 4 (fused_conv_bwd_slot: per force evaluation "
-        "of the 99,999-atom ring, over its nb chunks); fused_conv_bwd_pg and fused_conv_bwd_embsh_pg include their "
+        "layer 0 + 3 x layers 1-3 + layer 4 (fused_conv_bwd_slot and "
+        "fused_conv_bwd_embsh_slot: per force evaluation of the 99,999-atom rings, vec and "
+        "legacy, over their nb chunks); fused_conv_bwd_pg and fused_conv_bwd_embsh_pg include their "
         "param_grad_reduce; launches: the B6 path, serving (both configs), train_run, the "
         "legacy config's compared train steps, MD (3,000 and 9,999 atoms, and the timed "
-        "ring steps at 99,999), the ensembles at 3,000 atoms, the D3 phase (a 192-atom "
+        "ring steps at 99,999; the legacy config's timed chunked-scatter and ring steps at "
+        "99,999), the ensembles at 3,000 atoms, the D3 phase (a 192-atom "
         "request and MD at 3,000 atoms with D3) and the request by checkpoint name; the "
         "SevenNet-l3i5 rows per pass of its layer shapes on the "
         "same box, launches from its requests; the SevenNet-MF-ompa rows per pass of its "

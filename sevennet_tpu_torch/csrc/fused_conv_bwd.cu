@@ -498,6 +498,27 @@ extern "C" int fused_conv_bwd_embsh_launch(ConvDims d, int mblk, const float* x,
                                  demb, dsh, WsLayout{}, nullptr, nullptr, stream);
 }
 
+// B4 bwd into a slot, the emb/sh ring backward's per-chunk kernel. Replaces
+// the Pallas TPU kernel make_fused_conv_bwd2 with embed=None as the JAX
+// emb/sh ring runs it per chunk (sevennet_tpu/ops/fused_conv.py, pallas_call
+// at :1222, caller :1857-1863): B4 bwd on the d.N = RC receiver rows of one
+// chunk, its dxg written in place into slot `slot` of the caller's rolling
+// buffer buf (S * RC*K rows of dim_x), as B3 is B2's kernel into a slot. The
+// slot is a pointer offset: src_c, ybar_c, emb_c and sh_c point at the
+// chunk's first row, demb and dsh are the chunk's own (RC*K) rows. Rows of
+// other slots are not touched. What bounds it: B4 bwd's fp32 operations on
+// the chunk's edges.
+extern "C" int fused_conv_bwd_embsh_slot_launch(ConvDims d, int mblk, const float* x,
+                                                const int* src_c, const float* emb_c,
+                                                const float* sh_c, MlpWeights W,
+                                                const float* ybar_c, const int* itab,
+                                                const float* ftab, float* buf, int slot,
+                                                float* demb, float* dsh, void* stream) {
+  float* dxg = buf + (size_t)slot * d.N * d.K * d.dim_x;
+  return launch_bwd<false, true>(d, mblk, smem_limit_embsh, x, src_c, emb_c, sh_c, W, ybar_c, itab,
+                                 ftab, dxg, demb, dsh, WsLayout{}, nullptr, nullptr, stream);
+}
+
 // B4', first pass: B4 bwd plus the records (no dcoef columns: L.dc is the
 // end of the record) and a validity byte of 1 for every slot.
 extern "C" int fused_conv_bwd_embsh_pg_launch(ConvDims d, int mblk, WsLayout L, const float* x,

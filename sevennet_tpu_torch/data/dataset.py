@@ -14,34 +14,39 @@ are reproduced:
 - ``avg_num_neigh`` / ``sqrt_avg_num_neigh``  (conv denominator sources)
 
 Multi-fidelity sets are :class:`~.modal_dataset.MultiModalDataset`s of
-these, one per modality. Not ported yet (ROADMAP queue A, item "Training,
-the rest"): readers other than extxyz, the multiprocess build, the disk
-cache and lazy batches.
+these, one per modality. Files are read by :func:`~.readers.read_structures`
+(extxyz, OUTCAR, POSCAR, structure_list; others through ASE where it is
+installed). The graph build may fan out over a ``fork`` pool of numpy-only
+workers, batches may be built lazily, and built graphs with their
+statistics go to a disk cache in the JAX package's format.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
 from ..atoms import AtomsLite
 from ..model.build import CHEMICAL_SYMBOLS, NUM_UNIV_ELEMENT
 from .graph import GraphBatch, batch_graphs, graph_from_arrays
-from .neighborlist import neighbor_list_numpy
+from .neighborlist import NATIVE_MIN_ATOMS, neighbor_list_numpy
 
-__all__ = ["GraphDataset", "atoms_to_graph"]
+__all__ = ["GraphDataset", "atoms_to_graph", "graph_arrays"]
 
-_LATER = "not ported yet (ROADMAP.md, queue A: training, the rest)"
+# the arrays of a graph in the disk cache, as the JAX package writes them
+# (sevennet_tpu/data/dataset.py:save_cache)
+CACHE_KEYS = ("positions", "species", "edge_src", "edge_dst", "edge_shift", "energy", "forces",
+              "stress", "modal", "data_weight", "cell")
 
 
-def atoms_to_graph(at: AtomsLite, cutoff: float, z_to_type: np.ndarray,
-                   modal: int = 0) -> GraphBatch:
-    """A single labeled graph with a flat edge list on the CPU (reference
-    ``atoms_to_graph``, ``dataload.py:102-223``), of modality ``modal``.
-    Missing labels are NaN."""
+def graph_arrays(at: AtomsLite, cutoff: float, z_to_type: np.ndarray,
+                 modal: int = 0) -> Dict[str, Any]:
+    """The numpy arguments of :func:`~.graph.graph_from_arrays` for one
+    labeled structure (the neighbour list and the labels, missing ones
+    NaN): numpy only, so that a forked worker can build them."""
     species = z_to_type[at.numbers]
     if (species < 0).any():
         bad = sorted(set(int(z) for z in at.numbers[species < 0]))
@@ -51,8 +56,9 @@ def atoms_to_graph(at: AtomsLite, cutoff: float, z_to_type: np.ndarray,
     if isinstance(dw, (int, float)):
         dw = {"energy": dw, "force": dw, "stress": dw}
     n = len(at)
-    return graph_from_arrays(
-        at.positions, species, src, dst, shifts, at.cell,
+    return dict(
+        positions=at.positions, species=species, edge_src=src, edge_dst=dst,
+        edge_shift=shifts, cell=at.cell,
         energy=at.energy if at.energy is not None else np.nan,
         forces=at.forces if at.forces is not None else np.full((n, 3), np.nan),
         stress=at.stress if at.stress is not None else np.full(6, np.nan),
@@ -60,6 +66,27 @@ def atoms_to_graph(at: AtomsLite, cutoff: float, z_to_type: np.ndarray,
                      float(dw.get("stress", 1.0))),
         modal=modal,
     )
+
+
+def atoms_to_graph(at: AtomsLite, cutoff: float, z_to_type: np.ndarray,
+                   modal: int = 0) -> GraphBatch:
+    """A single labeled graph with a flat edge list on the CPU (reference
+    ``atoms_to_graph``, ``dataload.py:102-223``), of modality ``modal``.
+    Missing labels are NaN."""
+    return graph_from_arrays(**graph_arrays(at, cutoff, z_to_type, modal))
+
+
+class _BuildOne:
+    """Picklable worker of the multiprocess build: one structure's
+    :func:`graph_arrays`, numpy in and numpy out (a forked child of a
+    process that has used torch's thread pool or CUDA must not touch
+    either)."""
+
+    def __init__(self, cutoff, z_to_type, modal):
+        self.cutoff, self.z_to_type, self.modal = cutoff, z_to_type, modal
+
+    def __call__(self, at):
+        return graph_arrays(at, self.cutoff, self.z_to_type, self.modal)
 
 
 @dataclass
@@ -73,16 +100,16 @@ class GraphDataset:
 
     @staticmethod
     def from_files(path, cutoff: float, z_to_type=None, modal: int = 0) -> "GraphDataset":
-        """Every frame of the extxyz file(s) ``path`` (``*.xyz`` /
-        ``*.extxyz``), of modality ``modal``."""
-        from .extxyz import read_extxyz
+        """Every frame of the structure file(s) ``path``, of modality
+        ``modal``, read by :func:`~.readers.read_structures` (extxyz,
+        OUTCAR, POSCAR/CONTCAR, structure_list; other formats through
+        ``ase.io.read`` where ASE is installed)."""
+        from .readers import read_structures
 
         paths = [path] if isinstance(path, str) else list(path)
         frames: List[AtomsLite] = []
         for p in paths:
-            if not str(p).lower().endswith((".xyz", ".extxyz")):
-                raise NotImplementedError(f"{p}: readers other than extxyz are {_LATER}")
-            frames.extend(read_extxyz(str(p)))
+            frames.extend(read_structures(str(p)))
         return GraphDataset(frames, cutoff, z_to_type, modal=modal)
 
     # -- species ------------------------------------------------------------
@@ -92,15 +119,31 @@ class GraphDataset:
         return [CHEMICAL_SYMBOLS[z] for z in zs]
 
     def build(self, z_to_type: Optional[np.ndarray] = None, processes: int = 1):
-        """Builds every graph (neighbour lists and labels)."""
-        if processes > 1:
-            raise NotImplementedError(f"the multiprocess graph build is {_LATER}")
+        """Builds every graph (neighbour lists and labels). ``processes >
+        1`` (the config key ``preprocess_num_cores``) fans the numpy work
+        over a ``fork`` pool, as ``sevennet_tpu/data/dataset.py:106-128``
+        and the reference's ``graph_build`` (``dataload.py:226-269``): the
+        workers return numpy arrays and the graphs are made here, so no
+        child touches torch. The native neighbour list is built here
+        first, where a structure will use it."""
         if z_to_type is not None:
             self.z_to_type = z_to_type
         if self.z_to_type is None:
             raise ValueError("build() needs z_to_type")
-        self.graphs = [atoms_to_graph(at, self.cutoff, self.z_to_type, self.modal)
-                       for at in self.atoms_list]
+        work = _BuildOne(self.cutoff, self.z_to_type, self.modal)
+        if processes > 1 and len(self.atoms_list) > 1:
+            import multiprocessing as mp
+
+            if any(at.cell is not None and len(at) >= NATIVE_MIN_ATOMS for at in self.atoms_list):
+                from ..native import library
+
+                library()
+            with mp.get_context("fork").Pool(processes) as pool:
+                arrays = pool.map(work, self.atoms_list,
+                                  chunksize=max(1, len(self.atoms_list) // (processes * 8)))
+        else:
+            arrays = map(work, self.atoms_list)
+        self.graphs = [graph_from_arrays(**a) for a in arrays]
         return self
 
     def __len__(self):
@@ -186,13 +229,21 @@ class GraphDataset:
     ) -> Iterator[GraphBatch]:
         """Padded dense batches on the CPU: atom capacities rounded up to
         ``pad_multiple``, ``batch_size + 1`` graph slots, K = ``dense_k``
-        (0: the dataset's largest neighbour count)."""
+        (0: the dataset's largest neighbour count). With ``lazy=True`` each
+        batch's graphs are built when it is made (the reference's
+        memory-light ``SevenNetAtomsDataset``,
+        ``sevennet_tpu/data/dataset.py:203-252``): ``build()`` is not
+        needed, but ``z_to_type`` and ``dense_k`` are."""
         if lazy:
-            raise NotImplementedError(f"lazy batches are {_LATER}")
-        if not self.graphs:
-            raise ValueError("call build() first")
+            if self.z_to_type is None or not dense_k:
+                raise ValueError("lazy batches need z_to_type and dense_k")
+            n_items = len(self.atoms_list)
+        elif not self.graphs:
+            raise ValueError("call build() first (or use lazy=True)")
+        else:
+            n_items = len(self.graphs)
         dense_k = dense_k or self.max_neighbors()
-        idx = np.arange(len(self.graphs))
+        idx = np.arange(n_items)
         if shuffle:
             np.random.default_rng(seed).shuffle(idx)
         rup = lambda n: int(math.ceil(max(n, 1) / pad_multiple)) * pad_multiple  # noqa: E731
@@ -200,7 +251,8 @@ class GraphDataset:
             sel = idx[i : i + batch_size]
             if drop_last and len(sel) < batch_size:
                 continue
-            chunk = [self.graphs[j] for j in sel]
+            chunk = ([atoms_to_graph(self.atoms_list[j], self.cutoff, self.z_to_type, self.modal)
+                      for j in sel] if lazy else [self.graphs[j] for j in sel])
             n_at = sum(g.n_atoms_cap for g in chunk)
             yield batch_graphs(chunk, n_atoms_cap=rup(n_at + 1), n_graphs_cap=batch_size + 1,
                                dense_k=dense_k)
@@ -215,12 +267,42 @@ class GraphDataset:
                 mx = max(mx, int(np.bincount(g.edge_dst.numpy()).max()))
         return mx
 
+    # -- disk cache, in the JAX package's format (sevennet_tpu/data/
+    #    dataset.py:266-314): a cache written by either package loads in
+    #    the other ---------------------------------------------------------
     def save_cache(self, path: str):
-        raise NotImplementedError(f"the dataset disk cache is {_LATER}")
+        """Built graphs to ``{path}.npz`` (``g{i}_{key}`` arrays of
+        :data:`CACHE_KEYS` and ``n``) and the cutoff and statistics to
+        ``{path}.json``."""
+        import json
+
+        if not self.graphs:
+            raise ValueError("call build() first")
+        arrays = {f"g{i}_{key}": getattr(g, key).numpy()
+                  for i, g in enumerate(self.graphs) for key in CACHE_KEYS}
+        np.savez_compressed(path + ".npz", n=len(self.graphs), **arrays)
+        with open(path + ".json", "w") as f:
+            json.dump({"cutoff": self.cutoff, "statistics": self.statistics}, f)
 
     @staticmethod
     def load_cache(path: str) -> "GraphDataset":
-        raise NotImplementedError(f"the dataset disk cache is {_LATER}")
+        """The graphs and statistics of :meth:`save_cache` (no structures:
+        the statistics come from the cache)."""
+        import json
+
+        z = np.load(path + ".npz")
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        ds = GraphDataset([], meta["cutoff"])
+        ds.graphs = [graph_from_arrays(
+            z[f"g{i}_positions"], z[f"g{i}_species"], z[f"g{i}_edge_src"],
+            z[f"g{i}_edge_dst"], z[f"g{i}_edge_shift"], z[f"g{i}_cell"][0],
+            energy=float(z[f"g{i}_energy"][0]), forces=z[f"g{i}_forces"],
+            stress=z[f"g{i}_stress"][0], modal=int(z[f"g{i}_modal"][0]),
+            data_weight=tuple(z[f"g{i}_data_weight"][0].tolist()),
+        ) for i in range(int(z["n"]))]
+        ds._stats = meta["statistics"]
+        return ds
 
     def split(self, ratio: float, seed: int = 0):
         idx = np.arange(len(self.atoms_list))

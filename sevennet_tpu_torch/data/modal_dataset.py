@@ -14,7 +14,8 @@ multi-modal data config (``presets/multi_modal.yaml``)::
         file_list: [{file: a.extxyz}, ...]
         data_weight: {energy: 1.0, force: 0.1, stress: 1.0}
 
-Only extxyz files are read (the port's :meth:`GraphDataset.from_files`).
+Files are read by :meth:`GraphDataset.from_files` (any format
+:func:`~.readers.read_structures` takes).
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@ Checkpoints older than SevenNet 0.10 load as models with unnormalized
 spherical harmonics (:func:`patch_old_config`), which the port serves and
 trains through its emb/sh conv.
 
-Reading the JAX package's msgpack checkpoints and resolving pretrained
-model names are not ported yet (ROADMAP.md, queue A7).
+The JAX package's msgpack checkpoints are read by
+:mod:`~sevennet_tpu_torch.io.native_checkpoint` and pretrained model names
+resolved by :mod:`~sevennet_tpu_torch.io.registry`.
 """
 
 from __future__ import annotations

@@ -15,8 +15,11 @@ Large systems: when a layer's gathered edge tensor would pass
 :func:`~sevennet_tpu_torch.ops.fused_conv.chunk_threshold` and the spec
 asks for edge chunks (``_edge_chunk``), the engine sorts the atoms by cell
 (an interleaved cell-id order that keeps every edge's mirror within a few
-row chunks) and sizes the conv's ring backward (kernel B3); where the ring
-cannot be sized, the conv runs its chunked scatter backward.
+row chunks) and sizes the conv's ring backward (kernel B3 in vec mode, B4
+bwd's slot entry in emb/sh mode at W = 1); where the ring cannot be sized
+or is switched off (``SEVENNET_TPU_RING``: on by default in vec mode, off
+in emb/sh mode, as in the JAX engine), the conv runs its chunked scatter
+backward.
 
 The port's engine always runs the dense fused conv (the JAX package's
 ``dense=True, fused=True``). The NPT integrators scale the cell every step:
@@ -323,15 +326,23 @@ class MDEngine:
         return dict(src=src_d, shift=shift_d, mask=mask_d, mir=mir)
 
     def _size_ring(self, n_cap: int) -> int:
-        """Sizes the ring backward from the host-measured mirror window:
-        row chunk RC from the spec's edge chunk, window W = ceil(window /
-        RC) chunks, nb >= 2W + 1 chunks of RC rows. Returns the atom
+        """Sizes the ring backward from the host-measured mirror window, by
+        the JAX engine's rule (``sevennet_tpu/md/engine.py:530-602``).
+        ``SEVENNET_TPU_RING`` (0 or 1) says whether the ring may engage; by
+        default it does in vec mode and not in emb/sh mode. Vec mode: row
+        chunk RC from the spec's edge chunk, window W = ceil(window / RC)
+        chunks. Emb/sh mode: RC = max(edge_chunk // K, window) rows and W =
+        1. Either way nb >= 2W + 1 chunks of RC rows. Returns the atom
         capacity ``nb * RC`` (``n_cap`` when the ring stays off: chunking
-        not engaged, not vec mode, or too few chunks for the window, where
-        the conv runs its chunked scatter backward). The JAX package rounds
-        RC to its kernel's atom block; here RC is any row count."""
+        not engaged, the ring switched off, or too few chunks for the
+        window; a layer that chunks then runs the chunked scatter backward).
+        The JAX package rounds RC to its kernel's atom block; here RC is any
+        row count."""
         self.row_chunk = self._ring_nb = self._ring_w = 0
-        if not self.spec.edge_chunk or not _vec_mode(self.spec):
+        vec = _vec_mode(self.spec)
+        ring_env = os.environ.get("SEVENNET_TPU_RING")
+        use_ring = bool(int(ring_env)) if ring_env is not None else vec
+        if not self.spec.edge_chunk or not use_ring:
             return self._update_spec(n_cap)
         dim_x_max = max(layer.conv.irreps_x.dim for layer in self.spec.layers)
         if n_cap * self.k_model * dim_x_max * 4 <= chunk_threshold():
@@ -339,11 +350,11 @@ class MDEngine:
         if not self._ring_window:
             self._ring_window = int(np.ceil(1.5 * n_cap / max(self.cl_spec.n_cells[0], 1)))
         window = int(np.ceil(self._ring_margin * self._ring_window))
-        rc0 = max(self.spec.edge_chunk // self.k_model, 1)
+        rc0 = max(self.spec.edge_chunk // self.k_model, 1 if vec else window, 1)
         # small systems: grow RC (shrink nb) until the 2W+1 window fits
         for nb in range(n_cap // rc0, 2, -1):
             RC = -(-n_cap // nb)
-            W = max(1, -(-window // RC))
+            W = max(1, -(-window // RC)) if vec else 1
             if nb >= 2 * W + 1:
                 self.row_chunk, self._ring_nb, self._ring_w = RC, nb, W
                 return self._update_spec(nb * RC)

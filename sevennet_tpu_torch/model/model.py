@@ -132,8 +132,8 @@ def model_energy(
     vectors. ``plain=True`` runs the convolution's plain PyTorch version.
     The conv runs in vec mode or, when :func:`_vec_mode` says no, in emb/sh
     mode. A layer whose :func:`conv_row_chunk` is set runs the chunked
-    backward (the ring one when ``spec.conv_ring`` is set), in vec mode
-    only."""
+    backward (the ring one when ``spec.conv_ring`` is set), in either
+    mode."""
     dtype = edge_vec3.dtype
     K = graph.dense_k
     n_atoms = graph.n_atoms_cap
@@ -182,12 +182,9 @@ def model_energy(
                 row_chunk=row_chunk, ring=spec.conv_ring,
             )
         else:
-            if row_chunk:
-                raise NotImplementedError(
-                    "the chunked and ring conv of emb/sh mode are not ported yet "
-                    "(ROADMAP A.6): run this model unchunked (_edge_chunk: 0)")
             x = fused_conv_apply(layer.conv, layer.radial_mlp, conv_p["weight_nn"], x,
-                                 emb_nk, sh_nk, src_nk, mir_nk, plain=plain)
+                                 emb_nk, sh_nk, src_nk, mir_nk, plain=plain,
+                                 row_chunk=row_chunk, ring=spec.conv_ring)
         x = x / conv_p["denominator"][0]
         x = linear_apply(layer.si2, params[f"{t}_self_interaction_2"],
                          with_modal(f"{t}_self_interaction_2", x))

@@ -1,7 +1,6 @@
 """Fused convolution of the dense ``(N, K)`` layout: radial MLP, uvu tensor
 product and the sum over each receiver's neighbour slots, forward and
-backward (PyTorch port of ``sevennet_tpu/ops/fused_conv.py``; the chunked
-and ring paths of large systems are ported for vec mode only). Two modes,
+backward (PyTorch port of ``sevennet_tpu/ops/fused_conv.py``). Two modes,
 as in the JAX package:
 
 - vec mode (an :class:`EdgeEmbedSpec`): the kernels compute the radial
@@ -28,12 +27,18 @@ Hand-written CUDA kernels carry it on the card (``csrc/``):
   :func:`fused_conv_bwd_embsh` with ``param_grads=True`` run both;
 - ``fused_conv_bwd_slot`` (B3): replaces ``make_fused_conv_bwd2`` with
   ``out_slots > 1``: B2 on one row chunk, writing its ``dxg`` into a slot
-  of the ring backward's rolling buffer (:class:`FusedConvRingVec`).
+  of the ring backward's rolling buffer (:class:`FusedConvChunked`);
+  ``fused_conv_bwd_embsh_slot`` is B4 bwd's kernel entered the same way,
+  the emb/sh ring's per-chunk kernel.
 
-Large systems (vec mode, :func:`fused_conv_apply_vec` with ``row_chunk``)
-run the backward chunk by chunk: the ring backward (B3 per chunk and a
-windowed mirror gather) or the chunked scatter backward (B2 per chunk and
+Large systems (``row_chunk`` of :func:`fused_conv_apply_vec` and
+:func:`fused_conv_apply`) run the backward chunk by chunk, in either mode:
+the ring backward (B3 / B4 bwd into a slot per chunk and a windowed mirror
+gather) or the chunked scatter backward (B2 / B4 bwd per chunk and
 ``index_add_``); :func:`chunk_threshold` decides where chunking starts.
+The ext conv (:func:`fused_conv_apply_ext`, :func:`fused_conv_apply_ext_vec`:
+senders in an extended set of owned and ghost rows) always runs the
+chunked scatter backward.
 
 Each has a plain PyTorch twin with the same contract
 (``*_plain``). The wrappers take the plain version only
@@ -81,9 +86,10 @@ __all__ = [
     "mirror_map",
     "fused_conv_bwd_slot_plain",
     "fused_conv_bwd_slot",
+    "fused_conv_bwd_embsh_slot_plain",
+    "fused_conv_bwd_embsh_slot",
     "ring_slot",
-    "FusedConvChunkedVec",
-    "FusedConvRingVec",
+    "FusedConvChunked",
     "edge_embedding_plain",
     "fused_conv_fwd_plain",
     "fused_conv_bwd_plain",
@@ -110,6 +116,8 @@ __all__ = [
     "FusedConvBwdEmbSh",
     "FusedConvEmbSh",
     "fused_conv_apply",
+    "fused_conv_apply_ext",
+    "fused_conv_apply_ext_vec",
 ]
 
 
@@ -231,12 +239,13 @@ def mirror_map(src_nk: torch.Tensor, shift_nk: torch.Tensor, edge_mask_nk: torch
     return torch.where(hit, order[pos], torch.arange(N * K, device=dev)).view(N, K)
 
 
-# default of chunk_threshold(), a projection: the unchunked MD step's peak
-# memory at 99,999 atoms is 2.34 x the gathered edge tensor (26.33 GiB for
-# 12.10 GB, SevenNet-0 on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md, MD);
-# scaled linearly, a 60 GiB peak is reached at 27.6 GB. No step near that
-# size has been measured (ROADMAP A.6)
-CHUNK_THRESHOLD_BYTES = 27_500_000_000
+# default of chunk_threshold(), measured (chip_smoke.py --threshold-probe, an
+# NVIDIA H100 80GB HBM3 at 700 W; PERF.md): peak memory per byte of the
+# largest layer's gathered edge tensor, 2.3137 for an unchunked SevenNet-0
+# MD step at 199,998 atoms (52.13 GiB for 24.19 GB), 2.3386 for a 99,999-atom
+# request of SevenNet-0 and 2.5362 for its legacy (emb/sh) config; at the
+# largest of them a 60 GiB peak is reached at 25.4 GB gathered
+CHUNK_THRESHOLD_BYTES = 25_400_000_000
 
 
 def chunk_threshold() -> int:
@@ -246,13 +255,12 @@ def chunk_threshold() -> int:
     counterpart of ``sevennet_tpu/ops/fused_conv.py:chunk_threshold``, with
     the same override ``SEVENNET_TPU_CHUNK_THRESHOLD``. The JAX default
     (3 GB) was sized for a 16 GB chip; this one keeps the unchunked path,
-    the faster, wherever its peak, projected linearly from one MD step
-    measured at 99,999 atoms, stays under about 60 GiB of the H100's 80
-    GB: about 225k water atoms with SevenNet-0 (derivation and measured
-    peaks: PERF.md, MD). It is a projection: no unchunked step near the
-    threshold has been measured, and the calculator's and the trainer's
-    peaks per gathered byte not at all. Training refuses a layer that
-    chunks (:func:`~sevennet_tpu_torch.model.model.model_compute`)."""
+    the fastest, wherever its peak stays under about 60 GiB of the H100's
+    80 GB at the largest peak per gathered byte measured (the legacy
+    calculator's, :data:`CHUNK_THRESHOLD_BYTES`): about 210k water atoms
+    in SevenNet-0 MD. The trainer's peak per gathered byte is not
+    measured; training refuses a layer that chunks
+    (:func:`~sevennet_tpu_torch.model.model.model_compute`)."""
     return int(os.environ.get("SEVENNET_TPU_CHUNK_THRESHOLD", CHUNK_THRESHOLD_BYTES))
 
 
@@ -1316,6 +1324,51 @@ def fused_conv_bwd_embsh_pg_records(op: FusedConvOp, x, src, emb, sh, ws, ybar):
 fused_conv_bwd_embsh_pg_records.launches = 0
 
 
+def fused_conv_bwd_embsh_slot_plain(op: FusedConvOp, x, src_c, emb_c, sh_c, ws, ybar_c, buf,
+                                    slot: int):
+    """Plain twin of B4 bwd's slot entry: :func:`fused_conv_bwd_embsh_plain`
+    on the rows of one chunk (``src_c (RC, K)``, ``emb_c (RC*K, n_basis)``,
+    ``sh_c (RC*K, dim_f)``, ``ybar_c (RC, dim_mid)``; ``x`` holds every
+    atom), its ``dxg`` written into rows ``[slot * RC*K, (slot + 1) *
+    RC*K)`` of ``buf`` in place, the other rows untouched. Returns the
+    chunk's ``(demb, dsh)``."""
+    _check_slot(op, src_c, buf, slot, x.device)
+    dxg, demb, dsh = fused_conv_bwd_embsh_plain(op, x, src_c, emb_c, sh_c, ws, ybar_c)
+    rck = src_c.numel()
+    buf[slot * rck:(slot + 1) * rck] = dxg
+    return demb, dsh
+
+
+def fused_conv_bwd_embsh_slot(op: FusedConvOp, x, src_c, emb_c, sh_c, ws, ybar_c, buf,
+                              slot: int):
+    """The emb/sh ring backward's per-chunk kernel: B4 bwd on one row chunk
+    with its ``dxg`` written in place into slot ``slot`` of the rolling
+    buffer ``buf (S * RC*K, dim_x)``; returns ``(demb, dsh)`` of the chunk.
+    CPU tensors: :func:`fused_conv_bwd_embsh_slot_plain`. CUDA tensors: the
+    ``fused_conv_bwd_embsh_slot`` entry (``csrc/fused_conv_bwd.cu``), B4
+    bwd's kernel launched on the chunk with its output at the slot."""
+    check_conv_inputs(op, True, x, src_c, emb_c, sh_c, ws, ybar_c)
+    _check_slot(op, src_c, buf, slot, x.device)
+    if x.device.type == "cpu":
+        return fused_conv_bwd_embsh_slot_plain(op, x, src_c, emb_c, sh_c, ws, ybar_c, buf, slot)
+    RC, K = src_c.shape
+    dims = op.dims(RC, K)
+    check_carve("fused_conv_bwd", op, dims, bwd=True)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    demb = torch.empty((RC * K, op.n_basis), **f32)
+    dsh = torch.empty((RC * K, op.dim_f), **f32)
+    itab, ftab = op.device_tables(x.device)
+    _call("fused_conv_bwd", "fused_conv_bwd_embsh_slot_launch", dims, ctypes.c_int(op.plan.mblk),
+          _ptr(x), _ptr(src_c), _ptr(emb_c), _ptr(sh_c), _mlp_weights(ws), _ptr(ybar_c),
+          _ptr(itab), _ptr(ftab), _ptr(buf), ctypes.c_int(slot), _ptr(demb), _ptr(dsh),
+          _stream(x.device))
+    fused_conv_bwd_embsh_slot.launches += 1
+    return demb, dsh
+
+
+fused_conv_bwd_embsh_slot.launches = 0
+
+
 REDUCE_LAYOUT = (REDUCE_NT, REDUCE_TM, REDUCE_TN, REDUCE_RK, REDUCE_SA, REDUCE_SB,
                  REDUCE_MAX_CHUNK, REDUCE_MAX_TILES, MAX_MLP + 1)
 
@@ -1509,129 +1562,207 @@ def ring_slot(c: int, W: int) -> int:
 
 def _summed(total, part):
     """``total + part`` entrywise (``part`` when ``total`` is None): the
-    per-chunk parameter gradients ``[dcoef, *dws]`` summed in chunk order."""
+    per-chunk parameter gradients summed in chunk order."""
     return list(part) if total is None else [a + b for a, b in zip(total, part)]
 
 
-class FusedConvChunkedVec(torch.autograd.Function):
-    """Vec-mode conv of a large system with the chunked scatter backward
-    (the port of ``_fused_conv_chunked_v``,
-    ``sevennet_tpu/ops/fused_conv.py:1606-1691``). The row count must be a
-    multiple of ``RC``.
-
-    Forward: one B1 launch over all rows (the JAX chunk loop bounds an XLA
-    gather of ``x[src]`` that B1 does inside the kernel; the function is
-    the same). Backward, chunk by chunk: B2 (B2′ when a parameter needs a
-    gradient, summed in chunk order), then ``dxg`` added into ``dx`` at
-    the chunk's senders with ``index_add_``, and the chunk's ``dvec``
-    columns copied out: no ``(N*K, dim_x)`` tensor exists at once. The
-    MD engine falls back to it when the ring cannot be sized. First order
-    only: a second backward raises, as the JAX path offers no
-    grad-of-grad."""
-
-    @staticmethod
-    def forward(ctx, op, RC, x, vec, coef, src, *ws):
-        ctx.op, ctx.RC = op, RC
-        ctx.save_for_backward(x, vec, coef, src, *ws)
-        return fused_conv_fwd(op, x, src, vec, coef, ws)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ybar):
-        x, vec, coef, src, *ws = ctx.saved_tensors
-        op, RC = ctx.op, ctx.RC
-        need = ctx.needs_input_grad  # (op, RC, x, vec, coef, src, *ws)
-        param_grads = bool(need[4] or any(need[6:]))
-        ybar = ybar.contiguous()
-        N, K = src.shape
-        dx = torch.zeros_like(x)
-        dvec = torch.empty_like(vec)
-        pg = None
-        for j in range(N // RC):
-            src_c, vec_c, yb = _chunk(RC, K, j, src, vec, ybar)
-            outs = fused_conv_bwd(op, x, src_c, vec_c, coef, ws, yb, param_grads=param_grads)
-            if param_grads:
-                pg = _summed(pg, [outs[3], *outs[2]])
-            dx.index_add_(0, src_c.reshape(-1).long(), outs[0])
-            dvec[:, j * RC * K:(j + 1) * RC * K] = outs[1]
-        dcoef, *dws = pg or [None] * (1 + len(ws))
-        return (None, None, dx, dvec, dcoef, None, *dws)
+def _scatter_loop(x, src, RC: int, chunk_bwd):
+    """The chunked scatter backward's loop, for either mode: chunk by chunk,
+    ``chunk_bwd(j)`` gives the chunk's ``dxg (RC*K, dim_x)`` and parameter
+    gradients (None without), and ``dxg`` is added into ``dx`` at the
+    chunk's senders with ``index_add_``. ``dx`` has ``x``'s rows, which may
+    be more than the receivers (the ext conv's ghost senders). Returns
+    ``(dx, parameter gradients summed in chunk order)``."""
+    dx = torch.zeros_like(x)
+    pg = None
+    for j in range(src.shape[0] // RC):
+        dxg, pg_c = chunk_bwd(j)
+        dx.index_add_(0, src[j * RC:(j + 1) * RC].reshape(-1).long(), dxg)
+        if pg_c is not None:
+            pg = _summed(pg, pg_c)
+    return dx, pg
 
 
-class FusedConvRingVec(torch.autograd.Function):
-    """Vec-mode conv of a large, cell-sorted system with the rolling-buffer
-    ring backward (the port of ``_fused_conv_ring_v`` and
-    ``_fused_conv_ring_v_bwd``, ``sevennet_tpu/ops/fused_conv.py:1962-2157``).
-    Contract (the MD engine sizes it and re-checks it at every rebuild;
-    :func:`fused_conv_apply_vec` raises on a call that breaks it):
-    ``N = nb * RC`` rows, ``nb >= 2W + 1``, and the mirror of every edge of
-    chunk ``i`` lies in chunks ``i - W .. i + W``, circularly.
-
-    Forward: one B1 launch over all rows. Backward: a buffer of ``S = 4W +
-    1`` slots of ``RC*K`` rows keeps the window's ``dxg`` live. Chunks 0 ..
+def _ring_loop(x, mir, RC: int, W: int, chunk_bwd):
+    """The ring backward's loop, for either mode: a buffer of ``S = 4W + 1``
+    slots of ``RC*K`` rows keeps the window's ``dxg`` live. Chunks 0 ..
     2W-1 sit pinned in slots ``2W+1 .. 4W`` (the wrapped windows of the
     first and last W destinations need them at the end); the others cycle
-    through slot ``c % (2W + 1)``. Iteration ``j`` runs B3 on chunk ``j``
-    into its slot and, once ``j >= 2W``, emits destination ``j - W``,
-    whose window is then computed: ``dx`` of its rows is the sum of the
-    buffer rows of its mirrors, each gathered once. A gather-only epilogue
-    emits the 2W wrapped destinations. With parameter gradients each chunk
-    runs B2′ (summed in chunk order) and its ``dxg`` is copied into the
-    slot. The JAX package's window-local gather of ``x``
-    (``_windowed_xg``, ``:1937-1958``) speeds up an XLA row gather; the
-    kernels here gather ``x[src]`` themselves and have no counterpart of
-    it. First order only: a second backward raises, as the JAX ring path
-    offers no grad-of-grad."""
+    through slot ``c % (2W + 1)`` (:func:`ring_slot`). Iteration ``j`` runs
+    ``chunk_bwd(j, (buf, slot))``, which writes chunk ``j``'s ``dxg`` into
+    its slot and gives its parameter gradients (None without), and, once
+    ``j >= 2W``, emits destination ``j - W``, whose window is then
+    computed: ``dx`` of its rows is the sum of the buffer rows of its
+    mirrors, each gathered once. A gather-only epilogue emits the 2W
+    wrapped destinations. Returns ``(dx, parameter gradients summed in
+    chunk order)``."""
+    N, K = mir.shape
+    nb, rck = N // RC, RC * K
+    slots = torch.tensor([ring_slot(c, W) for c in range(nb)], device=x.device)
+    buf = torch.empty(((4 * W + 1) * rck, x.shape[1]), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+
+    def emit(i):
+        m = mir[i * RC:(i + 1) * RC].reshape(-1)
+        q = m // rck
+        rows = slots[q] * rck + (m - q * rck)
+        dx[i * RC:(i + 1) * RC] = buf[rows].view(RC, K, -1).sum(1)
+
+    pg = None
+    for j in range(nb):
+        pg_c = chunk_bwd(j, (buf, ring_slot(j, W)))
+        if pg_c is not None:
+            pg = _summed(pg, pg_c)
+        if j >= 2 * W:
+            emit(j - W)
+    for d in [*range(W), *range(nb - W, nb)]:
+        emit(d)
+    return dx, pg
+
+
+class FusedConvChunked(torch.autograd.Function):
+    """The conv of a large system with its backward chunk by chunk, in
+    either mode: ``(a, b)`` is ``(vec, coef)`` in vec mode (the port of
+    ``_fused_conv_chunked_v`` and ``_fused_conv_ring_v``,
+    ``sevennet_tpu/ops/fused_conv.py:1606-1691`` and ``:1962-2157``) and
+    ``(emb, sh)`` in emb/sh mode (``_fused_conv_chunked`` and
+    ``_fused_conv_ring``, ``:1704-1781`` and ``:1803-1918``). The row count
+    must be a multiple of ``RC``.
+
+    Forward: one B1 / B4 launch over all rows (the JAX chunk loop bounds an
+    XLA gather of ``x[src]`` that the kernel does itself; the function is
+    the same). Backward, chunk by chunk, on the chunk's own ``src``,
+    ``ybar`` and edge rows (the chunk's ``emb``/``sh`` rows pair with its
+    ``src`` rows: the port has no k-major block layout to mismatch):
+
+    - ``W == 0``, the chunked scatter backward (:func:`_scatter_loop`): B2
+      / B4 bwd, and ``dxg`` added into ``dx`` at the chunk's senders; it
+      takes any atom order and a sender set larger than the receivers (the
+      ext conv);
+    - ``W > 0``, the ring backward (:func:`_ring_loop`) of a cell-sorted
+      system: ``N = nb * RC``, ``nb >= 2W + 1``, and the mirror of every
+      edge of chunk ``i`` in chunks ``i - W .. i + W``, circularly
+      (:func:`fused_conv_apply_vec` raises on a call that breaks it). B3 /
+      B4 bwd's slot entry write ``dxg`` into the chunk's slot.
+
+    With parameter gradients each chunk runs B2′ / B4′ (summed in chunk
+    order; in the ring its ``dxg`` is copied into the slot). The edge
+    cotangents (``dvec`` columns, ``demb``/``dsh`` rows) are copied out per
+    chunk: no ``(N*K, dim_x)`` tensor exists at once. The JAX package's
+    window-local gather of ``x`` (``_windowed_xg``, ``:1937-1958``) speeds
+    up an XLA row gather; the kernels gather ``x[src]`` themselves and have
+    no counterpart of it. First order only: a second backward raises, as
+    the JAX chunked and ring paths offer no grad-of-grad."""
 
     @staticmethod
-    def forward(ctx, op, RC, W, x, vec, coef, src, mir, *ws):
+    def forward(ctx, op, RC, W, x, a, b, src, mir, *ws):
         ctx.op, ctx.RC, ctx.W = op, RC, W
-        ctx.save_for_backward(x, vec, coef, src, mir, *ws)
-        return fused_conv_fwd(op, x, src, vec, coef, ws)
+        ctx.save_for_backward(x, a, b, src, mir, *ws)
+        fwd = fused_conv_fwd if op.embed is not None else fused_conv_fwd_embsh
+        return fwd(op, x, src, a, b, ws)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ybar):
-        x, vec, coef, src, mir, *ws = ctx.saved_tensors
+        x, a, b, src, mir, *ws = ctx.saved_tensors
         op, RC, W = ctx.op, ctx.RC, ctx.W
-        need = ctx.needs_input_grad  # (op, RC, W, x, vec, coef, src, mir, *ws)
-        param_grads = bool(need[5] or any(need[8:]))
+        vec = op.embed is not None
+        need = ctx.needs_input_grad  # (op, RC, W, x, a, b, src, mir, *ws)
+        param_grads = bool(any(need[8:]) or (vec and need[5]))
         ybar = ybar.contiguous()
-        N, K = src.shape
-        nb, rck = N // RC, RC * K
-        slots = torch.tensor([ring_slot(c, W) for c in range(nb)], device=x.device)
-        buf = torch.empty(((4 * W + 1) * rck, op.dim_x), dtype=torch.float32, device=x.device)
-        dx = torch.empty_like(x)
-        dvec = torch.empty_like(vec)
+        K = src.shape[1]
+        rck = RC * K
+        da = torch.empty_like(a)
+        db = None if vec else torch.empty_like(b)
 
-        def emit(i):
-            m = mir[i * RC:(i + 1) * RC].reshape(-1)
-            q = m // rck
-            rows = slots[q] * rck + (m - q * rck)
-            dx[i * RC:(i + 1) * RC] = buf[rows].view(RC, K, -1).sum(1)
-
-        pg = None
-        for j in range(nb):
-            src_c, vec_c, yb = _chunk(RC, K, j, src, vec, ybar)
-            s = ring_slot(j, W)
-            if param_grads:
-                dxg, dvec_c, dws_c, dcoef_c = fused_conv_bwd(op, x, src_c, vec_c, coef, ws, yb,
-                                                             param_grads=True)
-                buf[s * rck:(s + 1) * rck] = dxg
-                pg = _summed(pg, [dcoef_c, *dws_c])
+        def chunk_bwd(j, slot=None):
+            rows = slice(j * rck, (j + 1) * rck)
+            src_c, yb = src[j * RC:(j + 1) * RC], ybar[j * RC:(j + 1) * RC]
+            if vec:
+                a_c, b_c = a[:, rows].contiguous(), b
             else:
-                dvec_c = fused_conv_bwd_slot(op, x, src_c, vec_c, coef, ws, yb, buf, s)
-            dvec[:, j * rck:(j + 1) * rck] = dvec_c
-            if j >= 2 * W:
-                emit(j - W)
-        for d in [*range(W), *range(nb - W, nb)]:
-            emit(d)
-        dcoef, *dws = pg or [None] * (1 + len(ws))
-        return (None, None, None, dx, dvec, dcoef, None, None, *dws)
+                a_c, b_c = a[rows], b[rows]
+            if slot is not None and not param_grads:
+                slot_fn = fused_conv_bwd_slot if vec else fused_conv_bwd_embsh_slot
+                edge = slot_fn(op, x, src_c, a_c, b_c, ws, yb, *slot)
+                dxg, pg = None, None
+            else:
+                bwd = fused_conv_bwd if vec else fused_conv_bwd_embsh
+                outs = bwd(op, x, src_c, a_c, b_c, ws, yb, param_grads=param_grads)
+                dxg, edge = outs[0], outs[1] if vec else outs[1:3]
+                pg = ([outs[3], *outs[2]] if vec else list(outs[3])) if param_grads else None
+                if slot is not None:
+                    buf, s = slot
+                    buf[s * rck:(s + 1) * rck] = dxg
+            if vec:
+                da[:, rows] = edge
+            else:
+                da[rows], db[rows] = edge
+            return pg if slot is not None else (dxg, pg)
+
+        if W:
+            dx, pg = _ring_loop(x, mir, RC, W, chunk_bwd)
+        else:
+            dx, pg = _scatter_loop(x, src, RC, chunk_bwd)
+        if vec:
+            db, *dws = pg or [None] * (1 + len(ws))
+        else:
+            dws = pg or [None] * len(ws)
+        return (None, None, None, dx, da, db, None, None, *dws)
 
 
 def _weights(mlp_params):
     return tuple(mlp_params["w"]) if isinstance(mlp_params, dict) else tuple(mlp_params)
+
+
+def _apply_chunked(op, x, a, b, src, mir, ws, row_chunk: int, ring: int, cutoff=None):
+    """:class:`FusedConvChunked` as both modes' apply functions call it:
+    ``(a, b)`` is ``(vec, coef)`` (vec mode) or ``(emb, sh)``, all
+    contiguous, ``src`` int32, ``mir`` int64 (None for the scatter
+    backward). ``ring = W > 0`` runs the ring backward after checking its
+    contract: the rows split into ``nb >= 2W + 1`` chunks of ``RC``, and
+    every edge's mirror within W chunks of its row (one host read; a call
+    that breaks it raises). Otherwise the chunked scatter backward, the rows
+    padded to a multiple of ``RC`` with zero features, sender 0 and inert
+    edges (sentinel vectors past ``cutoff`` in vec mode, zero ``emb`` and
+    ``sh`` in emb/sh mode; ``sevennet_tpu/ops/fused_conv.py:2196-2216``,
+    ``:2267-2289``), whose senders get exact zeros; ``x`` is padded only
+    where it has fewer rows than the padded receivers. Returns the
+    receivers' ``(n, dim_mid)``."""
+    n, K = src.shape
+    RC = int(row_chunk)
+    if ring:
+        W = int(ring)
+        if n % RC or n // RC < 2 * W + 1:
+            raise ValueError(f"the ring backward needs row_chunk ({RC}) to divide the row count "
+                             f"({n}) into >= 2W+1 = {2 * W + 1} chunks")
+        # a mirror farther than W chunks from its row would be read from a
+        # slot that already holds another chunk; unmatched and padded slots
+        # are their own mirrors
+        nb = n // RC
+        rows = torch.arange(n, device=mir.device)[:, None] // RC
+        d = torch.remainder(mir // K // RC - rows, nb)
+        if bool(((d > W) & (d < nb - W)).any()):
+            raise ValueError(f"the ring backward needs every edge's mirror within W = {W} chunks "
+                             f"of {RC} rows of its own row: sort the atoms by cell (MDEngine "
+                             "does), or run with conv_ring 0 (the chunked scatter backward)")
+        return FusedConvChunked.apply(op, RC, W, x, a, b, src, mir, *ws)
+    pad = -n % RC
+    if pad:
+        if op.embed is not None:
+            sentinel = torch.zeros((3, pad * K), dtype=a.dtype, device=a.device)
+            sentinel[0] = 2.0 * cutoff
+            a = torch.cat([a, sentinel], 1)
+        else:
+            a, b = (torch.cat([t, t.new_zeros((pad * K, t.shape[1]))]) for t in (a, b))
+        src = torch.cat([src, src.new_zeros((pad, K))])
+    if x.shape[0] < n + pad:
+        x = torch.cat([x, x.new_zeros((n + pad - x.shape[0], x.shape[1]))])
+    return FusedConvChunked.apply(op, RC, 0, x, a, b, src, None, *ws)[:n]
+
+
+def _int32(src: torch.Tensor) -> torch.Tensor:
+    return (src if src.dtype == torch.int32 else src.to(torch.int32)).contiguous()
 
 
 def fused_conv_apply_vec(
@@ -1653,12 +1784,11 @@ def fused_conv_apply_vec(
     port of ``sevennet_tpu/ops/fused_conv.py:fused_conv_apply_vec``).
 
     ``row_chunk = RC`` (rows, any positive count) below the row count runs
-    the backward chunk by chunk: with ``ring = W > 0`` the ring backward
-    (:class:`FusedConvRingVec`; the rows must split into ``nb >= 2W + 1``
+    the backward chunk by chunk (:class:`FusedConvChunked`): with ``ring =
+    W > 0`` the ring backward (the rows must split into ``nb >= 2W + 1``
     chunks of ``RC``, and every edge's mirror must lie within W chunks of
     its row, as the MD engine's cell sort makes it: a call that breaks this
-    raises), else the chunked
-    scatter backward (:class:`FusedConvChunkedVec`), the rows padded to a
+    raises), else the chunked scatter backward, the rows padded to a
     multiple of ``RC`` with zero features and sentinel edge vectors.
     Without it, the unchunked mirror backward (:class:`FusedConvVec`).
 
@@ -1670,43 +1800,12 @@ def fused_conv_apply_vec(
     coef = bessel_coef.reshape(-1)
     if plain:
         return fused_conv_fwd_plain(op, x, src_nk, vec_rows, coef, ws)
-    src = src_nk if src_nk.dtype == torch.int32 else src_nk.to(torch.int32)
-    args = (x.contiguous(), vec_rows.contiguous(), coef.contiguous(), src.contiguous())
+    args = (x.contiguous(), vec_rows.contiguous(), coef.contiguous())
     ws = [w.contiguous() for w in ws]
-    n, K = src_nk.shape
-    if not (row_chunk and row_chunk < n):
-        return FusedConvVec.apply(op, *args, mir_nk.long(), *ws)
-    RC = int(row_chunk)
-    if ring:
-        W = int(ring)
-        if n % RC or n // RC < 2 * W + 1:
-            raise ValueError(f"the ring backward needs row_chunk ({RC}) to divide the row count "
-                             f"({n}) into >= 2W+1 = {2 * W + 1} chunks")
-        mir = mir_nk.long()
-        # the ring's contract, checked on every call (one host read): a
-        # mirror farther than W chunks from its row would be read from a
-        # slot that already holds another chunk. Unmatched and padded slots
-        # are their own mirrors.
-        nb = n // RC
-        rows = torch.arange(n, device=mir.device)[:, None] // RC
-        d = torch.remainder(mir // K // RC - rows, nb)
-        if bool(((d > W) & (d < nb - W)).any()):
-            raise ValueError(f"the ring backward needs every edge's mirror within W = {W} chunks "
-                             f"of {RC} rows of its own row: sort the atoms by cell (MDEngine "
-                             "does), or run with conv_ring 0 (the chunked scatter backward)")
-        return FusedConvRingVec.apply(op, RC, W, *args, mir, *ws)
-    pad = -n % RC
-    if pad:
-        # padded rows: zero features, sentinel vectors past the cutoff
-        # (sevennet_tpu/ops/fused_conv.py:2267-2289); their senders (atom 0)
-        # get exact zeros
-        x_p, vec_p, coef_c, src_p = args
-        sentinel = torch.zeros((3, pad * K), dtype=vec_p.dtype, device=vec_p.device)
-        sentinel[0] = 2.0 * embed.cutoff
-        args = (torch.cat([x_p, x_p.new_zeros((pad, x_p.shape[1]))]),
-                torch.cat([vec_p, sentinel], 1), coef_c,
-                torch.cat([src_p, src_p.new_zeros((pad, K))]))
-    return FusedConvChunkedVec.apply(op, RC, *args, *ws)[:n]
+    if row_chunk and row_chunk < src_nk.shape[0]:
+        return _apply_chunked(op, *args, _int32(src_nk), mir_nk.long(), ws, row_chunk, ring,
+                              embed.cutoff)
+    return FusedConvVec.apply(op, *args, _int32(src_nk), mir_nk.long(), *ws)
 
 
 def fused_conv_apply(
@@ -1720,12 +1819,19 @@ def fused_conv_apply(
     mir_nk: torch.Tensor,        # (N, K) flat mirror indices
     *,
     plain: bool = False,
+    row_chunk: int = 0,
+    ring: int = 0,
 ) -> torch.Tensor:
     """The emb/sh-mode fused conv as the model calls it: ``(N, dim_mid)``
-    (the port of ``sevennet_tpu/ops/fused_conv.py:fused_conv_apply``
-    without its chunked and ring paths, ``:1704-1781`` and ``:1803-1918``,
-    which are still to port: the model refuses to chunk in emb/sh mode).
+    (the port of ``sevennet_tpu/ops/fused_conv.py:fused_conv_apply``).
     Gradients reach ``x``, ``emb``, ``sh`` and the MLP weights.
+
+    ``row_chunk`` and ``ring`` as in :func:`fused_conv_apply_vec`: the
+    chunked scatter backward (rows padded with zero ``x``, ``emb`` and
+    ``sh`` and sender 0) or, with ``ring = W``, the ring backward on B4
+    bwd's slot entry (the JAX package's emb/sh ring is W = 1, which the MD
+    engine sizes). Without ``row_chunk``, the unchunked mirror backward
+    (:class:`FusedConvEmbSh`).
 
     ``plain=True`` runs :func:`fused_conv_fwd_embsh_plain` under ordinary
     autograd instead of the kernels, on any device."""
@@ -1735,8 +1841,69 @@ def fused_conv_apply(
     emb, sh = emb_nk.reshape(N * K, -1), sh_nk.reshape(N * K, -1)
     if plain:
         return fused_conv_fwd_embsh_plain(op, x, src_nk, emb, sh, ws)
-    src = src_nk if src_nk.dtype == torch.int32 else src_nk.to(torch.int32)
-    return FusedConvEmbSh.apply(
-        op, x.contiguous(), emb.contiguous(), sh.contiguous(), src.contiguous(),
-        mir_nk.long(), *[w.contiguous() for w in ws],
-    )
+    args = (x.contiguous(), emb.contiguous(), sh.contiguous())
+    ws = [w.contiguous() for w in ws]
+    if row_chunk and row_chunk < N:
+        return _apply_chunked(op, *args, _int32(src_nk), mir_nk.long(), ws, row_chunk, ring)
+    return FusedConvEmbSh.apply(op, *args, _int32(src_nk), mir_nk.long(), *ws)
+
+
+def fused_conv_apply_ext_vec(
+    conv: ConvTPSpec,
+    mlp_spec: ScalarMLPSpec,
+    mlp_params,
+    bessel_coef: torch.Tensor,   # (n_basis,) or (n_basis, 1)
+    embed: EdgeEmbedSpec,
+    x_ext: torch.Tensor,         # (N_ext, dim_x): owned rows first, then ghosts
+    vec_rows: torch.Tensor,      # (3, N*K) receiver-major, sentinel on padding
+    src_nk: torch.Tensor,        # (N, K) indices into x_ext
+    *,
+    plain: bool = False,
+    row_chunk: int = 0,
+) -> torch.Tensor:
+    """Vec-mode fused conv whose senders index an extended feature set
+    (owned and ghost rows, distributed MD): ``(N, dim_mid)`` for the ``N``
+    receivers of ``src_nk`` (the port of
+    ``sevennet_tpu/ops/fused_conv.py:fused_conv_apply_ext_vec``). Always
+    the chunked scatter backward (chunks of ``row_chunk`` rows, or one of
+    all rows), so the x-cotangent covers the ghost rows too; see
+    :func:`fused_conv_apply_ext`."""
+    op = conv_op(conv, mlp_spec, embed)
+    ws = _weights(mlp_params)
+    coef = bessel_coef.reshape(-1)
+    if plain:
+        return fused_conv_fwd_plain(op, x_ext, src_nk, vec_rows, coef, ws)
+    return _apply_chunked(op, x_ext.contiguous(), vec_rows.contiguous(), coef.contiguous(),
+                          _int32(src_nk), None, [w.contiguous() for w in ws],
+                          min(row_chunk or src_nk.shape[0], src_nk.shape[0]), 0, embed.cutoff)
+
+
+def fused_conv_apply_ext(
+    conv: ConvTPSpec,
+    mlp_spec: ScalarMLPSpec,
+    mlp_params,
+    x_ext: torch.Tensor,         # (N_ext, dim_x): owned rows first, then ghosts
+    emb_nk: torch.Tensor,        # (N, K, n_basis), zero on padded slots
+    sh_nk: torch.Tensor,         # (N, K, dim_f)
+    src_nk: torch.Tensor,        # (N, K) indices into x_ext
+    *,
+    plain: bool = False,
+    row_chunk: int = 0,
+) -> torch.Tensor:
+    """Emb/sh-mode fused conv whose senders index an extended feature set
+    (owned and ghost rows, distributed domain decomposition): ``(N,
+    dim_mid)`` for the ``N`` receivers of ``src_nk`` (the port of
+    ``sevennet_tpu/ops/fused_conv.py:fused_conv_apply_ext``). Always the
+    chunked scatter backward: the mirror reduction assumes a symmetric
+    neighbour list, which domain boundaries break (a ghost sender's reverse
+    edge lives on another rank), so ``dx`` covers every row of ``x_ext``
+    and flows back through the halo exchange's transpose."""
+    op = conv_op(conv, mlp_spec, None)
+    ws = _weights(mlp_params)
+    N, K = src_nk.shape
+    emb, sh = emb_nk.reshape(N * K, -1), sh_nk.reshape(N * K, -1)
+    if plain:
+        return fused_conv_fwd_embsh_plain(op, x_ext, src_nk, emb, sh, ws)
+    return _apply_chunked(op, x_ext.contiguous(), emb.contiguous(), sh.contiguous(),
+                          _int32(src_nk), None, [w.contiguous() for w in ws],
+                          min(row_chunk or N, N), 0)

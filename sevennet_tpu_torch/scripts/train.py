@@ -14,8 +14,12 @@ B2′ backward with parameter gradients), their plain versions on the CPU.
 A data config in the reference's multi-modal format (entries with
 ``data_modality``) trains a multi-fidelity model: ``use_modality``,
 ``num_modalities`` and ``modal_map`` come from the data, batches mix the
-modalities, and the checkpoint keeps the map. Not ported yet (ROADMAP.md,
-queue A): data-parallel training, readers other than extxyz.
+modalities, and the checkpoint keeps the map. Structure files are read in
+any format :func:`~sevennet_tpu_torch.data.readers.read_structures` takes,
+and ``preprocess_num_cores`` builds the graphs over that many processes.
+As the JAX train script, this one trains on one device: data-parallel
+training is :class:`~sevennet_tpu_torch.train.trainer.Trainer`'s
+``data_parallel`` under a process group the caller starts.
 """
 
 from __future__ import annotations

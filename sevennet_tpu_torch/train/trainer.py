@@ -12,8 +12,18 @@ the JAX package composes ``jax.grad``.
 
 The learning rate is set per epoch (``set_epoch``) as
 ``schedule(epoch) x plateau factor``, the reference's per-epoch
-``scheduler.step()`` (``trainer.py:177-184``). Data parallelism (the JAX
-package's ``dp`` mesh, the reference's DDP) is not ported yet.
+``scheduler.step()`` (``trainer.py:177-184``).
+
+Data parallelism (``data_parallel=True``; the JAX package's ``Trainer(mesh=
+...)`` over a ``dp`` mesh axis, ``sevennet_tpu/train/trainer.py:186-221``;
+the reference's DDP) runs on ``torch.distributed``, one process a device,
+under a process group the caller starts (:func:`init_process_group`:
+``nccl`` on the card, ``gloo`` on the CPU). The parameters are broadcast
+from rank 0 at construction; each rank steps on its own batch, and the
+gradients are summed over the ranks in one flattened bucket and divided by
+the world size, so that every rank applies the same update; the step's
+losses are averaged over the ranks and the error recorder's accumulators
+summed.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ from .error_recorder import (
 from .loss import LossConfig, compute_losses
 from .optim import build_optimizer, build_schedule, set_lr, trainable_mask
 
-__all__ = ["TrainerConfig", "Trainer", "tree_leaves", "tree_map"]
+__all__ = ["TrainerConfig", "Trainer", "tree_leaves", "tree_map", "init_process_group"]
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -62,6 +72,28 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def init_process_group(init_method: str, rank: int, world_size: int,
+                       device: Optional[str] = None):
+    """Starts the default ``torch.distributed`` group of data-parallel
+    training with the backend of the device the trainer runs on: ``nccl``
+    for ``cuda`` (the default), ``gloo`` for ``device="cpu"``.
+    ``init_method`` is a ``tcp://host:port`` or ``file://`` address; one
+    process a device."""
+    import torch.distributed as dist
+
+    backend = "gloo" if resolve_device(device).type == "cpu" else "nccl"
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size)
+
+
+def _flat_collective(tensors: List[torch.Tensor], collective) -> List[torch.Tensor]:
+    """``collective`` (``dist.all_reduce``, a broadcast) on the
+    concatenation of ``tensors`` (one dtype and device), one call for all:
+    the results, shaped as ``tensors``."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    collective(flat)
+    return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 @dataclass
 class TrainerConfig:
     loss: LossConfig = field(default_factory=LossConfig)
@@ -82,10 +114,14 @@ class Trainer:
         config: Optional[TrainerConfig] = None,
         device: Optional[str] = None,
         plain: bool = False,
+        data_parallel: bool = False,
     ):
         """``params``: the port's parameter tree; the trainer keeps its own
         copy on ``device`` (``cuda`` unless ``device="cpu"``). ``plain=True``
-        runs the conv's plain PyTorch version instead of the kernels."""
+        runs the conv's plain PyTorch version instead of the kernels.
+        ``data_parallel=True`` trains as one rank of the default process
+        group, which must be started (:func:`init_process_group`); the
+        parameters are then rank 0's."""
         self.spec = spec
         self.config = config or TrainerConfig()
         self.device = resolve_device(device)
@@ -96,6 +132,20 @@ class Trainer:
             params, mask,
         )
         self.trainable = [p for p in tree_leaves(self.params) if p.requires_grad]
+        self.world = 1
+        if data_parallel:
+            import torch.distributed as dist
+
+            if not dist.is_initialized():
+                raise ValueError("data_parallel needs a started process group "
+                                 "(trainer.init_process_group)")
+            self.world = dist.get_world_size()
+            leaves = tree_leaves(self.params)
+            with torch.no_grad():
+                for p, v in zip(leaves, _flat_collective(leaves,
+                                                         lambda t: dist.broadcast(t, src=0))):
+                    p.copy_(v)
+        self.data_parallel = data_parallel
         self.optimizer = build_optimizer(
             self.config.optimizer, self.trainable, self.config.lr, self.config.optim_param
         )
@@ -174,14 +224,35 @@ class Trainer:
 
     def train_step(self, graph: GraphBatch) -> Tuple[Dict[str, torch.Tensor], Dict]:
         """One optimizer step on ``graph``; the gradients stay in ``.grad``
-        of the trainable leaves until the next step."""
+        of the trainable leaves until the next step. Data-parallel: this
+        rank's batch; gradients, losses and metrics over all ranks."""
         graph = graph.to(self.device)
         self.optimizer.zero_grad(set_to_none=True)
         total, losses, acc = self._loss_and_metrics(self.params, graph)
         total.backward()
+        if self.data_parallel:
+            losses, acc = self._reduce_ranks(losses, acc)
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in losses.items()}, acc
+
+    def _reduce_ranks(self, losses, acc):
+        """Data-parallel step: each trainable leaf's gradient becomes the
+        mean over the ranks (a leaf without one on this rank, as on every
+        rank with the same model, keeps none), the losses their mean and
+        the recorder's accumulators their sums; one bucket each."""
+        import torch.distributed as dist
+
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.trainable]
+        for p, g in zip(self.trainable, _flat_collective(grads, dist.all_reduce)):
+            if p.grad is not None:
+                p.grad = g.div_(self.world)
+        names = sorted(losses)
+        summed = _flat_collective([losses[k] for k in names], dist.all_reduce)
+        losses = {k: v / self.world for k, v in zip(names, summed)}
+        keys = sorted(acc)
+        acc = dict(zip(keys, _flat_collective([acc[k] for k in keys], dist.all_reduce)))
+        return losses, acc
 
     def eval_step(self, graph: GraphBatch) -> Tuple[Dict[str, torch.Tensor], Dict]:
         """Losses and metrics without an update. The parameters go in

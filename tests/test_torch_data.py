@@ -112,13 +112,22 @@ def test_batches_match_jax(xyz, shuffle):
 
 
 def test_dataset_parts_not_ported_raise(xyz, tmp_path):
+    """What the dataset cannot do raises with the reason: an unknown file
+    format without ASE, batches or a cache before ``build()``, and lazy
+    batches without ``z_to_type`` or ``dense_k``; the parts earlier slices
+    refused (other readers, the multiprocess build, the cache, lazy
+    batches) are held against the JAX package in tests/test_torch_readers.py."""
     ds = GraphDataset.from_files(xyz, CUTOFF)
-    for call in (lambda: ds.build(np.zeros(120, np.int32), processes=2),
-                 lambda: ds.save_cache(str(tmp_path / "c")),
-                 lambda: GraphDataset.load_cache(str(tmp_path / "c")),
-                 lambda: next(ds.batches(2, lazy=True)),
-                 lambda: GraphDataset.from_files(str(tmp_path / "OUTCAR"), CUTOFF)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    (tmp_path / "x.cif").write_text("data_x\n")
+    for call, why in ((lambda: GraphDataset.from_files(str(tmp_path / "x.cif"), CUTOFF),
+                       "unrecognized structure format"),
+                      (lambda: ds.build(), "z_to_type"),
+                      (lambda: next(ds.batches(2)), "build"),
+                      (lambda: ds.save_cache(str(tmp_path / "c")), "build"),
+                      (lambda: next(ds.batches(2, lazy=True, dense_k=16)), "lazy"),
+                      (lambda: next(GraphDataset.from_files(xyz, CUTOFF, np.zeros(120, np.int64))
+                                    .batches(2, lazy=True)), "dense_k")):
+        with pytest.raises(ValueError, match=why):
             call()
 
 

@@ -287,9 +287,67 @@ def test_bwd_slot_kernel_matches_plain(cuda, j, slot):
                                       p["embed"], x, vec_k, src_n.long(), mir,
                                       row_chunk=rc, ring=ring)
         outs.append([t.detach() for t in (out, *torch.autograd.grad(out, (x, vec), ybar[:n]))])
-    for got, want in zip(outs[1], outs[0]):
-        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0,
-                                   atol=1e-5 * float(want.abs().max()))
+    for other_path in outs[1:]:
+        for got, want in zip(other_path, outs[0]):
+            np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0,
+                                       atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("j,slot", [(2, 2), (0, 3)], ids=["interior", "wrap"])
+def test_bwd_embsh_slot_kernel_matches_plain(cuda, j, slot):
+    """B4 bwd's slot entry (``fused_conv_bwd_embsh_slot``, the emb/sh ring's
+    per-chunk kernel) on one chunk of 8 rows against its plain twin: the
+    slot's dxg and the chunk's demb and dsh within 1e-5 of the largest plain
+    value, the buffer's other slots bitwise unchanged (pre-filled with a
+    sentinel); then the emb/sh ring backward (W 2) and the chunked scatter
+    backward over every chunk against the unchunked conv."""
+    from sevennet_tpu_torch.model.build import build_model_spec as build
+    from sevennet_tpu_torch.model.model import edge_emb_sh
+
+    p = _small_problem(cuda, "XPLOR", 2.5, seed=2)
+    op = fc.conv_op(p["conv"], p["mlp"])
+    N, K, RC, S = p["N"], p["K"], 8, 5
+    spec = build({"cutoff": 3.0, "lmax": 2, "chemical_species": ["O"], "_normalize_sph": False,
+                  "cutoff_function": {"cutoff_function_name": "XPLOR", "cutoff_on": 2.5}})
+    emb, sh = (t.contiguous() for t in edge_emb_sh(spec, p["coef"], p["vec"], p["g"].edge_mask))
+    src = p["g"].edge_src.view(N, K).to(torch.int32)
+    ybar = torch.tensor(p["rng"].normal(size=(N, op.dim_mid)), dtype=torch.float32, device=cuda)
+    rows = slice(j * RC * K, (j + 1) * RC * K)
+    src_c, yb = src[j * RC:(j + 1) * RC], ybar[j * RC:(j + 1) * RC]
+    buf = torch.full((S * RC * K, op.dim_x), -7.25e30, device=cuda)
+    before = buf.clone()
+    n0 = fc.fused_conv_bwd_embsh_slot.launches
+    demb, dsh = fc.fused_conv_bwd_embsh_slot(op, p["x"], src_c, emb[rows], sh[rows], p["ws"], yb,
+                                             buf, slot)
+    torch.cuda.synchronize()
+    assert fc.fused_conv_bwd_embsh_slot.launches == n0 + 1
+    want = fc.fused_conv_bwd_embsh_plain(op, p["x"], src_c, emb[rows], sh[rows], p["ws"], yb)
+    in_slot = slice(slot * RC * K, (slot + 1) * RC * K)
+    for got, ref in zip((buf[in_slot], demb, dsh), want):
+        scale = float(ref.abs().max())
+        assert scale > 0
+        np.testing.assert_allclose(got.cpu(), ref.cpu(), rtol=0, atol=1e-5 * scale)
+    other = torch.ones(S * RC * K, dtype=torch.bool, device=cuda)
+    other[in_slot] = False
+    assert torch.equal(buf[other], before[other])
+
+    n = (N // RC) * RC
+    x = p["x"][:n].clone().requires_grad_(True)
+    src_n, mask_n = src[:n], p["g"].edge_mask.view(N, K)[:n]
+    keep = (mask_n & (src_n < n)).reshape(-1, 1)
+    emb_n = (emb[: n * K] * keep).detach().requires_grad_(True)
+    sh_n = sh[: n * K].detach().requires_grad_(True)
+    mir = fc.mirror_map(src_n, p["g"].edge_shift.view(N, K, 3)[:n], keep.view(n, K))
+    outs = []
+    for rc, ring in ((0, 0), (RC, 2), (RC, 0)):  # W 2 of 5 chunks takes any order
+        out = fc.fused_conv_apply(p["conv"], p["mlp"], {"w": p["ws"]}, x, emb_n.view(n, K, -1),
+                                  sh_n.view(n, K, -1), src_n.long(), mir, row_chunk=rc, ring=ring)
+        outs.append([t.detach() for t in (out, *torch.autograd.grad(out, (x, emb_n, sh_n),
+                                                                    ybar[:n]))])
+    for other_path in outs[1:]:
+        for got, ref in zip(other_path, outs[0]):
+            np.testing.assert_allclose(got.cpu(), ref.cpu(), rtol=0,
+                                       atol=1e-5 * float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("hidden", [(20, 24), (20, 72)], ids=["h2_24", "h2_72"])

@@ -249,8 +249,8 @@ def test_model_routes_large_layers_to_the_chunked_conv(monkeypatch):
     """``conv_row_chunk``: the JAX rule (``edge_chunk // K`` rows once a
     layer's gathered edge tensor passes ``chunk_threshold``, whose default
     ``SEVENNET_TPU_CHUNK_THRESHOLD`` overrides); the model's energy is the
-    same chunked, ring-chunked and unchunked, and emb/sh mode refuses to
-    chunk rather than run unchunked."""
+    same chunked, ring-chunked and unchunked, in vec mode and in emb/sh
+    mode."""
     import dataclasses
 
     from sevennet_tpu_torch.data.graph import dense_graph_from_arrays
@@ -282,9 +282,12 @@ def test_model_routes_large_layers_to_the_chunked_conv(monkeypatch):
         out = model_compute(s, params, g, device="cpu")
         np.testing.assert_allclose(out["energy"].numpy(), ref["energy"].numpy(), rtol=1e-6)
         np.testing.assert_allclose(out["forces"].numpy(), ref["forces"].numpy(), atol=1e-5)
-    legacy = dataclasses.replace(spec, normalize_sph=False, edge_chunk=12 * K)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        model_compute(legacy, params, g, device="cpu")
+    legacy = dataclasses.replace(spec, normalize_sph=False)
+    ref = model_compute(dataclasses.replace(legacy, edge_chunk=0), params, g, device="cpu")
+    for extra in ({"edge_chunk": 12 * K}, {"edge_chunk": 12 * K, "conv_ring": 1}):
+        out = model_compute(dataclasses.replace(legacy, **extra), params, g, device="cpu")
+        np.testing.assert_allclose(out["energy"].numpy(), ref["energy"].numpy(), rtol=1e-6)
+        np.testing.assert_allclose(out["forces"].numpy(), ref["forces"].numpy(), atol=1e-5)
 
 
 def test_training_refuses_a_chunked_layer(monkeypatch):
