@@ -78,6 +78,26 @@
    ``$SEVENN_TPU_CHECKPOINT_DIR``, served by name
    (``SevenNetCalculator("7net-0")``, 192 atoms) against the spec-and-params
    calculator (bitwise, else 1e-6 relative; the log says which).
+   Then batched inference (``BatchedCalculator``): eight water boxes of
+   66-384 atoms in one call, each structure against ``SevenNetCalculator``
+   (the request limits above), the call's time beside eight single
+   requests'; the scripts and the CLI in this process: ``scripts.inference``
+   over the 16 teacher-labelled boxes (its errors against an
+   ``ErrorRecorder`` fed ``model_compute``), ``run_md_from_config`` (192
+   atoms, ``nvt``, with and without the ``d3:`` key, its thermo rows against
+   a direct ``MDEngine`` run), ``cli.main.main`` for ``preset``,
+   ``checkpoint``, ``get_model`` (parameters bitwise) and ``inference``,
+   and ``profiling.trace`` around an MD chunk (the trace names both conv
+   kernels). Then distributed MD (``parallel.DistributedMDEngine``, the ext
+   conv): world 1 on an ``nccl`` group in this process, 3,000 atoms, 20 NVE
+   steps of 1 fs against the serial engine (first forces and energy at the
+   request limits, PE and KE within 5e-3 x max(1, |E|)); then two ranks
+   sharing the card, spawned, on ``gloo`` with the halos staged through
+   host memory: 3,000 atoms at 600 K, 30 steps and ``compute_stress``
+   against the serial engine (trajectories as above, atoms conserved,
+   each atom within 5e-3 A to the nearest image, stress 1e-4 of max
+   |stress|, a rebuild with migration); ms/step, peak memory and ghost rows per rank; 5 B1 + 5·nb
+   B2 per force evaluation.
 6. SevenNet-l3i5 (``bench.py:89-106``: lmax 3, 128x0e+64x1e+32x2e+32x3e,
    poly cutoff, nequip self-connection; random weights from the seed):
    B1, B2 and B2' at its layer shapes on the same box against their plain
@@ -285,6 +305,23 @@ D3_MD_STEPS = 10
 D3_NPT_STEPS = 5
 # radial MLPs of other depths held at SevenNet-0's widths
 MLP_DEPTHS = ((), (64,), (64, 64, 64))
+# batched inference: water boxes of 66-384 atoms in one call
+BATCH_MOLECULES = (22, 32, 43, 54, 64, 86, 107, 128)
+BATCH_REPS = 3             # timed batched calls (and sequential rounds)
+SCRIPT_MD_STEPS = 20       # run_md_from_config, 192 atoms, nvt
+# distributed MD: 3,000 atoms of water, NVE steps of DIST_DT
+DIST_MOLECULES = 1000
+DIST_DT = 1.0              # fs
+DIST1_WARM, DIST1_TIMED = 5, 15    # world 1 (nccl, this process)
+DIST2_WARM, DIST2_TIMED = 10, 20   # two ranks sharing the card (gloo)
+DIST_HOT_T = 600.0         # K: atoms cross the slab faces within the run
+DIST_JOIN_S = 300          # s, each rank's join
+# the two-rank run against the serial engine at the same slot margin: PE
+# and KE within DIST2_TRAJ_REL x max(1, |E|), each atom within
+# DIST2_POS_TOL A (the proof run of the first version read 3.1e-5 eV of KE
+# and 7.6e-6 A, NVIDIA H100 80GB HBM3, 700 W)
+DIST2_TRAJ_REL = 2e-6
+DIST2_POS_TOL = 1e-4
 
 
 def sevennet0_spec():
@@ -3556,6 +3593,517 @@ KERNEL_NAMES = {
 }
 
 
+def batched_phase(spec, params, dev, card: str):
+    """Batched inference (``BatchedCalculator``): BATCH_MOLECULES water boxes
+    (66-384 atoms) in one ``calculate`` call, each structure's energy, forces
+    and stress against ``SevenNetCalculator`` one by one (ENERGY_REL_TOL,
+    FORCE_TOL and FORCE_REL_TOL, STRESS_TOL); the batched call's time
+    against the sequential calls' (host clock; results are host arrays, so
+    the work is done). 5 B1 + 5 B2 per call. Returns the timed batched
+    call's launches."""
+    import numpy as np
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.batched import BatchedCalculator
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+
+    ats = []
+    for i, m in enumerate(BATCH_MOLECULES):
+        pos, Z, cell = water_box(m, seed=20 + i)
+        ats.append(AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True))
+    batched = BatchedCalculator(spec, params, device=str(dev))
+    single = SevenNetCalculator(spec, params, device=str(dev))
+    batched.calculate(ats)  # warm-up
+    for at in ats:
+        single.calculate(at)
+    t_b, t_s = [], []
+    for _ in range(BATCH_REPS):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = batched.calculate(ats)
+        t_b.append(time.perf_counter() - t0)
+        counts = read_launches()
+        t0 = time.perf_counter()
+        want = [single.calculate(at) for at in ats]
+        t_s.append(time.perf_counter() - t0)
+    errs = []
+    for r, w, at in zip(res, want, ats):
+        de = abs(r["energy"] - w["energy"]) / abs(w["energy"])
+        df = float(np.abs(r["forces"] - w["forces"]).max())
+        ds = float(np.abs(r["stress"] - w["stress"]).max())
+        fmax = float(np.abs(w["forces"]).max())
+        errs.append((de, df, ds))
+        if not (de <= ENERGY_REL_TOL and df <= FORCE_TOL and df <= FORCE_REL_TOL * fmax
+                and ds <= STRESS_TOL):
+            raise SystemExit(f"batched inference: structure of {len(at)} atoms: rel dE {de}, "
+                             f"max|dF| {df} (max|F| {fmax}), max|dS| {ds}")
+    n_layers = len(spec.layers)
+    if counts != dict(dict.fromkeys(counts, 0), fwd=n_layers, bwd=n_layers):
+        raise SystemExit(f"batched inference launched {counts} in one call")
+    tb, ts = statistics.median(t_b) * 1e3, statistics.median(t_s) * 1e3
+    log(f"batched inference: {len(ats)} water boxes ({sum(len(a) for a in ats)} atoms, "
+        f"{min(len(a) for a in ats)}-{max(len(a) for a in ats)} each) in one call: "
+        f"{tb:.1f} ms against {ts:.1f} ms for {len(ats)} single requests ({ts / tb:.2f}x; median "
+        f"of {BATCH_REPS}, host clock); max rel dE {max(e[0] for e in errs):.3e}, max|dF| "
+        f"{max(e[1] for e in errs):.3e} eV/A, max|dS| {max(e[2] for e in errs):.3e} eV/A^3 "
+        f"against the single requests; launches {counts} | {card}")
+    return counts
+
+
+def _stdout_of(fn, *args):
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    if rc != 0:
+        raise SystemExit(f"the command {args} returned {rc}")
+    return buf.getvalue()
+
+
+def _close_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def scripts_phase(spec, params, dev, seed: int, card: str):
+    """The scripts, the CLI and profiling, in this process on the card.
+    ``scripts.inference.inference`` over the training phase's 16
+    teacher-labelled boxes (extxyz), its errors dict against an
+    ``ErrorRecorder`` fed ``model_compute`` directly (bitwise, else 1e-6
+    relative); ``run_md_from_config`` with a dict, 192 atoms, ``nvt``,
+    SCRIPT_MD_STEPS steps with a trajectory and a thermo CSV, then with the
+    ``d3:`` key, each thermo row against a direct ``MDEngine`` run from the
+    same seed (bitwise, else 1e-6 relative); ``cli.main.main`` for ``preset
+    base``, ``checkpoint``, ``get_model`` (its checkpoint's parameters
+    bitwise the source's) and ``inference`` (the errors of the script);
+    ``profiling.trace`` around one MD chunk: the trace names both conv
+    kernels. Returns the launches of the scripts' and the CLI's work."""
+    import glob
+    import json as json_
+    import os
+
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch import profiling
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.cli.main import PRESETS
+    from sevennet_tpu_torch.cli.main import main as cli_main
+    from sevennet_tpu_torch.data.dataset import GraphDataset
+    from sevennet_tpu_torch.data.extxyz import write_extxyz
+    from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
+    from sevennet_tpu_torch.io.native_checkpoint import load_checkpoint, save_checkpoint
+    from sevennet_tpu_torch.md import MDEngine
+    from sevennet_tpu_torch.model.model import model_compute
+    from sevennet_tpu_torch.scripts.inference import METRICS, inference
+    from sevennet_tpu_torch.scripts.md_run import run_md_from_config
+    from sevennet_tpu_torch.train.error_recorder import ErrorRecorder, RecorderSpec
+    from sevennet_tpu_torch.train.trainer import tree_leaves
+
+    total = dict.fromkeys(counters(), 0)
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as tmp:
+        xyz = os.path.join(tmp, "water.extxyz")
+        teacher = params_from_numpy(spec, random_params(spec, seed + 1))
+        training_set(spec, teacher, dev, seed, xyz)
+        ckpt = os.path.join(tmp, "model")
+        save_checkpoint(ckpt, dict(SEVENNET0), params)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        errors = inference(ckpt, [xyz], os.path.join(tmp, "infer"), batch_size=TRAIN_BATCH,
+                           device=str(dev))
+        t_inf = time.perf_counter() - t0
+        add(read_launches())
+        ds = GraphDataset.from_files(xyz, spec.cutoff).build(spec.z_to_type)
+        acc = ErrorRecorder(RecorderSpec.from_config(METRICS))
+        for gb in ds.batches(TRAIN_BATCH):
+            gb = gb.to(dev)
+            acc.update(model_compute(spec, params, gb, device=str(dev)), gb)
+        direct = acc.get_metric_dict(with_unit=True)
+        worst = max(_close_rel(errors[k], direct[k]) for k in direct)
+        if list(errors) != list(direct) or worst > 1e-6:
+            raise SystemExit(f"inference: errors {errors} against model_compute's {direct}")
+        log(f"scripts.inference: {len(ds)} structures in {t_inf:.2f} s, errors {errors}; "
+            f"against an ErrorRecorder fed model_compute: bitwise "
+            f"{all(errors[k] == direct[k] for k in direct)}, max rel {worst:.3e} | {card}")
+
+        pos, Z, cell = water_box(64, seed=11)
+        start = os.path.join(tmp, "start.extxyz")
+        write_extxyz(start, [AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)])
+        for label, d3 in (("nvt", None), ("nvt + D3", dict(D3))):
+            cfg = {"checkpoint": ckpt, "structure": start, "ensemble": "nvt",
+                   "steps": SCRIPT_MD_STEPS, "dt": MD_DT, "temperature": MD_T, "chunk": MD_CHUNK,
+                   "seed": seed, "trajectory": os.path.join(tmp, "traj.extxyz"),
+                   "traj_every": MD_CHUNK, "log": os.path.join(tmp, "thermo.csv")}
+            if d3:
+                cfg["d3"] = d3
+            lines = []
+            reset_launches()
+            t0 = time.perf_counter()
+            out = run_md_from_config({"md": cfg}, log=lines.append, device=str(dev))
+            t_md = time.perf_counter() - t0
+            add(read_launches())
+            eng = MDEngine(spec, params, cell, skin=0.6, d3=d3, device=str(dev))
+            st = eng.make_state(pos, Z, temperature=MD_T, seed=seed)
+            st, (pe, ke) = eng.run(st, SCRIPT_MD_STEPS, dt=MD_DT, chunk=MD_CHUNK,
+                                   integrator="nvt", temperature=MD_T)
+            pe, ke = pe.cpu().numpy(), ke.cpu().numpy()
+            rows = out["thermo"]
+            want = [(float(pe[r["step"] - 1]), float(ke[r["step"] - 1])) for r in rows]
+            got = [(r["pe"], r["ke"]) for r in rows]
+            worst = max(max(_close_rel(g[0], w[0]), _close_rel(g[1], w[1]))
+                        for g, w in zip(got, want))
+            with open(cfg["log"]) as f:
+                csv_rows = f.read().strip().split("\n")
+            with open(cfg["trajectory"]) as f:
+                n_frames = f.read().count("Lattice=")
+            if (len(rows) != SCRIPT_MD_STEPS // MD_CHUNK or worst > 1e-6
+                    or len(csv_rows) != len(rows) + 1 or n_frames != len(rows) + 1):
+                raise SystemExit(f"run_md_from_config ({label}): rows {got} against the engine's "
+                                 f"{want}, {len(csv_rows)} CSV lines, {n_frames} frames")
+            log(f"run_md_from_config ({label}, 192 atoms, {SCRIPT_MD_STEPS} steps): {t_md:.2f} s, "
+                f"{lines[0] if lines else ''}; thermo rows against a direct MDEngine run: "
+                f"bitwise {got == want}, max rel {worst:.3e}; {len(csv_rows) - 1} CSV rows, "
+                f"{n_frames} trajectory frames | {card}")
+
+        if _stdout_of(cli_main, ["preset", "base"]) != PRESETS["base"] + "\n":
+            raise SystemExit("cli preset base printed another text")
+        info = json_.JSONDecoder().raw_decode(_stdout_of(cli_main, ["checkpoint", ckpt]))[0]
+        if info["layers"] != len(spec.layers) or info["cutoff"] != spec.cutoff:
+            raise SystemExit(f"cli checkpoint printed {info}")
+        exported = os.path.join(tmp, "exported")
+        _stdout_of(cli_main, ["get_model", ckpt, "--out", exported])
+        a, b = (tree_leaves(load_checkpoint(p)[1]) for p in (ckpt, exported))
+        if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise SystemExit("cli get_model changed the parameters")
+        reset_launches()
+        cli_errors = json_.loads(_stdout_of(cli_main, [
+            "inference", ckpt, xyz, "--output", os.path.join(tmp, "cli_infer"), "--batch",
+            str(TRAIN_BATCH), "--device", str(dev)]))
+        add(read_launches())
+        worst = max(_close_rel(cli_errors[k], errors[k]) for k in errors)
+        if worst > 1e-6:
+            raise SystemExit(f"cli inference: {cli_errors} against the script's {errors}")
+        log(f"cli: preset base, checkpoint ({info['layers']} layers, format {info['format']}), "
+            f"get_model ({len(b)} leaves bitwise), inference (max rel {worst:.3e} from the "
+            f"script's errors) | {card}")
+
+        eng = MDEngine(spec, params, cell, device=str(dev))
+        st = eng.make_state(pos, Z, temperature=MD_T, seed=seed)
+        logdir = os.path.join(tmp, "trace")
+        with profiling.step_timer() as timer, profiling.trace(logdir) as prof:
+            st, (pe, _) = eng.run(st, MD_CHUNK, dt=MD_DT, chunk=MD_CHUNK)
+            timer.lap(pe)
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        text = open(files[0]).read() if files else ""
+        names = ("fused_conv_fwd_kernel", "fused_conv_bwd_kernel")
+        dev_us = {e.key: e.device_time_total for e in prof.key_averages()
+                  if any(n in e.key for n in names)}
+        if len(files) != 1 or not all(n in text for n in names):
+            raise SystemExit(f"profiling.trace: files {files}, kernel names found "
+                             f"{[n for n in names if n in text]}")
+        log(f"profiling.trace around {MD_CHUNK} MD steps of 192 atoms: {len(text)} bytes of "
+            f"Chrome trace naming {', '.join(names)}; device us {dev_us}; step_timer lap "
+            f"{timer.laps[0] * 1e3:.1f} ms | {card}")
+    return total
+
+
+def dist_md_run(spec, params, dev, dims, pos, Z, cell, vel, warm: int, timed: int,
+                stress: bool):
+    """One rank's distributed NVE run on the card (the world-1 phase in this
+    process, the two-rank phase in each spawned rank): ``make_state``,
+    ``warm`` steps, ``timed`` timed steps (host clock around synchronized
+    work), with ``stress`` one ``compute_stress``. Returns the first forces
+    and energy, the PE and KE of every step, ms/step, peak memory, ghost
+    rows, rebuilds, the migrated atoms of all ranks, the final positions in
+    the input order and the launches after ``make_state``."""
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.model.model import conv_row_chunk
+    from sevennet_tpu_torch.parallel import DistributedMDEngine
+
+    eng = DistributedMDEngine(spec, params, cell, dims=dims, device=str(dev))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    st = eng.make_state(pos, Z, velocities=vel)
+    t_setup = time.perf_counter() - t0
+    out = dict(forces0=eng.gather(st, st.forces), pe0=float(st.potential_energy))
+    reset_launches()
+    st, (pe1, ke1) = eng.run(st, warm, dt=DIST_DT, chunk=warm)
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, (pe2, ke2) = eng.run(st, timed, dt=DIST_DT, chunk=timed)
+    sync()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    evals = warm + timed
+    if stress:
+        e, s, _ = eng.compute_stress(st)
+        out.update(stress_e=float(e), stress=s.cpu().numpy())
+        evals += 1
+    NL, K = st.edge_src.shape
+    nb = sum(-(-NL // rc) if rc and rc < NL else 1
+             for rc in (conv_row_chunk(eng.spec, NL, K, layer.conv.irreps_x.dim)
+                        for layer in spec.layers))
+    counts = read_launches()
+    out.update(
+        pe=torch.cat([pe1, pe2]).cpu().numpy(), ke=torch.cat([ke1, ke2]).cpu().numpy(),
+        ms=ms, peak=peak, t_setup=t_setup, ghosts=int(st.ext_mask[NL:].sum()),
+        owned=int(st.atom_mask.sum()), NL=NL, K=K, nb=nb, evals=evals,
+        rebuilds=eng.n_rebuilds, swaps=eng.halo.n_swaps,
+        migrated=int(eng.halo.all_reduce(torch.tensor(eng.n_migrated, device=dev))),
+        n_atoms=int(eng.halo.all_reduce(st.atom_mask.sum())),
+        positions=eng.gather(st, st.positions), launches=np.asarray(
+            [counts[k] for k in sorted(counts)]))
+    return out
+
+
+def _dist_rank(rank: int, world: int, init: str, job: dict, out: str):
+    """One rank of the two-rank phase, in its own spawned process: a
+    ``gloo`` group from a ``file://`` store (two ranks share the card, which
+    NCCL refuses; the halos stage through host memory), SevenNet-0 from the
+    seed, :func:`dist_md_run`; writes ``{out}/rank{rank}.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
+    from sevennet_tpu_torch.model.build import build_model_spec
+
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        spec = build_model_spec(job["model"])
+        params = params_from_numpy(spec, random_params(spec, job["seed"]))
+        res = dist_md_run(spec, params, dev, job["dims"], job["pos"], job["Z"], job["cell"],
+                          job["vel"], job["warm"], job["timed"], stress=True)
+        np.savez(f"{out}/rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _serial_run(spec, params, dev, pos, Z, cell, vel, steps: int,
+                k_margin: float | None = None):
+    """The serial ``MDEngine`` (the kernels) from the same positions and
+    velocities, with ``k_margin`` its slot margin (SEVENNET_TPU_KMARGIN)
+    where given: its first forces and energy (input order), PE and KE of
+    every step, ms/step, final positions (input order)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.md import MDEngine
+
+    n = len(pos)
+    eng = MDEngine(spec, params, cell, device=str(dev))
+    old_margin = os.environ.get("SEVENNET_TPU_KMARGIN")
+    if k_margin is not None:
+        os.environ["SEVENNET_TPU_KMARGIN"] = str(k_margin)
+    try:
+        st = eng.make_state(pos, Z)
+    finally:
+        if old_margin is None:
+            os.environ.pop("SEVENNET_TPU_KMARGIN", None)
+        else:
+            os.environ["SEVENNET_TPU_KMARGIN"] = old_margin
+    idx = st.atom_index.cpu().numpy()
+    v = np.zeros((st.n_atoms_cap, 3), np.float32)
+    v[:n] = vel[idx[:n]]
+    st = st.replace(velocities=torch.as_tensor(v, device=dev))
+    out = dict(forces0=unsorted(st, n, "forces")[:n], pe0=float(st.potential_energy))
+    t0 = time.perf_counter()
+    st, (pe, ke) = eng.run(st, steps, dt=DIST_DT, chunk=steps)
+    float(pe[-1])  # waits for the card
+    out.update(ms=(time.perf_counter() - t0) / steps * 1e3, pe=pe.cpu().numpy(),
+               ke=ke.cpu().numpy(), positions=unsorted(st, n, "positions")[:n])
+    return out
+
+
+def _traj_err(got, want, rel: float = 5e-3) -> float:
+    """Largest difference over the run, in units of rel x max(1, |E|)
+    (5e-3: tests/test_parallel.py:180-184): at most 1 passes."""
+    import numpy as np
+
+    return float(np.abs(got - want).max() / (rel * max(1.0, float(np.abs(want).max()))))
+
+
+def _dist_launch_check(label, res, n_layers, counts):
+    want = dict.fromkeys(counts, 0)
+    want.update(fwd=n_layers * res["evals"], bwd=res["nb"] * res["evals"])
+    if counts != want:
+        raise SystemExit(f"{label}: launches {counts}, expected {want} (5 B1 + 5 nb B2 a force "
+                         "evaluation, no B3, no mirror reduction)")
+
+
+def dist_world1_phase(spec, params, dev, seed: int, card: str):
+    """Distributed MD on one rank: an ``nccl`` group of world 1 in this
+    process, ``dims=(1,)``, 3,000 atoms of water, DIST1_WARM + DIST1_TIMED
+    NVE steps of DIST_DT fs at MD_T, against the serial engine from the same
+    positions and velocities: first forces within FORCE_TOL and
+    FORCE_REL_TOL, energy within ENERGY_REL_TOL, PE and KE trajectories
+    within 5e-3 x max(1, |E|); 5 B1 + 5 nb B2 per force evaluation.
+    Returns the launches."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sevennet_tpu_torch.md.state import ATOMIC_MASSES, thermal_velocities
+
+    pos, Z, cell = water_box(DIST_MOLECULES)
+    vel = thermal_velocities(ATOMIC_MASSES[Z], MD_T, seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist1_") as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            res = dist_md_run(spec, params, dev, (1,), pos, Z, cell, vel, DIST1_WARM,
+                              DIST1_TIMED, stress=False)
+        finally:
+            dist.destroy_process_group()
+    ser = _serial_run(spec, params, dev, pos, Z, cell, vel, DIST1_WARM + DIST1_TIMED)
+    df = float(np.abs(res["forces0"] - ser["forces0"]).max())
+    fmax = float(np.abs(ser["forces0"]).max())
+    de = _close_rel(res["pe0"], ser["pe0"])
+    e_pe, e_ke = _traj_err(res["pe"], ser["pe"]), _traj_err(res["ke"], ser["ke"])
+    counts = dict(zip(sorted(counters()), res["launches"].tolist()))
+    log(f"distributed MD, world 1 (nccl, dims (1,)), {len(pos)} atoms, "
+        f"{DIST1_WARM + DIST1_TIMED} NVE steps of {DIST_DT} fs: make_state "
+        f"{res['t_setup']:.1f} s; {res['ms']:.2f} ms/step over {DIST1_TIMED} timed steps "
+        f"against the serial engine's {ser['ms']:.2f} (host clock, same call); peak "
+        f"{res['peak']:.2f} GiB; NL {res['NL']}, K {res['K']}, ghosts {res['ghosts']}, rebuilds "
+        f"{res['rebuilds']}; first forces max|dF| {df:.3e} eV/A (max|F| {fmax:.3e}), rel dE "
+        f"{de:.3e}; PE, KE trajectories at {e_pe:.3e}, {e_ke:.3e} of 5e-3 x max(1, |E|) "
+        f"(max|dPE| {float(np.abs(res['pe'] - ser['pe']).max()):.3e} eV); {res['evals']} "
+        f"force evaluations, launches {counts} | {card}")
+    checks = ((df <= FORCE_TOL and df <= FORCE_REL_TOL * fmax, f"forces {df} (max {fmax})"),
+              (de <= ENERGY_REL_TOL, f"energy rel {de}"),
+              (e_pe <= 1 and e_ke <= 1, f"trajectories {e_pe}, {e_ke}"),
+              (res["n_atoms"] == len(pos), f"atoms {res['n_atoms']}"))
+    for ok, why in checks:
+        if not ok:
+            raise SystemExit(f"distributed MD, world 1: {why}")
+    _dist_launch_check("distributed MD, world 1", res, len(spec.layers), counts)
+    return counts
+
+
+def dist_two_rank_phase(spec, params, dev, seed: int, card: str):
+    """Distributed MD on two ranks sharing the card: two processes started
+    with ``spawn`` (torch and the port only), a ``gloo`` group from a
+    ``file://`` store in a temporary directory, ``dims=(2,)``, each joined
+    with a timeout of its own (DIST_JOIN_S). 3,000 atoms of water at
+    DIST_HOT_T (atoms cross the slab faces), DIST2_WARM + DIST2_TIMED NVE
+    steps, then ``compute_stress``; against the serial engine from the same
+    positions and velocities with the distributed engine's slot margin
+    (K_MARGIN: no edge is cut between rebuilds on either side): first
+    forces within FORCE_TOL and FORCE_REL_TOL and energy within
+    ENERGY_REL_TOL (the cross-rank backward, ``HaloExchange.backward``),
+    PE and KE within DIST2_TRAJ_REL x max(1, |E|), each atom within
+    DIST2_POS_TOL of its serial twin (nearest image), atoms conserved; the
+    stress within 1e-4 of max |stress| of ``SevenNetCalculator`` at the
+    final positions; at least one rebuild with migration; 5 B1 + 5 nb B2
+    per force evaluation on each rank. Returns both ranks' launches."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.md.state import ATOMIC_MASSES, thermal_velocities
+    from sevennet_tpu_torch.parallel.md import K_MARGIN
+
+    pos, Z, cell = water_box(DIST_MOLECULES)
+    n = len(pos)
+    vel = thermal_velocities(ATOMIC_MASSES[Z], DIST_HOT_T, seed)
+    job = dict(seed=seed, dims=(2,), pos=pos, Z=Z, cell=cell, vel=vel, warm=DIST2_WARM,
+               timed=DIST2_TIMED, device=str(dev), model=dict(SEVENNET0))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist2_") as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_dist_rank, args=(r, 2, f"file://{tmp}/store", job, tmp))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(DIST_JOIN_S)
+            codes = [p.exitcode for p in procs]
+            if codes != [0, 0]:
+                raise SystemExit(f"distributed MD, two ranks: exit codes {codes} (None: still "
+                                 f"running after its join of {DIST_JOIN_S} s)")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(2)]
+    t_wall = time.perf_counter() - t0
+    res = ranks[0]
+    ser = _serial_run(spec, params, dev, pos, Z, cell, vel, DIST2_WARM + DIST2_TIMED,
+                      k_margin=K_MARGIN)
+    df = float(np.abs(res["forces0"] - ser["forces0"]).max())
+    fmax = float(np.abs(ser["forces0"]).max())
+    de = _close_rel(float(res["pe0"]), ser["pe0"])
+    e_pe = _traj_err(res["pe"], ser["pe"], DIST2_TRAJ_REL)
+    e_ke = _traj_err(res["ke"], ser["ke"], DIST2_TRAJ_REL)
+    # atom by atom (the gather orders the rows by input index), to the
+    # nearest image: an atom that crossed the box is wrapped on one side
+    # only at a rebuild
+    frac = (res["positions"] - ser["positions"]) @ np.linalg.inv(cell)
+    dx = float(np.abs((frac - np.round(frac)) @ cell).max())
+    ref = SevenNetCalculator(spec, params, device=str(dev)).calculate(
+        AtomsLite(positions=res["positions"], numbers=Z, cell=cell, pbc=True))
+    s_dist = -res["stress"][[0, 1, 2, 4, 5, 3]]  # model order -> ASE Voigt and sign
+    ds = float(np.abs(s_dist - ref["stress"]).max())
+    smax = float(np.abs(ref["stress"]).max())
+    counts = {}
+    for k_i, k in enumerate(sorted(counters())):
+        counts[k] = int(sum(r["launches"][k_i] for r in ranks))
+    per_rank = [dict(zip(sorted(counters()), r["launches"].tolist())) for r in ranks]
+    log(f"distributed MD, two ranks on one card (gloo, dims (2,), halos staged through host "
+        f"memory), {n} atoms at {DIST_HOT_T:g} K, {DIST2_WARM + DIST2_TIMED} NVE steps of "
+        f"{DIST_DT} fs + compute_stress: {t_wall:.1f} s wall with the spawn; "
+        + "; ".join(f"rank {i}: {float(r['ms']):.2f} ms/step over {DIST2_TIMED} timed steps, make_state "
+                    f"{float(r['t_setup']):.1f} s, peak {float(r['peak']):.2f} GiB, owned "
+                    f"{int(r['owned'])}, ghosts {int(r['ghosts'])}, NL {int(r['NL'])}, K "
+                    f"{int(r['K'])}, swaps {int(r['swaps'])}" for i, r in enumerate(ranks))
+        + f"; serial engine (slot margin {K_MARGIN}) {ser['ms']:.2f} ms/step (this process, "
+        f"alone); rebuilds {int(res['rebuilds'])}, atoms migrated {int(res['migrated'])}; "
+        f"first forces max|dF| {df:.3e} eV/A (max|F| {fmax:.3e}), rel dE {de:.3e}; PE, KE "
+        f"trajectories at {e_pe:.3e}, {e_ke:.3e} of {DIST2_TRAJ_REL:g} x max(1, |E|) (max|dPE| "
+        f"{float(np.abs(res['pe'] - ser['pe']).max()):.3e} eV, max|dKE| "
+        f"{float(np.abs(res['ke'] - ser['ke']).max()):.3e} eV); positions max|dx| {dx:.3e} A "
+        f"(each atom to the nearest image); stress max|dS| {ds:.3e} of max {smax:.3e} "
+        f"eV/A^3; atoms {int(res['n_atoms'])}; launches per rank {per_rank} | {card}")
+    checks = ((df <= FORCE_TOL and df <= FORCE_REL_TOL * fmax, f"forces {df} (max {fmax})"),
+              (de <= ENERGY_REL_TOL, f"energy rel {de}"),
+              (e_pe <= 1 and e_ke <= 1, f"trajectories {e_pe}, {e_ke}"),
+              (int(res["n_atoms"]) == n, f"atoms {int(res['n_atoms'])}"),
+              (dx <= DIST2_POS_TOL, f"positions {dx}"),
+              (ds <= 1e-4 * smax, f"stress {ds} of {smax}"),
+              (int(res["migrated"]) > 0 and int(res["rebuilds"]) > 1,
+               f"no rebuild with migration (rebuilds {int(res['rebuilds'])}, migrated "
+               f"{int(res['migrated'])})"))
+    for ok, why in checks:
+        if not ok:
+            raise SystemExit(f"distributed MD, two ranks: {why}")
+    for i, r in enumerate(ranks):
+        _dist_launch_check(f"distributed MD, rank {i}",
+                           {k: int(r[k]) for k in ("evals", "nb")}, len(spec.layers),
+                           per_rank[i])
+    return counts, ranks, ser
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3660,6 +4208,22 @@ def main() -> int:
     log(f"resolution phase (main path: serving by checkpoint name): launches {resolved}, "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    batched = batched_phase(spec, params, dev, card)
+    log(f"batched phase (main path: batched inference): launches {batched}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scripted = scripts_phase(spec, params, dev, args.seed, card)
+    log(f"scripts phase (main paths: the inference and MD scripts, the CLI, profiling): "
+        f"launches {scripted}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dist1 = dist_world1_phase(spec, params, dev, args.seed, card)
+    log(f"distributed MD phase, world 1 (main path: distributed MD): launches {dist1}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dist2, _, _ = dist_two_rank_phase(spec, params, dev, args.seed, card)
+    log(f"distributed MD phase, two ranks (main path: distributed MD): launches {dist2}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     spec_l3 = build_model_spec(L3I5)
     params_l3 = params_from_numpy(spec_l3, random_params(spec_l3, args.seed))
     l3_records = l3i5_kernel_phase(spec_l3, params_l3, dev, atoms)
@@ -3695,7 +4259,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
                 + md_small[k] + md_mid[k] + md_ring[k] + md_scatter[k] + md_ring_legacy[k]
-                + ensembles[k] + d3_launches[k] + resolved[k]
+                + ensembles[k] + d3_launches[k] + resolved[k] + batched[k] + scripted[k]
+                + dist1[k] + dist2[k]
                 for k in counters()}
     if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
         raise SystemExit(f"a kernel was never launched on the main paths: {launches}")
@@ -3791,7 +4356,9 @@ def main() -> int:
         "legacy config's compared train steps, MD (3,000 and 9,999 atoms, and the timed "
         "ring steps at 99,999; the legacy config's timed chunked-scatter and ring steps at "
         "99,999), the ensembles at 3,000 atoms, the D3 phase (a 192-atom "
-        "request and MD at 3,000 atoms with D3) and the request by checkpoint name; the "
+        "request and MD at 3,000 atoms with D3), the request by checkpoint name, the batched "
+        "call, the scripts' and the CLI's work, and distributed MD (world 1, and both ranks "
+        "of the two-rank run); the "
         "SevenNet-l3i5 rows per pass of its layer shapes on the "
         "same box, launches from its requests; the SevenNet-MF-ompa rows per pass of its "
         "five layer shapes on the 192-atom box, launches from its requests (both "

@@ -2,12 +2,14 @@
 to one NVIDIA H100, slice by slice. It imports ``torch``, numpy and scipy,
 never JAX or the JAX package.
 
-Ported so far: single-point serving of energy, forces and stress (from a
-spec with parameters, a checkpoint or a pretrained name), training (also
-multi-fidelity), and molecular dynamics in NVE, NVT and NPT (with the
-ring-chunked backward of 100k-atom systems), each with Grimme D3 dispersion
-on request, through the dense fused convolution, whose forward and backward
-are hand-written CUDA kernels (``csrc/``)::
+Ported: single-point and batched serving of energy, forces and stress
+(from a spec with parameters, a checkpoint or a pretrained name), training
+(also multi-fidelity), molecular dynamics in NVE, NVT and NPT (with the
+ring-chunked backward of 100k-atom systems) on one card or decomposed over
+``torch.distributed`` ranks, each with Grimme D3 dispersion on request, the
+``sevennet-tpu-torch`` command line and its scripts, all through the dense
+fused convolution, whose forward and backward are hand-written CUDA
+kernels (``csrc/``)::
 
     from sevennet_tpu_torch import MDEngine, SevenNetCalculator, build_model_spec, train_run
     calc = SevenNetCalculator(spec, params)          # runs on cuda
@@ -34,6 +36,8 @@ _LAZY = {
     "Trainer": ("sevennet_tpu_torch.train.trainer", "Trainer"),
     "train_run": ("sevennet_tpu_torch.scripts.train", "train_run"),
     "MDEngine": ("sevennet_tpu_torch.md.engine", "MDEngine"),
+    "BatchedCalculator": ("sevennet_tpu_torch.batched", "BatchedCalculator"),
+    "DistributedMDEngine": ("sevennet_tpu_torch.parallel.md", "DistributedMDEngine"),
 }
 
 __all__ = list(_LAZY) + ["__version__"]

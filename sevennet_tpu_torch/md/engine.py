@@ -147,8 +147,10 @@ class MDEngine:
             self.cl_spec = build_cell_list_spec(self.cell, n, self.spec.cutoff, self.skin,
                                                 neighbor_capacity=int(np.ceil(max_nbrs * 1.2)) + 2)
         # distance-sorted slot truncation: the list reaches cutoff + skin,
-        # the conv needs the neighbours within the cutoff; a dropped edge
-        # inside the cutoff raises the overflow flag
+        # the conv needs the neighbours within the cutoff. A dropped edge
+        # inside the cutoff raises the overflow flag, but only at a
+        # rebuild: one dropped beyond the cutoff that comes within it
+        # before the next rebuild is missed (ROADMAP C.4)
         close = dst[d2 < (self.spec.cutoff + 0.1 * self.skin) ** 2]
         mx_c = int(np.bincount(close, minlength=n).max()) if len(close) else 8
         k_margin = float(os.environ.get("SEVENNET_TPU_KMARGIN", 1.05))

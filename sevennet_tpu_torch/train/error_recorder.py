@@ -43,7 +43,7 @@ _ERROR_TYPES = {
                         per_atom=False, coeff=1.0),
     "Energy": dict(name="Energy", unit="eV/atom", field="energy", vdim=1,
                    per_atom=True, coeff=1.0),
-    "Force": dict(name="Force", unit="eV/Å", field="force", vdim=3,
+    "Force": dict(name="Force", unit="eV/Å", field="force", vdim=3,
                   per_atom=False, coeff=1.0),
     "Stress": dict(name="Stress", unit="kbar", field="stress", vdim=6,
                    per_atom=False, coeff=TO_KBAR),

@@ -884,3 +884,81 @@ def test_probe_breakdown_knockout_match_plain_and_b4(cuda, k):
                 _close_to(got, want, tol)
             if variant == full:
                 assert torch.equal(got, b4)
+
+
+@pytest.mark.parametrize("mode", ["vec", "embsh"])
+def test_ext_conv_at_a_rank_shape_matches_plain(cuda, mode):
+    """The ext conv (``fused_conv_apply_ext_vec`` / ``fused_conv_apply_ext``)
+    at the shape of rank 0 of a two-slab decomposition
+    (``parallel.partition_system``): senders index ``[owned | ghosts]``,
+    the slots are the rank's edges densified, two row chunks; the output and
+    the gradients of ``x_ext`` (ghost rows included) and of the edge inputs
+    against the plain versions."""
+    from sevennet_tpu_torch.data.graph import densify_edges
+    from sevennet_tpu_torch.model.model import edge_emb_sh, edge_embed_spec
+    from sevennet_tpu_torch.parallel.partition import partition_system
+
+    spec = build_model_spec({"channel": 8, "lmax": 2, "num_convolution_layer": 2,
+                             "cutoff": 3.0, "chemical_species": ["H", "O"],
+                             "_normalize_sph": mode == "vec"})
+    params = params_from_numpy(spec, random_params(spec, 3))
+    rng = np.random.default_rng(8)
+    pos, cell = rng.uniform(0, 12.0, (96, 3)), np.eye(3) * 12.0
+    dd = partition_system(pos, np.zeros(96, np.int32), cell, spec.cutoff, 2)
+    NL, G = dd.n_local_cap, dd.n_ghost_cap
+    src, dst, shift, mask = (dd.edge_src[0], dd.edge_dst[0], dd.edge_shift[0], dd.edge_mask[0])
+    order = np.argsort(np.where(mask, dst, NL), kind="stable")
+    src, dst, shift, mask = src[order], dst[order], shift[order], mask[order]
+    K = int(np.bincount(dst[mask], minlength=NL).max())
+    src_d, dst_d, shift_d, mask_d = densify_edges(src, dst, shift, mask, NL, K)
+    assert (src_d[mask_d] >= NL).any()  # ghost senders
+    # [owned | ghosts] positions: rank 0's left ghosts are rank 1's right
+    # sends, its right ghosts rank 1's left sends, shifted by their images
+    ext = np.concatenate([dd.positions[0], np.zeros((G, 3))])
+    ghost_pos = np.zeros((G, 3))
+    for s in range(2):
+        rows = dd.send_idx_right if s == 0 else dd.send_idx_left
+        rmask = dd.send_mask_right if s == 0 else dd.send_mask_left
+        sl = slice(0, dd.n_ghost_left_cap) if s == 0 else slice(dd.n_ghost_left_cap, G)
+        got = dd.positions[1][rows[1]] * rmask[1][:, None]
+        ghost_pos[sl][: len(got)] = got
+    ext[NL:] = ghost_pos + dd.ghost_shift[0] @ cell
+    vec = (ext[src_d] - ext[dst_d] + shift_d @ cell)
+    vec = np.where(mask_d[:, None], vec, [2 * spec.cutoff, 0.0, 0.0]).T
+    layer = spec.layers[1]
+    ws = params["1_convolution"]["weight_nn"]["w"]
+    coef = params["edge_embedding"]["bessel_coeffs"].to(cuda)
+    src_t = torch.as_tensor(src_d, device=cuda).long().view(NL, K)
+    vec_t = torch.tensor(vec, dtype=torch.float32, device=cuda).contiguous()
+    x = torch.tensor(rng.normal(size=(NL + G, layer.conv.irreps_x.dim)), dtype=torch.float32,
+                     device=cuda)
+    ybar = torch.tensor(rng.normal(size=(NL, layer.conv.irreps_mid.dim)), dtype=torch.float32,
+                        device=cuda)
+    if mode == "vec":
+        edge = (vec_t,)
+    else:
+        emb, sh = edge_emb_sh(spec, coef, vec_t, torch.as_tensor(mask_d, device=cuda))
+        edge = (emb.view(NL, K, -1), sh.view(NL, K, -1))
+    outs = {}
+    for plain in (False, True):
+        xs = x.clone().requires_grad_(True)
+        es = [e.detach().clone().requires_grad_(True) for e in edge]
+        wl = [w.detach().to(cuda) for w in ws]  # MD takes no weight gradients: B2 / B4 bwd
+        n0 = (fc.fused_conv_fwd.launches + fc.fused_conv_fwd_embsh.launches,
+              fc.fused_conv_bwd.launches + fc.fused_conv_bwd_embsh.launches)
+        if mode == "vec":
+            out = fc.fused_conv_apply_ext_vec(layer.conv, layer.radial_mlp, wl, coef,
+                                              edge_embed_spec(spec, layer), xs, es[0], src_t,
+                                              plain=plain, row_chunk=-(-NL // 2))
+        else:
+            out = fc.fused_conv_apply_ext(layer.conv, layer.radial_mlp, wl, xs, *es, src_t,
+                                          plain=plain, row_chunk=-(-NL // 2))
+        grads = torch.autograd.grad(out, (xs, *es), ybar)
+        torch.cuda.synchronize()
+        n1 = (fc.fused_conv_fwd.launches + fc.fused_conv_fwd_embsh.launches,
+              fc.fused_conv_bwd.launches + fc.fused_conv_bwd_embsh.launches)
+        assert n1 == (n0 if plain else (n0[0] + 1, n0[1] + 2))
+        outs[plain] = [out.detach(), *grads]
+    assert float(outs[True][1][NL:].abs().max()) > 0  # ghost rows get gradients
+    for got, want in zip(outs[False], outs[True]):
+        _close_to(got, want, 1e-5)
