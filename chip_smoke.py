@@ -316,10 +316,12 @@ DIST1_WARM, DIST1_TIMED = 5, 15    # world 1 (nccl, this process)
 DIST2_WARM, DIST2_TIMED = 10, 20   # two ranks sharing the card (gloo)
 DIST_HOT_T = 600.0         # K: atoms cross the slab faces within the run
 DIST_JOIN_S = 300          # s, each rank's join
-# the two-rank run against the serial engine at the same slot margin: PE
-# and KE within DIST2_TRAJ_REL x max(1, |E|), each atom within
-# DIST2_POS_TOL A (the proof run of the first version read 3.1e-5 eV of KE
-# and 7.6e-6 A, NVIDIA H100 80GB HBM3, 700 W)
+# the two-rank run against the serial engine at its own default slot
+# margin: PE and KE within DIST2_TRAJ_REL x max(1, |E|), each atom within
+# DIST2_POS_TOL A (against the serial engine at the distributed margin, the
+# proof run of the first version read 3.1e-5 eV of KE and 7.6e-6 A; at the
+# default margin, once both engines keep every pair within the cutoff,
+# 3.052e-5 eV and 7.451e-6 A; NVIDIA H100 80GB HBM3, 700 W)
 DIST2_TRAJ_REL = 2e-6
 DIST2_POS_TOL = 1e-4
 
@@ -1450,9 +1452,10 @@ def unsorted(state, n, name):
 
 def slots_match_host(eng, st):
     """The slots of the engine's last device rebuild against a host build at
-    the same positions: per row the same ``(src, shift)`` set, and every
-    mirror pointing back (``src[mir[e]]`` is the row of ``e``, the shift
-    negated, ``mir[mir[e]] == e``). Returns the number of edges."""
+    the same positions: per row the same ``(src, shift)`` set, the same skin
+    limit (1e-4 relative), and every mirror pointing back (``src[mir[e]]``
+    is the row of ``e``, the shift negated, ``mir[mir[e]] == e``). Returns
+    the number of edges."""
     import numpy as np
 
     n_cap, K = st.n_atoms_cap, eng.k_model
@@ -1470,11 +1473,61 @@ def slots_match_host(eng, st):
 
     if edge_set(src, shift, mask) != edge_set(host["src"], host["shift"], host["mask"]):
         raise SystemExit("the device rebuild's slots differ from a host build")
+    if abs(float(st.nl_limit) - float(host["limit"])) > 1e-4 * float(host["limit"]):
+        raise SystemExit(f"the device rebuild's skin limit {float(st.nl_limit)} differs from a "
+                         f"host build's {float(host['limit'])}")
     e = np.flatnonzero(mask)
     if not ((src[mir[e]] == rows[e]).all() and (shift[mir[e]] == -shift[e]).all()
             and (mir[mir[e]] == e).all()):
         raise SystemExit("the device rebuild's mirror map does not pair the edges")
     return len(e)
+
+
+def cut_margin(eng, st) -> float:
+    """``d_drop - cutoff`` of the state's last slot build: ``d_drop`` is the
+    nearest distance past each row's K nearest in a host list at cutoff +
+    skin at the build's positions (inf: nothing cut)."""
+    import numpy as np
+
+    from sevennet_tpu_torch.data.neighborlist import neighbor_list_numpy
+
+    rows = np.flatnonzero(st.atom_mask.cpu().numpy())
+    pos = st.nl_positions.cpu().numpy()[rows].astype(np.float64)
+    cell = st.cell.cpu().numpy().astype(np.float64)
+    dst, src, sh = neighbor_list_numpy(pos, eng.spec.cutoff + eng.skin, cell, (True,) * 3)
+    d = np.linalg.norm(pos[src] + sh @ cell - pos[dst], axis=1)
+    order = np.lexsort((d, dst))
+    dst, d = dst[order], d[order]
+    cut = np.arange(len(dst)) - np.searchsorted(dst, dst) >= eng.k_model
+    return float(d[cut].min() - eng.spec.cutoff) if cut.any() else float("inf")
+
+
+def missing_pairs(eng, st) -> int:
+    """The pairs within the cutoff at the state's positions (a host list)
+    that hold no masked slot: 0 when the slots are complete."""
+    import numpy as np
+
+    from sevennet_tpu_torch.data.neighborlist import neighbor_list_numpy
+
+    rows = np.flatnonzero(st.atom_mask.cpu().numpy())
+    pos = st.positions.cpu().numpy()[rows].astype(np.float64)
+    dst, src, sh = neighbor_list_numpy(pos, eng.spec.cutoff, st.cell.cpu().numpy(), (True,) * 3)
+    want = set(zip(rows[dst].tolist(), rows[src].tolist(), *np.rint(sh).astype(int).T.tolist()))
+    slot_row = np.repeat(np.arange(st.n_atoms_cap), eng.k_model)
+    m = st.edge_mask.cpu().numpy()
+    have = set(zip(slot_row[m].tolist(), st.edge_src.cpu().numpy()[m].tolist(),
+                   *np.rint(st.edge_shift.cpu().numpy()[m]).astype(int).T.tolist()))
+    return len(want - have)
+
+
+def skin_line(eng, st, rebuilds: int, steps: int) -> str:
+    """K, the nearest cut distance less the cutoff (host list at the last
+    build's positions), the state's limit as ``min(skin, d_drop - cutoff)``
+    and the device rebuilds per 100 steps."""
+    margin = 2.0 * float(st.nl_limit) ** 0.5
+    return (f"K {eng.k_model} of {eng.cl_spec.neighbor_capacity}, d_drop - cutoff "
+            f"{cut_margin(eng, st):.4f} A at the last build (limit min(skin, d_drop - cutoff) "
+            f"{margin:.4f} A), {100.0 * rebuilds / steps:.1f} device rebuilds per 100 steps")
 
 
 def record_evaluations(eng):
@@ -1497,7 +1550,8 @@ def md_compare_phase(spec, params, dev, seed: int, card: str):
     positions within MD_POS_TOL, potential energy within ENERGY_REL_TOL
     relative at every step, 5 B1 + 5 B2 launches per force evaluation, at
     least one device rebuild (skin MD_CMP_SKIN), whose slots equal a host
-    build. Returns the kernel engine's launches."""
+    build; K, the nearest cut distance less the cutoff and the rebuilds per
+    100 steps printed. Returns the kernel engine's launches."""
     import numpy as np
     import torch
 
@@ -1529,6 +1583,7 @@ def md_compare_phase(spec, params, dev, seed: int, card: str):
         f"device rebuilds {rebuilds}, growths {engines['kernel'].n_growths}, K="
         f"{engines['kernel'].k_model}; {ms_k:.1f} ms/step kernel, {ms_p:.1f} plain (host "
         f"clock); {n_evals} force evaluations, launches {counts} | {card}")
+    log(f"  skin {MD_CMP_SKIN} A: {skin_line(engines['kernel'], st_k, rebuilds, MD_CMP_STEPS)}")
     checks = ((dx <= MD_POS_TOL, f"max|dx| {dx}"), (de <= ENERGY_REL_TOL, f"rel dPE {de}"),
               (counts == want, f"launches {counts}, expected {want}"),
               (not any(counts_p.values()), f"plain engine launched {counts_p}"),
@@ -1548,8 +1603,11 @@ def md_timed_phase(spec, params, dev, seed: int, card: str):
     MD_TIMED_STEPS timed steps in chunks of MD_CHUNK (host clock around
     synchronized work): ms per step, atom-steps/s, peak memory, capacity
     growths (a growth retries its chunk, and its steps count in the time);
-    exactly 5 B1 + 5 B2 per force evaluation. Returns the launches of the
-    timed steps."""
+    exactly 5 B1 + 5 B2 per force evaluation; K, the nearest cut distance
+    less the cutoff at make_state and at the last rebuild, the rebuilds per
+    100 steps; then every pair within the cutoff at the final positions (a
+    host list) must hold a slot. Returns the launches of the timed
+    steps."""
     import numpy as np
     import torch
 
@@ -1562,6 +1620,7 @@ def md_timed_phase(spec, params, dev, seed: int, card: str):
     st = eng.make_state(pos, Z, temperature=MD_T, seed=seed)
     t_setup = time.perf_counter() - t0
     k0 = eng.k_model
+    log(f"MD 9,999 atoms at make_state: {skin_line(eng, st, 0, 1)} (host build)")
     st, _ = eng.run(st, MD_WARMUP_STEPS, dt=MD_DT, chunk=MD_CHUNK)
     rebuilds, growths = eng.n_rebuilds, eng.n_growths
     evals = record_evaluations(eng)
@@ -1583,10 +1642,15 @@ def md_timed_phase(spec, params, dev, seed: int, card: str):
         f"device rebuilds {eng.n_rebuilds - rebuilds}, growths {eng.n_growths - growths}, "
         f"{len(evals)} force evaluations, E_tot drift {float(np.abs(etot - etot[0]).max()):.3e} "
         f"eV; launches {counts} | {card}")
+    missing = missing_pairs(eng, st)
+    log(f"  after the timed steps: {skin_line(eng, st, eng.n_rebuilds - rebuilds, MD_TIMED_STEPS)}"
+        f"; pairs within the cutoff at the final positions without a slot: {missing} | {card}")
     if counts != want:
         raise SystemExit(f"MD at 9,999 atoms: launches {counts}, expected {want}")
     if not np.isfinite(etot).all():
         raise SystemExit("MD at 9,999 atoms: non-finite energies")
+    if missing:
+        raise SystemExit(f"MD at 9,999 atoms: {missing} pairs within the cutoff hold no slot")
     return counts
 
 
@@ -2611,11 +2675,12 @@ def d3_md(spec, params, dev, seed: int, card: str):
     dpe = float(np.abs(pe_k - pe_p).max() / np.abs(pe_p).max())
     want = dict(dict.fromkeys(counts, 0), fwd=5 * n_evals, bwd=5 * n_evals)
     d3_ms = cuda_median(lambda: eng._d3_term(st_k), 3)
-    # one step with no rebuild in it (the skin test reads zero displacement),
-    # then one rebuild alone
+    # one step with no rebuild in it (the integrator's step alone, no skin
+    # test), then one rebuild alone
+    step, forces_fn = eng._step_fn("nve", MD_DT)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eng.run(st_k.replace(nl_positions=st_k.positions), 1, dt=MD_DT, chunk=1)
+    step(st_k, forces_fn)
     torch.cuda.synchronize()
     peak_step = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
@@ -3894,14 +3959,11 @@ def _dist_rank(rank: int, world: int, init: str, job: dict, out: str):
         dist.destroy_process_group()
 
 
-def _serial_run(spec, params, dev, pos, Z, cell, vel, steps: int,
-                k_margin: float | None = None):
-    """The serial ``MDEngine`` (the kernels) from the same positions and
-    velocities, with ``k_margin`` its slot margin (SEVENNET_TPU_KMARGIN)
-    where given: its first forces and energy (input order), PE and KE of
-    every step, ms/step, final positions (input order)."""
-    import os
-
+def _serial_run(spec, params, dev, pos, Z, cell, vel, steps: int):
+    """The serial ``MDEngine`` (the kernels, its default slot margin) from
+    the same positions and velocities: its first forces and energy (input
+    order), PE and KE of every step, ms/step, final positions (input
+    order), K and rebuilds."""
     import numpy as np
     import torch
 
@@ -3909,16 +3971,7 @@ def _serial_run(spec, params, dev, pos, Z, cell, vel, steps: int,
 
     n = len(pos)
     eng = MDEngine(spec, params, cell, device=str(dev))
-    old_margin = os.environ.get("SEVENNET_TPU_KMARGIN")
-    if k_margin is not None:
-        os.environ["SEVENNET_TPU_KMARGIN"] = str(k_margin)
-    try:
-        st = eng.make_state(pos, Z)
-    finally:
-        if old_margin is None:
-            os.environ.pop("SEVENNET_TPU_KMARGIN", None)
-        else:
-            os.environ["SEVENNET_TPU_KMARGIN"] = old_margin
+    st = eng.make_state(pos, Z)
     idx = st.atom_index.cpu().numpy()
     v = np.zeros((st.n_atoms_cap, 3), np.float32)
     v[:n] = vel[idx[:n]]
@@ -3928,7 +3981,8 @@ def _serial_run(spec, params, dev, pos, Z, cell, vel, steps: int,
     st, (pe, ke) = eng.run(st, steps, dt=DIST_DT, chunk=steps)
     float(pe[-1])  # waits for the card
     out.update(ms=(time.perf_counter() - t0) / steps * 1e3, pe=pe.cpu().numpy(),
-               ke=ke.cpu().numpy(), positions=unsorted(st, n, "positions")[:n])
+               ke=ke.cpu().numpy(), positions=unsorted(st, n, "positions")[:n], K=eng.k_model,
+               rebuilds=eng.n_rebuilds)
     return out
 
 
@@ -4003,10 +4057,11 @@ def dist_two_rank_phase(spec, params, dev, seed: int, card: str):
     ``file://`` store in a temporary directory, ``dims=(2,)``, each joined
     with a timeout of its own (DIST_JOIN_S). 3,000 atoms of water at
     DIST_HOT_T (atoms cross the slab faces), DIST2_WARM + DIST2_TIMED NVE
-    steps, then ``compute_stress``; against the serial engine from the same
-    positions and velocities with the distributed engine's slot margin
-    (K_MARGIN: no edge is cut between rebuilds on either side): first
-    forces within FORCE_TOL and FORCE_REL_TOL and energy within
+    steps, then ``compute_stress``; against the serial engine at its own
+    default slot margin from the same positions and velocities (both
+    engines cut slots, each at its own K, and keep every pair within the
+    cutoff between rebuilds): first forces within FORCE_TOL and
+    FORCE_REL_TOL and energy within
     ENERGY_REL_TOL (the cross-rank backward, ``HaloExchange.backward``),
     PE and KE within DIST2_TRAJ_REL x max(1, |E|), each atom within
     DIST2_POS_TOL of its serial twin (nearest image), atoms conserved; the
@@ -4020,7 +4075,6 @@ def dist_two_rank_phase(spec, params, dev, seed: int, card: str):
     from sevennet_tpu_torch.atoms import AtomsLite
     from sevennet_tpu_torch.calculator import SevenNetCalculator
     from sevennet_tpu_torch.md.state import ATOMIC_MASSES, thermal_velocities
-    from sevennet_tpu_torch.parallel.md import K_MARGIN
 
     pos, Z, cell = water_box(DIST_MOLECULES)
     n = len(pos)
@@ -4049,8 +4103,7 @@ def dist_two_rank_phase(spec, params, dev, seed: int, card: str):
         ranks = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(2)]
     t_wall = time.perf_counter() - t0
     res = ranks[0]
-    ser = _serial_run(spec, params, dev, pos, Z, cell, vel, DIST2_WARM + DIST2_TIMED,
-                      k_margin=K_MARGIN)
+    ser = _serial_run(spec, params, dev, pos, Z, cell, vel, DIST2_WARM + DIST2_TIMED)
     df = float(np.abs(res["forces0"] - ser["forces0"]).max())
     fmax = float(np.abs(ser["forces0"]).max())
     de = _close_rel(float(res["pe0"]), ser["pe0"])
@@ -4077,8 +4130,9 @@ def dist_two_rank_phase(spec, params, dev, seed: int, card: str):
                     f"{float(r['t_setup']):.1f} s, peak {float(r['peak']):.2f} GiB, owned "
                     f"{int(r['owned'])}, ghosts {int(r['ghosts'])}, NL {int(r['NL'])}, K "
                     f"{int(r['K'])}, swaps {int(r['swaps'])}" for i, r in enumerate(ranks))
-        + f"; serial engine (slot margin {K_MARGIN}) {ser['ms']:.2f} ms/step (this process, "
-        f"alone); rebuilds {int(res['rebuilds'])}, atoms migrated {int(res['migrated'])}; "
+        + f"; serial engine (default slot margin, K {ser['K']}, rebuilds {ser['rebuilds']}) "
+        f"{ser['ms']:.2f} ms/step (this process, alone); rebuilds {int(res['rebuilds'])}, "
+        f"atoms migrated {int(res['migrated'])}; "
         f"first forces max|dF| {df:.3e} eV/A (max|F| {fmax:.3e}), rel dE {de:.3e}; PE, KE "
         f"trajectories at {e_pe:.3e}, {e_ke:.3e} of {DIST2_TRAJ_REL:g} x max(1, |E|) (max|dPE| "
         f"{float(np.abs(res['pe'] - ser['pe']).max()):.3e} eV, max|dKE| "

@@ -2,14 +2,23 @@
 dynamics of one periodic system through the fused-conv model on the card,
 NVE, NVT (Langevin, Nose-Hoover chain) and NPT (MTK, Berendsen).
 
-Each step checks the skin (one host read), rebuilds the neighbour slots on
-the device when an atom has moved more than half the skin, evaluates the
+Each step checks the skin where it evaluates the forces (one host read):
+when an atom there has moved more than the state's limit since the last
+slot build, the step is run again with its forces on slots rebuilt on the
+device at those positions. The slots hold each atom's K nearest neighbours
+of the list at cutoff + skin, so the limit is half the smaller of the skin
+and ``d_drop - cutoff``, ``d_drop`` the nearest edge that the build cut
+(``MDState.nl_limit``): no pair can then close from beyond ``d_drop`` to
+within the cutoff before the next build, and every pair within the cutoff
+holds a slot at every force evaluation. Then the engine evaluates the
 model (:func:`~sevennet_tpu_torch.model.model.model_compute`) and
 integrates. Capacities are fixed; a rebuild that overflows one (or breaks
 the ring backward's window) raises a flag, and :meth:`MDEngine.run`
 retries the chunk of steps from its snapshot with grown capacities. The
 JAX package compiles each chunk into one ``lax.scan``; here the steps are
 a Python loop (CUDA graphs are a later lever, ROADMAP performance lever 7).
+The JAX engine tests half the skin before each step and flags only cut
+edges within the cutoff, so it misses a cut pair that closes in.
 
 Large systems: when a layer's gathered edge tensor would pass
 :func:`~sevennet_tpu_torch.ops.fused_conv.chunk_threshold` and the spec
@@ -30,7 +39,8 @@ D3 dispersion (``d3=``) adds :func:`~sevennet_tpu_torch.d3.d3_compute` over
 a second dense slot grid at the D3 cutoff (bounded by the box), rebuilt on
 the device with the model's and grown with it. Its grid usually has one
 cell (the cutoff is clamped to the box height less the skin); the skin test
-then uses the skin that the grid still covers when NPT shrinks the box.
+then also holds to the skin that the grid still covers when NPT shrinks
+the box.
 """
 
 from __future__ import annotations
@@ -50,13 +60,24 @@ from ..model.model import _vec_mode, model_compute, params_to
 from ..ops.fused_conv import chunk_threshold, mirror_map, mirror_map_numpy
 from .integrators import (berendsen_npt_step, langevin_step, mtk_npt_step, nose_hoover_step,
                           nve_step)
-from .neighbor import CellListSpec, build_cell_list_spec, cell_coords, rebuild_neighbors
+from .neighbor import (CellListSpec, build_cell_list_spec, cell_coords, rebuild_neighbors,
+                       skin_limit)
 from .state import ATOMIC_MASSES, MDState, init_md_state, thermal_velocities
 
 __all__ = ["MDEngine", "INTEGRATORS"]
 
+# the fields of a state that a slot rebuild sets
+_REBUILT = ("positions", "nl_positions", "edge_src", "edge_dst", "edge_shift", "edge_mask",
+            "edge_mir", "nl_limit", "nl_overflow", "ring_overflow", "d3_edge_src",
+            "d3_edge_dst", "d3_edge_shift", "d3_edge_mask")
+
 _NPT = ("npt", "npt_mtk", "npt_nose_hoover", "npt_berendsen")
 INTEGRATORS = ("nve", "langevin", "nose_hoover", "nvt") + _NPT
+
+
+class _Stale(Exception):
+    """Raised at a force evaluation where an atom has moved past the
+    state's limit since the last slot build."""
 
 
 def _interleave(c: np.ndarray, n: int) -> np.ndarray:
@@ -148,9 +169,8 @@ class MDEngine:
                                                 neighbor_capacity=int(np.ceil(max_nbrs * 1.2)) + 2)
         # distance-sorted slot truncation: the list reaches cutoff + skin,
         # the conv needs the neighbours within the cutoff. A dropped edge
-        # inside the cutoff raises the overflow flag, but only at a
-        # rebuild: one dropped beyond the cutoff that comes within it
-        # before the next rebuild is missed (ROADMAP C.4)
+        # inside the cutoff raises the overflow flag; the nearest one
+        # dropped beyond it narrows the skin test (MDState.nl_limit)
         close = dst[d2 < (self.spec.cutoff + 0.1 * self.skin) ** 2]
         mx_c = int(np.bincount(close, minlength=n).max()) if len(close) else 8
         k_margin = float(os.environ.get("SEVENNET_TPU_KMARGIN", 1.05))
@@ -193,6 +213,7 @@ class MDEngine:
         if host_edges is not None:
             idx = np.concatenate([perm, np.arange(n, n_cap)])
             state = state.replace(
+                nl_limit=host_edges["limit"].to(self.device, torch.float32),
                 edge_src=self._put(host_edges["src"], torch.int64),
                 edge_dst=torch.arange(n_cap * self.k_model, device=self.device) // self.k_model,
                 edge_shift=self._put(host_edges["shift"], torch.float32),
@@ -247,16 +268,23 @@ class MDEngine:
                     nl_overflow=overflow | ofl | too_small)
 
     def _skin_half_sq(self, state: MDState):
-        """The rebuild test's limit on the squared displacement: (skin / 2)^2,
-        or with D3 the square of half of the smaller of the skin and the D3
-        grid's cover (``_d3_cover``), which a shrinking NPT box narrows;
-        computed on the device when the cell changes."""
+        """The rebuild test's limit on the squared displacement: the state's
+        ``nl_limit``, with D3 also no more than the square of half the D3
+        grid's cover (``_d3_cover``, at most the skin), which a shrinking
+        NPT box narrows; computed on the device when the cell changes."""
         if self.d3_params is None:
-            return (self.skin / 2.0) ** 2
+            return state.nl_limit
         if state.cell is not self._skin_cell:
             cover = torch.clamp(self._d3_cover(state.cell), min=0.0, max=self.skin)
             self._skin_cell, self._skin_sq = state.cell, (cover / 2.0) ** 2
-        return self._skin_sq
+        return torch.minimum(state.nl_limit, self._skin_sq)
+
+    def _moved(self, state: MDState) -> bool:
+        """Whether an atom has moved past the limit since the last slot
+        build (one host read)."""
+        disp = state.positions - state.nl_positions
+        return bool((torch.sum(disp * disp, dim=-1) * state.atom_mask
+                     > self._skin_half_sq(state)).any())
 
     # the host helpers take the cell (default: the initial one); an NPT
     # state's cell is the state's own
@@ -298,9 +326,10 @@ class MDEngine:
 
     def _host_initial_edges(self, pos_w: np.ndarray, n_cap: int, cell=None, edges=None):
         """The dense ``(N, K)`` slots and mirror map of ``cell``, built on the
-        host: what the device rebuild gives, from ``edges = (dst, src,
-        shift, d2)`` at cutoff + skin (computed here when None). Returns None
-        when K drops an edge inside the cutoff or the ring window fails."""
+        host, and the skin test's ``limit``: what the device rebuild gives,
+        from ``edges = (dst, src, shift, d2)`` at cutoff + skin (computed
+        here when None). Returns None when K drops an edge inside the cutoff
+        or the ring window fails."""
         n, K, cell = len(pos_w), self.k_model, self._cell(cell)
         if edges is None:
             dst, src, sh = neighbor_list_numpy(pos_w, self.spec.cutoff + self.skin, cell,
@@ -325,7 +354,9 @@ class MDEngine:
             if np.any(mask_nk & (d > W) & (d < self._ring_nb - W)):
                 return None
         mir = mirror_map_numpy(src_nk, shift_d.reshape(n_cap, K, 3), mask_nk).reshape(-1)
-        return dict(src=src_d, shift=shift_d, mask=mask_d, mir=mir)
+        d2_drop = torch.tensor(d2[~keep].min() if not keep.all() else np.inf)
+        return dict(src=src_d, shift=shift_d, mask=mask_d, mir=mir,
+                    limit=skin_limit(d2_drop, self.spec.cutoff, self.skin))
 
     def _size_ring(self, n_cap: int) -> int:
         """Sizes the ring backward from the host-measured mirror window, by
@@ -371,17 +402,20 @@ class MDEngine:
             edge_chunk=self.row_chunk * self.k_model if self._ring_nb else self.spec.edge_chunk)
         return n_cap
 
-    def _rebuild(self, state: MDState) -> MDState:
-        """Device rebuild: (with the ring, sort,) cell list, distance
-        truncation to K, mirror map, ring-window check, overflow flags."""
+    def _rebuild(self, state: MDState, sort: bool = True) -> MDState:
+        """Device rebuild: (with the ring and ``sort``, sort,) cell list,
+        distance truncation to K and the skin test's limit, mirror map,
+        ring-window check, overflow flags."""
         self.n_rebuilds += 1
-        if self._ring_nb:
+        if sort and self._ring_nb:
             state = self._sort_state(state)
         n, K = state.n_atoms_cap, self.k_model
         src, dst, shift, mask, overflow, pos_w = rebuild_neighbors(
             self.cl_spec, state.positions, state.cell, state.atom_mask)
+        limit = skin_limit(torch.full((), np.inf, device=self.device), self.spec.cutoff,
+                           self.skin)
         if K < self.cl_spec.neighbor_capacity:
-            src, dst, shift, mask, ofl_trunc = self._truncate_sorted(
+            src, dst, shift, mask, ofl_trunc, limit = self._truncate_sorted(
                 src, shift, mask, pos_w, state.cell, n)
             overflow = overflow | ofl_trunc
         mir = mirror_map(src.view(n, K), shift.view(n, K, 3), mask.view(n, K))
@@ -398,7 +432,7 @@ class MDEngine:
                      < self.cl_spec.cutoff).any()
         state = state.replace(
             positions=pos_w, nl_positions=pos_w, edge_src=src, edge_dst=dst,
-            edge_shift=shift, edge_mask=mask, edge_mir=mir.reshape(-1),
+            edge_shift=shift, edge_mask=mask, edge_mir=mir.reshape(-1), nl_limit=limit,
             nl_overflow=state.nl_overflow | overflow | too_small,
             ring_overflow=state.ring_overflow | ring_bad)
         if self.d3_params is not None:
@@ -425,7 +459,8 @@ class MDEngine:
 
     def _truncate_sorted(self, src, shift, mask, pos_w, cell, n):
         """Each atom's slots sorted by distance, the first ``k_model`` kept;
-        a dropped edge within the model cutoff flags overflow."""
+        a dropped edge within the model cutoff flags overflow, and the
+        nearest dropped edge sets the skin test's limit (``skin_limit``)."""
         K, Kp = self.cl_spec.neighbor_capacity, self.k_model
         src, shift, mask = src.view(n, K), shift.view(n, K, 3), mask.view(n, K)
         vec = pos_w[src] + shift @ cell - pos_w[:, None, :]
@@ -433,11 +468,12 @@ class MDEngine:
         order = torch.argsort(key, dim=1, stable=True)
         src_s, mask_s = torch.gather(src, 1, order), torch.gather(mask, 1, order)
         shift_s = torch.gather(shift, 1, order[..., None].expand(n, K, 3))
-        d2_s = torch.gather(key, 1, order)
+        d2_s = torch.gather(key, 1, order)  # inf on the masked slots
         ofl = (mask_s[:, Kp:] & (d2_s[:, Kp:] < self.spec.cutoff ** 2)).any()
         dst = torch.repeat_interleave(torch.arange(n, device=src.device), Kp)
         return (src_s[:, :Kp].reshape(-1), dst, shift_s[:, :Kp].reshape(-1, 3),
-                mask_s[:, :Kp].reshape(-1), ofl)
+                mask_s[:, :Kp].reshape(-1), ofl,
+                skin_limit(d2_s[:, Kp:].min(), self.spec.cutoff, self.skin))
 
     def _graph(self, state: MDState) -> GraphBatch:
         dev = self.device
@@ -475,44 +511,67 @@ class MDEngine:
                           ev, state.d3_edge_mask)
 
     def _step_fn(self, integrator: str, dt: float, **kw):
-        """The integrator step ``state -> state`` of ``integrator`` (the JAX
-        engine's names and keyword defaults); the NPT integrators (and
-        ``compute_stress=True``) evaluate the stress with the forces."""
+        """``(step, forces_fn)``: the integrator step ``(state, forces_fn) ->
+        state`` of ``integrator`` (the JAX engine's names and keyword
+        defaults) and the engine's force evaluation for it; the NPT
+        integrators (and ``compute_stress=True``) evaluate the stress with
+        the forces."""
         need_stress = kw.pop("compute_stress", False) or integrator in _NPT
 
         def forces_fn(state):
             return self._forces(state, compute_stress=need_stress)
 
         if integrator == "nve":
-            return lambda s: nve_step(s, forces_fn, dt)
+            return (lambda s, f: nve_step(s, f, dt)), forces_fn
         if integrator not in INTEGRATORS:
             raise ValueError(f"unknown integrator {integrator!r}; one of {INTEGRATORS}")
         if "temperature" not in kw:
             raise ValueError(f"integrator {integrator!r} needs temperature=")
         T = kw["temperature"]
         if integrator == "langevin":
-            return lambda s: langevin_step(s, forces_fn, dt, T, kw.get("friction", 0.01))
+            return (lambda s, f: langevin_step(s, f, dt, T, kw.get("friction", 0.01))), forces_fn
         if integrator in ("nose_hoover", "nvt"):
-            return lambda s: nose_hoover_step(s, forces_fn, dt, T, kw.get("tau", 50.0))
+            return (lambda s, f: nose_hoover_step(s, f, dt, T, kw.get("tau", 50.0))), forces_fn
         npt = dict(pressure=kw.get("pressure", 0.0), tau_t=kw.get("tau_t", 100.0),
                    tau_p=kw.get("tau_p", 1000.0))
         if integrator == "npt_berendsen":
-            return lambda s: berendsen_npt_step(
-                s, forces_fn, dt, T, compressibility=kw.get("compressibility", 4.6e-5), **npt)
-        return lambda s: mtk_npt_step(s, forces_fn, dt, T, **npt)
+            return (lambda s, f: berendsen_npt_step(
+                s, f, dt, T, compressibility=kw.get("compressibility", 4.6e-5), **npt)), forces_fn
+        return (lambda s, f: mtk_npt_step(s, f, dt, T, **npt)), forces_fn
 
-    def _run_chunk(self, state: MDState, length: int, step_fn):
-        """``length`` steps of ``step_fn``; stops early once a rebuild
-        overflows (the caller retries from its snapshot)."""
+    def _run_chunk(self, state: MDState, length: int, step, forces_fn):
+        """``length`` steps of ``step``. Each evaluates the forces on the
+        current slots unless an atom has moved past the limit there; then
+        the step runs again from its start (with the ring, the rows sorted
+        first), its forces on slots rebuilt at the positions where it
+        evaluates them: every step's positions are a function of the state
+        before it, so the rebuild sees the positions the forces see. Stops
+        early once a rebuild overflows (the caller retries from its
+        snapshot)."""
+
+        built = []
+
+        def checked(s):
+            if self._moved(s):
+                raise _Stale
+            return forces_fn(s)
+
+        def rebuilt(s):
+            built.append(self._rebuild(s, sort=False))
+            return forces_fn(built[-1])
+
         pe, ke = [], []
         for _ in range(length):
-            disp = state.positions - state.nl_positions
-            limit = self._skin_half_sq(state)
-            if bool((torch.sum(disp * disp, dim=-1) * state.atom_mask > limit).any()):
-                state = self._rebuild(state)
+            try:
+                state = step(state, checked)
+            except _Stale:
+                if self._ring_nb:
+                    state = self._sort_state(state)
+                built.clear()
+                state = step(state, rebuilt)
+                state = state.replace(**{f: getattr(built[0], f) for f in _REBUILT})
                 if bool(state.nl_overflow | state.ring_overflow):
                     break
-            state = step_fn(state)
             pe.append(state.potential_energy)
             ke.append(state.kinetic_energy())
         return state, pe, ke
@@ -533,7 +592,7 @@ class MDEngine:
         ``traj_path`` appends an extxyz frame every ``traj_every`` steps
         (rounded to chunk ends; default: every chunk), atoms in the input
         order."""
-        step_fn = self._step_fn(integrator, dt, **kw)
+        step, forces_fn = self._step_fn(integrator, dt, **kw)
         traj_pe, traj_ke = [], []
         if traj_path and traj_every <= 0:
             traj_every = chunk
@@ -543,7 +602,7 @@ class MDEngine:
         for length in [chunk] * (n_steps // chunk) + ([n_steps % chunk] if n_steps % chunk else []):
             for _ in range(4):
                 prev = state
-                state, pe, ke = self._run_chunk(state, length, step_fn)
+                state, pe, ke = self._run_chunk(state, length, step, forces_fn)
                 ofl_nl, ofl_ring = bool(state.nl_overflow), bool(state.ring_overflow)
                 if not (ofl_nl or ofl_ring):
                     break

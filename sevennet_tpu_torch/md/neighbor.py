@@ -29,7 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["CellListSpec", "build_cell_list_spec", "rebuild_neighbors"]
+__all__ = ["CellListSpec", "build_cell_list_spec", "rebuild_neighbors", "skin_limit"]
 
 
 @dataclass(frozen=True)
@@ -88,6 +88,17 @@ def cell_coords(spec: CellListSpec, positions: torch.Tensor, cell: torch.Tensor)
     grid = torch.tensor(spec.n_cells, device=positions.device)
     coords = torch.minimum(torch.clamp((frac * grid).to(torch.int64), min=0), grid - 1)
     return frac, coords
+
+
+def skin_limit(d2_drop: torch.Tensor, cutoff: float, skin: float) -> torch.Tensor:
+    """The skin test's limit on an atom's squared displacement since a slot
+    build that kept each row's nearest neighbours of a list at ``cutoff +
+    skin``: ``(min(skin, d_drop - cutoff) / 2)^2``, from the squared distance
+    ``d2_drop`` of the nearest edge the build cut (inf: none cut; 0 once one
+    is within the cutoff). While every atom moves less, no pair closes from
+    beyond ``d_drop`` or the list to within the cutoff."""
+    margin = torch.clamp(torch.sqrt(d2_drop) - cutoff, min=0.0, max=skin)
+    return margin * margin / 4.0
 
 
 def rebuild_neighbors(spec: CellListSpec, positions, cell, atom_mask):

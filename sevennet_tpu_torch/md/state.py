@@ -66,6 +66,10 @@ class MDState:
     edge_mir: torch.Tensor  # (N*K,) int64 mirror slot of each slot
     nl_overflow: torch.Tensor  # () bool: a neighbour capacity was exceeded
     ring_overflow: torch.Tensor  # () bool: a mirror left the ring window
+    # () the skin test's limit on an atom's squared displacement from
+    # nl_positions: (min(skin, d_drop - cutoff) / 2)^2, d_drop the nearest
+    # edge that the slot build cut (0 before the first build)
+    nl_limit: torch.Tensor
     potential_energy: torch.Tensor  # ()
     stress: torch.Tensor  # (6,) eV/A^3 (zeros unless the engine computed it)
     # input index of each row (tracks identity under spatial sorting)
@@ -202,6 +206,7 @@ def init_md_state(
         edge_mir=zeros_i,
         nl_overflow=no,
         ring_overflow=no,
+        nl_limit=torch.zeros((), dtype=torch.float32, device=device),
         potential_energy=torch.zeros((), dtype=torch.float32, device=device),
         stress=torch.zeros(6, dtype=torch.float32, device=device),
         atom_index=torch.arange(cap, dtype=torch.int64, device=device),

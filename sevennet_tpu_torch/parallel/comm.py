@@ -136,16 +136,16 @@ class Halo:
         return from_lo, from_hi
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """The sum (``op="sum"``) or maximum (``"max"``) of ``t`` over the
-        ranks, as a new tensor on ``t``'s device."""
+        """The sum (``op="sum"``), maximum (``"max"``) or minimum (``"min"``)
+        of ``t`` over the ranks, as a new tensor on ``t``'s device."""
         if not self.active:
             return t.clone()
         import torch.distributed as dist
 
         buf = t.detach().clone().contiguous()
         buf = buf.cpu() if self.stage_host else buf
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
-                        group=self.group)
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+        dist.all_reduce(buf, op=ops[op], group=self.group)
         return buf.to(t.device)
 
     def all_gather(self, t: torch.Tensor):

@@ -21,14 +21,20 @@ engine, calls :meth:`DistributedMDEngine.make_state` with the whole system
   :func:`.model.local_atomic_energy`, on the ext conv's kernels). Forces are
   ``-d(local energy sum)/d(positions)``: the exchange's backward carries
   the ghost cotangents home (``reverse_comm``, ``:404-441``). The energy,
-  kinetic energy, virial and the skin and overflow flags are all-reduced
-  afterwards, a few scalars a step.
-- The skin test is all-reduced, so all ranks rebuild together: atoms
-  migrate to face neighbours axis by axis into fixed-capacity buffers
-  (diagonal moves complete across the sequential passes, as in LAMMPS),
-  the staged send lists are rebuilt, and the local cell list
-  (:mod:`~sevennet_tpu_torch.md.neighbor`) runs on the owned and ghost set
-  in a padded local frame.
+  kinetic energy, virial and the overflow flag are all-reduced afterwards,
+  a few scalars a step.
+- The skin test runs where a step evaluates the forces and is all-reduced
+  (one more scalar), so all ranks rebuild together, before the
+  evaluation: atoms migrate to face neighbours axis by axis into
+  fixed-capacity buffers (diagonal moves complete across the sequential
+  passes, as in LAMMPS), the staged send lists are rebuilt, and the local
+  cell list (:mod:`~sevennet_tpu_torch.md.neighbor`) runs on the owned and
+  ghost set in a padded local frame. The slots keep each atom's
+  ``k_model`` nearest neighbours, so the test's limit is half the smaller
+  of the skin and ``d_drop - cutoff``, ``d_drop`` the nearest edge that any
+  rank cut (all-reduced at the rebuild): every pair within the cutoff then
+  holds a slot at every evaluation. The JAX engine tests half the skin
+  after the evaluation and misses a cut pair that closes in.
 - Capacities are fixed (the ext conv's ``(NL, K)`` slot grid needs them):
   an exceeded one raises the overflow flag and :meth:`run` raises
   ``RuntimeError`` at the end of the chunk.
@@ -53,7 +59,7 @@ import torch
 from ..data.neighborlist import neighbor_counts, neighbor_list_numpy
 from ..device import resolve_device
 from ..md.integrators import _chain_half, _nhc_baro_half, _sinhc
-from ..md.neighbor import CellListSpec, build_cell_list_spec, rebuild_neighbors
+from ..md.neighbor import CellListSpec, build_cell_list_spec, rebuild_neighbors, skin_limit
 from ..md.state import ATOMIC_MASSES, EV_A_AMU_TO_A_FS2, KB_EV, thermal_velocities
 from ..model.build import ModelSpec
 from ..model.model import params_to
@@ -96,6 +102,7 @@ class DistMDState:
     edge_shift: torch.Tensor  # (NL, K, 3) wraps along axes that are not decomposed
     edge_mask: torch.Tensor   # (NL, K) bool
     nl_positions: torch.Tensor  # (NL, 3)
+    nl_limit: torch.Tensor    # () the skin test's squared limit (global, ``_rebuild``)
     thermo: torch.Tensor      # (2, 3) Nose-Hoover chain (replicated)
     baro: torch.Tensor        # (8,) MTK barostat [v_eps, xi(3), vxi(3), eps_log] (replicated)
     cell_scale: torch.Tensor  # () isotropic cell scale (physical cell = s * cell0)
@@ -105,7 +112,6 @@ class DistMDState:
     nl_overflow: torch.Tensor  # () bool, global after each step
     step: int = 0
     rng: int = 0              # noise seed (with rank and step)
-    rebuild_due: bool = False  # the all-reduced skin test of the last step
     # optional D3 dispersion list (src indexes the extended set)
     d3_edge_src: Optional[torch.Tensor] = None    # (NL, K3)
     d3_edge_shift: Optional[torch.Tensor] = None  # (NL, K3, 3)
@@ -311,8 +317,9 @@ class DistributedMDEngine:
         prisms keep their shape) and its cell lists. The slot widths come
         from the host neighbour counts: K at cutoff + skin and the conv's
         ``k_model`` within cutoff + 0.1 skin (the slots are cut to it by
-        distance), each x K_MARGIN + 4 (the serial engine grows its
-        capacities and takes x 1.2 + 2 and x 1.05 + 2; these are fixed), and
+        distance; the nearest cut edge narrows the skin test), each x
+        K_MARGIN + 4 (the serial engine grows its capacities and takes x 1.2
+        + 2 and x 1.05 + 2; these are fixed), and
         with D3 its width at the D3 cutoff + skin (x 1.15 + 2)."""
         fake = self.cell.copy()
         occ = 1.0
@@ -403,7 +410,7 @@ class DistributedMDEngine:
             edge_src=torch.zeros((NL, 1), dtype=torch.int64, device=dev),
             edge_shift=torch.zeros((NL, 1, 3), dtype=f32, device=dev),
             edge_mask=torch.zeros((NL, 1), dtype=torch.bool, device=dev),
-            nl_positions=P,
+            nl_positions=P, nl_limit=torch.zeros((), dtype=f32, device=dev),
             thermo=torch.zeros((2, 3), dtype=f32, device=dev),
             baro=torch.zeros(8, dtype=f32, device=dev),
             cell_scale=torch.ones((), dtype=f32, device=dev),
@@ -487,9 +494,10 @@ class DistributedMDEngine:
     def _slots(self, spec: CellListSpec, loc, ext_mask, scale, NL, k_keep: int = 0):
         """The rank's owned rows of the local cell list over the extended
         set: ``(src, shift, mask)`` of ``(NL, K)`` slots (``k_keep`` > 0:
-        the nearest ``k_keep`` of each row), and the overflow flag (a
-        capacity, a cut edge within the model cutoff, or an owned edge that
-        wraps a decomposed axis: the gap failed)."""
+        the nearest ``k_keep`` of each row), the overflow flag (a capacity,
+        a cut edge within the model cutoff, or an owned edge that wraps a
+        decomposed axis: the gap failed) and the squared distance of the
+        nearest cut edge (inf: none)."""
         Next = loc.shape[0]
         fake = self._fake_t * scale
         src, _, shift, mask, ofl, loc_w = rebuild_neighbors(spec, loc, fake, ext_mask)
@@ -497,23 +505,26 @@ class DistributedMDEngine:
         src = src.view(Next, K)[:NL]
         shift = shift.view(Next, K, 3)[:NL]
         mask = mask.view(Next, K)[:NL]
+        d2_drop = torch.full((), float("inf"), device=loc.device)
         if k_keep and k_keep < K:
             vec = loc_w[src] + shift @ fake - loc_w[:NL, None, :]
             key = torch.where(mask, torch.sum(vec * vec, dim=-1), float("inf"))
             order = torch.argsort(key, dim=1, stable=True)
             src, mask = torch.gather(src, 1, order), torch.gather(mask, 1, order)
             shift = torch.gather(shift, 1, order[..., None].expand(NL, K, 3))
-            d2 = torch.gather(key, 1, order)
+            d2 = torch.gather(key, 1, order)  # inf on the masked slots
             ofl = ofl | (mask[:, k_keep:] & (d2[:, k_keep:] < self.spec.cutoff ** 2)).any()
+            d2_drop = d2[:, k_keep:].min()
             src, shift, mask = src[:, :k_keep], shift[:, :k_keep], mask[:, :k_keep]
         for s, a in enumerate(self.axes):
             if self.dims[s] > 1:
                 ofl = ofl | ((shift[..., a].abs() > 0.5) & mask).any()
-        return src, shift, mask, ofl
+        return src, shift, mask, ofl, d2_drop
 
     def _rebuild(self, state: DistMDState) -> DistMDState:
         """Migration (axis by axis), staged send lists and ghost images,
-        local neighbour lists; the local overflow flag."""
+        local neighbour lists, the skin test's limit from the nearest edge
+        that any rank cut (one all-reduce); the local overflow flag."""
         self.n_rebuilds += 1
         NL = state.positions.shape[0]
         scale = state.cell_scale
@@ -569,11 +580,15 @@ class DistributedMDEngine:
             mhi.append(vhi)
 
         loc = self._to_local_frame(ext_pos, scale)
-        src, shift, emask, o = self._slots(self.cl_spec, loc, ext_mask, scale, NL, self.k_model)
+        src, shift, emask, o, d2_drop = self._slots(self.cl_spec, loc, ext_mask, scale, NL,
+                                                    self.k_model)
         ofl = ofl | o
+        # a cut pair between ranks closes by both owners' displacements,
+        # each held by its own rank's test: the limit is global
+        limit = skin_limit(self.halo.all_reduce(d2_drop, op="min"), self.spec.cutoff, self.skin)
         d3 = {}
         if self.d3_params is not None:
-            s3, sh3, m3, o3 = self._slots(self.d3_cl_spec, loc, ext_mask, scale, NL)
+            s3, sh3, m3, o3, _ = self._slots(self.d3_cl_spec, loc, ext_mask, scale, NL)
             ofl = ofl | o3
             d3 = dict(d3_edge_src=s3, d3_edge_shift=sh3, d3_edge_mask=m3)
         return state.replace(
@@ -584,7 +599,7 @@ class DistributedMDEngine:
             send_hi=tuple(send_hi), send_hi_mask=tuple(mhi),
             ext_mask=ext_mask, ext_image=ext_image,
             edge_src=src, edge_shift=shift, edge_mask=emask, nl_positions=pos,
-            nl_overflow=state.nl_overflow | ofl, rebuild_due=False, **d3)
+            nl_limit=limit, nl_overflow=state.nl_overflow | ofl, **d3)
 
     # ------------------------------------------------------------------
     # energy, forces, virial
@@ -663,20 +678,27 @@ class DistributedMDEngine:
     def _global_ke(self, state: DistMDState, v) -> torch.Tensor:
         return self.halo.all_reduce(self._local_ke(state, v)).float()
 
+    def _fresh(self, state: DistMDState) -> DistMDState:
+        """``state`` (at the positions where a step evaluates the forces,
+        with the step's velocities), rebuilt when any rank's atom has moved
+        past the limit since the last build: one all-reduce and one host
+        read. A rebuild migrates atoms, so the caller reads the velocities
+        and the mask back from the result."""
+        disp = state.positions - state.nl_positions
+        moved = (torch.sum(disp * disp, -1) * state.atom_mask > state.nl_limit).any()
+        if bool(self.halo.all_reduce(moved.double(), op="max") > 0):
+            state = self._rebuild(state)
+        return state
+
     def _finish(self, state: DistMDState, e_loc, **upd) -> DistMDState:
         """The end of a step: one all-reduce of the energy, the kinetic
-        energy and the skin and overflow flags (the next step rebuilds when
-        any rank's atom moved more than half the skin)."""
+        energy and the overflow flag."""
         state = state.replace(**upd)
-        disp = state.positions - state.nl_positions
-        need = (torch.sum(disp * disp, -1) * state.atom_mask > (self.skin / 2.0) ** 2).any()
         vals = torch.stack([e_loc.double(), self._local_ke(state, state.velocities),
-                            need.double(), state.nl_overflow.double()])
+                            state.nl_overflow.double()])
         tot = self.halo.all_reduce(vals)
-        flags = tot[2:].cpu()
         return state.replace(potential_energy=tot[0].float(), kinetic_energy=tot[1].float(),
-                             rebuild_due=bool(flags[0] > 0),
-                             nl_overflow=torch.as_tensor(bool(flags[1] > 0), device=self.device))
+                             nl_overflow=torch.as_tensor(bool(tot[2] > 0), device=self.device))
 
     # ------------------------------------------------------------------
     # integrators
@@ -711,8 +733,6 @@ class DistributedMDEngine:
         return torch.randn(v.shape, generator=gen, dtype=v.dtype, device=v.device)
 
     def _step(self, state: DistMDState, integrator: str, dt: float, kw) -> DistMDState:
-        if state.rebuild_due:
-            state = self._rebuild(state)
         mask = state.atom_mask[:, None]
         if integrator in ("nose_hoover", "nvt"):
             v, thermo = self._nhc_half(state, state.velocities, state.thermo, dt,
@@ -733,6 +753,8 @@ class DistributedMDEngine:
         else:
             v = state.velocities + 0.5 * dt * self._accel(state, state.forces)
             state = state.replace(positions=state.positions + dt * v * mask)
+        state = self._fresh(state.replace(velocities=v))
+        v, mask = state.velocities, state.atom_mask[:, None]
         e_loc, forces, _ = self._evaluate(state)
         v = (v + 0.5 * dt * self._accel(state, forces)) * mask
         thermo = state.thermo
@@ -779,9 +801,10 @@ class DistributedMDEngine:
         ef = torch.exp(dt * v_eps)
         rf = torch.exp(dt2 * v_eps) * _sinhc(dt2 * v_eps)
         x = state.positions * ef + dt * v * rf
-        state = state.replace(positions=torch.where(mask, x, state.positions),
-                              nl_positions=state.nl_positions * ef,
-                              cell_scale=state.cell_scale * ef)
+        state = self._fresh(state.replace(positions=torch.where(mask, x, state.positions),
+                                          velocities=v, nl_positions=state.nl_positions * ef,
+                                          cell_scale=state.cell_scale * ef))
+        v, mask = state.velocities, state.atom_mask[:, None]
         baro = torch.cat([baro[:7], (baro[7] + dt * v_eps)[None]])
         e_loc, forces, geps = self._evaluate(state, virial=True)
         p_vir = self._p_virial(state, geps)

@@ -181,14 +181,19 @@ def test_npt_with_d3_matches_jax(system):
     assert np.abs(blind.cell.numpy() - want).max() > 10 * C_REL * np.abs(want).max()
 
 
-def test_shrinking_box_narrows_the_skin_then_raises(system):
+def test_shrinking_box_narrows_the_skin_then_raises(system, monkeypatch):
     """The D3 grid (one cell) covers pairs to its cell's height: a box that
     shrinks by less than the skin narrows the rebuild test's skin to what is
     left (so the list stays complete to the cutoff); one that shrinks below
-    the D3 cutoff raises, since no capacity growth can help."""
+    the D3 cutoff raises, since no capacity growth can help. The engine's
+    slots are not cut (a slot margin at which K is the list's capacity), so
+    that the D3 grid's cover alone narrows the test; the smaller of the two
+    limits is tests/test_torch_md_slots.py's."""
     s = system
+    monkeypatch.setenv("SEVENNET_TPU_KMARGIN", "3.0")
     eng = _engine(system)
     st = eng.make_state(s["pos"], s["Z"], temperature=T0, seed=SEED)
+    assert eng.k_model == eng.cl_spec.neighbor_capacity
     assert eng.d3_cl_spec.n_cells == (1, 1, 1)
     assert float(eng._skin_half_sq(st)) == pytest.approx((SKIN / 2) ** 2, rel=1e-4)
     L = s["cell"][0, 0]

@@ -15,11 +15,13 @@ one of 4 run every job of their size; the tests read the jobs' results.
   (three stages, one of extent 1), 20 steps of a system hot enough to
   migrate, and on one rank in this process, against the JAX serial
   ``MDEngine(fused=False, sort_atoms=False)``: PE and KE within 5e-3 x
-  max(1, |E|), atoms conserved, sorted positions within 5e-3 A (the limits
-  of tests/test_parallel.py:180-194); the 4-rank runs also against the
-  port's serial engine at the distributed slot margin, PE and KE within
-  1e-4 eV and each atom within 1e-4 A (a migration that leaves the forces
-  behind, as the JAX engine's does, fails this).
+  max(1, |E|), atoms conserved, positions as sets within 5e-3 A, each to
+  its nearest image (the limits of tests/test_parallel.py:180-194); the
+  4-rank runs also against the port's serial engine, at the distributed
+  slot margin and at its own default, PE and KE within 1e-4 eV and each
+  atom within 1e-4 A (a migration that leaves the forces behind, as the
+  JAX engine's does, fails this, and so does an engine that misses a cut
+  pair that closes in between rebuilds).
 - ``nose_hoover``, ``npt`` (``scale_budget=0.9``), D3 and a triclinic cell
   on 4 ranks (``dims=(2, 2)``) against the port's serial ``MDEngine``
   (itself held against JAX by tests/test_torch_integrators.py and
@@ -71,8 +73,16 @@ def _traj_close(got, want):
         np.abs(got - want).max())
 
 
-def _sorted_close(got, want):
-    np.testing.assert_allclose(got[np.lexsort(got.T)], want[np.lexsort(want.T)], atol=5e-3)
+def _sorted_close(got, want, cell):
+    """The same atoms within 5e-3 A as sets, each to its nearest image: an
+    atom that crossed the box is wrapped only at a rebuild, and the engines
+    rebuild at steps of their own. Every atom of ``got`` pairs with the
+    nearest of ``want``, one to one."""
+    frac = (got[:, None, :] - want[None, :, :]) @ np.linalg.inv(cell)
+    d = np.linalg.norm((frac - np.round(frac)) @ cell, axis=-1)
+    match = d.argmin(1)
+    assert len(got) == len(want) and sorted(match) == list(range(len(want)))
+    np.testing.assert_allclose(d[np.arange(len(got)), match], 0.0, atol=5e-3)
 
 
 @pytest.fixture(scope="module")
@@ -172,7 +182,8 @@ def jax_serial(system):
     st = eng.make_state(s["pos"], s["Z"])
     st = st.replace(velocities=jnp.asarray(s["vel"], jnp.float32))
     st, (pe, ke) = eng.run(st, STEPS, dt=1.0, chunk=10)
-    return dict(pe=np.asarray(pe), ke=np.asarray(ke), positions=np.asarray(st.positions)[:N])
+    return dict(pe=np.asarray(pe), ke=np.asarray(ke), positions=np.asarray(st.positions)[:N],
+                cell=s["cell"])
 
 
 def _port_serial(s, integrator="nve", cell=None, pos=None, d3=None, **run_kw):
@@ -184,24 +195,31 @@ def _port_serial(s, integrator="nve", cell=None, pos=None, d3=None, **run_kw):
     _, e, stress = eng._forces(st, compute_stress=True)
     order = np.argsort(st.atom_index.numpy()[:N])
     return dict(pe=pe.numpy(), ke=ke.numpy(), positions=st.positions.numpy()[:N][order],
-                stress=stress.numpy(), energy=float(e))
+                stress=stress.numpy(), energy=float(e), cell=cell)
 
 
 @pytest.fixture(scope="module")
 def port_serial_k(system):
     """The port's serial NVE run of the hot system with the distributed
-    engine's slot margin (``K_MARGIN``), so that no edge is cut between
-    rebuilds on either side."""
+    engine's slot margin (``K_MARGIN``)."""
     with pytest.MonkeyPatch.context() as mp_:
         mp_.setenv("SEVENNET_TPU_KMARGIN", str(K_MARGIN))
         return _port_serial(system)
+
+
+@pytest.fixture(scope="module")
+def port_serial(system):
+    """The port's serial NVE run of the hot system at its default slot
+    margin: it cuts more slots than the distributed engine, and both keep
+    every pair within the cutoff."""
+    return _port_serial(system)
 
 
 def _check_engine(res, want, migrated=True):
     _traj_close(res["pe"], want["pe"])
     _traj_close(res["ke"], want["ke"])
     assert int(res["n_atoms"]) == N
-    _sorted_close(res["positions"], want["positions"])
+    _sorted_close(res["positions"], want["positions"], want["cell"])
     if migrated:
         assert int(res["n_migrated"]) > 0
 
@@ -240,13 +258,17 @@ def test_distributed_nve_matches_jax_serial(four_ranks, jax_serial, name):
     _check_engine(_result(four_ranks, name), jax_serial)
 
 
-@pytest.mark.parametrize("name", ["nve_4", "nve_212"])
-def test_distributed_nve_tracks_serial_atom_by_atom(system, four_ranks, port_serial_k, name):
+@pytest.mark.parametrize("name, serial", [
+    pytest.param("nve_4", "port_serial_k", id="nve_4"),
+    pytest.param("nve_212", "port_serial_k", id="nve_212"),
+    pytest.param("nve_4", "port_serial", id="nve_4-default_margin"),
+    pytest.param("nve_212", "port_serial", id="nve_212-default_margin")])
+def test_distributed_nve_tracks_serial_atom_by_atom(system, four_ranks, request, name, serial):
     """Tighter than the JAX package's limits, which a half-kick with
     another atom's forces after a migration would pass: PE and KE within
-    1e-4 eV of the port's serial engine at the same slot margin, each
-    atom within 1e-4 A of its serial twin (nearest image)."""
-    res, want = _result(four_ranks, name), port_serial_k
+    1e-4 eV of the port's serial engine, at the same slot margin and at
+    its own, each atom within 1e-4 A of its serial twin (nearest image)."""
+    res, want = _result(four_ranks, name), request.getfixturevalue(serial)
     assert int(res["n_migrated"]) > 0
     assert np.abs(res["pe"] - want["pe"]).max() <= 1e-4, np.abs(res["pe"] - want["pe"]).max()
     assert np.abs(res["ke"] - want["ke"]).max() <= 1e-4, np.abs(res["ke"] - want["ke"]).max()
