@@ -77,7 +77,17 @@
    by the port under its registry name in a temporary
    ``$SEVENN_TPU_CHECKPOINT_DIR``, served by name
    (``SevenNetCalculator("7net-0")``, 192 atoms) against the spec-and-params
-   calculator (bitwise, else 1e-6 relative; the log says which).
+   calculator (bitwise, else 1e-6 relative; the log says which). Then a
+   frozen TorchScript deployment of the same SevenNet-0 weights (written by
+   ``tests/torch_deployed_artifact.py``, one linear behind an explicit
+   ``x * s``) imported by ``io/torchscript_import.py`` (the import's host
+   seconds; the spec equal, the parameters within 1e-6 of each leaf's
+   largest entry) and served for 3,000 atoms (5 B1 + 5 B2) against the
+   spec-and-params calculator and the plain path at the request limits,
+   both requests timed in turns; and ``7net-mf-ompa``'s registry entry
+   pointed at a ``file://`` stock ``.pth`` of those weights: a wrong pinned
+   digest refused with no ``.partial`` left, the right one downloaded,
+   loaded and served by name for 192 atoms (bitwise, else 1e-6 relative).
    Then batched inference (``BatchedCalculator``): eight water boxes of
    66-384 atoms in one call, each structure against ``SevenNetCalculator``
    (the request limits above), the call's time beside eight single
@@ -970,6 +980,30 @@ def host_graph_split(calc, at, reps: int = REPS):
     return tuple(statistics.median(parts[k]) for k in ("list", "sort", "densify", "before"))
 
 
+def request_errors(got, want):
+    """max |dF|, max |F_want|, relative dE, max |dS| of two requests."""
+    import numpy as np
+
+    df = float(np.abs(got["forces"] - want["forces"]).max())
+    fmax = float(np.abs(want["forces"]).max())
+    de = abs(got["energy"] - want["energy"]) / max(abs(want["energy"]), 1e-30)
+    ds = float(np.abs(got["stress"] - want["stress"]).max())
+    return df, fmax, de, ds
+
+
+def check_request(label, got, want):
+    """The request limits of PERF.md section 2."""
+    df, fmax, de, ds = request_errors(got, want)
+    for ok, why in ((df <= FORCE_TOL, f"max|dF| {df} > {FORCE_TOL} eV/A"),
+                    (df <= FORCE_REL_TOL * fmax, f"max|dF| {df} > {FORCE_REL_TOL} * {fmax}"),
+                    (de <= ENERGY_REL_TOL, f"rel dE {de} > {ENERGY_REL_TOL}"),
+                    (ds <= STRESS_TOL, f"max|dS| {ds} > {STRESS_TOL} eV/A^3")):
+        if not ok:
+            raise SystemExit(f"{label}: {why}")
+    return (f"max|dF| {df:.3e} eV/A (max|F| {fmax:.3e}), rel dE {de:.3e}, "
+            f"max|dS| {ds:.3e} eV/A^3")
+
+
 def request_phase(spec, params, dev, label: str, fwd: str, bwd: str, graph_times: bool = True,
                   sizes=SIZES, plain_max: int = PLAIN_MAX_ATOMS, energies=None):
     """Calculator requests at full width for water boxes of ``sizes``
@@ -1014,21 +1048,8 @@ def request_phase(spec, params, dev, label: str, fwd: str, bwd: str, graph_times
         line = (f"{label} request {n} atoms: E={res['energy']:.6f} eV, "
                 f"|sum F|={drift:.2e}, launches {got[fwd]} {fwd} + {got[bwd]} {bwd}")
         if n <= plain_max:
-            ref = plain.calculate(at)
-            df = float(np.abs(res["forces"] - ref["forces"]).max())
-            de = abs(res["energy"] - ref["energy"]) / max(abs(ref["energy"]), 1e-30)
-            ds = float(np.abs(res["stress"] - ref["stress"]).max())
-            fmax = float(np.abs(ref["forces"]).max())
-            line += (f", vs plain: max|dF|={df:.3e} eV/A (max|F_plain|={fmax:.3e}), "
-                     f"rel dE={de:.3e}, max|dS|={ds:.3e} eV/A^3")
-            checks = ((df <= FORCE_TOL, f"max|dF| {df} > {FORCE_TOL} eV/A"),
-                      (df <= FORCE_REL_TOL * fmax,
-                       f"max|dF| {df} > {FORCE_REL_TOL} * max|F_plain| {fmax}"),
-                      (de <= ENERGY_REL_TOL, f"rel dE {de} > {ENERGY_REL_TOL}"),
-                      (ds <= STRESS_TOL, f"max|dS| {ds} > {STRESS_TOL} eV/A^3"))
-            for ok, why in checks:
-                if not ok:
-                    raise SystemExit(f"{n} atoms: kernel path against plain path: {why}")
+            line += ", vs plain: " + check_request(
+                f"{n} atoms: kernel path against plain path", res, plain.calculate(at))
         log(line)
         # timing after the request above as warm-up: host wall clock of
         # whole requests (neighbour list and host-device copies included),
@@ -2778,9 +2799,7 @@ def resolution_phase(spec, params, dev, card: str):
     want = SevenNetCalculator(spec, params, device=str(dev)).calculate(at)
     bitwise = all(np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
                   for k in ("energy", "forces", "stress"))
-    de = abs(got["energy"] - want["energy"]) / abs(want["energy"])
-    df = float(np.abs(got["forces"] - want["forces"]).max())
-    fmax = float(np.abs(want["forces"]).max())
+    df, fmax, de, _ = request_errors(got, want)
     log(f"resolution: '7net-0' -> {os.path.basename(path)}, loaded in {t_load:.2f} s; 192 atoms "
         f"E {got['energy']:.8f} vs spec+params {want['energy']:.8f} eV (rel {de:.3e}), max|dF| "
         f"{df:.3e} eV/A; bitwise equal: {bitwise}; launches {counts} | {card}")
@@ -2790,6 +2809,181 @@ def resolution_phase(spec, params, dev, card: str):
     if not bitwise and not (de <= 1e-6 and df <= 1e-6 * fmax):
         raise SystemExit("the request by name disagrees with the spec-and-params calculator")
     return counts
+
+
+DEPLOYED_SCALE = 2.5  # the explicit ``x * s`` on one linear's data operand
+DEPLOYED_CONFIG = {  # what a deployment's metadata does not record of SevenNet-0
+    "irreps_manual": SEVENNET0["irreps_manual"],
+    "cutoff_function": SEVENNET0["cutoff_function"],
+    "_full_last_layer": False,
+}
+PARAM_ROUND_TRIP_TOL = 1e-6  # per leaf, of max |original|: fp32 rounding of the path norms
+
+
+def deployed_phase(spec, params, dev, card: str):
+    """A frozen TorchScript deployment of SevenNet-0 at full width (the
+    weights drawn from the seed, metadata version 0.11.0, one linear behind
+    an explicit ``x * s``), written by ``tests/torch_deployed_artifact.py``
+    and imported by ``io/torchscript_import.py:load_deployed_model`` (given
+    the per-layer irreps and the XPLOR cutoff, which the metadata lacks):
+    the spec equal to SevenNet-0's, every parameter within 1e-6 of its
+    largest original entry; a 3,000-atom water box served through it (5 B1
+    + 5 B2 and no other conv kernel) against the spec-and-params calculator
+    on the original weights and against the plain path on the imported
+    ones, at the request limits; both requests timed in turns. Then the
+    registry's download: ``7net-mf-ompa``'s entry pointed at a ``file://``
+    stock ``.pth`` of the same weights outside a temporary
+    ``$SEVENN_TPU_CHECKPOINT_DIR``; a wrong pinned digest must be refused
+    with no ``.partial`` left, the right one must download, load through
+    ``load_model`` with equal weights and serve a 192-atom request by name
+    (5 B1 + 5 B2) as the spec-and-params calculator does (bitwise, else
+    1e-6 relative). Returns the launches of the two requests."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_tpu_torch.io import registry
+    from sevennet_tpu_torch.io.torch_checkpoint import state_dict_from_params
+    from sevennet_tpu_torch.io.torchscript_import import _ordered_constants, load_deployed_model
+    from sevennet_tpu_torch.train.trainer import tree_leaves
+    from tests.torch_deployed_artifact import write_deployed
+
+    n_layers = len(spec.layers)
+
+    def leaf_error(got_params):
+        worst = 0.0
+        for a, b in zip(tree_leaves(got_params), tree_leaves(params)):
+            if a.shape != b.shape:
+                raise SystemExit(f"deployed: a leaf of shape {tuple(a.shape)}, expected "
+                                 f"{tuple(b.shape)}")
+            scale = float(b.abs().max())
+            worst = max(worst, float((a.cpu() - b.cpu()).abs().max()) / max(scale, 1e-30))
+        return worst
+
+    def served(calc, at):
+        reset_launches()
+        res = calc.calculate(at)
+        counts = read_launches()
+        if counts != dict(dict.fromkeys(counts, 0), fwd=n_layers, bwd=n_layers):
+            raise SystemExit(f"deployed phase: a request launched {counts}")
+        return res, counts
+
+    pos, Z, cell = water_box(1000, seed=11)
+    at = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deployed_") as tmp:
+        path = os.path.join(tmp, "deployed_serial.pt")
+        t0 = time.perf_counter()
+        stream = write_deployed(path, spec, params, scaled=("1_self_interaction_1.linear.weight",),
+                                scale=DEPLOYED_SCALE)
+        t_write = time.perf_counter() - t0
+        consts = _ordered_constants(torch.jit.load(path, map_location="cpu"))
+        n_scaled = sum(s == DEPLOYED_SCALE for _, s in consts)
+        want_scaled = sum(k == "1_self_interaction_1.linear.weight" for k, _, _ in stream)
+        if n_scaled != want_scaled:
+            raise SystemExit(f"deployed: {n_scaled} constants behind x * {DEPLOYED_SCALE} in the "
+                             f"frozen graph, {want_scaled} written")
+        t0 = time.perf_counter()
+        spec_d, params_d = load_deployed_model(path, config=DEPLOYED_CONFIG)
+        t_import = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    if spec_d != spec:
+        raise SystemExit("deployed: the imported spec is not SevenNet-0's")
+    err = leaf_error(params_d)
+    log(f"deployed: SevenNet-0 artifact of {len(stream)} constants ({len(consts)} after "
+        f"freezing pooled the denominators; {n_scaled} behind x * {DEPLOYED_SCALE}), "
+        f"{size / 2**20:.2f} MiB, written in {t_write:.2f} s, imported in {t_import:.3f} s "
+        f"(host wall clock, torch {torch.__version__}); parameters within "
+        f"{err:.3e} of max |original| per leaf | {card}")
+    if err > PARAM_ROUND_TRIP_TOL:
+        raise SystemExit(f"deployed: imported parameters {err} > {PARAM_ROUND_TRIP_TOL} relative")
+
+    calc_d = SevenNetCalculator(spec_d, params_d, device=str(dev))
+    calc = SevenNetCalculator(spec, params, device=str(dev))
+    got, counts_d = served(calc_d, at)
+    want = calc.calculate(at)
+    plain = SevenNetCalculator(spec_d, params_d, device=str(dev), plain=True).calculate(at)
+    line_o = check_request(f"deployed {len(Z)} atoms against spec+params", got, want)
+    line_p = check_request(f"deployed {len(Z)} atoms against the plain path", got, plain)
+    walls = {"deployed": [], "spec+params": []}
+    for _ in range(REPS):
+        for name, c in (("deployed", calc_d), ("spec+params", calc), ("spec+params", calc),
+                        ("deployed", calc_d)):
+            t0 = time.perf_counter()
+            c.calculate(at)
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"deployed {len(Z)} atoms: E {got['energy']:.6f} eV; against spec+params {line_o}; "
+        f"against plain {line_p}; launches {counts_d['fwd']} fwd + {counts_d['bwd']} bwd; "
+        f"request median {statistics.median(walls['deployed']):.2f} ms through the imported "
+        f"model, {statistics.median(walls['spec+params']):.2f} ms spec+params (wall clock, "
+        f"{2 * REPS} each, in turns) | {card}")
+
+    entry = registry._REGISTRY["sevennet-mf-ompa"]
+    old_env = {k: os.environ.get(k) for k in ("SEVENN_TPU_CHECKPOINT_DIR", "SEVENN_TPU_CHECKSUMS")}
+    small = water_box(64, seed=7)
+    at_small = AtomsLite(positions=small[0], numbers=small[1], cell=small[2], pbc=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_download_") as tmp:
+        cache, assets = os.path.join(tmp, "cache"), os.path.join(tmp, "assets")
+        os.makedirs(cache)
+        os.makedirs(assets)
+        asset = os.path.join(assets, entry.basename)
+        sd = state_dict_from_params(spec, params)
+        torch.save({"config": dict(SEVENNET0, version="0.11.0"),
+                    "model_state_dict": {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}},
+                   asset)
+        with open(asset, "rb") as fh:
+            digest = hashlib.sha256(fh.read()).hexdigest()
+        pins = os.path.join(tmp, "checksums.json")
+        os.environ["SEVENN_TPU_CHECKPOINT_DIR"] = cache
+        os.environ["SEVENN_TPU_CHECKSUMS"] = pins
+        registry._REGISTRY["sevennet-mf-ompa"] = registry._Entry(entry.basename,
+                                                                 "file://" + asset)
+        try:
+            with open(pins, "w") as fh:
+                json.dump({entry.basename: "0" * 64}, fh)
+            try:
+                registry.resolve_checkpoint("7net-mf-ompa")
+                raise SystemExit("deployed: a download with a wrong pinned digest was accepted")
+            except FileNotFoundError as exc:
+                refused = str(exc)
+            if "sha256 mismatch" not in refused or os.listdir(cache):
+                raise SystemExit(f"deployed: the wrong digest: {refused}; left {os.listdir(cache)}")
+            with open(pins, "w") as fh:
+                json.dump({entry.basename: digest}, fh)
+            size = os.path.getsize(asset)
+            t0 = time.perf_counter()
+            resolved = registry.resolve_checkpoint("7net-mf-ompa")
+            t_download = time.perf_counter() - t0
+            if resolved != os.path.join(cache, entry.basename) or sorted(os.listdir(cache)) != [
+                    entry.basename]:
+                raise SystemExit(f"deployed: resolved {resolved}, cache {os.listdir(cache)}")
+            spec_r, params_r = registry.load_model(resolved)
+            by_name = SevenNetCalculator("7net-mf-ompa", device=str(dev))
+            got_r, counts_r = served(by_name, at_small)
+        finally:
+            registry._REGISTRY["sevennet-mf-ompa"] = entry
+            for k, v in old_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    if spec_r != spec or leaf_error(params_r) != 0.0:
+        raise SystemExit("deployed: the downloaded checkpoint's model differs from SevenNet-0's")
+    want_r = calc.calculate(at_small)
+    bitwise = all(np.array_equal(np.asarray(got_r[k]), np.asarray(want_r[k]))
+                  for k in ("energy", "forces", "stress"))
+    df, fmax, de, _ = request_errors(got_r, want_r)
+    log(f"deployed download: '7net-mf-ompa' from a file:// stock .pth of {size / 2**20:.2f} MiB: "
+        f"a wrong pin refused ({refused[refused.index('sha256 mismatch'):][:44]}...), no "
+        f".partial left; the right pin downloaded in {t_download:.3f} s; {len(small[1])} atoms E {got_r['energy']:.8f} vs spec+params "
+        f"{want_r['energy']:.8f} eV (rel {de:.3e}), max|dF| {df:.3e} eV/A; bitwise equal: "
+        f"{bitwise}; launches {counts_r} | {card}")
+    if not bitwise and not (de <= 1e-6 and df <= 1e-6 * fmax):
+        raise SystemExit("deployed: the downloaded checkpoint's request disagrees with spec+params")
+    return {k: counts_d[k] + counts_r[k] for k in counts_d}
 
 
 def mlp_depth_phase(dev, atoms, seed: int):
@@ -4262,6 +4456,10 @@ def main() -> int:
     log(f"resolution phase (main path: serving by checkpoint name): launches {resolved}, "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    deployed = deployed_phase(spec, params, dev, card)
+    log(f"deployed phase (main paths: serving a frozen deployment, serving a downloaded "
+        f"checkpoint): launches {deployed}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     batched = batched_phase(spec, params, dev, card)
     log(f"batched phase (main path: batched inference): launches {batched}, "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4313,7 +4511,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
                 + md_small[k] + md_mid[k] + md_ring[k] + md_scatter[k] + md_ring_legacy[k]
-                + ensembles[k] + d3_launches[k] + resolved[k] + batched[k] + scripted[k]
+                + ensembles[k] + d3_launches[k] + resolved[k] + deployed[k] + batched[k]
+                + scripted[k]
                 + dist1[k] + dist2[k]
                 for k in counters()}
     if not all(launches[key] for *_, key in KERNEL_NAMES.values()):
@@ -4410,7 +4609,8 @@ def main() -> int:
         "legacy config's compared train steps, MD (3,000 and 9,999 atoms, and the timed "
         "ring steps at 99,999; the legacy config's timed chunked-scatter and ring steps at "
         "99,999), the ensembles at 3,000 atoms, the D3 phase (a 192-atom "
-        "request and MD at 3,000 atoms with D3), the request by checkpoint name, the batched "
+        "request and MD at 3,000 atoms with D3), the request by checkpoint name, the deployed "
+        "phase's two requests (a frozen deployment's and a downloaded checkpoint's), the batched "
         "call, the scripts' and the CLI's work, and distributed MD (world 1, and both ranks "
         "of the two-rank run); the "
         "SevenNet-l3i5 rows per pass of its layer shapes on the "

@@ -1,5 +1,7 @@
 """The port stands alone: nothing under ``sevennet_tpu_torch/``, nor
-``chip_smoke.py``, ``conv_breakdown.py`` or ``ab_compare.py``, imports JAX, flax, optax or the
+``chip_smoke.py``, ``conv_breakdown.py``, ``ab_compare.py``,
+``md_rebuild_cost.py`` or the artifact writer ``chip_smoke.py`` imports
+(``tests/torch_deployed_artifact.py``), imports JAX, flax, optax or the
 JAX package, nor the ``msgpack`` package (the card's machine has none: the
 port reads msgpack checkpoints with its own decoder), and its entry points
 never drift to the CPU when no card is present."""
@@ -19,7 +21,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "sevennet_tpu"}
 
 def _port_files():
     return sorted((ROOT / "sevennet_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "conv_breakdown.py", ROOT / "ab_compare.py"]
+        ROOT / "chip_smoke.py", ROOT / "conv_breakdown.py", ROOT / "ab_compare.py",
+        ROOT / "md_rebuild_cost.py", ROOT / "tests" / "torch_deployed_artifact.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

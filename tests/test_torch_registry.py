@@ -1,9 +1,12 @@
 """Checkpoints and model resolution in the port: a checkpoint the JAX
 package wrote (``sevennet_tpu/io/native_checkpoint.py:save_checkpoint``,
 msgpack through flax) read by the port without flax or msgpack, pretrained
-names resolved over local search directories
-(``sevennet_tpu_torch/io/registry.py``), and the calculator built from a
-name, a path or a spec with its parameters.
+names resolved over local search directories or downloaded from
+``file://`` release URLs against pinned digests
+(``sevennet_tpu_torch/io/registry.py``, held to the JAX package's
+``sevennet_tpu/io/registry.py``), and the calculator built from a name, a
+path or a spec with its parameters. No test here opens a network
+connection: ``urlopen`` refuses every URL but ``file://`` ones.
 
 Tolerances: parameters read from the JAX checkpoint bitwise equal to those
 carried across with ``params_from_numpy``; a request served from the
@@ -12,7 +15,11 @@ calculator on the same weights (fp32 on both sides, sums in another
 order); the port's own paths bitwise equal to each other.
 """
 
+import hashlib
+import json
 import os
+import urllib.error
+import urllib.request
 
 import jax
 import numpy as np
@@ -20,6 +27,8 @@ import optax
 import pytest
 import torch
 
+import sevennet_tpu.io.registry as jreg
+import sevennet_tpu_torch.io.registry as registry
 from sevennet_tpu.calculator import SevenNetTPUCalculator as JCalculator
 from sevennet_tpu.io.native_checkpoint import save_checkpoint as j_save
 from sevennet_tpu.model.build import build_model_spec as j_build
@@ -40,6 +49,20 @@ MODEL = {"cutoff": 4.0, "channel": 4, "lmax": 1, "is_parity": False,
          "num_convolution_layer": 2, "chemical_species": ["H", "O"],
          "self_connection_type": "linear", "conv_denominator": 6.0,
          "shift": -1.2, "scale": 0.8}
+
+
+@pytest.fixture(autouse=True)
+def _offline(monkeypatch):
+    """``urllib.request.urlopen`` for ``file://`` URLs only."""
+    real = urllib.request.urlopen
+
+    def urlopen(req, *args, **kw):
+        url = req.full_url if isinstance(req, urllib.request.Request) else str(req)
+        if not url.startswith("file://"):
+            raise urllib.error.URLError(f"no network connection in the tests: {url}")
+        return real(req, *args, **kw)
+
+    monkeypatch.setattr(urllib.request, "urlopen", urlopen)
 
 
 def _atoms(seed=9, n=8):
@@ -201,3 +224,120 @@ def test_as_ase_serves():
     atoms = ase.Atoms(numbers=at.numbers, positions=at.positions, cell=at.cell, pbc=True)
     atoms.calc = calc.as_ase()
     assert atoms.get_potential_energy() == calc.calculate(at)["energy"]
+
+
+class _Truncated:
+    """A response that announces more bytes than it sends."""
+
+    headers = {"Content-Length": "100"}
+
+    def __init__(self):
+        self.blocks = [b"checkpoint-bytes", b""]
+
+    def read(self, n):
+        return self.blocks.pop(0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.mark.parametrize("case", ["mismatch", "match", "trust_on_first_use", "truncated"])
+def test_download_checkpoint_matches_jax(case, tmp_path, monkeypatch):
+    """``download_checkpoint`` of a ``file://`` asset in both packages: a
+    wrong pin and a short read raise and leave neither the file nor its
+    ``.partial``; a right pin downloads; no pin downloads and records the
+    same trust-on-first-use table (reference ``sevenn/util.py:224-261``)."""
+    src = tmp_path / "asset.pth"
+    src.write_bytes(b"checkpoint-bytes")
+    url = "file://" + str(src)
+    good = hashlib.sha256(b"checkpoint-bytes").hexdigest()
+    if case == "truncated":
+        monkeypatch.setattr(urllib.request, "urlopen", lambda *a, **kw: _Truncated())
+    pin = {"mismatch": "0" * 64, "match": good}.get(case)
+    for name, download in (("port", registry.download_checkpoint),
+                           ("jax", jreg.download_checkpoint)):
+        cache = tmp_path / name
+        dest = cache / "asset.pth"
+        if case in ("mismatch", "truncated"):
+            match = "sha256 mismatch" if case == "mismatch" else "truncated download: 16 of 100"
+            with pytest.raises(IOError, match=match):
+                download(str(dest), url, sha256=pin)
+            assert not dest.exists() and not (cache / "asset.pth.partial").exists()
+            continue
+        assert download(str(dest), url, sha256=pin) == str(dest)
+        assert dest.read_bytes() == b"checkpoint-bytes"
+        assert (cache / "checksums.json").exists() == (case == "trust_on_first_use")
+        assert not (cache / "asset.pth.partial").exists()
+    if case == "trust_on_first_use":
+        table = json.loads((tmp_path / "port" / "checksums.json").read_text())
+        assert table == json.loads((tmp_path / "jax" / "checksums.json").read_text())
+        assert table == {"asset.pth": good}
+
+
+@pytest.fixture
+def fake_entry(search_dirs, tmp_path, monkeypatch):
+    """A registry name whose release URL is a ``file://`` asset, in both
+    packages; returns the asset."""
+    src = tmp_path / "checkpoint_fake.pth"
+    src.write_bytes(b"payload")
+    for reg in (registry, jreg):
+        monkeypatch.setitem(reg._REGISTRY, "sevennet-fake",
+                            reg._Entry("checkpoint_fake.pth", "file://" + str(src)))
+    return src
+
+
+@pytest.mark.parametrize("pinned_by", ["env", "record"])
+def test_resolve_downloads_against_pins(pinned_by, fake_entry, search_dirs, tmp_path,
+                                        monkeypatch):
+    """``resolve_checkpoint`` downloads a name's asset into the first search
+    directory when nothing local matches, and refuses a corrupted asset once
+    its digest is pinned, by ``$SEVENN_TPU_CHECKSUMS`` or by the record of
+    the first download; the JAX package's resolver does the same."""
+    env, _ = search_dirs
+    good = registry._file_sha256(str(fake_entry))
+    pins = tmp_path / "pins.json"
+    if pinned_by == "env":
+        pins.write_text(json.dumps({"checkpoint_fake.pth": "0" * 64}))
+        monkeypatch.setenv("SEVENN_TPU_CHECKSUMS", str(pins))
+        for reg in (registry, jreg):
+            with pytest.raises(FileNotFoundError, match="file://.*sha256 mismatch"):
+                reg.resolve_checkpoint("7net-fake")
+            assert os.listdir(env) == []
+        pins.write_text(json.dumps({"checkpoint_fake.pth": good}))
+    got = registry.resolve_checkpoint("7net-fake")
+    assert got == str(env / "checkpoint_fake.pth")
+    assert (env / "checksums.json").exists() == (pinned_by == "record")
+    os.remove(got)
+    assert jreg.resolve_checkpoint("7net-fake") == got
+    os.remove(got)
+    fake_entry.write_bytes(b"corrupted")
+    for reg in (registry, jreg):
+        with pytest.raises(FileNotFoundError, match="sha256 mismatch"):
+            reg.resolve_checkpoint("7net-fake")
+        assert sorted(os.listdir(env)) == ([] if pinned_by == "env" else ["checksums.json"])
+
+
+def test_checksum_tables_in_order(fake_entry, search_dirs, tmp_path, monkeypatch):
+    """The digest tables in the JAX package's order: ``$SEVENN_TPU_CHECKSUMS``
+    first, then each search directory's, then the one beside the module
+    (the port's copy holds what the JAX package's holds)."""
+    env, _ = search_dirs
+    pins = tmp_path / "pins.json"
+    monkeypatch.setenv("SEVENN_TPU_CHECKSUMS", str(pins))
+    files, jfiles = registry._checksum_files(), jreg._checksum_files()
+    assert files[:-1] == jfiles[:-1] and files[0] == str(pins)
+    assert files[-1] == os.path.join(os.path.dirname(registry.__file__), "checksums.json")
+    with open(files[-1]) as a, open(jfiles[-1]) as b:
+        assert json.load(a) == json.load(b)
+    (env / "checksums.json").write_text(json.dumps({"checkpoint_fake.pth": "1" * 64}))
+    assert registry._pinned_sha256("checkpoint_fake.pth") == "1" * 64
+    pins.write_text(json.dumps({"checkpoint_fake.pth": "2" * 64}))
+    assert registry._pinned_sha256("checkpoint_fake.pth") == "2" * 64
+    assert registry._pinned_sha256("checkpoint_other.pth") is None
+    for reg in (registry, jreg):
+        assert reg._pinned_sha256("checkpoint_fake.pth") == "2" * 64
+        with pytest.raises(FileNotFoundError, match="expected 2222"):
+            reg.resolve_checkpoint("7net-fake")
