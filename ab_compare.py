@@ -11,16 +11,18 @@ the index (``git write-tree``: stage the change with ``git add -A`` first).
 ``run``, on the card from the root of the checkout, runs ``python3
 chip_smoke.py`` in each tree in the given order, one after the other, each
 building its own kernels, and writes each run's output to
-``chiprun_out/ab_<i>_<tree>.log``. With ``--breakdown`` it then runs
-``conv_breakdown.py`` in the ``change`` tree (``chiprun_out/ab_breakdown.log``).
+``chiprun_out/ab_<i>_<tree>.log``. With ``--breakdown`` it then runs the
+``change`` tree's ``conv_breakdown.py`` on the ``change`` tree and on the
+``parent`` tree (``--tree``; ``chiprun_out/ab_breakdown_<tree>.log``).
 
 It prints, per metric, each run's number and the change's mean against the
 parent's: each kernel's ms from the ``kernels`` line (per 3,000-atom pass;
 ``fused_conv_bwd_slot`` per 99,999-atom ring force evaluation), model and
 request ms at 3,000 atoms, the train steps, MD ms/step at 9,999 atoms and on
-the 99,999-atom ring. The last line is one JSON object with every number,
-also written to ``chiprun_out/ab_compare.json``. Exits non-zero if a run
-failed.
+the 99,999-atom ring, and SevenNet-MF-ompa's B1, B2 and B2′ per layer at
+3,000 atoms, its model ms at 3,000 atoms (each modality) and its train
+step. The last line is one JSON object with every number, also written to
+``chiprun_out/ab_compare.json``. Exits non-zero if a run failed.
 """
 
 from __future__ import annotations
@@ -49,7 +51,14 @@ PATTERNS = {
     "train step ms legacy": r"^\s*legacy train step: median ([\d.]+) ms",
     "MD ms/step, 9,999 atoms": r"timed NVE steps: ([\d.]+) ms/step",
     "MD ms/step, 99,999 atoms (ring)": r"timed ring steps: ([\d.]+) ms/step",
+    "mf-ompa model ms, 3,000 atoms mpa": r"^\s*mf-ompa mpa 3000 atoms: .* model median ([\d.]+) ms",
+    "mf-ompa model ms, 3,000 atoms omat24":
+        r"^\s*mf-ompa omat24 3000 atoms: .* model median ([\d.]+) ms",
+    "mf-ompa train step ms": r"^\s*mf-ompa train step .*: median ([\d.]+) ms",
 }
+# SevenNet-MF-ompa's kernels per layer at 3,000 atoms (the mf-ompa phase)
+MF_PATTERN = r"^\s*mf-ompa layer (\d) \(3000 atoms\) (fwd|bwd|bwd_pg): kernel ([\d.]+) ms"
+MF_NAMES = {"fwd": "B1", "bwd": "B2", "bwd_pg": "B2'"}
 
 
 def prepare(parent: str) -> int:
@@ -72,6 +81,8 @@ def parse(log: str) -> dict:
     for metric, pat in PATTERNS.items():
         m = re.search(pat, log, re.M)
         out[metric] = float(m.group(1)) if m else None
+    for t, kind, ms in re.findall(MF_PATTERN, log, re.M):
+        out[f"mf-ompa layer {t} {MF_NAMES[kind]} ms, 3,000 atoms"] = float(ms)
     for line in log.splitlines():
         if line.startswith('{"kernels"'):
             for k in json.loads(line)["kernels"]:
@@ -98,14 +109,16 @@ def run(order, breakdown: bool) -> int:
         print(f"run {i} {name}: exit {proc.returncode}, {wall:.1f} s", flush=True)
     rcs = [r["rc"] for r in runs]
     if breakdown:
-        proc = subprocess.run([sys.executable, "conv_breakdown.py"],
-                              cwd=os.path.join(AB_DIR, "change"), text=True,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              timeout=RUN_TIMEOUT_S)
-        with open(os.path.join(OUT_DIR, "ab_breakdown.log"), "w") as f:
-            f.write(proc.stdout)
-        print(f"conv_breakdown.py (change): exit {proc.returncode}", flush=True)
-        rcs.append(proc.returncode)
+        script = os.path.join(AB_DIR, "change", "conv_breakdown.py")
+        for name in ("change", "parent"):
+            tree = os.path.join(AB_DIR, name)
+            proc = subprocess.run([sys.executable, script, "--tree", tree], cwd=tree, text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  timeout=RUN_TIMEOUT_S)
+            with open(os.path.join(OUT_DIR, f"ab_breakdown_{name}.log"), "w") as f:
+                f.write(proc.stdout)
+            print(f"conv_breakdown.py on {name}: exit {proc.returncode}", flush=True)
+            rcs.append(proc.returncode)
 
     table = {}
     print(f"{'metric':44s}" + "".join(f"{r['tree']:>12s}" for r in runs)

@@ -119,8 +119,11 @@
 7. SevenNet-MF-ompa (``sevennet_tpu_torch/model/presets.py``: five parity
    layers up to lmax 3, 6 A cutoff, two modalities; random weights from the
    seed): B1 and B2 at each of its five layer shapes against their plain
-   versions on a 192-atom water box (each layer's passes, blocks and carve
-   printed; layers 2 and 3 run in several passes), timed there and on the
+   versions on a 192-atom water box (each layer's CTAs a receiver row,
+   blocks and carve printed; layers 2 and 3 run on a cluster of 2 CTAs,
+   whose B2 and B2' are also launched twice and held bitwise equal, and
+   whose B4 fwd, B4 bwd and B3 on a ring chunk are held against plain at
+   layer 3), timed there and on the
    3,000-atom box; then requests of 192 and 3,000 atoms through the
    calculator with each modality pinned by ``select_modality`` (5 B1 + 5 B2
    each; the 192-atom request against the plain-conv model, forces within
@@ -480,17 +483,18 @@ def bound_ms(flops: float, nbytes: float, tc_flops: float = 0.0):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-# kernel instances by mangled name and template arguments (ILb<PG>ELb<EMBSH>ELb<MULTI>EE,
+# kernel instances by mangled name and template arguments (ILb<PG>ELb<EMBSH>ELb<CL>EE,
 # ILi<variant>ELb<carry>EE)
 INSTANCES = {
-    ("fused_conv_fwd_kernel", "0"): "fwd<vec> (B1)",
-    ("fused_conv_fwd_kernel", "1"): "fwd<emb/sh> (B4 fwd, B6)",
-    **{("fused_conv_bwd_kernel", f"{pg}{embsh}{multi}"):
+    **{("fused_conv_fwd_kernel", f"{embsh}{cl}"):
+       f"fwd<{'emb/sh' if embsh else 'vec'}{', cluster' if cl else ''}> "
+       f"({'B4 fwd, B6' if embsh else 'B1'})" for embsh in (0, 1) for cl in (0, 1)},
+    **{("fused_conv_bwd_kernel", f"{pg}{embsh}{cl}"):
        f"bwd<{'emb/sh' if embsh else 'vec'}{', records' if pg else ''}"
-       f"{', passes' if multi else ''}> ({name})"
+       f"{', cluster' if cl else ''}> ({name})"
        for (pg, embsh), name in (((0, 0), "B2, B3"), ((1, 0), "B2' first pass"),
                                  ((0, 1), "B4 bwd, B5"), ((1, 1), "B4' first pass"))
-       for multi in (0, 1)},
+       for cl in (0, 1)},
     ("pg_partial_kernel", ""): "pg_partial (reduction: 3xTF32 wgmma, cp.async ring)",
     ("pg_final_kernel", ""): "pg_final (reduction: the chunks in order)",
     ("batched_dot_kernel", ""): "batched_dot (probe)",
@@ -2104,18 +2108,81 @@ def l3i5_kernel_phase(spec, params, dev, atoms):
     return recs
 
 
+MF_RING_ROWS = 16  # rows of the ring chunk on which B3 is held at mf-ompa's layer 3
+
+
+def _flat(outs):
+    """The tensors of a kernel's outputs (nested tuples and lists)."""
+    import torch
+
+    if torch.is_tensor(outs):
+        return [outs]
+    return [t for o in outs for t in _flat(o)]
+
+
+def bitwise_twice(tag, name, fn):
+    """Two launches of ``fn`` give bitwise-equal outputs (the kernels sum in
+    a fixed order); raises SystemExit otherwise."""
+    import torch
+
+    a, b = _flat(fn()), _flat(fn())
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"  {tag} {name} twice: {'bitwise equal' if same else 'DIFFER'} ({len(a)} outputs)")
+    if not same:
+        raise SystemExit(f"{name}: two launches differ at {tag}")
+
+
+def mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar, dev):
+    """At a cluster layer: B4 fwd and B4 bwd on the edges' embedding and
+    spherical harmonics, and B3 (B2 into a slot of the ring's buffer) on
+    the MF_RING_ROWS rows from row MF_RING_ROWS, against plain (REL_TOL of
+    max |plain|; the buffer's other slots untouched)."""
+    import torch
+
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    op_e = fc.conv_op(layer.conv, layer.radial_mlp)
+    assert op_e.plan.cluster == op.plan.cluster
+    emb, sh = (t_.contiguous() for t_ in fc.edge_embedding_plain(op, vec, coef))
+    e = (op_e, x, src, emb, sh, ws)
+    check_close(tag, "B4 fwd", fc.fused_conv_fwd_embsh(*e), fc.fused_conv_fwd_embsh_plain(*e))
+    for name, a, b in zip(("B4 bwd dxg", "B4 bwd demb", "B4 bwd dsh"),
+                          fc.fused_conv_bwd_embsh(*e, ybar), fc.fused_conv_bwd_embsh_plain(*e, ybar)):
+        check_close(tag, name, a, b)
+    del emb, sh, e
+    RC, K = MF_RING_ROWS, src.shape[1]
+    src_c = src[RC:2 * RC].contiguous()
+    vec_c = vec.view(3, -1, K)[:, RC:2 * RC].reshape(3, RC * K).contiguous()
+    buf = torch.full((3 * RC * K, op.dim_x), -7.25, device=dev)
+    buf_p = buf.clone()
+    dv = fc.fused_conv_bwd_slot(op, x, src_c, vec_c, coef, ws, ybar[RC:2 * RC].contiguous(),
+                                buf, 1)
+    dv_p = fc.fused_conv_bwd_slot_plain(op, x, src_c, vec_c, coef, ws,
+                                        ybar[RC:2 * RC].contiguous(), buf_p, 1)
+    check_close(tag, f"B3 on a {RC}-row ring chunk, dvec", dv, dv_p)
+    check_close(tag, f"B3 on a {RC}-row ring chunk, its slot", buf[RC * K:2 * RC * K],
+                buf_p[RC * K:2 * RC * K])
+    if not (torch.equal(buf[:RC * K], buf_p[:RC * K]) and torch.equal(buf[2 * RC * K:],
+                                                                      buf_p[2 * RC * K:])):
+        raise SystemExit(f"B3 wrote outside its slot at {tag}")
+
+
 def mf_ompa_kernel_phase(spec, params, dev):
     """B1, B2, B2' (both passes) and the B2' reduction alone at each of
     SevenNet-MF-ompa's five layer shapes: against their plain versions
     (REL_TOL of max |plain|; the reduction also twice bitwise and against a
-    float64 sum, :func:`reduce_check`) on the 192-atom water box, timed with
-    CUDA events there (kernel and plain; the reduction beside one torch.mm
-    per weight matrix) and on the 3,000-atom box (kernel, and the
-    reduction's library call); prints each layer's passes, column blocks
-    and carve. Returns per-kernel records summed over the five layers (one
-    request's or one force pass's launches): at the 192-atom box ``ms``,
-    ``plain_ms``, ``library_ms`` and the work, at the 3,000-atom box
-    ``ms_big``, ``library_ms_big`` and its work."""
+    float64 sum, :func:`reduce_check`) on the 192-atom water box, B2 and B2'
+    also launched twice and held bitwise equal, timed with CUDA events
+    there (kernel and plain; the reduction beside one torch.mm per weight
+    matrix) and on the 3,000-atom box (kernel, and the reduction's library
+    call); at layer 3 (a cluster) also B4 fwd and B4 bwd on the box's
+    embedding and spherical harmonics and B3 on a ring chunk of
+    MF_RING_ROWS rows, against plain. Prints each layer's CTAs a receiver
+    row (a cluster's ranks), column blocks and carve per CTA. Returns
+    per-kernel records summed over the five layers (one request's or one
+    force pass's launches): at the 192-atom box ``ms``, ``plain_ms``,
+    ``library_ms`` and the work, at the 3,000-atom box ``ms_big``,
+    ``library_ms_big`` and its work."""
     import torch
 
     from sevennet_tpu_torch.atoms import AtomsLite
@@ -2140,11 +2207,15 @@ def mf_ompa_kernel_phase(spec, params, dev):
             N, K, n_edges = g.n_atoms_cap, g.dense_k, int(g.edge_mask.sum())
             d = op.dims(N, K)
             if n == MF_SIZES[0]:
+                ranks = (f"a cluster of {plan.cluster} CTAs a receiver row, ranks of x irreps "
+                         f"{[list(r.xi) for r in plan.ranks]}, {[r.xw for r in plan.ranks]} x "
+                         f"columns, {[r.mw for r in plan.ranks]} output columns, "
+                         f"{list(plan.rank_blocks)} blocks" if plan.cluster > 1
+                         else f"1 CTA a receiver row, {len(plan.blocks)} blocks")
                 log(f"  mf-ompa layer {t}: x {op.dim_x}, mid {op.dim_mid}, w {op.numel} columns; "
-                    f"{len(plan.passes)} passes of {[cp.mw for cp in plan.passes]} mid columns "
-                    f"in {list(plan.pass_blocks)} blocks of {list(plan.widths)} columns; carve "
-                    f"at K={K} (bytes, W3 stages): forward {op.carve(d, False)}, backward "
-                    f"{op.carve(d, True)}, limit {fc.SMEM_LIMIT}")
+                    f"{ranks} of {list(plan.widths)} columns; carve per CTA at K={K} (bytes, W3 "
+                    f"stages): forward {op.carve(d, False)}, backward {op.carve(d, True)}, limit "
+                    f"{fc.SMEM_LIMIT}")
             ws = calc.params[f"{t}_convolution"]["weight_nn"]["w"]
             x = torch.randn(N, op.dim_x, generator=gen).to(dev)
             ybar = torch.randn(N, op.dim_mid, generator=gen).to(dev)
@@ -2169,6 +2240,11 @@ def mf_ompa_kernel_phase(spec, params, dev):
                 pairs += [("dcoef", got[3], want[3])]
                 errs["bwd_pg"] = max(check_close(tag, name, a, b) for name, a, b in pairs)
                 del got, want
+                bitwise_twice(tag, "B2", lambda: fc.fused_conv_bwd(*args, ybar))
+                bitwise_twice(tag, "B2'", lambda: fc.fused_conv_bwd(*args, ybar,
+                                                                   param_grads=True))
+                if plan.cluster > 1 and t == 3:
+                    mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar, dev)
                 red_ms, red_plain, lib["reduce"], errs["reduce"] = reduce_check(
                     tag, op, work_, valid, N, K, reps=3)
                 times["reduce"] = red_ms
@@ -3758,7 +3834,7 @@ def breakdown_phase(dev, card: str, libs, prof_build):
             # what each knock-out saves, beside B4 fwd's section clocks here
             prof_build.join()
             lib, entry, args, _ = fc.fwd_launch_args(op, xg, src, emb, sh, ws)
-            cycles = profile_call(lib, entry, args, n, dev)
+            cycles = profile_call(lib, entry, args, n, dev).sum(0).tolist()
             share = {label: c / sum(cycles) for label, c in zip(SECTIONS, cycles) if c}
             for label, sh_ in share.items():
                 log(f"  B4 fwd section {label:32s} {sh_:6.1%} ({sh_ * b4_ms:.4f} ms)")

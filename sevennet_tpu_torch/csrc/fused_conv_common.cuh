@@ -60,23 +60,38 @@
 // four cvt per k-step) and W3's streaming from L2 (PERF.md has the measured
 // sections; wgmma on 64-edge tiles is the next step).
 //
-// Passes: where a layer's output accumulator (forward), ybar (backward) and
+// Clusters: where a layer's output accumulator (forward), ybar (backward) and
 // task tables do not fit a CTA whole (SevenNet-MF-ompa's widest layers, 13,504
-// and 15,552 mid columns), the host cuts its instructions into passes, each a
-// run of whole output groups of the mid layout (ops/fused_conv.py:
-// plan_blocks), and the CTA walks its edges once per pass: the pass's
-// outputs are mid columns m0 .. m0 + mw, its task tables (its own column
-// blocks) replace the previous pass's in shared memory, and the x tile is
-// the whole x row, since every output group reads nearly every x irrep. The
-// forward's passes write disjoint output columns. The backward's passes add
-// their dxg (the first pass's first block writes every x irrep, zeros where
-// none of its instructions reads it), and their edge cotangents (dvec, or
-// demb and dsh), each a linear function of the pass's share of dsh and of
-// the last hidden layer's dz, in pass order; B2's records add their dz and
-// dcoef terms likewise. One CTA runs the passes in turn, so the sums have a
-// fixed order. A layer of one pass (every SevenNet-0 and l3i5 layer) walks
-// its edges once, and the backward takes an instance (MULTI false) with no
-// sums across passes.
+// and 15,552 mid columns), a thread-block cluster of C CTAs (2, else 4; the
+// CL instances) walks each receiver row's edges once, C CTAs side by side
+// (ops/fused_conv.py:plan_blocks). Rank r owns a set of x irreps: their
+// columns of the x tile and of an on-chip dxg tile, the instructions that
+// read them, those instructions' columns of w (W3's columns by a map, a
+// block's gmap) and their output columns. Every output column and every
+// dxg column thus belongs to one rank: the forward's ranks write disjoint
+// outputs, and the backward's add their dxg over their blocks in shared
+// memory and store each tile's rows once. What the ranks share is the last
+// hidden layer's dz and dsh (each rank's blocks add their share, without
+// silu'): after a cluster barrier rank 0 reads the other ranks' partial sums
+// through distributed shared memory, adds them in rank order (fixed, so the
+// result does not depend on the launch), applies silu', and alone runs the
+// chain down the hidden layers to demb and dvec (or writes demb and dsh) and
+// B2''s per-edge records but dw (each rank writes its own dw columns). A
+// second barrier, split (arrive after the sums, wait before the next tile's
+// first partial sum), keeps the other ranks from overwriting a partial sum
+// that rank 0 has not read yet. The backward holds ybar a column block at a
+// time (the block's instructions' outputs are a run of the rank's, read
+// from device memory by asynchronous copies while the block's w is formed),
+// which leaves room for wider blocks. The geometry, MLP hidden layers and
+// the rank's x[src] columns are formed once per tile in each CTA. What
+// bounds the cluster form on an H100 (conv_breakdown.py): as on one CTA,
+// the two W3 products (about half of B2's cycles) and the uvu pullback
+// (about a third); the cluster adds its barrier waits and rank 0's sums,
+// 3-9 % of the cycles, mostly the other ranks waiting while rank 0 runs
+// the chain, which the host weighs when it splits the irreps
+// (ops/fused_conv.py:_rank_cost). A layer that fits one CTA (every
+// SevenNet-0 and l3i5 layer, mf-ompa's layers 0, 1 and 4) runs the one-CTA
+// instances (CL false) unchanged.
 //
 // Emb/sh mode (template flag EMBSH; the TPU kernels with embed=None) takes
 // a precomputed embedding emb (N*K, NB) and spherical harmonics sh (N*K, DF)
@@ -145,6 +160,7 @@ struct Tile {
   float *geo, *embT, *sh, *tmp, *zh, *hlT, *xs, *ws;
   float *outacc;                              // forward only
   float *yb, *dtmp, *dzl, *demb, *dsh;        // backward only
+  float* dxt;    // a cluster's backward: the rank's dxg columns of the tile (row stride SX)
   float* stage;  // nstage staged W3 sub-blocks; the backward's dz partial sums
   int* tabs;     // the int table's first tab_ints(d) ints: uvu and monomial tables
   int SX, SW, SR, nstage;
@@ -171,7 +187,7 @@ __device__ __forceinline__ float& tmp_at(const Tile& t, int e, int r) {
 // the previous mark to section s, after a barrier, and at the end writes
 // the CTA's NSEC sums to g_prof[blockIdx.x * NSEC + s]. In other builds
 // every method is empty and the struct vanishes.
-#define NSEC 11
+#define NSEC 12
 struct Prof {
 #ifdef FUSED_CONV_PROFILE
   long long last, acc[NSEC];
@@ -223,7 +239,7 @@ __host__ __device__ inline int stage_floats(const ConvDims& d, int nstage) {
   return n > NWARP * TE * SBF ? n : NWARP * TE * SBF;
 }
 
-// ybar (a pass's mblk columns at most) is kept skewed in shared memory,
+// ybar (mblk columns at most: the row's, or a cluster's column block's) is kept skewed in shared memory,
 // column c at c + c / 32 (yb_at), so that the uvu pullback's fragments,
 // which step through ybar by an output block's channel count (often a
 // multiple of 32), fall in distinct banks.
@@ -231,9 +247,9 @@ __host__ __device__ inline int yb_floats(int mblk) { return mblk + (mblk >> 5) +
 __host__ __device__ inline int yb_at(int c) { return c + (c >> 5); }
 
 // The int table up to the end of the monomial terms of the spherical
-// harmonics' derivatives (the first pass's uvu tables, sh terms, dsh terms,
-// their components): copied to shared memory once per CTA, since the tiles
-// read it in dependent chains.
+// harmonics' derivatives (a rank's uvu tables, sh terms, dsh terms, their
+// components): copied to shared memory once per CTA, since the tiles read
+// it in dependent chains.
 __host__ __device__ inline int tab_ints(const ConvDims& d) { return d.shd_terms + 5 * d.n_shd; }
 
 // Copies the tables into t.tabs; the caller's next barrier publishes them.
@@ -241,19 +257,62 @@ __device__ inline void load_tabs(const ConvDims& d, const Tile& t, const int* __
   for (int k = threadIdx.x; k < tab_ints(d); k += NT) t.tabs[k] = itab[k];
 }
 
-// The pass fields of a table's header (ops/fused_conv.py: H_NEXT ..): the
-// next pass's table in itab (0 after the last pass), the pass's first mid
-// column and its columns.
+// The rank fields of a table's header (ops/fused_conv.py: H_NEXT ..): the
+// next rank's table in itab (0 after the last), the rank's x columns, its
+// output columns, the place of its x column map in the table (XMAP columns
+// an entry), its instructions; and in each instruction record the layer's
+// first mid column of its outputs and its group's channels.
 #define H_NEXT 10
-#define H_M0 11
+#define H_XW 11
 #define H_MW 19
+#define H_XMAP 20
+#define H_NK 21
+#define UVU_GY 57
+#define UVU_GUT 58
+#define GMAP 8  // W3 columns per entry of a cluster block's column map
+#define XMAP 4  // x columns per entry of a rank's x column map
 
-// Copies the uvu tables of the pass at itab + off over the previous pass's
-// (each table is d.sh_terms ints, padded; the monomial terms after them
-// stay). The caller's barriers come before (the last reads of the old
-// tables) and after (publishing the new).
-__device__ inline void load_pass(const ConvDims& d, const Tile& t, const int* __restrict__ itab, int off) {
-  for (int k = threadIdx.x; k < d.sh_terms; k += NT) t.tabs[k] = itab[off + k];
+// Copies rank r's uvu tables (each rank's table is d.sh_terms ints, padded,
+// rank 0's at the start of itab, each linked from the one before) and the
+// monomial terms into t.tabs; the caller's next barrier publishes them.
+__device__ inline void load_rank_tabs(const ConvDims& d, const Tile& t, const int* __restrict__ itab,
+                                      int r) {
+  int off = 0;
+  for (int j = 0; j < r; ++j) off = itab[off + H_NEXT];
+  for (int k = threadIdx.x; k < tab_ints(d); k += NT) t.tabs[k] = itab[k < d.sh_terms ? off + k : k];
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters (sm_90)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_ctas() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return (int)n;
+}
+
+// The two halves of a cluster barrier: every thread of every CTA of the
+// cluster arrives (release: its earlier shared-memory writes and reads are
+// ordered before), then waits (acquire) until all have.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of *p in rank r's shared memory (distributed shared memory).
+__device__ __forceinline__ const float* peer(const float* p, int r) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(out) : "l"(p), "r"(r));
+  return (const float*)out;
 }
 
 __host__ __device__ inline size_t take(size_t& off, size_t nbytes) {
@@ -263,23 +322,27 @@ __host__ __device__ inline size_t take(size_t& off, size_t nbytes) {
 }
 
 // Assigns the pointers of t inside base (when base is non-null) and
-// returns the bytes the layout needs, for a layer whose widest pass has
-// mblk output columns (< 0: dim_mid, one pass). The host calls it with
-// base = null, and keeps a copy of it (ops/fused_conv.py:carve_bytes) that
-// plans the passes and column blocks; fused_conv_smem_bytes lets it check
-// the two agree. FEAT (the breakdown probes' feature-major tiles, forward
-// only): xs, ws and tmp are stored transposed, (features, TE), every row FS
-// floats apart.
+// returns the bytes the layout needs, for a CTA that holds mblk output
+// columns (< 0: dim_mid; the forward's accumulator, the backward's ybar)
+// and, on a cluster, xw columns of x (< 0: one CTA, all of x; a cluster's
+// backward also holds its dxg tile). The host calls it with base = null,
+// and keeps a copy of it (ops/fused_conv.py:carve_bytes) that plans the
+// ranks and column blocks; fused_conv_smem_bytes lets it check the two
+// agree. FEAT (the breakdown probes' feature-major tiles, forward only):
+// xs, ws and tmp are stored transposed, (features, TE), every row FS floats
+// apart.
 template <bool FEAT = false>
 __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base, Tile* t,
-                                        int mblk = -1) {
+                                        int mblk = -1, int xw = -1) {
   if (mblk < 0) mblk = d.dim_mid;
   size_t off = 0;
   const int rem = bwd ? 4 : 8;
-  const int SX = FEAT ? FS : bank_stride(d.dim_x, rem), SW = FEAT ? FS : bank_stride(d.wblk, rem),
+  const int SX = FEAT ? FS : bank_stride(xw < 0 ? d.dim_x : xw, rem),
+            SW = FEAT ? FS : bank_stride(d.wblk, rem),
             SR = FEAT ? FS : odd_stride(d.rblk);
   // rows of the three tiles and the floats of each row
   const int nx = FEAT ? d.dim_x : TE, nw = FEAT ? d.wblk : TE, nr = FEAT ? d.rblk : TE;
+  size_t o_dxt = 0;
   size_t o_slots = take(off, sizeof(int) * d.K);
   size_t o_valid = take(off, d.K);
   size_t o_count = take(off, sizeof(int) * 4);
@@ -302,8 +365,13 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
     o_dzl = take(off, sizeof(float) * TE * d.hl);
     o_demb = take(off, sizeof(float) * TE * d.n_basis);
     o_dsh = take(off, sizeof(float) * TE * d.dim_f);
+    if (xw >= 0) o_dxt = take(off, sizeof(float) * TE * SX);
   }
-  // last: as many W3 sub-blocks in flight as the CTA's shared memory allows
+  // last: as many W3 sub-blocks in flight as the CTA's shared memory
+  // allows, on a 128-byte boundary (its phase against 128 bytes moved the
+  // one-CTA kernels' times by a few per cent on the card; this one measured
+  // best, PERF.md)
+  off = (off + 127) & ~size_t(127);
   int nstage = MAX_STAGES;
   while (nstage > 2 && off + sizeof(float) * stage_floats(d, nstage) > SMEM_LIMIT) --nstage;
   size_t o_stage = take(off, sizeof(float) * stage_floats(d, nstage));
@@ -330,6 +398,7 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
     t->dzl = bwd ? (float*)(base + o_dzl) : nullptr;
     t->demb = bwd ? (float*)(base + o_demb) : nullptr;
     t->dsh = bwd ? (float*)(base + o_dsh) : nullptr;
+    t->dxt = bwd && xw >= 0 ? (float*)(base + o_dxt) : nullptr;
     t->SX = SX;
     t->SW = SW;
     t->SR = SR;
@@ -340,8 +409,8 @@ __host__ __device__ inline size_t carve(const ConvDims& d, bool bwd, char* base,
 
 // The bytes of carve's layout for a layer, so that the host can check its
 // copy (ops/fused_conv.py:check_carve) before a layer shape's first launch.
-extern "C" long long fused_conv_smem_bytes(ConvDims d, int bwd, int mblk) {
-  return (long long)carve(d, bwd != 0, nullptr, nullptr, mblk);
+extern "C" long long fused_conv_smem_bytes(ConvDims d, int bwd, int mblk, int xw) {
+  return (long long)carve(d, bwd != 0, nullptr, nullptr, mblk, xw);
 }
 
 // Raises kernel fn's dynamic shared-memory limit on the current device to
@@ -356,6 +425,57 @@ inline cudaError_t raise_smem_limit(const void* fn, size_t smem, int* limit_by_d
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && dev < MAX_DEVICES) limit_by_device[dev] = (int)smem;
   return err;
+}
+
+// What a cluster launch returns when no cluster of its shape can be
+// resident on the device (cudaOccupancyMaxActiveClusters gives 0); the
+// host raises on it (ops/kernels.py).
+#define CLUSTER_UNSCHEDULABLE (-2)
+
+// Launches kernel fn on grid CTAs of NT threads in clusters of cl (grid a
+// multiple of cl) with smem bytes of dynamic shared memory, raising its
+// limit first (raise_smem_limit, limit_by_device); at the first launch of
+// each shape (smem, cl) on a device it checks that such a cluster can be
+// resident. Returns cudaGetLastError() after the launch, or
+// CLUSTER_UNSCHEDULABLE.
+#define CLUSTER_SHAPES 8  // shapes remembered per device and kernel
+template <typename... Params, typename... Args>
+static int launch_cluster(void (*fn)(Params...), int grid, int cl, size_t smem, void* stream,
+                          int* limit_by_device, Args... args) {
+  static long long checked[MAX_DEVICES][CLUSTER_SHAPES];  // (smem << 8 | cl) found resident
+  cudaError_t err = raise_smem_limit((const void*)fn, smem, limit_by_device);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long shape = (long long)smem << 8 | cl;
+  int slot = -1;
+  for (int s = 0; dev < MAX_DEVICES && s < CLUSTER_SHAPES && slot < 0; ++s)
+    if (checked[dev][s] == shape || checked[dev][s] == 0) slot = s;
+  if (slot < 0 || checked[dev][slot] != shape) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, (const void*)fn, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (n < 1) return CLUSTER_UNSCHEDULABLE;
+    if (slot >= 0) checked[dev][slot] = shape;
+  }
+  if (grid > 0) {
+    err = cudaLaunchKernelEx(&cfg, fn, args...);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ float edge_radius(const float* vec, int NK, int flat) {
@@ -520,8 +640,8 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 // lies in the table (the offsets of its warps' runs of each uvu task list
 // follow at rec + 4, 5, 6; read where a step starts, not held across the
 // block).
-#define UVU_BLK 8
-#define UVU_HEADER 20  // the header's ints; the block records follow it
+#define UVU_BLK 12
+#define UVU_HEADER 24  // the header's ints; the block records follow it
 #define UVU_MLP 12     // the hidden widths' place in the header
 struct Blk {
   int c0, width, r0, rows, rec;
@@ -532,6 +652,22 @@ __device__ __forceinline__ int n_blocks(const int* tab) { return tab[9]; }
 __device__ __forceinline__ Blk uvu_blk(const int* tab, int b) {
   const int rec = UVU_HEADER + b * UVU_BLK;
   return Blk{tab[rec], tab[rec + 1], tab[rec + 2], tab[rec + 3], rec};
+}
+
+// A cluster block's W3 column map (GMAP columns an entry), its first
+// instruction and instructions, and its first output column and output
+// columns in the rank's (the run of ybar the backward holds for it).
+__device__ __forceinline__ const int* blk_gmap(const int* tab, const Blk& B) { return tab + tab[B.rec + 7]; }
+__device__ __forceinline__ int blk_k0(const int* tab, const Blk& B) { return tab[B.rec + 8]; }
+__device__ __forceinline__ int blk_nk(const int* tab, const Blk& B) { return tab[B.rec + 9]; }
+__device__ __forceinline__ int blk_y0(const int* tab, const Blk& B) { return tab[B.rec + 10]; }
+
+// W3's column of column j of a block's staging (w3_sub_col's columns):
+// j itself, or on a cluster (whose blocks' columns start at 0) by the
+// block's map.
+template <bool CL>
+__device__ __forceinline__ int w3_col(const int* gmap, int j) {
+  return CL ? gmap[j / GMAP] + j % GMAP : j;
 }
 
 // Width of hidden layer l.
@@ -558,32 +694,40 @@ __device__ __forceinline__ int w3_sub_col(const Blk& B, int jb) {
 // Starts the copy of W3[row0 : row0 + nrows, j0 : j0 + BN] into dst (row
 // stride sb floats) and commits it as one group; rows past hl and columns
 // past jend (the end of the block) are filled with zeros. 16-byte copies
-// where W3's rows and the block's ends allow.
+// where W3's rows and the block's ends allow. CL: the columns are the
+// block's own, W3's by the map gmap (GMAP columns an entry, each entry on
+// a 16-byte boundary).
+template <bool CL = false>
 __device__ inline void stage_w3(const ConvDims& d, const float* __restrict__ W3, float* dst,
-                                int row0, int nrows, int j0, int jend, int sb) {
+                                int row0, int nrows, int j0, int jend, int sb,
+                                const int* gmap = nullptr) {
   const bool wide = ((d.numel | j0 | jend) & 3) == 0 && ((uintptr_t)W3 & 15) == 0;
   if (wide) {
     for (int idx = threadIdx.x; idx < nrows * (BN / 4); idx += NT) {
       const int r = idx / (BN / 4), c = (idx - r * (BN / 4)) * 4;
       const int k = row0 + r, j = j0 + c;
       const bool ok = k < d.hl && j < jend;
-      cp_async16(dst + r * sb + c, ok ? W3 + (size_t)k * d.numel + j : W3, ok ? 16 : 0);
+      cp_async16(dst + r * sb + c, ok ? W3 + (size_t)k * d.numel + w3_col<CL>(gmap, j) : W3,
+                 ok ? 16 : 0);
     }
   } else {
     for (int idx = threadIdx.x; idx < nrows * BN; idx += NT) {
       const int r = idx / BN, c = idx - r * BN;
       const int k = row0 + r, j = j0 + c;
       const bool ok = k < d.hl && j < jend;
-      cp_async4(dst + r * sb + c, ok ? W3 + (size_t)k * d.numel + j : W3, ok ? 4 : 0);
+      cp_async4(dst + r * sb + c, ok ? W3 + (size_t)k * d.numel + w3_col<CL>(gmap, j) : W3,
+                ok ? 4 : 0);
     }
   }
   cp_async_commit();
 }
 
 // The first W3 sub-block of block B for the forward product, into buffer 0.
+template <bool CL = false>
 __device__ __forceinline__ void stage_w3_first(const ConvDims& d, const float* __restrict__ W3,
                                                const Tile& t, const Blk& B) {
-  stage_w3(d, W3, t.stage, 0, round8(d.hl), w3_sub_col(B, 0), B.c0 + B.width, SBF);
+  stage_w3<CL>(d, W3, t.stage, 0, round8(d.hl), w3_sub_col(B, 0), B.c0 + B.width, SBF,
+               CL ? blk_gmap(t.tabs, B) : nullptr);
 }
 
 // Powers u^a, a <= 3, of a unit-vector component, by selects instead of a
@@ -654,10 +798,11 @@ __device__ __forceinline__ void hl_fragments(const ConvDims& d, const Tile& t, i
 // across the sub-blocks, 64 hidden units at a time. The caller has issued
 // the first sub-block into buffer 0 (stage_w3_first). PASSES: TF32 passes
 // of each product (3, or 1 for the breakdown probes); FEAT: w stored
-// transposed (carve<true>).
-template <int PASSES = 3, bool FEAT = false>
+// transposed (carve<true>); CL: a cluster's block (stage_w3).
+template <int PASSES = 3, bool FEAT = false, bool CL = false>
 __device__ inline void w3_forward(const ConvDims& d, const Tile& t, const float* __restrict__ W3,
                                   const Blk& B) {
+  const int* gmap = CL ? blk_gmap(t.tabs, B) : nullptr;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int h2p = round8(d.hl);
@@ -667,13 +812,14 @@ __device__ inline void w3_forward(const ConvDims& d, const Tile& t, const float*
   const int nkg = (h2p + 63) / 64;  // groups of 64 hidden units (8 k-steps)
   const float inv_h2 = (float)(1.0 / sqrt((double)d.hl));
   for (int jb = 1; jb < S - 1 && jb < nblk; ++jb)
-    stage_w3(d, W3, t.stage + jb * h2p * SBF, 0, h2p, w3_sub_col(B, jb), jend, SBF);
+    stage_w3<CL>(d, W3, t.stage + jb * h2p * SBF, 0, h2p, w3_sub_col(B, jb), jend, SBF, gmap);
   unsigned ah[8][4], al[8][4];
   if (nkg == 1) hl_fragments(d, t, 0, ah, al);
   for (int jb = 0; jb < nblk; ++jb) {
     const int ahead = jb + S - 1;
     if (ahead < nblk)
-      stage_w3(d, W3, t.stage + (ahead % S) * h2p * SBF, 0, h2p, w3_sub_col(B, ahead), jend, SBF);
+      stage_w3<CL>(d, W3, t.stage + (ahead % S) * h2p * SBF, 0, h2p, w3_sub_col(B, ahead), jend,
+                   SBF, gmap);
     cp_async_wait(min(S - 1, nblk - 1 - jb));
     __syncthreads();
     const float* Bs = t.stage + (jb % S) * h2p * SBF;
@@ -848,8 +994,11 @@ __device__ inline void uvu_forward(const Tile& t, const Blk& B) {
 // (instruction, m) a (TE x mul) by (mul x d3) product, k over the channels.
 // Six accumulators (two k-step parities times the three products) keep the
 // mma chains short. Each Wigner row belongs to one (instruction, m, p). The
-// tasks of column block B, whose rows dtmp holds.
-__device__ inline void uvu_dtmp(const Tile& t, const Blk& B) {
+// tasks of column block B, whose rows dtmp holds; CL: ybar's column c lies
+// at yb_at(c - yoff) (a cluster holds the block's run of ybar from yoff).
+template <bool CL = false>
+__device__ inline void uvu_dtmp(const Tile& t, const Blk& B, int yoff = 0) {
+  if (!CL) yoff = 0;
   const int* tab = t.tabs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -871,8 +1020,8 @@ __device__ inline void uvu_dtmp(const Tile& t, const Blk& B) {
         a[1] = u < I.mul ? t.xs[(g + 8) * t.SX + xm + u] * t.ws[(g + 8) * t.SW + I.w_start + u] : 0.0f;
         a[2] = v < I.mul ? t.xs[g * t.SX + xm + v] * t.ws[g * t.SW + I.w_start + v] : 0.0f;
         a[3] = v < I.mul ? t.xs[(g + 8) * t.SX + xm + v] * t.ws[(g + 8) * t.SW + I.w_start + v] : 0.0f;
-        b[0] = u < I.mul && g < I.d3 ? t.yb[yb_at(I.y_start + g * I.u_tot + u)] : 0.0f;
-        b[1] = v < I.mul && g < I.d3 ? t.yb[yb_at(I.y_start + g * I.u_tot + v)] : 0.0f;
+        b[0] = u < I.mul && g < I.d3 ? t.yb[yb_at(I.y_start - yoff + g * I.u_tot + u)] : 0.0f;
+        b[1] = v < I.mul && g < I.d3 ? t.yb[yb_at(I.y_start - yoff + g * I.u_tot + v)] : 0.0f;
         unsigned ah[4], al[4], bh[2], bl[2];
         split4(a, ah, al);
         split_tf32(b[0], bh[0], bl[0]);
@@ -904,13 +1053,15 @@ __device__ inline void uvu_dtmp(const Tile& t, const Blk& B) {
 // w[e, u] a and dw[e, u] = sum_m x[e, m, u] a. A task (x irrep, 8 channels
 // from u0, column block B) walks every instruction of the block that reads
 // the irrep, so it owns its dxg columns and, per instruction, its dw
-// columns: dxg goes to global memory (rows e < ne), dw over w in t.ws
-// (dtmp, which reads w, is done). Block 0's tasks of the first pass write
-// the dxg of every x irrep (zeros where none of its instructions reads it);
-// the later blocks' and passes' (ACC) add to it.
-template <bool ACC>
+// columns: dxg goes to global memory (rows e < ne), or on a cluster (CL) to
+// the CTA's dxg tile t.dxt (every row; the caller stores the tile), dw over
+// w in t.ws (dtmp, which reads w, is done). Block 0's tasks write the dxg of
+// every x irrep of the CTA (zeros where none of its instructions reads it);
+// the later blocks' (ACC) add to it. yoff: as uvu_dtmp.
+template <bool ACC, bool CL = false>
 __device__ inline void uvu_dxg_dw(const ConvDims& d, const Tile& t, int ne,
-                                  float* __restrict__ dxg, const Blk& B) {
+                                  float* __restrict__ dxg, const Blk& B, int yoff = 0) {
+  if (!CL) yoff = 0;
   const int* tab = t.tabs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -942,8 +1093,8 @@ __device__ inline void uvu_dxg_dw(const ConvDims& d, const Tile& t, int ne,
         rb[m] = m < d1 && q + 4 < I.d3 ? I.rtab[m * UVU_D + q + 4] : -1;
       }
       const bool bq = q < I.d3 && u0 + g < mul, bq4 = q + 4 < I.d3 && u0 + g < mul;
-      const float b[2] = {bq ? t.yb[yb_at(I.y_start + q * I.u_tot + u0 + g)] : 0.0f,
-                          bq4 ? t.yb[yb_at(I.y_start + (q + 4) * I.u_tot + u0 + g)] : 0.0f};
+      const float b[2] = {bq ? t.yb[yb_at(I.y_start - yoff + q * I.u_tot + u0 + g)] : 0.0f,
+                          bq4 ? t.yb[yb_at(I.y_start - yoff + (q + 4) * I.u_tot + u0 + g)] : 0.0f};
 #pragma unroll
       for (int m = 0; m < UVU_D; ++m) {
         if (m < d1) {
@@ -973,7 +1124,10 @@ __device__ inline void uvu_dxg_dw(const ConvDims& d, const Tile& t, int ne,
       if (m < d1) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (ok[i] && e_[i] < ne) {
+          if (CL && ok[i]) {
+            float* p = t.dxt + e_[i] * t.SX + x_start + m * mul + uc + (i & 1);
+            *p = ACC ? *p + dx[m][i] : dx[m][i];
+          } else if (!CL && ok[i] && e_[i] < ne) {
             float* p = dxg + (size_t)t.flats[e_[i]] * d.dim_x + x_start + m * mul + uc + (i & 1);
             *p = ACC ? __ldcg(p) + dx[m][i] : dx[m][i];
           }
@@ -1018,8 +1172,11 @@ __device__ __forceinline__ void knock_w(const Tile& t, const Blk& B) {
 // and (emb, sh) in emb/sh mode. The breakdown probes (csrc/probe_breakdown.cuh,
 // emb/sh mode only) set the rest: TF32 passes of the MLP and tmp products
 // (PASSES), feature-major tiles (FEAT), what is formed of w (MLP) and
-// whether tmp is (TMP); the defaults are B1's and B4's tile.
-template <bool EMBSH, int PASSES = 3, bool FEAT = false, int MLP = MLP_FULL, bool TMP = true>
+// whether tmp is (TMP); the defaults are B1's and B4's tile. CL: a
+// cluster's CTA, which gathers its rank's columns of x (the x column map)
+// and forms its block's w by the block's W3 column map.
+template <bool EMBSH, int PASSES = 3, bool FEAT = false, int MLP = MLP_FULL, bool TMP = true,
+          bool CL = false>
 __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0, int ne,
                                  const float* __restrict__ x, const int* __restrict__ src,
                                  const float* __restrict__ ea, const float* __restrict__ eb,
@@ -1031,7 +1188,7 @@ __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0
   const int NK = d.N * d.K;
   const int NB = d.n_basis, DF = d.dim_f;
   // W3's first sub-block is copied while the tile's inputs are formed
-  if constexpr (MLP == MLP_FULL) stage_w3_first(d, W3, t, B0);
+  if constexpr (MLP == MLP_FULL) stage_w3_first<CL>(d, W3, t, B0);
   if (EMBSH) {
     // (a) the slots' emb and sh rows, read along the rows
     if (tid < TE) {
@@ -1103,7 +1260,27 @@ __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0
   // (b) the x[src] rows by asynchronous copies (zeros past ne): the uvu
   // step reads them after w3_forward's first wait, which covers this group.
   // Feature-major: 4-byte copies, a warp along a row's columns.
-  if constexpr (FEAT) {
+  if constexpr (CL) {
+    // the rank's columns, XMAP at a time from the layer's (x column map)
+    const int xn = t.tabs[H_XW];
+    const int* xmap = t.tabs + t.tabs[H_XMAP];
+    if ((d.dim_x & 3) == 0 && ((uintptr_t)x & 15) == 0) {
+      const int c4 = xn >> 2;
+      for (int idx = tid; idx < TE * c4; idx += NT) {
+        const int e = idx / c4, c = idx - e * c4;
+        const bool ok = e < ne;
+        cp_async16(t.xs + e * t.SX + 4 * c, ok ? x + (size_t)t.srcs[e] * d.dim_x + xmap[c] : x,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < TE * xn; idx += NT) {
+        const int e = idx / xn, c = idx - e * xn;
+        const bool ok = e < ne;
+        cp_async4(t.xs + e * t.SX + c,
+                  ok ? x + (size_t)t.srcs[e] * d.dim_x + xmap[c / XMAP] + c % XMAP : x, ok ? 4 : 0);
+      }
+    }
+  } else if constexpr (FEAT) {
     for (int idx = tid; idx < TE * d.dim_x; idx += NT) {
       const int e = idx / d.dim_x, c = idx - e * d.dim_x;
       const bool ok = e < ne;
@@ -1149,7 +1326,7 @@ __device__ inline void load_tile(const ConvDims& d, const Tile& t, int i, int t0
       zT = hT + TE * h;
     }
     // (f) block 0's columns of w, the last MLP layer on the tensor cores
-    w3_forward<PASSES, FEAT>(d, t, W3, B0);
+    w3_forward<PASSES, FEAT, CL>(d, t, W3, B0);
   } else {
     // no MLP: the knock-out's w, or none; then the x rows' wait
     if constexpr (MLP == MLP_KNOCK) knock_w<FEAT>(t, B0);

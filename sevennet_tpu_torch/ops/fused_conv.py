@@ -400,13 +400,21 @@ def reduce_tiles(prods):
     return tiles, begins
 
 
-UVU_HEADER = 20   # ints at the start of a pass's table: task tables' places, MLP widths, pass
+UVU_HEADER = 24   # ints at the start of a rank's table: task tables' places, MLP widths, rank
 UVU_INS = 64      # ints per instruction record
-UVU_BLK = 8       # ints per column-block record
+UVU_BLK = 12      # ints per column-block record
 UVU_MAX_D = 7     # irrep dimensions the uvu tables take (l <= 3)
 UVU_WARPS = 8     # warps per CTA of the kernels (csrc NWARP; check_uvu_layout)
-# the pass fields of a table's header (csrc H_NEXT ..; _pass_itab)
-H_NEXT, H_M0, H_MW = 10, 11, 19
+# the rank fields of a table's header (csrc H_NEXT ..; _rank_itab): the next
+# rank's table, the rank's x columns, its output columns, the place of its x
+# column map in the table, its instructions
+H_NEXT, H_XW, H_MW, H_XMAP, H_NK = 10, 11, 19, 20, 21
+# the layer's place of an instruction's outputs in its record (a cluster's
+# ranks hold theirs one after another): first mid column, group channels
+UVU_GY, UVU_GUT = 57, 58
+CLUSTER_SIZES = (2, 4)  # CTAs of a cluster the planner tries, in turn
+GMAP = 8          # W3 columns per entry of a cluster block's column map
+XMAP = 4          # x columns per entry of a rank's x column map
 
 
 def _balanced(tasks, costs):
@@ -424,7 +432,7 @@ def _balanced(tasks, costs):
 
 
 def _column_blocks(instr, ks, budget: int) -> List[List[int]]:
-    """The consecutive instructions ``ks`` grouped into blocks of ``w``'s
+    """The instructions ``ks`` (in order) grouped into blocks of ``w``'s
     columns at most ``budget`` wide (an instruction's uvu weights are
     ``mul`` consecutive columns; each block starts at an instruction
     boundary)."""
@@ -440,147 +448,227 @@ def _column_blocks(instr, ks, budget: int) -> List[List[int]]:
 
 
 @dataclass(frozen=True)
-class ConvPass:
-    """One pass of the kernels over a receiver's edges: consecutive
-    instructions ``ks`` whose outputs are whole groups of the mid layout, so
-    that they write the ``mw`` mid columns from ``m0``."""
+class ConvRank:
+    """One CTA's share of a layer: the x irreps ``xi`` (indices into
+    ``irreps_x``) whose columns of ``x`` and ``dxg`` it holds, the
+    instructions ``ks`` that read them (in order), its ``xw`` columns of x
+    and its ``mw`` output columns (each instruction's ``d3 * mul``). A layer
+    that fits one CTA is one rank of every irrep; a cluster's ranks split
+    the irreps, so that each output column, ``w`` column and ``dxg`` column
+    belongs to one rank."""
 
+    xi: Tuple[int, ...]
     ks: Tuple[int, ...]
-    m0: int
+    xw: int
     mw: int
 
 
-def _mid_groups(instr) -> List[List[int]]:
-    """The instructions in runs that share a group of the mid layout (one
-    output irrep): consecutive, since the instructions are sorted by
-    output."""
-    groups: List[List[int]] = []
-    for k, ins in enumerate(instr):
-        if groups and instr[groups[-1][0]]["g_start"] == ins["g_start"]:
-            groups[-1].append(k)
-        else:
-            groups.append([k])
-    return groups
+def _conv_rank(conv: ConvTPSpec, instr, xi) -> ConvRank:
+    xs = conv.irreps_x.slices()
+    starts = {xs[j].start for j in xi}
+    ks = tuple(k for k, ins in enumerate(instr) if ins["x_start"] in starts)
+    return ConvRank(tuple(xi), ks, sum(xs[j].stop - xs[j].start for j in xi),
+                    sum(instr[k]["d3"] * instr[k]["mul"] for k in ks))
 
 
-def _conv_pass(instr, ks) -> ConvPass:
-    m0 = instr[ks[0]]["g_start"]
-    end = instr[ks[-1]]["g_start"] + instr[ks[-1]]["d3"] * instr[ks[-1]]["u_tot"]
-    return ConvPass(tuple(ks), m0, end - m0)
+# a rank's work counted in W3 columns (its columns of the two W3 products
+# are most of it): each uvu term (an instruction's channel and (m, p) pair)
+# adds TERM_COST of a column, rank 0's sums over the ranks and its chain
+# LEAD_COST columns. Fitted to conv_breakdown.py's sections per rank at
+# mf-ompa's layer 2 on an H100; `conv_breakdown.py --splits` times the
+# split they pick against the most even W3 columns (PERF.md, Findings).
+TERM_COST, LEAD_COST = 1 / 16, 176
 
 
-def _uvu_tables(conv: ConvTPSpec, instr, blocks: List[List[int]], hidden, cp: ConvPass,
-                zero_all: bool) -> np.ndarray:
+def _rank_cost(instr, rank: ConvRank) -> float:
+    return sum(instr[k]["mul"] * (1 + TERM_COST * len(instr[k]["mp"])) for k in rank.ks)
+
+
+def _rank_splits(conv: ConvTPSpec, instr, n: int) -> List[List[ConvRank]]:
+    """Every split of the x irreps over ``n`` ranks, each rank with at least
+    one instruction, the most even first: by the largest rank's work
+    (:func:`_rank_cost`: the W3 products' columns and the uvu terms; rank 0,
+    which also sums the ranks' shares and runs the chain, is the rank of
+    least work), then x columns, then output columns. Each split appears
+    once."""
+    n_ir = len(conv.irreps_x)
+    out = []
+    for tail in itertools.product(range(n), repeat=n_ir - 1):
+        assign = (0, *tail)
+        if any(r not in assign for r in range(n)) or any(
+                assign.index(r) > assign.index(r + 1) for r in range(n - 1)):
+            continue
+        ranks = [_conv_rank(conv, instr, [j for j in range(n_ir) if assign[j] == r])
+                 for r in range(n)]
+        if all(r.ks for r in ranks):
+            out.append(sorted(ranks, key=lambda r: _rank_cost(instr, r)))
+
+    def key(ranks):
+        costs = [_rank_cost(instr, r) + (LEAD_COST if i == 0 else 0) for i, r in enumerate(ranks)]
+        return max(costs), max(r.xw for r in ranks), max(r.mw for r in ranks)
+
+    return sorted(out, key=key)
+
+
+def _uvu_tables(conv: ConvTPSpec, instr, blocks: List[List[int]], hidden, rank: ConvRank,
+                row_of: Dict[int, int], cluster: bool) -> np.ndarray:
     """Task tables of the kernels' uvu steps on the tensor cores
-    (``csrc/fused_conv_common.cuh``, ``uvu_*``) for one pass ``cp``, the
-    table the kernels copy to shared memory.
-    The kernels form the per-edge weights ``w`` one column block at a time
-    (``blocks``: consecutive instructions of the pass, :func:`plan_blocks`)
-    and run that block's tasks before the next block overwrites it.
+    (``csrc/fused_conv_common.cuh``, ``uvu_*``) for one rank, the table its
+    CTA copies to shared memory. The kernels form the per-edge weights ``w``
+    one column block at a time (``blocks``: the rank's instructions in
+    order, :func:`plan_blocks`) and run that block's tasks before the next
+    block overwrites it.
 
     A header of UVU_HEADER ints ``[off_ins, n_dt, off_dt, n_dx, off_dx,
-    off_list, n_fw, off_fw, off_blk, n_blk, next, m0]``, the radial MLP's
+    off_list, n_fw, off_fw, off_blk, n_blk, next, xw]``, the radial MLP's
     hidden widths (at ints 12 .., so that the kernels read them and the
-    block records without a chain of loads) and the pass's output columns
-    (``H_MW``); the block records right after it; per
-    instruction a record of
-    UVU_INS ints ``[x_start, d1, d3, mul, w_start (from its block's first
-    column), ybar start (g_start + u_off - m0), u_tot, 0]`` and the Wigner
-    row r
-    of each (m, p) counted from its block's first row, ``rtab[m * 7 + p]``
-    (-1 where the pair has no row; a block's instructions own consecutive
-    rows of ``w3j_pack``, so ``tmp`` and ``dtmp`` hold one block's rows);
-    ``dtmp`` tasks ``(instruction, m, 0, 0)``; ``dxg``/``dw`` tasks
-    ``(x_start, d1, mul, list start, list length, u0, 0, 0)``, one per x
-    irrep, 8 channels from ``u0`` and block, over the block's instructions
-    that read the irrep (listed at ``off_list``): with ``zero_all`` (the
-    layer's first pass) block 0 has tasks for
-    every irrep of x, with an empty list where none of its instructions reads
-    it (they write the irrep's zeros), and the later blocks' and passes'
-    tasks add to
-    ``dxg``; forward tasks ``(instruction, u0, 0, 0)``, 16
-    channels each. Each task list is ordered by block, then by warp; per
-    block a record of UVU_BLK ints ``[first column of w, width, first Wigner
-    row, rows, runs_dt, runs_dx, runs_fw, 0]``: warp w of the block takes
-    tasks ``runs[w] .. runs[w + 1]`` of each list, the ``runs_*`` offsets
-    of UVU_WARPS + 1 ints each (:func:`_balanced`, costs in tensor-core
-    steps). Offsets in ints from the table's start, each part on 4 ints."""
+    block records without a chain of loads), the rank's output columns
+    (``H_MW``), the place of its x column map (``H_XMAP``) and its number
+    of instructions (``H_NK``); the block records right after it; per
+    instruction of the rank (numbered from 0 in order) a record of UVU_INS
+    ints ``[x_start, d1, d3, mul, w_start (from its block's first column),
+    ybar start, u_tot, 0]``, the Wigner row of each (m, p) counted from its
+    block's first row, ``rtab[m * 7 + p]`` (-1 where the pair has no row;
+    rows in the kernels' order, ``row_of``, a block's rows consecutive, so
+    that ``tmp`` and ``dtmp`` hold one block's rows), and at ``UVU_GY``,
+    ``UVU_GUT`` the layer's first mid column of its outputs
+    (``g_start + u_off``) and its group's channels; ``dtmp`` tasks ``(instruction, m,
+    0, 0)``; ``dxg``/``dw`` tasks ``(x_start, d1, mul, list start, list
+    length, u0, 0, 0)``, one per x irrep of the rank, 8 channels from
+    ``u0`` and block, over the block's instructions that read the irrep
+    (listed at ``off_list``): block 0 has tasks for every irrep of the
+    rank, with an empty list where none of its instructions reads it (they
+    write the irrep's zeros), and the later blocks' tasks add to ``dxg``;
+    forward tasks ``(instruction, u0, 0, 0)``, 16 channels each. Each task
+    list is ordered by block, then by warp; per block a record of UVU_BLK
+    ints ``[first column of w, width, first Wigner row, rows, runs_dt,
+    runs_dx, runs_fw, gmap, first instruction, instructions, first output
+    column, output columns]``: warp w of the block takes tasks ``runs[w] ..
+    runs[w + 1]`` of each list, the ``runs_*`` offsets of UVU_WARPS + 1
+    ints each (:func:`_balanced`, costs in tensor-core steps). Offsets in
+    ints from the table's start, each part on 4 ints.
+
+    One CTA (not ``cluster``): x, the output and ``ybar`` columns are the
+    layer's (``ybar start`` the instruction's ``g_start + u_off``, ``u_tot``
+    its group's channels), a block's first column is its W3 column and
+    ``gmap`` is 0. A cluster rank: x columns are the rank's, its irreps'
+    columns one after another, in x order (the x column map at ``H_XMAP``
+    gives the layer's column of every XMAP of them); output and ``ybar``
+    columns are the rank's, each instruction's ``d3 * mul`` in turn (``ybar
+    start`` their first, ``u_tot`` its ``mul``), so a block's are a run
+    that the backward reads from ``ybar`` for the block alone; a block's
+    columns of ``w`` start at 0 and ``gmap`` is the place of its column map,
+    the W3 column of every GMAP of its columns."""
+    irreps = list(zip(conv.irreps_x.slices(), conv.irreps_x))
+    x_loc, col = {}, 0
+    for j in rank.xi:
+        x_loc[irreps[j][0].start] = col
+        col += irreps[j][1].dim
+    if not cluster:
+        x_loc = {sl.start: sl.start for sl, _ in irreps}
     ks_all = [k for ks in blocks for k in ks]
-    block_of = {k: b for b, ks in enumerate(blocks) for k in ks}
-    c0 = [instr[ks[0]]["w_start"] for ks in blocks]
-    rows = [[r for k in ks for _, _, r in instr[k]["mp"]] for ks in blocks]
+    assert ks_all == list(rank.ks)
+    local = {k: i for i, k in enumerate(ks_all)}
+    y_loc, col = {}, 0
+    for k in ks_all:
+        y_loc[k] = col
+        col += instr[k]["d3"] * instr[k]["mul"]
+    rows = [[row_of[r] for k in ks for _, _, r in instr[k]["mp"]] for ks in blocks]
     r0 = [min(rs) for rs in rows]
     assert all(rs == list(range(a, a + len(rs))) for rs, a in zip(rows, r0))
-    recs = np.full((len(instr), UVU_INS), -1, np.int64)
-    for k in ks_all:
-        ins = instr[k]
-        d1, d3 = ins["d1"], ins["d3"]
-        if max(d1, d3) > UVU_MAX_D:
-            raise ValueError(f"the fused conv takes irreps up to l = 3, got dimensions {d1}, {d3}")
-        assert ins["w_start"] >= c0[block_of[k]]
-        recs[k, :8] = [ins["x_start"], d1, d3, ins["mul"], ins["w_start"] - c0[block_of[k]],
-                       ins["g_start"] + ins["u_off"] - cp.m0, ins["u_tot"], 0]
-        for m, p, r in ins["mp"]:
-            recs[k, 8 + m * UVU_MAX_D + p] = r - r0[block_of[k]]
-    # the records of the pass's instructions, numbered from its first
-    kfirst = ks_all[0]
-    recs = recs[kfirst:kfirst + len(ks_all)]
-    irreps = list(zip(conv.irreps_x.slices(), conv.irreps_x))
-    dt, dx, fw, lists, runs, blk = [], [], [], [], [[], [], []], []
+    recs = np.full((len(ks_all), UVU_INS), -1, np.int64)
+    gmaps = []
     for b, ks in enumerate(blocks):
-        bdt = [(k - kfirst, m, 0, 0) for k in ks for m in range(instr[k]["d1"])]
-        bfw = [(k - kfirst, u0, 0, 0) for k in ks for u0 in range(0, instr[k]["mul"], 16)]
+        w0 = 0
+        for k in ks:
+            ins = instr[k]
+            d1, d3 = ins["d1"], ins["d3"]
+            if max(d1, d3) > UVU_MAX_D:
+                raise ValueError(f"the fused conv takes irreps up to l = 3, got dimensions {d1}, {d3}")
+            y0, ut = ((y_loc[k], ins["mul"]) if cluster
+                      else (ins["g_start"] + ins["u_off"], ins["u_tot"]))
+            recs[local[k], :8] = [x_loc[ins["x_start"]], d1, d3, ins["mul"], w0, y0, ut, 0]
+            for m, p, r in ins["mp"]:
+                recs[local[k], 8 + m * UVU_MAX_D + p] = row_of[r] - r0[b]
+            recs[local[k], [UVU_GY, UVU_GUT]] = ins["g_start"] + ins["u_off"], ins["u_tot"]
+            gmaps += [ins["w_start"] + j for j in range(0, ins["mul"], GMAP)]
+            w0 += ins["mul"]
+    xmap = [sl.start + c for j in rank.xi for sl in [irreps[j][0]]
+            for c in range(0, sl.stop - sl.start, XMAP)] if cluster else []
+    dt, dx, fw, lists, runs, blk = [], [], [], [], [[], [], []], []
+    gm = 0
+    for b, ks in enumerate(blocks):
+        bdt = [(local[k], m, 0, 0) for k in ks for m in range(instr[k]["d1"])]
+        bfw = [(local[k], u0, 0, 0) for k in ks for u0 in range(0, instr[k]["mul"], 16)]
         bdx, bdx_cost = [], []
-        for sl, mi in irreps:
-            readers = [k - kfirst for k in ks if instr[k]["x_start"] == sl.start]
-            if not readers and not (b == 0 and zero_all):
+        for j in rank.xi:
+            sl, mi = irreps[j]
+            readers = [local[k] for k in ks if instr[k]["x_start"] == sl.start]
+            if not readers and b > 0:
                 continue
             for u0 in range(0, mi.mul, 8):
-                bdx.append((sl.start, mi.ir.dim, mi.mul, len(lists), len(readers), u0, 0, 0))
+                bdx.append((x_loc[sl.start], mi.ir.dim, mi.mul, len(lists), len(readers), u0, 0, 0))
                 bdx_cost.append(1 + mi.ir.dim * len(readers))
             lists += readers
-        rec = [c0[b], sum(instr[k]["mul"] for k in ks), r0[b], len(rows[b])]
+        width = sum(instr[k]["mul"] for k in ks)
+        rec = [0 if cluster else instr[ks[0]]["w_start"], width, r0[b], len(rows[b])]
+        y_rec = [local[ks[0]], len(ks), y_loc[ks[0]],
+                 sum(instr[k]["d3"] * instr[k]["mul"] for k in ks)]
         for i, (lst, tasks, starts) in enumerate((
-                (dt, *_balanced(bdt, [-(-instr[k + kfirst]["mul"] // 8) for k, _, _, _ in bdt])),
+                (dt, *_balanced(bdt, [-(-instr[ks_all[kk]]["mul"] // 8) for kk, _, _, _ in bdt])),
                 (dx, *_balanced(bdx, bdx_cost)),
-                (fw, *_balanced(bfw, [2 * instr[k + kfirst]["d1"] for k, _, _, _ in bfw])))):
+                (fw, *_balanced(bfw, [2 * instr[ks_all[kk]]["d1"] for kk, _, _, _ in bfw])))):
             runs[i].append(np.asarray(starts) + len(lst))
             lst += tasks
-        blk.append(rec)
+        blk.append((rec, gm, y_rec))
+        gm += width // GMAP
     parts = [np.zeros(UVU_HEADER, np.int64), np.zeros((len(blocks), UVU_BLK), np.int64), recs,
-             dt, dx, lists, fw, *runs]
+             dt, dx, lists, fw, *runs, gmaps if cluster else [], xmap]
     parts = [np.asarray(a, np.int64).reshape(-1) for a in parts]
     parts = [np.concatenate([a, np.zeros(-a.size % 4, np.int64)]) for a in parts]
     offs = np.cumsum([0] + [a.size for a in parts[:-1]])
-    for b, rec in enumerate(blk):
-        parts[1][b * UVU_BLK : b * UVU_BLK + 7] = rec + [
-            offs[7 + i] + b * (UVU_WARPS + 1) for i in range(3)]
+    for b, (rec, g, y_rec) in enumerate(blk):
+        parts[1][b * UVU_BLK : (b + 1) * UVU_BLK] = rec + [
+            offs[7 + i] + b * (UVU_WARPS + 1) for i in range(3)] + [
+            offs[10] + g if cluster else 0] + y_rec
     parts[0][:12] = [offs[2], len(dt), offs[3], len(dx), offs[4], offs[5], len(fw), offs[6],
-                     offs[1], len(blocks), 0, cp.m0]
+                     offs[1], len(blocks), 0, rank.xw]
     # the widths the kernels take (at most MAX_MLP - 1 hidden layers;
     # check_conv_inputs raises for a deeper MLP on CUDA tensors)
     parts[0][12:H_MW][: len(hidden)] = hidden[: H_MW - 12]
-    parts[0][H_MW] = cp.mw
+    parts[0][H_MW] = rank.mw
+    parts[0][H_XMAP] = offs[11] if cluster else 0
+    parts[0][H_NK] = len(ks_all)
     return np.concatenate(parts)
 
 
-def _pass_itab(conv: ConvTPSpec, instr, passes, pass_blocks, hidden, terms) -> Tuple[np.ndarray, int]:
-    """The int table of a layer's passes and the ints of its part before the
-    monomial terms: pass 0's table, the terms ``terms`` (sh, then dsh),
-    then the later passes' tables, each table padded to the largest. The
-    kernels copy the table and the terms to shared memory, then each later
-    pass's table over the first. Each table's header links the next pass
-    (``H_NEXT``, 0 after the last); a layer of one pass is its table and the
-    terms. Returns ``(itab, ints before the terms)``."""
-    tabs = [_uvu_tables(conv, instr, bl, hidden, cp, zero_all=p == 0)
-            for p, (cp, bl) in enumerate(zip(passes, pass_blocks))]
+def _kernel_rows(instr, rank_blocks) -> Dict[int, int]:
+    """The Wigner rows in the kernels' order (rank by rank, block by block,
+    instruction by instruction): row -> its place. The identity for one
+    CTA, whose blocks take the instructions in order."""
+    order = [r for blocks in rank_blocks for ks in blocks for k in ks
+             for _, _, r in instr[k]["mp"]]
+    return {r: i for i, r in enumerate(order)}
+
+
+def _rank_itab(conv: ConvTPSpec, instr, ranks, rank_blocks, hidden, terms):
+    """The int table of a layer's ranks: rank 0's table, the monomial terms
+    ``terms`` (sh, then dsh), then the later ranks' tables, each table
+    padded to the largest. A rank's CTA copies its table and the terms to
+    shared memory. Each table's header links the next rank's (``H_NEXT``, 0
+    after the last); a layer of one CTA is its table and the terms. Returns
+    ``(itab, ints before the terms, row_of)`` (:func:`_kernel_rows`)."""
+    cluster = len(ranks) > 1
+    row_of = _kernel_rows(instr, rank_blocks)
+    tabs = [_uvu_tables(conv, instr, bl, hidden, r, row_of, cluster)
+            for r, bl in zip(ranks, rank_blocks)]
     tabw = max(t.size for t in tabs)
     tabs = [np.concatenate([t, np.zeros(tabw - t.size, np.int64)]) for t in tabs]
     parts = [tabs[0], terms, *tabs[1:]]
     starts = np.cumsum([0] + [a.size for a in parts])
     for p, tab in enumerate(tabs):
-        tab[H_NEXT] = starts[2 + p] if p + 1 < len(passes) else 0
-    return np.concatenate(parts), tabw
+        tab[H_NEXT] = starts[2 + p] if p + 1 < len(ranks) else 0
+    return np.concatenate(parts), tabw, row_of
 
 
 # ---------------------------------------------------------------------------
@@ -603,13 +691,16 @@ def _round8(n: int) -> int:
     return (n + 7) & ~7
 
 
-def carve_bytes(d: _ConvDims, bwd: bool, mblk: Optional[int] = None) -> Tuple[int, int]:
+def carve_bytes(d: _ConvDims, bwd: bool, mblk: Optional[int] = None,
+                xw: Optional[int] = None) -> Tuple[int, int]:
     """``(bytes, W3 stages)`` of one CTA's shared memory for the layer ``d``
-    whose widest pass has ``mblk`` output columns (default ``dim_mid``, a
-    layer of one pass): the host's copy of ``carve`` in
-    ``csrc/fused_conv_common.cuh``, which the kernels'
+    whose CTA holds ``mblk`` output columns (default ``dim_mid``; the
+    forward's accumulator, the backward's ``ybar``) and, on a cluster, ``xw``
+    columns of x (default: one CTA, all of x): the host's copy of ``carve``
+    in ``csrc/fused_conv_common.cuh``, which the kernels'
     ``fused_conv_smem_bytes`` must match (checked at the first launch of
-    each layer shape, :func:`check_carve`)."""
+    each layer shape, :func:`check_carve`). A cluster's backward also holds
+    its ``dxg`` tile."""
     def take(nbytes):
         nonlocal off
         off += (nbytes + 15) & ~15
@@ -617,7 +708,8 @@ def carve_bytes(d: _ConvDims, bwd: bool, mblk: Optional[int] = None) -> Tuple[in
     mblk = d.dim_mid if mblk is None else mblk
     off = 0
     rem = 4 if bwd else 8
-    SX, SW, SR = _bank_stride(d.dim_x, rem), _bank_stride(d.wblk, rem), d.rblk | 1
+    SX = _bank_stride(d.dim_x if xw is None else xw, rem)
+    SW, SR = _bank_stride(d.wblk, rem), d.rblk | 1
     for nbytes in (4 * d.K, d.K, 16, 4 * TE, 4 * TE, 32 * TE, 4 * TE * d.n_basis,
                    4 * TE * d.dim_f, 4 * TE * SR, 8 * TE * d.hsum, 4 * TE * SX, 4 * TE * SW,
                    4 * (d.shd_terms + 5 * d.n_shd)):
@@ -628,10 +720,13 @@ def carve_bytes(d: _ConvDims, bwd: bool, mblk: Optional[int] = None) -> Tuple[in
         for nbytes in (4 * (mblk + (mblk >> 5) + 1), 4 * TE * SR, 4 * TE * d.hl,
                        4 * TE * d.n_basis, 4 * TE * d.dim_f):
             take(nbytes)
+        if xw is not None:
+            take(4 * TE * SX)
 
     def stage(n):
         return 4 * max(n * max(_round8(d.hl), OG) * SBF, NWARP * TE * SBF)
 
+    off = (off + 127) & ~127  # the staged W3 blocks on a 128-byte boundary
     nstage = MAX_STAGES
     while nstage > 2 and off + stage(nstage) > SMEM_LIMIT:
         nstage -= 1
@@ -641,23 +736,45 @@ def carve_bytes(d: _ConvDims, bwd: bool, mblk: Optional[int] = None) -> Tuple[in
 
 @dataclass(frozen=True)
 class BlockPlan:
-    """How the kernels walk a layer: its passes (:class:`ConvPass`, one for
-    every layer whose tiles fit whole, as every SevenNet-0 and l3i5 layer)
-    and, pass by pass, the column blocks of the per-edge weights ``w``:
-    each block's instructions and width (``blocks``, ``widths``: the
-    passes' blocks in order; ``pass_blocks``: how many belong to each
-    pass); ``wblk`` the widest block, ``mblk`` the widest pass's output
-    columns, and the shared-memory bytes and W3 stages of both kernels at
-    ``PLAN_K`` slots."""
+    """How the kernels walk a layer: one CTA per receiver row, or a cluster
+    of ``cluster`` CTAs per row (:class:`ConvRank`: each rank its x irreps,
+    their instructions and output columns, every rank over all of the row's
+    edges once); rank by rank, the column blocks of the per-edge weights
+    ``w``: each block's instructions and width (``blocks``, ``widths``: the
+    ranks' blocks in order; ``rank_blocks``: how many belong to each rank);
+    ``wblk`` the widest block, ``mblk`` the widest rank's output columns
+    (the forward's accumulator), ``yblk`` the ``ybar`` columns the backward
+    holds (one CTA: the row's, ``mblk``; a cluster: the widest block's,
+    which it reads block by block), ``xw`` the widest rank's x columns, and
+    the shared-memory bytes and W3 stages of both kernels at ``PLAN_K``
+    slots (per CTA)."""
 
     blocks: Tuple[Tuple[int, ...], ...]
     widths: Tuple[int, ...]
     wblk: int
     fwd: Tuple[int, int]
     bwd: Tuple[int, int]
-    passes: Tuple[ConvPass, ...]
-    pass_blocks: Tuple[int, ...]
+    ranks: Tuple[ConvRank, ...]
+    rank_blocks: Tuple[int, ...]
     mblk: int
+    yblk: int
+    xw: int
+
+    @property
+    def cluster(self) -> int:
+        return len(self.ranks)
+
+    def carve_xw(self) -> Optional[int]:
+        """``xw`` of :func:`carve_bytes`: None for one CTA."""
+        return self.xw if self.cluster > 1 else None
+
+    def launch_args(self, bwd: bool):
+        """The plan's ctypes arguments of a kernel's entry: the output
+        columns its CTA holds (``yblk`` for the backward, ``mblk`` for the
+        forward), ``xw`` (-1 for one CTA) and the CTAs of a cluster."""
+        xw = self.carve_xw()
+        return (ctypes.c_int(self.yblk if bwd else self.mblk),
+                ctypes.c_int(-1 if xw is None else xw), ctypes.c_int(self.cluster))
 
 
 def _describe(conv: ConvTPSpec, mlp_dims) -> str:
@@ -665,80 +782,90 @@ def _describe(conv: ConvTPSpec, mlp_dims) -> str:
             f"{list(mlp_dims)}")
 
 
-def _fit_blocks(passes, instr, table_fn):
-    """The widest column blocks of the passes ``passes`` for which both
+def _fit_blocks(ranks, instr, table_fn):
+    """The widest column blocks of the ranks ``ranks`` for which both
     kernels' carve fits at ``PLAN_K`` slots: ``(fit, floor)``, each a tuple
-    ``(pass_blocks, dims, mblk, fwd, bwd)``, ``fit`` None where not even
-    blocks of one instruction (``floor``) fit. The budget of a block's
-    columns starts at the widest pass and falls to below the widest block
-    that did not fit."""
-    widest = max(ins["mul"] for ins in instr)
-    mblk = max(cp.mw for cp in passes)
+    ``(rank_blocks, dims, fwd, bwd, yblk)``, ``fit`` None where not even blocks of
+    one instruction (``floor``) fit. The budget of a block's columns starts
+    at the widest rank and falls to below the widest block that did not
+    fit."""
+    widest = max(instr[k]["mul"] for r in ranks for k in r.ks)
+    mblk = max(r.mw for r in ranks)
+    xw = max(r.xw for r in ranks) if len(ranks) > 1 else None
 
     def carve_at(budget):
-        pass_blocks = [_column_blocks(instr, cp.ks, budget) for cp in passes]
-        d = table_fn(passes, pass_blocks)
-        return pass_blocks, d, mblk, carve_bytes(d, False, mblk), carve_bytes(d, True, mblk)
+        rank_blocks = [_column_blocks(instr, r.ks, budget) for r in ranks]
+        d = table_fn(ranks, rank_blocks)
+        yblk = mblk if xw is None else max(sum(instr[k]["d3"] * instr[k]["mul"] for k in ks)
+                                           for bl in rank_blocks for ks in bl)
+        return (rank_blocks, d, carve_bytes(d, False, mblk, xw), carve_bytes(d, True, yblk, xw),
+                yblk)
 
     def fits(r):
-        return max(r[3][0], r[4][0]) <= SMEM_LIMIT
+        return max(r[2][0], r[3][0]) <= SMEM_LIMIT
 
     floor = carve_at(widest)
     if not fits(floor):
         return None, floor
-    r = carve_at(max(sum(instr[k]["mul"] for k in cp.ks) for cp in passes))
+    r = carve_at(max(sum(instr[k]["mul"] for k in rk.ks) for rk in ranks))
     while not fits(r) and r[1].wblk > widest:
         r = carve_at(r[1].wblk - 1)
     return (r if fits(r) else floor), floor
 
 
+def _cluster_ok(conv: ConvTPSpec, instr) -> bool:
+    """Whether a cluster can take the layer: its column maps step by GMAP
+    columns of w and XMAP columns of x."""
+    return (all(ins["mul"] % GMAP == 0 for ins in instr)
+            and all(sl.start % XMAP == 0 and sl.stop % XMAP == 0
+                    for sl in conv.irreps_x.slices()))
+
+
 def plan_blocks(conv: ConvTPSpec, mlp_dims, instr, table_fn) -> BlockPlan:
-    """The passes and column blocks for which both kernels' shared memory
-    fits (``carve_bytes`` at ``PLAN_K`` slots, at least 2 W3 stages): the
-    fewest passes (one when the layer's output accumulator, ybar and tables
-    fit whole), each a run of whole output groups of the mid layout (at
-    most 8 groups up to l = 3, so every cut is tried); within them the
-    widest blocks of consecutive instructions (:func:`_fit_blocks`), one
-    block per pass when the pass's columns of ``w`` fit; among the cuts
-    that fit, the fewest blocks, then the fewest bytes. ``table_fn(passes,
-    pass_blocks)`` builds a plan's tables and gives its ``_ConvDims`` (the
-    tables and the widest block's Wigner rows change with the blocks); the
-    last call is the plan's. Raises ValueError, naming the layer's widths,
-    the bytes and the limit, when no cut fits even with blocks of one
-    instruction."""
-    groups = _mid_groups(instr)
-    smallest = None
-    for n_pass in range(1, len(groups) + 1):
-        fitting = []
-        for cuts in itertools.combinations(range(1, len(groups)), n_pass - 1):
-            bounds = zip((0, *cuts), (*cuts, len(groups)))
-            passes = [_conv_pass(instr, [k for g in groups[a:b] for k in g]) for a, b in bounds]
-            fit, floor = _fit_blocks(passes, instr, table_fn)
-            if smallest is None or max(floor[3][0], floor[4][0]) < max(smallest[3][0],
-                                                                       smallest[4][0]):
-                smallest = floor
-            if fit is not None:
-                fitting.append((passes, *fit))
-        if fitting:
-            passes, pass_blocks, d, mblk, fwd, bwd = min(fitting, key=lambda r: (
-                sum(map(len, r[1])), max(r[4][0], r[5][0])))
-            table_fn(passes, pass_blocks)
-            blocks = tuple(tuple(b) for bl in pass_blocks for b in bl)
-            return BlockPlan(blocks, tuple(int(sum(instr[k]["mul"] for k in b)) for b in blocks),
-                             d.wblk, fwd, bwd, tuple(passes), tuple(map(len, pass_blocks)), mblk)
-    _, d, _, fwd, bwd = smallest
+    """The ranks and column blocks for which both kernels' shared memory
+    fits (``carve_bytes`` at ``PLAN_K`` slots, at least 2 W3 stages): one
+    CTA when the layer's output accumulator, ybar and tables fit whole;
+    else a cluster of ``CLUSTER_SIZES`` CTAs (2, then 4), its ranks the
+    most even split of the x irreps that fits (:func:`_rank_splits`); within
+    the ranks the widest blocks (:func:`_fit_blocks`), one block per rank
+    when its columns of ``w`` fit. ``table_fn(ranks, rank_blocks)`` builds a
+    plan's tables and gives its ``_ConvDims`` (the tables and the widest
+    block's Wigner rows change with the blocks); the last call is the
+    plan's. Raises ValueError, naming the layer's widths, the bytes and the
+    limit, when not even a cluster of the largest size with blocks of one
+    instruction fits."""
+    ranks = [_conv_rank(conv, instr, range(len(conv.irreps_x)))]
+    fit, smallest = _fit_blocks(ranks, instr, table_fn)
+    splits = (r for n in CLUSTER_SIZES for r in _rank_splits(conv, instr, n))
+    while fit is None and _cluster_ok(conv, instr):
+        ranks = next(splits, None)
+        if ranks is None:
+            break
+        fit, floor = _fit_blocks(ranks, instr, table_fn)
+        if max(floor[2][0], floor[3][0]) < max(smallest[2][0], smallest[3][0]):
+            smallest = floor
+    if fit is not None:
+        rank_blocks, d, fwd, bwd, yblk = fit
+        table_fn(ranks, rank_blocks)
+        blocks = tuple(tuple(b) for bl in rank_blocks for b in bl)
+        return BlockPlan(blocks, tuple(int(sum(instr[k]["mul"] for k in b)) for b in blocks),
+                         d.wblk, fwd, bwd, tuple(ranks), tuple(map(len, rank_blocks)),
+                         max(r.mw for r in ranks), yblk, max(r.xw for r in ranks))
+    _, d, fwd, bwd, _ = smallest
     raise ValueError(
-        "the fused-conv kernels cannot fit this layer in a CTA's shared memory ("
-        f"{_describe(conv, mlp_dims)}): even with blocks of one instruction's {d.wblk} "
-        f"columns the forward needs {fwd[0]} B and the backward {bwd[0]} B at "
-        f"{PLAN_K} neighbour slots, over the limit of {SMEM_LIMIT} B")
+        "the fused-conv kernels cannot fit this layer in the shared memory of a CTA or of a "
+        f"cluster of up to {CLUSTER_SIZES[-1]} CTAs ({_describe(conv, mlp_dims)}): at best, with "
+        f"blocks of one instruction's {d.wblk} columns, the forward needs {fwd[0]} B and the "
+        f"backward {bwd[0]} B a CTA at {PLAN_K} neighbour slots, over the limit of {SMEM_LIMIT} B")
 
 
 class FusedConvOp:
     """Static tables of one conv layer: the instruction tables of the JAX
-    kernels, and for the CUDA kernels the passes and column blocks of ``w``
-    (:func:`plan_blocks`), the uvu product's instruction records and task
-    lists (:func:`_uvu_tables`, :func:`_pass_itab`) and, in vec mode, the
+    kernels, and for the CUDA kernels the CTAs of a receiver row and the
+    column blocks of ``w`` (:func:`plan_blocks`), the uvu product's
+    instruction records and task lists (:func:`_uvu_tables`,
+    :func:`_rank_itab`), ``w3j_pack``'s rows in the kernels' order
+    (``ftab``) and, in vec mode, the
     spherical harmonics and their derivatives as monomial terms.
     ``embed=None`` is emb/sh mode. Device copies are cached per device."""
 
@@ -774,8 +901,6 @@ class FusedConvOp:
                     shd_comp.append(comp)
                     shd_c.append(G[comp, m, k])
         hidden = tuple(mlp_spec.dims[1:-1])
-        self.ftab = np.concatenate([w3j_pack.reshape(-1), np.asarray(sh_c, np.float32),
-                                    np.asarray(shd_c, np.float32)]).astype(np.float32)
         # the monomial terms: sh (int4 each, on a 16-byte boundary, as the
         # tables end on one), then dsh and each dsh term's component
         sh_ints = np.asarray(sh_t, np.int64).reshape(-1)
@@ -784,10 +909,11 @@ class FusedConvOp:
                                 np.asarray(shd_comp, np.int64)])
         tables = {}
 
-        def table_fn(passes, pass_blocks):
-            itab, tabw = _pass_itab(conv, instr, passes, pass_blocks, hidden, terms)
+        def table_fn(ranks, rank_blocks):
+            itab, tabw, tables["row_of"] = _rank_itab(conv, instr, ranks, rank_blocks, hidden,
+                                                      terms)
             assert itab.max() < 2**31
-            blocks = [ks for bl in pass_blocks for ks in bl]
+            blocks = [ks for bl in rank_blocks for ks in bl]
             wblk = max(sum(instr[k]["mul"] for k in ks) for ks in blocks)
             rblk = max(sum(len(instr[k]["mp"]) for k in ks) for ks in blocks)
             tables["itab"], tables["offs"] = itab.astype(np.int32), dict(
@@ -797,6 +923,10 @@ class FusedConvOp:
 
         self.plan = plan_blocks(conv, mlp_spec.dims, instr, table_fn)
         self.itab, self._offs = tables["itab"], tables["offs"]
+        w3j_kernel = np.empty_like(w3j_pack)
+        w3j_kernel[[tables["row_of"][r] for r in range(self.R)]] = w3j_pack
+        self.ftab = np.concatenate([w3j_kernel.reshape(-1), np.asarray(sh_c, np.float32),
+                                    np.asarray(shd_c, np.float32)]).astype(np.float32)
         self.ws_layout = _workspace_layout(mlp_spec.dims, dcoef=embed is not None)
         self.reduce_products = _reduce_products(mlp_spec.dims, self.ws_layout, embed is not None)
         self._reduce_args: Optional[tuple] = None
@@ -804,7 +934,8 @@ class FusedConvOp:
 
     def carve(self, d: _ConvDims, bwd: bool) -> Tuple[int, int]:
         """:func:`carve_bytes` of this layer's plan at the shape of ``d``."""
-        return carve_bytes(d, bwd, self.plan.mblk)
+        return carve_bytes(d, bwd, self.plan.yblk if bwd else self.plan.mblk,
+                           self.plan.carve_xw())
 
     def device_tables(self, device: torch.device):
         if device not in self._device_tables:
@@ -1070,14 +1201,17 @@ def check_carve(lib_name: str, op: FusedConvOp, dims: _ConvDims, bwd: bool):
             f"memory per CTA for this layer ({_describe(op.conv, op.mlp_spec.dims)}, "
             f"{dims.K} neighbour slots, column blocks of {dims.wblk}), over the limit of "
             f"{SMEM_LIMIT} B")
-    key = (lib_name, bwd, op.plan.mblk) + tuple(getattr(dims, f) for f, _ in _ConvDims._fields_[1:])
+    xw = op.plan.carve_xw()
+    mblk = op.plan.yblk if bwd else op.plan.mblk
+    key = (lib_name, bwd, mblk, xw) + tuple(getattr(dims, f) for f, _ in _ConvDims._fields_[1:])
     if key in _CARVE_CHECKED:
         return
     from .kernels import library
 
     fn = library(lib_name).fused_conv_smem_bytes
-    fn.argtypes, fn.restype = [_ConvDims, ctypes.c_int, ctypes.c_int], ctypes.c_longlong
-    got = fn(dims, int(bwd), op.plan.mblk)
+    fn.argtypes = [_ConvDims, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    got = fn(dims, int(bwd), mblk, -1 if xw is None else xw)
     if got != nbytes:
         raise RuntimeError(f"the kernels of {lib_name} lay a CTA out in {got} B, the host's "
                            f"carve_bytes in {nbytes} B: the two copies of carve disagree")
@@ -1116,7 +1250,7 @@ def fwd_launch_args(op: FusedConvOp, x, src, a, b, ws):
     out = torch.empty((N, op.dim_mid), dtype=torch.float32, device=x.device)
     itab, ftab = op.device_tables(x.device)
     entry = "fused_conv_fwd_launch" if op.embed is not None else "fused_conv_fwd_embsh_launch"
-    return ("fused_conv_fwd", entry, (dims, ctypes.c_int(op.plan.mblk), _ptr(x), _ptr(src),
+    return ("fused_conv_fwd", entry, (dims, *op.plan.launch_args(False), _ptr(x), _ptr(src),
                                       _ptr(a), _ptr(b),
                                       _mlp_weights(ws), _ptr(itab), _ptr(ftab), _ptr(out),
                                       _stream(x.device)), out)
@@ -1145,7 +1279,7 @@ def bwd_launch_args(op: FusedConvOp, x, src, a, b, ws, ybar, records: bool):
     name = "fused_conv_bwd" + ("_embsh" if op.embed is None else "") + ("_pg" if records else "")
     layout = [_WsLayout(**op.ws_layout)] if records else []
     itab, ftab = op.device_tables(dev)
-    args = (dims, ctypes.c_int(op.plan.mblk), *layout, _ptr(x), _ptr(src), _ptr(a), _ptr(b),
+    args = (dims, *op.plan.launch_args(True), *layout, _ptr(x), _ptr(src), _ptr(a), _ptr(b),
             _mlp_weights(ws), _ptr(ybar), _ptr(itab), _ptr(ftab),
             *[_ptr(t) for t in outs], _stream(dev))
     return "fused_conv_bwd", name + "_launch", args, tuple(outs)
@@ -1262,7 +1396,7 @@ def fused_conv_bwd_slot(op: FusedConvOp, x, src_c, vec_c, coef, ws, ybar_c, buf,
     check_carve("fused_conv_bwd", op, dims, bwd=True)
     dvec = torch.empty((3, RC * K), dtype=torch.float32, device=x.device)
     itab, ftab = op.device_tables(x.device)
-    _call("fused_conv_bwd", "fused_conv_bwd_slot_launch", dims, ctypes.c_int(op.plan.mblk),
+    _call("fused_conv_bwd", "fused_conv_bwd_slot_launch", dims, *op.plan.launch_args(True),
           _ptr(x), _ptr(src_c),
           _ptr(vec_c), _ptr(coef), _mlp_weights(ws), _ptr(ybar_c), _ptr(itab), _ptr(ftab),
           _ptr(buf), ctypes.c_int(slot), _ptr(dvec), _stream(x.device))
@@ -1358,7 +1492,8 @@ def fused_conv_bwd_embsh_slot(op: FusedConvOp, x, src_c, emb_c, sh_c, ws, ybar_c
     demb = torch.empty((RC * K, op.n_basis), **f32)
     dsh = torch.empty((RC * K, op.dim_f), **f32)
     itab, ftab = op.device_tables(x.device)
-    _call("fused_conv_bwd", "fused_conv_bwd_embsh_slot_launch", dims, ctypes.c_int(op.plan.mblk),
+    _call("fused_conv_bwd", "fused_conv_bwd_embsh_slot_launch", dims,
+          *op.plan.launch_args(True),
           _ptr(x), _ptr(src_c), _ptr(emb_c), _ptr(sh_c), _mlp_weights(ws), _ptr(ybar_c),
           _ptr(itab), _ptr(ftab), _ptr(buf), ctypes.c_int(slot), _ptr(demb), _ptr(dsh),
           _stream(x.device))

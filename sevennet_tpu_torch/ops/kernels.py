@@ -39,6 +39,9 @@ NVCC_FLAGS = (
 )
 
 PROFILE_FLAGS = ("-DFUSED_CONV_PROFILE",)
+# what a cluster launch of the fused conv returns when its cluster cannot be
+# resident (csrc/fused_conv_common.cuh CLUSTER_UNSCHEDULABLE)
+CLUSTER_UNSCHEDULABLE = -2
 
 _LIBS: Dict[Tuple[str, bool], ctypes.CDLL] = {}
 
@@ -107,7 +110,8 @@ def library(name: str, profile: bool = False) -> ctypes.CDLL:
 def call(name: str, fn_name: str, *args, on_load=None) -> None:
     """Calls C entry ``fn_name`` of library ``name`` with ``args`` (ctypes
     values; the argument types are theirs, fixed at the first call) and
-    raises if it returns non-zero, a launch that failed. ``on_load(lib)``
+    raises if it returns non-zero, a launch that failed or was refused (a
+    cluster that cannot be resident, ``CLUSTER_UNSCHEDULABLE``). ``on_load(lib)``
     runs before an entry's first call (a check of the library's layout)."""
     lib = library(name)
     fn = getattr(lib, fn_name)
@@ -117,5 +121,8 @@ def call(name: str, fn_name: str, *args, on_load=None) -> None:
         fn.argtypes = [type(a) for a in args]
         fn.restype = ctypes.c_int
     rc = fn(*args)
+    if rc == CLUSTER_UNSCHEDULABLE:
+        raise RuntimeError(f"{fn_name}: no thread-block cluster of the launch's shape can be "
+                           "resident on this device (cudaOccupancyMaxActiveClusters is 0)")
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {rc}")

@@ -143,33 +143,42 @@ def test_fused_conv_matches_jax_vec(kind):
     assert (dvec.numpy()[:, ~p["mask"].reshape(-1)] == 0).all()
 
 
-def _walk_tables(op, x, src, vec, coef, ws, ybar):
+def _walk_tables(op, x, src, vec, coef, ws, ybar, emb_sh=None):
     """The CUDA kernels' algorithm in float64 numpy, reading the same
     tables (``op.itab``/``op.ftab`` at the offsets of ``op.dims`` and of
     the uvu headers): per edge inside the cutoff, embedding and
     spherical-harmonic terms, the MLP's hidden layers (their widths from the
-    table), then pass by pass (the tables linked from each header's
-    ``H_NEXT``) and column block by column block ``w`` and
-    ``tmp`` of the block's columns and rows, the uvu product and its
-    pullback task by task (the forward's (instruction, channels) tasks,
-    ``dtmp`` per (instruction, m), ``dxg`` and ``dw`` per (x irrep,
-    channels) over the block's instructions that read the irrep, added to
-    the earlier blocks' and passes'), the pass's ``dsh`` and last hidden
-    layer's cotangent summed over its blocks and chained to the edge
-    vector, the passes' shares added in turn.
+    table), then rank by rank (the CTAs of a cluster; one for a layer that
+    fits a CTA: the tables linked from each header's ``H_NEXT``) and column
+    block by column block ``w`` and ``tmp`` of the block's columns (a
+    cluster block's by its W3 column map) and rows, the uvu product and its
+    pullback task by task (the forward's (instruction, channels) tasks into
+    the rank's output columns, stored by each instruction's place in the
+    row; ``dtmp`` per (instruction, m), ``dxg`` and ``dw`` per (x irrep,
+    channels) over the block's instructions that read the irrep, into the
+    rank's x columns, added to the earlier blocks'), each rank's share of
+    ``dsh`` and of the last hidden layer's cotangent summed over its blocks;
+    then the ranks' shares added in rank order and chained to the edge
+    vector once.
     Also what B2′ adds: the per-edge record of the parameter gradients at
     the columns of ``op.ws_layout`` (rows outside the cutoff stay NaN and
     invalid), and the sums over edges ``dW_l = h_l ⊗ g_l / sqrt(d_l)`` and
-    ``dcoef``."""
+    ``dcoef``. Returns ``(out, dxg, dvec, dws, dcoef, work, valid)``.
+
+    Emb/sh mode (``op.embed`` None, ``emb_sh = (emb, sh)``, receiver-major
+    rows): every slot is walked on its given embedding and spherical
+    harmonics, and ``(out, dxg, demb, dsh, dws, work, valid)`` is returned
+    (B4 bwd's outputs; no ``dcoef``)."""
     d = op.dims(*src.shape)
     it, ftab = op.itab.astype(np.int64), op.ftab.astype(np.float64)
 
-    # the pass tables, linked from table 0
+    # the ranks' tables, linked from table 0
     starts = [0]
     while it[starts[-1] + fc.H_NEXT]:
         starts.append(int(it[starts[-1] + fc.H_NEXT]))
-    assert len(starts) == len(op.plan.passes)
-    passes = []
+    assert len(starts) == op.plan.cluster
+    cluster = len(starts) > 1
+    ranks = []
     for po in starts:
         tab = it[po:]
         off_ins, n_dt, off_dt, n_dx, off_dx, off_list, n_fw, off_fw, off_blk, n_blk = tab[:10]
@@ -181,35 +190,55 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
         for i, n_t in ((4, n_dt), (5, n_dx), (6, n_fw)):
             runs = np.concatenate([tab[r : r + fc.UVU_WARPS + 1] for r in blocks[:, i]])
             assert runs[0] == 0 and runs[-1] == n_t and (np.diff(runs) >= 0).all()
-        passes.append(dict(
-            tab=tab, blocks=blocks, off_ins=off_ins, off_list=off_list, m0=tab[fc.H_M0],
-            mw=tab[fc.H_MW], dt=tab[off_dt : off_dt + 4 * n_dt].reshape(-1, 4),
+        xw = tab[fc.H_XW]
+        # the rank's x columns: the layer's (one CTA), or by its x column map
+        xcols = (np.arange(d.dim_x) if not cluster else
+                 (tab[tab[fc.H_XMAP] + np.arange(xw) // fc.XMAP] + np.arange(xw) % fc.XMAP))
+        # each block's W3 columns: from its first (one CTA), or by its map
+        gcols = [np.arange(c0, c0 + width) if not cluster else
+                 tab[g + np.arange(width) // fc.GMAP] + np.arange(width) % fc.GMAP
+                 for c0, width, g in blocks[:, [0, 1, 7]]]
+        ranks.append(dict(
+            tab=tab, blocks=blocks, off_ins=off_ins, off_list=off_list, xcols=xcols, gcols=gcols,
+            mw=tab[fc.H_MW], nk=tab[fc.H_NK], dt=tab[off_dt : off_dt + 4 * n_dt].reshape(-1, 4),
             dx=tab[off_dx : off_dx + 8 * n_dx].reshape(-1, 8),
             fw=tab[off_fw : off_fw + 4 * n_fw].reshape(-1, 4)))
     assert (d.hsum, d.hl) == (sum(hidden), (hidden or [d.n_basis])[-1])
-    # the passes' blocks tile w's columns and w3_pack's rows, their outputs
-    # the mid columns
-    blocks = np.concatenate([P["blocks"] for P in passes])
-    assert (blocks[:, 0] == np.cumsum([0, *blocks[:-1, 1]])).all() and blocks[:, 1].sum() == d.numel
+    # the ranks' blocks tile w's columns and w3_pack's rows (in the kernels'
+    # order), their x columns x's, their outputs the mid columns
+    blocks = np.concatenate([P["blocks"] for P in ranks])
+    assert np.array_equal(np.sort(np.concatenate([g for P in ranks for g in P["gcols"]])),
+                          np.arange(d.numel))
     assert (blocks[:, 2] == np.cumsum([0, *blocks[:-1, 3]])).all() and blocks[:, 3].sum() == op.R
     assert (d.wblk, d.rblk) == (blocks[:, 1].max(), blocks[:, 3].max())
-    assert [P["m0"] for P in passes] == list(np.cumsum([0] + [P["mw"] for P in passes])[:-1])
-    assert sum(P["mw"] for P in passes) == d.dim_mid and op.plan.mblk == max(P["mw"] for P in passes)
+    assert np.array_equal(np.sort(np.concatenate([P["xcols"] for P in ranks])), np.arange(d.dim_x))
+    assert sum(P["mw"] for P in ranks) == d.dim_mid and op.plan.mblk == max(P["mw"] for P in ranks)
 
     def ins(P, kk):
         rec = P["tab"][P["off_ins"] + kk * fc.UVU_INS : P["off_ins"] + (kk + 1) * fc.UVU_INS]
-        return rec[:7], rec[8 : 8 + 49].reshape(7, 7)
+        return rec[:7], rec[8 : 8 + 49].reshape(7, 7), rec[[fc.UVU_GY, fc.UVU_GUT]]
 
     def runs(P, b, i):
         r = P["blocks"][b, i]
         return P["tab"][r], P["tab"][r + fc.UVU_WARPS]
 
-    # the first pass's block 0 dxg tasks write every x irrep's channels (the
-    # later blocks' and passes' add to them)
-    P0 = passes[0]
-    assert {(x0, u0) for x0, _, _, _, _, u0, _, _ in P0["dx"][slice(*runs(P0, 0, 5))]} == {
-        (sl.start, u0) for sl, mi in zip(op.conv.irreps_x.slices(), op.conv.irreps_x)
-        for u0 in range(0, mi.mul, 8)}
+    for P in ranks:
+        # the rank's block 0 dxg tasks write every x irrep of the rank's
+        # channels (the later blocks' add to them); its output columns are
+        # its instructions', one after another
+        assert {(x0, u0) for x0, _, _, _, _, u0, _, _ in P["dx"][slice(*runs(P, 0, 5))]} == {
+            (int(np.searchsorted(P["xcols"], sl.start)), u0)
+            for sl, mi in zip(op.conv.irreps_x.slices(), op.conv.irreps_x)
+            if sl.start in P["xcols"] for u0 in range(0, mi.mul, 8)}
+        P["ymap"] = np.full(P["mw"], -1)
+        for kk in range(P["nk"]):
+            (_, _, d3, mul, _, y0, ut), _, (gy, gut) = ins(P, kk)
+            for p_ in range(d3):
+                loc = y0 + p_ * ut + np.arange(mul)
+                P["ymap"][loc] = gy + p_ * gut + np.arange(mul)
+        assert (P["ymap"] >= 0).all()
+    assert np.array_equal(np.sort(np.concatenate([P["ymap"] for P in ranks])), np.arange(d.dim_mid))
+    embsh = op.embed is None
     sh_t = it[d.sh_terms : d.sh_terms + 4 * d.n_sh].reshape(-1, 4)
     sh_c = ftab[d.sh_coef : d.sh_coef + d.n_sh]
     sd_t = it[d.shd_terms : d.shd_terms + 4 * d.n_shd].reshape(-1, 4)
@@ -221,6 +250,7 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
     out = np.zeros((n, d.dim_mid))
     dxg = np.zeros((n * k, d.dim_x))
     dvec = np.zeros((3, n * k))
+    demb_all, dsh_all = np.zeros((n * k, d.n_basis)), np.zeros((n * k, d.dim_f))
     L = op.ws_layout
     work = np.full((n * k, L["stride"]), np.nan, np.float32)
     valid = np.zeros(n * k, np.uint8)
@@ -231,55 +261,45 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
     dsilu = lambda z: sig(z) * (1 + z * (1 - sig(z))) * d.act_cst  # noqa: E731
     for f in range(n * k):
         i = f // k
-        v = vec[:, f].astype(np.float64)
-        r = max(np.sqrt(v @ v), 1e-12)
-        if not r < es.cutoff:
-            continue
-        rinv, u = 1.0 / r, v / r
-        if es.cutoff_kind == "XPLOR":
-            on, c = es.cutoff_arg, es.cutoff
-            a, b = c * c - r * r, c * c + 2 * r * r - 3 * on * on
-            inv = 1.0 / (c * c - on * on) ** 3
-            env = 1.0 if r < on else a * a * b * inv
-            denv = 0.0 if r < on else (-4 * r * a * b + 4 * r * a * a) * inv
+        if embsh:
+            emb, sh = (a[f].astype(np.float64) for a in emb_sh)
         else:
-            pp, xr = es.cutoff_arg, r / es.cutoff
-            xp = xr**pp
-            c0, c1, c2 = (pp + 1) * (pp + 2) / 2, pp * (pp + 2), pp * (pp + 1) / 2
-            env = 1 - c0 * xp + c1 * xp * xr - c2 * xp * xr * xr
-            denv = (-c0 * pp * xp / xr + c1 * (pp + 1) * xp - c2 * (pp + 2) * xp * xr) / es.cutoff
-        mono = lambda t: u[0] ** t[1] * u[1] ** t[2] * u[2] ** t[3]  # noqa: E731
-        sh = np.zeros(d.dim_f)
-        for t, c in zip(sh_t, sh_c):
-            sh[t[0]] += c * mono(t)
-        emb = np.sin(coef * r) * (2.0 / es.cutoff) * rinv * env
+            v = vec[:, f].astype(np.float64)
+            r = max(np.sqrt(v @ v), 1e-12)
+            if not r < es.cutoff:
+                continue
+            rinv, u = 1.0 / r, v / r
+            emb, sh = _edge_emb_sh(es, d, r, u, coef, sh_t, sh_c)
         zs, hs = [], [emb]
+
         for W in Ws[:-1]:
             zs.append(hs[-1] @ W / np.sqrt(W.shape[0]))
             hs.append(zs[-1] * sig(zs[-1]) * d.act_cst)
         w_all = hs[-1] @ Ws[-1] / np.sqrt(d.hl)
-        xs = x[src[i, f % k]].astype(np.float64)
         dw = np.zeros(d.numel)
-        dz_rec = [np.zeros_like(z) for z in zs]
-        dc = np.zeros(d.n_basis)
-        for P in passes:
-            yb = ybar[i, P["m0"]:].astype(np.float64)
-            dw_p = np.zeros(d.numel)
+        dsh_parts, dzl_parts = [], []
+        for P in ranks:
+            xs = x[src[i, f % k]].astype(np.float64)[P["xcols"]]
+            yb = ybar[i].astype(np.float64)[P["ymap"]]
+            acc = np.zeros(P["mw"])
+            dxt = np.zeros(len(P["xcols"]))
+            dw_r = np.zeros(d.numel)
             dsh = np.zeros(d.dim_f)
-            for b, (c0, width, r0, rows) in enumerate(P["blocks"][:, :4]):
-                w = w_all[c0 : c0 + width]
+            for b, (_, width, r0, rows) in enumerate(P["blocks"][:, :4]):
+                g = P["gcols"][b]
+                w = w_all[g]
                 tmp = w3j[r0 : r0 + rows] @ sh
                 for kk, u0, _, _ in P["fw"][slice(*runs(P, b, 6))]:
-                    (x0, d1, d3, mul, w0, y0, ut), rt = ins(P, kk)
+                    (x0, d1, d3, mul, w0, y0, ut), rt, _ = ins(P, kk)
                     uu = np.arange(u0, min(u0 + 16, mul))
                     for p_ in range(d3):
                         for m in range(d1):
                             if rt[m, p_] >= 0:
-                                out[i, P["m0"] + y0 + p_ * ut + uu] += (
+                                acc[y0 + p_ * ut + uu] += (
                                     xs[x0 + m * mul + uu] * w[w0 + uu] * tmp[rt[m, p_]])
                 dtmp = np.zeros(rows)
                 for kk, m, _, _ in P["dt"][slice(*runs(P, b, 4))]:
-                    (x0, d1, d3, mul, w0, y0, ut), rt = ins(P, kk)
+                    (x0, d1, d3, mul, w0, y0, ut), rt, _ = ins(P, kk)
                     uu = np.arange(mul)
                     for p_ in range(d3):
                         if rt[m, p_] >= 0:
@@ -289,37 +309,73 @@ def _walk_tables(op, x, src, vec, coef, ws, ybar):
                 for x0, d1, mul, l0, nl, u0, _, _ in P["dx"][slice(*runs(P, b, 5))]:
                     uu = np.arange(u0, min(u0 + 8, mul))
                     for kk in P["tab"][P["off_list"] + l0 : P["off_list"] + l0 + nl]:
-                        (_, _, d3, _, w0, y0, ut), rt = ins(P, kk)
+                        (_, _, d3, _, w0, y0, ut), rt, _ = ins(P, kk)
                         for m in range(d1):
                             a = sum(yb[y0 + p_ * ut + uu] * tmp[rt[m, p_]] for p_ in range(d3)
                                     if rt[m, p_] >= 0)
-                            dxg[f, x0 + m * mul + uu] += w[w0 + uu] * a
-                            dw_p[c0 + w0 + uu] += xs[x0 + m * mul + uu] * a
-            # the pass's share of the edge's cotangents, chained on its own
-            dzs = [None] * len(zs)
-            g = dw_p
-            for l in range(len(zs) - 1, -1, -1):
-                dzs[l] = (Ws[l + 1] @ g) / np.sqrt(Ws[l + 1].shape[0]) * dsilu(zs[l])
-                g = dzs[l]
-            demb = (Ws[0] @ g) / np.sqrt(d.n_basis)
-            dr = np.sum(demb * (2.0 / es.cutoff) * (
-                coef * np.cos(coef * r) * rinv * env
-                + np.sin(coef * r) * (denv * rinv - env * rinv * rinv)))
-            du = np.zeros(3)
-            for t, comp, c in zip(sd_t, sd_comp, sd_c):
-                du[comp] += c * dsh[t[0]] * mono(t)
-            dvec[:, f] += (du - u * (u @ du)) * rinv + u * dr
-            dc_p = demb * (2.0 / es.cutoff) * np.cos(coef * r) * env
-            for dW, h, g_ in zip(dws, hs, dzs + [dw_p]):
-                dW += np.outer(h, g_) / np.sqrt(len(h))
-            dcoef += dc_p
-            dc += dc_p
-            dw += dw_p
-            dz_rec = [a + b for a, b in zip(dz_rec, dzs)]
-        work[f, L["emb"] : L["dc"] + d.n_basis] = np.concatenate(
-            [emb, *hs[1:], *dz_rec, dw, dc])
+                            dxt[x0 + m * mul + uu] += w[w0 + uu] * a
+                            dw_r[g[w0 + uu]] += xs[x0 + m * mul + uu] * a
+            out[i, P["ymap"]] += acc
+            dxg[f, P["xcols"]] = dxt
+            dsh_parts.append(dsh)
+            dzl_parts.append(Ws[-1] @ dw_r)   # the rank's share of dz's sum, before silu'
+            dw += dw_r
+        # the ranks' shares added in rank order, then chained once
+        dsh, dzl = dsh_parts[0], dzl_parts[0]
+        for a, b in zip(dsh_parts[1:], dzl_parts[1:]):
+            dsh, dzl = dsh + a, dzl + b
+        dzs = [None] * len(zs)
+        g = dzl / np.sqrt(Ws[-1].shape[0])
+        for l in range(len(zs) - 1, -1, -1):
+            dzs[l] = g * dsilu(zs[l])
+            g = (Ws[l] @ dzs[l]) / np.sqrt(Ws[l].shape[0])
+        demb = g if zs else dzl / np.sqrt(d.n_basis)
+        for dW, h, g_ in zip(dws, hs, dzs + [dw]):
+            dW += np.outer(h, g_) / np.sqrt(len(h))
         valid[f] = 1
+        if embsh:
+            demb_all[f], dsh_all[f] = demb, dsh
+            work[f, L["emb"] : L["dc"]] = np.concatenate([emb, *hs[1:], *dzs, dw])
+            continue
+        env, denv = _envelope(es, r)
+        dr = np.sum(demb * (2.0 / es.cutoff) * (
+            coef * np.cos(coef * r) * rinv * env
+            + np.sin(coef * r) * (denv * rinv - env * rinv * rinv)))
+        du = np.zeros(3)
+        for t, comp, c in zip(sd_t, sd_comp, sd_c):
+            du[comp] += c * dsh[t[0]] * np.prod(u ** t[1:])
+        dvec[:, f] = (du - u * (u @ du)) * rinv + u * dr
+        dc = demb * (2.0 / es.cutoff) * np.cos(coef * r) * env
+        dcoef += dc
+        work[f, L["emb"] : L["dc"] + d.n_basis] = np.concatenate([emb, *hs[1:], *dzs, dw, dc])
+    if embsh:
+        return out, dxg, demb_all, dsh_all, dws, work, valid
     return out, dxg, dvec, dws, dcoef, work, valid
+
+
+def _envelope(es, r):
+    """The cutoff envelope and its r-derivative at r (inside the cutoff)."""
+    if es.cutoff_kind == "XPLOR":
+        on, c = es.cutoff_arg, es.cutoff
+        a, b = c * c - r * r, c * c + 2 * r * r - 3 * on * on
+        inv = 1.0 / (c * c - on * on) ** 3
+        return (1.0 if r < on else a * a * b * inv,
+                0.0 if r < on else (-4 * r * a * b + 4 * r * a * a) * inv)
+    pp, xr = es.cutoff_arg, r / es.cutoff
+    xp = xr**pp
+    c0, c1, c2 = (pp + 1) * (pp + 2) / 2, pp * (pp + 2), pp * (pp + 1) / 2
+    return (1 - c0 * xp + c1 * xp * xr - c2 * xp * xr * xr,
+            (-c0 * pp * xp / xr + c1 * (pp + 1) * xp - c2 * (pp + 2) * xp * xr) / es.cutoff)
+
+
+def _edge_emb_sh(es, d, r, u, coef, sh_t, sh_c):
+    """Vec mode's embedding and spherical harmonics of an edge of length r
+    and direction u, the latter from the table's monomial terms."""
+    env, _ = _envelope(es, r)
+    sh = np.zeros(d.dim_f)
+    for t, c in zip(sh_t, sh_c):
+        sh[t[0]] += c * np.prod(u ** t[1:])
+    return np.sin(coef * r) * (2.0 / es.cutoff) / r * env, sh
 
 
 @pytest.mark.parametrize("kind", ["XPLOR", "poly_cut"])

@@ -476,12 +476,12 @@ def test_mf_ompa_layer_kernels_match_plain(cuda, t):
     """SevenNet-MF-ompa's layer widths (lmax 3 with parity, up to 1,408 x
     and 15,552 mid columns; cutoff 6, XPLOR from 5.5): every instance against
     its plain twin on 40 random atoms, and B3 on a chunk of them; layers 2
-    and 3 run in several passes."""
+    and 3 run on a cluster of 2 CTAs a receiver row."""
     spec = build_model_spec(dict(MF_OMPA, chemical_species=["H", "O"]))
     layer = spec.layers[t]
     embed = fc.EdgeEmbedSpec(8, 6.0, "XPLOR", 5.5, 3)
     op = _instances_match_plain(cuda, layer.conv, layer.radial_mlp, embed, 40, 9.0, 5 + t)
-    assert len(op.plan.passes) == (1, 1, 2, 3, 1)[t]
+    assert op.plan.cluster == (1, 1, 2, 2, 1)[t]
     rng = np.random.default_rng(t)
     pos = rng.uniform(0.0, 9.0, (40, 3))
     dst, src, shift = neighbor_list_numpy(pos, 6.0)

@@ -165,7 +165,7 @@ def test_check_carve_before_launch(monkeypatch):
 
     class Lib:
         def __init__(self, nbytes):
-            self.fused_conv_smem_bytes = lambda dims, bwd, mblk: nbytes
+            self.fused_conv_smem_bytes = lambda dims, bwd, mblk, xw: nbytes
 
     from sevennet_tpu_torch.ops import kernels
 

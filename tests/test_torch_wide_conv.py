@@ -1,18 +1,18 @@
 """SevenNet-MF-ompa's wide parity layers in the fused-conv kernels: the
-passes and column blocks the host plans for them, their task tables walked
-in numpy as the kernels walk them, the plans of SevenNet-0 and SevenNet-l3i5
-(one pass, the blocks they had), and one full-width mf-ompa box against the
-JAX package.
+thread-block clusters and column blocks the host plans for them, their task
+tables walked in numpy as the cluster walks them, the plans of SevenNet-0
+and SevenNet-l3i5 (one CTA, the blocks they had), and one full-width mf-ompa
+box against the JAX package.
 
 The widest mf-ompa layers (2 and 3: 13,504 and 15,552 mid columns, x of
 1,280 and 1,408 columns) do not fit a CTA's 232,448 bytes of shared memory
 with their output accumulator, ybar and task tables whole, even with one
-instruction per column block. The kernels walk a receiver's edges once per
-pass, each pass a run of whole output groups of the mid layout with its own
-tables (``ops/fused_conv.py:plan_blocks``). Tolerances: the walk 1e-5 of the
-plain values (float64 walk against the fp32 plain path); the full-width box
-energy 1e-5 relative, forces within 1e-4 of the largest JAX force and within
-1e-3 eV/A (fp32 on both sides, sums in another order).
+instruction per column block. A cluster of CTAs walks each receiver row's
+edges once, each CTA (rank) the x irreps, instructions and outputs of its
+share (``ops/fused_conv.py:plan_blocks``). Tolerances: the walk 1e-5 of the
+largest plain value (float64 walk against the fp32 plain path); the
+full-width box energy 1e-5 relative, forces within 1e-4 of the largest JAX
+force and within 1e-3 eV/A (fp32 on both sides, sums in another order).
 """
 
 import jax
@@ -53,50 +53,57 @@ def _ops(cfg, vec=True, embsh=True):
 
 
 def test_mf_ompa_layers_plan():
-    """Every mf-ompa layer plans, in both modes: passes of whole output
-    groups that tile the mid columns, blocks that take every instruction
-    once, and both kernels' carve within the limit at PLAN_K slots, at least
-    2 W3 stages; layers 2 and 3 take several passes, the others one."""
-    n_passes = []
+    """Every mf-ompa layer plans, in both modes: one CTA, or (layers 2 and
+    3) a cluster of 2 whose ranks split the x irreps (each rank the
+    instructions that read its irreps, in order; together every irrep,
+    instruction, x column and output column once, the W3 columns of the
+    two about even), blocks that take each rank's instructions in turn, and
+    both kernels' carve per CTA within the limit at PLAN_K slots, at least
+    2 W3 stages."""
+    clusters = []
     for layer, op in _ops(MF):
         plan = op.plan
-        n_ins = len(layer.conv.instructions)
-        assert [k for b in plan.blocks for k in b] == list(range(n_ins))
-        assert [k for cp in plan.passes for k in cp.ks] == list(range(n_ins))
-        assert sum(plan.pass_blocks) == len(plan.blocks)
-        starts = np.cumsum((0,) + plan.pass_blocks)
-        for cp, a, b in zip(plan.passes, starts[:-1], starts[1:]):
-            assert [k for blk in plan.blocks[a:b] for k in blk] == list(cp.ks)
-        # each pass writes whole groups of the mid layout, the passes in turn
         instr, _, dim_mid, _ = fc._instr_tables(layer.conv)
-        assert [cp.m0 for cp in plan.passes] == list(
-            np.cumsum([0] + [cp.mw for cp in plan.passes])[:-1])
-        assert sum(cp.mw for cp in plan.passes) == dim_mid == op.dim_mid
-        for cp in plan.passes:
-            for k in cp.ks:
-                g0 = instr[k]["g_start"]
-                assert cp.m0 <= g0 and g0 + instr[k]["d3"] * instr[k]["u_tot"] <= cp.m0 + cp.mw
-        assert plan.mblk == max(cp.mw for cp in plan.passes)
+        xs = layer.conv.irreps_x.slices()
+        assert sorted(j for r in plan.ranks for j in r.xi) == list(range(len(xs)))
+        assert sorted(k for r in plan.ranks for k in r.ks) == list(range(len(instr)))
+        assert sum(plan.rank_blocks) == len(plan.blocks)
+        starts = np.cumsum((0,) + plan.rank_blocks)
+        for r, a, b in zip(plan.ranks, starts[:-1], starts[1:]):
+            assert [k for blk in plan.blocks[a:b] for k in blk] == list(r.ks)
+            assert list(r.ks) == [k for k, ins in enumerate(instr)
+                                  if ins["x_start"] in {xs[j].start for j in r.xi}]
+            assert r.xw == sum(xs[j].stop - xs[j].start for j in r.xi)
+            assert r.mw == sum(instr[k]["d3"] * instr[k]["mul"] for k in r.ks)
+        assert sum(r.xw for r in plan.ranks) == op.dim_x
+        assert sum(r.mw for r in plan.ranks) == dim_mid == op.dim_mid
+        assert plan.mblk == max(r.mw for r in plan.ranks)
+        cols = [sum(instr[k]["mul"] for k in r.ks) for r in plan.ranks]
+        assert max(cols) <= 0.6 * sum(cols) or plan.cluster == 1
+        if plan.cluster > 1:  # the backward holds one block's ybar
+            assert plan.yblk == max(sum(instr[k]["d3"] * instr[k]["mul"] for k in b)
+                                    for b in plan.blocks)
         d = op.dims(1, fc.PLAN_K)
         for bwd, (nbytes, stages) in ((False, plan.fwd), (True, plan.bwd)):
             assert op.carve(d, bwd) == (nbytes, stages)
             assert nbytes <= fc.SMEM_LIMIT and stages >= 2
-        n_passes.append(len(plan.passes))
-    assert n_passes == [1, 1, 1, 1, 2, 2, 3, 3, 1, 1]
+        clusters.append(plan.cluster)
+    assert clusters == [1, 1, 1, 1, 2, 2, 2, 2, 1, 1]
 
 
 def test_mf_ompa_whole_layers_would_not_fit():
-    """What the passes repair: layers 2 and 3 in one pass, with the tables
-    of one pass and blocks of one instruction, exceed the limit in both
-    kernels."""
+    """What the cluster repairs: layers 2 and 3 in one CTA, with the tables
+    of the whole layer and blocks of one instruction, exceed the limit in
+    both kernels."""
     spec = t_build(MF)
     for t in (2, 3):
         layer = spec.layers[t]
         op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
         instr = fc._instr_tables(layer.conv)[0]
         blocks = fc._column_blocks(instr, range(len(instr)), max(i["mul"] for i in instr))
-        tab = fc._uvu_tables(layer.conv, instr, blocks, op.mlp_spec.dims[1:-1],
-                             fc._conv_pass(instr, list(range(len(instr)))), zero_all=True)
+        whole = fc._conv_rank(layer.conv, instr, range(len(layer.conv.irreps_x)))
+        tab = fc._uvu_tables(layer.conv, instr, blocks, op.mlp_spec.dims[1:-1], whole,
+                             fc._kernel_rows(instr, [blocks]), cluster=False)
         d = op.dims(1, fc.PLAN_K)
         d.shd_terms += tab.size - d.sh_terms
         d.sh_terms = tab.size
@@ -107,14 +114,14 @@ def test_mf_ompa_whole_layers_would_not_fit():
 
 @pytest.mark.parametrize("t", [2, 3])
 def test_mf_ompa_pass_tables_reproduce_plain(t):
-    """Layer t's pass tables, walked in numpy as the kernels walk them (pass
-    by pass, each pass's share of the edge cotangents added in turn),
-    against the unblocked plain versions: forward, dxg, dvec and the
-    parameter gradients, on a few edges of 3 receivers."""
+    """Layer t's cluster tables, walked in numpy as the cluster walks them
+    (rank by rank, each rank's shares of dsh and dz added in rank order and
+    chained once), against the unblocked plain versions: forward, dxg, dvec
+    and the parameter gradients, on a few edges of 3 receivers."""
     spec = t_build(MF)
     layer = spec.layers[t]
     op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
-    assert len(op.plan.passes) == t
+    assert op.plan.cluster == 2
     rng = np.random.default_rng(t)
     n, k = 3, 3
     pos = rng.uniform(0.0, 3.0, (n, 3))
@@ -146,8 +153,41 @@ def test_mf_ompa_pass_tables_reproduce_plain(t):
     assert (dxg[~mask] == 0).all() and (dvec[:, ~mask] == 0).all()
 
 
-# the plans SevenNet-0 and SevenNet-l3i5 had before passes: block widths per
-# layer, the same in both modes, and (forward, backward) W3 stages
+@pytest.mark.parametrize("t", [2, 3])
+def test_mf_ompa_embsh_cluster_tables_reproduce_plain(t):
+    """Layer t in emb/sh mode (B4 and B4 bwd at these widths): its cluster
+    tables walked in numpy over every slot of 3 receivers against the plain
+    versions, forward, dxg, demb, dsh and the parameter gradients."""
+    spec = t_build(MF)
+    layer = spec.layers[t]
+    op = fc.conv_op(layer.conv, layer.radial_mlp)
+    assert op.plan.cluster == 2
+    rng = np.random.default_rng(10 + t)
+    n, k = 3, 3
+    src_nk = rng.integers(0, n, (n, k)).astype(np.int32)
+    x = (rng.normal(size=(n, op.dim_x)) * 0.5).astype(np.float32)
+    emb = (rng.normal(size=(n * k, op.n_basis)) * 0.5).astype(np.float32)
+    emb[-1] = 0.0  # a padded slot: zero embedding
+    sh = rng.normal(size=(n * k, op.dim_f)).astype(np.float32)
+    ws = [(rng.normal(size=(a, b)) * 0.5).astype(np.float32)
+          for a, b in zip(op.mlp_spec.dims[:-1], op.mlp_spec.dims[1:])]
+    ybar = (rng.normal(size=(n, op.dim_mid)) * 0.1).astype(np.float32)
+    out, dxg, demb, dsh, dws, work, valid = _walk_tables(op, x, src_nk, None, None, ws, ybar,
+                                                        emb_sh=(emb, sh))
+    args = (op, torch.tensor(x), torch.tensor(src_nk), torch.tensor(emb), torch.tensor(sh),
+            [torch.tensor(w) for w in ws])
+    dxg_p, demb_p, dsh_p, dws_p = fc.fused_conv_bwd_embsh_plain(*args, torch.tensor(ybar),
+                                                                param_grads=True)
+    dws_r, _ = fc.param_grad_reduce(op, torch.tensor(work), torch.tensor(valid), n, k)
+    for want, got in ((fc.fused_conv_fwd_embsh_plain(*args), out), (dxg_p, dxg),
+                      (demb_p, demb), (dsh_p, dsh), *zip(dws_p, dws), *zip(dws_p, dws_r)):
+        want = want.numpy()
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+# the plans SevenNet-0 and SevenNet-l3i5 had before clusters: block widths
+# per layer, the same in both modes, and (forward, backward) W3 stages
 _BEFORE = {
     "sevennet0": ([(384,), (960,), (960,), (960,), (224,)], [(4, 4)] * 5),
     "l3i5": ([(512,), (736, 736, 288), (736, 736, 288), (736, 736, 288), (256,)],
@@ -157,7 +197,7 @@ _BEFORE = {
 
 @pytest.mark.parametrize("name,cfg", [("sevennet0", SEVENNET0), ("l3i5", L3I5)])
 def test_one_pass_plans_unchanged(name, cfg):
-    """SevenNet-0 and l3i5 keep their plans: one pass over every instruction,
+    """SevenNet-0 and l3i5 keep their plans: one CTA over every instruction,
     the column blocks and W3 stages they had, and a table whose x tile is x
     and whose output columns are all of the mid layout."""
     widths, stages = _BEFORE[name]
@@ -165,8 +205,8 @@ def test_one_pass_plans_unchanged(name, cfg):
     assert [p.widths for p, _ in got] == [w for w in widths for _ in range(2)]
     assert [(p.fwd[1], p.bwd[1]) for p, _ in got] == [s for s in stages for _ in range(2)]
     for plan, op in got:
-        assert len(plan.passes) == 1 and plan.mblk == op.dim_mid
-        assert op.itab[fc.H_NEXT] == 0 and op.itab[fc.H_M0] == 0
+        assert plan.cluster == 1 and plan.mblk == plan.yblk == op.dim_mid
+        assert op.itab[fc.H_NEXT] == 0 and op.itab[fc.H_XW] == op.dim_x
         assert op.itab[fc.H_MW] == op.dim_mid
 
 
