@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port (``sevennet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--threshold-probe | --fold-probe]
 
 1. Builds the CUDA kernels from ``sevennet_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and prints each kernel instance's registers, stack
@@ -159,9 +159,13 @@
    ``probes/xpose.py``, ``probes/fold.py``, ``probes/fold_conv.py``): each
    variant against its plain version at every shape of its TPU script (sums
    within 1e-5 of max |plain|, the conv fold 1e-4, streamed transposes
-   bitwise), the conv fold also against B4 fwd on the same x[src]; then with
-   the counts from 0 each timed by its script's method beside the library
-   calls (torch.sum, x.t().contiguous(), x.clone()).
+   bitwise), the conv fold also against B4 fwd on the same x[src], the fold's
+   mxu variants also at DM 800 on a cluster of 2 CTAs and mxu3 on an input
+   whose fold needs its third bf16 piece; then with the counts
+   from 0 each timed by its script's method beside the library calls
+   (torch.sum, x.t().contiguous(), x.clone()), the mxu folds also beside
+   their tensor-core floor. After the build the mxu fold kernels' SASS must
+   show wgmma (HGMMA) and no mma.sync (HMMA).
    Then the breakdown and knock-out probes (``probes/breakdown.py``,
    ``probes/knockout.py``: kernel B4 fwd instantiated with the phases of
    each variant of ``r2_fused_breakdown.py`` and ``r3_fwd_knockout.py``):
@@ -175,6 +179,9 @@
    row times one torch.mm per weight matrix as its library call.
 9. Prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
+
+``--fold-probe`` builds and runs only the fold probe (its SASS check, its
+checks against plain, its timing).
 
 Exits non-zero, printing no result, without CUDA or without the package.
 Imports nothing of JAX.
@@ -514,7 +521,10 @@ INSTANCES = {
     **{("probe_xpose_kernel", f"{i}{pad}"): f"probe_xpose<{mode}, pad {pad}> (probe)"
        for i, mode in enumerate(("xpose", "round trip", "carry")) for pad in (0, 1)},
     **{("probe_fold_roll_kernel", str(k)): f"probe_fold_roll<K {k}> (probe)" for k in (8, 9, 72)},
-    **{("probe_fold_mma_kernel", str(p)): f"probe_fold_mma<{p} pieces> (probe)" for p in (2, 3)},
+    ("probe_fold_bprep_kernel", ""): "probe_fold_bprep (the mxu folds' B stages, probe)",
+    **{("probe_fold_mma_kernel", f"{p}{pairs}"):
+       f"probe_fold_mma<{p} pieces{', pairs' if pairs else ''}> (probe)"
+       for p in (2, 3) for pairs in (0, 1)},
     **{("probe_fold_conv_kernel", str(i)): f"probe_fold_conv<{v}> (probe)"
        for i, v in enumerate(("sliceadd", "group4", "group8"))},
     **{("probe_breakdown_kernel", str(i)): f"probe_breakdown<{v}> (probe)"
@@ -2132,14 +2142,28 @@ def bitwise_twice(tag, name, fn):
         raise SystemExit(f"{name}: two launches differ at {tag}")
 
 
-def mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar, dev):
+def mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar, valid, dev):
     """At a cluster layer: B4 fwd and B4 bwd on the edges' embedding and
     spherical harmonics, and B3 (B2 into a slot of the ring's buffer) on
     the MF_RING_ROWS rows from row MF_RING_ROWS, against plain (REL_TOL of
-    max |plain|; the buffer's other slots untouched)."""
+    max |plain|; the buffer's other slots untouched); each timed with CUDA
+    events (kernel 3 launches, plain 1) beside its bound (``work``: B4's
+    over every slot of the box, B3's over the chunk's edges inside the
+    cutoff, ``valid``)."""
     import torch
 
     from sevennet_tpu_torch.ops import fused_conv as fc
+
+    card = gpu_line()
+    N, K = src.shape
+    n_edges = int(valid.sum())
+
+    def timed(name, kind, fn, plain, n, edges):
+        tk, tp = cuda_time(fn, 3), cuda_time(plain, 1)
+        fl, by, tc = work(op_e if "embsh" in kind else op, n, K, edges, kind)
+        bnd = bound_ms(fl, by, tc)[0]
+        log(f"  {tag} {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound {bnd:.4f} ms "
+            f"({tk / bnd:.1f}x; fp32 {bound_ms(fl, by)[0]:.4f} ms) | {card}")
 
     op_e = fc.conv_op(layer.conv, layer.radial_mlp)
     assert op_e.plan.cluster == op.plan.cluster
@@ -2149,8 +2173,12 @@ def mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar, dev):
     for name, a, b in zip(("B4 bwd dxg", "B4 bwd demb", "B4 bwd dsh"),
                           fc.fused_conv_bwd_embsh(*e, ybar), fc.fused_conv_bwd_embsh_plain(*e, ybar)):
         check_close(tag, name, a, b)
+    timed("B4 fwd", "fwd_embsh", lambda: fc.fused_conv_fwd_embsh(*e),
+          lambda: fc.fused_conv_fwd_embsh_plain(*e), N, n_edges)
+    timed("B4 bwd", "bwd_embsh", lambda: fc.fused_conv_bwd_embsh(*e, ybar),
+          lambda: fc.fused_conv_bwd_embsh_plain(*e, ybar), N, n_edges)
     del emb, sh, e
-    RC, K = MF_RING_ROWS, src.shape[1]
+    RC = MF_RING_ROWS
     src_c = src[RC:2 * RC].contiguous()
     vec_c = vec.view(3, -1, K)[:, RC:2 * RC].reshape(3, RC * K).contiguous()
     buf = torch.full((3 * RC * K, op.dim_x), -7.25, device=dev)
@@ -2165,6 +2193,11 @@ def mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar, dev):
     if not (torch.equal(buf[:RC * K], buf_p[:RC * K]) and torch.equal(buf[2 * RC * K:],
                                                                       buf_p[2 * RC * K:])):
         raise SystemExit(f"B3 wrote outside its slot at {tag}")
+    yb_c = ybar[RC:2 * RC].contiguous()
+    timed(f"B3 on a {RC}-row ring chunk", "bwd",
+          lambda: fc.fused_conv_bwd_slot(op, x, src_c, vec_c, coef, ws, yb_c, buf, 1),
+          lambda: fc.fused_conv_bwd_slot_plain(op, x, src_c, vec_c, coef, ws, yb_c, buf_p, 1),
+          RC, int(valid[RC:2 * RC].sum()))
 
 
 def mf_ompa_kernel_phase(spec, params, dev):
@@ -2244,7 +2277,8 @@ def mf_ompa_kernel_phase(spec, params, dev):
                 bitwise_twice(tag, "B2'", lambda: fc.fused_conv_bwd(*args, ybar,
                                                                    param_grads=True))
                 if plan.cluster > 1 and t == 3:
-                    mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar, dev)
+                    mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar,
+                                       g.edge_mask.view(N, K), dev)
                 red_ms, red_plain, lib["reduce"], errs["reduce"] = reduce_check(
                     tag, op, work_, valid, N, K, reps=3)
                 times["reduce"] = red_ms
@@ -3473,6 +3507,186 @@ def fma_gather_phase(dev, card: str):
     return recs, launches
 
 
+# (K, A, tiles of mul rows, blocks): DM 800, DX 100; the second map reads
+# input columns in even-aligned pairs (the kernel's 8-byte loads), the first not
+FOLD_RAGGED = ((9, 16, (100,) * 8, 3), (8, 32, (64,) * 12 + (32,), 3))
+
+
+def fold_inputs(rnd, dev):
+    """The fold's input at r3_fold_probe.py's shape, x (NB T, DM / 8), 1.154
+    GB, the 0/1 fold matrix and an output buffer."""
+    import torch
+
+    from sevennet_tpu_torch.probes import fold as fo
+
+    fx = rnd(fo.N // fo.A * fo.A * fo.K, fo.DM // 8, scale=0.5)
+    return fx, fo.fold_matrix(fo.K, fo.A, dev), torch.empty(fo.N, fo.DM, device=dev)
+
+
+def fold_check(fx, fm, out_f):
+    """Every fold variant against its plain version (fold.TOL of max
+    |plain|) at the script's shape, the mxu variants also printed against
+    roll as the script prints them; launches not counted. Returns the
+    errors by kernels-line key."""
+    import torch
+
+    from sevennet_tpu_torch.probes import fold as fo
+
+    errs, roll = {}, None
+    for v in fo.VARIANTS:
+        want = fo.fold(fx, fm, variant=v, plain=True)
+        errs[("fold", v)] = check_close(f"probe fold {v} {tuple(fx.shape)}", "out",
+                                        fo.fold(fx, fm, variant=v, out=out_f), want, fo.TOL)
+        if v == "roll":
+            roll = out_f.clone()
+        elif v != "bigroll":
+            rel = float((out_f - roll).abs().max()) / float(roll.abs().max())
+            log(f"  probe fold {v} max rel err vs roll: {rel:.2e}")
+        del want
+    del roll
+    torch.cuda.empty_cache()
+    return errs
+
+
+def fold_ragged_check(dev):
+    """The mxu variants against plain (fold.TOL of max |plain|) at
+    FOLD_RAGGED: DM 800, whose 13 m64 tiles leave the last one half empty
+    and run on a cluster of 2 CTAs, at A 16 (the n32 product's upper
+    columns zero) and K 9, and at A 32 and K 8; the fold matrix random, not
+    0/1 (the kernel reads its argument; rounded to bf16 on both sides, as
+    the kernel rounds it)."""
+    import torch
+
+    from sevennet_tpu_torch.probes import fold as fo
+
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    for k, a, muls, nb in FOLD_RAGGED:
+        x = (torch.randn(nb * a * k, sum(muls) // 8, generator=gen) * 0.5).to(dev)
+        fm = torch.randn(k * a, a, generator=gen).to(torch.bfloat16).float().to(dev)
+        plan = fo.mma_plan(x.shape[1], sum(muls), a)
+        for v in ("mxu2", "mxu3"):
+            check_close(f"probe fold {v} K {k} A {a} DM {sum(muls)}, plan {plan}", "out",
+                        fo.fold(x, fm, k, a, v, muls), fo.fold(x, fm, k, a, v, muls, plain=True),
+                        fo.TOL)
+
+
+def fold_cancel_check(out_f, dev):
+    """mxu3 against plain (fold.TOL of max |plain|) on fold.cancelling_input
+    with the 0/1 fold matrix, at the script's shape and at FOLD_RAGGED's:
+    there the fold lives in x's lower bf16 pieces, and plain mxu2 (2
+    pieces) misses it by more than 10 fold.TOL, which is checked too, so
+    that a kernel without its third piece fails. Launches not counted."""
+    import torch
+
+    from sevennet_tpu_torch.probes import fold as fo
+
+    shapes = ((fo.K, fo.A, fo.MULS, fo.N // fo.A),) + FOLD_RAGGED
+    for k, a, muls, nb in shapes:
+        dm = sum(muls)
+        x = fo.cancelling_input(nb, k, a, dm // 8, 17, dev)
+        fm = fo.fold_matrix(k, a, dev)
+        out = out_f if dm == fo.DM and nb * a == fo.N else None
+        want = fo.fold(x, fm, k, a, "mxu3", muls, plain=True)
+        gap = float((fo.fold(x, fm, k, a, "mxu2", muls, plain=True) - want).abs().max())
+        gap /= float(want.abs().max())
+        tag = f"probe fold mxu3 K {k} A {a} DM {dm}, cancelling input"
+        log(f"  {tag}: plain mxu2 off by {gap:.3e} of max |plain|")
+        if not gap > 10 * fo.TOL:
+            raise SystemExit(f"{tag}: plain mxu2 within {gap:.3e}: the input does not "
+                             "hold the third piece to its share")
+        check_close(tag, "out", fo.fold(x, fm, k, a, "mxu3", muls, out=out), want, fo.TOL)
+        del x, want
+    torch.cuda.empty_cache()
+
+
+def fold_floor_ms(v: str, nb: int) -> float:
+    """The mxu design's tensor-core floor: its dense bf16 product, 2 A T DM
+    multiply-adds a block and piece (the TPU's MXU product, not the
+    function's work), at BF16_PEAK; 0 for roll and bigroll."""
+    from sevennet_tpu_torch.probes import fold as fo
+
+    return 2 * fo.A * fo.K * fo.A * fo.DM * nb * fo.PIECES[v] / BF16_PEAK * 1e3
+
+
+def fold_time(fx, fm, out_f, errs, card):
+    """Each fold variant timed by the script's method (diff_ms at FOLD_TIME,
+    CUDA graphs) beside torch.sum over K (the fold without its column map),
+    its plain version, the function's bound and the mxu design's
+    tensor-core floor. Returns records by kernels-line key."""
+    from sevennet_tpu_torch.probes import fold as fo
+    from sevennet_tpu_torch.probes._lib import FOLD_TIME, diff_ms
+
+    nb = fo.N // fo.A
+    lib = diff_ms(lambda: fx.view(nb, fo.K, fo.A, -1).sum(1), *FOLD_TIME)
+    fl, nbytes = fo.fold_work(nb)
+    bnd = bound_ms(fl, nbytes)
+    recs = {}
+    for v in fo.VARIANTS:
+        ms = diff_ms(lambda: fo.fold(fx, fm, variant=v, out=out_f), *FOLD_TIME)
+        plain = cuda_time(lambda: fo.fold(fx, fm, variant=v, plain=True), 3)
+        floor = (f"; tensor-core floor {fold_floor_ms(v, nb):.4f} ms (bf16 at 989 TFLOP/s)"
+                 if fo.PIECES[v] else "")
+        log(f"  probe fold {v} {tuple(fx.shape)} -> {tuple(out_f.shape)}: {ms:.4f} ms per call "
+            f"({nbytes / ms / 1e6:.1f} GB/s, {bnd[0] / ms:.1%} of the bound); "
+            f"torch.sum over K (fold only, no column map) {lib:.4f} ms; plain {plain:.4f} ms; "
+            f"bound {bnd[0]:.4f} ms by {bnd[1]}{floor} | {card}")
+        recs[("fold", v)] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
+                                 err=errs[("fold", v)], name=f"fold {v} (N {fo.N}, K {fo.K}, "
+                                                             f"DM {fo.DM})")
+    return recs
+
+
+def fold_sass(so):
+    """The mxu fold kernels' SASS counts (``sass_counts``): every instance
+    of probe_fold_mma_kernel (2 and 3 pieces, with and without paired
+    loads) runs its products on wgmma (HGMMA > 0) and none on mma.sync (HMMA
+    0); ptxas's advisories that it
+    serialized wgmma are printed. Raises SystemExit otherwise, or without
+    cuobjdump."""
+    counts = sass_counts(so)
+    if counts is None:
+        raise SystemExit("cuobjdump not found: the fold kernels' SASS cannot be checked")
+    mma = {fn: c for fn, c in counts.items() if "probe_fold_mma_kernel" in fn}
+    for fn, c in mma.items():
+        log(f"  sass {fn}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+    for ln in open(str(so) + ".log"):
+        if "serialized" in ln or "Performance" in ln:
+            log(f"  ptxas: {ln.strip()}")
+    ok = len(mma) >= 2 and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in mma.values())
+    if not ok:
+        raise SystemExit(f"probe_fold_mma_kernel's SASS: {mma}, expected its instances with "
+                         "HGMMA > 0 and no HMMA")
+
+
+def fold_probe(dev, card: str, so) -> None:
+    """``--fold-probe``: the fold probe alone (``probes/fold.py``). Its
+    SASS (``fold_sass``), the mxu plan and how many of its clusters the
+    card holds at once, every variant against plain at the script's shape
+    and the mxu variants at FOLD_RAGGED, then each variant timed as in the
+    whole run (``fold_time``)."""
+    import torch
+
+    from sevennet_tpu_torch.ops import kernels
+    from sevennet_tpu_torch.probes import fold as fo
+
+    fold_sass(so)
+    plan = fo.mma_plan(fo.DM // 8, fo.DM, fo.A)
+    lib = kernels.library("probe_fold")
+    held = {cl: lib.probe_fold_clusters(cl, plan.ns, plan.nbox, plan.W)
+            for cl in range(1, fo.MMA_CLMAX + 1)}
+    log(f"  mxu plan {plan}: clusters of 1-{fo.MMA_CLMAX} CTAs resident at once {held}")
+    gen = torch.Generator(device="cpu").manual_seed(10)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    fx, fm, out_f = fold_inputs(rnd, dev)
+    errs = fold_check(fx, fm, out_f)
+    fold_ragged_check(dev)
+    fold_cancel_check(out_f, dev)
+    fold_time(fx, fm, out_f, errs, card)
+
+
 def reduce_fold_xpose_phase(dev, card: str):
     """The K-reduction, transpose and fold probes (``probes/reduce.py``,
     ``probes/xpose.py``, ``probes/fold.py``, ``probes/fold_conv.py``). First
@@ -3546,24 +3760,10 @@ def reduce_fold_xpose_phase(dev, card: str):
                                          fn(xs, v, plain=True))
     torch.cuda.empty_cache()
 
-    # the fold at r3_fold_probe.py's shape: x (NB T, DM / 8), 1.154 GB
-    nb, t_rows = fo.N // fo.A, fo.A * fo.K
-    fx = rnd(nb * t_rows, fo.DM // 8, scale=0.5)
-    fm = fo.fold_matrix(fo.K, fo.A, dev)
-    out_f = torch.empty(fo.N, fo.DM, device=dev)
-    roll = None
-    for v in fo.VARIANTS:
-        want = fo.fold(fx, fm, variant=v, plain=True)
-        errs[("fold", v)] = check_close(f"probe fold {v} {tuple(fx.shape)}", "out",
-                                        fo.fold(fx, fm, variant=v, out=out_f), want, fo.TOL)
-        if v == "roll":
-            roll = out_f.clone()
-        elif v != "bigroll":
-            rel = float((out_f - roll).abs().max()) / float(roll.abs().max())
-            log(f"  probe fold {v} max rel err vs roll: {rel:.2e}")
-        del want
-    del roll
-    torch.cuda.empty_cache()
+    fx, fm, out_f = fold_inputs(rnd, dev)
+    errs.update(fold_check(fx, fm, out_f))
+    fold_ragged_check(dev)
+    fold_cancel_check(out_f, dev)
 
     # the conv fold at r4_fold_probe.py's shape, and B4 fwd on the same x[src]
     conv, mlp = fcv.sevennet0_conv()
@@ -3642,19 +3842,7 @@ def reduce_fold_xpose_phase(dev, card: str):
                                   err=errs[(key, v)], name=f"{key} {v} {xp.STREAM_SHAPE}")
     del xs, out_t, out_s
     torch.cuda.empty_cache()
-    lib = diff_ms(lambda: fx.view(nb, fo.K, fo.A, -1).sum(1), *FOLD_TIME)
-    fl, nbytes = fo.fold_work(nb)
-    bnd = bound_ms(fl, nbytes)
-    for v in fo.VARIANTS:
-        ms = diff_ms(lambda: fo.fold(fx, fm, variant=v, out=out_f), *FOLD_TIME)
-        plain = cuda_time(lambda: fo.fold(fx, fm, variant=v, plain=True), 3)
-        log(f"  probe fold {v} {tuple(fx.shape)} -> {tuple(out_f.shape)}: {ms:.4f} ms per call "
-            f"({nbytes / ms / 1e6:.1f} GB/s, {bnd[0] / ms:.1%} of the bound); "
-            f"torch.sum over K (fold only, no column map) {lib:.4f} ms; plain {plain:.4f} ms; "
-            f"bound {bnd[0]:.4f} ms by {bnd[1]} | {card}")
-        recs[("fold", v)] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
-                                 err=errs[("fold", v)], name=f"fold {v} (N {fo.N}, K {fo.K}, "
-                                                             f"DM {fo.DM})")
+    recs.update(fold_time(fx, fm, out_f, errs, card))
     del fx, out_f
     torch.cuda.empty_cache()
     fl, nbytes = fcv.fold_conv_work(conv, mlp.dims, n, k)
@@ -4433,6 +4621,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--threshold-probe", action="store_true",
                     help="only measure the peaks chunk_threshold rests on (threshold_probe)")
+    ap.add_argument("--fold-probe", action="store_true",
+                    help="only build and check the fold probe and time it (fold_probe)")
     args = ap.parse_args()
 
     import torch
@@ -4457,6 +4647,18 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    if args.fold_probe:
+        libs = kernels.build(["probe_fold"])
+        log(f"built probe_fold in {time.perf_counter() - t0:.1f} s")
+        for row in ptxas_table(libs):
+            log("  ptxas {instance}: {registers} registers, {stack} B stack, {spill_stores} B "
+                "spill stores, {spill_loads} B spill loads".format(**row))
+        fold_probe(dev, card, libs["probe_fold"])
+        print(gpu_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     libs = kernels.build()
     log(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     # B4 fwd's profile build (breakdown_phase's section clocks), meanwhile
@@ -4469,6 +4671,7 @@ def main() -> int:
         for fn, c in (sass_counts(libs[lib_name]) or {"cuobjdump": "not found"}).items():
             log(f"  sass {fn}: {c}")
     reduce_sass(libs["pg_reduce"])
+    fold_sass(libs["probe_fold"])
 
     spec = sevennet0_spec()
     params = params_from_numpy(spec, random_params(spec, args.seed))

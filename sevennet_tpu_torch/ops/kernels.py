@@ -43,7 +43,7 @@ PROFILE_FLAGS = ("-DFUSED_CONV_PROFILE",)
 # resident (csrc/fused_conv_common.cuh CLUSTER_UNSCHEDULABLE)
 CLUSTER_UNSCHEDULABLE = -2
 
-_LIBS: Dict[Tuple[str, bool], ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, bool, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -56,31 +56,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _flags(profile: bool):
-    return NVCC_FLAGS + (PROFILE_FLAGS if profile else ())
+def _flags(profile: bool, defines: Tuple[str, ...] = ()):
+    return NVCC_FLAGS + (PROFILE_FLAGS if profile else ()) + tuple(f"-D{d}" for d in defines)
 
 
-def _target(name: str, profile: bool = False) -> Path:
-    h = hashlib.sha256(" ".join(_flags(profile)).encode())
+def _target(name: str, profile: bool = False, defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(profile, defines)).encode())
     for path in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
         h.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}{'_prof' if profile else ''}_{h.hexdigest()[:16]}.so"
+    tag = "".join(f"_{d.replace('=', '')}" for d in defines)
+    return BUILD_DIR / f"lib{name}{'_prof' if profile else ''}{tag}_{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES, profile: bool = False) -> Dict[str, Path]:
+def build(names: Iterable[str] = SOURCES, profile: bool = False,
+          defines: Tuple[str, ...] = ()) -> Dict[str, Path]:
     """Compiles every library of ``names`` that is not built yet, one
     ``nvcc`` per source, all started together (``profile``: the profile
-    builds instead). Returns name -> library path; each library's ptxas
-    report (registers, spills) is written beside it as ``<library>.log``.
-    Raises on the first failed build."""
+    builds instead; ``defines``: macros ``NAME=VALUE`` of a measurement
+    build, a library of its own). Returns name -> library path; each
+    library's ptxas report (registers, spills) is written beside it as
+    ``<library>.log``. Raises on the first failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n, profile) for n in names}
+    targets = {n: _target(n, profile, defines) for n in names}
     procs = {}
     for name, so in targets.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_flags(profile), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(profile, defines), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp)
@@ -98,12 +101,13 @@ def build(names: Iterable[str] = SOURCES, profile: bool = False) -> Dict[str, Pa
     return targets
 
 
-def library(name: str, profile: bool = False) -> ctypes.CDLL:
+def library(name: str, profile: bool = False, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of source ``name`` (built first if needed), or
-    with ``profile`` its profile build."""
-    key = (name, profile)
+    with ``profile`` its profile build, or with ``defines`` that
+    measurement build."""
+    key = (name, profile, tuple(defines))
     if key not in _LIBS:
-        _LIBS[key] = ctypes.CDLL(str(build([name], profile)[name]))
+        _LIBS[key] = ctypes.CDLL(str(build([name], profile, tuple(defines))[name]))
     return _LIBS[key]
 
 

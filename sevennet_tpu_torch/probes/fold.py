@@ -17,6 +17,15 @@ DX`` (``:79-82``). The variants (:data:`VARIANTS`): ``roll`` and
 fp32; ``mxu2`` and ``mxu3`` split x into 2 or 3 bf16 pieces and multiply
 each by the fold matrix with fp32 accumulation (``:63-77``).
 
+The ``mxu`` kernel runs a block's m64 tiles of output columns on a
+thread-block cluster, :data:`MMA_TPW` tiles a CTA, each stage of x loaded
+once by TMA and multicast to the cluster's CTAs in boxes of ``W`` columns;
+:func:`mma_plan` is the host's plan of both, :func:`mma_pairs` says whether
+the column map lets it load two columns at once (``csrc/probe_fold.cu``).
+A call is two launches: the fold matrix's bf16 tiles into a scratch buffer
+the wrapper allocates, then the product (the fold is read from its
+argument, whatever its values; ``mxu`` rounds it to bf16).
+
 The wrapper launches the kernel on CUDA tensors and raises on CPU tensors
 unless ``plain=True`` (the plain version, on any device, which folds each
 input column once and then maps the columns: the same sums, since a
@@ -31,6 +40,7 @@ differential of 9 and 3 calls, best of 3 (``r3_fold_probe.py:99-117``)."""
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from functools import lru_cache
 from typing import Sequence, Tuple
 
@@ -41,7 +51,8 @@ from ..ops.kernels import call
 from ._lib import check_device, stream
 
 __all__ = ["VARIANTS", "N", "K", "A", "DM", "MULS", "FOLD_KS", "TOL", "fold_matrix",
-           "column_map", "kfold_plain", "fold_plain", "fold", "fold_work"]
+           "column_map", "kfold_plain", "fold_plain", "fold", "fold_work", "MmaPlan",
+           "mma_plan", "mma_pairs", "MMA_TPW", "MMA_CLMAX", "MMA_BOXW", "cancelling_input"]
 
 VARIANTS = ("roll", "mxu2", "mxu3", "bigroll")
 N, K, A = 10016, 72, 32            # r3_fold_probe.py:17
@@ -52,13 +63,21 @@ FOLD_KS = (8, 9, 72)   # the roll kernel's K (a template argument, csrc/probe_fo
 # order; mxu: the same bf16 pieces, their sums in another order)
 TOL = 1e-5
 PIECES = {"roll": 0, "bigroll": 0, "mxu2": 2, "mxu3": 3}
+# the mxu kernel's layout (csrc/probe_fold.cu; probe_fold_layout returns the
+# same): m64 tiles of output columns, tiles a CTA, CTAs a cluster at most,
+# the widest TMA box of x (<= 256 columns, 4 mod 8), rows a stage, stages,
+# threads, bytes of a stage's B
+MMA_TILE, MMA_TPW, MMA_CLMAX, MMA_BOXW = 64, 7, 8, 252
+MMA_R, MMA_NSMAX, MMA_NT, MMA_BBYTES = 16, 8, 384, 1024
+SMEM_LIMIT = 232448  # dynamic shared memory a CTA may have on sm_90
 
 
 class _FoldArgs(ctypes.Structure):
     """ctypes mirror of ``struct FoldArgs`` (csrc/probe_fold.cu)."""
 
-    _fields_ = [(f, ctypes.c_void_p) for f in ("x", "fold", "cmap", "out")] + [
-        (f, ctypes.c_int) for f in ("NB", "K", "A", "DX", "DM")]
+    _fields_ = [(f, ctypes.c_void_p) for f in ("x", "fold", "cmap", "out", "bq")] + [
+        (f, ctypes.c_int) for f in ("NB", "K", "A", "DX", "DM", "tiles", "cl", "ctas", "nbox",
+                                    "W", "ns", "pairs")]
 
 
 def fold_matrix(k: int, a: int, device=None) -> torch.Tensor:
@@ -67,6 +86,87 @@ def fold_matrix(k: int, a: int, device=None) -> torch.Tensor:
     f = torch.zeros(k * a, a)
     f[t, t % a] = 1.0
     return f.to(device)
+
+
+# slot pairs of cancelling_input: its running sums stay below 2 x 32.5 < 2^7
+# in multiples of 2^-16 (23 bits), exact in fp32 in any order
+CANCEL_PAIRS = 2
+
+
+def cancelling_input(nb: int, k: int, a: int, dx: int, seed: int = 0,
+                     device=None) -> torch.Tensor:
+    """An x ``(NB A K, DX)`` whose fold under :func:`fold_matrix` lives in
+    x's lower bf16 pieces, so that a fold without its third piece misses
+    :data:`TOL` (on random x the third piece is below it). For j <
+    min(:data:`CANCEL_PAIRS`, K // 2) slot j holds ``h + m`` and slot ``K //
+    2 + j`` holds ``-h``: h a bf16 value in [16, 32), m of 16 significant
+    bits in ±[1/4, 1/2); the other slots are 0. ``h + m`` is exact in fp32 and
+    in 3 bf16 pieces, so each fold is the exact sum of the m, in every
+    order; 2 pieces leave up to 2^-11 of each ``h + m`` out."""
+    g = torch.Generator().manual_seed(seed)
+    p, half = min(CANCEL_PAIRS, k // 2), k // 2
+    h = torch.randint(128, 256, (nb, p, a, dx), generator=g).float() * 2.0 ** -3
+    m = torch.randint(2 ** 14, 2 ** 15, (nb, p, a, dx), generator=g).float() * 2.0 ** -16
+    m *= torch.randint(0, 2, (nb, p, a, dx), generator=g).float() * 2 - 1
+    x = torch.zeros(nb, k, a, dx, device=device)
+    x[:, :p] = (h + m).to(device)
+    x[:, half:half + p] = (-h).to(device)
+    return x.view(nb * k * a, dx)
+
+
+@dataclass(frozen=True)
+class MmaPlan:
+    """How the mxu kernel covers one block (``csrc/probe_fold.cu``):
+    ``tiles`` m64 tiles of the DM output columns, clusters of ``cl`` CTAs,
+    ``ctas`` CTAs a block (CTA q takes tiles ``[q tiles // ctas, (q + 1)
+    tiles // ctas)``, at most :data:`MMA_TPW`), each stage of x loaded as
+    ``nbox`` TMA boxes of ``W`` columns (W = 4 mod 8: the staged row pitch
+    that keeps the fragment loads on distinct banks), a ring of ``ns``
+    stages (even: the CTA's two warpgroups take alternate stages), ``smem``
+    bytes of shared memory a CTA (at least what carries one warpgroup's
+    sums to the other at the end)."""
+
+    tiles: int
+    cl: int
+    ctas: int
+    nbox: int
+    W: int
+    ns: int
+    smem: int
+
+    def cta_tiles(self, q: int) -> range:
+        return range(q * self.tiles // self.ctas, (q + 1) * self.tiles // self.ctas)
+
+
+def _mma_smem(ns: int, nbox: int, w: int) -> int:
+    ring = ns * (nbox * MMA_R * w + 2 * MMA_BBYTES // 4)
+    return 4 * max(ring, MMA_TPW * 16 * 128) + 2 * ns * 8
+
+
+def mma_plan(dx: int, dm: int, a: int) -> MmaPlan:
+    """The mxu kernel's plan for DX input and DM output columns at A: the
+    fewest CTAs a cluster (at most :data:`MMA_CLMAX`) whose
+    :data:`MMA_TPW` tiles each cover the tiles, as many clusters a block as
+    that leaves short, the tiles spread evenly; the fewest boxes of at most
+    :data:`MMA_BOXW` columns, each the narrowest width of 4 mod 8 that
+    covers DX; the deepest even ring, up to :data:`MMA_NSMAX` stages, that
+    fits :data:`SMEM_LIMIT` (0 stages: none fits)."""
+    tiles = -(-dm // MMA_TILE)
+    cl = min(MMA_CLMAX, -(-tiles // MMA_TPW))
+    ctas = cl * -(-tiles // (cl * MMA_TPW))
+    nbox = -(-dx // MMA_BOXW)
+    w = -(-dx // nbox)
+    w += (4 - w) % 8
+    ns = next((n for n in range(MMA_NSMAX, 0, -2) if _mma_smem(n, nbox, w) <= SMEM_LIMIT), 0)
+    return MmaPlan(tiles, cl, ctas, nbox, w, ns, _mma_smem(max(ns, 2), nbox, w))
+
+
+def mma_pairs(cmap: np.ndarray) -> bool:
+    """Whether every pair of output columns 2i, 2i + 1 reads input columns
+    ci, ci + 1 with ci even: the mxu kernel then loads both of a row in one
+    8-byte load (each column's value still its own)."""
+    ci = np.asarray(cmap).reshape(-1, 2)
+    return bool(np.all(ci[:, 0] % 2 == 0) and np.all(ci[:, 1] == ci[:, 0] + 1))
 
 
 @lru_cache(maxsize=None)
@@ -150,13 +250,33 @@ def _check(x, foldm, k, a, variant, muls, out):
     return shape
 
 
-def _check_kernel(k, a, dx, dm, variant):
+def _check_kernel(k, a, dx, dm, variant, nb, tensors):
     if dx % 4 or dm % 8:
         raise ValueError(f"the fold kernels take DX a multiple of 4 and DM of 8, got {dx}, {dm}")
+    if nb > 65535:
+        raise ValueError(f"the fold kernels take at most 65,535 blocks, got {nb}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the fold kernels take x, fold and out 16-byte aligned")
     if PIECES[variant] == 0 and k not in FOLD_KS:
         raise ValueError(f"the roll kernel is built for K in {FOLD_KS}, got {k}")
-    if PIECES[variant] and a not in (16, 32):
+    if PIECES[variant] == 0:
+        return None
+    if a not in (16, 32):
         raise ValueError(f"the mxu kernel takes A 16 or 32, got {a}")
+    plan = mma_plan(dx, dm, a)
+    if plan.ns == 0:
+        raise ValueError(f"the mxu kernel's two stages of DX {dx} need {plan.smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    return plan
+
+
+def _check_layout(lib):
+    got = (ctypes.c_int * 8)()
+    lib.probe_fold_layout(got)
+    want = (MMA_TILE, MMA_TPW, MMA_CLMAX, MMA_BOXW, MMA_R, MMA_NSMAX, MMA_NT, MMA_BBYTES)
+    if tuple(got) != want:
+        raise RuntimeError(f"csrc/probe_fold.cu's layout {tuple(got)} is not probes/fold.py's "
+                           f"{want}")
 
 
 def fold(x, foldm, k: int = K, a: int = A, variant: str = "roll",
@@ -169,14 +289,21 @@ def fold(x, foldm, k: int = K, a: int = A, variant: str = "roll",
     if check_device(plain, x, foldm, *(() if out is None else (out,))):
         res = fold_plain(x, foldm, k, a, variant, muls)
         return res if out is None else out.copy_(res)
-    _check_kernel(k, a, x.shape[1], shape[1], variant)
-    cmap = _device_map(variant, muls, x.shape[1], x.device)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    nb = x.shape[0] // (k * a)
+    plan = _check_kernel(k, a, x.shape[1], shape[1], variant, nb, (x, foldm, out))
+    cmap = _device_map(variant, muls, x.shape[1], x.device)
+    tiling, bq = (0,) * 7, None
+    if plan is not None:
+        tiling = (plan.tiles, plan.cl, plan.ctas, plan.nbox, plan.W, plan.ns,
+                  int(_mma_pairs(variant, muls, x.shape[1])))
+        bq = torch.empty(k * a // MMA_R * MMA_BBYTES, dtype=torch.uint8, device=x.device)
     call("probe_fold", "probe_fold_launch", ctypes.c_int(PIECES[variant]),
          _FoldArgs(x.data_ptr(), foldm.data_ptr(), cmap.data_ptr(), out.data_ptr(),
-                   x.shape[0] // (k * a), k, a, x.shape[1], shape[1]),
-         stream(x.device))
+                   None if bq is None else bq.data_ptr(), nb, k, a, x.shape[1], shape[1],
+                   *tiling),
+         stream(x.device), on_load=_check_layout)
     fold.launches += 1
     fold.by_variant[variant] += 1
     return out
@@ -184,6 +311,11 @@ def fold(x, foldm, k: int = K, a: int = A, variant: str = "roll",
 
 fold.launches = 0
 fold.by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+@lru_cache(maxsize=None)
+def _mma_pairs(variant, muls, dx):
+    return mma_pairs(column_map(variant, muls, dx))
 
 
 @lru_cache(maxsize=None)
@@ -197,3 +329,4 @@ def fold_work(nb: int, k: int = K, a: int = A, dm: int = DM):
     the input and the fold matrix read once, the output written once."""
     n_out, n_in = nb * a * dm, nb * k * a * (dm // 8)
     return n_out * (k - 1), 4 * (n_in + k * a * a + n_out)
+

@@ -794,22 +794,38 @@ def test_probe_xpose_matches_plain(cuda, variant):
 @pytest.mark.parametrize("variant", ["roll", "mxu2", "mxu3", "bigroll"])
 def test_probe_fold_matches_plain(cuda, variant):
     """The K fold (r3_fold_probe's make) at K 9 (odd, peeled) and 8, A 16 and
-    32, 3 blocks, tiles that wrap around DX, and at the script's DM 3,136
-    over 2 blocks (four CTAs a block for mxu), against plain (fold.TOL)."""
+    32, 3 blocks, tiles that wrap around DX, at DM 800 (13 m64 tiles on a
+    cluster of 2 CTAs of 7: the last tile half empty, the cluster's span not
+    filled; with and without input columns in even pairs), and at the
+    script's DM 3,136 over 2 blocks (a cluster of 7 CTAs a block for mxu),
+    against plain (fold.TOL); the mxu variants also with a random fold
+    matrix (rounded to bf16, as the kernel rounds it), which they read;
+    mxu3 also on fold.cancelling_input, whose fold a kernel without its
+    third piece misses."""
     from sevennet_tpu_torch.probes import fold as fo
 
     rng = np.random.default_rng(15)
     muls = (12, 12, 8, 8, 8, 8, 8, 8, 4, 4, 4, 4, 4, 4)
-    for k, a, m in ((9, 16, muls), (8, 32, muls), (72, 32, fo.MULS)):
+    wide, paired = (100,) * 8, (64,) * 12 + (32,)
+    for k, a, m in ((9, 16, muls), (8, 32, muls), (9, 16, wide), (8, 32, wide), (8, 32, paired),
+                    (72, 32, fo.MULS)):
         dx = sum(m) // 8
         x = torch.tensor(rng.normal(size=(3 * a * k if k < 72 else 2 * a * k, dx)) * 0.5,
                          dtype=torch.float32, device=cuda)
-        fm = fo.fold_matrix(k, a, cuda)
-        n0 = fo.fold.by_variant[variant]
-        got = fo.fold(x, fm, k, a, variant, m)
-        torch.cuda.synchronize()
-        assert fo.fold.by_variant[variant] == n0 + 1
-        _close_to(got, fo.fold(x, fm, k, a, variant, m, plain=True), fo.TOL)
+        folds = [fo.fold_matrix(k, a, cuda)]
+        if fo.PIECES[variant]:
+            folds.append(torch.tensor(rng.normal(size=(k * a, a)), dtype=torch.float32,
+                                      device=cuda).to(torch.bfloat16).float())
+        inputs = [(x, fm) for fm in folds]
+        if variant == "mxu3":
+            inputs.append((fo.cancelling_input(x.shape[0] // (a * k), k, a, dx, 16, cuda),
+                           folds[0]))
+        for x_, fm in inputs:
+            n0 = fo.fold.by_variant[variant]
+            got = fo.fold(x_, fm, k, a, variant, m)
+            torch.cuda.synchronize()
+            assert fo.fold.by_variant[variant] == n0 + 1
+            _close_to(got, fo.fold(x_, fm, k, a, variant, m, plain=True), fo.TOL)
 
 
 def test_probe_fold_conv_matches_plain_and_b4(cuda):

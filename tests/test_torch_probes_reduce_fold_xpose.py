@@ -456,6 +456,100 @@ def test_fold_column_maps():
     assert full.shape == (fo.DM,) and set(full.tolist()) == set(range(fo.DM // 8))
 
 
+# (DX, DM, A) the mxu kernel's plan is held to: the script's, the card
+# tests' ragged shapes, a DM past one cluster's span, the widest DX that
+# still fits two stages
+MMA_SHAPES = ((392, 3136, 32), (12, 96, 16), (100, 800, 16), (100, 800, 32), (48, 384, 32),
+              (4, 32, 16), (1764, 14112, 32), (500, 4000, 16))
+
+
+@pytest.mark.parametrize("dx,dm,a", MMA_SHAPES)
+def test_mma_plan_matches_its_statement(dx, dm, a):
+    """mma_plan against a numpy statement of the mxu kernel's plan: every
+    m64 tile of DM in exactly one CTA, at most MMA_TPW a CTA, whole clusters
+    of at most MMA_CLMAX CTAs and none fewer than the tiles need; boxes of
+    4 mod 8 columns, at most MMA_BOXW, that cover DX with no box to spare;
+    the deepest even ring that fits the shared memory."""
+    plan = fo.mma_plan(dx, dm, a)
+    tiles = int(np.ceil(dm / 64))
+    assert plan.tiles == tiles
+    owner = np.concatenate([np.full(len(plan.cta_tiles(q)), q) for q in range(plan.ctas)])
+    got = np.concatenate([np.asarray(plan.cta_tiles(q)) for q in range(plan.ctas)])
+    assert np.array_equal(got, np.arange(tiles))
+    assert np.bincount(owner, minlength=plan.ctas).max() <= fo.MMA_TPW
+    assert 1 <= plan.cl <= fo.MMA_CLMAX and plan.ctas % plan.cl == 0
+    assert plan.cl == fo.MMA_CLMAX or (plan.cl - 1) * fo.MMA_TPW < tiles
+    assert (plan.ctas // plan.cl - 1) * plan.cl * fo.MMA_TPW < tiles
+    assert plan.W % 8 == 4 and plan.W <= fo.MMA_BOXW
+    assert plan.nbox * plan.W >= dx > (plan.nbox - 1) * plan.W
+    assert plan.W - 8 < -(-dx // plan.nbox)
+
+    def smem(ns):  # the ring (x and twice as many B stages) or the sums, then 2 ns barriers
+        ring = ns * (plan.nbox * fo.MMA_R * plan.W * 4 + 2 * fo.MMA_BBYTES)
+        return max(ring, fo.MMA_TPW * 16 * 128 * 4) + 16 * ns
+
+    fits = [n for n in range(2, fo.MMA_NSMAX + 1, 2) if smem(n) <= fo.SMEM_LIMIT]
+    assert plan.ns == (max(fits) if fits else 0)
+    assert plan.smem == smem(max(plan.ns, 2))
+
+
+@pytest.mark.parametrize("k,a,muls", [(72, 32, fo.MULS), (9, 16, (100,) * 8),
+                                      (8, 32, (100,) * 8)])
+def test_cancelling_input_needs_the_third_piece(k, a, muls):
+    """cancelling_input: the plain mxu3 and roll folds are both the exact
+    sum (float64) of x, and the plain mxu2 fold misses it by more than 10
+    fold.TOL of max |plain|: a kernel without its third piece fails there."""
+    dx = sum(muls) // 8
+    x = fo.cancelling_input(3, k, a, dx, seed=5)
+    fm = fo.fold_matrix(k, a)
+    cmap = torch.as_tensor(fo.column_map("mxu3", muls, dx), dtype=torch.long)
+    exact = x.double().view(3, k, a, dx).sum(1)[:, :, cmap].reshape(3 * a, -1)
+    mxu3 = fo.fold_plain(x, fm, k, a, "mxu3", muls)
+    assert torch.equal(mxu3.double(), exact)
+    assert torch.equal(fo.fold_plain(x, fm, k, a, "roll", muls).double(), exact)
+    gap = (fo.fold_plain(x, fm, k, a, "mxu2", muls) - mxu3).abs().max() / mxu3.abs().max()
+    assert gap > 10 * fo.TOL
+    # the kernel's order: slot by slot, each slot's pieces in turn, in fp32
+    acc = torch.zeros(3, a, dx)
+    for slot in range(k):
+        for piece in fo._pieces(x.view(3, k, a, dx)[:, slot], 3):
+            acc = acc + piece
+    assert torch.equal(acc.double(), x.double().view(3, k, a, dx).sum(1))
+
+
+def test_mma_pairs_matches_its_statement():
+    """mma_pairs: every even output column 2i reads an even input column
+    and column 2i + 1 the next one (the kernel's 8-byte loads); the
+    script's map does, the card tests' maps with odd tile starts do not."""
+    maps = {"script": fo.column_map("mxu2"), "test": fo.column_map("mxu2", FOLD_MULS),
+            "paired": fo.column_map("mxu3", (64,) * 12 + (32,)),
+            "wide": fo.column_map("mxu3", (100,) * 8), "bigroll": fo.column_map("bigroll")}
+    want = {name: all(m[c] % 2 == 0 and m[c + 1] == m[c] + 1 for c in range(0, len(m), 2))
+            for name, m in maps.items()}
+    assert want == {"script": True, "test": False, "paired": True, "wide": False,
+                    "bigroll": True}
+    assert {name: fo.mma_pairs(m) for name, m in maps.items()} == want
+
+
+def test_mma_kernel_checks_its_shapes():
+    """The mxu kernel's host checks refuse what it does not take: A other
+    than 16 or 32, a DX whose two stages do not fit, unaligned tensors, more
+    than 65,535 blocks; roll keeps its K."""
+    t = torch.zeros(8, 4)
+    assert fo._check_kernel(9, 16, 12, 96, "mxu2", 3, (t,)).tiles == 2
+    assert fo._check_kernel(8, 32, 12, 96, "roll", 3, (t,)) is None
+    with pytest.raises(ValueError, match="A 16 or 32"):
+        fo._check_kernel(9, 8, 12, 96, "mxu3", 3, (t,))
+    with pytest.raises(ValueError, match="shared memory"):
+        fo._check_kernel(8, 32, 1800, 14400, "mxu2", 3, (t,))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fo._check_kernel(8, 32, 12, 96, "mxu2", 3, (t.view(-1)[1:],))
+    with pytest.raises(ValueError, match="65,535"):
+        fo._check_kernel(8, 32, 12, 96, "mxu2", 65536, (t,))
+    with pytest.raises(ValueError, match="roll kernel"):
+        fo._check_kernel(7, 32, 12, 96, "bigroll", 3, (t,))
+
+
 def _fold_conv_setup(seed):
     x_ir_s, hidden = "8x0e+4x1e+2x2e", (16, 16)
     j_x, j_f = JIrreps(x_ir_s), JIrreps.spherical_harmonics(2, 1)
