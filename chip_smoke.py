@@ -312,6 +312,13 @@ ENSEMBLES = {
     "npt_berendsen": dict(temperature=MD_T, pressure=0.0, tau_t=100.0, tau_p=1000.0),
 }
 ENS_PLAIN = ("langevin", "npt")  # also run on a plain-conv engine and compared
+# a box that NPT compresses past its cell grid's slack (5 cells a side at
+# cutoff + skin 5.6 A fit to about 0.90 of the 3,000-atom box's edge):
+# Berendsen with a fast piston toward COMPRESS_DP eV/A^3 above the box's own
+# pressure at the start (random weights: any sign), about 1.2 % of the edge
+# a step at first
+COMPRESS_KW = dict(integrator="npt_berendsen", temperature=MD_T, tau_p=50.0)
+COMPRESS_DP, COMPRESS_STEPS, COMPRESS_AFTER = 0.05, 40, 5
 # D3 phase: Grimme D3 (PBE, BJ damping), the calculator at the full ~50.2 A
 # cutoff and the MD engine at the box-bounded one
 D3 = {"functional": "pbe", "damping": "damp_bj"}
@@ -520,6 +527,8 @@ INSTANCES = {
     ("probe_reduce_lanes_kernel", ""): "probe_reduce_lanes (lanereduce, probe)",
     **{("probe_xpose_kernel", f"{i}{pad}"): f"probe_xpose<{mode}, pad {pad}> (probe)"
        for i, mode in enumerate(("xpose", "round trip", "carry")) for pad in (0, 1)},
+    **{("probe_xpose_rt_kernel", str(vec)): f"probe_xpose_rt<{'16' if vec else '4'}-byte "
+       "accesses> (round trip, pad 0, probe)" for vec in (0, 1)},
     **{("probe_fold_roll_kernel", str(k)): f"probe_fold_roll<K {k}> (probe)" for k in (8, 9, 72)},
     ("probe_fold_bprep_kernel", ""): "probe_fold_bprep (the mxu folds' B stages, probe)",
     **{("probe_fold_mma_kernel", f"{p}{pairs}"):
@@ -2200,6 +2209,76 @@ def mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar, valid, dev):
           RC, int(valid[RC:2 * RC].sum()))
 
 
+def wide4_check(dev, seed: int):
+    """The cluster of 4 CTAs a receiver row, which no published model's layer
+    needs: ``WIDE4_LAYER``'s second layer (mf-ompa's parity irreps at twice
+    the channels, x of 2,560 columns) on the 192-atom water box. B1, B2 and
+    B2' against plain (REL_TOL of max |plain|, as at mf-ompa's 2-CTA
+    layers), B2 and B2' twice bitwise, then B4 fwd, B4 bwd and B3 on a ring
+    chunk (:func:`mf_cluster_entries`, each also timed); one forward and one
+    backward launch timed with CUDA events beside the bound. Launches are
+    not counted (no main path runs the layer)."""
+    import torch
+
+    from sevennet_tpu_torch.atoms import AtomsLite
+    from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
+    from sevennet_tpu_torch.model.build import build_model_spec
+    from sevennet_tpu_torch.model.model import edge_embed_spec
+    from sevennet_tpu_torch.model.presets import WIDE4_LAYER
+    from sevennet_tpu_torch.ops import fused_conv as fc
+
+    card = gpu_line()
+    spec = build_model_spec(dict(WIDE4_LAYER, chemical_species=["H", "O"],
+                                 conv_denominator=MF_DENOMINATOR))
+    params = params_from_numpy(spec, random_params(spec, seed))
+    pos, Z, cell = water_box(MF_SIZES[0] // 3)
+    calc, g, vec, src, coef = box_edges(spec, params, dev, AtomsLite(
+        positions=pos, numbers=Z, cell=cell, pbc=True))
+    layer = spec.layers[1]
+    op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
+    plan = op.plan
+    N, K, n_edges = g.n_atoms_cap, g.dense_k, int(g.edge_mask.sum())
+    d = op.dims(N, K)
+    log(f"  wide4 layer 1: x {op.dim_x}, mid {op.dim_mid}, w {op.numel} columns; a cluster of "
+        f"{plan.cluster} CTAs a receiver row, ranks of x irreps "
+        f"{[list(r.xi) for r in plan.ranks]}, {[r.xw for r in plan.ranks]} x columns, "
+        f"{list(plan.rank_blocks)} blocks of {list(plan.widths)} columns; carve per CTA at "
+        f"K={K}: forward {op.carve(d, False)}, backward {op.carve(d, True)}, limit "
+        f"{fc.SMEM_LIMIT}")
+    if plan.cluster != 4:
+        raise SystemExit(f"WIDE4_LAYER's layer 1 plans {plan.cluster} CTAs, not 4")
+    gen = torch.Generator(device="cpu").manual_seed(seed + 4)
+    ws = calc.params["1_convolution"]["weight_nn"]["w"]
+    x = torch.randn(N, op.dim_x, generator=gen).to(dev)
+    ybar = torch.randn(N, op.dim_mid, generator=gen).to(dev)
+    args = (op, x, src, vec, coef, ws)
+    tag = f"wide4 layer 1 ({MF_SIZES[0]} atoms, 4 CTAs)"
+    check_close(tag, "B1 fwd", fc.fused_conv_fwd(*args), fc.fused_conv_fwd_plain(*args))
+    for name, a, b in zip(("B2 dxg", "B2 dvec"), fc.fused_conv_bwd(*args, ybar),
+                          fc.fused_conv_bwd_plain(*args, ybar)):
+        check_close(tag, name, a, b)
+    got = fc.fused_conv_bwd(*args, ybar, param_grads=True)
+    want = fc.fused_conv_bwd_plain(*args, ybar, param_grads=True)
+    pairs = [("B2' dxg", got[0], want[0]), ("B2' dvec", got[1], want[1])]
+    pairs += [(f"B2' dW{i + 1}", a, b) for i, (a, b) in enumerate(zip(got[2], want[2]))]
+    pairs += [("B2' dcoef", got[3], want[3])]
+    for name, a, b in pairs:
+        check_close(tag, name, a, b)
+    del got, want, pairs
+    bitwise_twice(tag, "B2", lambda: fc.fused_conv_bwd(*args, ybar))
+    bitwise_twice(tag, "B2'", lambda: fc.fused_conv_bwd(*args, ybar, param_grads=True))
+    mf_cluster_entries(tag, op, layer, x, src, vec, coef, ws, ybar, g.edge_mask.view(N, K), dev)
+    for kind, fn in (("fwd", lambda: fc.fused_conv_fwd(*args)),
+                     ("bwd", lambda: fc.fused_conv_bwd(*args, ybar))):
+        ms = cuda_time(fn, 3)
+        fl, by, tc = work(op, N, K, n_edges, kind)
+        bnd = bound_ms(fl, by, tc)[0]
+        log(f"  {tag} {'B1' if kind == 'fwd' else 'B2'}: kernel {ms:.4f} ms, bound {bnd:.4f} ms "
+            f"({ms / bnd:.1f}x; fp32 {bound_ms(fl, by)[0]:.4f} ms) | {card}")
+    del x, ybar, args
+    torch.cuda.empty_cache()
+
+
 def mf_ompa_kernel_phase(spec, params, dev):
     """B1, B2, B2' (both passes) and the B2' reduction alone at each of
     SevenNet-MF-ompa's five layer shapes: against their plain versions
@@ -2352,6 +2431,9 @@ def mf_ompa_phase(dev, seed: int):
     t0 = time.perf_counter()
     records = mf_ompa_kernel_phase(spec, params, dev)
     log(f"mf-ompa kernel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide4_check(dev, seed)
+    log(f"wide4 (4-CTA cluster) check: {time.perf_counter() - t0:.1f} s")
     launches, energies = None, {}
     for modal in MF_MODALITIES:
         cfg_m, params_m = select_modality(cfg, params, modal)
@@ -2563,6 +2645,7 @@ def ensemble_phase(spec, params, dev, seed: int, card: str):
         for side in ("kernel", "plain") if name in ENS_PLAIN else ("kernel",):
             eng = engines[side]
             evals = record_evaluations(eng)
+            r0 = eng.n_rebuilds
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
@@ -2586,7 +2669,8 @@ def ensemble_phase(spec, params, dev, seed: int, card: str):
             line = (f"{name} 3,000 atoms, {ENS_STEPS} steps of {MD_DT} fs {kw}: {ms:.1f} ms/step "
                     f"(host clock; NVE {runs[('nve', 'kernel')][3]:.1f}), PE {pe[0]:.6f} -> "
                     f"{pe[-1]:.6f} eV, T {float(st.temperature()):.1f} K, volume rel change "
-                    f"{(v1 - v0) / v0:.3e}, {len(evals)} force evaluations, launches "
+                    f"{(v1 - v0) / v0:.3e}, {len(evals)} force evaluations, "
+                    f"{eng.n_rebuilds - r0} device rebuilds, launches "
                     f"{want['fwd']} B1 + {want['bwd']} B2")
             if name == "npt":
                 h = [float(npt_conserved_quantity(x, **kw)) for x in (start[side], st)]
@@ -2612,6 +2696,61 @@ def ensemble_phase(spec, params, dev, seed: int, card: str):
     cell0 = start["kernel"].cell
     dcell = float(((runs[("npt", "kernel")][0].cell - cell0).abs().max() / cell0.abs().max()))
     log(f"  npt cell moved {dcell:.3e} relative over {ENS_STEPS} steps")
+    got = compress_check(spec, params, dev, seed, card)
+    return {k: total[k] + got[k] for k in total}
+
+
+def compress_check(spec, params, dev, seed: int, card: str):
+    """A box that NPT compresses (``npt_berendsen`` at COMPRESS_KW toward
+    COMPRESS_DP above its pressure at the start, 3,000 atoms, one MD_DT step
+    a call) past its cell grid's slack: the pairs
+    within the cutoff without a slot (:func:`missing_pairs`) must be 0 after
+    every step, and the grid re-derived at least once, the run going on to
+    COMPRESS_AFTER steps past it (at most COMPRESS_STEPS); 5 B1 + 5 B2 per
+    force evaluation. Returns the launches."""
+    import torch
+
+    from sevennet_tpu_torch.md import MDEngine
+
+    pos, Z, cell = water_box(1000)
+    eng = MDEngine(spec, params, cell, device=str(dev))
+    st = eng.make_state(pos, Z, temperature=MD_T, seed=seed)
+    grid0, edge0 = eng.cl_spec.n_cells, float(st.cell[0, 0])
+    kw = dict(COMPRESS_KW, pressure=float(st.pressure()) + COMPRESS_DP)
+    evals = record_evaluations(eng)
+    total = dict.fromkeys(counters(), 0)
+    first, bad, t_run = None, [], 0.0
+    for step in range(1, COMPRESS_STEPS + 1):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        st, _ = eng.run(st, 1, dt=MD_DT, chunk=1, **kw)
+        torch.cuda.synchronize()
+        t_run += time.perf_counter() - t0
+        got = read_launches()
+        total = {k: total[k] + got[k] for k in total}
+        n_miss = missing_pairs(eng, st)
+        if n_miss:
+            bad.append((step, n_miss))
+        if first is None and eng.n_regrids:
+            first = step
+        if first is not None and step >= first + COMPRESS_AFTER:
+            break
+    del eng._forces  # undo record_evaluations
+    want = dict(dict.fromkeys(total, 0), fwd=5 * len(evals), bwd=5 * len(evals))
+    log(f"  compressing npt_berendsen 3,000 atoms {kw}, {step} steps of {MD_DT} fs: box "
+        f"edge {float(st.cell[0, 0]) / edge0:.4f} of its start, grid {grid0} -> "
+        f"{eng.cl_spec.n_cells} (re-derived {eng.n_regrids} times, first at step {first}), "
+        f"{eng.n_rebuilds} device rebuilds, {eng.n_growths} growths, {len(evals)} force "
+        f"evaluations, {t_run / step * 1e3:.1f} ms/step (host clock); pairs within the cutoff "
+        f"without a slot after any step: {bad or 0} | {card}")
+    if bad:
+        raise SystemExit(f"compressing npt: pairs within the cutoff without a slot {bad}")
+    if first is None:
+        raise SystemExit(f"compressing npt: the grid {grid0} was never re-derived in "
+                         f"{COMPRESS_STEPS} steps")
+    if total != want:
+        raise SystemExit(f"compressing npt: launches {total}, expected {want}")
     return total
 
 
@@ -2840,6 +2979,7 @@ def d3_md(spec, params, dev, seed: int, card: str):
     total = dict(counts)
     # npt with D3: the D3 virial reaches the barostat
     evals = record_evaluations(eng)
+    r0 = eng.n_rebuilds
     reset_launches()
     t0 = time.perf_counter()
     end, (pe, ke) = eng.run(st, D3_NPT_STEPS, dt=MD_DT, chunk=D3_NPT_STEPS, integrator="npt",
@@ -2852,7 +2992,7 @@ def d3_md(spec, params, dev, seed: int, card: str):
     log(f"  D3 npt {D3_NPT_STEPS} steps {ENSEMBLES['npt']}: {ms:.1f} ms/step (host clock), "
         f"volume rel change {(v1 - v0) / v0:.3e}, PE {float(pe[0]):.6f} -> {float(pe[-1]):.6f} "
         f"eV, pressure {float(end.pressure()):.3e} eV/A^3; {len(evals)} force evaluations, "
-        f"launches {counts} | {card}")
+        f"{eng.n_rebuilds - r0} device rebuilds, launches {counts} | {card}")
     if counts != dict(dict.fromkeys(counts, 0), fwd=5 * len(evals), bwd=5 * len(evals)):
         raise SystemExit(f"D3 npt: launches {counts}")
     if not (v1 != v0 and np.isfinite(v1) and bool(torch.isfinite(pe).all())
@@ -3259,9 +3399,10 @@ FILL_THREADS_PER_SM = 16 * 1024  # threads the FMA probes' fill copies give each
 
 
 def sass_counts(so):
-    """fp32 instructions (FFMA, FADD, FMUL) and tensor-core ones (HMMA:
-    mma.sync, HGMMA: wgmma) of every kernel in library ``so``, and the
-    FFMAs that read an operand from
+    """fp32 instructions (FFMA, FADD, FMUL), tensor-core ones (HMMA:
+    mma.sync, HGMMA: wgmma) and shared-memory stores and loads (STS, LDS, of
+    any width) of every kernel in library ``so``, and the FFMAs that read an
+    operand from
     the reuse cache (a ``.reuse`` flag on the FFMA before: one register read
     fewer), from ``cuobjdump -sass``; None where the toolkit has no
     cuobjdump."""
@@ -3279,11 +3420,12 @@ def sass_counts(so):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = dict(FFMA=0, FADD=0, FMUL=0, HMMA=0, HGMMA=0, reuse=0)
+            counts[fn] = dict(FFMA=0, FADD=0, FMUL=0, HMMA=0, HGMMA=0, STS=0, LDS=0, reuse=0)
             reuse = False
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
-        if m and fn is not None and m.group(1) in ("FFMA", "FADD", "FMUL", "HMMA", "HGMMA"):
+        if m and fn is not None and m.group(1) in ("FFMA", "FADD", "FMUL", "HMMA", "HGMMA",
+                                                     "STS", "LDS"):
             counts[fn][m.group(1)] += 1
             counts[fn]["reuse"] += m.group(1) == "FFMA" and reuse
             reuse = m.group(1) == "FFMA" and ".reuse" in ln
@@ -3636,6 +3778,30 @@ def fold_time(fx, fm, out_f, errs, card):
     return recs
 
 
+# a round-trip thread's shared stores and loads at pad 0
+# (csrc/probe_xpose.cu:probe_xpose_rt_kernel): the first transpose 4 float4
+# stores by rows and 16 loads by columns, the second 16 stores and 16 loads
+XPOSE_RT_SASS = dict(STS=4 + 16, LDS=16 + 16)
+
+
+def xpose_sass(so):
+    """The pad-0 round trip's SASS counts (``sass_counts``): both instances
+    of probe_xpose_rt_kernel (16-byte and 4-byte global accesses) keep the
+    shared-memory stores and loads of two transposes (at least
+    XPOSE_RT_SASS), so that neither the compiler nor the design has made the
+    round trip a copy. Raises SystemExit otherwise, or without cuobjdump."""
+    counts = sass_counts(so)
+    if counts is None:
+        raise SystemExit("cuobjdump not found: the transpose kernels' SASS cannot be checked")
+    rt = {fn: c for fn, c in counts.items() if "probe_xpose_rt_kernel" in fn}
+    for fn, c in rt.items():
+        log(f"  sass {fn}: STS {c['STS']}, LDS {c['LDS']} (two transposes: at least "
+            f"{XPOSE_RT_SASS})")
+    if len(rt) != 2 or not all(c[k] >= v for c in rt.values() for k, v in XPOSE_RT_SASS.items()):
+        raise SystemExit(f"probe_xpose_rt_kernel's SASS: {rt}, expected two instances with at "
+                         f"least {XPOSE_RT_SASS} shared stores and loads")
+
+
 def fold_sass(so):
     """The mxu fold kernels' SASS counts (``sass_counts``): every instance
     of probe_fold_mma_kernel (2 and 3 pieces, with and without paired
@@ -3687,12 +3853,19 @@ def fold_probe(dev, card: str, so) -> None:
     fold_time(fx, fm, out_f, errs, card)
 
 
+# the transposes' ragged inputs (shape, offset in floats): a tile row and
+# column cut short, the pad-0 round trip's 4-byte path (C % 4 != 0, and a
+# pointer off the 16-byte grid) and its 16-byte path with a partial block
+XPOSE_RAGGED = (((70, 45), 0), ((33, 132), 1), ((40, 132), 0))
+
+
 def reduce_fold_xpose_phase(dev, card: str):
     """The K-reduction, transpose and fold probes (``probes/reduce.py``,
     ``probes/xpose.py``, ``probes/fold.py``, ``probes/fold_conv.py``). First
     each kernel and variant against its plain version at every shape of its
     TPU script (sums within 1e-5 of max |plain|, the conv fold 1e-4, the
-    streamed transposes bitwise, the carried one 1e-6; kreduce also on an
+    streamed transposes bitwise, the carried one 1e-6; the transposes also at
+    XPOSE_RAGGED, every mode and variant; kreduce also on an
     input whose carry crosses CTAs; the fold's mxu variants printed against
     roll as the script prints them; the conv fold against B4 fwd on the same
     x[src], 1e-4 of max |B4|; launches not counted), then the probe path
@@ -3750,6 +3923,17 @@ def reduce_fold_xpose_phase(dev, card: str):
                               xp.transpose_carry(a, s_chk, v),
                               xp.transpose_carry(a, s_chk, v, plain=True), xp.CARRY_TOL)
             errs[("transpose", v)] = max(errs.get(("transpose", v), 0.0), err)
+    for shape, off in XPOSE_RAGGED:
+        a = rnd(shape[0] * shape[1] + off)[off:].view(*shape)  # off: not 16-byte aligned
+        for v in xp.VARIANTS:
+            tag = f"probe transpose {v} {shape}{' at a 4-byte offset' if off else ''}"
+            errs[("transpose", v)] = max(errs[("transpose", v)], check_close(
+                tag, "out", xp.transpose_carry(a, s_chk, v),
+                xp.transpose_carry(a, s_chk, v, plain=True), xp.CARRY_TOL))
+            for key, fn in (("xpose", xp.xpose), ("xpose2", xp.xpose2)):
+                o = torch.full(fn(a, v, plain=True).shape, float("nan"), device=dev)
+                check_equal(f"probe {key} {v} {shape}{' at a 4-byte offset' if off else ''}",
+                            fn(a, v, out=o), fn(a, v, plain=True))
     xs = rnd(*xp.STREAM_SHAPE, scale=0.3)
     out_t = torch.empty(xs.shape[1], xs.shape[0], device=dev)
     out_s = torch.empty_like(xs)
@@ -4672,6 +4856,7 @@ def main() -> int:
             log(f"  sass {fn}: {c}")
     reduce_sass(libs["pg_reduce"])
     fold_sass(libs["probe_fold"])
+    xpose_sass(libs["probe_xpose"])
 
     spec = sevennet0_spec()
     params = params_from_numpy(spec, random_params(spec, args.seed))

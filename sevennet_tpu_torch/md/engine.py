@@ -16,7 +16,7 @@ integrates. Capacities are fixed; a rebuild that overflows one (or breaks
 the ring backward's window) raises a flag, and :meth:`MDEngine.run`
 retries the chunk of steps from its snapshot with grown capacities. The
 JAX package compiles each chunk into one ``lax.scan``; here the steps are
-a Python loop (CUDA graphs are a later lever, ROADMAP performance lever 7).
+a Python loop (CUDA graphs wait on a trace: ROADMAP, tracing gap 2).
 The JAX engine tests half the skin before each step and flags only cut
 edges within the cutoff, so it misses a cut pair that closes in.
 
@@ -31,16 +31,23 @@ in emb/sh mode, as in the JAX engine), the conv runs its chunked scatter
 backward.
 
 The port's engine always runs the dense fused conv (the JAX package's
-``dense=True, fused=True``). The NPT integrators scale the cell every step:
-the rebuild, the slot truncation and the graph read the state's cell, and a
-cell that shrinks below the grid's cell size flags an overflow.
+``dense=True, fused=True``). The NPT integrators scale the cell, the
+positions and the build's reference positions every step: the rebuild, the
+slot truncation and the graph read the state's cell, and the skin test's
+limit narrows by the cell's scale since the build (``MDState.nl_cell``,
+:func:`~.neighbor.shrink_limit`: a pair at distance d closes by (1 - s) d
+on top of the tested motion). A build at which a grid cell is lower than
+its list's reach (a box that shrank past the grid's slack) raises
+``grid_small``, and :meth:`MDEngine.run` re-derives the grid for that cell
+and retries the chunk; capacity growth stays for capacity overflow.
 
 D3 dispersion (``d3=``) adds :func:`~sevennet_tpu_torch.d3.d3_compute` over
 a second dense slot grid at the D3 cutoff (bounded by the box), rebuilt on
 the device with the model's and grown with it. Its grid usually has one
-cell (the cutoff is clamped to the box height less the skin); the skin test
-then also holds to the skin that the grid still covers when NPT shrinks
-the box.
+cell (the cutoff is clamped to the box height less the skin); its list
+reaches the D3 cutoff plus the smaller of the skin and the grid's cover at
+the build, and the skin test holds to that margin too, narrowed by the
+shrink with the D3 cutoff.
 """
 
 from __future__ import annotations
@@ -60,16 +67,16 @@ from ..model.model import _vec_mode, model_compute, params_to
 from ..ops.fused_conv import chunk_threshold, mirror_map, mirror_map_numpy
 from .integrators import (berendsen_npt_step, langevin_step, mtk_npt_step, nose_hoover_step,
                           nve_step)
-from .neighbor import (CellListSpec, build_cell_list_spec, cell_coords, rebuild_neighbors,
-                       skin_limit)
+from .neighbor import (CellListSpec, build_cell_list_spec, cell_coords, grid_cells,
+                       rebuild_neighbors, shrink_limit, skin_limit)
 from .state import ATOMIC_MASSES, MDState, init_md_state, thermal_velocities
 
 __all__ = ["MDEngine", "INTEGRATORS"]
 
 # the fields of a state that a slot rebuild sets
 _REBUILT = ("positions", "nl_positions", "edge_src", "edge_dst", "edge_shift", "edge_mask",
-            "edge_mir", "nl_limit", "nl_overflow", "ring_overflow", "d3_edge_src",
-            "d3_edge_dst", "d3_edge_shift", "d3_edge_mask")
+            "edge_mir", "nl_limit", "nl_cell", "nl_overflow", "ring_overflow", "grid_small",
+            "d3_edge_src", "d3_edge_dst", "d3_edge_shift", "d3_edge_mask")
 
 _NPT = ("npt", "npt_mtk", "npt_nose_hoover", "npt_berendsen")
 INTEGRATORS = ("nve", "langevin", "nose_hoover", "nvt") + _NPT
@@ -125,9 +132,11 @@ class MDEngine:
         self._ring_margin = 1.15  # slack over the measured window
         self.n_rebuilds = 0  # device rebuilds so far
         self.n_growths = 0  # capacity growths so far
+        self.n_regrids = 0  # grids re-derived for a shrunk box so far
         self.d3_params = None
         self.d3_cl_spec: Optional[CellListSpec] = None
-        self._skin_cell, self._skin_sq = None, None  # cell -> (skin / 2)^2 of the D3 grid
+        # a build's cell -> the square of half the D3 list's margin there
+        self._skin_cell, self._skin_sq = None, None
         if d3:
             from ..d3 import D3Params, bounded_cutoff
 
@@ -222,14 +231,15 @@ class MDEngine:
                 atom_index=self._put(idx, torch.int64),
             )
             if self.d3_params is not None:  # the initial D3 grid, built on the device
-                state = state.replace(**self._rebuild_d3(state, state.nl_overflow))
+                state = state.replace(**self._rebuild_d3(state))
         else:
             state = self._rebuild(state)
         for _ in range(3):
-            ofl_nl, ofl_ring = bool(state.nl_overflow), bool(state.ring_overflow)
-            if not (ofl_nl or ofl_ring):
+            ofl_nl, ofl_ring, small = self._flags(state)
+            if not (ofl_nl or ofl_ring or small):
                 break
-            state = self._grow_capacities(state, ring_only=ofl_ring and not ofl_nl)
+            state = (self._regrid(state, state.cell) if small
+                     else self._grow_capacities(state, ring_only=ofl_ring and not ofl_nl))
         if not compute_forces:
             return state
         forces, energy, stress = self._forces(state, compute_stress=True)
@@ -256,28 +266,36 @@ class MDEngine:
         n_cells = torch.tensor(self.d3_cl_spec.n_cells, device=cell.device)
         return (self._heights(cell) / n_cells).min() - self.d3_params.cutoff
 
-    def _rebuild_d3(self, state: MDState, overflow: torch.Tensor) -> dict:
+    def _rebuild_d3(self, state: MDState) -> dict:
         """The D3 slot grid of ``state``'s positions and cell on the device,
-        and ``nl_overflow``: ``overflow`` or'ed with the grid's capacity
-        overflow and with a box whose grid cells are lower than the D3
-        cutoff (``too_small``: a pair within the cutoff could be missed)."""
+        ``nl_overflow`` or'ed with the grid's capacity overflow and
+        ``grid_small`` with a box whose grid cells are lower than the D3
+        cutoff (a pair within the cutoff could be missed)."""
         src, dst, shift, mask, ofl, _ = rebuild_neighbors(
             self.d3_cl_spec, state.positions, state.cell, state.atom_mask)
         too_small = self._d3_cover(state.cell) < 0
         return dict(d3_edge_src=src, d3_edge_dst=dst, d3_edge_shift=shift, d3_edge_mask=mask,
-                    nl_overflow=overflow | ofl | too_small)
+                    nl_overflow=state.nl_overflow | ofl, grid_small=state.grid_small | too_small)
 
     def _skin_half_sq(self, state: MDState):
         """The rebuild test's limit on the squared displacement: the state's
         ``nl_limit``, with D3 also no more than the square of half the D3
-        grid's cover (``_d3_cover``, at most the skin), which a shrinking
-        NPT box narrows; computed on the device when the cell changes."""
-        if self.d3_params is None:
-            return state.nl_limit
-        if state.cell is not self._skin_cell:
-            cover = torch.clamp(self._d3_cover(state.cell), min=0.0, max=self.skin)
-            self._skin_cell, self._skin_sq = state.cell, (cover / 2.0) ** 2
-        return torch.minimum(state.nl_limit, self._skin_sq)
+        list's margin (the smaller of the skin and the D3 grid's cover at the
+        build, ``_d3_cover``); where the cell has shrunk since the build (NPT,
+        scale s = (V / V_build)^(1/3)), each narrowed by
+        :func:`~.neighbor.shrink_limit` with its cutoff. On the device."""
+        limit, d3_sq = state.nl_limit, None
+        if self.d3_params is not None:
+            if state.nl_cell is not self._skin_cell:
+                cover = torch.clamp(self._d3_cover(state.nl_cell), min=0.0, max=self.skin)
+                self._skin_cell, self._skin_sq = state.nl_cell, (cover / 2.0) ** 2
+            d3_sq = self._skin_sq
+        if state.cell is not state.nl_cell:
+            scale = (state.volume() / torch.abs(torch.linalg.det(state.nl_cell))) ** (1.0 / 3.0)
+            limit = shrink_limit(limit, scale, self.spec.cutoff)
+            if d3_sq is not None:
+                d3_sq = shrink_limit(d3_sq, scale, self.d3_params.cutoff)
+        return limit if d3_sq is None else torch.minimum(limit, d3_sq)
 
     def _moved(self, state: MDState) -> bool:
         """Whether an atom has moved past the limit since the last slot
@@ -433,10 +451,11 @@ class MDEngine:
         state = state.replace(
             positions=pos_w, nl_positions=pos_w, edge_src=src, edge_dst=dst,
             edge_shift=shift, edge_mask=mask, edge_mir=mir.reshape(-1), nl_limit=limit,
-            nl_overflow=state.nl_overflow | overflow | too_small,
-            ring_overflow=state.ring_overflow | ring_bad)
+            nl_cell=state.cell, nl_overflow=state.nl_overflow | overflow,
+            ring_overflow=state.ring_overflow | ring_bad,
+            grid_small=state.grid_small | too_small)
         if self.d3_params is not None:
-            state = state.replace(**self._rebuild_d3(state, state.nl_overflow))
+            state = state.replace(**self._rebuild_d3(state))
         return state
 
     def _sort_state(self, state: MDState) -> MDState:
@@ -546,8 +565,8 @@ class MDEngine:
         first), its forces on slots rebuilt at the positions where it
         evaluates them: every step's positions are a function of the state
         before it, so the rebuild sees the positions the forces see. Stops
-        early once a rebuild overflows (the caller retries from its
-        snapshot)."""
+        early once a rebuild overflows or finds its grid too fine (the caller
+        retries from its snapshot)."""
 
         built = []
 
@@ -570,7 +589,7 @@ class MDEngine:
                 built.clear()
                 state = step(state, rebuilt)
                 state = state.replace(**{f: getattr(built[0], f) for f in _REBUILT})
-                if bool(state.nl_overflow | state.ring_overflow):
+                if bool(state.nl_overflow | state.ring_overflow | state.grid_small):
                     break
             pe.append(state.potential_energy)
             ke.append(state.kinetic_energy())
@@ -588,7 +607,10 @@ class MDEngine:
         ``pressure`` 0 eV/A^3, ``tau_t`` 100 fs, ``tau_p`` 1000 fs);
         ``npt_berendsen`` (the same and ``compressibility`` 4.6e-5 1/bar).
         A chunk whose rebuild overflows is retried from its snapshot with
-        grown capacities, up to 3 times (Langevin redraws the same noise).
+        grown capacities, up to 3 times (Langevin redraws the same noise);
+        one whose rebuild found a grid cell lower than its list's reach (an
+        NPT box that shrank) is retried on a grid re-derived for that cell,
+        which uses none of the 3.
         ``traj_path`` appends an extxyz frame every ``traj_every`` steps
         (rounded to chunk ends; default: every chunk), atoms in the input
         order."""
@@ -600,22 +622,23 @@ class MDEngine:
         if traj_path:
             self._dump_frame(state, traj_path, append=False)
         for length in [chunk] * (n_steps // chunk) + ([n_steps % chunk] if n_steps % chunk else []):
-            for _ in range(4):
+            growths = 0
+            while True:
                 prev = state
                 state, pe, ke = self._run_chunk(state, length, step, forces_fn)
-                ofl_nl, ofl_ring = bool(state.nl_overflow), bool(state.ring_overflow)
-                if not (ofl_nl or ofl_ring):
+                ofl_nl, ofl_ring, small = self._flags(state)
+                if not (ofl_nl or ofl_ring or small):
                     break
-                if self.d3_params is not None and float(self._d3_cover(state.cell)) < 0:
+                if small:  # the grid follows the cell; finitely often: it only coarsens
+                    state = self._regrid(prev, state.cell)
+                    continue
+                if growths == 3:
                     raise RuntimeError(
-                        f"the box shrank below the D3 cutoff {self.d3_params.cutoff:.4f} A "
-                        "(one periodic image a side); give MDEngine a smaller d3 'cutoff'")
+                        "neighbor-list capacity overflow persisted after 3 automatic growth "
+                        "attempts: the system is likely collapsing (check the potential and "
+                        "the timestep)")
+                growths += 1
                 state = self._grow_capacities(prev, ring_only=ofl_ring and not ofl_nl)
-            else:
-                raise RuntimeError(
-                    "neighbor-list capacity overflow persisted after 3 automatic growth "
-                    "attempts: the system is likely collapsing (check the potential and "
-                    "the timestep)")
             traj_pe += pe
             traj_ke += ke
             steps_done += length
@@ -624,13 +647,62 @@ class MDEngine:
                 next_dump += traj_every
         return state, (torch.stack(traj_pe), torch.stack(traj_ke))
 
+    @staticmethod
+    def _flags(state: MDState):
+        """``(nl_overflow, ring_overflow, grid_small)`` (one host read)."""
+        return [bool(f) for f in torch.stack(
+            [state.nl_overflow, state.ring_overflow, state.grid_small]).tolist()]
+
+    def _regrid(self, state: MDState, cell: torch.Tensor) -> MDState:
+        """The grids re-derived for ``cell``, a cell at which a build found a
+        grid cell lower than its list's reach (an NPT box that shrank past
+        the grid's slack), by :func:`~.neighbor.build_cell_list_spec`'s rule:
+        the model's at cutoff + skin, the D3 grid's where its cells fell below
+        the D3 cutoff. The capacities that grew are kept, a grid's cell
+        capacity scaled to its larger cells, and with the ring the measured
+        window to the thicker x-layers of cells; then the state re-created
+        from the snapshot ``state`` (:meth:`_recreate`). Raises RuntimeError
+        where no grid can follow: a lattice height below cutoff + skin, or
+        below the D3 cutoff with one D3 grid cell."""
+        c = cell.detach().cpu().double().numpy()
+        heights = 1.0 / np.linalg.norm(np.linalg.inv(c).T, axis=1)
+        if (heights < self.cl_spec.cutoff).any():
+            raise RuntimeError(
+                f"the box shrank below cutoff + skin {self.cl_spec.cutoff:.4f} A (lattice heights "
+                f"{np.round(heights, 4).tolist()} A; one periodic image a side)")
+
+        def regridded(spec: CellListSpec, n_cells) -> CellListSpec:
+            ratio = np.prod(spec.n_cells) / np.prod(n_cells)
+            return dataclasses.replace(spec, n_cells=n_cells, cell_capacity=int(
+                np.ceil((spec.cell_capacity - 2) * ratio)) + 2)
+
+        changed = False
+        n_cells = grid_cells(c, self.cl_spec.cutoff)
+        if n_cells != self.cl_spec.n_cells:
+            if self._ring_window:
+                self._ring_window = int(np.ceil(self._ring_window * self.cl_spec.n_cells[0]
+                                                / n_cells[0]))
+            self.cl_spec, changed = regridded(self.cl_spec, n_cells), True
+        if self.d3_params is not None and (
+                heights / np.array(self.d3_cl_spec.n_cells)).min() < self.d3_params.cutoff:
+            n_cells = grid_cells(c, self.d3_cl_spec.cutoff)
+            if (heights / np.array(n_cells)).min() < self.d3_params.cutoff:
+                raise RuntimeError(
+                    f"the box shrank below the D3 cutoff {self.d3_params.cutoff:.4f} A "
+                    "(one periodic image a side); give MDEngine a smaller d3 'cutoff'")
+            self.d3_cl_spec, changed = regridded(self.d3_cl_spec, n_cells), True
+        if not changed:
+            raise RuntimeError(f"a build found a grid cell lower than its reach, but the grids "
+                               f"{self.cl_spec.n_cells} fit the cell {c.tolist()}")
+        self.n_regrids += 1
+        return self._recreate(state)
+
     def _grow_capacities(self, state: MDState, factor: float = 1.35,
                          ring_only: bool = False) -> MDState:
         """Capacities (cell occupancy, neighbour slots, conv slot width, the
         D3 grid's) ``factor`` larger, or with ``ring_only`` just the ring's window
-        margin; the state re-created from the snapshot ``state`` (positions,
-        velocities, identity, step), rebuilt on the device, forces
-        evaluated. The thermostat, barostat and noise seed carry over."""
+        margin; the state re-created from the snapshot ``state``
+        (:meth:`_recreate`)."""
         self.n_growths += 1
         if not ring_only:
             up8 = lambda v: -(-int(np.ceil(v)) // 8) * 8  # noqa: E731
@@ -646,6 +718,13 @@ class MDEngine:
                     cell_capacity=int(np.ceil(spec3.cell_capacity * factor)) + 2)
         else:
             self._ring_margin *= factor
+        return self._recreate(state)
+
+    def _recreate(self, state: MDState) -> MDState:
+        """The state re-created at the engine's capacities and grids from the
+        snapshot ``state`` (positions, velocities, identity, step), rebuilt
+        on the device, forces evaluated. The thermostat, barostat and noise
+        seed carry over."""
         n_real = int(state.atom_mask.sum())
         n_cap = self._size_ring(n_real)
         new = init_md_state(

@@ -29,7 +29,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["CellListSpec", "build_cell_list_spec", "rebuild_neighbors", "skin_limit"]
+__all__ = ["CellListSpec", "build_cell_list_spec", "grid_cells", "rebuild_neighbors",
+           "shrink_limit", "skin_limit"]
 
 
 @dataclass(frozen=True)
@@ -56,9 +57,8 @@ def build_cell_list_spec(
     """Host-side: choose static grid dims and capacities."""
     cell = np.asarray(cell, dtype=np.float64).reshape(3, 3)
     rc = cutoff + skin
-    recip = np.linalg.inv(cell).T
-    heights = 1.0 / np.linalg.norm(recip, axis=1)
-    n_cells = np.maximum(np.floor(heights / rc).astype(int), 1)
+    heights = 1.0 / np.linalg.norm(np.linalg.inv(cell).T, axis=1)
+    n_cells = np.asarray(grid_cells(cell, rc))
     if (heights < rc).any():
         raise ValueError(
             f"lattice heights {heights} smaller than cutoff+skin {rc}; "
@@ -80,6 +80,14 @@ def build_cell_list_spec(
     )
 
 
+def grid_cells(cell: np.ndarray, reach: float) -> Tuple[int, int, int]:
+    """Grid cells along each lattice vector of ``cell``: as many as keep a
+    grid cell's height (the lattice height over the count) at least
+    ``reach``, at least one."""
+    heights = 1.0 / np.linalg.norm(np.linalg.inv(np.asarray(cell, np.float64)).T, axis=1)
+    return tuple(int(n) for n in np.maximum(np.floor(heights / reach).astype(int), 1))
+
+
 def cell_coords(spec: CellListSpec, positions: torch.Tensor, cell: torch.Tensor):
     """Wrapped fractional coordinates ``(N, 3)`` and integer grid cell of
     each atom ``(N, 3)``."""
@@ -99,6 +107,20 @@ def skin_limit(d2_drop: torch.Tensor, cutoff: float, skin: float) -> torch.Tenso
     beyond ``d_drop`` or the list to within the cutoff."""
     margin = torch.clamp(torch.sqrt(d2_drop) - cutoff, min=0.0, max=skin)
     return margin * margin / 4.0
+
+
+def shrink_limit(limit: torch.Tensor, scale: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """The skin test's limit ``limit`` (:func:`skin_limit`'s, of a list
+    complete to ``cutoff + m``, ``m = 2 sqrt(limit)``) once the cell has
+    been scaled isotropically by ``scale`` since the build, as the NPT
+    integrators scale it together with the positions and the build's
+    reference positions. A pair beyond the list then also closes by ``(1 -
+    scale) (cutoff + m)``, so the limit is ``(max(0, scale (cutoff + m) -
+    cutoff) / 2)^2``; ``limit`` itself where ``scale >= 1`` (the same bits:
+    NVE, NVT and a growing box test as before)."""
+    m = 2.0 * torch.sqrt(limit)
+    shrunk = torch.clamp(scale * (cutoff + m) - cutoff, min=0.0)
+    return torch.where(scale < 1.0, shrunk * shrunk / 4.0, limit)
 
 
 def rebuild_neighbors(spec: CellListSpec, positions, cell, atom_mask):

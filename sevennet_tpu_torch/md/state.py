@@ -66,10 +66,16 @@ class MDState:
     edge_mir: torch.Tensor  # (N*K,) int64 mirror slot of each slot
     nl_overflow: torch.Tensor  # () bool: a neighbour capacity was exceeded
     ring_overflow: torch.Tensor  # () bool: a mirror left the ring window
+    # () bool: at a build a grid cell was lower than its list's reach (an NPT
+    # box shrank past the grid's slack; the engine re-derives the grid)
+    grid_small: torch.Tensor
     # () the skin test's limit on an atom's squared displacement from
     # nl_positions: (min(skin, d_drop - cutoff) / 2)^2, d_drop the nearest
     # edge that the slot build cut (0 before the first build)
     nl_limit: torch.Tensor
+    # (3, 3) the cell at the last slot build: an NPT cell scaled since then
+    # narrows the limit (md/neighbor.py:shrink_limit)
+    nl_cell: torch.Tensor
     potential_energy: torch.Tensor  # ()
     stress: torch.Tensor  # (6,) eV/A^3 (zeros unless the engine computed it)
     # input index of each row (tracks identity under spatial sorting)
@@ -179,6 +185,7 @@ def init_md_state(
     zeros_i = torch.zeros(n_edges_cap, dtype=torch.int64, device=device)
     no = torch.zeros((), dtype=torch.bool, device=device)
     pos = f32(pad(np.asarray(positions, np.float64)))
+    cell_t = f32(cell)
     d3 = {}
     if d3_edges_cap:
         if atomic_numbers is None:
@@ -195,7 +202,7 @@ def init_md_state(
         forces=torch.zeros((cap, 3), dtype=torch.float32, device=device),
         species=torch.as_tensor(pad(np.asarray(species, np.int64)), device=device),
         masses=f32(pad(masses, fill=1.0)),
-        cell=f32(cell),
+        cell=cell_t,
         atom_mask=torch.as_tensor(mask, device=device),
         step=0,
         nl_positions=pos,
@@ -206,7 +213,9 @@ def init_md_state(
         edge_mir=zeros_i,
         nl_overflow=no,
         ring_overflow=no,
+        grid_small=no,
         nl_limit=torch.zeros((), dtype=torch.float32, device=device),
+        nl_cell=cell_t,
         potential_energy=torch.zeros((), dtype=torch.float32, device=device),
         stress=torch.zeros(6, dtype=torch.float32, device=device),
         atom_index=torch.arange(cap, dtype=torch.int64, device=device),

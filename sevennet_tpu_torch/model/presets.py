@@ -9,13 +9,20 @@ modalities, ``mpa`` and ``omat24``, appended as a one-hot to the self
 interactions and the readout, with a modal-wise energy shift. Give it
 ``chemical_species``; its weights come from a checkpoint or from
 :func:`~sevennet_tpu_torch.io.convert.random_params`.
+
+``WIDE4_LAYER`` is no published model but a layer shape for the fused-conv
+kernels: mf-ompa's widest parity irreps at twice their channels (x of
+2,560 columns) into ``128x0e``, its second conv layer the narrowest shape
+seen to need a thread-block cluster of 4 CTAs a receiver row (mf-ompa's
+layers 2-3 take 2). The tests and ``chip_smoke.py`` hold the 4-CTA
+kernels against plain at it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-__all__ = ["MF_OMPA"]
+__all__ = ["MF_OMPA", "WIDE4_LAYER"]
 
 MF_OMPA: Dict[str, Any] = {
     "cutoff": 6.0,
@@ -46,3 +53,9 @@ MF_OMPA: Dict[str, Any] = {
     "num_modalities": 2,
     "modal_map": {"mpa": 0, "omat24": 1},
 }
+
+WIDE4_LAYER: Dict[str, Any] = dict(
+    MF_OMPA,
+    irreps_manual=["128x0e", "256x0e+128x1o+128x1e+64x2o+64x2e+64x3o+64x3e", "128x0e"],
+    num_convolution_layer=2,
+)

@@ -412,7 +412,7 @@ H_NEXT, H_XW, H_MW, H_XMAP, H_NK = 10, 11, 19, 20, 21
 # the layer's place of an instruction's outputs in its record (a cluster's
 # ranks hold theirs one after another): first mid column, group channels
 UVU_GY, UVU_GUT = 57, 58
-CLUSTER_SIZES = (2, 4)  # CTAs of a cluster the planner tries, in turn
+CLUSTER_SIZES = (2, 4)  # CTAs of a cluster the planner tries, in turn (4: presets.WIDE4_LAYER)
 GMAP = 8          # W3 columns per entry of a cluster block's column map
 XMAP = 4          # x columns per entry of a rank's x column map
 

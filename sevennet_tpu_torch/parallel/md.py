@@ -32,9 +32,12 @@ engine, calls :meth:`DistributedMDEngine.make_state` with the whole system
   ghost set in a padded local frame. The slots keep each atom's
   ``k_model`` nearest neighbours, so the test's limit is half the smaller
   of the skin and ``d_drop - cutoff``, ``d_drop`` the nearest edge that any
-  rank cut (all-reduced at the rebuild): every pair within the cutoff then
-  holds a slot at every evaluation. The JAX engine tests half the skin
-  after the evaluation and misses a cut pair that closes in.
+  rank cut (all-reduced at the rebuild), narrowed by the cell's scale since
+  the build under ``npt`` (:func:`~sevennet_tpu_torch.md.neighbor.
+  shrink_limit`; with D3 also the D3 list's skin at the D3 cutoff): every
+  pair within the cutoff then holds a slot at every evaluation. The JAX
+  engine tests half the skin after the evaluation and misses a cut pair
+  that closes in.
 - Capacities are fixed (the ext conv's ``(NL, K)`` slot grid needs them):
   an exceeded one raises the overflow flag and :meth:`run` raises
   ``RuntimeError`` at the end of the chunk.
@@ -43,8 +46,10 @@ Integrators: ``nve``; ``nose_hoover``/``nvt`` (the chain on the all-reduced
 global kinetic energy, replicated on every rank); ``langevin`` (each
 rank's noise from a generator seeded by seed, rank and step); ``npt`` (the
 isotropic MTK piston on the all-reduced kinetic energy and virial, with
-``cell_scale`` and ``scale_budget``). Optional D3 dispersion runs a second
-local list at the D3 cutoff; ghost coordination numbers ride the exchange.
+``cell_scale`` and ``scale_budget``: the halos and cell lists are sized for
+the smallest scale of the budget, and a step whose scale falls below it
+raises before it evaluates). Optional D3 dispersion runs a second local
+list at the D3 cutoff; ghost coordination numbers ride the exchange.
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ import torch
 from ..data.neighborlist import neighbor_counts, neighbor_list_numpy
 from ..device import resolve_device
 from ..md.integrators import _chain_half, _nhc_baro_half, _sinhc
-from ..md.neighbor import CellListSpec, build_cell_list_spec, rebuild_neighbors, skin_limit
+from ..md.neighbor import (CellListSpec, build_cell_list_spec, rebuild_neighbors, shrink_limit,
+                           skin_limit)
 from ..md.state import ATOMIC_MASSES, EV_A_AMU_TO_A_FS2, KB_EV, thermal_velocities
 from ..model.build import ModelSpec
 from ..model.model import params_to
@@ -106,6 +112,7 @@ class DistMDState:
     thermo: torch.Tensor      # (2, 3) Nose-Hoover chain (replicated)
     baro: torch.Tensor        # (8,) MTK barostat [v_eps, xi(3), vxi(3), eps_log] (replicated)
     cell_scale: torch.Tensor  # () isotropic cell scale (physical cell = s * cell0)
+    nl_scale: torch.Tensor    # () cell_scale at the last build (the skin test's shrink)
     p_virial: torch.Tensor    # () virial pressure of the last evaluation
     potential_energy: torch.Tensor  # () global
     kinetic_energy: torch.Tensor    # () global
@@ -414,6 +421,7 @@ class DistributedMDEngine:
             thermo=torch.zeros((2, 3), dtype=f32, device=dev),
             baro=torch.zeros(8, dtype=f32, device=dev),
             cell_scale=torch.ones((), dtype=f32, device=dev),
+            nl_scale=torch.ones((), dtype=f32, device=dev),
             p_virial=zero, potential_energy=zero, kinetic_energy=zero,
             nl_overflow=torch.zeros((), dtype=torch.bool, device=dev),
             step=0, rng=int(seed),
@@ -531,7 +539,7 @@ class DistributedMDEngine:
         cell_s = self._cell_t * scale
         frac = state.positions @ self._inv_t / scale
         pos = (frac - torch.floor(frac)) @ cell_s
-        ofl = scale < self.s_min
+        ofl = torch.zeros((), dtype=torch.bool, device=self.device)
         # the forces travel with their atoms (the JAX engine leaves them in
         # the old row order, so a step after a migration kicks atoms with
         # other atoms' forces)
@@ -599,7 +607,7 @@ class DistributedMDEngine:
             send_hi=tuple(send_hi), send_hi_mask=tuple(mhi),
             ext_mask=ext_mask, ext_image=ext_image,
             edge_src=src, edge_shift=shift, edge_mask=emask, nl_positions=pos,
-            nl_limit=limit, nl_overflow=state.nl_overflow | ofl, **d3)
+            nl_limit=limit, nl_scale=scale, nl_overflow=state.nl_overflow | ofl, **d3)
 
     # ------------------------------------------------------------------
     # energy, forces, virial
@@ -678,15 +686,40 @@ class DistributedMDEngine:
     def _global_ke(self, state: DistMDState, v) -> torch.Tensor:
         return self.halo.all_reduce(self._local_ke(state, v)).float()
 
+    def _limit(self, state: DistMDState) -> torch.Tensor:
+        """The skin test's limit: ``nl_limit``, and with D3 at most the
+        square of half the skin (the D3 list, sized for the scale budget,
+        reaches the D3 cutoff + skin), each narrowed by the cell's scale
+        since the build (:func:`~sevennet_tpu_torch.md.neighbor.shrink_limit`,
+        s = cell_scale / nl_scale)."""
+        if state.cell_scale is state.nl_scale:
+            return state.nl_limit
+        scale = state.cell_scale / state.nl_scale
+        limit = shrink_limit(state.nl_limit, scale, self.spec.cutoff)
+        if self.d3_params is not None:
+            skin_sq = torch.full_like(limit, (self.skin / 2.0) ** 2)
+            limit = torch.minimum(limit, shrink_limit(skin_sq, scale,
+                                                      float(self.d3_params.cutoff)))
+        return limit
+
     def _fresh(self, state: DistMDState) -> DistMDState:
         """``state`` (at the positions where a step evaluates the forces,
         with the step's velocities), rebuilt when any rank's atom has moved
         past the limit since the last build: one all-reduce and one host
-        read. A rebuild migrates atoms, so the caller reads the velocities
+        read, which also carry whether the cell scale fell below the
+        ``scale_budget`` that sized the halos (then RuntimeError, on every
+        rank). A rebuild migrates atoms, so the caller reads the velocities
         and the mask back from the result."""
         disp = state.positions - state.nl_positions
-        moved = (torch.sum(disp * disp, -1) * state.atom_mask > state.nl_limit).any()
-        if bool(self.halo.all_reduce(moved.double(), op="max") > 0):
+        moved = (torch.sum(disp * disp, -1) * state.atom_mask > self._limit(state)).any()
+        flag = torch.maximum(moved.double(), 2.0 * (state.cell_scale < self.s_min).double())
+        flag = float(self.halo.all_reduce(flag, op="max"))
+        if flag >= 2.0:
+            raise RuntimeError(
+                f"the npt cell scale {float(state.cell_scale):.6f} fell below the engine's "
+                f"scale_budget {self.s_min:g}, for which the halos and cell lists were sized: "
+                "build the engine with a smaller scale_budget")
+        if flag > 0:
             state = self._rebuild(state)
         return state
 

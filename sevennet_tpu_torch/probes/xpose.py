@@ -10,9 +10,14 @@
   ``:114``): ``in.T.T``, a round trip through a transposed tile, ``(NK,
   dim_x)``.
 
-Each takes a variant (:data:`VARIANTS`): ``pad0``, the tile's rows 32
-floats apart (its column reads hit one bank, a 32-way conflict), or
-``pad1``, 33 apart (conflict-free). The wrappers launch the kernel on CUDA
+Each takes a variant (:data:`VARIANTS`), a layout of the shared-memory
+tile, both free of bank conflicts in its row writes and column reads:
+``pad0``, the tile unpadded (rows 32 floats apart) with element ``(r, c)``
+at column ``c ^ r`` (a 4-byte XOR swizzle), or ``pad1``, rows 33 floats
+apart. The round trip at ``pad0`` is a kernel of its own
+(``probe_xpose_rt_kernel``): four tiles a CTA, 16-byte global accesses
+where the width and the pointers allow, and both transposes still through
+shared memory. The wrappers launch the kernel on CUDA
 tensors and raise on CPU tensors unless ``plain=True`` (the plain version,
 on any device); each counts its launches in ``.launches`` and, per variant,
 in ``.by_variant``. A transpose copies bits: :func:`xpose` and

@@ -24,7 +24,7 @@ from sevennet_tpu_torch.data.neighborlist import neighbor_list_numpy
 from sevennet_tpu_torch.io.convert import params_from_numpy, random_params
 from sevennet_tpu_torch.irreps import Irreps, infer_irreps_out
 from sevennet_tpu_torch.model.build import build_model_spec
-from sevennet_tpu_torch.model.presets import MF_OMPA
+from sevennet_tpu_torch.model.presets import MF_OMPA, WIDE4_LAYER
 from sevennet_tpu_torch.ops import fused_conv as fc
 from sevennet_tpu_torch.ops.mlp import ScalarMLPSpec
 from sevennet_tpu_torch.ops.pallas_conv import dense_conv_pallas
@@ -482,7 +482,27 @@ def test_mf_ompa_layer_kernels_match_plain(cuda, t):
     embed = fc.EdgeEmbedSpec(8, 6.0, "XPLOR", 5.5, 3)
     op = _instances_match_plain(cuda, layer.conv, layer.radial_mlp, embed, 40, 9.0, 5 + t)
     assert op.plan.cluster == (1, 1, 2, 2, 1)[t]
-    rng = np.random.default_rng(t)
+    _b3_chunk_matches_plain(cuda, op, t)
+
+
+def test_wide4_layer_kernels_match_plain(cuda):
+    """WIDE4_LAYER's second layer (mf-ompa's parity irreps at twice the
+    channels, x of 2,560 columns), which runs on a cluster of 4 CTAs a
+    receiver row: every instance against its plain twin on 40 random atoms,
+    and B3 on a chunk of them."""
+    spec = build_model_spec(dict(WIDE4_LAYER, chemical_species=["H", "O"]))
+    layer = spec.layers[1]
+    embed = fc.EdgeEmbedSpec(8, 6.0, "XPLOR", 5.5, 3)
+    op = _instances_match_plain(cuda, layer.conv, layer.radial_mlp, embed, 40, 9.0, 11)
+    assert op.plan.cluster == 4
+    _b3_chunk_matches_plain(cuda, op, 4)
+
+
+def _b3_chunk_matches_plain(cuda, op, seed):
+    """B3 (B2 into a slot of a ring buffer) on an 8-row chunk of 40 random
+    atoms against its plain twin, 1e-5 of max |plain|, the other slots
+    untouched."""
+    rng = np.random.default_rng(seed)
     pos = rng.uniform(0.0, 9.0, (40, 3))
     dst, src, shift = neighbor_list_numpy(pos, 6.0)
     g = dense_graph_from_arrays(pos, np.zeros(40), src, dst, shift, device=cuda)
@@ -771,13 +791,16 @@ def test_probe_reduce_matches_plain(cuda):
 def test_probe_xpose_matches_plain(cuda, variant):
     """The transposes at ragged shapes and at the streamed width 480: the
     carried form (r2_pallas_mm's transpose) within xpose.CARRY_TOL, xpose and
-    the round trip (r5_xpose_probe's xpose, xpose2) bitwise."""
+    the round trip (r5_xpose_probe's xpose, xpose2) bitwise. The pad-0 round
+    trip takes 4-byte accesses at a width off the 4-float grid and at an
+    input 4 bytes off the 16-byte grid, 16-byte ones at the others."""
     from sevennet_tpu_torch.probes import xpose as xp
 
     rng = np.random.default_rng(14)
     s = torch.full((1, 1), 1e-3, device=cuda)
-    for r, c in ((70, 45), (96, 480)):
-        a = torch.tensor(rng.normal(size=(r, c)), dtype=torch.float32, device=cuda)
+    for (r, c), off in (((70, 45), 0), ((96, 480), 0), ((33, 132), 1), ((40, 132), 0)):
+        flat = torch.tensor(rng.normal(size=r * c + off), dtype=torch.float32, device=cuda)
+        a = flat[off:].view(r, c)
         n0 = xp.transpose_carry.by_variant[variant]
         got = xp.transpose_carry(a, s, variant)
         torch.cuda.synchronize()

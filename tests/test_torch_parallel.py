@@ -27,6 +27,12 @@ one of 4 run every job of their size; the tests read the jobs' results.
   (itself held against JAX by tests/test_torch_integrators.py and
   tests/test_torch_md_d3.py), at the same limits, and the stress of
   ``compute_stress`` within 1e-4 of max |stress|.
+- The skin test under ``npt`` on one rank in this process: the limit
+  narrows by the cell's scale since the build to ``(max(0, s (cutoff + m) -
+  cutoff) / 2)^2`` (float64 host formula, 1e-5 relative; the limit's bits
+  at s = 1), a displacement between the two limits rebuilds only in the
+  shrunk cell, and a scale below ``scale_budget`` raises before the step
+  evaluates.
 - ``langevin`` and ``nose_hoover`` heat a cold system toward the target
   (tests/test_parallel.py:197-241); capacities too small raise the overflow
   ``RuntimeError``; the halo exchange alone passes ``gradcheck`` in float64
@@ -334,3 +340,36 @@ def test_engine_refuses_the_cpu_without_asking(system, monkeypatch):
         DistributedMDEngine(s["spec"], s["params"], s["cell"])
     with pytest.raises(RuntimeError, match="need 4 ranks"):
         DistributedMDEngine(s["spec"], s["params"], s["cell"], dims=(2, 2), device="cpu")
+
+
+def test_skin_test_takes_the_shrink_and_the_budget(system):
+    s = system
+    eng = DistributedMDEngine(s["spec"], s["params"], s["cell"], dims=(1,), skin=SKIN,
+                              device="cpu", scale_budget=0.9)
+    st = eng.make_state(s["pos"], s["Z"], velocities=s["vel"])
+    assert eng._limit(st) is st.nl_limit
+    lim = float(st.nl_limit)
+    m, cut = 2.0 * np.sqrt(lim), float(s["spec"].cutoff)
+    scale = 0.99
+
+    def shrunk(state, f):
+        return state.replace(cell_scale=state.cell_scale * f, positions=state.positions * f,
+                             nl_positions=state.nl_positions * f)
+
+    small = shrunk(st, scale)
+    s32 = float(small.cell_scale)
+    want = (max(0.0, s32 * (cut + m) - cut) / 2.0) ** 2
+    assert 0.0 < want < lim
+    assert float(eng._limit(small)) == pytest.approx(want, rel=1e-5)
+    # an atom moved by a distance between the two limits: a rebuild only in
+    # the shrunk cell
+    d = np.sqrt((want + lim) / 2.0)
+    bump = torch.zeros_like(st.positions)
+    bump[0, 0] = d
+    r0 = eng.n_rebuilds
+    eng._fresh(st.replace(positions=st.positions + bump))
+    assert eng.n_rebuilds == r0
+    eng._fresh(small.replace(positions=small.positions + bump))
+    assert eng.n_rebuilds == r0 + 1
+    with pytest.raises(RuntimeError, match="scale_budget"):
+        eng._fresh(shrunk(st, 0.85))

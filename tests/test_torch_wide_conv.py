@@ -13,6 +13,11 @@ share (``ops/fused_conv.py:plan_blocks``). Tolerances: the walk 1e-5 of the
 largest plain value (float64 walk against the fp32 plain path); the
 full-width box energy 1e-5 relative, forces within 1e-4 of the largest JAX
 force and within 1e-3 eV/A (fp32 on both sides, sums in another order).
+
+The planner falls back to a cluster of 4 CTAs where 2 do not fit. No
+published model needs it; ``WIDE4_LAYER``'s second layer (mf-ompa's parity
+irreps at twice the channels, x of 2,560 columns) does, and its 4-rank
+tables are walked the same way in both modes.
 """
 
 import jax
@@ -32,7 +37,7 @@ from sevennet_tpu_torch.data.neighborlist import neighbor_list_numpy
 from sevennet_tpu_torch.io.convert import params_from_numpy
 from sevennet_tpu_torch.model.build import build_model_spec as t_build
 from sevennet_tpu_torch.model.model import edge_embed_spec
-from sevennet_tpu_torch.model.presets import MF_OMPA
+from sevennet_tpu_torch.model.presets import MF_OMPA, WIDE4_LAYER
 from sevennet_tpu_torch.ops import fused_conv as fc
 from sevennet_tpu_torch.scripts.modal_tools import select_modality
 
@@ -43,6 +48,7 @@ from .test_torch_model import _water
 torch.set_num_threads(1)
 
 MF = dict(MF_OMPA, chemical_species=["H", "O"])
+WIDE4 = dict(WIDE4_LAYER, chemical_species=["H", "O"])
 
 
 def _ops(cfg, vec=True, embsh=True):
@@ -112,17 +118,50 @@ def test_mf_ompa_whole_layers_would_not_fit():
         assert min(fc.carve_bytes(d, False)[0], fc.carve_bytes(d, True)[0]) > fc.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("t", [2, 3])
+def test_wide4_layer_plans_a_cluster_of_4():
+    """WIDE4_LAYER: its first layer takes one CTA, its second a cluster of 4
+    in both modes, the ranks splitting the x irreps (every irrep,
+    instruction, x column and output column once; each rank's blocks its
+    instructions in turn), both kernels' carve per CTA within the limit with
+    at least 2 W3 stages (the planner tries every split over 2 CTAs first)."""
+    got = []
+    for layer, op in _ops(WIDE4):
+        plan = op.plan
+        instr = fc._instr_tables(layer.conv)[0]
+        got.append(plan.cluster)
+        assert sorted(j for r in plan.ranks for j in r.xi) == list(range(len(layer.conv.irreps_x)))
+        assert sorted(k for r in plan.ranks for k in r.ks) == list(range(len(instr)))
+        starts = np.cumsum((0,) + plan.rank_blocks)
+        for r, a, b in zip(plan.ranks, starts[:-1], starts[1:]):
+            assert [k for blk in plan.blocks[a:b] for k in blk] == list(r.ks)
+        assert sum(r.xw for r in plan.ranks) == op.dim_x
+        assert sum(r.mw for r in plan.ranks) == op.dim_mid
+        for nbytes, stages in (plan.fwd, plan.bwd):
+            assert nbytes <= fc.SMEM_LIMIT and stages >= 2
+    assert got == [1, 1, 4, 4]
+
+
+def _mf_or_wide4(t):
+    """Layer ``t`` of mf-ompa, or with ``t`` "wide4" WIDE4_LAYER's second:
+    its spec, layer and expected cluster size."""
+    if t == "wide4":
+        spec = t_build(WIDE4)
+        return spec, spec.layers[1], 4
+    spec = t_build(MF)
+    return spec, spec.layers[t], 2
+
+
+@pytest.mark.parametrize("t", [2, 3, "wide4"])
 def test_mf_ompa_pass_tables_reproduce_plain(t):
     """Layer t's cluster tables, walked in numpy as the cluster walks them
     (rank by rank, each rank's shares of dsh and dz added in rank order and
     chained once), against the unblocked plain versions: forward, dxg, dvec
-    and the parameter gradients, on a few edges of 3 receivers."""
-    spec = t_build(MF)
-    layer = spec.layers[t]
+    and the parameter gradients, on a few edges of 3 receivers (``wide4``:
+    WIDE4_LAYER's cluster of 4)."""
+    spec, layer, cluster = _mf_or_wide4(t)
     op = fc.conv_op(layer.conv, layer.radial_mlp, edge_embed_spec(spec, layer))
-    assert op.plan.cluster == 2
-    rng = np.random.default_rng(t)
+    assert op.plan.cluster == cluster
+    rng = np.random.default_rng(t if t != "wide4" else 4)
     n, k = 3, 3
     pos = rng.uniform(0.0, 3.0, (n, 3))
     dst, src, shift = neighbor_list_numpy(pos, 6.0)
@@ -153,16 +192,15 @@ def test_mf_ompa_pass_tables_reproduce_plain(t):
     assert (dxg[~mask] == 0).all() and (dvec[:, ~mask] == 0).all()
 
 
-@pytest.mark.parametrize("t", [2, 3])
+@pytest.mark.parametrize("t", [2, 3, "wide4"])
 def test_mf_ompa_embsh_cluster_tables_reproduce_plain(t):
     """Layer t in emb/sh mode (B4 and B4 bwd at these widths): its cluster
     tables walked in numpy over every slot of 3 receivers against the plain
     versions, forward, dxg, demb, dsh and the parameter gradients."""
-    spec = t_build(MF)
-    layer = spec.layers[t]
+    _, layer, cluster = _mf_or_wide4(t)
     op = fc.conv_op(layer.conv, layer.radial_mlp)
-    assert op.plan.cluster == 2
-    rng = np.random.default_rng(10 + t)
+    assert op.plan.cluster == cluster
+    rng = np.random.default_rng(10 + (t if t != "wide4" else 4))
     n, k = 3, 3
     src_nk = rng.integers(0, n, (n, k)).astype(np.int32)
     x = (rng.normal(size=(n, op.dim_x)) * 0.5).astype(np.float32)
