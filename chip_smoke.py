@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port (``sevennet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S] [--threshold-probe | --fold-probe]
+    python3 chip_smoke.py [--seed S] [--threshold-probe | --fold-probe | --bd-probe]
 
 1. Builds the CUDA kernels from ``sevennet_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and prints each kernel instance's registers, stack
@@ -181,7 +181,10 @@
    its last line ``{"ok": true, "device": {...}}``.
 
 ``--fold-probe`` builds and runs only the fold probe (its SASS check, its
-checks against plain, its timing).
+checks against plain, its timing); ``--bd-probe`` likewise the batched-dot
+probe (its SASS counts, its checks against torch.bmm at the script's and
+the ragged shapes, its times at rep 1 and 4 beside torch.bmm and the
+bound). ``probe_ab.py`` times both probes of several trees in turns.
 
 Exits non-zero, printing no result, without CUDA or without the package.
 Imports nothing of JAX.
@@ -511,7 +514,7 @@ INSTANCES = {
        for cl in (0, 1)},
     ("pg_partial_kernel", ""): "pg_partial (reduction: 3xTF32 wgmma, cp.async ring)",
     ("pg_final_kernel", ""): "pg_final (reduction: the chunks in order)",
-    ("batched_dot_kernel", ""): "batched_dot (probe)",
+    ("batched_dot_kernel", ""): "batched_dot (probe: 3xTF32 wgmma, a ring of chunks)",
     **{("probe_mm_kernel", f"{i}{c}"): f"probe_mm<{v}{', carry' if c else ''}> (probe)"
        for i, v in enumerate(("ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32", "bf16"))
        for c in (0, 1)},
@@ -529,7 +532,9 @@ INSTANCES = {
        for i, mode in enumerate(("xpose", "round trip", "carry")) for pad in (0, 1)},
     **{("probe_xpose_rt_kernel", str(vec)): f"probe_xpose_rt<{'16' if vec else '4'}-byte "
        "accesses> (round trip, pad 0, probe)" for vec in (0, 1)},
-    **{("probe_fold_roll_kernel", str(k)): f"probe_fold_roll<K {k}> (probe)" for k in (8, 9, 72)},
+    **{("probe_fold_roll_kernel", f"{k}{vec}"):
+       f"probe_fold_roll<K {k}{', 16-byte runs' if vec else ''}> (probe)"
+       for k in (8, 9, 72) for vec in (0, 1)},
     ("probe_fold_bprep_kernel", ""): "probe_fold_bprep (the mxu folds' B stages, probe)",
     **{("probe_fold_mma_kernel", f"{p}{pairs}"):
        f"probe_fold_mma<{p} pieces{', pairs' if pairs else ''}> (probe)"
@@ -3323,10 +3328,8 @@ def probe_phase(dev, card: str):
     Ss = [(torch.randn(bd.N_ATOMS, d3, kk, generator=gen) * 0.1).to(dev) for d3, kk, _ in bd.GROUPS]
     XWs = [(torch.randn(bd.N_ATOMS, kk, mul, generator=gen) * 0.1).to(dev)
            for _, kk, mul in bd.GROUPS]
-    want = bd.batched_dot(Ss, XWs, plain=True)
-    errs["batched"] = max(check_close("probe batched_dot", f"Y group {i}", y, w, 1e-5)
-                          for i, (y, w) in enumerate(zip(bd.batched_dot(Ss, XWs), want)))
-    del want
+    errs["batched"] = bd_check(Ss, XWs, "probe batched_dot")
+    bd_ragged_check(dev, n_sm)
 
     # the probe path, counts from 0
     recs = {}
@@ -3372,17 +3375,7 @@ def probe_phase(dev, card: str):
                                   (nbytes / HBM_BYTES_S * 1e3, "bytes"))
                     recs[key] = dict(ms=ms, plain_ms=plain, bound=(bnd, by), library_ms=lib,
                                      err=errs[(chain, v)], shape=(m, k, n))
-    fl, nbytes = bd.batched_dot_work(Ss, XWs)
-    t = {rep: bd.batched_dot_time(lambda: bd.batched_dot(Ss, XWs, rep=rep)) for rep in (1, 4)}
-    lib = bd.batched_dot_time(lambda: bd.batched_dot_plain(Ss, XWs))
-    bnd = max((fl / TC_3XTF32_PEAK * 1e3, "operations"), (nbytes / HBM_BYTES_S * 1e3, "bytes"))
-    log(f"  probe batched_dot N={bd.N_ATOMS}: {t[1]:.4f} ms ({nbytes / t[1] / 1e6:.1f} GB/s, "
-        f"{fl / t[1] / 1e9:.2f} TFLOP/s; {fl / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB), rep 4 "
-        f"{t[4]:.4f} ms: {(t[4] - t[1]) / 3:.4f} ms per repeated product on staged tiles "
-        f"({fl / ((t[4] - t[1]) / 3) / 1e9:.2f} TFLOP/s); bound {bnd[0]:.4f} ms by {bnd[1]}; "
-        f"torch.bmm {lib:.4f} ms | {card}")
-    recs["batched"] = dict(ms=t[1], plain_ms=lib, bound=bnd, library_ms=lib, err=errs["batched"],
-                           shape=None)
+    recs["batched"] = dict(bd_time(Ss, XWs, card), err=errs["batched"], shape=None)
     launches = {"mm_rate": mr.mm_rate.launches, "mm_chain": mr.mm_chain.launches,
                 "batched": bd.batched_dot.launches}
     by_variant = {f"{fn.__name__} {v}": n for fn in (mr.mm_rate, mr.mm_chain)
@@ -3395,13 +3388,109 @@ def probe_phase(dev, card: str):
     return recs, launches
 
 
+def bd_check(Ss, XWs, tag: str, reps=(1, 4)) -> float:
+    """The batched dot against torch.bmm (its plain version) within 1e-5 of
+    max |plain| per group, at each ``rep`` (the output must not change);
+    launches not counted. Returns the max abs error."""
+    from sevennet_tpu_torch.probes import batched_dot as bd
+
+    want = bd.batched_dot(Ss, XWs, plain=True)
+    n0 = bd.batched_dot.launches
+    err = max(check_close(f"{tag} rep {rep}", f"Y group {i} {tuple(w.shape)}", y, w, 1e-5)
+              for rep in reps for i, (y, w) in enumerate(zip(bd.batched_dot(Ss, XWs, rep=rep),
+                                                           want)))
+    bd.batched_dot.launches = n0
+    return err
+
+
+def bd_ragged_check(dev, n_sm: int) -> None:
+    """The batched dot against plain (``bd_check``, rep 1 and 3) at its
+    ragged shapes: N below and just above the card's SM count (a CTA with
+    no atom, CTAs with one more atom than others), d3 5 and 9, K d1 short of
+    a chunk (8, 40) and past one (80, 152), mul 8 and 24."""
+    import torch
+
+    from sevennet_tpu_torch.probes import batched_dot as bd
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    for n, groups in ((n_sm - 7, ((5, 8, 8), (5, 40, 24), (22, 152, 24))),
+                      (n_sm + 1, ((9, 40, 8), (5, 8, 24), (20, 80, 64)))):
+        Ss = [torch.randn(n, d3, kk, generator=gen).to(dev) for d3, kk, _ in groups]
+        XWs = [torch.randn(n, kk, mul, generator=gen).to(dev) for _, kk, mul in groups]
+        bd_check(Ss, XWs, f"probe batched_dot N {n} groups {groups}", reps=(1, 3))
+
+
+def bd_time(Ss, XWs, card: str) -> dict:
+    """The batched dot at its script's shape timed by ``batched_dot_time``
+    at rep 1 and 4 (the product's time on staged tiles is their difference
+    over 3) beside torch.bmm per group (the library call, also its plain
+    version) and the bound. Returns a record for the kernels line."""
+    from sevennet_tpu_torch.probes import batched_dot as bd
+
+    fl, nbytes = bd.batched_dot_work(Ss, XWs)
+    t = {rep: bd.batched_dot_time(lambda: bd.batched_dot(Ss, XWs, rep=rep)) for rep in (1, 4)}
+    lib = bd.batched_dot_time(lambda: bd.batched_dot_plain(Ss, XWs))
+    bnd = max((fl / TC_3XTF32_PEAK * 1e3, "operations"), (nbytes / HBM_BYTES_S * 1e3, "bytes"))
+    staged = (t[4] - t[1]) / 3
+    log(f"  probe batched_dot N={bd.N_ATOMS}: {t[1]:.4f} ms ({nbytes / t[1] / 1e6:.1f} GB/s, "
+        f"{fl / t[1] / 1e9:.2f} TFLOP/s; {fl / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB), rep 4 "
+        f"{t[4]:.4f} ms: {staged:.4f} ms per repeated product on staged tiles "
+        f"({fl / staged / 1e9:.2f} TFLOP/s); bound {bnd[0]:.4f} ms by {bnd[1]} "
+        f"({bnd[0] / t[1]:.1%} of it); torch.bmm {lib:.4f} ms | {card}")
+    return dict(ms=t[1], ms_rep4=t[4], staged_ms=staged, plain_ms=lib, bound=bnd,
+                library_ms=lib)
+
+
+def bd_sass(so) -> None:
+    """The batched dot's SASS counts (``sass_counts``): its product on wgmma
+    (HGMMA > 0, no HMMA), its copies by TMA (UTMALDG > 0) and no
+    local-memory traffic (STL, LDL 0: nothing spilled); the product's
+    instruction mix and ptxas's advisories that it serialized wgmma
+    printed. Raises SystemExit otherwise, or without cuobjdump."""
+    counts = sass_counts(so)
+    if counts is None:
+        raise SystemExit("cuobjdump not found: the batched dot's SASS cannot be checked")
+    bd = {fn: c for fn, c in counts.items() if "batched_dot_kernel" in fn}
+    for fn, c in bd.items():
+        log(f"  sass {fn}: {c}")
+    for ln in open(str(so) + ".log"):
+        if "serialized" in ln or "Performance" in ln:
+            log(f"  ptxas: {ln.strip()}")
+    if len(bd) != 1 or not all(c["HGMMA"] > 0 and c["HMMA"] == 0 and c["UTMALDG"] > 0
+                               and c["STL"] == 0 and c["LDL"] == 0 for c in bd.values()):
+        raise SystemExit(f"batched_dot_kernel's SASS: {bd}, expected one instance with HGMMA, "
+                         "no HMMA, UTMALDG and no STL or LDL")
+
+
+def bd_probe(dev, card: str, so) -> None:
+    """``--bd-probe``: the batched dot alone (``probes/batched_dot.py``):
+    its SASS (``bd_sass``), its check against torch.bmm at the script's
+    shape (rep 1 and 4) and at its ragged shapes, then its times as the
+    whole run takes them (``bd_time``)."""
+    import torch
+
+    from sevennet_tpu_torch.probes import batched_dot as bd
+
+    bd_sass(so)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    Ss = [(torch.randn(bd.N_ATOMS, d3, kk, generator=gen) * 0.1).to(dev) for d3, kk, _ in bd.GROUPS]
+    XWs = [(torch.randn(bd.N_ATOMS, kk, mul, generator=gen) * 0.1).to(dev)
+           for _, kk, mul in bd.GROUPS]
+    bd_check(Ss, XWs, "probe batched_dot")
+    bd_ragged_check(dev, n_sm)
+    bd_time(Ss, XWs, card)
+
+
 FILL_THREADS_PER_SM = 16 * 1024  # threads the FMA probes' fill copies give each SM
 
 
 def sass_counts(so):
     """fp32 instructions (FFMA, FADD, FMUL), tensor-core ones (HMMA:
-    mma.sync, HGMMA: wgmma) and shared-memory stores and loads (STS, LDS, of
-    any width) of every kernel in library ``so``, and the FFMAs that read an
+    mma.sync, HGMMA: wgmma), shared-memory stores and loads (STS, LDS, of
+    any width), cp.async copies (LDGSTS), TMA loads (UTMALDG) and
+    local-memory stores and loads (STL, LDL) of every kernel in library
+    ``so``, and the FFMAs that read an
     operand from
     the reuse cache (a ``.reuse`` flag on the FFMA before: one register read
     fewer), from ``cuobjdump -sass``; None where the toolkit has no
@@ -3420,12 +3509,12 @@ def sass_counts(so):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = dict(FFMA=0, FADD=0, FMUL=0, HMMA=0, HGMMA=0, STS=0, LDS=0, reuse=0)
+            counts[fn] = dict(FFMA=0, FADD=0, FMUL=0, HMMA=0, HGMMA=0, STS=0, LDS=0, LDGSTS=0,
+                              UTMALDG=0, STL=0, LDL=0, reuse=0)
             reuse = False
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
-        if m and fn is not None and m.group(1) in ("FFMA", "FADD", "FMUL", "HMMA", "HGMMA",
-                                                     "STS", "LDS"):
+        if m and fn is not None and m.group(1) in counts[fn] and m.group(1) != "reuse":
             counts[fn][m.group(1)] += 1
             counts[fn]["reuse"] += m.group(1) == "FFMA" and reuse
             reuse = m.group(1) == "FFMA" and ".reuse" in ln
@@ -3649,9 +3738,12 @@ def fma_gather_phase(dev, card: str):
     return recs, launches
 
 
-# (K, A, tiles of mul rows, blocks): DM 800, DX 100; the second map reads
-# input columns in even-aligned pairs (the kernel's 8-byte loads), the first not
-FOLD_RAGGED = ((9, 16, (100,) * 8, 3), (8, 32, (64,) * 12 + (32,), 3))
+# (K, A, tiles of mul rows, blocks): DM 800, DX 100; the second and third
+# maps read input columns in even-aligned pairs (the mxu kernel's 8-byte
+# loads) and aligned runs of 4 (the roll kernel's 16-byte loads), the first
+# neither
+FOLD_RAGGED = ((9, 16, (100,) * 8, 3), (8, 32, (64,) * 12 + (32,), 3),
+               (72, 32, (64,) * 12 + (32,), 6))
 
 
 def fold_inputs(rnd, dev):
@@ -3691,12 +3783,16 @@ def fold_check(fx, fm, out_f):
 
 
 def fold_ragged_check(dev):
-    """The mxu variants against plain (fold.TOL of max |plain|) at
-    FOLD_RAGGED: DM 800, whose 13 m64 tiles leave the last one half empty
-    and run on a cluster of 2 CTAs, at A 16 (the n32 product's upper
-    columns zero) and K 9, and at A 32 and K 8; the fold matrix random, not
-    0/1 (the kernel reads its argument; rounded to bf16 on both sides, as
-    the kernel rounds it)."""
+    """Every fold variant against plain (fold.TOL of max |plain|) at
+    FOLD_RAGGED: DM 800, DX 100, at A 16 and K 9, and at A 32 and K 8 and 72
+    (192 receivers: more than the card's SMs, so that a CTA folds two). The
+    mxu variants there run 13 m64 tiles, the last half empty, on a cluster
+    of 2 CTAs (at A 16 the n32 product's upper columns zero), with a random
+    fold matrix, not 0/1 (the kernel reads its argument; rounded to bf16 on
+    both sides, as the kernel rounds it); roll and bigroll run 2 slices of
+    fold.ROLL_SW columns, the last partial, with the first map's units a
+    column each (its runs are not on the 4-column grid) and 4-column runs
+    otherwise."""
     import torch
 
     from sevennet_tpu_torch.probes import fold as fo
@@ -3706,8 +3802,11 @@ def fold_ragged_check(dev):
         x = (torch.randn(nb * a * k, sum(muls) // 8, generator=gen) * 0.5).to(dev)
         fm = torch.randn(k * a, a, generator=gen).to(torch.bfloat16).float().to(dev)
         plan = fo.mma_plan(x.shape[1], sum(muls), a)
-        for v in ("mxu2", "mxu3"):
-            check_close(f"probe fold {v} K {k} A {a} DM {sum(muls)}, plan {plan}", "out",
+        for v in fo.VARIANTS:
+            rp = fo.roll_plan(fo.column_map(v, muls), x.shape[1], k)
+            desc = (f"plan {plan}" if fo.PIECES[v] else
+                    f"{rp.nsl} slices of {rp.sw}, {'4-column runs' if rp.vec else 'columns'}")
+            check_close(f"probe fold {v} K {k} A {a} DM {sum(muls)}, {desc}", "out",
                         fo.fold(x, fm, k, a, v, muls), fo.fold(x, fm, k, a, v, muls, plain=True),
                         fo.TOL)
 
@@ -3752,29 +3851,37 @@ def fold_floor_ms(v: str, nb: int) -> float:
 
 def fold_time(fx, fm, out_f, errs, card):
     """Each fold variant timed by the script's method (diff_ms at FOLD_TIME,
-    CUDA graphs) beside torch.sum over K (the fold without its column map),
+    CUDA graphs) beside the function in two PyTorch calls (torch.sum over K,
+    then torch.index_select by the column map; the kernels line's
+    library_ms) and torch.sum over K alone (the fold without its map),
     its plain version, the function's bound and the mxu design's
     tensor-core floor. Returns records by kernels-line key."""
     from sevennet_tpu_torch.probes import fold as fo
     from sevennet_tpu_torch.probes._lib import FOLD_TIME, diff_ms
 
+    import torch
+
     nb = fo.N // fo.A
-    lib = diff_ms(lambda: fx.view(nb, fo.K, fo.A, -1).sum(1), *FOLD_TIME)
+    lib_sum = diff_ms(lambda: fx.view(nb, fo.K, fo.A, -1).sum(1), *FOLD_TIME)
     fl, nbytes = fo.fold_work(nb)
     bnd = bound_ms(fl, nbytes)
     recs = {}
     for v in fo.VARIANTS:
         ms = diff_ms(lambda: fo.fold(fx, fm, variant=v, out=out_f), *FOLD_TIME)
         plain = cuda_time(lambda: fo.fold(fx, fm, variant=v, plain=True), 3)
+        cmap = torch.as_tensor(fo.column_map(v), dtype=torch.long, device=fx.device)
+        lib = diff_ms(lambda: torch.index_select(fx.view(nb, fo.K, fo.A, -1).sum(1), 2, cmap),
+                      *FOLD_TIME)
         floor = (f"; tensor-core floor {fold_floor_ms(v, nb):.4f} ms (bf16 at 989 TFLOP/s)"
                  if fo.PIECES[v] else "")
         log(f"  probe fold {v} {tuple(fx.shape)} -> {tuple(out_f.shape)}: {ms:.4f} ms per call "
-            f"({nbytes / ms / 1e6:.1f} GB/s, {bnd[0] / ms:.1%} of the bound); "
-            f"torch.sum over K (fold only, no column map) {lib:.4f} ms; plain {plain:.4f} ms; "
-            f"bound {bnd[0]:.4f} ms by {bnd[1]}{floor} | {card}")
+            f"({nbytes / ms / 1e6:.1f} GB/s, {bnd[0] / ms:.1%} of the bound); the function in "
+            f"two calls (torch.sum over K, torch.index_select by the column map) {lib:.4f} ms "
+            f"({ms / lib:.3f}x); torch.sum over K alone (no column map) {lib_sum:.4f} ms; "
+            f"plain {plain:.4f} ms; bound {bnd[0]:.4f} ms by {bnd[1]}{floor} | {card}")
         recs[("fold", v)] = dict(ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
-                                 err=errs[("fold", v)], name=f"fold {v} (N {fo.N}, K {fo.K}, "
-                                                             f"DM {fo.DM})")
+                                 library_sum_ms=lib_sum, err=errs[("fold", v)],
+                                 name=f"fold {v} (N {fo.N}, K {fo.K}, DM {fo.DM})")
     return recs
 
 
@@ -3803,11 +3910,13 @@ def xpose_sass(so):
 
 
 def fold_sass(so):
-    """The mxu fold kernels' SASS counts (``sass_counts``): every instance
-    of probe_fold_mma_kernel (2 and 3 pieces, with and without paired
-    loads) runs its products on wgmma (HGMMA > 0) and none on mma.sync (HMMA
-    0); ptxas's advisories that it
-    serialized wgmma are printed. Raises SystemExit otherwise, or without
+    """The fold kernels' SASS counts (``sass_counts``): every instance of
+    probe_fold_mma_kernel (2 and 3 pieces, with and without paired loads)
+    runs its products on wgmma (HGMMA > 0) and none on mma.sync (HMMA 0);
+    every instance of probe_fold_roll_kernel (K 8, 9, 72, by columns and by
+    4-column runs) copies by TMA (UTMALDG > 0), adds (FADD > 0) and spills
+    nothing (STL, LDL 0); ptxas's advisories that it serialized
+    wgmma are printed. Raises SystemExit otherwise, or without
     cuobjdump."""
     counts = sass_counts(so)
     if counts is None:
@@ -3822,13 +3931,21 @@ def fold_sass(so):
     if not ok:
         raise SystemExit(f"probe_fold_mma_kernel's SASS: {mma}, expected its instances with "
                          "HGMMA > 0 and no HMMA")
+    roll = {fn: c for fn, c in counts.items() if "probe_fold_roll_kernel" in fn}
+    for fn, c in roll.items():
+        log(f"  sass {fn}: LDS {c['LDS']}, FADD {c['FADD']}, UTMALDG {c['UTMALDG']}, STL "
+            f"{c['STL']}, LDL {c['LDL']}")
+    if len(roll) != 6 or not all(c["UTMALDG"] > 0 and c["FADD"] > 0 and c["STL"] == 0
+                                 and c["LDL"] == 0 for c in roll.values()):
+        raise SystemExit(f"probe_fold_roll_kernel's SASS: {roll}, expected 6 instances with "
+                         "UTMALDG and FADD and no STL or LDL")
 
 
 def fold_probe(dev, card: str, so) -> None:
     """``--fold-probe``: the fold probe alone (``probes/fold.py``). Its
     SASS (``fold_sass``), the mxu plan and how many of its clusters the
     card holds at once, every variant against plain at the script's shape
-    and the mxu variants at FOLD_RAGGED, then each variant timed as in the
+    and at FOLD_RAGGED, then each variant timed as in the
     whole run (``fold_time``)."""
     import torch
 
@@ -3874,7 +3991,8 @@ def reduce_fold_xpose_phase(dev, card: str):
     against 3, the streamed transposes 8 calls over 8), beside the plain
     versions and the library calls (16 torch.sum over the reshaped K axis in
     one graph; 16 x.t().contiguous(); x.t().contiguous(); x.clone();
-    torch.sum over K for the fold, without its column map; every plain
+    torch.sum over K then torch.index_select by the column map for the fold,
+    and torch.sum over K alone beside it; every plain
     version warm, the mean of 3 or 5 calls after one). Bounds: each
     function's own work, whatever the method (the fold's K - 1 adds a
     column for every variant; the conv fold the work of B4 fwd's function,
@@ -4807,6 +4925,8 @@ def main() -> int:
                     help="only measure the peaks chunk_threshold rests on (threshold_probe)")
     ap.add_argument("--fold-probe", action="store_true",
                     help="only build and check the fold probe and time it (fold_probe)")
+    ap.add_argument("--bd-probe", action="store_true",
+                    help="only build and check the batched-dot probe and time it (bd_probe)")
     args = ap.parse_args()
 
     import torch
@@ -4831,13 +4951,14 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    if args.fold_probe:
-        libs = kernels.build(["probe_fold"])
-        log(f"built probe_fold in {time.perf_counter() - t0:.1f} s")
+    if args.fold_probe or args.bd_probe:
+        name = "probe_fold" if args.fold_probe else "probe_batched_dot"
+        libs = kernels.build([name])
+        log(f"built {name} in {time.perf_counter() - t0:.1f} s")
         for row in ptxas_table(libs):
             log("  ptxas {instance}: {registers} registers, {stack} B stack, {spill_stores} B "
                 "spill stores, {spill_loads} B spill loads".format(**row))
-        fold_probe(dev, card, libs["probe_fold"])
+        (fold_probe if args.fold_probe else bd_probe)(dev, card, libs[name])
         print(gpu_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5088,7 +5209,8 @@ def main() -> int:
         "a preallocated output, none for the FMA chains; the reduction, transpose and fold "
         "probe rows per call at their script's first shape and method, library_ms 16 torch.sum "
         "or x.t().contiguous() in one graph (REP-16 sites), x.t().contiguous(), x.clone(), "
-        "torch.sum over K (the fold, without its column map), none for the conv fold; the "
+        "torch.sum over K then torch.index_select by the column map (the fold, two calls), "
+        "none for the conv fold; the "
         "breakdown and knock-out rows per call at their script's shape (diff_ms at 3, 9, 3), "
         "none for the library; param_grad_reduce's library_ms one torch.mm per weight matrix "
         "over the valid workspace rows")

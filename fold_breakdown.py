@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the fold probe's mxu kernels spend their time, on one NVIDIA GPU.
 
-    python3 fold_breakdown.py
+    python3 fold_breakdown.py [--roll]
 
 Builds ``sevennet_tpu_torch/csrc/probe_fold.cu`` as it is and, as builds of
 their own, with phases of the mxu kernel knocked out
@@ -21,6 +21,11 @@ normal build's SASS to ``chiprun_out/fold_sass.txt``. The last line is one
 JSON object with every number, also written to
 ``chiprun_out/fold_breakdown.json``. A knock-out's output is not the
 function's; only its time is read.
+
+``--roll`` does the same for the roll kernel instead (``roll_breakdown``):
+its folds or its TMA copies knocked out (``-DFOLD_ROLL_KO=1``, ``2``) and
+12 consumer warps (``-DFR_CW=12``), at slices of 28, 56 and 112 columns,
+written to ``chiprun_out/roll_breakdown.json``.
 """
 
 from __future__ import annotations
@@ -40,12 +45,97 @@ KNOCKOUTS = {1: "no products", 2: "no loads", 3: "no TMA, no waits", 4: "no spli
 PROF = "clocks"  # FOLD_MMA_PROF: each consumer warpgroup's stage loop, waits, releases
 
 
+ROLL_BUILDS = {"normal": (), "no folds": ("FOLD_ROLL_KO=1",), "no TMA": ("FOLD_ROLL_KO=2",),
+               "12 consumer warps": ("FR_CW=12",)}
+ROLL_SWS = (28, 56, 112)  # input columns a slice (ROLL_SW is 56)
+
+
+def roll_breakdown(card: str) -> dict:
+    """``--roll``: the roll kernel's builds (ROLL_BUILDS: as it is, its folds
+    knocked out, its TMA copies knocked out, 12 consumer warps instead of 8)
+    at each slice width of ROLL_SWS, roll and bigroll at r3_fold_probe.py's
+    shape, timed by diff_ms at FOLD_TIME in turns (normal first and last);
+    the normal build first held against plain (fold.TOL)."""
+    import torch
+
+    from sevennet_tpu_torch.ops import kernels
+    from sevennet_tpu_torch.probes import fold as fo
+    from sevennet_tpu_torch.probes._lib import FOLD_TIME, diff_ms, stream
+
+    threads = [threading.Thread(target=kernels.build, args=(["probe_fold"], False, d))
+               for d in ROLL_BUILDS.values()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    fns = {}
+    for name, defines in ROLL_BUILDS.items():
+        so = kernels.build(["probe_fold"], False, defines)["probe_fold"]
+        entry = ""
+        for ln in open(str(so) + ".log"):
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                entry = m.group(1)
+            elif "probe_fold_roll_kernelILi72ELb1" in entry and "Used" in ln:
+                print(f"ptxas {name} roll<K 72, 16-byte runs>: {ln.strip()}", flush=True)
+        fn = kernels.library("probe_fold", defines=defines).probe_fold_roll_launch
+        fn.argtypes = [ctypes.c_int, fo._RollArgs, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    nb, dx = fo.N // fo.A, fo.DM // 8
+    x = (torch.randn(nb * fo.A * fo.K, dx, generator=gen) * 0.5).to(dev)
+    out = torch.empty(fo.N, fo.DM, device=dev)
+    keep = []
+
+    def args(v, sw):
+        rp = fo.roll_plan(fo.column_map(v), dx, fo.K, sw)
+        units = torch.as_tensor(rp.units, device=dev).contiguous()
+        uoff = torch.as_tensor(rp.uoff, device=dev)
+        keep.append((units, uoff))
+        return fo._RollArgs(x.data_ptr(), out.data_ptr(), units.data_ptr(), uoff.data_ptr(), nb,
+                            fo.A, dx, fo.DM, rp.sw, rp.nsl, rp.ns, int(rp.vec))
+
+    def call(name, a):
+        rc = fns[name](fo.K, a, stream(dev))
+        if rc:
+            raise RuntimeError(f"probe_fold_roll_launch failed with error {rc}")
+
+    res = {}
+    for v in ("roll", "bigroll"):
+        for sw in ROLL_SWS:
+            a = args(v, sw)
+            call("normal", a)
+            want = fo.fold(x, fo.fold_matrix(fo.K, fo.A, dev), variant=v, plain=True)
+            rel = float((out - want).abs().max()) / float(want.abs().max())
+            del want
+            if not rel <= fo.TOL:
+                raise SystemExit(f"roll {v} at slices of {sw} disagrees with plain: {rel:.3e}")
+            for name in [*ROLL_BUILDS, "normal (again)"]:
+                ms = diff_ms(lambda: call(name.split(" (")[0], a), *FOLD_TIME)
+                res[f"{v} sw {sw} {name}"] = ms
+                print(f"roll {v}, slices of {sw} columns, {name}: {ms:.4f} ms per call | {card}",
+                      flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("fold_breakdown: no CUDA device", file=sys.stderr)
         return 2
+    if "--roll" in sys.argv[1:]:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True).stdout.strip()
+        res = roll_breakdown(card)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "roll_breakdown.json"), "w") as f:
+            json.dump({"card": card, "ms": res}, f, indent=1)
+        print(json.dumps({"card": card, "ms": res}), flush=True)
+        return 0
     from sevennet_tpu_torch.ops import kernels
     from sevennet_tpu_torch.probes import fold as fo
     from sevennet_tpu_torch.probes._lib import FOLD_TIME, diff_ms, stream

@@ -24,13 +24,36 @@
 //                  (probe_fold_mma_kernel<PIECES, PAIRS>). The sum runs in
 //                  another order than the script's.
 //
-// roll: one CTA per (a, b) stages the K input rows of receiver b A + a (K
-// DX floats, 113 KB at the script's shape: two CTAs an SM) by cp.async; a
-// thread folds output column c from the column cmap[c] of the slab, its K
-// values in registers, in the halving order, with explicit adds (K a
-// template argument, so every index is fixed at compile time). Every
-// output column is folded, as the TPU folds every tile: 8 output columns
-// read each input column.
+// roll (redesigned for Hopper): the function reads x once (1.131 GB at the
+// script's shape) and writes out once (125.6 MB): 0.375 ms at 3.35 TB/s.
+// Folding every output column from staged data, as the TPU folds every
+// tile (8 output columns read each input column), reads 9.05 GB of shared
+// memory, about 0.3 ms at 128 B a clock an SM, so the stream and the folds
+// must overlap. The first design (one CTA a receiver staging its whole 113
+// KB slab by cp.async, then folding it) overlapped nothing inside a CTA:
+// 0.517 ms. Now (probe_fold_roll_kernel<K, VEC>):
+//   - persistent CTAs, one an SM, take receivers in turn; a receiver's K
+//     rows arrive as slices of ROLL_SW = 56 input columns (16 KB, 7 a
+//     receiver; the last slice of another DX may be narrower), one TMA box
+//     each (x viewed as (DX, A, K NB)), issued by a producer thread into a
+//     ring of up to 12 stages (full/empty mbarriers, no block-wide barrier
+//     in the loop);
+//   - 8 consumer warps fold, from each stage, exactly the output columns
+//     whose input column lies in its slice (the host's inverse column map,
+//     probes/fold.py:roll_plan, sorted by input column so that neighbouring
+//     threads read neighbouring words), each on its own: K loads and K - 1
+//     adds in the script's halving order, as a tree per slot group so that
+//     few values are live; where every aligned run of 4 output columns reads
+//     an aligned run of 4 input columns (both of the script's maps), a
+//     thread folds a run with 16-byte loads. A receiver's units go to the
+//     threads in turn, continuing across receivers.
+// Measured (fold_breakdown.py --roll, H100, 700 W): the stream alone 0.364
+// ms (97 % of the bound), the folds alone 0.27-0.33, together 0.44-0.46:
+// both share the SM's shared-memory bandwidth (the TMA's writes and the
+// folds' reads); slices of 28 or 112 columns and 12 consumer warps ran as
+// fast, not faster. The same kernel with copies by cp.async took 0.87 ms
+// from one producer warp and 0.50 from four, whose copies held up the
+// folds' loads.
 //
 // mxu (redesigned for Hopper): the product runs dense, as the TPU's MXU
 // runs it, 2 A T DM multiply-adds a block and piece, oriented as
@@ -90,7 +113,6 @@
 
 #include "fused_conv_common.cuh"
 
-#define FR_NT 256
 #define FM_R 16        // rows of x a stage: one k16 step
 #define FM_BBYTES 1024 // B of a stage: 16 x 32 bf16
 #define FM_NSMAX 8     // stages in the ring at most (the host picks an even count)
@@ -139,45 +161,6 @@ struct FoldArgs {
   // ci + 1 with ci even (probes/fold.py:mma_pairs)
   int tiles, cl, ctas, nbox, W, ns, pairs;
 };
-
-// the script's halving order on v[0 .. KC): the sum lands in v[0]
-template <int KC, int KM>
-__device__ __forceinline__ void kfold(float (&v)[KM]) {
-  if constexpr (KC > 1) {
-    if constexpr (KC % 2 == 0) {
-#pragma unroll
-      for (int k = 0; k < KC / 2; ++k) v[k] = __fadd_rn(v[k], v[k + KC / 2]);
-      kfold<KC / 2>(v);
-    } else {
-      v[0] = __fadd_rn(v[0], v[KC - 1]);
-      kfold<KC - 1>(v);
-    }
-  }
-}
-
-template <int K>
-__global__ void __launch_bounds__(FR_NT) probe_fold_roll_kernel(FoldArgs p) {
-  extern __shared__ float slab[];  // K x DX: the receiver's K input rows
-  const int a = blockIdx.x, b = blockIdx.y;
-  const int dx4 = p.DX >> 2;
-  const float* in = p.x + ((size_t)b * K * p.A + a) * p.DX;
-  for (int i = threadIdx.x; i < K * dx4; i += FR_NT) {
-    const int k = i / dx4, c = i - k * dx4;
-    cp_async16(slab + k * p.DX + 4 * c, in + (size_t)k * p.A * p.DX + 4 * c, 16);
-  }
-  cp_async_commit();
-  cp_async_wait(0);
-  __syncthreads();
-  float* o = p.out + ((size_t)b * p.A + a) * p.DM;
-  for (int c = threadIdx.x; c < p.DM; c += FR_NT) {
-    const int ci = __ldg(p.cmap + c);
-    float v[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = slab[k * p.DX + ci];
-    kfold<K>(v);
-    o[c] = v[0];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // mxu: wgmma, TMA multicast, mbarriers
@@ -292,6 +275,175 @@ __device__ __forceinline__ void fm_tma2(void* dst, const CUtensorMap* map, int c
         " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(fm_smem(dst)),
         "l"(m), "r"(fm_smem(bar)), "r"(c0), "r"(c1)
         : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// roll, bigroll: a ring of column slices
+// ---------------------------------------------------------------------------
+
+#ifndef FR_CW
+#define FR_CW 8                   // consumer warps (a measurement build may set another count)
+#endif
+#define FR_NT (32 * (FR_CW + 1))  // and one producer warp
+// A measurement build (fold_breakdown.py --roll) knocks a phase of the roll
+// kernel out: 1 the folds (the consumers wait for each stage and release
+// it), 2 the copies (the producer arrives on `full` without a TMA: the folds
+// read whatever the stages hold). The wrappers never load such a build.
+#ifndef FOLD_ROLL_KO
+#define FOLD_ROLL_KO 0
+#endif
+#define FR_NSMAX 12               // stages in the ring at most
+#define FR_ALIGN 128              // bytes: a TMA destination's alignment
+
+struct RollArgs {
+  const float* x;     // (NB T, DX)
+  float* out;         // (NB A, DM)
+  const int2* units;  // the host's inverse map (probes/fold.py:roll_plan): per slice, its
+                      // units (output column, input column - the slice's first), each 4
+                      // columns (vec) or 1
+  const int* uoff;    // (nsl + 1,): slice s's units are [uoff[s], uoff[s + 1])
+  int NB, A, DX, DM, SW, nsl, ns, vec;
+};
+
+// the kernel's parameters: RollArgs with x as a tensor map
+struct RollTma {
+  CUtensorMap tmx;  // x as (DX, A, K NB) fp32, boxes (SW, 1, K): a receiver's K rows of a slice
+  float* out;
+  const int2* units;
+  const int* uoff;
+  int NB, A, DX, DM, SW, nsl, ns, stride;  // stride: floats a stage, K SW rounded up to 32
+};
+
+__device__ __forceinline__ float fr_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 fr_add(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// the script's halving order on v[0 .. KC): the sum lands in v[0]
+template <int KC, int KM, class V>
+__device__ __forceinline__ void kfold(V (&v)[KM]) {
+  if constexpr (KC > 1) {
+    if constexpr (KC % 2 == 0) {
+#pragma unroll
+      for (int k = 0; k < KC / 2; ++k) v[k] = fr_add(v[k], v[k + KC / 2]);
+      kfold<KC / 2>(v);
+    } else {
+      v[0] = fr_add(v[0], v[KC - 1]);
+      kfold<KC - 1>(v);
+    }
+  }
+}
+
+// the halvings of K while it is even (72 -> 9: 3; 8 -> 1: 3; 9: 0)
+template <int K>
+__host__ __device__ constexpr int fr_halvings() {
+  int h = 0;
+  while (((K >> h) & 1) == 0) ++h;
+  return h;
+}
+
+template <bool VEC>
+struct FrCols {
+  typedef float T;
+};
+template <>
+struct FrCols<true> {
+  typedef float4 T;
+};
+
+// slot k's value of the unit's columns after L of the halvings: the script's
+// v[k] after L levels, v_L[k] = v_{L-1}[k] + v_{L-1}[k + K / 2^L], each leaf
+// read from the stage where the tree needs it
+template <int K, int L, bool VEC>
+__device__ __forceinline__ typename FrCols<VEC>::T fr_halved(const float* col, int SW, int k) {
+  if constexpr (L == 0) {
+    if constexpr (VEC) return *(const float4*)(col + k * SW);
+    else return col[k * SW];
+  } else {
+    return fr_add(fr_halved<K, L - 1, VEC>(col, SW, k),
+                  fr_halved<K, L - 1, VEC>(col, SW, k + (K >> L)));
+  }
+}
+
+// Persistent: CTA q takes receivers q, q + grid, ...; each receiver's K rows
+// arrive as nsl slices of SW input columns (the last may be narrower: TMA
+// fills the columns past DX with zeros, which nothing reads), a stage each,
+// copied by one TMA box from the producer warp into a ring of ns stages
+// (completion on `full`); the consumer threads fold, from each stage, the
+// output columns whose input column lies in its slice, every one of them on
+// its own (K loads and K - 1 adds), and release it on `empty` (one arrival
+// a warp). A receiver's units, in slice order, go to the 256 consumer
+// threads in turn, continuing across receivers, so that every thread folds
+// as many as the others within one.
+template <int K, bool VEC>
+__global__ void __launch_bounds__(FR_NT, 1) probe_fold_roll_kernel(const __grid_constant__ RollTma p) {
+  extern __shared__ __align__(FR_ALIGN) unsigned char fr_smem[];
+  float* ring = (float*)(fr_smem + ((FR_ALIGN - fm_smem(fr_smem) % FR_ALIGN) % FR_ALIGN));
+  unsigned long long* full = (unsigned long long*)(ring + (size_t)p.ns * p.stride);
+  unsigned long long* empty = full + p.ns;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.ns; ++s) {
+      fm_mbar_init(&full[s], 1);
+      fm_mbar_init(&empty[s], FR_CW);
+    }
+  }
+  __syncthreads();
+  const int nrecv = p.NB * p.A;
+
+  if (warp == FR_CW) {  // the producer
+    if (lane == 0) {
+      int t = 0;
+      for (int rcv = blockIdx.x; rcv < nrecv; rcv += gridDim.x) {
+        const int b = rcv / p.A, a = rcv - b * p.A;
+        for (int s = 0; s < p.nsl; ++s, ++t) {
+          const int slot = t % p.ns;
+          if (t >= p.ns) fm_wait(&empty[slot], ((t / p.ns) - 1) & 1);
+#if FOLD_ROLL_KO != 2
+          fm_expect_tx(&full[slot], 4u * K * p.SW);
+          fm_tma3(ring + slot * p.stride, &p.tmx, s * p.SW, a, b * K, &full[slot], 0, 1);
+#else
+          asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(fm_smem(&full[slot]))
+                       : "memory");
+#endif
+        }
+      }
+    }
+    return;
+  }
+
+  typedef typename FrCols<VEC>::T V;
+  constexpr int H = fr_halvings<K>(), M = K >> H;
+  constexpr int T = 32 * FR_CW;
+  const int n_units = p.uoff[p.nsl];
+  int t = 0, base = 0;  // base: the units handed out before this receiver, mod T
+  for (int rcv = blockIdx.x; rcv < nrecv; rcv += gridDim.x) {
+    float* o = p.out + (size_t)rcv * p.DM;
+    for (int s = 0; s < p.nsl; ++s, ++t) {
+      const int slot = t % p.ns;
+      fm_wait(&full[slot], (t / p.ns) & 1);
+      const float* st = ring + slot * p.stride;
+      const int u0 = __ldg(p.uoff + s), u1 = __ldg(p.uoff + s + 1);
+      // this thread's units j of the slice: base + j = threadIdx.x mod T
+      for (int j = u0 + (((int)threadIdx.x - base - u0) % T + T) % T; j < u1 && FOLD_ROLL_KO != 1;
+           j += T) {
+        const int2 u = __ldg(p.units + j);
+        const float* col = st + u.y;
+        V v[M];
+#pragma unroll
+        for (int k = 0; k < M; ++k) v[k] = fr_halved<K, H, VEC>(col, p.SW, k);
+        kfold<M>(v);
+        *(V*)(o + u.x) = v[0];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(fm_smem(&empty[slot]))
+                     : "memory");
+      }
+    }
+    base = (base + n_units) % T;
+  }
 }
 
 // Matrix descriptor of a K-major operand without swizzle: start address,
@@ -586,16 +738,6 @@ __global__ void __launch_bounds__(FM_NT, 1) probe_fold_mma_kernel(
   cluster_wait();
 }
 
-template <int K>
-static int launch_roll(const FoldArgs& p, cudaStream_t s) {
-  static int smem_limit[MAX_DEVICES];  // one per instance
-  const size_t smem = sizeof(float) * K * p.DX;
-  cudaError_t err = raise_smem_limit((const void*)probe_fold_roll_kernel<K>, smem, smem_limit);
-  if (err != cudaSuccess) return (int)err;
-  probe_fold_roll_kernel<K><<<dim3(p.A, p.NB), FR_NT, smem, s>>>(p);
-  return (int)cudaGetLastError();
-}
-
 // floats of the mxu kernel's rings (ns stages of x, 2 ns of B), at least
 // what carries warpgroup 1's sums; the barriers follow them
 static int fm_ring_floats(int ns, int nbox, int W) {
@@ -629,6 +771,45 @@ static EncodeTiled encode_tiled() {
     if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
   }
   return fn;
+}
+
+template <int K, bool VEC>
+static int launch_roll(const RollArgs& a, cudaStream_t s) {
+  static int smem_limit[MAX_DEVICES];  // one per instance
+  RollTma p;
+  // x as (DX, A, K NB) fp32 in boxes (SW, 1, K), zero past its edges
+  const cuuint64_t size[3] = {(cuuint64_t)a.DX, (cuuint64_t)a.A, (cuuint64_t)K * a.NB};
+  const cuuint64_t stride[2] = {(cuuint64_t)a.DX * 4, (cuuint64_t)a.A * a.DX * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)a.SW, 1, K}, ones[3] = {1, 1, 1};
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr ||
+      enc(&p.tmx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)a.x, size, stride, box, ones,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  p.out = a.out;
+  p.units = a.units;
+  p.uoff = a.uoff;
+  p.NB = a.NB;
+  p.A = a.A;
+  p.DX = a.DX;
+  p.DM = a.DM;
+  p.SW = a.SW;
+  p.nsl = a.nsl;
+  p.ns = a.ns;
+  p.stride = (K * a.SW + 31) / 32 * 32;
+  const size_t smem = (sizeof(float) * p.stride + 2 * sizeof(unsigned long long)) * p.ns + FR_ALIGN;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  void (*fn)(RollTma) = probe_fold_roll_kernel<K, VEC>;
+  cudaError_t err = raise_smem_limit((const void*)fn, smem, smem_limit);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int nrecv = a.NB * a.A, grid = nrecv < sms ? nrecv : sms;
+  fn<<<grid, FR_NT, smem, s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 static cudaLaunchAttribute fm_cluster_attr(int cl) {
@@ -759,26 +940,46 @@ extern "C" int probe_fold_clusters(int cl, int ns, int nbox, int W) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// variant: 0 roll / bigroll (their column maps differ), 2 or 3: mxu2, mxu3.
-// roll: K one of FOLD_KS (probes/fold.py), K DX floats of shared memory.
-// mxu: A 16 or 32, the plan of probes/fold.py:mma_plan (checked here for
-// what the kernel needs), bq T / 16 KB (16-byte aligned); two launches,
-// the fold's B stages, then the product. Both: DX a multiple of 4, DM of 8,
-// the pointers 16-byte aligned, every cmap entry in [0, DX) (not checked
-// here).
+// roll / bigroll (their column maps differ): K one of FOLD_KS
+// (probes/fold.py), the host's plan of probes/fold.py:roll_plan (slices of
+// SW columns, a multiple of 4, the last narrower; ns stages of K SW floats;
+// vec: every unit 4 columns, output and input columns multiples of 4). DX a
+// multiple of 4, DM of 8, x and out 16-byte aligned; every unit inside its
+// slice and the output row (not checked here).
+extern "C" int probe_fold_roll_launch(int K, RollArgs p, void* stream) {
+  if (p.NB <= 0 || p.A <= 0 || p.DX <= 0 || p.DX % 4 || p.DM <= 0 || p.DM % 8 || p.SW <= 0 ||
+      p.SW % 4 || p.nsl != (p.DX + p.SW - 1) / p.SW || p.ns < 2 || p.ns > FR_NSMAX ||
+      p.units == nullptr || p.uoff == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (K * 2 + (p.vec ? 1 : 0)) {
+    case 16: return launch_roll<8, false>(p, s);
+    case 17: return launch_roll<8, true>(p, s);
+    case 18: return launch_roll<9, false>(p, s);
+    case 19: return launch_roll<9, true>(p, s);
+    case 144: return launch_roll<72, false>(p, s);
+    case 145: return launch_roll<72, true>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Layout constants the host's roll plan must follow (probes/fold.py):
+// threads folding, stages at most.
+extern "C" void probe_fold_roll_layout(int* out) {
+  out[0] = 32 * FR_CW;
+  out[1] = FR_NSMAX;
+}
+
+// mxu2, mxu3 (pieces 2 or 3): A 16 or 32, the plan of
+// probes/fold.py:mma_plan (checked here for what the kernel needs), bq T /
+// 16 KB (16-byte aligned); two launches, the fold's B stages, then the
+// product. DX a multiple of 4, DM of 8, the pointers 16-byte aligned, every
+// cmap entry in [0, DX) (not checked here).
 extern "C" int probe_fold_launch(int pieces, FoldArgs p, void* stream) {
   if (p.NB <= 0 || p.NB > 65535 || p.K <= 0 || p.A <= 0 || p.DX <= 0 || p.DX % 4 ||
       p.DM <= 0 || p.DM % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (pieces == 0) {
-    switch (p.K) {
-      case 8: return launch_roll<8>(p, s);
-      case 9: return launch_roll<9>(p, s);
-      case 72: return launch_roll<72>(p, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
   if ((p.A != 16 && p.A != 32) || p.tiles != (p.DM + 63) / 64 || p.cl < 1 ||
       p.cl > FM_CLMAX || p.ctas % p.cl || p.ctas * FM_TPW < p.tiles || p.W % 8 != 4 ||
       p.W > FM_BOXW || p.nbox * p.W < p.DX || (p.nbox - 1) * p.W >= p.DX || p.ns < 2 ||

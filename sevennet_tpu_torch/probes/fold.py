@@ -17,7 +17,12 @@ DX`` (``:79-82``). The variants (:data:`VARIANTS`): ``roll`` and
 fp32; ``mxu2`` and ``mxu3`` split x into 2 or 3 bf16 pieces and multiply
 each by the fold matrix with fp32 accumulation (``:63-77``).
 
-The ``mxu`` kernel runs a block's m64 tiles of output columns on a
+The ``roll`` kernel streams each receiver's K rows as slices of
+:data:`ROLL_SW` input columns through a ring of shared-memory stages and
+folds, from each stage, every output column whose input column lies in its
+slice, each on its own; :func:`roll_plan` is the host's inverse column map
+and ring (``csrc/probe_fold.cu``). The ``mxu`` kernel runs a block's m64
+tiles of output columns on a
 thread-block cluster, :data:`MMA_TPW` tiles a CTA, each stage of x loaded
 once by TMA and multicast to the cluster's CTAs in boxes of ``W`` columns;
 :func:`mma_plan` is the host's plan of both, :func:`mma_pairs` says whether
@@ -52,7 +57,8 @@ from ._lib import check_device, stream
 
 __all__ = ["VARIANTS", "N", "K", "A", "DM", "MULS", "FOLD_KS", "TOL", "fold_matrix",
            "column_map", "kfold_plain", "fold_plain", "fold", "fold_work", "MmaPlan",
-           "mma_plan", "mma_pairs", "MMA_TPW", "MMA_CLMAX", "MMA_BOXW", "cancelling_input"]
+           "mma_plan", "mma_pairs", "MMA_TPW", "MMA_CLMAX", "MMA_BOXW", "cancelling_input",
+           "RollPlan", "roll_plan", "roll_vec", "ROLL_SW"]
 
 VARIANTS = ("roll", "mxu2", "mxu3", "bigroll")
 N, K, A = 10016, 72, 32            # r3_fold_probe.py:17
@@ -70,6 +76,19 @@ PIECES = {"roll": 0, "bigroll": 0, "mxu2": 2, "mxu3": 3}
 MMA_TILE, MMA_TPW, MMA_CLMAX, MMA_BOXW = 64, 7, 8, 252
 MMA_R, MMA_NSMAX, MMA_NT, MMA_BBYTES = 16, 8, 384, 1024
 SMEM_LIMIT = 232448  # dynamic shared memory a CTA may have on sm_90
+# the roll kernel's layout (csrc/probe_fold.cu; probe_fold_roll_layout
+# returns the same): threads that fold, stages at most; and its slice of
+# input columns (16 KB of x a stage at K 72; 7 slices at DX 392)
+ROLL_NT, ROLL_NSMAX = 256, 12
+ROLL_SW = 56
+ROLL_ALIGN = 128  # bytes the kernel may skip to align its ring for TMA
+
+
+class _RollArgs(ctypes.Structure):
+    """ctypes mirror of ``struct RollArgs`` (csrc/probe_fold.cu)."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("x", "out", "units", "uoff")] + [
+        (f, ctypes.c_int) for f in ("NB", "A", "DX", "DM", "SW", "nsl", "ns", "vec")]
 
 
 class _FoldArgs(ctypes.Structure):
@@ -169,6 +188,59 @@ def mma_pairs(cmap: np.ndarray) -> bool:
     return bool(np.all(ci[:, 0] % 2 == 0) and np.all(ci[:, 1] == ci[:, 0] + 1))
 
 
+def roll_vec(cmap: np.ndarray) -> bool:
+    """Whether every aligned run of 4 output columns reads 4 consecutive
+    input columns from a multiple of 4: the roll kernel then folds a run at
+    once, by 16-byte loads (each column's sum still its own)."""
+    ci = np.asarray(cmap).reshape(-1, 4)
+    return bool(np.all(ci[:, 0] % 4 == 0) and np.all(ci - ci[:, :1] == np.arange(4)))
+
+
+@dataclass(frozen=True, eq=False)
+class RollPlan:
+    """How the roll kernel covers a receiver (``csrc/probe_fold.cu``): its
+    K rows as ``nsl`` slices of ``sw`` input columns (the last narrower when
+    sw does not divide DX), a stage each, in a ring of ``ns`` stages
+    (``smem`` bytes with the mbarriers; a stage is K sw floats rounded up to
+    128 bytes, where one TMA box lands); slice s's units are ``units[uoff[s]
+    : uoff[s + 1]]``, each (output column, input column - s sw): 4 columns
+    from there when ``vec``, else 1; within a slice sorted by input column,
+    so that neighbouring threads read neighbouring words."""
+
+    sw: int
+    nsl: int
+    ns: int
+    smem: int
+    vec: bool
+    units: np.ndarray
+    uoff: np.ndarray
+
+
+def roll_plan(cmap: np.ndarray, dx: int, k: int, sw: int = ROLL_SW) -> RollPlan:
+    """The roll kernel's plan for column map ``cmap`` over DX input columns
+    at K: the inverse map by slice and the deepest ring up to
+    :data:`ROLL_NSMAX` stages that fits :data:`SMEM_LIMIT` (0: none)."""
+    cmap = np.asarray(cmap)
+    vec = roll_vec(cmap)
+    cols = np.arange(0, len(cmap), 4 if vec else 1)
+    ci = cmap[cols]
+    order = np.lexsort((cols, ci))
+    cols, ci = cols[order], ci[order]
+    nsl = -(-dx // sw)
+    units = np.stack([cols, ci % sw], axis=1).astype(np.int32)
+    uoff = np.searchsorted(ci // sw, np.arange(nsl + 1)).astype(np.int32)
+    return RollPlan(sw, nsl, *_roll_ring(k, sw), vec, units, uoff)
+
+
+def _roll_ring(k: int, sw: int):
+    """(stages, bytes) of the roll kernel's ring: stages of K sw floats,
+    each rounded up to 128 bytes, and 2 mbarriers, as many as fit, up to
+    ROLL_NSMAX."""
+    stage = 4 * -(-k * sw // 32) * 32 + 16
+    ns = min(ROLL_NSMAX, (SMEM_LIMIT - ROLL_ALIGN) // stage)
+    return ns, stage * ns + ROLL_ALIGN
+
+
 @lru_cache(maxsize=None)
 def _column_map(variant: str, muls: Tuple[int, ...], dx: int) -> np.ndarray:
     dm = sum(muls)
@@ -260,6 +332,9 @@ def _check_kernel(k, a, dx, dm, variant, nb, tensors):
     if PIECES[variant] == 0 and k not in FOLD_KS:
         raise ValueError(f"the roll kernel is built for K in {FOLD_KS}, got {k}")
     if PIECES[variant] == 0:
+        if _roll_ring(k, ROLL_SW)[0] < 2:
+            raise ValueError(f"the roll kernel's two stages of K {k} need more than "
+                             f"{SMEM_LIMIT} bytes of shared memory")
         return None
     if a not in (16, 32):
         raise ValueError(f"the mxu kernel takes A 16 or 32, got {a}")
@@ -274,9 +349,11 @@ def _check_layout(lib):
     got = (ctypes.c_int * 8)()
     lib.probe_fold_layout(got)
     want = (MMA_TILE, MMA_TPW, MMA_CLMAX, MMA_BOXW, MMA_R, MMA_NSMAX, MMA_NT, MMA_BBYTES)
-    if tuple(got) != want:
-        raise RuntimeError(f"csrc/probe_fold.cu's layout {tuple(got)} is not probes/fold.py's "
-                           f"{want}")
+    roll = (ctypes.c_int * 2)()
+    lib.probe_fold_roll_layout(roll)
+    if tuple(got) != want or tuple(roll) != (ROLL_NT, ROLL_NSMAX):
+        raise RuntimeError(f"csrc/probe_fold.cu's layout {tuple(got)}, {tuple(roll)} is not "
+                           f"probes/fold.py's {want}, {(ROLL_NT, ROLL_NSMAX)}")
 
 
 def fold(x, foldm, k: int = K, a: int = A, variant: str = "roll",
@@ -293,16 +370,22 @@ def fold(x, foldm, k: int = K, a: int = A, variant: str = "roll",
         out = torch.empty(shape, dtype=torch.float32, device=x.device)
     nb = x.shape[0] // (k * a)
     plan = _check_kernel(k, a, x.shape[1], shape[1], variant, nb, (x, foldm, out))
+    if plan is None:
+        rp, units, uoff = _device_roll_plan(variant, muls, x.shape[1], k, x.device)
+        call("probe_fold", "probe_fold_roll_launch", ctypes.c_int(k),
+             _RollArgs(x.data_ptr(), out.data_ptr(), units.data_ptr(), uoff.data_ptr(), nb, a,
+                       x.shape[1], shape[1], rp.sw, rp.nsl, rp.ns, int(rp.vec)),
+             stream(x.device), on_load=_check_layout)
+        fold.launches += 1
+        fold.by_variant[variant] += 1
+        return out
     cmap = _device_map(variant, muls, x.shape[1], x.device)
-    tiling, bq = (0,) * 7, None
-    if plan is not None:
-        tiling = (plan.tiles, plan.cl, plan.ctas, plan.nbox, plan.W, plan.ns,
-                  int(_mma_pairs(variant, muls, x.shape[1])))
-        bq = torch.empty(k * a // MMA_R * MMA_BBYTES, dtype=torch.uint8, device=x.device)
+    tiling = (plan.tiles, plan.cl, plan.ctas, plan.nbox, plan.W, plan.ns,
+              int(_mma_pairs(variant, muls, x.shape[1])))
+    bq = torch.empty(k * a // MMA_R * MMA_BBYTES, dtype=torch.uint8, device=x.device)
     call("probe_fold", "probe_fold_launch", ctypes.c_int(PIECES[variant]),
          _FoldArgs(x.data_ptr(), foldm.data_ptr(), cmap.data_ptr(), out.data_ptr(),
-                   None if bq is None else bq.data_ptr(), nb, k, a, x.shape[1], shape[1],
-                   *tiling),
+                   bq.data_ptr(), nb, k, a, x.shape[1], shape[1], *tiling),
          stream(x.device), on_load=_check_layout)
     fold.launches += 1
     fold.by_variant[variant] += 1
@@ -316,6 +399,13 @@ fold.by_variant = dict.fromkeys(VARIANTS, 0)
 @lru_cache(maxsize=None)
 def _mma_pairs(variant, muls, dx):
     return mma_pairs(column_map(variant, muls, dx))
+
+
+@lru_cache(maxsize=None)
+def _device_roll_plan(variant, muls, dx, k, device):
+    rp = roll_plan(column_map(variant, muls, dx), dx, k)
+    return (rp, torch.as_tensor(rp.units, device=device).contiguous(),
+            torch.as_tensor(rp.uoff, device=device))
 
 
 @lru_cache(maxsize=None)

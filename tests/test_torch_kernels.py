@@ -675,6 +675,34 @@ def test_batched_dot_matches_plain(cuda):
             np.testing.assert_allclose(y.cpu(), w.cpu(), rtol=0, atol=1e-5 * float(w.abs().max()))
 
 
+@pytest.mark.parametrize("groups", [((5, 8, 8), (5, 40, 24), (22, 152, 24)),
+                                    ((9, 40, 8), (5, 8, 24), (20, 80, 64))],
+                         ids=["short_chunks", "long_chunks"])
+def test_batched_dot_ragged_matches_plain(cuda, groups):
+    """The batched dot at shapes off the script's: N below the card's SM
+    count (CTAs with no atom left) and just above it (a CTA with two), d3 5
+    and 9, K d1 short of a 72-row chunk (8, 40) and past one (80, 152: a
+    partial last chunk), mul 8 and 24 (a column group partly empty), rep 1
+    and 3, against torch.bmm, 1e-5 of max |plain|."""
+    from sevennet_tpu_torch.probes import batched_dot as bd
+
+    rng = np.random.default_rng(11)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n in (n_sm - 7, n_sm + 1):
+        Ss = [torch.tensor(rng.normal(size=(n, d3, kk)), dtype=torch.float32, device=cuda)
+              for d3, kk, _ in groups]
+        XWs = [torch.tensor(rng.normal(size=(n, kk, mul)), dtype=torch.float32, device=cuda)
+               for _, kk, mul in groups]
+        want = bd.batched_dot(Ss, XWs, plain=True)
+        for rep in (1, 3):
+            n0 = bd.batched_dot.launches
+            got = bd.batched_dot(Ss, XWs, rep=rep)
+            torch.cuda.synchronize()
+            assert bd.batched_dot.launches == n0 + 1
+            for y, w in zip(got, want):
+                _close_to(y, w, 1e-5)
+
+
 @pytest.mark.parametrize("layout", ["feat", "edge"])
 def test_probe_fma_matches_plain(cuda, layout):
     """The FMA-rate probe's carried chain (r2_pallas_fma's fma, 4 reps) and
@@ -849,6 +877,37 @@ def test_probe_fold_matches_plain(cuda, variant):
             torch.cuda.synchronize()
             assert fo.fold.by_variant[variant] == n0 + 1
             _close_to(got, fo.fold(x_, fm, k, a, variant, m, plain=True), fo.TOL)
+
+
+@pytest.mark.parametrize("variant", ["roll", "bigroll"])
+def test_probe_roll_slices_match_plain(cuda, variant):
+    """The roll kernel's ring of column slices: at K 8 and 9 and A 16 over
+    DX 100 (two slices of fold.ROLL_SW columns, the last partial), at K 72
+    over DX 100 with 192 receivers (more than the card's SMs: a CTA folds
+    several, its threads' units continuing across them) and over DX 60 (a
+    last slice of 4 columns); the tile map by single columns where its runs
+    are off the 4-column grid ((100,) * 8), by 4-column runs elsewhere;
+    against plain within fold.TOL and, since both add in the script's
+    order, bitwise."""
+    from sevennet_tpu_torch.probes import fold as fo
+
+    rng = np.random.default_rng(21)
+    paired = (64,) * 12 + (32,)
+    for k, a, m, nb in ((8, 16, (100,) * 8, 3), (9, 16, paired, 3), (72, 32, paired, 6),
+                        (72, 32, (100,) * 8, 2), (72, 16, (32,) * 15, 9)):
+        dx = sum(m) // 8
+        rp = fo.roll_plan(fo.column_map(variant, m, dx), dx, k)
+        assert rp.nsl == -(-dx // fo.ROLL_SW) and dx % fo.ROLL_SW
+        x = torch.tensor(rng.normal(size=(nb * a * k, dx)), dtype=torch.float32, device=cuda)
+        fm = fo.fold_matrix(k, a, cuda)
+        out = torch.full((nb * a, sum(m)), float("nan"), device=cuda)
+        n0 = fo.fold.by_variant[variant]
+        got = fo.fold(x, fm, k, a, variant, m, out=out)
+        torch.cuda.synchronize()
+        assert fo.fold.by_variant[variant] == n0 + 1 and got is out
+        want = fo.fold(x, fm, k, a, variant, m, plain=True)
+        _close_to(got, want, fo.TOL)
+        assert torch.equal(got, want)
 
 
 def test_probe_fold_conv_matches_plain_and_b4(cuda):

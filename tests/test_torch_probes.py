@@ -178,6 +178,62 @@ def test_batched_dot_plain_matches_pallas():
     assert nbytes == 4 * n_atoms * sum(d3 * kk + kk * mul + d3 * mul for d3, kk, mul in bd.GROUPS)
 
 
+# the batched dot's group sets its plan is held to: the script's, the card's
+# ragged ones (K d1 short of a chunk and past one, d3 5, mul 8 and 24), and
+# the widest the kernel takes
+BD_PLAN_GROUPS = (bd.GROUPS, ((5, 8, 8), (5, 40, 24), (22, 152, 24)),
+                  ((9, 40, 8), (5, 8, 24), (20, 80, 64)), ((24, 1000, 128), (1, 8, 8), (8, 16, 128)))
+
+
+@pytest.mark.parametrize("groups", BD_PLAN_GROUPS, ids=["script", "ragged1", "ragged2", "widest"])
+def test_batched_dot_plan_covers_and_fits(groups):
+    """bd_plan against a numpy statement of the kernel's plan: the chunks of
+    each group cover its K d1 contraction rows exactly once, in order, each
+    at most BD_KS k8 steps; a stage holds any group's chunk (XW as TMA
+    boxes of BD_CB columns x ch rows, then S, d3 rows of ch floats), in
+    whole swizzle atoms of BD_ALIGN bytes; each warpgroup's B buffer holds
+    a chunk's hi and lo core matrices (2 x 2 x NT8 of 32 floats a step);
+    the deepest ring up to BD_NSMAX, an equal share for each of the BD_CWG
+    warpgroups, that fits SMEM_LIMIT with an mbarrier a stage and the
+    alignment's slack, at least 2 stages a warpgroup."""
+    plan = bd.bd_plan(groups)
+    for _, kk, _ in groups:
+        rows = np.zeros(kk, int)
+        for k0 in range(0, kk, plan.ch):  # the kernel's chunks of an item, in order
+            n = min(plan.ch, kk - k0)
+            assert n > 0 and n % 8 == 0 and n <= plan.ch == 8 * bd.BD_KS
+            rows[k0:k0 + n] += 1
+        assert np.all(rows == 1)
+    need = max(plan.ch * (int(np.ceil(mul / bd.BD_CB)) * bd.BD_CB + d3) for d3, _, mul in groups)
+    atom = bd.BD_ALIGN // 4
+    assert plan.stage % atom == 0 and need <= plan.stage < need + atom
+    assert plan.bbuf == bd.BD_KS * 2 * 2 * max(int(np.ceil(d3 / 8)) for d3, _, _ in groups) * 32
+
+    def smem(ns):
+        return 4 * (ns * plan.stage + bd.BD_CWG * plan.bbuf) + 8 * ns + bd.BD_ALIGN
+
+    assert plan.ns == max(n for n in range(2 * bd.BD_CWG, bd.BD_NSMAX + 1, bd.BD_CWG)
+                          if smem(n) <= bd.SMEM_LIMIT)
+    assert plan.smem == smem(plan.ns) <= bd.SMEM_LIMIT
+    if groups == bd.GROUPS:  # the script's groups: chunks of 40 rows, 2 stages a warpgroup
+        assert (plan.ch, plan.ns) == (40, 2 * bd.BD_CWG)
+
+
+def test_batched_dot_kernel_checks_its_shapes():
+    """The kernel's host checks refuse what it does not take: d3 above 24,
+    mul above 128, unaligned tensors, rep below 1."""
+    t = torch.zeros(8)
+    assert bd._check_kernel(bd.GROUPS, 4, (t,)).ch == 8 * bd.BD_KS
+    with pytest.raises(ValueError, match="d3 up to 24"):
+        bd._check_kernel(((25, 8, 8),) * 3, 1, (t,))
+    with pytest.raises(ValueError, match="mul up to 128"):
+        bd._check_kernel(((8, 8, 136),) * 3, 1, (t,))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bd._check_kernel(bd.GROUPS, 1, (t[1:],))
+    with pytest.raises(ValueError, match="rep"):
+        bd._check_kernel(bd.GROUPS, 0, (t,))
+
+
 def test_probe_wrappers_check_their_inputs():
     """The wrappers raise on CPU tensors unless told to run the plain
     version (which does not count as a launch), and refuse misshapen or

@@ -531,6 +531,49 @@ def test_mma_pairs_matches_its_statement():
     assert {name: fo.mma_pairs(m) for name, m in maps.items()} == want
 
 
+# (tiles of mul rows, DX) the roll kernel's plan is held to: the script's,
+# the card's ragged ones (DX 100: a partial last slice; the first map's runs
+# off the 4-column grid), the card tests' odd tiles
+ROLL_MAPS = ((fo.MULS, 392), ((100,) * 8, 100), ((64,) * 12 + (32,), 100), (FOLD_MULS, 12))
+
+
+@pytest.mark.parametrize("k", fo.FOLD_KS)
+@pytest.mark.parametrize("muls,dx", ROLL_MAPS, ids=["script", "wide", "paired", "odd"])
+@pytest.mark.parametrize("variant", ["roll", "bigroll"])
+def test_roll_plan_covers_every_output_column_once(variant, muls, dx, k):
+    """roll_plan against a numpy statement of the roll kernel's plan: its
+    units, expanded to their columns (4 from each when vec, else 1), cover
+    every output column exactly once; each reads the map's input columns,
+    inside its own slice (slices of ROLL_SW columns, the last narrower);
+    vec exactly when every aligned run of 4 output columns reads an aligned
+    run of 4 input columns; within a slice the input columns ascend; the
+    deepest ring up to ROLL_NSMAX stages of K x ROLL_SW floats (each
+    rounded up to 128 bytes, a TMA box's alignment) that fits the shared
+    memory, at least 2."""
+    cmap = fo.column_map(variant, muls, dx)
+    rp = fo.roll_plan(cmap, dx, k)
+    runs = cmap.reshape(-1, 4)
+    assert rp.vec == bool(np.all(runs[:, 0] % 4 == 0) and np.all(np.diff(runs, axis=1) == 1))
+    width = 4 if rp.vec else 1
+    assert rp.nsl == int(np.ceil(dx / fo.ROLL_SW)) and rp.sw == fo.ROLL_SW
+    assert rp.uoff[0] == 0 and rp.uoff[-1] == len(rp.units) and np.all(np.diff(rp.uoff) >= 0)
+    cols = []
+    for s in range(rp.nsl):
+        lo, hi = s * rp.sw, min(dx, (s + 1) * rp.sw)
+        units = rp.units[rp.uoff[s]:rp.uoff[s + 1]]
+        assert np.all(np.diff(units[:, 1]) >= 0)
+        for c, local in units:
+            assert lo <= lo + local and lo + local + width <= hi
+            assert list(cmap[c:c + width]) == list(range(lo + local, lo + local + width))
+            cols.extend(range(c, c + width))
+    assert sorted(cols) == list(range(len(cmap)))
+    stage = 4 * int(np.ceil(k * fo.ROLL_SW / 32)) * 32 + 16  # 128-byte aligned, 2 mbarriers
+    assert rp.ns == min(fo.ROLL_NSMAX, (fo.SMEM_LIMIT - fo.ROLL_ALIGN) // stage) and rp.ns >= 2
+    assert rp.smem == rp.ns * stage + fo.ROLL_ALIGN <= fo.SMEM_LIMIT
+    if (muls, dx) == (fo.MULS, 392):  # the script's maps fold by 4-column runs
+        assert rp.vec
+
+
 def test_mma_kernel_checks_its_shapes():
     """The mxu kernel's host checks refuse what it does not take: A other
     than 16 or 32, a DX whose two stages do not fit, unaligned tensors, more
