@@ -146,15 +146,21 @@
    (``mm_rate.PROBE_TOL``), then the probe path with the counts from 0:
    each timed the TPU script's way on the device alone (CUDA graphs), with
    TFLOP/s per card and the card rate over the SM count, beside the library
-   calls (torch.matmul with TF32 off and on, torch.bmm). Then the FMA-rate
+   calls (torch.matmul with TF32 off and on, torch.bmm); the 3xTF32
+   variants (their wgmma kernel) also with their raw TF32 rate and their
+   time at REP 32 over REP 16 (every product computed: about 2), their
+   HGMMA counted after the build. Then the FMA-rate
    and gather probes (``probes/fma_rate.py``, ``probes/gather.py``): each
    against its plain version at every shape of its TPU script (the chains
    within 1e-5 of max |plain|, the gathers bitwise), then with the counts
    from 0 each timed by its script's method, the FMA chains also at the
    copies that fill the card with the SM clock read before and after, the
    row gather at SevenNet-0's 9,999-atom x[src] shape with and without
-   streaming stores, beside torch.index_select. The SASS of the FMA
-   kernels (``cuobjdump``) is counted after the build.
+   streaming stores, beside torch.index_select; the column gather (p1) also
+   at ragged shapes (its one call alone is split right after the build
+   into the launch floor, an empty kernel timed the same way, the kernel's
+   own duration from torch.profiler and the rest, beside index_select's).
+   The SASS of the FMA kernels (``cuobjdump``) is counted after the build.
    Then the K-reduction, transpose and fold probes (``probes/reduce.py``,
    ``probes/xpose.py``, ``probes/fold.py``, ``probes/fold_conv.py``): each
    variant against its plain version at every shape of its TPU script (sums
@@ -517,14 +523,20 @@ INSTANCES = {
     ("batched_dot_kernel", ""): "batched_dot (probe: 3xTF32 wgmma, a ring of chunks)",
     **{("probe_mm_kernel", f"{i}{c}"): f"probe_mm<{v}{', carry' if c else ''}> (probe)"
        for i, v in enumerate(("ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32", "bf16"))
-       for c in (0, 1)},
+       if v not in ("3xtf32", "3xtf32_presplit") for c in (0, 1)},
+    **{("probe_mm3x_kernel", f"{p}{c}"):
+       f"probe_mm3x<{'3xtf32_presplit' if p else '3xtf32'}{', carry' if c else ''}> "
+       "(probe: 3xTF32 wgmma)" for p in (0, 1) for c in (0, 1)},
     **{("probe_fma_kernel", f"{i}{c}"): f"probe_fma<{lay}, {'carry' if c else 'one pass'}> (probe)"
        for i, lay in enumerate(("feat", "edge")) for c in (0, 1)},
     ("probe_vpu_kernel", ""): "probe_vpu (probe)",
     **{("probe_gather_rows_kernel", f"{i}{st}"):
        f"probe_gather_rows<{v}{', streaming' if st else ''}> (probe)"
        for i, v in enumerate(("ldg", "cp_async")) for st in (0, 1)},
-    ("probe_gather_cols_kernel", ""): "probe_gather_cols (probe)",
+    **{("probe_gather_cols_kernel", f"{r}{vec}"):
+       f"probe_gather_cols<{r} row{'s' if r > 1 else ''} a thread, {'16' if vec else '4'}-byte "
+       "accesses> (probe)" for r in (1, 2, 4) for vec in (0, 1)},
+    ("probe_empty_kernel", ""): "probe_empty (the launch floor, probe)",
     ("probe_reduce_rows_kernel", "0"): "probe_reduce_rows<kreduce> (probe)",
     ("probe_reduce_rows_kernel", "1"): "probe_reduce_rows<scaled> (subreduce, probe)",
     ("probe_reduce_lanes_kernel", ""): "probe_reduce_lanes (lanereduce, probe)",
@@ -3342,7 +3354,8 @@ def probe_phase(dev, card: str):
                 a, b = probe_inputs(v, m, k, n, dev, m + k + n)
                 extra = () if chain else (s,)
                 fn = mr.mm_chain if chain else mr.mm_rate
-                fill = max(1, math.ceil(n_sm / mr.mm_tiles(m, n)))
+                ctas = mr.mm_ctas(m, k, n, v, chain)
+                fill = max(1, math.ceil(n_sm / ctas))
                 call = lambda: fn(a, b, *extra, variant=v)  # noqa: E731
                 ms = mr.mm_time(call)
                 lin = mr.mm_time(call, 250, 450, tries=1) / ms
@@ -3364,11 +3377,21 @@ def probe_phase(dev, card: str):
                 nbytes = a.element_size() * (a.numel() + b.numel()) + 4 * m * n
                 log(f"  probe {'mm_chain' if chain else 'mm_rate'} {v} {m}x{k}x{n}: {ms:.5f} ms "
                     f"per call ({lin:.3f}x at 250-450 calls), {fl / ms / 1e9:.2f} TFLOP/s "
-                    f"(1 copy, {mr.mm_tiles(m, n)} CTAs); {fill} copies: {card_rate:.2f} TFLOP/s "
+                    f"(1 copy, {ctas} CTAs); {fill} copies: {card_rate:.2f} TFLOP/s "
                     f"per card, {card_rate / n_sm * 1e3:.1f} GFLOP/s card rate / {n_sm} SMs; "
                     f"library {lib:.5f} ms for the same {mr.REP} products (one graph)"
                     + ("" if v == "bf16" else f" (TF32 off {lib_t[False]:.5f}, on {lib_t[True]:.5f})")
                     + f"; plain {plain:.4f} ms | {card}")
+                if v in mr.WGMMA_3X and i == 0:
+                    rep2 = mr.mm_time(lambda: fn(a, b, *extra, variant=v, rep=2 * mr.REP))
+                    log(f"  probe {'mm_chain' if chain else 'mm_rate'} {v} {m}x{k}x{n}: raw TF32 "
+                        f"{3 * fl / ms / 1e9:.2f} TFLOP/s (three products a fp32 one; "
+                        f"{3 * fl / ms / 1e9 / (TF32_PEAK / 1e12):.1%} of {TF32_PEAK / 1e12:.0f}); "
+                        f"REP {2 * mr.REP} {rep2:.5f} ms, {rep2 / ms:.3f}x REP {mr.REP}; plan "
+                        f"{mr.mm_plan(m, k, n, chain, 1, n_sm)} | {card}")
+                    if rep2 / ms < 1.6:
+                        raise SystemExit(f"probe {v} {m}x{k}x{n}: REP {2 * mr.REP} took "
+                                         f"{rep2 / ms:.3f}x REP {mr.REP}: not every product ran")
                 if i == 0:
                     key = ("mm_chain" if chain else "mm_rate", v)
                     bnd, by = max((fl / PEAK_OF[v] * 1e3, "operations"),
@@ -3548,6 +3571,86 @@ def check_equal(tag: str, got, want) -> float:
     return 0.0
 
 
+# (rows, indices, copies) of the column gather's ragged checks: a short last
+# row block, T not a multiple of 4 (4-byte accesses), copies (4 rows a thread)
+GATHER_COLS_RAGGED = ((481, 1023, 1), (480, 1024, 3), (37, 1000, 1), (5, 6, 2))
+
+
+def profiler_alive(dev, after: str) -> tuple:
+    """Device kernels that torch.profiler records, logged with the phase
+    ``after`` which it runs, in three sessions: one small kernel; 100 of
+    them; one, with 50 ms before the session ends. (The profiler has
+    recorded no device kernel of a short session late in this script, and
+    now and then early; see g2_split.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1024, device=dev)
+    x.add_(1)
+    torch.cuda.synchronize()
+    counts = []
+    for n, wait in ((1, 0.0), (100, 0.0), (1, 0.05)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                x.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(wait)
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    log(f"  torch.profiler after {after}: device kernels recorded of 1 add_ {counts[0]}, of 100 "
+        f"{counts[1]}, of 1 with 50 ms before the session ends {counts[2]}")
+    return tuple(counts)
+
+
+def g2_split(dev, card: str) -> None:
+    """p1's one call alone (the column gather at r2_pallas_caps.py's shape)
+    timed two ways: as fma_gather_phase times it (graph_ms(fn, 1,
+    replays=20): one call in a CUDA graph, best of 20 replays, the host's
+    latency to launch the replay inside the events) and queued behind a
+    spin on the device (one_call_queued_ms: the launch on the device and the
+    kernel alone); each split into the launch floor (probe_empty_kernel
+    timed the same way), the kernel's own duration (torch.profiler) and the
+    rest, beside index_select's. Runs right after the build: torch.profiler
+    has been seen to record no device activity late in this script (logged
+    by profiler_alive after each phase). Raises if the profiler records no
+    kernel of a call."""
+    import torch
+
+    from probe_ab import device_us
+    from sevennet_tpu_torch.probes import gather as ga
+    from sevennet_tpu_torch.probes._lib import graph_ms, one_call_queued_ms
+
+    dx, w, t = ga.TABLE_SHAPE
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    tbl = torch.randn(dx, w, generator=gen).to(dev)
+    idx = torch.randint(0, w, (1, t), generator=gen, dtype=torch.int32).to(dev)
+    out = torch.empty(dx, t, device=dev)
+    check_equal(f"probe gather_cols {dx}x{w} T {t} (launch split)",
+                ga.gather_cols(tbl, idx, out=out), ga.gather_cols_plain(tbl, idx))
+    empty = lambda: ga.empty_launch(dev)  # noqa: E731
+    floor = graph_ms(empty, 1, replays=20)
+    floor_q = one_call_queued_ms(empty)
+    floor_dur = sum(device_us(empty).values()) / 1e3
+    log(f"  probe cols_one launch floor (an empty kernel, one call): {floor * 1e3:.3f} us, "
+        f"queued {floor_q * 1e3:.3f} us, of which {floor_dur * 1e3:.3f} us the empty kernel's "
+        f"own duration | {card}")
+    # (the wrapper's index check, idx.min() and idx.max(), runs kernels of its own)
+    for name, fn, key in (("gather_cols", lambda: ga.gather_cols(tbl, idx, out=out),
+                           "probe_gather_cols"),
+                          ("index_select", lambda: torch.index_select(tbl, 1, idx[0], out=out),
+                           "")):
+        t_one, t_q = graph_ms(fn, 1, replays=20), one_call_queued_ms(fn)
+        ks = device_us(fn)
+        dur = sum(us for k, us in ks.items() if key in k) / 1e3
+        if dur == 0:
+            raise SystemExit(f"{name}: torch.profiler saw no kernel {key!r} in one call: {ks}")
+        log(f"  probe cols_one {name}: one call {t_one * 1e3:.3f} us (host latency in), queued "
+            f"{t_q * 1e3:.3f} us = launch {(floor_q - floor_dur) * 1e3:.3f} us (the queued "
+            f"floor less the empty kernel's duration) + kernel {dur * 1e3:.3f} us + rest "
+            f"{(t_q - floor_q + floor_dur - dur) * 1e3:.3f} us (device kernels of a call: "
+            f"{', '.join(f'{k} {us:.3f}' for k, us in ks.items())}) | {card}")
+
+
 def fma_gather_phase(dev, card: str):
     """The FMA-rate and gather probes. First each kernel against its plain
     version at every shape of its TPU script (chains within fma_rate.TOL of
@@ -3613,6 +3716,12 @@ def fma_gather_phase(dev, card: str):
     del want
     errs["cols"] = check_equal(f"probe gather_cols {dx}x{w} T {t_tab}",
                                ga.gather_cols(tbl_c, idx_c), ga.gather_cols_plain(tbl_c, idx_c))
+    for rd, rt, rc in GATHER_COLS_RAGGED:
+        tb, ix = rnd(rd, w), ints(w, 1, rt)
+        o = torch.full((rd, rt) if rc == 1 else (rc, rd, rt), float("nan"), device=dev)
+        check_equal(f"probe gather_cols {rd}x{w} T {rt} copies {rc} (plan "
+                    f"{ga.cols_plan(rd, rt, rc, n_sm)})",
+                    ga.gather_cols(tb, ix, copies=rc, out=o), ga.gather_cols_plain(tb, ix, rc))
     for v in ga.VARIANTS:
         errs[("small_rows", v)] = check_equal(f"probe gather_rows {v} {w}x{dx} T {t_tab}",
                                               ga.gather_rows(tbl_r, idx_r, v),
@@ -3712,7 +3821,8 @@ def fma_gather_phase(dev, card: str):
         else:
             ms = ga.gather_time(lambda: fn(out=o), ga.TABLE_TIMING)
             lib = ga.gather_time(lib_fn, ga.TABLE_TIMING)
-            per_copy = (dx + 7) // 8 if axis == 1 else math.ceil(t_tab / 8)  # CTAs of one copy
+            per_copy = (ga.cols_plan(dx, t_tab, 1, n_sm).ctas if axis == 1
+                        else math.ceil(t_tab / 8))  # CTAs of one copy
             fill = max(1, math.ceil(2 * n_sm / per_copy))
             o_fill = torch.empty((fill, *o.shape), device=dev)
             ms_fill = ga.gather_time(lambda: fn(copies=fill, out=o_fill), ga.TABLE_TIMING)
@@ -3907,6 +4017,28 @@ def xpose_sass(so):
     if len(rt) != 2 or not all(c[k] >= v for c in rt.values() for k, v in XPOSE_RT_SASS.items()):
         raise SystemExit(f"probe_xpose_rt_kernel's SASS: {rt}, expected two instances with at "
                          f"least {XPOSE_RT_SASS} shared stores and loads")
+
+
+def mm_sass(so) -> dict:
+    """The 3xTF32 matmul kernel's SASS counts (``sass_counts``): its four
+    instances (3xtf32 and 3xtf32_presplit, with and without the carry) run
+    their products on wgmma (HGMMA > 0) and none on mma.sync (HMMA 0);
+    spills and ptxas's advisories that it serialized wgmma are printed.
+    Returns HGMMA by instance. Raises SystemExit otherwise, or without
+    cuobjdump."""
+    counts = sass_counts(so)
+    if counts is None:
+        raise SystemExit("cuobjdump not found: the 3xTF32 matmul kernel's SASS cannot be checked")
+    mma = {fn: c for fn, c in counts.items() if "probe_mm3x_kernel" in fn}
+    for fn, c in mma.items():
+        log(f"  sass {fn}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, STL {c['STL']}, LDL {c['LDL']}")
+    for ln in open(str(so) + ".log"):
+        if "serialized" in ln or "Performance" in ln:
+            log(f"  ptxas: {ln.strip()}")
+    if len(mma) != 4 or not all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in mma.values()):
+        raise SystemExit(f"probe_mm3x_kernel's SASS: {mma}, expected four instances with "
+                         "HGMMA > 0 and no HMMA")
+    return {fn: c["HGMMA"] for fn, c in mma.items()}
 
 
 def fold_sass(so):
@@ -4977,6 +5109,8 @@ def main() -> int:
             log(f"  sass {fn}: {c}")
     reduce_sass(libs["pg_reduce"])
     fold_sass(libs["probe_fold"])
+    mm_sass(libs["probe_mm"])
+    g2_split(dev, card)
     xpose_sass(libs["probe_xpose"])
 
     spec = sevennet0_spec()
@@ -4994,106 +5128,131 @@ def main() -> int:
     atoms = AtomsLite(positions=pos, numbers=Z, cell=cell, pbc=True)
     records, (N, K, n_edges) = kernel_phase(spec, params, dev, atoms)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "kernel phase")
     b6 = b6_path(spec_legacy, params, dev, atoms)
     log(f"B6 path (dense_conv_pallas over 5 layers): launches {b6}")
     t0 = time.perf_counter()
     ext_conv_check(spec, spec_legacy, params, dev, atoms, card)
     log(f"ext conv check: {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "ext conv check")
     t0 = time.perf_counter()
     served = request_phase(spec, params, dev, "vec", "fwd", "bwd")
     log(f"request phase (main path: serving): launches {served}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "request phase")
     t0 = time.perf_counter()
     served_legacy = request_phase(spec_legacy, params, dev, "legacy", "fwd_embsh", "bwd_embsh",
                                   graph_times=False)
     log(f"legacy request phase (main path: serving a pre-0.10 config): launches "
         f"{served_legacy}, {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "legacy request phase")
     t0 = time.perf_counter()
     trained, trained_legacy = training_phase(dev, args.seed, card)
     log(f"training phase (main path: training; legacy steps): launches {trained}, "
         f"{trained_legacy}, {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "training phase")
     t0 = time.perf_counter()
     md_small = md_compare_phase(spec, params, dev, args.seed, card)
     log(f"MD phase, 3,000 atoms (main path: MD, against the plain conv): "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "MD phase, 3,000 atoms")
     t0 = time.perf_counter()
     md_mid = md_timed_phase(spec, params, dev, args.seed, card)
     log(f"MD phase, 9,999 atoms (main path: MD, unchunked): {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "MD phase, 9,999 atoms")
     t0 = time.perf_counter()
     md_ring, records["bwd_slot"] = md_ring_phase(params, dev, args.seed, card)
     log(f"MD phase, 99,999 atoms (main path: MD, ring backward): "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "MD phase, 99,999 atoms")
     t0 = time.perf_counter()
     md_scatter, md_ring_legacy, records["bwd_embsh_slot"] = md_legacy_phase(params, dev, args.seed,
                                                                             card)
     log(f"MD phase, 99,999 atoms, legacy config (main path: MD of a pre-0.10 model, chunked "
         f"scatter and ring backward): {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "MD phase, 99,999 atoms, legacy config")
     t0 = time.perf_counter()
     ensembles = ensemble_phase(spec, params, dev, args.seed, card)
     log(f"ensemble phase, 3,000 atoms (main path: MD, NVT and NPT): launches {ensembles}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "ensemble phase, 3,000 atoms")
     t0 = time.perf_counter()
     d3_launches = d3_phase(spec, params, dev, args.seed, card)
     log(f"D3 phase (main paths: serving and MD with D3): launches {d3_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "D3 phase")
     t0 = time.perf_counter()
     resolved = resolution_phase(spec, params, dev, card)
     log(f"resolution phase (main path: serving by checkpoint name): launches {resolved}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "resolution phase")
     t0 = time.perf_counter()
     deployed = deployed_phase(spec, params, dev, card)
     log(f"deployed phase (main paths: serving a frozen deployment, serving a downloaded "
         f"checkpoint): launches {deployed}, {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "deployed phase")
     t0 = time.perf_counter()
     batched = batched_phase(spec, params, dev, card)
     log(f"batched phase (main path: batched inference): launches {batched}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "batched phase")
     t0 = time.perf_counter()
     scripted = scripts_phase(spec, params, dev, args.seed, card)
     log(f"scripts phase (main paths: the inference and MD scripts, the CLI, profiling): "
         f"launches {scripted}, {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "scripts phase")
     t0 = time.perf_counter()
     dist1 = dist_world1_phase(spec, params, dev, args.seed, card)
     log(f"distributed MD phase, world 1 (main path: distributed MD): launches {dist1}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "distributed MD phase, world 1")
     t0 = time.perf_counter()
     dist2, _, _ = dist_two_rank_phase(spec, params, dev, args.seed, card)
     log(f"distributed MD phase, two ranks (main path: distributed MD): launches {dist2}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "distributed MD phase, two ranks")
     t0 = time.perf_counter()
     spec_l3 = build_model_spec(L3I5)
     params_l3 = params_from_numpy(spec_l3, random_params(spec_l3, args.seed))
     l3_records = l3i5_kernel_phase(spec_l3, params_l3, dev, atoms)
     mlp_depth_phase(dev, atoms, args.seed)
     log(f"l3i5 kernel and MLP-depth phases: {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "l3i5 kernel and MLP-depth phases")
     t0 = time.perf_counter()
     served_l3 = request_phase(spec_l3, params_l3, dev, "l3i5", "fwd", "bwd", sizes=L3I5_SIZES)
     log(f"l3i5 request phase (main path: serving SevenNet-l3i5): launches {served_l3}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "l3i5 request phase")
     t0 = time.perf_counter()
     mf_records, served_mf = mf_ompa_phase(dev, args.seed)
     log(f"mf-ompa phase (main path: serving SevenNet-MF-ompa, both modalities): launches "
         f"{served_mf}, {time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "mf-ompa phase")
     t0 = time.perf_counter()
     trained_mf = mf_train_phase(dev, args.seed, card)
     log(f"mf-ompa training phase (main path: multi-fidelity training): launches {trained_mf}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "mf-ompa training phase")
     t0 = time.perf_counter()
     probe_records, probe_launches = probe_phase(dev, card)
     log(f"probe phase (the probe path): launches {probe_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "probe phase")
     t0 = time.perf_counter()
     fg_records, fg_launches = fma_gather_phase(dev, card)
     log(f"FMA and gather probe phase (the probe path): launches {fg_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "FMA and gather probe phase")
     t0 = time.perf_counter()
     rfx_records, rfx_launches = reduce_fold_xpose_phase(dev, card)
     log(f"reduction, transpose and fold probe phase (the probe path): launches {rfx_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "reduction, transpose and fold probe phase")
     t0 = time.perf_counter()
     bd_records, bd_launches = breakdown_phase(dev, card, libs, prof_build)
     log(f"breakdown and knock-out probe phase (the probe path): launches {bd_launches}, "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_alive(dev, "breakdown and knock-out probe phase")
     launches = {k: b6[k] + served[k] + served_legacy[k] + trained[k] + trained_legacy[k]
                 + md_small[k] + md_mid[k] + md_ring[k] + md_scatter[k] + md_ring_legacy[k]
                 + ensembles[k] + d3_launches[k] + resolved[k] + deployed[k] + batched[k]

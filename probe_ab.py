@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The batched-dot probe and the roll folds of one or more trees timed on one
-card, in turns in one call.
+"""The batched-dot probe, the roll folds, the matmul-rate probe and the column
+gather of one or more trees timed on one card, in turns in one call.
 
 Each tree's ``probes/batched_dot.py`` at ``GROUPS`` and N ``N_ATOMS`` (rep 1
 and 4, timed by ``batched_dot_time``: best of 3 CUDA graphs of 10 calls;
@@ -9,12 +9,24 @@ the product's time on staged tiles is (rep 4 - rep 1) / 3) beside
 at ``r3_fold_probe.py``'s shape (``diff_ms(fn, *FOLD_TIME)``) beside two
 library forms: ``torch.sum`` over K alone (the fold without its column
 map), and the whole function as two calls, ``torch.sum`` over K then
-``torch.index_select`` by the column map. Each output is checked against
-its plain version first (the batched dot within 1e-5 of max |plain|, the
-folds within ``fold.TOL``); bounds are the bytes over HBM's rate.
+``torch.index_select`` by the column map; its ``probes/mm_rate.py`` every
+variant at its first shape, both contracts (``mm_time``), beside the same
+16 products as ``torch.matmul`` calls in one graph (TF32 on for the tf32
+variants; bf16 for bf16); its ``probes/gather.py`` column gather (p1,
+``r2_pallas_caps.py``'s shape) as one call alone (``graph_ms(fn, 1,
+replays=20)``, three rounds in turns with ``index_select``) and back to
+back (``gather_time`` at ``TABLE_TIMING``), each beside ``index_select``
+into the same output, the one call both with the host's launch latency in
+the time and queued behind a spin on the device (``one_call_ms``), with
+each one's device kernels from ``torch.profiler``, and where the tree has
+it the launch floor (an empty kernel timed as the one call). Each output is checked against its plain
+version first (the batched dot within 1e-5 of max |plain|, the folds within
+``fold.TOL``, the matmuls within ``mm_rate.PROBE_TOL``, the gather
+bitwise); bounds are the bytes over HBM's rate or the operations over
+their type's peak.
 
-    python3 probe_ab.py [--tree DIR]                    # one tree (default: this checkout)
-    python3 probe_ab.py --compare DIR,DIR,... [--names a,b,...]
+    python3 probe_ab.py [--tree DIR] [--only bd,fold,mm,gather]
+    python3 probe_ab.py --compare DIR,DIR,... [--names a,b,...] [--only ...]
 
 ``--compare`` runs each tree in a process of its own, in the order given
 (the same tree may come twice; each builds its own libraries), each run's
@@ -35,8 +47,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (chip_smoke.py HBM_BYTES_S)
+# H100 SXM dense peaks, NVIDIA data sheet (chip_smoke.py PEAK_OF)
+PEAK_OF = {"ffma": 67e12, "tf32": 495e12, "wgmma_tf32": 495e12, "3xtf32": 495e12 / 3,
+           "3xtf32_presplit": 495e12 / 3, "bf16": 989e12}
 RUN_TIMEOUT_S = 600
-KERNELS = ("batched_dot_kernel", "probe_fold_roll_kernel")
+KERNELS = ("batched_dot_kernel", "probe_fold_roll_kernel", "probe_mm", "probe_gather_cols_kernel")
+GROUPS = ("bd", "fold", "mm", "gather")
+LIBS = {"bd": "probe_batched_dot", "fold": "probe_fold", "mm": "probe_mm",
+        "gather": "probe_gather"}
 
 
 def ptxas(so) -> dict:
@@ -56,22 +74,85 @@ def ptxas(so) -> dict:
     return rows
 
 
-def one_tree(tree: str) -> dict:
+def device_us(fn) -> dict:
+    """Device us of one call of ``fn`` by kernel name, from torch.profiler,
+    after one call as warm-up. Raises RuntimeError when the profiler
+    recorded no device activity (a trace that saw nothing is not a zero)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    res = {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    if not res:
+        raise RuntimeError("torch.profiler recorded no device kernel of one call")
+    return res
+
+
+def one_call_ms(fn, queued: bool, replays: int = 20) -> float:
+    """ms of one call of ``fn`` alone: the call captured in a CUDA graph,
+    its replay timed by CUDA events, the least of ``replays``; ``queued``
+    puts each replay behind a spin on the device, so that the host's
+    latency to launch it falls outside the events (else it is timed, as the
+    parent's ``graph_ms(fn, 1, replays=20)`` did). The same code for every
+    tree."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    best = float("inf")
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(1_000_000)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def one_tree(tree: str, only=GROUPS) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
     from sevennet_tpu_torch.ops import kernels
-    from sevennet_tpu_torch.probes import batched_dot as bd
-    from sevennet_tpu_torch.probes import fold as fo
-    from sevennet_tpu_torch.probes._lib import FOLD_TIME, diff_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
-    libs = kernels.build(["probe_batched_dot", "probe_fold"])
+    libs = kernels.build([LIBS[g] for g in only])
     dev = torch.device("cuda")
     res = dict(tree=tree, card=card.strip().splitlines()[0], ms={}, library_ms={}, bound_ms={},
+               device_us={},
                ptxas={k: v for so in libs.values() for k, v in ptxas(so).items()})
+    if "bd" in only:
+        batched_dot_ab(res, dev)
+    if "fold" in only:
+        fold_ab(res, dev)
+    if "mm" in only:
+        mm_ab(res, dev)
+    if "gather" in only:
+        gather_ab(res, dev)
+    return res
+
+
+def batched_dot_ab(res: dict, dev) -> None:
+    import torch
+
+    from sevennet_tpu_torch.probes import batched_dot as bd
 
     gen = torch.Generator(device="cpu").manual_seed(8)
     Ss = [(torch.randn(bd.N_ATOMS, d3, kk, generator=gen) * 0.1).to(dev) for d3, kk, _ in bd.GROUPS]
@@ -93,6 +174,13 @@ def one_tree(tree: str) -> dict:
     del Ss, XWs
     torch.cuda.empty_cache()
 
+
+def fold_ab(res: dict, dev) -> None:
+    import torch
+
+    from sevennet_tpu_torch.probes import fold as fo
+    from sevennet_tpu_torch.probes._lib import FOLD_TIME, diff_ms
+
     gen = torch.Generator(device="cpu").manual_seed(10)
     nb = fo.N // fo.A
     fx = (torch.randn(nb * fo.A * fo.K, fo.DM // 8, generator=gen) * 0.5).to(dev)
@@ -111,15 +199,85 @@ def one_tree(tree: str) -> dict:
         cmap = torch.as_tensor(fo.column_map(v), dtype=torch.long, device=dev)
         res["library_ms"][f"fold {v} sum + index_select"] = diff_ms(
             lambda: torch.index_select(fx.view(nb, fo.K, fo.A, -1).sum(1), 2, cmap), *FOLD_TIME)
-    return res
+    del fx, out
+    torch.cuda.empty_cache()
 
 
-def compare(trees, names) -> int:
+def mm_ab(res: dict, dev) -> None:
+    """Every matmul-rate variant at its first shape, both contracts (the
+    inputs of chip_smoke.py's probe_inputs, s zero as the TPU scripts'),
+    beside the 16 products as torch.matmul calls."""
+    import torch
+
+    from sevennet_tpu_torch.probes import mm_rate as mr
+
+    s = torch.zeros((1, 1), device=dev)
+    s_check = torch.full((1, 1), 1e-3, device=dev)
+    for chain in (False, True):
+        for v in mr.VARIANTS:
+            m, k, n = (mr.BF16_SHAPES if v == "bf16" else
+                       mr.CHAIN_SHAPES if chain else mr.MM_SHAPES)[0]
+            gen = torch.Generator(device="cpu").manual_seed(m + k + n)
+            dtype = torch.bfloat16 if v == "bf16" else torch.float32
+            a = torch.randn(m, k, generator=gen).to(dev, dtype)
+            b = torch.randn(k, n, generator=gen).to(dev, dtype)
+            fn = mr.mm_chain if chain else mr.mm_rate
+            key = f"{'mm_chain' if chain else 'mm_rate'} {v}"
+            chk = () if chain else (s_check if v != "bf16" else s,)
+            want = fn(a, b, *chk, variant=v, plain=True)
+            err = float((fn(a, b, *chk, variant=v) - want).abs().max())
+            if err > mr.PROBE_TOL[v] * float(want.abs().max()):
+                raise SystemExit(f"{key} differs from its plain version by {err}")
+            extra = () if chain else (s,)
+            res["ms"][key] = mr.mm_time(lambda: fn(a, b, *extra, variant=v))
+            torch.backends.cuda.matmul.allow_tf32 = v in ("tf32", "wgmma_tf32")
+            res["library_ms"][key] = mr.mm_time(lambda: [torch.matmul(a, b)
+                                                         for _ in range(mr.REP)])
+            torch.backends.cuda.matmul.allow_tf32 = False
+            res["bound_ms"][key] = 2 * m * k * n * mr.REP / PEAK_OF[v] * 1e3
+
+
+def gather_ab(res: dict, dev) -> None:
+    """The column gather at p1's shape: one call alone and back to back,
+    beside index_select into the same output; device durations; the launch
+    floor where the tree has its empty kernel."""
+    import torch
+
+    from sevennet_tpu_torch.probes import gather as ga
+
+    dx, w, t = ga.TABLE_SHAPE
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    tbl = torch.randn(dx, w, generator=gen).to(dev)
+    idx = torch.randint(0, w, (1, t), generator=gen, dtype=torch.int32).to(dev)
+    out = torch.empty(dx, t, device=dev)
+    if not torch.equal(ga.gather_cols(tbl, idx, out=out), ga.gather_cols_plain(tbl, idx)):
+        raise SystemExit("gather_cols differs from index_select")
+    kern = lambda: ga.gather_cols(tbl, idx, out=out)  # noqa: E731
+    lib = lambda: torch.index_select(tbl, 1, idx[0], out=out)  # noqa: E731
+    calls = {"G2": kern, "index_select": lib}
+    if hasattr(ga, "empty_launch"):
+        calls["empty kernel"] = lambda: ga.empty_launch(dev)
+    for queued, tag in ((False, "host latency in"), (True, "queued")):
+        rounds = [{k: one_call_ms(f, queued) for k, f in calls.items()} for _ in range(3)]
+        res[f"rounds one call, {tag}"] = rounds
+        for k in calls:
+            res["ms" if k == "G2" else "library_ms"][f"one call, {tag}: {k}"] = min(
+                r[k] for r in rounds)
+    res["ms"]["G2' back to back"] = ga.gather_time(kern, ga.TABLE_TIMING)
+    res["library_ms"]["G2' back to back"] = ga.gather_time(lib, ga.TABLE_TIMING)
+    for k, f in calls.items():
+        for name, us in device_us(f).items():
+            res["device_us"][f"{k}: {name}"] = us
+    res["bound_ms"]["G2"] = ga.gather_bytes(tbl, idx, 1) / HBM_BYTES_S * 1e3
+
+
+def compare(trees, names, only) -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     results = []
     for i, (tree, name) in enumerate(zip(trees, names)):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree,
+                               "--only", ",".join(only)],
                               capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
         with open(os.path.join(OUT_DIR, f"probe_ab_{i}_{name}.log"), "w") as f:
             f.write(proc.stdout + proc.stderr)
@@ -130,8 +288,8 @@ def compare(trees, names) -> int:
             return 1
         results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     print(results[0]["card"])
-    for what in ("ms", "library_ms", "bound_ms"):
-        for key in results[0][what]:
+    for what in ("ms", "library_ms", "bound_ms", "device_us"):
+        for key in sorted({k for r in results for k in r[what]}):
             vals = ", ".join(f"{names[j]} {r[what].get(key, float('nan')):.5f}"
                              for j, r in enumerate(results))
             print(f"  {what} {key}: {vals}")
@@ -146,17 +304,22 @@ def main() -> int:
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--compare", help="comma-separated trees, run in this order")
     ap.add_argument("--names", help="comma-separated names of the compared trees")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help=f"comma-separated probe groups of {GROUPS} (default: all)")
     args = ap.parse_args()
+    only = tuple(args.only.split(","))
+    if not set(only) <= set(GROUPS):
+        ap.error(f"--only: groups of {GROUPS}")
     if args.compare:
         trees = args.compare.split(",")
         names = args.names.split(",") if args.names else [str(i) for i in range(len(trees))]
-        return compare(trees, names)
+        return compare(trees, names, only)
     import torch
 
     if not torch.cuda.is_available():
         print("probe_ab: no CUDA device", file=sys.stderr)
         return 2
-    print(json.dumps(one_tree(args.tree)))
+    print(json.dumps(one_tree(args.tree, only)))
     return 0
 
 

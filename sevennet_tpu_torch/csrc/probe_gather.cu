@@ -9,7 +9,7 @@
 //     (512, 480) table for 1,024 indices (probe_gather_rows_kernel);
 //   - scripts_dev/r2_pallas_caps.py:p1 (pallas_call at :55, and its timed
 //     loop at :68): out[d, t] = tbl[d, idx[t]], columns of a (480, 512)
-//     table for 1,024 indices (probe_gather_cols_kernel).
+//     table for 1,024 indices (probe_gather_cols_kernel<R, VEC>).
 //
 // Rows. A warp copies one output row at a time, 16 bytes a lane, in a
 // grid-stride loop of as many CTAs as can be resident. Two variants of the
@@ -25,19 +25,29 @@
 // What bounds it on an H100: HBM, through the output (1.385 GB at G1's
 // shape against a 19.2 MB table that L2 can hold).
 //
-// Columns. A CTA stages a band of GC_BAND rows of the table in shared
-// memory (GC_BAND x W floats: 16 KB at W 512; the whole table, 983 KB, does
-// not fit a CTA), then writes out[d, t] = smem[d][idx[t]] for its rows, the
-// threads of a warp on consecutive t: coalesced stores, and shared-memory
-// reads at random banks, the resident-table gather of the conv's uvu
-// operand formation (Wigner rows, task tables). At the TPU shape it moves 3
-// MB: a few microseconds, bound by the launch and its latency as much as by
-// HBM.
+// Columns. out[c, d, t] = tbl[d, idx[t]]: the resident-table gather of the
+// conv's uvu operand formation (Wigner rows, task tables). At the TPU shape
+// it moves 3 MB, a few microseconds: what p1 asks is the fixed price of one
+// such gather, so the launch and the latency of its dependent loads bound
+// it as much as HBM does. The first design (a CTA staging a band of 8 table
+// rows in shared memory, a barrier, then 4-byte stores; 60 CTAs at the
+// script's shape) took 12.64 us as one call alone against index_select's
+// 11.52 (PERF.md's kernel table). This one has no shared memory and no barrier: a
+// thread owns a quad of 4 consecutive t, loads their indices once (one
+// 16-byte load), reads its R rows' 4 entries each straight from the table
+// (983 KB, L2-resident between calls) with every load of the thread in
+// flight at once, and writes each row's quad as one 16-byte store. A CTA is
+// GC_QB quads x GC_RG row lanes; the host picks R (probes/gather.py:
+// cols_plan) so that one copy at the script's shape (480 x 1,024) runs on
+// 240 CTAs, more than the card's 132 SMs. T not a multiple of 4, or an
+// index or output pointer off the 16-byte grid, takes the same kernel with
+// 4-byte loads and stores (VEC false).
 #include "fused_conv_common.cuh"
 
 #define GR_NT 256
-#define GC_NT 256
-#define GC_BAND 8  // table rows a CTA stages
+#define GC_QB 64   // quads of t a CTA (probes/gather.py COLS_QB)
+#define GC_RG 4    // row lanes a CTA (probes/gather.py COLS_RG)
+#define GC_NT (GC_QB * GC_RG)
 
 enum { GR_LDG = 0, GR_CP_ASYNC = 1 };
 
@@ -53,9 +63,8 @@ struct ColsArgs {
   const int* idx;    // (T,)
   float* out;        // (copies, D, T)
   int D, W, T, copies;
+  int rows;          // R, rows a thread (1, 2 or 4): the host's plan
 };
-
-static int smem_limit_gc[MAX_DEVICES];
 
 template <bool STREAM>
 __device__ __forceinline__ void store4(float4* p, float4 v) {
@@ -111,20 +120,53 @@ __global__ void __launch_bounds__(GR_NT) probe_gather_rows_kernel(RowsArgs p) {
   }
 }
 
+// Thread (quad q of GC_QB, row lane l of GC_RG) of CTA (x, y, copy): t =
+// 4 (x GC_QB + q) .. + 3, rows d = y GC_RG R + l + GC_RG r for r < R.
+template <int R, bool VEC>
 __global__ void __launch_bounds__(GC_NT) probe_gather_cols_kernel(ColsArgs p) {
-  extern __shared__ float band[];  // GC_BAND x W
-  const int d0 = blockIdx.x * GC_BAND;
-  const int nd = min(GC_BAND, p.D - d0);
-  const float4* src = (const float4*)(p.tbl + (size_t)d0 * p.W);
-  for (int i = threadIdx.x; i < nd * (p.W >> 2); i += GC_NT) ((float4*)band)[i] = __ldg(src + i);
-  __syncthreads();
-  float* o = p.out + ((size_t)blockIdx.y * p.D + d0) * p.T;
-  for (int t = threadIdx.x; t < p.T; t += GC_NT) {
-    const int j = __ldg(p.idx + t);
-#pragma unroll 4
-    for (int d = 0; d < nd; ++d) o[(size_t)d * p.T + t] = band[d * p.W + j];
+  const int t0 = 4 * (blockIdx.x * GC_QB + threadIdx.x % GC_QB);
+  const int d0 = blockIdx.y * GC_RG * R + threadIdx.x / GC_QB;
+  if (t0 >= p.T) return;
+  float* o = p.out + (size_t)blockIdx.z * p.D * p.T;
+  if (VEC) {
+    const int4 j = __ldg((const int4*)(p.idx + t0));
+    float4 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float* row = p.tbl + (size_t)min(d0 + GC_RG * r, p.D - 1) * p.W;
+      v[r] = make_float4(__ldg(row + j.x), __ldg(row + j.y), __ldg(row + j.z), __ldg(row + j.w));
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int d = d0 + GC_RG * r;
+      if (d < p.D) *(float4*)(o + (size_t)d * p.T + t0) = v[r];
+    }
+  } else {
+    const int nt = min(4, p.T - t0);
+    int j[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) j[u] = u < nt ? __ldg(p.idx + t0 + u) : 0;
+    float v[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float* row = p.tbl + (size_t)min(d0 + GC_RG * r, p.D - 1) * p.W;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[r][u] = __ldg(row + j[u]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int d = d0 + GC_RG * r;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (d < p.D && u < nt) o[(size_t)d * p.T + t0 + u] = v[r][u];
+    }
   }
 }
+
+// No work: the floor of a launch timed by the probes' method (one call
+// captured in a CUDA graph, probes/_lib.py:graph_ms), beside which a single
+// gather's time is read.
+__global__ void probe_empty_kernel() {}
 
 template <int V, bool STREAM>
 static int launch_rows(const RowsArgs& p, cudaStream_t s) {
@@ -160,14 +202,30 @@ extern "C" int probe_gather_rows_launch(int variant, int stream_stores, RowsArgs
   return (int)cudaErrorInvalidValue;
 }
 
-// W a multiple of 4, the pointers 16-byte aligned, every index in [0, W).
+template <int R>
+static void launch_cols(const ColsArgs& p, bool vec, cudaStream_t s) {
+  const dim3 grid((p.T + 4 * GC_QB - 1) / (4 * GC_QB), (p.D + GC_RG * R - 1) / (GC_RG * R),
+                  p.copies);
+  if (vec) probe_gather_cols_kernel<R, true><<<grid, GC_NT, 0, s>>>(p);
+  else probe_gather_cols_kernel<R, false><<<grid, GC_NT, 0, s>>>(p);
+}
+
+// Every index in [0, W) (not checked here); p.rows 1, 2 or 4. 16-byte
+// accesses where T % 4 == 0 and idx and out are 16-byte aligned.
 extern "C" int probe_gather_cols_launch(ColsArgs p, void* stream) {
-  if (p.D <= 0 || p.W <= 0 || p.W % 4 || p.T <= 0 || p.copies <= 0 || p.copies > 65535)
+  if (p.D <= 0 || p.W <= 0 || p.T <= 0 || p.copies <= 0 || p.copies > 65535 ||
+      (p.rows != 1 && p.rows != 2 && p.rows != 4) ||
+      (p.D + GC_RG * p.rows - 1) / (GC_RG * p.rows) > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * GC_BAND * p.W;
-  cudaError_t err = raise_smem_limit((const void*)probe_gather_cols_kernel, smem, smem_limit_gc);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.D + GC_BAND - 1) / GC_BAND, p.copies);
-  probe_gather_cols_kernel<<<grid, GC_NT, smem, (cudaStream_t)stream>>>(p);
+  const bool vec = p.T % 4 == 0 && (size_t)p.idx % 16 == 0 && (size_t)p.out % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (p.rows == 1) launch_cols<1>(p, vec, s);
+  else if (p.rows == 2) launch_cols<2>(p, vec, s);
+  else launch_cols<4>(p, vec, s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_empty_launch(void* stream) {
+  probe_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,10 @@ import torch
 # fold scripts' timed (r3_fold_probe.py:99-117, r4_fold_probe.py:167-187)
 R2_TIME = (50, 250, 3)
 FOLD_TIME = (3, 9, 3)
+# cycles of the spin a replay of one_call_queued_ms waits behind on the
+# device (about 0.5 ms at the H100's clock): longer than the host takes to
+# enqueue the start event, the replay and the end event
+QUEUE_CYCLES = 1_000_000
 
 
 def stream(dev: torch.device) -> ctypes.c_void_p:
@@ -30,12 +34,9 @@ def check_device(plain: bool, *tensors) -> bool:
     return False
 
 
-def graph_ms(fn, n: int, replays: int = 1) -> float:
-    """ms of ``n`` back-to-back calls of ``fn`` on the device alone: the
-    calls are captured in one CUDA graph, whose replay is timed by CUDA
-    events, so that the host's cost per call (the wrapper's checks and
-    allocation, the launch) is not in the time; the least of ``replays``
-    replays. ``fn`` runs once on a side stream before the capture (build and
+def _capture(fn, n: int):
+    """A CUDA graph of ``n`` back-to-back calls of ``fn``, replayed once.
+    ``fn`` runs once on a side stream before the capture (build and
     first-launch set-up stay out of the graph)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -47,15 +48,42 @@ def graph_ms(fn, n: int, replays: int = 1) -> float:
         for _ in range(n):
             fn()
     graph.replay()  # warm
+    return graph
+
+
+def _replay_ms(graph, replays: int, queued: bool) -> float:
     best = float("inf")
     for _ in range(replays):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         graph.replay()
         end.record()
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def graph_ms(fn, n: int, replays: int = 1) -> float:
+    """ms of ``n`` back-to-back calls of ``fn`` on the device alone: the
+    calls are captured in one CUDA graph, whose replay is timed by CUDA
+    events, so that the host's cost per call (the wrapper's checks and
+    allocation, the launch) is not in the time; the least of ``replays``
+    replays. ``fn`` runs once on a side stream before the capture (build and
+    first-launch set-up stay out of the graph). The host's latency to launch
+    the replay lies between the events: a replay of one short call is
+    mostly that latency (:func:`one_call_queued_ms` leaves it out)."""
+    return _replay_ms(_capture(fn, n), replays, queued=False)
+
+
+def one_call_queued_ms(fn, replays: int = 20) -> float:
+    """ms of one call of ``fn`` alone, as :func:`graph_ms` ``(fn, 1,
+    replays)`` times it but with each replay and its events queued behind a
+    spin on the device (``QUEUE_CYCLES``): the host's latency to launch the
+    replay falls outside the events, the launch on the device and the
+    kernel stay in."""
+    return _replay_ms(_capture(fn, 1), replays, queued=True)
 
 
 def diff_ms(fn, n1: int, n2: int, tries: int) -> float:

@@ -25,11 +25,17 @@ also the library call); each counts its launches in ``.launches``
 (``gather_rows`` also per variant in ``.by_variant``). A gather copies
 bits: kernel and plain agree exactly. Timing: :func:`gather_time`, the
 TPU scripts' differential method with their counts (:data:`ROWS_TIMING`,
-:data:`TABLE_TIMING`)."""
+:data:`TABLE_TIMING`); :func:`empty_launch` launches a kernel that does
+nothing, the floor of p1's single call under its timing method.
+
+:func:`cols_plan` is the column gather's launch plan: the rows a thread,
+which the wrapper passes to ``probe_gather_cols_launch``, and the grid that
+the launcher derives from them."""
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,13 +44,17 @@ from ._lib import check_device, diff_ms, stream
 
 __all__ = ["VARIANTS", "ROWS_SHAPE", "TABLE_SHAPE", "ROWS_TIMING", "TABLE_TIMING",
            "gather_rows_plain", "gather_cols_plain", "gather_rows", "gather_cols",
-           "gather_bytes", "gather_time"]
+           "gather_bytes", "gather_time", "cols_plan", "ColsPlan", "empty_launch", "N_SM"]
 
 VARIANTS = ("ldg", "cp_async")
 ROWS_SHAPE = (10016, 480, 313 * 2304)  # N, D, T (r3_gather_probe.py:17-18)
 TABLE_SHAPE = (480, 512, 1024)  # DX, W, T (r2_pallas_caps.py:21-23)
 ROWS_TIMING = (4, 16, 3)   # n1, n2, tries (r3_gather_probe.py:40-56)
 TABLE_TIMING = (40, 240, 1)  # r2_pallas_caps.py:35-44
+N_SM = 132  # SMs of an H100 SXM, the plan's default
+# csrc/probe_gather.cu GC_QB, GC_RG: quads of t and row lanes of a CTA
+COLS_QB, COLS_RG = 64, 4
+COLS_ROWS = (4, 2, 1)  # rows a thread the kernel has instances for, most first
 
 
 class _RowsArgs(ctypes.Structure):
@@ -58,7 +68,29 @@ class _ColsArgs(ctypes.Structure):
     """ctypes mirror of ``struct ColsArgs`` (csrc/probe_gather.cu)."""
 
     _fields_ = [(f, ctypes.c_void_p) for f in ("tbl", "idx", "out")] + [
-        (f, ctypes.c_int) for f in ("D", "W", "T", "copies")]
+        (f, ctypes.c_int) for f in ("D", "W", "T", "copies", "rows")]
+
+
+class ColsPlan(NamedTuple):
+    """The column gather's launch: ``rows`` table rows a thread, the grid
+    (quad blocks of t, row blocks, copies) of ``COLS_QB x COLS_RG``-thread
+    CTAs, and ``ctas`` in all."""
+
+    rows: int
+    grid: tuple
+    ctas: int
+
+
+def cols_plan(d: int, t: int, copies: int = 1, n_sm: int = N_SM) -> ColsPlan:
+    """The most rows a thread (4, 2, 1) whose grid still has ``n_sm`` CTAs
+    or more (one thread's loads all in flight at once; more CTAs than SMs,
+    so that no SM idles), else 1. A thread owns 4 consecutive t and rows
+    ``y COLS_RG rows + lane + COLS_RG r``."""
+    for rows in COLS_ROWS:
+        grid = (-(-t // (4 * COLS_QB)), -(-d // (COLS_RG * rows)), copies)
+        if grid[0] * grid[1] * grid[2] >= n_sm or rows == 1:
+            return ColsPlan(rows, grid, grid[0] * grid[1] * grid[2])
+    raise AssertionError("unreachable")
 
 
 def gather_rows_plain(x, idx, copies: int = 1):
@@ -132,9 +164,11 @@ def gather_cols(tbl, idx, copies: int = 1, out=None, plain: bool = False):
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=tbl.device)
+    plan = cols_plan(tbl.shape[0], t, copies,
+                     torch.cuda.get_device_properties(tbl.device).multi_processor_count)
     call("probe_gather", "probe_gather_cols_launch",
          _ColsArgs(tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), tbl.shape[0], tbl.shape[1], t,
-                   copies),
+                   copies, plan.rows),
          stream(tbl.device))
     gather_cols.launches += 1
     return out
@@ -149,6 +183,13 @@ def gather_bytes(table, idx, axis: int, copies: int = 1) -> int:
     table entry is read once however often it is gathered)."""
     n_out = idx.numel() * table.shape[1 - axis]
     return 4 * (table.numel() + idx.numel() + copies * n_out)
+
+
+def empty_launch(dev) -> None:
+    """Launches ``probe_empty_kernel`` (one CTA of one warp, no work) on
+    ``dev``'s current stream: a measurement of the launch alone, on no
+    path."""
+    call("probe_gather", "probe_empty_launch", stream(dev))
 
 
 def gather_time(fn, timing=ROWS_TIMING) -> float:

@@ -9,10 +9,11 @@
 
 ``a (m, k)`` and ``b (k, n)`` are float32 (bfloat16 for the ``bf16``
 variant), ``s`` a ``(1, 1)`` float32 scalar; the output is ``(m, n)``
-float32, or ``(copies, m, n)`` for ``copies`` independent copies. The
-variants (:data:`VARIANTS`) run the product as the conv kernels do or might:
-fp32 on the CUDA cores, one TF32 pass, the conv's 3xTF32 split with its
-``cvt``s in the loop or split once, ``wgmma`` from shared memory, bf16.
+float32, or ``(copies, m, n)`` for ``copies`` independent copies (into ``out`` when
+given). The variants (:data:`VARIANTS`) run the product as the conv kernels
+do or might: fp32 on the CUDA cores, one TF32 pass, 3xTF32 with A split
+for every product or split once (both on ``wgmma``, :func:`mm_plan`),
+``wgmma`` from shared memory, bf16.
 
 The wrappers launch the kernel on CUDA tensors and raise on CPU tensors
 unless ``plain=True`` (the plain version, on any device); each counts its
@@ -27,7 +28,7 @@ against the plain version."""
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -35,7 +36,8 @@ from ..ops.kernels import call
 from ._lib import check_device, diff_ms, stream
 
 __all__ = ["VARIANTS", "PROBE_TOL", "REP", "MM_SHAPES", "CHAIN_SHAPES", "BF16_SHAPES",
-           "mm_plain", "mm_rate", "mm_chain", "mm_time", "mm_tiles", "mm_flops"]
+           "mm_plain", "mm_rate", "mm_chain", "mm_time", "mm_tiles", "mm_flops", "mm_plan",
+           "MmPlan", "mm_ctas", "WGMMA_3X", "N_SM"]
 
 VARIANTS = ("ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32", "bf16")
 # limits of each variant against the plain version, of max |plain|: fp32
@@ -57,13 +59,54 @@ MM_SHAPES = ((1024, 64, 960), (960, 64, 1024), (1024, 9, 185), (185, 16, 1024),
 CHAIN_SHAPES = ((1024, 64, 960), (1024, 9, 185))
 BF16_SHAPES = ((1024, 64, 960),)
 TILE = (64, 32)  # output rows x columns of one CTA (csrc/probe_mm.cu PBM, PBN)
+# the variants on the 3xTF32 wgmma kernel (csrc/probe_mm.cu probe_mm3x_kernel)
+WGMMA_3X = ("3xtf32", "3xtf32_presplit")
+BN = 64  # its output columns a warpgroup (csrc/probe_mm.cu MM_BN)
+N_SM = 132  # SMs of an H100 SXM, the plan's default
+
+
+class MmPlan(NamedTuple):
+    """The 3xTF32 kernel's launch: its two warpgroups side by side in m
+    (``mw`` 2, ``ks`` 1: a CTA's tile is 128 x ``BN``) or on the two halves
+    of the k-steps of one 64 x ``BN`` tile (``mw`` 1, ``ks`` 2); ``ctas``
+    of one copy."""
+
+    mw: int
+    ks: int
+    ctas: int
 
 
 class _MmArgs(ctypes.Structure):
     """ctypes mirror of ``struct MmArgs`` (csrc/probe_mm.cu)."""
 
     _fields_ = [(f, ctypes.c_void_p) for f in ("a", "b", "out", "s")] + [
-        (f, ctypes.c_int) for f in ("m", "k", "n", "rep", "copies")]
+        (f, ctypes.c_int) for f in ("m", "k", "n", "rep", "copies", "mw", "ks")]
+
+
+def mm_plan(m: int, k: int, n: int, carry: bool = False, copies: int = 1,
+            n_sm: int = N_SM) -> MmPlan:
+    """The 3xTF32 kernel's plan for one call: of ``mw`` 2 (every k-step in
+    each warpgroup) and ``mw`` 1 with ``ks`` 2 (half the k-steps each; not
+    for the carried chain, whose next A needs the whole product, nor for one
+    k-step), the one whose waves of CTAs times k-steps a CTA runs is least
+    (one CTA an SM), ``mw`` 2 on a tie."""
+    nks = -(-k // 8)
+    best = None
+    for mw, ks in ((2, 1), (1, 2)):
+        if ks == 2 and (carry or nks < 2):
+            continue
+        ctas = -(-m // (64 * mw)) * -(-n // BN)
+        cost = -(-ctas * copies // n_sm) * 2 * -(-nks // ks)
+        if best is None or cost < best[0]:
+            best = (cost, MmPlan(mw, ks, ctas))
+    return best[1]
+
+
+def mm_ctas(m: int, k: int, n: int, variant: str, carry: bool = False) -> int:
+    """CTAs of one copy of a call of ``variant``."""
+    if variant in WGMMA_3X:
+        return mm_plan(m, k, n, carry).ctas
+    return mm_tiles(m, n)
 
 
 def mm_plain(a, b, s, rep: int = REP, carry: bool = False, copies: int = 1):
@@ -95,27 +138,48 @@ def _check(a, b, s, variant):
         raise ValueError(f"s: a (1, 1) float32 scalar, got {s.dtype} {tuple(s.shape)}")
 
 
-def _launch(a, b, s, variant: str, rep: int, carry: bool, copies: int):
+def _out(a, b, copies: int, out):
+    shape = (a.shape[0], b.shape[1]) if copies == 1 else (copies, a.shape[0], b.shape[1])
+    if out is not None and (tuple(out.shape) != shape or out.dtype != torch.float32
+                            or not out.is_contiguous()):
+        raise ValueError(f"out: a contiguous float32 {shape}, got {out.dtype} {tuple(out.shape)}")
+    return shape
+
+
+def _launch(a, b, s, variant: str, rep: int, carry: bool, copies: int, out):
     m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((copies, m, n), dtype=torch.float32, device=a.device)
+    shape = _out(a, b, copies, out)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    plan = MmPlan(0, 0, 0)
+    if variant in WGMMA_3X:
+        plan = mm_plan(m, k, n, carry, copies,
+                       torch.cuda.get_device_properties(a.device).multi_processor_count)
     call("probe_mm", "probe_mm_launch", ctypes.c_int(VARIANTS.index(variant)),
          ctypes.c_int(int(carry)),
          _MmArgs(a.data_ptr(), b.data_ptr(), out.data_ptr(), None if carry else s.data_ptr(),
-                 m, k, n, rep, copies),
+                 m, k, n, rep, copies, plan.mw, plan.ks),
          stream(a.device))
-    return out[0] if copies == 1 else out
+    return out
+
+
+def _plain_into(res, out):
+    if out is None:
+        return res
+    return out.copy_(res)
 
 
 def mm_rate(a, b, s, variant: str = "3xtf32", rep: int = REP, copies: int = 1,
-            plain: bool = False):
+            plain: bool = False, out=None):
     """``r2_pallas_mm.py:mm``'s function: :func:`mm_plain` without carry.
     CUDA tensors: the ``probe_mm`` kernel's ``variant``; ``plain=True``:
     the plain version."""
     _check(a, b, s, variant)
-    if check_device(plain, a, b, s):
-        return mm_plain(a, b, s, rep, carry=False, copies=copies)
-    out = _launch(a, b, s, variant, rep, False, copies)
+    _out(a, b, copies, out)
+    if check_device(plain, a, b, s, *(() if out is None else (out,))):
+        return _plain_into(mm_plain(a, b, s, rep, carry=False, copies=copies), out)
+    out = _launch(a, b, s, variant, rep, False, copies, out)
     mm_rate.launches += 1
     mm_rate.by_variant[variant] += 1
     return out
@@ -126,14 +190,15 @@ mm_rate.by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def mm_chain(a, b, variant: str = "3xtf32", rep: int = REP, copies: int = 1,
-             plain: bool = False):
+             plain: bool = False, out=None):
     """``r2_pallas_fma.py:mm``'s function: :func:`mm_plain` with the
     carry. CUDA tensors: the ``probe_mm`` kernel's ``variant`` with the
     carry; ``plain=True``: the plain version."""
     _check(a, b, None, variant)
-    if check_device(plain, a, b):
-        return mm_plain(a, b, None, rep, carry=True, copies=copies)
-    out = _launch(a, b, None, variant, rep, True, copies)
+    _out(a, b, copies, out)
+    if check_device(plain, a, b, *(() if out is None else (out,))):
+        return _plain_into(mm_plain(a, b, None, rep, carry=True, copies=copies), out)
+    out = _launch(a, b, None, variant, rep, True, copies, out)
     mm_chain.launches += 1
     mm_chain.by_variant[variant] += 1
     return out
@@ -144,7 +209,8 @@ mm_chain.by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def mm_tiles(m: int, n: int) -> int:
-    """CTAs of one copy (64 x 32 output tiles)."""
+    """CTAs of one copy of the ffma, tf32, wgmma_tf32 and bf16 variants
+    (64 x 32 output tiles)."""
     return -(-m // TILE[0]) * -(-n // TILE[1])
 
 

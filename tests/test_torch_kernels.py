@@ -635,24 +635,35 @@ def test_mlp_depth_kernels_match_plain(cuda, hidden):
 def test_probe_mm_matches_plain(cuda, variant, chain):
     """The matmul-rate probe's every variant, both contracts (r2_pallas_mm's
     scaled and r2_pallas_fma's carried products), at ragged shapes, one with
-    k chunked, and with copies, against the plain loop (mm_rate.PROBE_TOL)."""
+    k chunked, and with copies, against the plain loop (mm_rate.PROBE_TOL);
+    the 3xTF32 variants (their wgmma kernel, csrc/probe_mm.cu
+    probe_mm3x_kernel) also at every shape of their contract's TPU script.
+    Each case twice: into an output the wrapper allocates and into a
+    preallocated one filled with NaN."""
     from sevennet_tpu_torch.probes import mm_rate as mr
 
     rng = np.random.default_rng(6)
     dtype = torch.bfloat16 if variant == "bf16" else torch.float32
     s = torch.full((1, 1), 0.0 if variant == "bf16" else 1e-3, device=cuda)
-    for m, k, n, copies in ((100, 64, 70, 1), (70, 130, 40, 3), (185, 9, 33, 1)):
+    cases = [(100, 64, 70, 1), (70, 130, 40, 3), (185, 9, 33, 1)]
+    if variant in mr.WGMMA_3X:
+        cases += [(m, k, n, 1) for m, k, n in (mr.CHAIN_SHAPES if chain else mr.MM_SHAPES)]
+    for m, k, n, copies in cases:
         a = torch.tensor(rng.normal(size=(m, k)), device=cuda).to(dtype)
         b = torch.tensor(rng.normal(size=(k, n)), device=cuda).to(dtype)
         fn = mr.mm_chain if chain else mr.mm_rate
         extra = () if chain else (s,)
-        n0 = fn.launches
-        got = fn(a, b, *extra, variant=variant, copies=copies)
         want = fn(a, b, *extra, variant=variant, copies=copies, plain=True)
+        out = torch.full(want.shape, float("nan"), device=cuda)
+        n0 = fn.launches
+        got_new = fn(a, b, *extra, variant=variant, copies=copies)
+        got = fn(a, b, *extra, variant=variant, copies=copies, out=out)
         torch.cuda.synchronize()
-        assert fn.launches == n0 + 1 and got.shape == want.shape
-        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0,
-                                   atol=mr.PROBE_TOL[variant] * float(want.abs().max()))
+        assert fn.launches == n0 + 2 and got is out
+        for g in (got_new, got):
+            assert g.shape == want.shape
+            np.testing.assert_allclose(g.cpu(), want.cpu(), rtol=0,
+                                       atol=mr.PROBE_TOL[variant] * float(want.abs().max()))
 
 
 def test_batched_dot_matches_plain(cuda):
@@ -766,19 +777,26 @@ def test_probe_gather_rows_matches_plain(cuda, variant, streaming):
 
 
 def test_probe_gather_cols_matches_plain(cuda):
-    """The column gather from shared-memory bands, a row count that leaves
-    the last band short, with copies: bitwise equal to index_select."""
+    """The column gather at p1's shape (480 rows, 1,024 indices), a row
+    count that leaves the last CTA's rows short, T not a multiple of 4 (the
+    4-byte path), copies 3 (4 rows a thread), each into an output the
+    wrapper allocates and into a NaN-filled one: bitwise equal to
+    index_select."""
     from sevennet_tpu_torch.probes import gather as ga
 
     rng = np.random.default_rng(12)
-    for d, w, t, copies in ((37, 512, 1000, 1), (480, 64, 33, 3)):
+    for d, w, t, copies in ((37, 512, 1000, 1), (480, 64, 33, 3), (480, 512, 1024, 1),
+                            (481, 512, 1023, 1), (480, 512, 1024, 3), (5, 8, 6, 2)):
         tbl = torch.tensor(rng.normal(size=(d, w)), dtype=torch.float32, device=cuda)
         idx = torch.tensor(rng.integers(0, w, size=(1, t)), dtype=torch.int32, device=cuda)
-        n0 = ga.gather_cols.launches
-        got = ga.gather_cols(tbl, idx, copies=copies)
         want = ga.gather_cols(tbl, idx, copies=copies, plain=True)
+        out = torch.full(want.shape, float("nan"), device=cuda)
+        n0 = ga.gather_cols.launches
+        got_new = ga.gather_cols(tbl, idx, copies=copies)
+        got = ga.gather_cols(tbl, idx, copies=copies, out=out)
         torch.cuda.synchronize()
-        assert ga.gather_cols.launches == n0 + 1 and torch.equal(got, want)
+        assert ga.gather_cols.launches == n0 + 2 and got is out
+        assert torch.equal(got_new, want) and torch.equal(got, want)
 
 
 def _close_to(got, want, tol):
