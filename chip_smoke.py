@@ -551,8 +551,10 @@ INSTANCES = {
     **{("probe_fold_mma_kernel", f"{p}{pairs}"):
        f"probe_fold_mma<{p} pieces{', pairs' if pairs else ''}> (probe)"
        for p in (2, 3) for pairs in (0, 1)},
-    **{("probe_fold_conv_kernel", str(i)): f"probe_fold_conv<{v}> (probe)"
-       for i, v in enumerate(("sliceadd", "group4", "group8"))},
+    **{("probe_fold_conv_kernel", f"{i}{k}"):
+       f"probe_fold_conv<{v}, K {k}> (probe: 3xTF32 wgmma MLP, K sum in registers)"
+       for i, v in enumerate(("sliceadd", "group4", "group8")) for k in (24, 72)},
+    ("probe_fold_conv_prep_kernel", ""): "probe_fold_conv_prep (the conv fold's weights split)",
     **{("probe_breakdown_kernel", str(i)): f"probe_breakdown<{v}> (probe)"
        for i, v in enumerate(("mlp", "mlp_hi", "tmp", "tp", "tpred", "full", "full_hi", "tpredk",
                               "storek", "fullk", "tpredmm", "fullmm", "feat_full",
@@ -3950,6 +3952,35 @@ def fold_cancel_check(out_f, dev):
     torch.cuda.empty_cache()
 
 
+def fold_conv_order_check(dev, ws, w3j):
+    """Each conv fold variant against its own variant's plain version
+    (fold_conv.TOL of max |plain|) on fold_conv.cancelling_input at the
+    script's layer and K (256 receivers), where the plain variants are more
+    than 10 fold_conv.TOL from each other, which is checked too: a kernel
+    that sums in another order than its variant's fails. Launches not
+    counted."""
+    import torch
+
+    from sevennet_tpu_torch.probes import fold_conv as fcv
+
+    conv, _ = fcv.sevennet0_conv()
+    xg, emb, sh = fcv.cancelling_input(256, fcv.K, conv, 29, dev)
+    plain = {v: fcv.fold_conv(conv, xg, emb, sh, ws, w3j, fcv.K, v, plain=True)
+             for v in fcv.VARIANTS}
+    tag = f"probe fold_conv K {fcv.K}, cancelling input"
+    for i, a in enumerate(fcv.VARIANTS):
+        for b in fcv.VARIANTS[i + 1:]:
+            gap = float((plain[a] - plain[b]).abs().max()) / float(plain[a].abs().max())
+            log(f"  {tag}: plain {a} and {b} {gap:.3e} of max |plain| apart")
+            if not gap > 10 * fcv.TOL:
+                raise SystemExit(f"{tag}: plain {a} and {b} within {gap:.3e}: the input does not "
+                                 "tell the orders apart")
+    for v in fcv.VARIANTS:
+        check_close(f"{tag} {v}", "out", fcv.fold_conv(conv, xg, emb, sh, ws, w3j, fcv.K, v),
+                    plain[v], fcv.TOL)
+    del xg, emb, sh, plain
+
+
 def fold_floor_ms(v: str, nb: int) -> float:
     """The mxu design's tensor-core floor: its dense bf16 product, 2 A T DM
     multiply-adds a block and piece (the TPU's MXU product, not the
@@ -4117,7 +4148,9 @@ def reduce_fold_xpose_phase(dev, card: str):
     XPOSE_RAGGED, every mode and variant; kreduce also on an
     input whose carry crosses CTAs; the fold's mxu variants printed against
     roll as the script prints them; the conv fold against B4 fwd on the same
-    x[src], 1e-4 of max |B4|; launches not counted), then the probe path
+    x[src], 1e-4 of max |B4|, and each variant on fold_conv.cancelling_input
+    against its own variant's plain version (fold_conv_order_check);
+    launches not counted), then the probe path
     with the counts from 0: each timed by its script's method on the device
     alone (CUDA graphs: the r2 sites 250 against 50 calls, the fold sites 9
     against 3, the streamed transposes 8 calls over 8), beside the plain
@@ -4218,6 +4251,7 @@ def reduce_fold_xpose_phase(dev, card: str):
         del want
         check_close(f"probe fold_conv {v} N {n} K {k}", "against B4 fwd", got, b4, fcv.TOL)
         del got
+    fold_conv_order_check(dev, ws, w3j)
     torch.cuda.empty_cache()
 
     # the probe path, counts from 0
@@ -4281,6 +4315,11 @@ def reduce_fold_xpose_phase(dev, card: str):
     torch.cuda.empty_cache()
     fl, nbytes = fcv.fold_conv_work(conv, mlp.dims, n, k)
     bnd = bound_ms(fl, nbytes, fl)  # as work("fwd_embsh") bounds B4 fwd: products at 3xTF32
+    for v in fcv.VARIANTS:
+        occ = fcv.occupancy(conv, mlp.dims, k, v, dev)
+        log(f"  probe fold_conv {v} K {k}: {occ['smem']} B of shared memory a CTA, "
+            f"{occ['ctas_per_sm']} CTAs an SM, {occ['registers']} registers, "
+            f"{occ['local_bytes']} B local a thread | {card}")
     b4_ms = cuda_time(lambda: fc.fused_conv_fwd_embsh(op, x, src, emb, sh, ws), 3)
     for v in fcv.VARIANTS:
         ms = diff_ms(lambda: fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v), *FOLD_TIME)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The batched-dot probe, the roll folds, the matmul-rate probe and the column
-gather of one or more trees timed on one card, in turns in one call.
+"""The batched-dot probe, the roll folds, the matmul-rate probe, the column
+gather and the conv fold of one or more trees timed on one card, in turns in
+one call.
 
 Each tree's ``probes/batched_dot.py`` at ``GROUPS`` and N ``N_ATOMS`` (rep 1
 and 4, timed by ``batched_dot_time``: best of 3 CUDA graphs of 10 calls;
@@ -19,13 +20,20 @@ back (``gather_time`` at ``TABLE_TIMING``), each beside ``index_select``
 into the same output, the one call both with the host's launch latency in
 the time and queued behind a spin on the device (``one_call_ms``), with
 each one's device kernels from ``torch.profiler``, and where the tree has
-it the launch floor (an empty kernel timed as the one call). Each output is checked against its plain
+it the launch floor (an empty kernel timed as the one call); its
+``probes/fold_conv.py`` (group ``foldconv``) sliceadd, group4 and group8 at
+``r4_fold_probe.py``'s shape (N 10,016, K 72, SevenNet-0's layer, the inputs
+of ``chip_smoke.py``), two rounds in turns (``diff_ms(fn, *FOLD_TIME)``),
+beside that tree's B4 fwd on the same x[src] timed the same way, and where
+the tree has it the kernel's shared memory, CTAs an SM and registers
+(``fold_conv.occupancy``). Each output is checked against its plain
 version first (the batched dot within 1e-5 of max |plain|, the folds within
-``fold.TOL``, the matmuls within ``mm_rate.PROBE_TOL``, the gather
-bitwise); bounds are the bytes over HBM's rate or the operations over
-their type's peak.
+``fold.TOL``, the conv fold within ``fold_conv.TOL``, the matmuls within
+``mm_rate.PROBE_TOL``, the gather bitwise); bounds are the bytes over HBM's
+rate or the operations over their type's peak (the conv fold's products at
+the 3xTF32 rate, as ``chip_smoke.py`` bounds it).
 
-    python3 probe_ab.py [--tree DIR] [--only bd,fold,mm,gather]
+    python3 probe_ab.py [--tree DIR] [--only bd,fold,mm,gather,foldconv]
     python3 probe_ab.py --compare DIR,DIR,... [--names a,b,...] [--only ...]
 
 ``--compare`` runs each tree in a process of its own, in the order given
@@ -51,10 +59,11 @@ HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (chip_smoke.py HBM_BYTES_S)
 PEAK_OF = {"ffma": 67e12, "tf32": 495e12, "wgmma_tf32": 495e12, "3xtf32": 495e12 / 3,
            "3xtf32_presplit": 495e12 / 3, "bf16": 989e12}
 RUN_TIMEOUT_S = 600
-KERNELS = ("batched_dot_kernel", "probe_fold_roll_kernel", "probe_mm", "probe_gather_cols_kernel")
-GROUPS = ("bd", "fold", "mm", "gather")
+KERNELS = ("batched_dot_kernel", "probe_fold_roll_kernel", "probe_mm", "probe_gather_cols_kernel",
+           "probe_fold_conv_kernel")
+GROUPS = ("bd", "fold", "mm", "gather", "foldconv")
 LIBS = {"bd": "probe_batched_dot", "fold": "probe_fold", "mm": "probe_mm",
-        "gather": "probe_gather"}
+        "gather": "probe_gather", "foldconv": "probe_fold_conv"}
 
 
 def ptxas(so) -> dict:
@@ -146,6 +155,8 @@ def one_tree(tree: str, only=GROUPS) -> dict:
         mm_ab(res, dev)
     if "gather" in only:
         gather_ab(res, dev)
+    if "foldconv" in only:
+        foldconv_ab(res, dev)
     return res
 
 
@@ -271,6 +282,50 @@ def gather_ab(res: dict, dev) -> None:
     res["bound_ms"]["G2"] = ga.gather_bytes(tbl, idx, 1) / HBM_BYTES_S * 1e3
 
 
+def foldconv_ab(res: dict, dev) -> None:
+    """The conv fold's variants at the script's shape, each first held
+    against its plain version, then two rounds in turns, beside B4 fwd on
+    the same x[src]; the inputs are chip_smoke.py's (seed 10)."""
+    import torch
+
+    from sevennet_tpu_torch.ops import fused_conv as fc
+    from sevennet_tpu_torch.probes import fold_conv as fcv
+    from sevennet_tpu_torch.probes._lib import FOLD_TIME, diff_ms
+
+    conv, mlp = fcv.sevennet0_conv()
+    n, k = fcv.N, fcv.K
+    gen = torch.Generator(device="cpu").manual_seed(10)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    x = rnd(n, conv.irreps_x.dim, scale=0.5)
+    src = torch.randint(0, n, (n, k), generator=gen, dtype=torch.int32).to(dev)
+    xg = x[src.reshape(-1).long()].contiguous()
+    emb, sh = rnd(n * k, mlp.dims[0], scale=0.3), rnd(n * k, conv.irreps_filter.dim, scale=0.5)
+    ws = [rnd(a, b) for a, b in zip(mlp.dims[:-1], mlp.dims[1:])]
+    w3j = torch.as_tensor(fcv._tables(conv)[1], device=dev)
+    op = fc.conv_op(conv, mlp, None)
+    for v in fcv.VARIANTS:
+        want = fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v, plain=True)
+        err = float((fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v) - want).abs().max())
+        if err > fcv.TOL * float(want.abs().max()):
+            raise SystemExit(f"fold_conv {v} differs from its plain version by {err}")
+        del want
+    for r in range(2):
+        for v in fcv.VARIANTS:
+            res["ms"][f"fold_conv {v} round {r}"] = diff_ms(
+                lambda: fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v), *FOLD_TIME)
+        res["ms"][f"B4 fwd on x[src] round {r}"] = diff_ms(
+            lambda: fc.fused_conv_fwd_embsh(op, x, src, emb, sh, ws), *FOLD_TIME)
+    fl, nbytes = fcv.fold_conv_work(conv, mlp.dims, n, k)
+    res["bound_ms"]["fold_conv"] = max(fl / PEAK_OF["3xtf32"], nbytes / HBM_BYTES_S) * 1e3
+    if hasattr(fcv, "occupancy"):
+        res["occupancy"] = {v: fcv.occupancy(conv, mlp.dims, k, v, dev) for v in fcv.VARIANTS}
+    del x, src, xg, emb, sh, ws
+    torch.cuda.empty_cache()
+
+
 def compare(trees, names, only) -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     results = []
@@ -295,6 +350,8 @@ def compare(trees, names, only) -> int:
             print(f"  {what} {key}: {vals}")
     for j, r in enumerate(results):
         print(f"  ptxas {names[j]}: {r['ptxas']}")
+        if "occupancy" in r:
+            print(f"  occupancy {names[j]}: {r['occupancy']}")
     print(json.dumps(dict(names=names, results=results)))
     return 0
 

@@ -929,10 +929,10 @@ def test_probe_roll_slices_match_plain(cuda, variant):
 
 
 def test_probe_fold_conv_matches_plain_and_b4(cuda):
-    """The conv fold (r4_fold_probe's make) on 16x0e+8x1e+4x2e (the kernel
-    takes multiplicities that are multiples of 4), K 24, radial MLP (8, 16,
-    16, numel), every variant against plain and against B4 fwd on the same
-    x[src] (fold_conv.TOL)."""
+    """The conv fold (r4_fold_probe's make) on 16x0e+8x1e+4x2e (instructions
+    of 16, 8 and 4 channels: the kernel pads a warp's 16), K 24, radial MLP
+    (8, 16, 16, numel), every variant against plain and against B4 fwd on
+    the same x[src] (fold_conv.TOL)."""
     from sevennet_tpu_torch.ops.mlp import ScalarMLPSpec
     from sevennet_tpu_torch.probes import fold_conv as fcv
 
@@ -959,6 +959,35 @@ def test_probe_fold_conv_matches_plain_and_b4(cuda):
         assert fcv.fold_conv.by_variant[variant] == n0 + 1
         _close_to(got, fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, variant, plain=True), fcv.TOL)
         _close_to(got, b4, fcv.TOL)
+
+
+@pytest.mark.parametrize("layer,k", [("16x0e+8x1e+4x2e", 24), ("sevennet0", 72)])
+def test_probe_fold_conv_sums_in_its_variants_order(cuda, layer, k):
+    """On fold_conv.cancelling_input, where the three orders of the K sum
+    round apart (the plain variants more than 10 TOL from each other), each
+    kernel variant is within TOL of its own variant's plain version: it
+    sums in that order."""
+    from sevennet_tpu_torch.probes import fold_conv as fcv
+
+    if layer == "sevennet0":
+        conv, mlp = fcv.sevennet0_conv()
+        dims = mlp.dims
+    else:
+        x_ir, f_ir = Irreps(layer), Irreps.spherical_harmonics(2, 1)
+        conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+        dims = (8, 16, 16, conv.weight_numel)
+    rng = np.random.default_rng(k)
+    ws = [torch.tensor(rng.normal(size=(a, b)), dtype=torch.float32, device=cuda)
+          for a, b in zip(dims[:-1], dims[1:])]
+    w3j = torch.tensor(fcv._tables(conv)[1], device=cuda)
+    xg, emb, sh = fcv.cancelling_input(20, k, conv, 3, cuda)
+    plain = {v: fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v, plain=True) for v in fcv.VARIANTS}
+    for i, a in enumerate(fcv.VARIANTS):
+        for b in fcv.VARIANTS[i + 1:]:
+            gap = float((plain[a] - plain[b]).abs().max())
+            assert gap > 10 * fcv.TOL * float(plain[a].abs().max()), (a, b, gap)
+    for v in fcv.VARIANTS:
+        _close_to(fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v), plain[v], fcv.TOL)
 
 
 @pytest.mark.parametrize("k", [12, 20])

@@ -1,13 +1,22 @@
-"""The launch plans of the matmul-rate probe's 3xTF32 kernel and of the
-column gather, walked in numpy as the kernels index their work, and the
-3xTF32 split with A split for every product emulated in numpy against
-float64. CPU only: the kernels themselves are held against their plain
-versions on the card (``tests/test_torch_kernels.py``, ``gpu``).
+"""The launch plans of the matmul-rate probe's 3xTF32 kernel, of the
+column gather and of the conv fold, walked in numpy as the kernels index
+their work, the 3xTF32 split with A split for every product emulated in
+numpy against float64, and the conv fold's order of sums emulated in numpy
+against its plain version, bitwise. CPU only: the kernels themselves are
+held against their plain versions on the card
+(``tests/test_torch_kernels.py``, ``gpu``).
 """
+
+import math
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
+from sevennet_tpu_torch.irreps import Irreps, infer_irreps_out
+from sevennet_tpu_torch.ops.tensor_product import ConvTPSpec
+from sevennet_tpu_torch.probes import fold_conv as fcv
 from sevennet_tpu_torch.probes import gather as ga
 from sevennet_tpu_torch.probes import mm_rate as mr
 
@@ -164,3 +173,199 @@ def test_3xtf32_per_product_split_is_fp32_accurate(m, k, n, carry):
         ref = ref * 0.5 + f64 * (ai64 @ b.astype(np.float64))
     err = float(np.abs(acc - ref).max())
     assert err <= mr.PROBE_TOL["3xtf32"] * float(np.abs(ref).max())
+
+
+# the conv fold's layers: SevenNet-0's (the script's) and the GPU test's
+# (tests/test_torch_kernels.py: 16x0e+8x1e+4x2e, MLP (8, 16, 16, numel), K 24)
+def _fc_layer(name):
+    if name == "sevennet0":
+        conv, mlp = fcv.sevennet0_conv()
+        return conv, mlp.dims
+    x_ir, f_ir = Irreps(name), Irreps.spherical_harmonics(2, 1)
+    conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+    return conv, (8, 16, 16, conv.weight_numel)
+
+
+FC_LAYERS = (("sevennet0", 72), ("16x0e+8x1e+4x2e", 24))
+
+
+def fold_conv_walk(conv, dims, k, variant):
+    """How often each output column of a receiver is stored, and the K
+    slots each stored column sums, as the kernel's indices say
+    (csrc/probe_fold_conv.cu): tile t, warp w's record, lane (g, q): its
+    channels u0 + 2 g + h, its positions lane_slots[q]; lane q = 0 stores."""
+    pl = fcv.plan(conv, dims, k, variant)
+    dim_mid = fcv._tables(conv)[2]
+    stores = np.zeros(dim_mid, np.int64)
+    slots = [sorted(s for q in range(4) for s in pl.slots[q] if s >= 0)]
+    for t in range(pl.n_tiles):
+        for w in range(4):
+            path, x0, mul, u0, obase, u_tot, roff, w0 = pl.gtab[(4 * t + w) * fcv.GREC:][:fcv.GREC]
+            if path < 0:
+                continue
+            d3 = fcv.path_list()[path][1]
+            for g in range(8):
+                for h in range(2):
+                    u = u0 + 2 * g + h
+                    if u < mul:
+                        for p in range(d3):
+                            stores[obase + p * u_tot + u] += 1
+    return stores, slots[0]
+
+
+@pytest.mark.parametrize("variant", fcv.VARIANTS)
+@pytest.mark.parametrize("layer,k", FC_LAYERS, ids=[n for n, _ in FC_LAYERS])
+def test_fold_conv_plan_covers_every_column_once(layer, k, variant):
+    """Every output column of a receiver is stored once, and the four lanes
+    of a channel hold each of its K slots once."""
+    conv, dims = _fc_layer(layer)
+    stores, slots = fold_conv_walk(conv, dims, k, variant)
+    assert (stores == 1).all()
+    assert slots == list(range(k))
+
+
+@pytest.mark.parametrize("layer,k", FC_LAYERS, ids=[n for n, _ in FC_LAYERS])
+def test_fold_conv_plan_carve(layer, k):
+    """A CTA's shared memory fits SMEM_LIMIT; at SevenNet-0's layer it
+    leaves room for 2 CTAs (16 warps) an SM: two warpgroups' 53,632 bytes
+    (the last hidden layer's hi and lo, 36,864; sh, 2,592; a 49-row tmp
+    window, 14,112; rounded to 128 bytes)."""
+    conv, dims = _fc_layer(layer)
+    for v in fcv.VARIANTS:
+        pl = fcv.plan(conv, dims, k, v)
+        assert pl.smem <= fcv.SMEM_LIMIT
+        assert pl.carve >= 2 * pl.np_ * pl.hk + pl.np_ * conv.irreps_filter.dim + max(
+            pl.np_ * pl.tw_rows, 2 * pl.np_ * pl.nbk)
+        ttab = pl.ttab.reshape(-1, 2)
+        assert (ttab[:, 1] <= pl.tw_rows).all() and pl.tw_rows == ttab[:, 1].max()
+    if layer == "sevennet0":
+        assert pl.smem == 2 * 53632 and pl.ctas_per_sm >= 2 and pl.n_tiles == 15
+
+
+def _emulate_fold_conv(conv, xg, emb, sh, ws, w3j, k, variant):
+    """The kernel's sums in numpy float32, in its order (plan, lane_slots,
+    the counter and stack of sliceadd, the shuffles' pairs), on the plain
+    version's w and tmp."""
+    f32 = np.float32
+    dims = (ws[0].shape[0], *(w.shape[1] for w in ws))
+    pl = fcv.plan(conv, dims, k, variant)
+    h = torch.tensor(emb)
+    for li, w in enumerate(ws):
+        h = (h @ torch.tensor(w)) * (1.0 / math.sqrt(w.shape[0]))
+        if li < len(ws) - 1:
+            h = torch.nn.functional.silu(h) * fcv.NORMALIZE2MOM_CST["silu"]
+    wv = h.numpy()
+    tmp = (torch.tensor(sh) @ torch.tensor(w3j).t()).numpy()
+    n = xg.shape[0] // k
+    out = np.zeros((n, fcv._tables(conv)[2]), f32)
+    a = fcv._ctz(k)
+    c, t_leaves = k >> a, 1 << max(a - 2, 0)
+    order, pops, _, _ = fcv._sa_top(c)
+    rows = np.arange(n) * k
+    for t in range(pl.n_tiles):
+        r_lo = pl.ttab[2 * t]
+        for w in range(4):
+            path, x0, mul, u0, obase, u_tot, roff, w0 = pl.gtab[(4 * t + w) * fcv.GREC:][:fcv.GREC]
+            if path < 0:
+                continue
+            d1, d3, mask = fcv.path_list()[path]
+            pairs = [(m, p) for m in range(d1) for p in range(d3) if mask >> (m * d3 + p) & 1]
+            for u in range(u0, min(u0 + fcv.UG, mul)):
+                lanes = []  # per lane q: its per-row sums (sliceadd: per S_r)
+                for q in range(4):
+                    gs = [[f32(0)] * 2 for _ in range(d3)]  # [p][sum]
+                    leaves = {}
+                    for i, s in enumerate(pl.slots[q]):
+                        if s < 0:
+                            continue
+                        xw = [(xg[rows + s, x0 + m * mul + u] * wv[rows + s, w0 + u]).astype(f32)
+                              for m in range(d1)]
+                        v = [np.zeros(n, f32) for _ in range(d3)]
+                        for rk, (m, p) in enumerate(pairs):
+                            term = (xw[m] * tmp[rows + s, r_lo + roff + rk]).astype(f32)
+                            if variant == "sliceadd":
+                                v[p] = (v[p] + term).astype(f32)
+                            else:
+                                ci = i % 2 if variant == "group8" else 0
+                                gs[p][ci] = (gs[p][ci] + term).astype(f32)
+                        if variant == "sliceadd":
+                            leaves[i] = v
+                    if variant == "sliceadd":
+                        per_r = []
+                        for rho in range(c):  # the binary counter over a subtree's leaves
+                            part = {}
+                            for tp in range(t_leaves):
+                                x = leaves[rho * t_leaves + tp]
+                                lvl = 0
+                                while tp >> lvl & 1:
+                                    x = [(part[lvl][p] + x[p]).astype(f32) for p in range(d3)]
+                                    lvl += 1
+                                part[lvl] = x
+                            per_r.append(x)
+                        lanes.append(per_r)
+                    else:
+                        lanes.append([gs[p][0] if variant == "group4" else
+                                      (gs[p][0] + gs[p][1]).astype(f32) for p in range(d3)])
+
+                def across(vals):  # q ^ 2, then q ^ 1: lane 0's value
+                    x = [(vals[q] + vals[q ^ 2]).astype(f32) for q in range(4)]
+                    return (x[0] + x[1]).astype(f32)
+
+                for p in range(d3):
+                    if variant == "sliceadd":
+                        stk = []
+                        for rho, r in enumerate(order):
+                            stk.append(across([lanes[q][rho][p] for q in range(4)]))
+                            for _ in range(pops[rho]):
+                                b = stk.pop()
+                                stk.append((stk.pop() + b).astype(f32))
+                        res = stk[0]
+                    else:
+                        res = across([lanes[q][p] for q in range(4)])
+                    out[:, obase + p * u_tot + u] = res
+    return out
+
+
+@pytest.mark.parametrize("variant", fcv.VARIANTS)
+@pytest.mark.parametrize("k", fcv.KERNEL_K)
+def test_fold_conv_kernel_order_is_plain_order(k, variant):
+    """The kernel's walk and order of sums, emulated in numpy on the plain
+    version's w and tmp, gives the plain version bitwise: the products are
+    the same, so every sum must be in the same order. Also on the
+    cancelling input, where another order is far off."""
+    conv, dims = _fc_layer("8x0e+4x1e+2x2e")
+    rng = np.random.default_rng(k)
+    n = 3
+    ws = [(rng.normal(size=(a, b))).astype(np.float32) for a, b in zip(dims[:-1], dims[1:])]
+    w3j = fcv._tables(conv)[1]
+    inputs = [[(rng.normal(size=(n * k, d)) * sc).astype(np.float32) for d, sc in
+               ((conv.irreps_x.dim, 0.5), (dims[0], 0.3), (conv.irreps_filter.dim, 0.5))],
+              [v.numpy() for v in fcv.cancelling_input(n, k, conv, 5, "cpu")]]
+    for xg, emb, sh in inputs:
+        want = fcv.fold_conv(conv, *(torch.tensor(v) for v in (xg, emb, sh)),
+                             [torch.tensor(w) for w in ws], torch.tensor(w3j), k, variant,
+                             plain=True).numpy()
+        got = _emulate_fold_conv(conv, xg, emb, sh, ws, w3j, k, variant)
+        assert np.array_equal(got, want)
+
+
+def test_fold_conv_paths_header_is_current():
+    """csrc/probe_fold_conv_paths.cuh is path_header()'s text: the kernel is
+    compiled for the shapes the host maps instructions to."""
+    path = Path(fcv.__file__).resolve().parent.parent / "csrc" / fcv.PATHS_HEADER
+    assert path.read_text() == fcv.path_header()
+    assert len(fcv.path_list()) == 15  # every (l1, l2, l3) path of l <= 2
+
+
+def test_fold_conv_kernel_refuses_what_it_is_not_built_for():
+    conv, dims = _fc_layer("sevennet0")
+    fcv._check_kernel(conv, dims, 72)
+    with pytest.raises(ValueError, match="compiled for K"):
+        fcv._check_kernel(conv, dims, 48)
+    with pytest.raises(ValueError, match="at most 64"):
+        fcv._check_kernel(conv, (8, 128, 64, dims[-1]), 72)
+    x3 = Irreps("8x0e+4x1e+2x2e+2x3e")
+    f3 = Irreps.spherical_harmonics(3, 1)
+    conv3 = ConvTPSpec(x3, f3, infer_irreps_out(x3, f3, 3, "full"))
+    with pytest.raises(ValueError, match="l <= 2"):
+        fcv._check_kernel(conv3, (8, 16, 16, conv3.weight_numel), 24)

@@ -665,6 +665,24 @@ def test_fold_conv_plain_is_b4_fwd():
         _close(got.numpy(), want.numpy(), fcv.TOL)
 
 
+@pytest.mark.parametrize("k", [24, 72])
+def test_fold_conv_cancelling_input_separates_the_orders(k):
+    """On fold_conv.cancelling_input the three plain variants differ from
+    each other by more than 10 TOL of max |plain| (each keeps another set
+    of the small terms), so that a kernel held within TOL of its own
+    variant's plain version there sums in that variant's order."""
+    _, conv, mlp_dims, _, _, _, _, _, ws, w3j = _fold_conv_setup(54)
+    xg, emb, sh = fcv.cancelling_input(4, k, conv, 11, "cpu")
+    assert torch.equal(emb.view(4, k, -1), emb.view(4, k, -1)[:, :1].expand(4, k, -1))
+    outs = {v: fcv.fold_conv(conv, xg, emb, sh, [torch.tensor(w) for w in ws],
+                             torch.tensor(w3j), k, v, plain=True) for v in fcv.VARIANTS}
+    for i, a in enumerate(fcv.VARIANTS):
+        assert bool(torch.isfinite(outs[a]).all())
+        for b in fcv.VARIANTS[i + 1:]:
+            gap = float((outs[a] - outs[b]).abs().max())
+            assert gap > 10 * fcv.TOL * float(outs[a].abs().max()), (a, b, gap)
+
+
 def test_reduce_fold_xpose_wrappers_check_their_inputs():
     """The wrappers raise on CPU tensors unless told to run the plain
     version (which does not count as a launch), and refuse misshapen or
