@@ -175,8 +175,11 @@
    Then the breakdown and knock-out probes (``probes/breakdown.py``,
    ``probes/knockout.py``: kernel B4 fwd instantiated with the phases of
    each variant of ``r2_fused_breakdown.py`` and ``r3_fwd_knockout.py``):
-   their SASS (HMMA, FFMA, FADD: one TF32 pass a third of 3xTF32's HMMAs,
-   each knocked-out phase's gone), each variant against its plain version
+   their SASS (HMMA, FFMA, FADD, STS: one TF32 pass a third of 3xTF32's
+   HMMAs, each knocked-out phase's gone, the per-edge uvu product on the
+   CUDA cores with every term of every path in nofold as in tpred and
+   nofold's staging stores, the 0/1 sums' two TF32 passes), each variant
+   against its plain version
    at its script's shape (3xTF32 1e-4 of max |plain|, one TF32 pass 2^-8,
    the transpose bitwise), ``full_hi`` and the knock-out's ``full`` bitwise
    against B4 fwd, then with the counts from 0 each timed the knock-out
@@ -4361,18 +4364,42 @@ def bd_bound(flops: float, nbytes: float, one_pass: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def edge_ffma_floor(paths) -> int:
+    """The FFMAs of the per-edge product's terms (``paths``:
+    ``fold_conv.path_list()``) in an instantiation that compiles every path
+    at the three lane widths, a step forming 4 values of each p a lane
+    (tpred, nofold): 4 a pair, a path and a width. Fewer in its SASS means
+    ptxas dropped terms."""
+    return 3 * 4 * sum(bin(mask).count("1") for _, _, mask in paths)
+
+
+def edge_sts_floor(paths) -> int:
+    """nofold's 16-byte staging stores a step, one a p, at every path and
+    lane width."""
+    return 3 * sum(d3 for _, d3, _ in paths)
+
+
 def breakdown_sass(libs):
-    """HMMA, FFMA and FADD of every breakdown instantiation (``cuobjdump``),
-    printed, and the checks that each knock-out removed its phase's
-    tensor-core instructions and kept the rest: one TF32 pass is a third of
-    3xTF32's HMMAs (mlp against mlp_hi; full against the MLP, W3 and tmp of
-    notp at a third plus the uvu product's), nomlp is B4 (ko full) without
-    the MLP and W3 (mlp_hi's), nothing is nomlp without the uvu product,
-    transpose runs no arithmetic, and the per-edge uvu product keeps its 3
-    HMMAs for each of a tile's 16 edges (ptxas drops an mma whose result
-    nothing reads). Returns the counts by variant name, None
-    without cuobjdump."""
+    """HMMA, FFMA, FADD and STS of every breakdown instantiation
+    (``cuobjdump``), printed, and the checks that each knock-out removed its
+    phase's tensor-core instructions and kept the rest: one TF32 pass is a
+    third of 3xTF32's HMMAs (mlp against mlp_hi; full against the MLP, W3
+    and tmp of notp at a third plus the uvu product's), nomlp is B4 (ko
+    full) without the MLP and W3 (mlp_hi's), nothing is nomlp without the
+    uvu product, transpose runs no arithmetic; and that the per-edge uvu
+    product (``probe_breakdown.cuh:uvu_edges``) forms every edge's messages
+    on the CUDA cores: no HMMA in tpred and nofold beyond their loop's (tmp's,
+    notp's), the same FFMAs in both beyond the loop's, at least every
+    path's terms at every lane width once (``edge_ffma_floor``: ptxas
+    drops arithmetic whose result nothing reads, and nofold's messages are
+    read by nothing but their stores), nofold's staging stores beyond
+    notp's, at least one a p of every path and width; and the 0/1 sums' two
+    TF32 passes (HMMA beyond tmp's, the same in tpredmm and fullmm, even;
+    feat_full's beyond featroll_mlp's even, featroll_full's none). Returns
+    the counts by variant name, None without cuobjdump."""
     import re
+
+    from sevennet_tpu_torch.probes.fold_conv import path_list
 
     names = dict(INSTANCES)
     counts = {}
@@ -4387,9 +4414,18 @@ def breakdown_sass(libs):
                 v = names[("probe_breakdown_kernel", m.group(1))].split("<")[1].split(">")[0]
                 counts[v] = c
                 log(f"  sass probe_breakdown<{v}>: HMMA {c['HMMA']}, FFMA {c['FFMA']}, FADD "
-                    f"{c['FADD']}")
+                    f"{c['FADD']}, STS {c['STS']}")
     h = {v: c["HMMA"] for v, c in counts.items()}
+    f = {v: c["FFMA"] for v, c in counts.items()}
+    sts = {v: c["STS"] for v, c in counts.items()}
     uvu = h["full_hi"] - h["ko notp"]
+    msg_ffma = f["tpred"] - f["tmp"]
+    mm = h["tpredmm"] - h["tmp"]
+    floor_ffma, floor_sts = edge_ffma_floor(path_list()), edge_sts_floor(path_list())
+    log(f"  breakdown sass: per-edge product FFMA tpred {msg_ffma}, nofold "
+        f"{f['ko nofold'] - f['ko notp']} (floor {floor_ffma}); nofold staging STS "
+        f"{sts['ko nofold'] - sts['ko notp']} (floor {floor_sts}); 0/1 sum HMMA tpredmm {mm}, "
+        f"fullmm {h['fullmm'] - h['tmp']}, feat_full {h['feat_full'] - h['featroll_mlp']}")
     checks = {
         "one pass: 3 x mlp = mlp_hi": 3 * h["mlp"] == h["mlp_hi"],
         "one pass: full = notp / 3 + uvu": 3 * (h["full"] - uvu) == h["ko notp"] and uvu > 0,
@@ -4398,13 +4434,22 @@ def breakdown_sass(libs):
         "full_hi and ko full = B4 fwd": h["full_hi"] == h["ko full"],
         "transpose: no arithmetic": sum(counts["feat_transpose"][i] for i in
                                         ("HMMA", "FFMA", "FADD")) == 0,
-        "per-edge messages: 16 edges x 3 in tpred and nofold (none dropped)":
-            h["tpred"] - (h["full"] - uvu) == 48 and h["ko nofold"] - h["ko notp"] == 48,
+        "per-edge product on the CUDA cores: tpred = tmp and nofold = notp in HMMA":
+            h["tpred"] == h["tmp"] and h["ko nofold"] == h["ko notp"],
+        "per-edge messages: the same FFMAs in nofold and tpred, every path and width "
+        "(none dropped)": f["ko nofold"] - f["ko notp"] == msg_ffma >= floor_ffma,
+        "nofold stages its messages": sts["ko nofold"] - sts["ko notp"] >= floor_sts,
+        "0/1 sums: two TF32 passes, tpredmm = fullmm":
+            mm > 0 and mm % 2 == 0 and h["fullmm"] - h["tmp"] == mm,
+        "feature-major sums: 0/1 product two passes, halving chain none":
+            (h["feat_full"] - h["featroll_mlp"]) % 2 == 0
+            and h["feat_full"] > h["featroll_mlp"] and h["featroll_full"] == h["featroll_mlp"],
     }
     for name, ok in checks.items():
         log(f"  breakdown sass check {name}: {'ok' if ok else 'FAIL'}")
     if not all(checks.values()):
-        raise SystemExit(f"a breakdown instantiation's SASS does not match its phases: {h}")
+        raise SystemExit(f"a breakdown instantiation's SASS does not match its phases: HMMA {h}, "
+                         f"FFMA {f}, STS {sts}")
     return counts
 
 
@@ -4504,7 +4549,9 @@ def breakdown_phase(dev, card: str, libs, prof_build):
                                                     "section (b) with the gather and tmp)"),
                                  ("notp", share.get("uvu product (forward)", 0.0), "uvu product"),
                                  ("nofold", share.get("uvu product (forward)", 0.0),
-                                  "uvu product (nofold swaps its K sum for per-edge messages)"),
+                                  "uvu product (nofold runs the per-edge product on the CUDA "
+                                  "cores and stages it, no K sum: it saves what B4's product and "
+                                  "fold cost beyond that)"),
                                  ("nothing", mlp_sec + share.get("uvu product (forward)", 0.0),
                                   "W3, MLP 2 and uvu")):
                 saved = times["full"] - times[v]

@@ -26,14 +26,23 @@ it the launch floor (an empty kernel timed as the one call); its
 of ``chip_smoke.py``), two rounds in turns (``diff_ms(fn, *FOLD_TIME)``),
 beside that tree's B4 fwd on the same x[src] timed the same way, and where
 the tree has it the kernel's shared memory, CTAs an SM and registers
-(``fold_conv.occupancy``). Each output is checked against its plain
+(``fold_conv.occupancy``); its breakdown and knock-out probes (group
+``edge``, ``probes/breakdown.py`` and ``probes/knockout.py``): every variant
+that runs the per-edge uvu product (``csrc/probe_breakdown.cuh:uvu_edges``;
+tp, tpred, tpredk, storek, fullk, tpredmm, tpredmm_amaj, fullmm, feat_full,
+featroll_full, knock-out nofold) and the variants they are read against
+(tmp, full, full_hi, featroll_mlp, knock-out full and notp), at the
+scripts' shapes with ``chip_smoke.py``'s inputs (seed 12), two rounds in
+turns (``diff_ms(fn, *KNOCK_TIME)``), with each one's bound
+(``chip_smoke.py:bd_bound``). Each output is checked against its plain
 version first (the batched dot within 1e-5 of max |plain|, the folds within
-``fold.TOL``, the conv fold within ``fold_conv.TOL``, the matmuls within
+``fold.TOL``, the conv fold within ``fold_conv.TOL``, the breakdowns within
+``breakdown.tol`` and ``knockout.TOL``, the matmuls within
 ``mm_rate.PROBE_TOL``, the gather bitwise); bounds are the bytes over HBM's
 rate or the operations over their type's peak (the conv fold's products at
 the 3xTF32 rate, as ``chip_smoke.py`` bounds it).
 
-    python3 probe_ab.py [--tree DIR] [--only bd,fold,mm,gather,foldconv]
+    python3 probe_ab.py [--tree DIR] [--only bd,fold,mm,gather,foldconv,edge]
     python3 probe_ab.py --compare DIR,DIR,... [--names a,b,...] [--only ...]
 
 ``--compare`` runs each tree in a process of its own, in the order given
@@ -60,10 +69,16 @@ PEAK_OF = {"ffma": 67e12, "tf32": 495e12, "wgmma_tf32": 495e12, "3xtf32": 495e12
            "3xtf32_presplit": 495e12 / 3, "bf16": 989e12}
 RUN_TIMEOUT_S = 600
 KERNELS = ("batched_dot_kernel", "probe_fold_roll_kernel", "probe_mm", "probe_gather_cols_kernel",
-           "probe_fold_conv_kernel")
-GROUPS = ("bd", "fold", "mm", "gather", "foldconv")
-LIBS = {"bd": "probe_batched_dot", "fold": "probe_fold", "mm": "probe_mm",
-        "gather": "probe_gather", "foldconv": "probe_fold_conv"}
+           "probe_fold_conv_kernel", "probe_breakdown_kernel")
+GROUPS = ("bd", "fold", "mm", "gather", "foldconv", "edge")
+LIBS = {"bd": ("probe_batched_dot",), "fold": ("probe_fold",), "mm": ("probe_mm",),
+        "gather": ("probe_gather",), "foldconv": ("probe_fold_conv",),
+        "edge": ("probe_breakdown", "probe_breakdown_k", "probe_breakdown_feat", "probe_knockout")}
+# group edge: breakdown variants with the per-edge product, then those they
+# are read against; knock-out likewise
+EDGE_BD = ("tp", "tpred", "tpredk", "storek", "fullk", "tpredmm", "tpredmm_amaj", "fullmm",
+           "feat_full", "featroll_full", "tmp", "full", "full_hi", "featroll_mlp")
+EDGE_KO = ("nofold", "full", "notp")
 
 
 def ptxas(so) -> dict:
@@ -142,7 +157,7 @@ def one_tree(tree: str, only=GROUPS) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
-    libs = kernels.build([LIBS[g] for g in only])
+    libs = kernels.build([name for g in only for name in LIBS[g]])
     dev = torch.device("cuda")
     res = dict(tree=tree, card=card.strip().splitlines()[0], ms={}, library_ms={}, bound_ms={},
                device_us={},
@@ -157,6 +172,8 @@ def one_tree(tree: str, only=GROUPS) -> dict:
         gather_ab(res, dev)
     if "foldconv" in only:
         foldconv_ab(res, dev)
+    if "edge" in only:
+        edge_ab(res, dev)
     return res
 
 
@@ -324,6 +341,48 @@ def foldconv_ab(res: dict, dev) -> None:
         res["occupancy"] = {v: fcv.occupancy(conv, mlp.dims, k, v, dev) for v in fcv.VARIANTS}
     del x, src, xg, emb, sh, ws
     torch.cuda.empty_cache()
+
+
+def edge_ab(res: dict, dev) -> None:
+    """The breakdown and knock-out variants of EDGE_BD and EDGE_KO at their
+    scripts' shapes, on chip_smoke.py's inputs (seed 12: the MLP's weights,
+    then per probe xg, emb, sh), each first held against its plain
+    version, then two rounds in turns, beside each one's bound."""
+    import torch
+
+    from chip_smoke import bd_bound
+    from sevennet_tpu_torch.ops import fused_conv as fc
+    from sevennet_tpu_torch.probes import breakdown as bd
+    from sevennet_tpu_torch.probes import fold_conv as fcv
+    from sevennet_tpu_torch.probes import knockout as ko
+    from sevennet_tpu_torch.probes._lib import diff_ms
+
+    gen = torch.Generator(device="cpu").manual_seed(12)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    conv, mlp = fcv.sevennet0_conv()
+    op = fc.conv_op(conv, mlp)
+    ws = [rnd(a, b) for a, b in zip(mlp.dims[:-1], mlp.dims[1:])]
+    for key, fn, n, k, variants, work, tol in (
+            ("breakdown", bd.breakdown, bd.N, bd.K, EDGE_BD, bd.breakdown_work, bd.tol),
+            ("knockout", ko.knockout, ko.N, ko.K, EDGE_KO, ko.knockout_work, lambda v: ko.TOL)):
+        xg = rnd(n * k, op.dim_x, scale=0.5)
+        emb, sh = rnd(n * k, op.n_basis, scale=0.3), rnd(n * k, op.dim_f, scale=0.5)
+        for v in variants:
+            want = fn(op, xg, emb, sh, ws, k, v, plain=True)
+            err = float((fn(op, xg, emb, sh, ws, k, v) - want).abs().max())
+            if err > tol(v) * float(want.abs().max()):
+                raise SystemExit(f"{key} {v} differs from its plain version by {err}")
+            del want
+            res["bound_ms"][f"{key} {v}"] = bd_bound(*work(op, v, n, k))[0]
+        for r in range(2):
+            for v in variants:
+                res["ms"][f"{key} {v} round {r}"] = diff_ms(
+                    lambda: fn(op, xg, emb, sh, ws, k, v), *bd.KNOCK_TIME)
+        del xg, emb, sh
+        torch.cuda.empty_cache()
 
 
 def compare(trees, names, only) -> int:

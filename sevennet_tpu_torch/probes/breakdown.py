@@ -56,6 +56,7 @@ from __future__ import annotations
 import ctypes
 import math
 from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -65,9 +66,11 @@ from ..ops.activations import NORMALIZE2MOM_CST
 from ..ops.kernels import call
 from ._lib import check_device, stream
 from .fold import kfold_plain
+from .fold_conv import _mask, path_list
 
 __all__ = ["VARIANTS", "ONE_PASS", "N", "K", "LANES", "TOL", "TOL_ONE_PASS", "KNOCK_TIME",
-           "breakdown_plain", "breakdown", "breakdown_work", "storek_map", "tol"]
+           "EDGE_VW", "breakdown_plain", "breakdown", "breakdown_work", "storek_map", "tol",
+           "edge_plan"]
 
 VARIANTS = ("mlp", "mlp_hi", "tmp", "tp", "tpred", "full", "full_hi", "tpredk", "storek",
             "fullk", "tpredmm", "tpredmm_amaj", "fullmm", "feat_full", "feat_transpose",
@@ -93,6 +96,18 @@ _KSUM = {"tpred": "sum", "full": "sum", "full_hi": "sum", "tpredk": "kred", "sto
          "feat_full": "mm", "featroll_full": "kred"}
 _WITNESS = {"mlp": "w", "mlp_hi": "w", "featroll_mlp": "w", "tmp": "tmp",
             "feat_transpose": "x"}
+# the variants with the per-edge uvu product (PB_UVU_EDGE) -> the mapping of
+# its tasks (edge_plan): the most channels a lane holds on edge-major tiles,
+# 0 for the feature-major tiles. At most 2 under the 0/1 sum (two staged
+# edges must fit a warp's share of the stage) and the halving chain (its
+# partial sums must fit the registers); tp 1, whose per-edge atomics into
+# the lanes conflict 4 ways at 4 channels a lane; the rest as measured
+# best on an H100 (PERF.md).
+EDGE_VW = {"tp": 1, "tpred": 2, "tpredk": 2, "storek": 2, "fullk": 2, "tpredmm": 2,
+           "tpredmm_amaj": 2, "fullmm": 2, "feat_full": 0, "featroll_full": 0}
+EDGE_WARPS = fc.UVU_WARPS  # csrc NWARP
+EDGE_RUNS = 2              # csrc PB_ET_RUNS: the table's header ints before the warp runs
+FEAT_CHANNELS = 8          # channels of a feature-major task
 
 
 def tol(variant: str) -> float:
@@ -100,6 +115,86 @@ def tol(variant: str) -> float:
     if variant == "feat_transpose":
         return 0.0
     return TOL_ONE_PASS if variant in ONE_PASS else TOL
+
+
+class EdgePlan(NamedTuple):
+    """The per-edge product's tasks (``csrc/probe_breakdown.cuh:uvu_edges``)
+    of a layer: ``tasks`` ``(instruction, first channel, path, channels a
+    lane)`` in table order, ``runs`` the first task of each warp (and the
+    end) per column block, ``costs`` each task's, ``table`` the ints the
+    kernel reads."""
+
+    tasks: Tuple[Tuple[int, int, int, int], ...]
+    runs: Tuple[Tuple[int, ...], ...]
+    costs: Tuple[int, ...]
+    table: np.ndarray
+
+
+def edge_vw(ins, w0: int, most: int) -> int:
+    """Channels a lane of an edge-major task of instruction ``ins`` (its
+    column of w in its block ``w0``): the most of 4, 2, 1 up to ``most``
+    whose 32 lanes the multiplicity fills and whose 4-, 8- or 16-byte reads
+    of x and w stay aligned."""
+    for v in (4, 2, 1):
+        if (v <= most and 32 * v <= max(ins["mul"], 32) and ins["mul"] % v == 0
+                and ins["x_start"] % v == 0 and w0 % v == 0):
+            return v
+    return 1
+
+
+def edge_cost(ins, vw: int) -> int:
+    """A task's cost on a tile, per edge: on edge-major tiles (``vw``
+    channels a lane) its shared-memory reads (w, x, tmp's broadcasts), fp32
+    operations and a staged message per (p, channel); on feature-major
+    tiles (``vw`` 0) the same for 8 channels over 4 steps."""
+    d1, d3, nt = ins["d1"], ins["d3"], len(ins["mp"])
+    if vw == 0:
+        return 4 * (2 + 2 * d1 + nt + d3) + nt
+    return vw * (1 + d1) + nt + vw * (d1 + nt) + vw * d3
+
+
+@lru_cache(maxsize=None)
+def edge_plan(op, vw: int) -> EdgePlan:
+    """The per-edge product's task table of layer ``op`` for the mapping
+    ``vw`` (:data:`EDGE_VW`): per column block, a task per instruction's
+    ``32 vw`` channels (edge-major tiles, :func:`edge_vw` channels a lane)
+    or 8 (feature-major, ``vw`` 0), balanced over the warps by
+    :func:`edge_cost` (``fused_conv._balanced``: the costliest first, each
+    to the least loaded warp).
+    Raises ValueError where an instruction's shape is not one the kernel is
+    compiled for (``fold_conv.path_list``: the paths of l <= 2) or the
+    layer takes more than one CTA a receiver."""
+    instr = fc._instr_tables(op.conv)[0]
+    if len(op.plan.ranks) != 1:
+        raise ValueError("the breakdown probes take a layer of one CTA a receiver")
+    paths = {key: i for i, key in enumerate(path_list())}
+    tasks, runs, costs = [], [], []
+    for ks in op.plan.blocks:
+        bt, w0 = [], 0
+        for k in ks:
+            ins = instr[k]
+            key = (ins["d1"], ins["d3"], _mask(ins))
+            if key not in paths:
+                raise ValueError(f"instruction {k} (d1 {ins['d1']}, d3 {ins['d3']}): the per-edge "
+                                 "product is compiled for the paths of l <= 2")
+            v = edge_vw(ins, w0, vw) if vw else 0
+            width = 32 * v if v else FEAT_CHANNELS
+            bt += [(k, u0, paths[key], v) for u0 in range(0, ins["mul"], width)]
+            w0 += ins["mul"]
+        order, starts = fc._balanced(bt, [edge_cost(instr[t[0]], t[3]) for t in bt])
+        runs.append(tuple(len(tasks) + int(s_) for s_ in starts))
+        tasks += order
+        costs += [edge_cost(instr[t[0]], t[3]) for t in order]
+    head = [0, len(tasks)] + [r for rs in runs for r in rs]
+    head += [0] * (-len(head) % 4)
+    head[0] = len(head)
+    table = np.asarray(head + [v for t in tasks for v in t], np.int32)
+    return EdgePlan(tuple(tasks), tuple(runs), tuple(costs), table)
+
+
+@lru_cache(maxsize=None)
+def _device_edge_plan(op, vw: int, device: torch.device):
+    return torch.as_tensor(edge_plan(op, vw).table, device=device)
 
 
 def mlp_plain(emb, ws):
@@ -245,20 +340,30 @@ def _device_omap(conv, device: torch.device):
     return torch.as_tensor(storek_map(conv), device=device)
 
 
-def launch(op, xg, emb, sh, ws, k: int, lib: str, code: int, omap=None):
-    """Launches kernel ``code`` of probe library ``lib`` on checked CUDA
-    tensors: B4 fwd's arguments with ``x = xg`` and the identity
-    gather. Returns ``(N, dim_mid)``."""
+def launch_args(op, xg, emb, sh, ws, k: int, code: int, omap=None, vw=None):
+    """The C entry's arguments (ctypes values) of kernel ``code`` on checked
+    CUDA tensors: B4 fwd's with ``x = xg`` and the identity gather, and for
+    a per-edge variant (``vw``, :data:`EDGE_VW`) its task table
+    (:func:`edge_plan`); and the ``(N, dim_mid)`` output they write."""
     n = xg.shape[0] // k
     src = _identity_src(n, k, xg.device)
     fc.check_conv_inputs(op, True, xg, src, emb, sh, ws)
-    dims = op.dims(n, k)
     out = torch.empty(n, op.dim_mid, dtype=torch.float32, device=xg.device)
     itab, ftab = op.device_tables(xg.device)
-    call(lib, f"{lib}_launch", ctypes.c_int(code), dims, fc._ptr(xg), fc._ptr(src), fc._ptr(emb),
-         fc._ptr(sh), fc._mlp_weights(ws), fc._ptr(itab), fc._ptr(ftab),
-         ctypes.c_void_p(None if omap is None else omap.data_ptr()), fc._ptr(out),
-         stream(xg.device), on_load=fc.check_uvu_layout)
+    etab = None if vw is None else _device_edge_plan(op, vw, xg.device)
+    args = (ctypes.c_int(code), op.dims(n, k), fc._ptr(xg), fc._ptr(src), fc._ptr(emb),
+            fc._ptr(sh), fc._mlp_weights(ws), fc._ptr(itab), fc._ptr(ftab),
+            ctypes.c_void_p(None if omap is None else omap.data_ptr()),
+            ctypes.c_void_p(None if etab is None else etab.data_ptr()), fc._ptr(out),
+            stream(xg.device))
+    return args, out
+
+
+def launch(op, xg, emb, sh, ws, k: int, lib: str, code: int, omap=None, vw=None):
+    """Launches kernel ``code`` of probe library ``lib`` (its C entry
+    ``<lib>_launch``) with :func:`launch_args`. Returns ``(N, dim_mid)``."""
+    args, out = launch_args(op, xg, emb, sh, ws, k, code, omap, vw)
+    call(lib, f"{lib}_launch", *args, on_load=fc.check_uvu_layout)
     return out
 
 
@@ -272,7 +377,7 @@ def breakdown(op, xg, emb, sh, ws, k: int = K, variant: str = "full", plain: boo
         return breakdown_plain(op, xg, emb, sh, ws, k, variant)
     lib, code = _KERNEL[variant]
     omap = _device_omap(op.conv, xg.device) if variant == "storek" else None
-    out = launch(op, xg, emb, sh, ws, k, lib, code, omap)
+    out = launch(op, xg, emb, sh, ws, k, lib, code, omap, EDGE_VW.get(variant))
     breakdown.launches += 1
     breakdown.by_variant[variant] += 1
     return out

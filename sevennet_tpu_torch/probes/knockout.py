@@ -31,12 +31,15 @@ from ._lib import check_device
 from .breakdown import (KNOCK_TIME, TOL, check_inputs, conv_work, ksum_plain, launch, mlp_plain,
                         phase_work, terms_plain)
 
-__all__ = ["VARIANTS", "N", "K", "TOL", "KNOCK_TIME", "knockout_plain", "knockout",
+__all__ = ["VARIANTS", "N", "K", "TOL", "KNOCK_TIME", "EDGE_VW", "knockout_plain", "knockout",
            "knockout_work"]
 
 VARIANTS = ("full", "nomlp", "notp", "nofold", "nothing")
 N, K = 10016, 72   # r3_fwd_knockout.py:24 (A 32 there: the TPU's block)
 _CODE = {v: 16 + i for i, v in enumerate(VARIANTS)}  # csrc/probe_breakdown.cuh PB_KO_*
+# nofold's per-edge product: channels a lane (breakdown.EDGE_VW; one
+# measured 1.5 % faster than 4 on an H100, PERF.md)
+EDGE_VW = {"nofold": 1}
 
 
 def knockout_plain(op, xg, emb, sh, ws, k: int, variant: str):
@@ -69,7 +72,8 @@ def knockout(op, xg, emb, sh, ws, k: int = K, variant: str = "full", plain: bool
     check_inputs(op, xg, emb, sh, ws, k, variant, VARIANTS)
     if check_device(plain, xg, emb, sh, *ws):
         return knockout_plain(op, xg, emb, sh, ws, k, variant)
-    out = launch(op, xg, emb, sh, ws, k, "probe_knockout", _CODE[variant])
+    out = launch(op, xg, emb, sh, ws, k, "probe_knockout", _CODE[variant],
+                 vw=EDGE_VW.get(variant))
     knockout.launches += 1
     knockout.by_variant[variant] += 1
     return out

@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``sevennet_tpu_torch/``, nor
 ``chip_smoke.py``, ``conv_breakdown.py``, ``ab_compare.py``,
 ``md_rebuild_cost.py``, ``fold_breakdown.py``, ``xpose_ab.py``, ``probe_ab.py``,
-``bd_breakdown.py``, ``mm_breakdown.py``, ``fold_conv_breakdown.py`` or the artifact writer
+``bd_breakdown.py``, ``mm_breakdown.py``, ``fold_conv_breakdown.py``,
+``edge_breakdown.py`` or the artifact writer
 ``chip_smoke.py`` imports
 (``tests/torch_deployed_artifact.py``), imports JAX, flax, optax or the
 JAX package, nor the ``msgpack`` package (the card's machine has none: the
@@ -26,7 +27,8 @@ def _port_files():
         ROOT / "chip_smoke.py", ROOT / "conv_breakdown.py", ROOT / "ab_compare.py",
         ROOT / "md_rebuild_cost.py", ROOT / "fold_breakdown.py", ROOT / "xpose_ab.py",
         ROOT / "probe_ab.py", ROOT / "bd_breakdown.py", ROOT / "mm_breakdown.py",
-        ROOT / "fold_conv_breakdown.py", ROOT / "tests" / "torch_deployed_artifact.py"]
+        ROOT / "fold_conv_breakdown.py", ROOT / "edge_breakdown.py",
+        ROOT / "tests" / "torch_deployed_artifact.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -990,28 +990,21 @@ def test_probe_fold_conv_sums_in_its_variants_order(cuda, layer, k):
         _close_to(fcv.fold_conv(conv, xg, emb, sh, ws, w3j, k, v), plain[v], fcv.TOL)
 
 
-@pytest.mark.parametrize("k", [12, 20])
-def test_probe_breakdown_knockout_match_plain_and_b4(cuda, k):
-    """The breakdown and knock-out probes (r2_fused_breakdown's build,
-    build_feat, build_featroll; r3_fwd_knockout's make) on 8x0e+4x1e+2x2e
-    (dim_mid 196, over the scripts' 128 lanes), radial MLP (8, 16, 16,
-    numel), K 12 (one partial tile) and 20 (a whole and a partial one):
-    every variant against plain (breakdown.tol: 1e-4, 2^-8 for one TF32
-    pass, bitwise for the transpose), each launch counted, full_hi and the
-    knock-out's full bitwise equal to B4 fwd on the same inputs."""
+def _breakdown_knockout_match(cuda, op, n, k, seed):
+    """Every breakdown and knock-out variant of layer ``op`` at n receivers
+    of k slots against plain (breakdown.tol, knockout.TOL), each launch
+    counted, full_hi and the knock-out's full bitwise equal to B4 fwd on
+    the same inputs."""
     from sevennet_tpu_torch.probes import breakdown as bd
     from sevennet_tpu_torch.probes import knockout as ko
 
-    x_ir, f_ir = Irreps("8x0e+4x1e+2x2e"), Irreps.spherical_harmonics(2, 1)
-    conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
-    op = fc.conv_op(conv, ScalarMLPSpec((8, 16, 16, conv.weight_numel)))
-    rng = np.random.default_rng(17)
-    n = 30
+    rng = np.random.default_rng(seed)
 
     def t(*shape, scale=1.0):
         return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=cuda)
 
-    xg, emb, sh = t(n * k, op.dim_x, scale=0.5), t(n * k, 8, scale=0.3), t(n * k, 9, scale=0.5)
+    xg = t(n * k, op.dim_x, scale=0.5)
+    emb, sh = t(n * k, op.n_basis, scale=0.3), t(n * k, op.dim_f, scale=0.5)
     ws = [t(a, b) for a, b in zip(op.mlp_spec.dims[:-1], op.mlp_spec.dims[1:])]
     src = torch.arange(n * k, dtype=torch.int32, device=cuda).view(n, k)
     b4 = fc.fused_conv_fwd_embsh(op, xg, src, emb, sh, ws)
@@ -1029,6 +1022,36 @@ def test_probe_breakdown_knockout_match_plain_and_b4(cuda, k):
                 _close_to(got, want, tol)
             if variant == full:
                 assert torch.equal(got, b4)
+
+
+@pytest.mark.parametrize("k", [12, 20])
+def test_probe_breakdown_knockout_match_plain_and_b4(cuda, k):
+    """The breakdown and knock-out probes (r2_fused_breakdown's build,
+    build_feat, build_featroll; r3_fwd_knockout's make) on 8x0e+4x1e+2x2e
+    (dim_mid 196, over the scripts' 128 lanes), radial MLP (8, 16, 16,
+    numel), K 12 (one partial tile) and 20 (a whole and a partial one):
+    every variant against plain (breakdown.tol: 1e-4, 2^-8 for one TF32
+    pass, bitwise for the transpose), each launch counted, full_hi and the
+    knock-out's full bitwise equal to B4 fwd on the same inputs."""
+    x_ir, f_ir = Irreps("8x0e+4x1e+2x2e"), Irreps.spherical_harmonics(2, 1)
+    conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+    op = fc.conv_op(conv, ScalarMLPSpec((8, 16, 16, conv.weight_numel)))
+    _breakdown_knockout_match(cuda, op, 30, k, 17)
+
+
+@pytest.mark.parametrize("k", [72, 96])
+def test_probe_edge_product_at_sevennet0_widths(cuda, k):
+    """The per-edge uvu product (csrc/probe_breakdown.cuh:uvu_edges) at
+    SevenNet-0's widths, 128x0e+64x1e+32x2e against lmax-2 harmonics (mul
+    128 with 4 channels a lane, d1 = d3 = 5 with 23 terms), which the
+    8x0e+4x1e+2x2e test never reaches, at the scripts' K (72, 96) on 20
+    receivers: every breakdown and knock-out variant (every PB_UVU_EDGE
+    instantiation among them) against plain, each launch counted, full_hi
+    and the knock-out's full bitwise equal to B4 fwd."""
+    from sevennet_tpu_torch.probes import fold_conv as fcv
+
+    conv, mlp = fcv.sevennet0_conv()
+    _breakdown_knockout_match(cuda, fc.conv_op(conv, mlp), 20, k, k)
 
 
 @pytest.mark.parametrize("mode", ["vec", "embsh"])

@@ -1,10 +1,11 @@
 """The launch plans of the matmul-rate probe's 3xTF32 kernel, of the
-column gather and of the conv fold, walked in numpy as the kernels index
-their work, the 3xTF32 split with A split for every product emulated in
-numpy against float64, and the conv fold's order of sums emulated in numpy
-against its plain version, bitwise. CPU only: the kernels themselves are
-held against their plain versions on the card
-(``tests/test_torch_kernels.py``, ``gpu``).
+column gather, of the conv fold and of the breakdown template's per-edge
+uvu product, walked in numpy as the kernels index their work, the 3xTF32
+split with A split for every product emulated in numpy against float64,
+the conv fold's order of sums emulated in numpy against its plain
+version, bitwise, and the per-edge product's order of terms against the
+plain messages. CPU only: the kernels themselves are held against their
+plain versions on the card (``tests/test_torch_kernels.py``, ``gpu``).
 """
 
 import math
@@ -15,7 +16,10 @@ import pytest
 import torch
 
 from sevennet_tpu_torch.irreps import Irreps, infer_irreps_out
+from sevennet_tpu_torch.ops import fused_conv as fc
+from sevennet_tpu_torch.ops.mlp import ScalarMLPSpec
 from sevennet_tpu_torch.ops.tensor_product import ConvTPSpec
+from sevennet_tpu_torch.probes import breakdown as bd
 from sevennet_tpu_torch.probes import fold_conv as fcv
 from sevennet_tpu_torch.probes import gather as ga
 from sevennet_tpu_torch.probes import mm_rate as mr
@@ -369,3 +373,170 @@ def test_fold_conv_kernel_refuses_what_it_is_not_built_for():
     conv3 = ConvTPSpec(x3, f3, infer_irreps_out(x3, f3, 3, "full"))
     with pytest.raises(ValueError, match="l <= 2"):
         fcv._check_kernel(conv3, (8, 16, 16, conv3.weight_numel), 24)
+
+
+def edge_walk(op, plan, xg, h, tmp):
+    """The per-edge product as the kernel forms it
+    (csrc/probe_breakdown.cuh:uvu_edges), walked in numpy over
+    ``plan``'s tasks on the plain version's ``xg``, ``w`` (``h``) and
+    ``tmp`` (float32 arrays, edge rows): each lane's channels of each task
+    (edge-major: ``u0 + l vw .. + vw``; feature-major: ``u0 + 4 h + s``),
+    ``xw = x w`` once per m, then ``fmaf`` from zero over the
+    pairs in the table's (m, p) order (each as float64 and rounded to
+    float32). Returns ``{(instruction, p): messages (edges, mul)}`` and the
+    times each (instruction, channel) was formed."""
+    instr = fc._instr_tables(op.conv)[0]
+    msgs = {(k, p): np.zeros((xg.shape[0], ins["mul"]), np.float32)
+            for k, ins in enumerate(instr) for p in range(ins["d3"])}
+    formed = {k: np.zeros(ins["mul"], np.int64) for k, ins in enumerate(instr)}
+    for k, u0, _, vw in plan.tasks:
+        ins = instr[k]
+        if vw:
+            chans = [u0 + lane * vw + c for lane in range(32) for c in range(vw)]
+        else:
+            chans = [u0 + 4 * hh + s_ for s_ in range(4) for hh in range(2)]
+        for u in chans:
+            if u >= ins["mul"]:
+                continue
+            formed[k][u] += 1
+            w = h[:, ins["w_start"] + u]
+            xw = [np.float32(xg[:, ins["x_start"] + m * ins["mul"] + u] * w)
+                  for m in range(ins["d1"])]
+            acc = [np.zeros(xg.shape[0], np.float32) for _ in range(ins["d3"])]
+            for m, p, r in ins["mp"]:
+                acc[p] = (xw[m].astype(np.float64) * tmp[:, r].astype(np.float64)
+                          + acc[p].astype(np.float64)).astype(np.float32)
+            for p in range(ins["d3"]):
+                msgs[(k, p)][:, u] = acc[p]
+    return msgs, formed
+
+
+EDGE_LAYERS = ("sevennet0", "8x0e+4x1e+2x2e", "16x0e+8x1e+4x2e")
+EDGE_MAPS = {"lanes4": 4, "lanes2": 2, "lanes1": 1, "feat": 0}  # the kernel's mappings
+
+
+def _edge_op(layer):
+    if layer == "sevennet0":
+        return fc.conv_op(*fcv.sevennet0_conv())
+    x_ir, f_ir = Irreps(layer), Irreps.spherical_harmonics(2, 1)
+    conv = ConvTPSpec(x_ir, f_ir, infer_irreps_out(x_ir, f_ir, 2, "full"))
+    return fc.conv_op(conv, ScalarMLPSpec((8, 16, 16, conv.weight_numel)))
+
+
+@pytest.mark.parametrize("mapping", EDGE_MAPS)
+@pytest.mark.parametrize("layer", EDGE_LAYERS)
+def test_edge_plan_covers_each_channel_once_balanced(layer, mapping):
+    """The per-edge product's task table (breakdown.edge_plan) as the kernel
+    reads it (csrc/probe_breakdown.cuh:uvu_edges: the tasks' offset on 4
+    ints, their count, per block NWARP + 1 run starts, a task 4 ints): each
+    (instruction, channel) is formed once by the lanes' indices, the lane
+    widths are the mapping's (edge-major: 4 a lane at mul 128, 2 at 64, 1
+    at 32, at most the 0/1 sum's cap of 2), and the warps are balanced as
+    the greedy order bounds them (the largest at most 4/3 of the larger of
+    an even share and the costliest task); at SevenNet-0's widths within 15 %
+    of an even share, so that no warp idles on an instruction of mul 32."""
+    op, vw = _edge_op(layer), EDGE_MAPS[mapping]
+    pl = bd.edge_plan(op, vw)
+    tab = pl.table
+    instr = fc._instr_tables(op.conv)[0]
+    assert tab[0] % 4 == 0 and tab[1] == len(pl.tasks)
+    tasks = tab[tab[0]:].reshape(-1, 4)
+    assert [tuple(t) for t in tasks] == list(pl.tasks)
+    nblk = len(op.plan.blocks)
+    formed = {k: np.zeros(ins["mul"], np.int64) for k, ins in enumerate(instr)}
+    for b, ks in enumerate(op.plan.blocks):
+        runs = tab[bd.EDGE_RUNS + b * (bd.EDGE_WARPS + 1):bd.EDGE_RUNS + (b + 1) * (bd.EDGE_WARPS + 1)]
+        assert tuple(runs) == pl.runs[b] and np.all(np.diff(runs) >= 0)
+        for w in range(bd.EDGE_WARPS):
+            for k, u0, path, v in tasks[runs[w]:runs[w + 1]]:
+                assert k in ks and fcv.path_list()[path] == (
+                    instr[k]["d1"], instr[k]["d3"], fcv._mask(instr[k]))
+                if vw:
+                    assert v <= vw and (instr[k]["mul"] < 32 * v or instr[k]["mul"] % (32 * v) == 0)
+                    chans = u0 + v * np.arange(32)[:, None] + np.arange(v)[None, :]
+                else:
+                    assert v == 0
+                    chans = np.asarray([u0 + 4 * h + s for s in range(4) for h in range(2)])
+                chans = chans[chans < instr[k]["mul"]]
+                np.add.at(formed[k], chans, 1)
+        loads = [sum(pl.costs[a:b_]) for a, b_ in zip(pl.runs[b][:-1], pl.runs[b][1:])]
+        costs = pl.costs[pl.runs[b][0]:pl.runs[b][-1]]
+        assert max(loads) <= 4 / 3 * max(sum(costs) / bd.EDGE_WARPS, max(costs))
+        if layer == "sevennet0":
+            assert max(loads) <= 1.15 * sum(costs) / bd.EDGE_WARPS
+    assert all(np.all(f == 1) for f in formed.values()), formed
+    assert nblk == len(pl.runs)
+    if layer == "sevennet0" and vw == 4:
+        widest = {}
+        for k, _, _, v in pl.tasks:
+            widest[instr[k]["mul"]] = max(v, widest.get(instr[k]["mul"], 0))
+        assert widest == {128: 4, 64: 2, 32: 1}
+
+
+@pytest.mark.parametrize("mapping", EDGE_MAPS)
+@pytest.mark.parametrize("layer", EDGE_LAYERS)
+def test_edge_walk_gives_the_plain_messages(layer, mapping):
+    """A numpy walk of the per-edge product in the kernel's order
+    (edge_walk: each task's lanes, xw = x w once per m, fmaf from
+    zero over the pairs in the table's (m, p) order) on the plain version's
+    w and tmp gives terms_plain's messages of every (instruction, p) within
+    fp32 rounding (the plain sums rounded products), zeros for a p with no
+    pair, and forms every (instruction, channel) once."""
+    op, vw = _edge_op(layer), EDGE_MAPS[mapping]
+    rng = np.random.default_rng(len(layer) + vw)
+    n = 40
+    xg = rng.normal(size=(n, op.dim_x)).astype(np.float32) * 0.5
+    emb = rng.normal(size=(n, op.n_basis)).astype(np.float32) * 0.3
+    sh = rng.normal(size=(n, op.dim_f)).astype(np.float32) * 0.5
+    ws = [rng.normal(size=(a, b)).astype(np.float32)
+          for a, b in zip(op.mlp_spec.dims[:-1], op.mlp_spec.dims[1:])]
+    h = bd.mlp_plain(torch.tensor(emb), [torch.tensor(w) for w in ws])
+    tmp = torch.tensor(sh) @ torch.tensor(op.w3j_pack).t()
+    msgs, formed = edge_walk(op, bd.edge_plan(op, vw), xg, h.numpy(), tmp.numpy())
+    assert all(np.all(f == 1) for f in formed.values())
+    for k, ins in enumerate(fc._instr_tables(op.conv)[0]):
+        by_p = bd.terms_plain(ins, torch.tensor(xg), h, tmp)
+        for p in range(ins["d3"]):
+            got = msgs[(k, p)]
+            if p not in by_p:
+                assert not got.any()
+                continue
+            want = by_p[p].numpy()
+            scale = sum(np.abs(xg[:, ins["x_start"] + m * ins["mul"]:][:, :ins["mul"]]
+                               * h.numpy()[:, ins["w_start"]:ins["w_start"] + ins["mul"]]
+                               * np.abs(tmp.numpy()[:, r:r + 1])) for m, q, r in ins["mp"] if q == p)
+            # at most d1 roundings in the kernel's chain, 2 d1 - 1 in plain's
+            assert np.all(np.abs(got - want) <= 3 * ins["d1"] * 2.0 ** -24 * scale), (k, p)
+
+
+def test_edge_plan_refuses_paths_it_is_not_compiled_for():
+    """An instruction of l 3 is not a path the per-edge product is compiled
+    for (fold_conv.path_list): the plan raises, so the wrapper does before
+    a launch."""
+    x3 = Irreps("8x0e+4x1e+2x2e+2x3e")
+    f3 = Irreps.spherical_harmonics(3, 1)
+    conv3 = ConvTPSpec(x3, f3, infer_irreps_out(x3, f3, 3, "full"))
+    op3 = fc.conv_op(conv3, ScalarMLPSpec((8, 16, 16, conv3.weight_numel)))
+    with pytest.raises(ValueError, match="l <= 2"):
+        bd.edge_plan(op3, 4)
+
+
+def test_edge_lane_widths_are_the_kernels():
+    """The lane widths the wrappers ask for (breakdown.EDGE_VW,
+    knockout.EDGE_VW) are those the kernel instantiates for the variant's K
+    sum (csrc/probe_breakdown.cuh:edge_path): 1, 2 or 4 channels a lane, at
+    most 2 under the 0/1 sum and the halving chain, 0 (feature-major) for the
+    feat variants; and every variant with the per-edge product has one."""
+    from sevennet_tpu_torch.probes import knockout as ko
+
+    ksum = {v: bd._KSUM.get(v) for v in bd.EDGE_VW}
+    for v, vw in bd.EDGE_VW.items():
+        if v.startswith("feat"):
+            assert vw == 0, v
+        elif ksum[v] in ("mm", "kred"):
+            assert vw in (1, 2), v
+        else:
+            assert vw in (1, 2, 4), v
+    assert set(bd.EDGE_VW) == {"tp", "tpred", "tpredk", "storek", "fullk", "tpredmm",
+                               "tpredmm_amaj", "fullmm", "feat_full", "featroll_full"}
+    assert set(ko.EDGE_VW) == {"nofold"} and ko.EDGE_VW["nofold"] in (1, 2, 4)
