@@ -146,10 +146,15 @@
    (``mm_rate.PROBE_TOL``), then the probe path with the counts from 0:
    each timed the TPU script's way on the device alone (CUDA graphs), with
    TFLOP/s per card and the card rate over the SM count, beside the library
-   calls (torch.matmul with TF32 off and on, torch.bmm); the 3xTF32
-   variants (their wgmma kernel) also with their raw TF32 rate and their
-   time at REP 32 over REP 16 (every product computed: about 2), their
-   HGMMA counted after the build. Then the FMA-rate
+   calls (torch.matmul with TF32 off and on, torch.bmm); every variant of
+   both contracts at its first shape, and of the rate contract at 480 x
+   512 x 1024, also at REP 0, 16 and 32 (every product computed: REP 32's
+   time less REP 0's at least 1.6x REP 16's less REP 0's, one copy, best
+   of 3 each); the 3xTF32 variants with their raw TF32 rate and REP 32's
+   whole call at least 1.6x REP 16's; each matmul
+   entry of the ``kernels`` line also names its shape slowest against its
+   library call. After the build, each matmul instance's SASS keeps its
+   variant's instruction (``mm_sass``). Then the FMA-rate
    and gather probes (``probes/fma_rate.py``, ``probes/gather.py``): each
    against its plain version at every shape of its TPU script (the chains
    within 1e-5 of max |plain|, the gathers bitwise), then with the counts
@@ -524,9 +529,12 @@ INSTANCES = {
     ("pg_partial_kernel", ""): "pg_partial (reduction: 3xTF32 wgmma, cp.async ring)",
     ("pg_final_kernel", ""): "pg_final (reduction: the chunks in order)",
     ("batched_dot_kernel", ""): "batched_dot (probe: 3xTF32 wgmma, a ring of chunks)",
-    **{("probe_mm_kernel", f"{i}{c}"): f"probe_mm<{v}{', carry' if c else ''}> (probe)"
-       for i, v in enumerate(("ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32", "bf16"))
-       if v not in ("3xtf32", "3xtf32_presplit") for c in (0, 1)},
+    **{("probe_mm_ffma_kernel", f"{c}{tr}"):
+       f"probe_mm_ffma<{'carry' if c else 'rate'}, {8 * tr}-row tiles> (probe)"
+       for c in (0, 1) for tr in (8, 4)},
+    **{("probe_mm_tc_kernel", f"{i}{c}{bn}"): f"probe_mm_tc<{v}{', carry' if c else ''}, N {bn}> (probe)"
+       for i, v in ((1, "tf32"), (4, "wgmma_tf32"), (5, "bf16")) for c in (0, 1)
+       for bn in ((64, 128) if i == 4 else (64,))},
     **{("probe_mm3x_kernel", f"{p}{c}"):
        f"probe_mm3x<{'3xtf32_presplit' if p else '3xtf32'}{', carry' if c else ''}> "
        "(probe: 3xTF32 wgmma)" for p in (0, 1) for c in (0, 1)},
@@ -3298,6 +3306,17 @@ PEAK_OF = {"ffma": FP32_PEAK, "tf32": TF32_PEAK, "wgmma_tf32": TF32_PEAK,
            "3xtf32": TC_3XTF32_PEAK, "3xtf32_presplit": TC_3XTF32_PEAK, "bf16": BF16_PEAK}
 
 
+# the rate contract's k-512 shape at which REP 32's products are held to at
+# least 1.6x REP 16's, besides every variant's first shape in both
+# contracts. A call's products take its time less that of the same call at
+# REP 0 (the launch, the staging, the store: 3-7 us of one copy,
+# mm_breakdown.py's knock-outs), which does not depend on REP: at one copy
+# bf16's 16 products take about 4.5 us beside about 4.6 of that, so that
+# REP 32's whole call cannot reach 1.6x REP 16's however every product runs.
+MM_REP_CHECK_K512 = (480, 512, 1024)
+MM_REP_MIN = 1.6
+
+
 def probe_inputs(variant, m, k, n, dev, seed):
     import torch
 
@@ -3310,7 +3329,9 @@ def probe_inputs(variant, m, k, n, dev, seed):
 def probe_phase(dev, card: str):
     """The Hopper probes. First each kernel against its plain version at every
     shape of its TPU script (mm_rate.PROBE_TOL; s = 1e-3, 0 for bf16, so
-    that the (1 + s i) factor is checked; launches not counted), then the
+    that the (1 + s i) factor is checked; the matmul variants also at copies
+    whose CTAs outnumber the SMs twice, into a given output; launches not
+    counted), then the
     probe path with the counts from 0: every variant of both matmul
     contracts timed the TPU script's way on the device alone (captured in
     CUDA graphs; one copy, the contract, and as many copies as fill the
@@ -3329,6 +3350,8 @@ def probe_phase(dev, card: str):
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     s = torch.zeros((1, 1), device=dev)  # the TPU scripts' s (zeros, r2_pallas_mm.py:61)
+    s_zero_factor = torch.full((1, 1), -0.125, device=dev)
+    assert MM_REP_CHECK_K512 in mr.MM_SHAPES
     errs = {}
     for chain in (False, True):
         for v in mr.VARIANTS:
@@ -3338,9 +3361,26 @@ def probe_phase(dev, card: str):
                 extra = () if chain else (s_check,)
                 fn = mr.mm_chain if chain else mr.mm_rate
                 tag = f"probe {'mm_chain' if chain else 'mm_rate'} {v} {m}x{k}x{n}"
-                err = check_close(tag, "out", fn(a, b, *extra, variant=v),
-                                  fn(a, b, *extra, variant=v, plain=True), mr.PROBE_TOL[v])
+                want = fn(a, b, *extra, variant=v, plain=True)
+                err = check_close(tag, "out", fn(a, b, *extra, variant=v), want,
+                                  mr.PROBE_TOL[v])
+                # and at copies whose CTAs outnumber the SMs twice, into a
+                # given output
+                cp = math.ceil(2 * n_sm / mr.mm_ctas(m, k, n, v, chain)) + 1
+                out = torch.full((cp, m, n), float("nan"), device=dev)
+                got = fn(a, b, *extra, variant=v, copies=cp, out=out)
+                assert got is out
+                err = max(err, check_close(f"{tag} {cp} copies, out=", "out", out, want,
+                                           mr.PROBE_TOL[v]))
+                if not chain and (m, k, n) == mr.shapes(v, chain)[0]:
+                    # s -0.125: product 8's factor 1 + s i is 0, the later ones
+                    # negative
+                    err = max(err, check_close(f"{tag} s -0.125", "out",
+                                               fn(a, b, s_zero_factor, variant=v),
+                                               fn(a, b, s_zero_factor, variant=v, plain=True),
+                                               mr.PROBE_TOL[v]))
                 errs[(chain, v)] = max(errs.get((chain, v), 0.0), err)
+                del out, got
     gen = torch.Generator(device="cpu").manual_seed(8)
     Ss = [(torch.randn(bd.N_ATOMS, d3, kk, generator=gen) * 0.1).to(dev) for d3, kk, _ in bd.GROUPS]
     XWs = [(torch.randn(bd.N_ATOMS, kk, mul, generator=gen) * 0.1).to(dev)
@@ -3387,22 +3427,39 @@ def probe_phase(dev, card: str):
                     f"library {lib:.5f} ms for the same {mr.REP} products (one graph)"
                     + ("" if v == "bf16" else f" (TF32 off {lib_t[False]:.5f}, on {lib_t[True]:.5f})")
                     + f"; plain {plain:.4f} ms | {card}")
+                tag = f"probe {'mm_chain' if chain else 'mm_rate'} {v} {m}x{k}x{n}"
                 if v in mr.WGMMA_3X and i == 0:
                     rep2 = mr.mm_time(lambda: fn(a, b, *extra, variant=v, rep=2 * mr.REP))
-                    log(f"  probe {'mm_chain' if chain else 'mm_rate'} {v} {m}x{k}x{n}: raw TF32 "
-                        f"{3 * fl / ms / 1e9:.2f} TFLOP/s (three products a fp32 one; "
-                        f"{3 * fl / ms / 1e9 / (TF32_PEAK / 1e12):.1%} of {TF32_PEAK / 1e12:.0f}); "
-                        f"REP {2 * mr.REP} {rep2:.5f} ms, {rep2 / ms:.3f}x REP {mr.REP}; plan "
-                        f"{mr.mm_plan(m, k, n, chain, 1, n_sm)} | {card}")
-                    if rep2 / ms < 1.6:
-                        raise SystemExit(f"probe {v} {m}x{k}x{n}: REP {2 * mr.REP} took "
-                                         f"{rep2 / ms:.3f}x REP {mr.REP}: not every product ran")
+                    log(f"  {tag}: raw TF32 {3 * fl / ms / 1e9:.2f} TFLOP/s (three products a "
+                        f"fp32 one; {3 * fl / ms / 1e9 / (TF32_PEAK / 1e12):.1%} of "
+                        f"{TF32_PEAK / 1e12:.0f}); REP {2 * mr.REP} {rep2:.5f} ms, "
+                        f"{rep2 / ms:.3f}x REP {mr.REP} | {card}")
+                    if rep2 / ms < MM_REP_MIN:
+                        raise SystemExit(f"{tag}: REP {2 * mr.REP} took {rep2 / ms:.3f}x REP "
+                                         f"{mr.REP}: not every product ran")
+                if i == 0 or (m, k, n) == MM_REP_CHECK_K512:
+                    # every product runs: twice the products take (nearly) twice
+                    # the time; one copy, each call less the same call at REP 0,
+                    # best of 3 each
+                    t0, t16, t32 = (mr.mm_time(lambda: fn(a, b, *extra, variant=v, rep=rep))
+                                    for rep in (0, mr.REP, 2 * mr.REP))
+                    ratio = (t32 - t0) / (t16 - t0)
+                    log(f"  {tag}: REP 0 / {mr.REP} / {2 * mr.REP} {t0:.5f} / {t16:.5f} / "
+                        f"{t32:.5f} ms: REP {2 * mr.REP}'s products {ratio:.3f}x REP {mr.REP}'s "
+                        f"(the whole call {t32 / t16:.3f}x); plan "
+                        f"{mr.mm_plan(m, k, n, chain, 1, n_sm, v)} | {card}")
+                    if not ratio >= MM_REP_MIN:
+                        raise SystemExit(f"{tag}: REP {2 * mr.REP}'s products took {ratio:.3f}x "
+                                         f"REP {mr.REP}'s: not every product ran")
+                key = ("mm_chain" if chain else "mm_rate", v)
                 if i == 0:
-                    key = ("mm_chain" if chain else "mm_rate", v)
                     bnd, by = max((fl / PEAK_OF[v] * 1e3, "operations"),
                                   (nbytes / HBM_BYTES_S * 1e3, "bytes"))
                     recs[key] = dict(ms=ms, plain_ms=plain, bound=(bnd, by), library_ms=lib,
                                      err=errs[(chain, v)], shape=(m, k, n))
+                worst = recs[key].get("worst")
+                if worst is None or ms / lib > worst["ms"] / worst["library_ms"]:
+                    recs[key]["worst"] = dict(shape=(m, k, n), ms=ms, library_ms=lib)
     recs["batched"] = dict(bd_time(Ss, XWs, card), err=errs["batched"], shape=None)
     launches = {"mm_rate": mr.mm_rate.launches, "mm_chain": mr.mm_chain.launches,
                 "batched": bd.batched_dot.launches}
@@ -4054,25 +4111,58 @@ def xpose_sass(so):
 
 
 def mm_sass(so) -> dict:
-    """The 3xTF32 matmul kernel's SASS counts (``sass_counts``): its four
-    instances (3xtf32 and 3xtf32_presplit, with and without the carry) run
-    their products on wgmma (HGMMA > 0) and none on mma.sync (HMMA 0);
-    spills and ptxas's advisories that it serialized wgmma are printed.
-    Returns HGMMA by instance. Raises SystemExit otherwise, or without
-    cuobjdump."""
+    """The matmul kernels' SASS counts (``sass_counts``). The 3xTF32
+    kernel's four instances (3xtf32 and 3xtf32_presplit, with and without
+    the carry) run their products on wgmma (HGMMA > 0) and none on mma.sync
+    (HMMA 0). The instances of probe_mm_ffma_kernel (with and without the
+    carry, 64- and 32-row tiles) and probe_mm_tc_kernel (tf32, wgmma_tf32,
+    bf16, with and without the carry) keep each variant's instruction: ffma
+    FFMA and no tensor-core instruction, tf32 and bf16 HMMA and no HGMMA,
+    wgmma_tf32 HGMMA and no HMMA, and ptxas may not report its wgmma
+    serialized.
+    Spills and ptxas's advisories are printed. Returns HGMMA by instance.
+    Raises SystemExit otherwise, or without cuobjdump."""
+    import re
+
+    from sevennet_tpu_torch.probes import mm_rate as mr
+
     counts = sass_counts(so)
     if counts is None:
-        raise SystemExit("cuobjdump not found: the 3xTF32 matmul kernel's SASS cannot be checked")
+        raise SystemExit("cuobjdump not found: the matmul kernels' SASS cannot be checked")
     mma = {fn: c for fn, c in counts.items() if "probe_mm3x_kernel" in fn}
-    for fn, c in mma.items():
-        log(f"  sass {fn}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, STL {c['STL']}, LDL {c['LDL']}")
+    one = []  # (variant, carry, function, counts)
+    for fn, c in counts.items():
+        m = re.search(r"probe_mm_tc_kernelILi(\d)ELb([01])ELi\d+E", fn)
+        if m:
+            one.append((mr.VARIANTS[int(m[1])], m[2] == "1", fn, c))
+        m = re.search(r"probe_mm_ffma_kernelILb([01])ELi\d+E", fn)
+        if m:
+            one.append(("ffma", m[1] == "1", fn, c))
+    for fn, c in [*mma.items(), *((fn, c) for _, _, fn, c in one)]:
+        log(f"  sass {fn}: FFMA {c['FFMA']}, HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, "
+            f"LDS {c['LDS']}, STL {c['STL']}, LDL {c['LDL']}")
+    serialized = []
     for ln in open(str(so) + ".log"):
         if "serialized" in ln or "Performance" in ln:
             log(f"  ptxas: {ln.strip()}")
+            if "serialized" in ln:
+                serialized.append(ln)
     if len(mma) != 4 or not all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in mma.values()):
         raise SystemExit(f"probe_mm3x_kernel's SASS: {mma}, expected four instances with "
                          "HGMMA > 0 and no HMMA")
-    return {fn: c["HGMMA"] for fn, c in mma.items()}
+    want = {"ffma": lambda c: c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0,
+            "tf32": lambda c: c["HMMA"] > 0 and c["HGMMA"] == 0,
+            "bf16": lambda c: c["HMMA"] > 0 and c["HGMMA"] == 0,
+            "wgmma_tf32": lambda c: c["HGMMA"] > 0 and c["HMMA"] == 0}
+    if ({(v, cr) for v, cr, _, _ in one} != {(v, cr) for v in want for cr in (False, True)}
+            or not all(want[v](c) for v, _, _, c in one)):
+        raise SystemExit(f"probe_mm's SASS: {[(v, cr, c) for v, cr, _, c in one]}, expected "
+                         "every variant with and without the carry: ffma FFMA only, tf32 and "
+                         "bf16 HMMA without HGMMA, wgmma_tf32 HGMMA without HMMA")
+    for v, _, fn, _ in one:
+        if v == "wgmma_tf32" and any(fn in ln for ln in serialized):
+            raise SystemExit(f"ptxas serialized {fn}'s wgmma")
+    return {fn: c["HGMMA"] for fn, c in [*mma.items(), *((fn, c) for _, _, fn, c in one)]}
 
 
 def fold_sass(so):
@@ -5399,12 +5489,16 @@ def main() -> int:
             replaces = ("scripts_dev/r2_pallas_mm.py:54" if contract == "mm_rate"
                         else "scripts_dev/r2_pallas_fma.py:115")
             launches = (mr.mm_rate if contract == "mm_rate" else mr.mm_chain).by_variant[v]
-        kernels_line.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
-        })
+        }
+        if "worst" in r:  # the shape where the variant is slowest against its library call
+            entry.update(worst_shape="x".join(map(str, r["worst"]["shape"])),
+                         worst_ms=r["worst"]["ms"], worst_library_ms=r["worst"]["library_ms"])
+        kernels_line.append(entry)
     for key, r in fg_records.items():
         kind = key[0] if isinstance(key, tuple) else key
         source, replaces = FG_SITES[kind]

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Register A against shared-memory A, at N 32 and at N 64, for the
-matmul-rate probe's 3xTF32 wgmma kernel, on one NVIDIA GPU.
+matmul-rate probe's 3xTF32 wgmma kernel, where the time of its ffma, tf32,
+wgmma_tf32 and bf16 kernels goes, and wgmma_tf32's forms (wgmma N, one or
+two accumulators), on one NVIDIA GPU.
 
-    python3 mm_breakdown.py
+    python3 mm_breakdown.py [--only 3x|ko|wgmma]
 
 Builds ``sevennet_tpu_torch/csrc/probe_mm.cu`` as it is (A from registers,
 wgmma N 64) and, as builds of their own, that file with ``mm_breakdown.patch``
@@ -24,6 +26,24 @@ with its raw TF32 rate (three products a fp32 one) and each build's ptxas
 report; the last line is one JSON object with every number, also written
 to ``chiprun_out/mm_breakdown.json``. (``MM_ASMEM`` changes only
 3xtf32_presplit; its 3xtf32 is the normal build's.)
+
+The knock-outs (``--only ko``): builds of the patched file with
+``-DMM_KO=1`` .. ``5`` (probe_mm_ffma_kernel's and probe_mm_tc_kernel's
+rate contract without its staging, 1, which for tf32 also leaves out its
+fragment loads and for wgmma_tf32 its rounding; without its products, 2;
+without the acc update, 3; without the store, 4; with none of 1, 2 and 4,
+5, the launch and the loops' skeleton). Each of ffma, tf32, wgmma_tf32
+and bf16 at 1024 x 64 x 960 and (not bf16) at ``SHAPE_K512``, one copy, on
+its ``mm_plan``, the normal build first held against the plain loop, then
+timed by ``mm_time`` with the knock-outs in turns (normal, 1 .. 5, twice);
+what each knock-out saves against the normal build is the time of its
+part, where the parts do not overlap.
+
+The wgmma forms (``--only wgmma``, the normal build): wgmma_tf32 at every
+shape of both contracts, one copy, at wgmma N 64 and 128 (where a
+warpgroup's k-steps are one chunk) on every arrangement of the plan, each
+held against the plain loop (s 1e-3 and -0.125) and then timed by
+``mm_time`` in turns, twice, beside the plan that ``mm_plan`` takes.
 """
 
 from __future__ import annotations
@@ -48,6 +68,11 @@ BUILDS = {"A registers, N 64": None, "A registers, N 32": ("MM_BN=32",),
           "A registers, N 64, unpipelined": ("MM_PIPE=0",)}
 ORDER = ("A registers, N 64", "A registers, N 32", "A shared, N 64", "A shared, N 32",
          "A registers, N 64, unpipelined", "A registers, N 64")
+# the knock-outs (MM_KO) of probe_mm_ffma_kernel and probe_mm_tc_kernel
+KO_BUILDS = {"no staging": ("MM_KO=1",), "no products": ("MM_KO=2",),
+             "no acc update": ("MM_KO=3",), "no store": ("MM_KO=4",),
+             "skeleton": ("MM_KO=5",)}
+KO_VARIANTS = ("ffma", "tf32", "wgmma_tf32", "bf16")
 TF32_PEAK = 495e12  # H100 SXM dense TF32, NVIDIA data sheet
 
 
@@ -95,9 +120,17 @@ def build_patched(defines) -> Path:
 
 
 def main() -> int:
+    import argparse
     import ctypes
 
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("3x", "ko", "wgmma"), help="only one of the parts")
+    args = ap.parse_args()
+    builds = {**({} if args.only in ("ko", "wgmma") else BUILDS),
+              **({} if args.only in ("3x", "wgmma") else {"A registers, N 64": None, **KO_BUILDS}),
+              **({} if args.only in ("3x", "ko") else {"A registers, N 64": None})}
 
     if not torch.cuda.is_available():
         print("mm_breakdown: no CUDA device", file=sys.stderr)
@@ -115,18 +148,18 @@ def main() -> int:
         sos[name] = (kernels.build(["probe_mm"])["probe_mm"] if defines is None
                      else build_patched(defines))
 
-    threads = [threading.Thread(target=one, args=kv) for kv in BUILDS.items()]
+    threads = [threading.Thread(target=one, args=kv) for kv in builds.items()]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
-    if len(sos) != len(BUILDS):
-        raise SystemExit(f"mm_breakdown: builds failed: {sorted(set(BUILDS) - set(sos))}")
+    if len(sos) != len(builds):
+        raise SystemExit(f"mm_breakdown: builds failed: {sorted(set(builds) - set(sos))}")
     ptxas, libs = {}, {}
     for name, so in sos.items():
         text = open(str(so) + ".log").read()
-        regs = re.findall(r"Compiling entry function '(\S*probe_mm3x\S*)'[\s\S]*?Used (\d+) "
-                          r"registers", text)
+        regs = re.findall(r"Compiling entry function '(\S*probe_mm(?:3x|_ffma|_tc)\S*)'"
+                          r"[\s\S]*?Used (\d+) registers", text)
         ptxas[name] = {fn: int(r) for fn, r in regs}
         libs[name] = ctypes.CDLL(str(so))
         libs[name].probe_mm_launch.restype = ctypes.c_int
@@ -135,8 +168,8 @@ def main() -> int:
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     s_zero = torch.zeros((1, 1), device=dev)
     s_check = torch.full((1, 1), 1e-3, device=dev)
-    rows = []
-    for shape in (SHAPE, SHAPE_K512):
+    rows, ko_rows = [], []
+    for shape in (SHAPE, SHAPE_K512) if args.only in (None, "3x") else ():
         m, k, n = shape
         gen = torch.Generator(device="cpu").manual_seed(m + k + n)
         a = torch.randn(m, k, generator=gen).to(dev)
@@ -145,10 +178,8 @@ def main() -> int:
         fl = mr.mm_flops(m, k, n)
 
         def launch(lib, variant, s, plan, rep=mr.REP):
-            args = mr._MmArgs(a.data_ptr(), b.data_ptr(), out.data_ptr(), s.data_ptr(), m, k, n,
-                              rep, 1, plan.mw, plan.ks)
             rc = lib.probe_mm_launch(ctypes.c_int(mr.VARIANTS.index(variant)), ctypes.c_int(0),
-                                     args, stream(dev))
+                                     mr.mm_args(a, b, s, out, rep, 1, plan), stream(dev))
             if rc:
                 raise RuntimeError(f"probe_mm_launch failed with error {rc}")
             return out
@@ -178,15 +209,129 @@ def main() -> int:
                           f"{fl / ms / 1e9:.2f} TFLOP/s, raw TF32 {3 * fl / ms / 1e9:.2f} "
                           f"({3 * fl / ms / TF32_PEAK * 1e3:.1%} of {TF32_PEAK / 1e12:.0f}) | "
                           f"{card}", flush=True)
+    for shape in (SHAPE, SHAPE_K512) if args.only in (None, "ko") else ():
+        ko_rows += knockouts(libs, shape, dev, n_sm, card)
+    wgmma_rows = (wgmma_forms(libs["A registers, N 64"], dev, card)
+                  if args.only in (None, "wgmma") else [])
     for name, regs in ptxas.items():
         print(f"ptxas {name}: {regs}")
-    res = dict(card=card, rows=rows, ptxas=ptxas,
+    res = dict(card=card, rows=rows, ko_rows=ko_rows, wgmma_rows=wgmma_rows, ptxas=ptxas,
                bound_ms={str(sh): mr.mm_flops(*sh) / (TF32_PEAK / 3) * 1e3
                          for sh in (SHAPE, SHAPE_K512)})
     with open(os.path.join(out_dir, "mm_breakdown.json"), "w") as f:
         json.dump(res, f)
     print(json.dumps(res))
     return 0
+
+
+def knockouts(libs, shape, dev, n_sm, card) -> list:
+    """The knock-out builds against the normal one for each of KO_VARIANTS
+    (bf16 at SHAPE only) at ``shape``, one copy, rate contract, in turns."""
+    import ctypes
+
+    import torch
+
+    from sevennet_tpu_torch.probes import mm_rate as mr
+    from sevennet_tpu_torch.probes._lib import stream
+
+    m, k, n = shape
+    s_zero = torch.zeros((1, 1), device=dev)
+    s_check = torch.full((1, 1), 1e-3, device=dev)
+    rows = []
+    for v in KO_VARIANTS:
+        if v == "bf16" and shape != SHAPE:
+            continue
+        gen = torch.Generator(device="cpu").manual_seed(m + k + n)
+        dtype = torch.bfloat16 if v == "bf16" else torch.float32
+        a = torch.randn(m, k, generator=gen).to(dev, dtype)
+        b = torch.randn(k, n, generator=gen).to(dev, dtype)
+        out = torch.empty(m, n, device=dev)
+        plan = mr.mm_plan(m, k, n, variant=v, n_sm=n_sm)
+
+        def launch(lib, s):
+            rc = lib.probe_mm_launch(ctypes.c_int(mr.VARIANTS.index(v)), ctypes.c_int(0),
+                                     mr.mm_args(a, b, s, out, mr.REP, 1, plan), stream(dev))
+            if rc:
+                raise RuntimeError(f"probe_mm_launch failed with error {rc}")
+            return out
+
+        sc = s_zero if v == "bf16" else s_check
+        want = mr.mm_rate(a, b, sc, variant=v, plain=True)
+        err = float((launch(libs["A registers, N 64"], sc) - want).abs().max())
+        if err > mr.PROBE_TOL[v] * float(want.abs().max()):
+            raise SystemExit(f"{v} {shape}: {err} from plain")
+        order = ("A registers, N 64", *KO_BUILDS)
+        for turn in range(2):
+            times = {name: mr.mm_time(lambda: launch(libs[name], s_zero)) for name in order}
+            base = times["A registers, N 64"]
+            rows.append(dict(shape=shape, variant=v, plan=tuple(plan), turn=turn, ms=times,
+                             saved={name: base - t for name, t in times.items()}))
+            print(f"{'x'.join(map(str, shape))} {v} {tuple(plan)} turn {turn}: normal {base:.5f} ms; "
+                  + "; ".join(f"{name} {times[name]:.5f} (saves {base - times[name]:.5f})"
+                              for name in KO_BUILDS) + f" | {card}", flush=True)
+    return rows
+
+
+def wgmma_forms(lib, dev, card) -> list:
+    """wgmma_tf32's forms, one copy, at every shape of both contracts, in
+    turns (two rounds): wgmma N (a warpgroup's columns) 64 and 128 (where a
+    warpgroup's k-steps are one chunk), on every arrangement of the plan
+    (mw 2; ks 2; one warpgroup a CTA). Each form is first
+    held against the plain loop (s 1e-3, and s -0.125, where a factor 1 + s
+    i is 0), then timed by ``mm_time``; a row per form and turn, beside the
+    plan that ``mm_plan`` takes."""
+    import ctypes
+
+    import torch
+
+    from sevennet_tpu_torch.probes import mm_rate as mr
+    from sevennet_tpu_torch.probes._lib import stream
+
+    v = "wgmma_tf32"
+    s_zero = torch.zeros((1, 1), device=dev)
+    rows = []
+    for chain in (False, True):
+        for m, k, n in mr.shapes(v, chain):
+            gen = torch.Generator(device="cpu").manual_seed(m + k + n)
+            a = torch.randn(m, k, generator=gen).to(dev)
+            b = torch.randn(k, n, generator=gen).to(dev)
+            out = torch.empty(m, n, device=dev)
+            nks = -(-k // 8)
+            forms = {}
+            for bn in (64, 128):
+                for mw, ks in ((2, 1), (1, 2), (1, 1)):
+                    if (ks == 2 and (chain or nks < 2)) or (bn == 128 and -(-nks // ks) > 8):
+                        continue
+                    forms[f"N {bn}, mw {mw} ks {ks}"] = mr.MmPlan(
+                        mw, ks, -(-m // (64 * mw)) * -(-n // bn), 64, bn)
+
+            def launch(plan, s):
+                rc = lib.probe_mm_launch(ctypes.c_int(mr.VARIANTS.index(v)), ctypes.c_int(chain),
+                                         mr.mm_args(a, b, None if chain else s, out, mr.REP, 1,
+                                                    plan), stream(dev))
+                if rc:
+                    raise RuntimeError(f"probe_mm_launch failed with error {rc}")
+                return out
+
+            for sv in (1e-3, -0.125)[:1 if chain else 2]:
+                s = torch.full((1, 1), sv, device=dev)
+                want = (mr.mm_chain(a, b, variant=v, plain=True) if chain
+                        else mr.mm_rate(a, b, s, variant=v, plain=True))
+                for name, plan in forms.items():
+                    err = float((launch(plan, s) - want).abs().max())
+                    if not err <= mr.PROBE_TOL[v] * float(want.abs().max()):
+                        raise SystemExit(f"{v} {name} {(m, k, n)} s {sv}: {err} from plain")
+            tag = f"{'chain' if chain else 'rate'} {m}x{k}x{n}"
+            for turn in range(2):
+                for name, plan in forms.items():
+                    ms = mr.mm_time(lambda: launch(plan, s_zero))
+                    rows.append(dict(contract="chain" if chain else "rate", shape=(m, k, n),
+                                     form=name, plan=tuple(plan), turn=turn, ms=ms))
+                    print(f"wgmma {tag} turn {turn} {name} ({plan.ctas} CTAs): {ms:.5f} ms | "
+                          f"{card}", flush=True)
+            print(f"wgmma {tag}: mm_plan takes {mr.mm_plan(m, k, n, chain, variant=v)}",
+                  flush=True)
+    return rows
 
 
 if __name__ == "__main__":

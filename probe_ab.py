@@ -11,7 +11,8 @@ at ``r3_fold_probe.py``'s shape (``diff_ms(fn, *FOLD_TIME)``) beside two
 library forms: ``torch.sum`` over K alone (the fold without its column
 map), and the whole function as two calls, ``torch.sum`` over K then
 ``torch.index_select`` by the column map; its ``probes/mm_rate.py`` every
-variant at its first shape, both contracts (``mm_time``), beside the same
+variant at every shape of its contract's TPU script, both contracts
+(``mm_time``), beside the same
 16 products as ``torch.matmul`` calls in one graph (TF32 on for the tf32
 variants; bf16 for bf16); its ``probes/gather.py`` column gather (p1,
 ``r2_pallas_caps.py``'s shape) as one call alone (``graph_ms(fn, 1,
@@ -98,23 +99,26 @@ def ptxas(so) -> dict:
     return rows
 
 
-def device_us(fn) -> dict:
+def device_us(fn, tries: int = 3) -> dict:
     """Device us of one call of ``fn`` by kernel name, from torch.profiler,
-    after one call as warm-up. Raises RuntimeError when the profiler
-    recorded no device activity (a trace that saw nothing is not a zero)."""
+    after one call as warm-up. A trace that saw no device activity is not a
+    zero: it is taken again, up to ``tries`` traces (one has come back
+    empty on the first trace of a process), and RuntimeError is raised when
+    every one is empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    res = {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA}
-    if not res:
-        raise RuntimeError("torch.profiler recorded no device kernel of one call")
-    return res
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        res = {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if res:
+            return res
+    raise RuntimeError(f"torch.profiler recorded no device kernel of one call in {tries} traces")
 
 
 def one_call_ms(fn, queued: bool, replays: int = 20) -> float:
@@ -232,9 +236,10 @@ def fold_ab(res: dict, dev) -> None:
 
 
 def mm_ab(res: dict, dev) -> None:
-    """Every matmul-rate variant at its first shape, both contracts (the
-    inputs of chip_smoke.py's probe_inputs, s zero as the TPU scripts'),
-    beside the 16 products as torch.matmul calls."""
+    """Every matmul-rate variant at every shape of its contract's TPU
+    script (``mm_rate.shapes``), both contracts (the inputs of
+    chip_smoke.py's probe_inputs, s zero as the TPU scripts'), beside the 16
+    products as torch.matmul calls."""
     import torch
 
     from sevennet_tpu_torch.probes import mm_rate as mr
@@ -243,26 +248,25 @@ def mm_ab(res: dict, dev) -> None:
     s_check = torch.full((1, 1), 1e-3, device=dev)
     for chain in (False, True):
         for v in mr.VARIANTS:
-            m, k, n = (mr.BF16_SHAPES if v == "bf16" else
-                       mr.CHAIN_SHAPES if chain else mr.MM_SHAPES)[0]
-            gen = torch.Generator(device="cpu").manual_seed(m + k + n)
-            dtype = torch.bfloat16 if v == "bf16" else torch.float32
-            a = torch.randn(m, k, generator=gen).to(dev, dtype)
-            b = torch.randn(k, n, generator=gen).to(dev, dtype)
-            fn = mr.mm_chain if chain else mr.mm_rate
-            key = f"{'mm_chain' if chain else 'mm_rate'} {v}"
-            chk = () if chain else (s_check if v != "bf16" else s,)
-            want = fn(a, b, *chk, variant=v, plain=True)
-            err = float((fn(a, b, *chk, variant=v) - want).abs().max())
-            if err > mr.PROBE_TOL[v] * float(want.abs().max()):
-                raise SystemExit(f"{key} differs from its plain version by {err}")
-            extra = () if chain else (s,)
-            res["ms"][key] = mr.mm_time(lambda: fn(a, b, *extra, variant=v))
-            torch.backends.cuda.matmul.allow_tf32 = v in ("tf32", "wgmma_tf32")
-            res["library_ms"][key] = mr.mm_time(lambda: [torch.matmul(a, b)
-                                                         for _ in range(mr.REP)])
-            torch.backends.cuda.matmul.allow_tf32 = False
-            res["bound_ms"][key] = 2 * m * k * n * mr.REP / PEAK_OF[v] * 1e3
+            for m, k, n in mr.shapes(v, chain):
+                gen = torch.Generator(device="cpu").manual_seed(m + k + n)
+                dtype = torch.bfloat16 if v == "bf16" else torch.float32
+                a = torch.randn(m, k, generator=gen).to(dev, dtype)
+                b = torch.randn(k, n, generator=gen).to(dev, dtype)
+                fn = mr.mm_chain if chain else mr.mm_rate
+                key = f"{'mm_chain' if chain else 'mm_rate'} {v} {m}x{k}x{n}"
+                chk = () if chain else (s_check if v != "bf16" else s,)
+                want = fn(a, b, *chk, variant=v, plain=True)
+                err = float((fn(a, b, *chk, variant=v) - want).abs().max())
+                if err > mr.PROBE_TOL[v] * float(want.abs().max()):
+                    raise SystemExit(f"{key} differs from its plain version by {err}")
+                extra = () if chain else (s,)
+                res["ms"][key] = mr.mm_time(lambda: fn(a, b, *extra, variant=v))
+                torch.backends.cuda.matmul.allow_tf32 = v in ("tf32", "wgmma_tf32")
+                res["library_ms"][key] = mr.mm_time(lambda: [torch.matmul(a, b)
+                                                             for _ in range(mr.REP)])
+                torch.backends.cuda.matmul.allow_tf32 = False
+                res["bound_ms"][key] = 2 * m * k * n * mr.REP / PEAK_OF[v] * 1e3
 
 
 def gather_ab(res: dict, dev) -> None:

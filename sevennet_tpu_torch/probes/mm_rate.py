@@ -12,8 +12,9 @@ variant), ``s`` a ``(1, 1)`` float32 scalar; the output is ``(m, n)``
 float32, or ``(copies, m, n)`` for ``copies`` independent copies (into ``out`` when
 given). The variants (:data:`VARIANTS`) run the product as the conv kernels
 do or might: fp32 on the CUDA cores, one TF32 pass, 3xTF32 with A split
-for every product or split once (both on ``wgmma``, :func:`mm_plan`),
-``wgmma`` from shared memory, bf16.
+for every product or split once (both on ``wgmma`` with A from registers),
+``wgmma`` from shared memory, bf16; every variant on one or two warpgroups
+a CTA by :func:`mm_plan`, a CTA a tile and copy.
 
 The wrappers launch the kernel on CUDA tensors and raise on CPU tensors
 unless ``plain=True`` (the plain version, on any device); each counts its
@@ -37,7 +38,8 @@ from ._lib import check_device, diff_ms, stream
 
 __all__ = ["VARIANTS", "PROBE_TOL", "REP", "MM_SHAPES", "CHAIN_SHAPES", "BF16_SHAPES",
            "mm_plain", "mm_rate", "mm_chain", "mm_time", "mm_tiles", "mm_flops", "mm_plan",
-           "MmPlan", "mm_ctas", "WGMMA_3X", "N_SM"]
+           "MmPlan", "mm_args", "mm_ctas", "WGMMA_3X", "WGMMA_BN", "KS_MIN_STEPS", "N_SM",
+           "PER_SM"]
 
 VARIANTS = ("ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32", "bf16")
 # limits of each variant against the plain version, of max |plain|: fp32
@@ -58,55 +60,96 @@ MM_SHAPES = ((1024, 64, 960), (960, 64, 1024), (1024, 9, 185), (185, 16, 1024),
              (480, 512, 1024), (1024, 512, 480))
 CHAIN_SHAPES = ((1024, 64, 960), (1024, 9, 185))
 BF16_SHAPES = ((1024, 64, 960),)
-TILE = (64, 32)  # output rows x columns of one CTA (csrc/probe_mm.cu PBM, PBN)
-# the variants on the 3xTF32 wgmma kernel (csrc/probe_mm.cu probe_mm3x_kernel)
+# the variants on the 3xTF32 wgmma kernel (csrc/probe_mm.cu probe_mm3x_kernel);
+# ffma runs on probe_mm_ffma_kernel, tf32, wgmma_tf32 and bf16 on probe_mm_tc_kernel
 WGMMA_3X = ("3xtf32", "3xtf32_presplit")
-BN = 64  # its output columns a warpgroup (csrc/probe_mm.cu MM_BN)
+BN = 64  # output columns a warpgroup, every kernel (csrc/probe_mm.cu MM_BN), or WGMMA_BN
+TILE = (64, BN)  # output rows x columns of one warpgroup
+# CTAs an SM of two warpgroups: ffma's kernel (csrc/probe_mm.cu
+# probe_mm_ffma_kernel) two, its registers allow them; every other variant
+# one (the tensor-core kernels' shared memory). CTAs of one warpgroup (mw 1,
+# ks 1): two an SM for every variant that has them
+PER_SM = {"ffma": 2}
+# wgmma_tf32's output columns a warpgroup (its wgmma N) that mm_plan may
+# take: 128 only where a warpgroup's k-steps are one chunk of 8 (a k-step
+# reads 96 bytes of shared memory a clock at the peak rate, against N 64's
+# 128, the whole of its rate: 0.0120 against 0.0130 ms at 1024 x 64 x 960,
+# mm_breakdown.py --only wgmma, H100 SXM at 700 W)
+WGMMA_BN = (64, 128)
+# k-steps from which mm_plan may halve k between a CTA's two warpgroups
+# (ks 2): wgmma_tf32 only where each half keeps a chunk of its own (at 1024
+# x 9 x 185 the halves' exchange cost more than it saved: 0.0092 against
+# 0.0081 ms on one warpgroup a CTA, mm_breakdown.py --only wgmma)
+KS_MIN_STEPS = {"wgmma_tf32": 16}
 N_SM = 132  # SMs of an H100 SXM, the plan's default
 
 
 class MmPlan(NamedTuple):
-    """The 3xTF32 kernel's launch: its two warpgroups side by side in m
-    (``mw`` 2, ``ks`` 1: a CTA's tile is 128 x ``BN``) or on the two halves
-    of the k-steps of one 64 x ``BN`` tile (``mw`` 1, ``ks`` 2); ``ctas``
-    of one copy."""
+    """A launch of any of the kernels: its two warpgroups side by side in
+    m (``mw`` 2, ``ks`` 1: a CTA's tile is 128 x ``BN``), on the two halves
+    of the k-steps of one 64 x ``BN`` tile (``mw`` 1, ``ks`` 2), or (not
+    the 3xTF32 kernel) one warpgroup a CTA (``mw`` 1, ``ks`` 1); ``ctas``,
+    the CTA tiles of one copy; ``rows``, a warpgroup tile's rows: 64, or 32
+    (ffma's chain, one warpgroup a CTA); ``bn``, its columns: 64, or 128
+    (wgmma_tf32, ``WGMMA_BN``)."""
 
     mw: int
     ks: int
     ctas: int
+    rows: int = 64
+    bn: int = BN
 
 
 class _MmArgs(ctypes.Structure):
     """ctypes mirror of ``struct MmArgs`` (csrc/probe_mm.cu)."""
 
     _fields_ = [(f, ctypes.c_void_p) for f in ("a", "b", "out", "s")] + [
-        (f, ctypes.c_int) for f in ("m", "k", "n", "rep", "copies", "mw", "ks")]
+        (f, ctypes.c_int) for f in ("m", "k", "n", "rep", "copies", "mw", "ks", "rows", "bn")]
+
+
+def mm_args(a, b, s, out, rep: int, copies: int, plan: MmPlan) -> _MmArgs:
+    """The kernels' arguments: ``a (m, k)``, ``b (k, n)``, ``s`` (None with
+    the carry) and ``out`` on ``plan``."""
+    return _MmArgs(a.data_ptr(), b.data_ptr(), out.data_ptr(), None if s is None else s.data_ptr(),
+                   a.shape[0], a.shape[1], b.shape[1], rep, copies, plan.mw, plan.ks, plan.rows,
+                   plan.bn)
 
 
 def mm_plan(m: int, k: int, n: int, carry: bool = False, copies: int = 1,
-            n_sm: int = N_SM) -> MmPlan:
-    """The 3xTF32 kernel's plan for one call: of ``mw`` 2 (every k-step in
-    each warpgroup) and ``mw`` 1 with ``ks`` 2 (half the k-steps each; not
-    for the carried chain, whose next A needs the whole product, nor for one
-    k-step), the one whose waves of CTAs times k-steps a CTA runs is least
-    (one CTA an SM), ``mw`` 2 on a tie."""
+            n_sm: int = N_SM, variant: str = "3xtf32") -> MmPlan:
+    """The plan of one call of ``variant``: of ``mw`` 2 (every k-step in
+    each warpgroup), ``mw`` 1 with ``ks`` 2 (half the k-steps each; not for
+    the carried chain, whose next A needs the whole product, nor for one
+    k-step) and, but for the 3xTF32 variants, one warpgroup a CTA (for
+    ffma's chain, which cannot split k, also on 32-row tiles), the one whose
+    SMs' most work is least (CTA tiles an SM x warpgroups a CTA x k-steps a
+    warpgroup x its tile's rows x columns); on a tie the wider tile
+    (wgmma_tf32's N 128), then the one with more threads on the card at
+    once (all its CTAs resident, ``PER_SM`` an SM, two of one warpgroup:
+    more warps to hide latency), then the first. wgmma_tf32 also at
+    ``WGMMA_BN``'s columns where a warpgroup's k-steps are one chunk of 8;
+    ``ks`` 2 from ``KS_MIN_STEPS`` k-steps (2 by default)."""
     nks = -(-k // 8)
     best = None
-    for mw, ks in ((2, 1), (1, 2)):
-        if ks == 2 and (carry or nks < 2):
-            continue
-        ctas = -(-m // (64 * mw)) * -(-n // BN)
-        cost = -(-ctas * copies // n_sm) * 2 * -(-nks // ks)
-        if best is None or cost < best[0]:
-            best = (cost, MmPlan(mw, ks, ctas))
+    arrangements = ((2, 1, 64), (1, 2, 64)) + ((1, 1, 64),) * (variant not in WGMMA_3X)
+    arrangements += ((1, 1, 32),) * (variant == "ffma" and carry)
+    for bn in WGMMA_BN if variant == "wgmma_tf32" else (BN,):
+        for mw, ks, rows in arrangements:
+            if ((ks == 2 and (carry or nks < KS_MIN_STEPS.get(variant, 2)))
+                    or (bn > BN and -(-nks // ks) > 8)):
+                continue
+            per_sm = PER_SM.get(variant, 1) if mw * ks == 2 else 2
+            ctas = -(-m // (rows * mw)) * -(-n // bn)
+            work = -(-ctas * copies // n_sm) * mw * ks * -(-nks // ks) * rows * bn
+            threads = 128 * mw * ks * ctas * copies if ctas * copies <= n_sm * per_sm else 0
+            if best is None or (work, -bn, -threads) < best[0]:
+                best = ((work, -bn, -threads), MmPlan(mw, ks, ctas, rows, bn))
     return best[1]
 
 
 def mm_ctas(m: int, k: int, n: int, variant: str, carry: bool = False) -> int:
-    """CTAs of one copy of a call of ``variant``."""
-    if variant in WGMMA_3X:
-        return mm_plan(m, k, n, carry).ctas
-    return mm_tiles(m, n)
+    """CTAs of one copy of a call of ``variant`` on an H100's 132 SMs."""
+    return mm_plan(m, k, n, carry, variant=variant).ctas
 
 
 def mm_plain(a, b, s, rep: int = REP, carry: bool = False, copies: int = 1):
@@ -152,14 +195,10 @@ def _launch(a, b, s, variant: str, rep: int, carry: bool, copies: int, out):
     shape = _out(a, b, copies, out)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=a.device)
-    plan = MmPlan(0, 0, 0)
-    if variant in WGMMA_3X:
-        plan = mm_plan(m, k, n, carry, copies,
-                       torch.cuda.get_device_properties(a.device).multi_processor_count)
+    plan = mm_plan(m, k, n, carry, copies,
+                   torch.cuda.get_device_properties(a.device).multi_processor_count, variant)
     call("probe_mm", "probe_mm_launch", ctypes.c_int(VARIANTS.index(variant)),
-         ctypes.c_int(int(carry)),
-         _MmArgs(a.data_ptr(), b.data_ptr(), out.data_ptr(), None if carry else s.data_ptr(),
-                 m, k, n, rep, copies, plan.mw, plan.ks),
+         ctypes.c_int(int(carry)), mm_args(a, b, None if carry else s, out, rep, copies, plan),
          stream(a.device))
     return out
 
@@ -209,8 +248,8 @@ mm_chain.by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def mm_tiles(m: int, n: int) -> int:
-    """CTAs of one copy of the ffma, tf32, wgmma_tf32 and bf16 variants
-    (64 x 32 output tiles)."""
+    """Warpgroup tiles (``TILE``, 64 x 64 outputs) of one copy: two a CTA
+    (``mm_plan``'s ``mw`` 2) or one (``ks`` 2)."""
     return -(-m // TILE[0]) * -(-n // TILE[1])
 
 

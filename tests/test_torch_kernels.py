@@ -634,20 +634,22 @@ def test_mlp_depth_kernels_match_plain(cuda, hidden):
                                      "bf16"])
 def test_probe_mm_matches_plain(cuda, variant, chain):
     """The matmul-rate probe's every variant, both contracts (r2_pallas_mm's
-    scaled and r2_pallas_fma's carried products), at ragged shapes, one with
-    k chunked, and with copies, against the plain loop (mm_rate.PROBE_TOL);
-    the 3xTF32 variants (their wgmma kernel, csrc/probe_mm.cu
-    probe_mm3x_kernel) also at every shape of their contract's TPU script.
-    Each case twice: into an output the wrapper allocates and into a
-    preallocated one filled with NaN."""
+    scaled and r2_pallas_fma's carried products), at ragged shapes, two with
+    k chunked (70 x 130 x 40 with copies; 200 x 300 x 130, whose k-steps the
+    rate contract halves between the warpgroups at an odd step, with
+    copies), two with many copies (130 x 72 x 100, where the chain's second
+    warpgroup skips the last row block; 96 x 200 x 72, four chunks), and at
+    every shape of its contract's TPU script (bf16: its one), against the
+    plain loop (mm_rate.PROBE_TOL). Each case twice: into an output the
+    wrapper allocates and into a preallocated one filled with NaN."""
     from sevennet_tpu_torch.probes import mm_rate as mr
 
     rng = np.random.default_rng(6)
     dtype = torch.bfloat16 if variant == "bf16" else torch.float32
     s = torch.full((1, 1), 0.0 if variant == "bf16" else 1e-3, device=cuda)
-    cases = [(100, 64, 70, 1), (70, 130, 40, 3), (185, 9, 33, 1)]
-    if variant in mr.WGMMA_3X:
-        cases += [(m, k, n, 1) for m, k, n in (mr.CHAIN_SHAPES if chain else mr.MM_SHAPES)]
+    cases = [(100, 64, 70, 1), (70, 130, 40, 3), (185, 9, 33, 1), (200, 300, 130, 2),
+             (130, 72, 100, 70), (96, 200, 72, 100)]
+    cases += [(m, k, n, 1) for m, k, n in mr.shapes(variant, chain)]
     for m, k, n, copies in cases:
         a = torch.tensor(rng.normal(size=(m, k)), device=cuda).to(dtype)
         b = torch.tensor(rng.normal(size=(k, n)), device=cuda).to(dtype)
@@ -664,6 +666,31 @@ def test_probe_mm_matches_plain(cuda, variant, chain):
             assert g.shape == want.shape
             np.testing.assert_allclose(g.cpu(), want.cpu(), rtol=0,
                                        atol=mr.PROBE_TOL[variant] * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("variant", ["ffma", "tf32", "3xtf32", "3xtf32_presplit", "wgmma_tf32",
+                                     "bf16"])
+def test_probe_mm_rate_where_a_factor_is_zero(cuda, variant):
+    """The rate contract at s -0.125, where product 8's factor 1 + s i is 0
+    and the later ones negative, and at REP 0 (no products: zeros): every
+    variant finite and within mm_rate.PROBE_TOL of the plain loop, at a
+    ragged shape with k chunked and copies and at the scripts' first
+    shape."""
+    from sevennet_tpu_torch.probes import mm_rate as mr
+
+    rng = np.random.default_rng(10)
+    dtype = torch.bfloat16 if variant == "bf16" else torch.float32
+    s = torch.full((1, 1), -0.125, device=cuda)
+    for (m, k, n, copies), rep in (((70, 130, 40, 3), mr.REP), ((1024, 64, 960, 1), mr.REP),
+                                   ((100, 64, 70, 2), 0)):
+        a = torch.tensor(rng.normal(size=(m, k)), device=cuda).to(dtype)
+        b = torch.tensor(rng.normal(size=(k, n)), device=cuda).to(dtype)
+        want = mr.mm_rate(a, b, s, variant=variant, rep=rep, copies=copies, plain=True)
+        got = mr.mm_rate(a, b, s, variant=variant, rep=rep, copies=copies)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0,
+                                   atol=mr.PROBE_TOL[variant] * float(want.abs().max()))
 
 
 def test_batched_dot_matches_plain(cuda):

@@ -1,6 +1,7 @@
-"""The launch plans of the matmul-rate probe's 3xTF32 kernel, of the
-column gather, of the conv fold and of the breakdown template's per-edge
-uvu product, walked in numpy as the kernels index their work, the 3xTF32
+"""The launch plans of the matmul-rate probe's kernels (3xTF32; ffma; the
+tensor-core kernel), of the column gather, of the conv fold and
+of the breakdown template's per-edge uvu product, walked in numpy as the
+kernels index their work, the 3xTF32
 split with A split for every product emulated in numpy against float64,
 the conv fold's order of sums emulated in numpy against its plain
 version, bitwise, and the per-edge product's order of terms against the
@@ -81,13 +82,249 @@ def test_mm_plan_covers_every_output_once(m, k, n, carry):
 
 def test_mm_plan_fills_the_card():
     """One copy at the scripts' first shape is one wave of 120 CTAs; the k
-    512 shapes split k to run 128 CTAs instead of 64."""
+    512 shapes split k to run 128 CTAs instead of 64. Every variant runs on
+    the plan: two warpgroup tiles of 64 x 64 a CTA, or one; wgmma_tf32 one
+    warpgroup a CTA on 64 x 128 tiles at the k-64 shapes (128 and 120 CTAs)
+    and on 64 x 64 at the small ones, k split only at k 512."""
     assert mr.mm_plan(1024, 64, 960) == mr.MmPlan(2, 1, 120)
     assert mr.mm_plan(1024, 64, 960, carry=True) == mr.MmPlan(2, 1, 120)
     assert mr.mm_plan(480, 512, 1024) == mr.MmPlan(1, 2, 128)
     assert mr.mm_plan(1024, 512, 480) == mr.MmPlan(1, 2, 128)
     assert mr.mm_ctas(1024, 64, 960, "3xtf32") == 120
-    assert mr.mm_ctas(1024, 64, 960, "tf32") == mr.mm_tiles(1024, 960) == 480
+    assert mr.mm_ctas(1024, 64, 960, "tf32") == 120 and mr.mm_tiles(1024, 960) == 240
+    # the scripts' shapes: the four large ones fill one wave on 132 SMs, or
+    # (ffma, whose registers allow two CTAs an SM) two CTAs an SM
+    assert mr.PER_SM == {"ffma": 2}
+    for v in mr.VARIANTS:
+        two = v == "ffma"
+        assert [mr.mm_ctas(m, k, n, v) for m, k, n in mr.MM_SHAPES] == (
+            [240 if two else 128 if v == "wgmma_tf32" else 120, 240 if two else 120
+             if v == "wgmma_tf32" else 128, 48, 48, 128, 128])
+        assert [mr.mm_ctas(m, k, n, v, carry=True) for m, k, n in mr.CHAIN_SHAPES] == (
+            [128 if v == "wgmma_tf32" else 120, 24 if v in mr.WGMMA_3X else 96 if two else 48])
+    assert mr.mm_plan(1024, 9, 185, True, variant="ffma") == mr.MmPlan(1, 1, 96, 32)
+    wg = [mr.mm_plan(m, k, n, variant="wgmma_tf32") for m, k, n in mr.MM_SHAPES]
+    assert wg == [mr.MmPlan(1, 1, 128, 64, 128), mr.MmPlan(1, 1, 120, 64, 128),
+                  mr.MmPlan(1, 1, 48), mr.MmPlan(1, 1, 48), mr.MmPlan(1, 2, 128),
+                  mr.MmPlan(1, 2, 128)]
+    assert mr.mm_plan(1024, 64, 960, True, variant="wgmma_tf32") == mr.MmPlan(1, 1, 128, 64, 128)
+
+
+MM1_VARIANTS = ("ffma", "tf32", "wgmma_tf32", "bf16")
+
+
+def mm1_tile(variant, rows=64, bn=64):
+    """Rows and columns, within its warpgroup's rows x bn tile, of each
+    storing thread's accumulators as csrc/probe_mm.cu's probe_mm_ffma_kernel
+    and probe_mm_tc_kernel store them: arrays (threads, accumulators). ffma:
+    thread t = (ty, tx) of each half of the warpgroup (half 0 stores), TR =
+    rows / 8 rows a thread, u[8 i + 4 hc + x] at row TR ty + i, column 32 hc
+    + 4 tx + x; wgmma_tf32: u[4 j + 2 h + x] (bn / 2 of them) of thread wt
+    at row 16 warp + g + 8 h, column 8 j + 2 q + x; tf32, bf16: warp (wm,
+    wn)'s mma tile (mt, nt) = (j / 4, j % 4) at 32 wm + 16 mt, 32 wn + 8
+    nt."""
+    if variant == "ffma":
+        tr = rows // 8
+        t = np.arange(64)[:, None]
+        e = np.arange(8 * tr)[None, :]
+        ty, tx = t >> 3, t & 7
+        return tr * ty + (e >> 3), 32 * ((e >> 2) & 1) + 4 * tx + (e & 3)
+    assert rows == 64 and (bn == 64 or variant == "wgmma_tf32")
+    wt = np.arange(128)[:, None]
+    e = np.arange(bn // 2)[None, :]
+    warp, lane = wt >> 5, wt & 31
+    g, q = lane >> 2, lane & 3
+    j, h, x = e >> 2, (e >> 1) & 1, e & 1
+    if variant == "wgmma_tf32":
+        return 16 * warp + g + 8 * h + 0 * j, 8 * j + 2 * q + x
+    return (32 * (warp & 1) + 16 * (j >> 2) + g + 8 * h,
+            32 * (warp >> 1) + 8 * (j & 3) + 2 * q + x)
+
+
+def mm1_units(m, n, plan, copies):
+    """The (CTA, unit, copy, tile) that compute each unit (a CTA tile of
+    one copy), as the kernels index them: CTA (blockIdx.x, blockIdx.y) is
+    tile blockIdx.x of copy blockIdx.y."""
+    tiles = -(-m // (plan.rows * plan.mw)) * -(-n // plan.bn)
+    assert tiles == plan.ctas
+    return [((t, c), t + tiles * c, c, t) for c in range(copies) for t in range(tiles)]
+
+
+def mm1_walk(m, k, n, plan, variant, copies=1):
+    """What each output element of each copy receives from probe_mm_ffma_kernel
+    or probe_mm_tc_kernel, as their indices say: each unit's (mm1_units)
+    warpgroups wg, their chunks of 8 k-steps staged from 8 s0 up to k or the
+    warpgroup's last k-step (zeros past), a warpgroup whose rows start past
+    m skipping the unit (ks 1); ffma's two halves of a warpgroup each a
+    half of a chunk's k, summed into the elements of half 0's threads.
+    Returns (k values summed into each element, stores into each element),
+    both (copies, m, n), and the units each CTA ran."""
+    nks = -(-k // 8)
+    per = -(-nks // plan.ks)
+    tiles_n = -(-n // plan.bn)
+    rr, cc = mm1_tile(variant, plan.rows, plan.bn)
+    steps = np.zeros((copies, m, n), dtype=np.int64)
+    stores = np.zeros((copies, m, n), dtype=np.int64)
+    ran = {}
+    for cta, unit, copy, tile in mm1_units(m, n, plan, copies):
+        ran[cta] = ran.get(cta, 0) + 1
+        tm, col0 = tile // tiles_n, (tile % tiles_n) * plan.bn
+        for wg in range(plan.mw * plan.ks):
+            row0 = tm * plan.rows * plan.mw + (plan.rows * wg if plan.mw == 2 else 0)
+            s_lo = wg * per if plan.ks == 2 else 0
+            s_hi = min(nks, s_lo + per)
+            if plan.ks == 1 and row0 >= m:
+                continue
+            kk = 0
+            for s0 in range(s_lo, s_hi, 8):
+                kc = min(k, 8 * min(s0 + 8, s_hi)) - 8 * s0
+                if variant == "ffma":  # half 0: k < (kc + 1) / 2, half 1 the rest
+                    kh = (kc + 1) // 2
+                    kk += kh + (kc - kh)
+                else:
+                    kk += kc
+            r, c = row0 + rr, col0 + cc
+            keep = (r < m) & (c < n)
+            np.add.at(steps[copy], (r[keep], c[keep]), kk)
+            if plan.ks == 1 or wg == 0:
+                np.add.at(stores[copy], (r[keep], c[keep]), 1)
+    return steps, stores, ran
+
+
+@pytest.mark.parametrize("variant", MM1_VARIANTS)
+@pytest.mark.parametrize("m,k,n,carry", MM_CASES,
+                         ids=[f"{m}x{k}x{n}{'_chain' if c else ''}" for m, k, n, c in MM_CASES])
+def test_mm_kernel_plan_covers_every_output_once(m, k, n, carry, variant):
+    """probe_mm_ffma_kernel (ffma) and probe_mm_tc_kernel (tf32, wgmma_tf32,
+    bf16) on their mm_plan (one warpgroup a CTA among the arrangements, and
+    32-row tiles for ffma's chain), and wgmma_tf32 also at wgmma N 128 on
+    every arrangement where a warpgroup's k-steps are one chunk: every
+    output element of every copy is stored once and sums every k once, each
+    variant's threads mapped onto the tile as the kernel stores them; at
+    one copy on 132 SMs, and at 3 copies on 7 SMs; every CTA runs one unit
+    (tile, copy)."""
+    nks = -(-k // 8)
+    plans = [(mr.mm_plan(m, k, n, carry, copies, n_sm, variant), copies, True)
+             for copies, n_sm in ((1, mr.N_SM), (3, 7))]
+    if variant == "wgmma_tf32":
+        plans += [(mr.MmPlan(mw, ks, -(-m // (64 * mw)) * -(-n // 128), 64, 128), 2, False)
+                  for mw, ks in ((2, 1), (1, 2), (1, 1))
+                  if -(-nks // ks) <= 8 and not (ks == 2 and (carry or nks < 2))]
+    for plan, copies, planned in plans:
+        assert (plan.mw, plan.ks) in ((2, 1), (1, 2), (1, 1)) and plan.ctas > 0
+        assert plan.rows == 64 or (variant == "ffma" and carry and plan.mw * plan.ks == 1)
+        assert plan.bn == 64 or (variant == "wgmma_tf32" and -(-nks // plan.ks) <= 8)
+        if carry or nks < (mr.KS_MIN_STEPS.get(variant, 2) if planned else 2):
+            assert plan.ks == 1
+        steps, stores, ran = mm1_walk(m, k, n, plan, variant, copies)
+        assert (stores == 1).all()
+        assert (steps == k).all()
+        assert len(ran) == plan.ctas * copies and set(ran.values()) == {1}
+
+def test_mm_breakdown_patch_applies():
+    """mm_breakdown.py's builds patch csrc/probe_mm.cu as it stands: every
+    hunk of mm_breakdown.patch matches once; the patched source defines the
+    knock-outs (MM_KO) that the unpatched one, which the wrappers load,
+    does not know, and guards the staging, products, acc update and store
+    of both probe_mm_ffma_kernel and probe_mm_tc_kernel with them."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("mm_breakdown", root / "mm_breakdown.py")
+    mb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mb)
+    src = (root / "sevennet_tpu_torch" / "csrc" / "probe_mm.cu").read_text()
+    text = mb.apply_patch(src, mb.PATCH.read_text())
+    assert "MM_KO" not in src and "#define MM_KO 0" in text
+    for guard in ("if (MM_KO_STAGE) mf_stage", "pc < 8 + TN / 8 && MM_KO_STAGE",
+                  "V == V_WGMMA_TF32 && MM_KO_STAGE", "if (MM_KO_STAGE) tc_frags",
+                  "mf_product<false, TR>", "tc_product<V, false, TN>",
+                  "(MM_KO_STORE && p.rep >= 0)", "!CARRY && MM_KO != 3"):
+        assert guard in text
+    assert text.count("if (MM_KO_PRODUCTS)") == 2 and text.count("if (MM_KO != 3)") == 2
+    assert set(mb.KO_BUILDS.values()) == {(f"MM_KO={i}",) for i in range(1, 6)}
+
+
+def mm_weight(s, rep=mr.REP):
+    """csrc/probe_mm.cu mm_weight in float32: W / S, the weight of the
+    products in the rate contract (W = sum_i 0.5^(REP-1-i) (1 + s i), S the
+    same with factors 1), 0 without products."""
+    w = s_ = np.float32(0.0)
+    for i in range(rep):
+        w = np.float32(0.5) * w + (np.float32(1.0) + s * np.float32(i))
+        s_ = np.float32(0.5) * s_ + np.float32(1.0)
+    return w / s_ if rep > 0 else np.float32(0.0)
+
+
+def rate_chunks_walk(a, b, s, plan):
+    """probe_mm_tc_kernel's rate contract in numpy float32: each warpgroup's
+    k-steps (``plan``'s ks halves) in chunks of 64; a chunk's REP products
+    accumulate into u (u = 0.5 u + P a product); the chunks' sums added,
+    then the halves, then multiplied by the weight (mm_weight). The order of
+    the sums within a product aside, the kernel's arithmetic."""
+    k = a.shape[1]
+    nks = -(-k // 8)
+    per = -(-nks // plan.ks)
+    total = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for half in range(plan.ks):
+        tot = np.zeros_like(total)
+        for k0 in range(8 * half * per, min(k, 8 * (half + 1) * per), 64):
+            k1 = min(k, k0 + 64, 8 * (half + 1) * per)
+            pc = a[:, k0:k1] @ b[k0:k1]
+            u = np.zeros_like(total)
+            for i in range(mr.REP):
+                u = u * np.float32(0.5) + pc
+            tot = tot + u
+        total = total + tot
+    return total * mm_weight(s)
+
+
+@pytest.mark.parametrize("variant", ["tf32", "ffma"])
+def test_rate_chunks_walk_at_k512(variant):
+    """The chunk-wise rate recurrence at 480 x 512 x 1024 (ks 2: two halves
+    of 4 chunks, each chunk's 16 products, then the chunks summed), on
+    operands rounded to TF32 as the kernel stages them for tf32 (as they
+    are for ffma), stays within mm_rate.PROBE_TOL of the float64 loop (s =
+    1e-3, so that the factor 1 + s i is checked)."""
+    m, k, n = 480, 512, 1024
+    plan = mr.mm_plan(m, k, n, variant=variant)
+    assert (plan.mw, plan.ks) == (1, 2)
+    rng = np.random.default_rng(8)
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    b = rng.normal(size=(k, n)).astype(np.float32)
+    s = np.float32(1e-3)
+    got = rate_chunks_walk(tf32_rna(a) if variant == "tf32" else a,
+                           tf32_rna(b) if variant == "tf32" else b, s, plan)
+    p64 = a.astype(np.float64) @ b.astype(np.float64)
+    ref = np.zeros((m, n))
+    for i in range(mr.REP):
+        ref = ref * 0.5 + (1.0 + float(s) * i) * p64
+    err = float(np.abs(got - ref).max())
+    assert err <= mr.PROBE_TOL[variant] * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("s", [-0.125, -1.0, -0.1, 1e-3])
+def test_rate_weight_where_a_factor_is_zero(s):
+    """The rate contract's weight (mm_weight, as the kernels compute it) is
+    finite and within 1e-6 of the float64 sum where some factor 1 + s i is
+    0 (s -0.125: i 8; -1: i 1) or negative, so that the output of the
+    recurrence u = 0.5 u + P times it stays within 1e-5 of the float64
+    loop acc = 0.5 acc + (1 + s i) P, and is 0 without products."""
+    w = mm_weight(np.float32(s))
+    ref = sum(0.5 ** (mr.REP - 1 - i) * (1.0 + float(np.float32(s)) * i) for i in range(mr.REP))
+    ref /= sum(0.5 ** (mr.REP - 1 - i) for i in range(mr.REP))
+    assert np.isfinite(w) and abs(float(w) - ref) <= 1e-6 * max(1.0, abs(ref))
+    assert mm_weight(np.float32(s), 0) == 0.0
+    rng = np.random.default_rng(9)
+    a = rng.normal(size=(48, 64)).astype(np.float32)
+    b = rng.normal(size=(64, 40)).astype(np.float32)
+    got = rate_chunks_walk(a, b, np.float32(s), mr.MmPlan(2, 1, 1))
+    p64 = a.astype(np.float64) @ b.astype(np.float64)
+    acc = np.zeros_like(p64)
+    for i in range(mr.REP):
+        acc = acc * 0.5 + (1.0 + float(np.float32(s)) * i) * p64
+    assert np.isfinite(got).all()
+    assert float(np.abs(got - acc).max()) <= 1e-5 * float(np.abs(acc).max())
 
 
 def cols_walk(d, t, copies, plan):

@@ -261,7 +261,7 @@ def test_probe_wrappers_check_their_inputs():
         bd.batched_dot(Ss, XWs[::-1], plain=True)
     assert (mr.mm_rate.launches, mr.mm_chain.launches, bd.batched_dot.launches) == counts
     assert mr.mm_flops(*mr.MM_SHAPES[0]) == 2 * 1024 * 64 * 960 * REP
-    assert mr.mm_tiles(1024, 960) == 16 * 30 and mr.mm_tiles(185, 33) == 3 * 2
+    assert mr.mm_tiles(1024, 960) == 16 * 15 and mr.mm_tiles(185, 33) == 3 * 1
 
 
 @pytest.mark.parametrize("m,k,n", mr.MM_SHAPES, ids=[f"{m}x{k}x{n}" for m, k, n in mr.MM_SHAPES])
